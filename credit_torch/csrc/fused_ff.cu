@@ -1,0 +1,477 @@
+// Fused pre-norm feed-forward with its residual: x + fc2(GELU(fc1(LN(x)))).
+//
+// Replaces credit_tpu/ops/pallas_ff.py fused_ff (_ff_kernel at :58, the
+// pallas_calls at :516 and :538), pre-norm form. Every transformer FF of the
+// flagship runs through it: 28 calls per rollout step at C = 128..1024 with
+// hidden = 4C.
+//
+// Bound on the H100: at hidden = 4C each row does 16*C flops per byte-pair
+// of x and out, which is above the card's ridge from C ~ 64 upwards, so the
+// products bound it once the 4C-wide hidden stays out of device memory. The
+// design keeps it out: a block owns BM token rows; it computes the LN
+// statistics in f32 (one warp per row), keeps LN(x) in the input dtype in
+// shared memory, then walks the hidden dimension in chunks:
+//   h = LN(x) . w1[:, chunk] + b1   (f32 accumulators)
+//   GELU exact (erff), cast to the input dtype, into shared memory
+//   acc += h . w2[chunk, :]         (f32 accumulators)
+// and at the end adds b2, casts, and adds the residual x in the input dtype
+// -- the rounding points of the TPU kernel (pallas_ff.py:68-79).
+//
+// bf16 runs both products on the tensor cores with mma.sync m16n8k16 and
+// ldmatrix from shared memory. A block of 16 warps owns BM = 32768 / cpad
+// rows (cpad = C padded to 128, 256, 512 or 1024). Its BM x cpad f32 output
+// tile stays in registers (16 m16n8 tiles per warp), beside the f32 fc1
+// output of one hidden chunk of cpad/4 columns (4 tiles per warp). The
+// weights stream through a 4-deep cp.async ring of K-slices (ks1 rows of
+// w1[:, chunk] or ks2 = ks1/4 rows of w2[chunk, :], the same bytes), one
+// barrier per slice; the x tile arrives by cp.async with the first slices
+// and is normalised in place. One ~220 KB block per SM. Each block re-reads
+// all the weights from L2, so the larger BM is, the less L2 traffic: at
+// C = 1024 (BM = 32, 16 MB of weights a block) that traffic bounds the
+// kernel. f32 is plain FMA, 16 rows per block, accumulators in registers
+// (C <= 1024).
+#include "common.cuh"
+
+namespace credit {
+namespace ff {
+
+constexpr int THREADS_F32 = 256;  // the f32 kernel's block
+constexpr int WARPS_F32 = THREADS_F32 / 32;
+constexpr float kEps = 1e-5f;
+constexpr int MAX_C = 1024;
+
+__device__ __forceinline__ float gelu(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
+// LN(x) rows [m0, m0+BM) into y (input dtype, row stride ldy, zero-filled
+// past C and past M). One warp per row, f32 statistics.
+template <typename T>
+__device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ gam,
+                                const T* __restrict__ bet, T* y, int ldy, int m0, int bm, int m,
+                                int c, int cpad) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < bm; r += WARPS_F32) {
+    T* yr = y + r * ldy;
+    if (m0 + r >= m) {
+      for (int k = lane; k < cpad; k += 32) yr[k] = from_f32<T>(0.f);
+      continue;
+    }
+    const T* xr = x + (size_t)(m0 + r) * c;
+    float s = 0.f;
+    for (int k = lane; k < c; k += 32) s += to_f32(xr[k]);
+    const float mean = warp_sum(s) / c;
+    float v = 0.f;
+    for (int k = lane; k < c; k += 32) {
+      const float d = to_f32(xr[k]) - mean;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / c + kEps);
+    for (int k = lane; k < cpad; k += 32)
+      yr[k] = k < c ? from_f32<T>((to_f32(xr[k]) - mean) * rstd * to_f32(gam[k]) + to_f32(bet[k]))
+                    : from_f32<T>(0.f);
+  }
+}
+
+// ---------------------------------------------------------------- bf16
+// The width is padded to cpad = 128, 256, 512 or 1024 (the wrapper pads the
+// parameters with zeros) and a block owns BM = 32768 / cpad rows: RT = BM / 16
+// row tiles of 16. The 16 warps form a WM x WN grid over them; each warp owns
+// two m16 row tiles and, of the BM x cpad output, 8 n8 column tiles (64
+// columns), of each BM x cpad/4 hidden chunk 2 n8 tiles (16 columns).
+constexpr int THREADS_BF16 = 512;
+constexpr int WARPS_BF16 = THREADS_BF16 / 32;
+constexpr int NS = 4;  // depth of the weight-slice ring
+
+template <int RT>
+struct Tiling {
+  static constexpr int BM = 16 * RT;
+  static constexpr int CPAD = 2048 / RT;
+  static constexpr int HC = CPAD / 4;  // hidden chunk
+  static constexpr int WM = RT / 2;
+  static constexpr int WN = WARPS_BF16 / WM;
+  static constexpr int NF_OUT = 8, NF_HID = 2;  // n8 tiles per warp
+  static_assert(WN * NF_OUT * 8 == CPAD && WN * NF_HID * 8 == HC, "warps tile the block");
+};
+
+// cpad for a width c (a multiple of 8), 0 past MAX_C
+__host__ __device__ inline int padded_width(int c) {
+  int cpad = 128;
+  while (cpad < c) cpad *= 2;
+  return cpad <= MAX_C ? cpad : 0;
+}
+
+// rows of w + 8 elements: 16 bytes of skew keep ldmatrix free of bank
+// conflicts (the row stride is an odd number of 16-byte units) and every row
+// 16-byte aligned
+__host__ __device__ inline int ldw(int w) { return w + 8; }
+
+// Weight slices: fc1 reads ks1 = 4 * ks2 rows of w1[:, chunk] (cpad/4 wide),
+// fc2 ks2 rows of w2[chunk, :] (cpad wide): the same bytes, so one ring slot
+// (ks2 * (cpad + 32) elements) holds either, and a chunk has nk = cpad / ks1
+// slices of each.
+__host__ __device__ inline size_t slot_elems(int cpad, int ks2) {
+  return (size_t)ks2 * (cpad + 32);
+}
+
+__host__ inline size_t smem_bf16(int cpad, int ks2) {
+  const int bm = 32768 / cpad;
+  return ((size_t)bm * ldw(cpad) + (size_t)bm * ldw(cpad / 4) + NS * slot_elems(cpad, ks2)) *
+         sizeof(__nv_bfloat16);
+}
+
+__host__ inline int slice_rows(int cpad) {  // ks2: 32 where the ring fits, else 16
+  int ks2 = cpad / 4 < 32 ? cpad / 4 : 32;
+  while (ks2 > 16 && smem_bf16(cpad, ks2) > (size_t)kMaxSmem) ks2 /= 2;
+  return ks2;
+}
+
+// acc[i * NF + j] += A[m16 tile i, 0:ks] . B[0:ks, n8 tile j] over the warp's
+// two row tiles and NF column tiles. a: the warp's first row of A at the
+// slice's first K column (row stride lda); b: the slice's first row at the
+// warp's first column (row stride ldb).
+template <int NF>
+__device__ __forceinline__ void warp_mma(float (&acc)[2 * NF][4], const __nv_bfloat16* a,
+                                         int lda, const __nv_bfloat16* b, int ldb, int ks) {
+  const int lane = threadIdx.x % 32;
+  a += (lane % 16) * lda + (lane / 16) * 8;
+  b += ((lane % 8) + ((lane / 8) % 2) * 8) * ldb + (lane / 16) * 8;
+  for (int kk = 0; kk < ks; kk += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], a + i * 16 * lda + kk);
+#pragma unroll
+    for (int jp = 0; jp < NF / 2; ++jp) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, b + kk * ldb + jp * 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(acc[i * NF + 2 * jp], af[i], bf[0], bf[1]);
+        mma_bf16(acc[i * NF + 2 * jp + 1], af[i], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// Stage the block's x rows into y (row stride ld) with cp.async; rows past
+// m and columns past c are zero-filled with plain stores.
+__device__ inline void load_x_tile(__nv_bfloat16* y, const __nv_bfloat16* __restrict__ x, int m0,
+                                   int bm, int m, int c, int cpad) {
+  const int per_row = cpad / 8, ld = ldw(cpad);
+  for (int i = threadIdx.x; i < bm * per_row; i += THREADS_BF16) {
+    const int r = i / per_row, j = (i % per_row) * 8;
+    __nv_bfloat16* dst = y + r * ld + j;
+    if (m0 + r < m && j < c)
+      cp_async16(dst, x + (size_t)(m0 + r) * c + j);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// LN over each staged row in place: one warp per row, 8 values per lane per
+// 16-byte vector, f32 statistics from registers. Columns past c stay zero.
+__device__ inline void layer_norm_in_place(__nv_bfloat16* y, const __nv_bfloat16* __restrict__ gam,
+                                           const __nv_bfloat16* __restrict__ bet, int bm, int c,
+                                           int ld) {
+  constexpr int MAXV = MAX_C / 8 / 32;  // 16-byte vectors per lane
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nvec = c / 8;
+  for (int r = warp; r < bm; r += WARPS_BF16) {
+    __nv_bfloat16* row = y + r * ld;
+    float v[MAXV][8];
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAXV; ++q) {
+      const int vi = lane + 32 * q;
+      if (vi < nvec) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(row + vi * 8);
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          v[q][t] = __bfloat162float(e[t]);
+          sum += v[q][t];
+        }
+      }
+    }
+    const float mean = warp_sum(sum) / c;
+    float var = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAXV; ++q)
+      if (lane + 32 * q < nvec)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) var += (v[q][t] - mean) * (v[q][t] - mean);
+    const float rstd = rsqrtf(warp_sum(var) / c + kEps);
+#pragma unroll
+    for (int q = 0; q < MAXV; ++q) {
+      const int vi = lane + 32 * q;
+      if (vi < nvec) {
+        const uint4 graw = *reinterpret_cast<const uint4*>(gam + vi * 8);
+        const uint4 braw = *reinterpret_cast<const uint4*>(bet + vi * 8);
+        const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&graw);
+        const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&braw);
+        uint4 raw;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          e[t] = __float2bfloat16((v[q][t] - mean) * rstd * __bfloat162float(ge[t]) +
+                                  __bfloat162float(be[t]));
+        *reinterpret_cast<uint4*>(row + vi * 8) = raw;
+      }
+    }
+  }
+}
+
+// x (m, c); w1 (cpad, hidden); w2 (hidden, cpad); gam, bet, b2 (cpad,);
+// b1 (hidden,); cpad = Tiling<RT>::CPAD, hidden % (cpad / 4) == 0.
+template <int RT>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+fused_ff_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gam,
+              const __nv_bfloat16* __restrict__ bet, const __nv_bfloat16* __restrict__ w1,
+              const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
+              const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out, int m, int c,
+              int hidden, int ks2) {
+  using Tl = Tiling<RT>;
+  constexpr int BM = Tl::BM, CPAD = Tl::CPAD, HC = Tl::HC;
+  constexpr int NFO = Tl::NF_OUT, NFH = Tl::NF_HID;
+  constexpr int LDY = CPAD + 8, LDH = HC + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sy = reinterpret_cast<__nv_bfloat16*>(smem);  // LN(x), later the output
+  __nv_bfloat16* sh = sy + BM * LDY;                            // GELU of one hidden chunk
+  __nv_bfloat16* ring = sh + BM * LDH;                          // NS weight slices
+  const int slot = (int)slot_elems(CPAD, ks2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = (warp / Tl::WN) * 32;         // the warp's first row in the block
+  const int ocol0 = (warp % Tl::WN) * NFO * 8;   // and its first output column
+  const int hcol0 = (warp % Tl::WN) * NFH * 8;   // and its first column of a chunk
+  const int m0 = blockIdx.x * BM;
+  const int ks1 = 4 * ks2;
+  const int nk = CPAD / ks1;                     // slices per product and chunk
+  const int total = (hidden / HC) * 2 * nk;      // slices in the whole stream
+
+  // slice s: chunk s / (2 nk); fc1 (w1 rows) for its first nk, then fc2
+  auto load_slice = [&](int s) {
+    const int j = s % nk, h0 = (s / (2 * nk)) * HC;
+    __nv_bfloat16* dst = ring + (s % NS) * slot;
+    if ((s / nk) % 2 == 0) {  // ks1 x HC of w1
+      for (int i = threadIdx.x; i < ks1 * (HC / 8); i += THREADS_BF16) {
+        const int r = i / (HC / 8), v = (i % (HC / 8)) * 8;
+        cp_async16(dst + r * LDH + v, w1 + (size_t)(j * ks1 + r) * hidden + h0 + v);
+      }
+    } else {  // ks2 x CPAD of w2
+      for (int i = threadIdx.x; i < ks2 * (CPAD / 8); i += THREADS_BF16) {
+        const int r = i / (CPAD / 8), v = (i % (CPAD / 8)) * 8;
+        cp_async16(dst + r * LDY + v, w2 + (size_t)(h0 + j * ks2 + r) * CPAD + v);
+      }
+    }
+  };
+
+  load_x_tile(sy, x, m0, BM, m, c, CPAD);
+  cp_async_commit();
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < total) load_slice(s);
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();  // the x tile has landed
+  __syncthreads();
+  layer_norm_in_place(sy, gam, bet, BM, c, LDY);
+
+  float hacc[2 * NFH][4], oacc[2 * NFO][4];
+#pragma unroll
+  for (int i = 0; i < 2 * NFO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
+
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<NS - 2>();  // slice s has landed
+    // every warp is done with slice s - 1's slot and, at a chunk's first
+    // fc1 slice, with the previous chunk's GELU tile
+    __syncthreads();
+    if (s + NS - 1 < total) load_slice(s + NS - 1);
+    cp_async_commit();
+    const int j = s % nk;
+    const __nv_bfloat16* w = ring + (s % NS) * slot;
+    if ((s / nk) % 2 == 0) {  // fc1
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < 2 * NFH; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hacc[i][e] = 0.f;
+      }
+      warp_mma<NFH>(hacc, sy + row0 * LDY + j * ks1, LDY, w + hcol0, LDH, ks1);
+      if (j == nk - 1) {  // + b1, exact GELU, cast: the chunk's A operand of fc2
+        const __nv_bfloat16* bias = b1 + (s / (2 * nk)) * HC;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int t = 0; t < NFH; ++t) {
+            const int col = hcol0 + t * 8 + (lane % 4) * 2, r = row0 + i * 16 + lane / 4;
+            const float c0 = __bfloat162float(bias[col]), c1 = __bfloat162float(bias[col + 1]);
+            const float* h = hacc[i * NFH + t];
+            *reinterpret_cast<uint32_t*>(sh + r * LDH + col) =
+                pack_bf16(gelu(h[0] + c0), gelu(h[1] + c1));
+            *reinterpret_cast<uint32_t*>(sh + (r + 8) * LDH + col) =
+                pack_bf16(gelu(h[2] + c0), gelu(h[3] + c1));
+          }
+      }
+    } else {  // fc2
+      warp_mma<NFO>(oacc, sh + row0 * LDH + j * ks2, LDH, w + ocol0, LDY, ks2);
+    }
+  }
+
+  // + b2 and cast, into the LN tile, then the residual in 16-byte vectors
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < NFO; ++t) {
+      const int col = ocol0 + t * 8 + (lane % 4) * 2, r = row0 + i * 16 + lane / 4;
+      const float c0 = __bfloat162float(b2[col]), c1 = __bfloat162float(b2[col + 1]);
+      const float* o = oacc[i * NFO + t];
+      *reinterpret_cast<uint32_t*>(sy + r * LDY + col) = pack_bf16(o[0] + c0, o[1] + c1);
+      *reinterpret_cast<uint32_t*>(sy + (r + 8) * LDY + col) = pack_bf16(o[2] + c0, o[3] + c1);
+    }
+  __syncthreads();
+  const int vecs = c / 8;
+  for (int e = threadIdx.x; e < BM * vecs; e += THREADS_BF16) {
+    const int r = e / vecs, k = (e % vecs) * 8;
+    if (m0 + r >= m) continue;
+    const size_t at = (size_t)(m0 + r) * c + k;
+    const uint4 xr = *reinterpret_cast<const uint4*>(x + at);
+    const uint4 orr = *reinterpret_cast<const uint4*>(sy + r * LDY + k);
+    const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr);
+    const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&orr);
+    uint4 res;
+    __nv_bfloat16* re = reinterpret_cast<__nv_bfloat16*>(&res);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      re[t] = __float2bfloat16(__bfloat162float(xe[t]) + __bfloat162float(oe[t]));
+    *reinterpret_cast<uint4*>(out + at) = res;
+  }
+}
+
+template <int RT>
+void launch_bf16(const void* x, const void* gam, const void* bet, const void* w1, const void* b1,
+                 const void* w2, const void* b2, void* out, int m, int c, int hidden,
+                 cudaStream_t s) {
+  constexpr int CPAD = Tiling<RT>::CPAD, BM = Tiling<RT>::BM;
+  const int ks2 = slice_rows(CPAD);
+  const size_t smem = smem_bf16(CPAD, ks2);
+  cudaFuncSetAttribute(fused_ff_bf16<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  fused_ff_bf16<RT><<<(m + BM - 1) / BM, THREADS_BF16, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gam),
+      static_cast<const __nv_bfloat16*>(bet), static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(w2),
+      static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(out), m, c, hidden, ks2);
+}
+
+// ---------------------------------------------------------------- f32
+constexpr int BM32 = 16;
+constexpr int HC32 = 64;
+constexpr int COLS32 = MAX_C / THREADS_F32;  // output columns per thread
+
+__global__ void __launch_bounds__(THREADS_F32)
+fused_ff_f32(const float* __restrict__ x, const float* __restrict__ gam,
+             const float* __restrict__ bet, const float* __restrict__ w1,
+             const float* __restrict__ b1, const float* __restrict__ w2,
+             const float* __restrict__ b2, float* __restrict__ out, int m, int c, int hidden) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* y = reinterpret_cast<float*>(smem);  // (BM32, c)
+  float* hs = y + BM32 * c;                   // (BM32, HC32)
+  const int m0 = blockIdx.x * BM32;
+
+  layer_norm_rows(x, gam, bet, y, c, m0, BM32, m, c, c);
+
+  float acc[BM32][COLS32];
+#pragma unroll
+  for (int r = 0; r < BM32; ++r)
+#pragma unroll
+    for (int j = 0; j < COLS32; ++j) acc[r][j] = 0.f;
+
+  const int j1 = threadIdx.x % HC32, rq = threadIdx.x / HC32;  // 4 row quads
+  for (int h0 = 0; h0 < hidden; h0 += HC32) {
+    __syncthreads();
+    if (h0 + j1 < hidden) {
+      float h[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < c; ++k) {
+        const float wv = w1[(size_t)k * hidden + h0 + j1];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) h[i] = fmaf(y[(rq * 4 + i) * c + k], wv, h[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hs[(rq * 4 + i) * HC32 + j1] = gelu(h[i] + b1[h0 + j1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hs[(rq * 4 + i) * HC32 + j1] = 0.f;
+    }
+    __syncthreads();
+    const int hn = min(HC32, hidden - h0);
+    for (int j = 0; j < hn; ++j) {
+#pragma unroll
+      for (int q = 0; q < COLS32; ++q) {
+        const int k = threadIdx.x + q * THREADS_F32;
+        if (k < c) {
+          const float wv = w2[(size_t)(h0 + j) * c + k];
+#pragma unroll
+          for (int r = 0; r < BM32; ++r) acc[r][q] = fmaf(hs[r * HC32 + j], wv, acc[r][q]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < COLS32; ++q) {
+    const int k = threadIdx.x + q * THREADS_F32;
+    if (k >= c) continue;
+#pragma unroll
+    for (int r = 0; r < BM32; ++r) {
+      if (m0 + r >= m) continue;
+      const size_t at = (size_t)(m0 + r) * c + k;
+      out[at] = x[at] + (acc[r][q] + b2[k]);
+    }
+  }
+}
+
+}  // namespace ff
+}  // namespace credit
+
+using namespace credit;
+
+// Padded width of the bf16 kernel for a width c (a multiple of 8): 128,
+// 256, 512 or 1024; 0 if unsupported.
+extern "C" int credit_fused_ff_width(int c) { return c % 8 ? 0 : ff::padded_width(c); }
+
+// Hidden chunk of the bf16 kernel at padded width cpad: the hidden width
+// must be a multiple of it.
+extern "C" int credit_fused_ff_chunk(int cpad) { return cpad / 4; }
+
+// bf16: x (m, c), out (m, c); gam, bet, b2 (cpad,), w1 (cpad, hidden),
+// b1 (hidden,), w2 (hidden, cpad), cpad = credit_fused_ff_width(c),
+// zero-padded, hidden a multiple of credit_fused_ff_chunk(cpad); every
+// pointer 16-byte aligned. f32: the same with cpad == c and any hidden.
+extern "C" int credit_fused_ff(const void* x, const void* gam, const void* bet, const void* w1,
+                               const void* b1, const void* w2, const void* b2, void* out,
+                               int dtype, int m, int c, int cpad, int hidden, void* stream) {
+  using namespace credit::ff;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || c < 1 || c > MAX_C || c % 8) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    if (cpad != padded_width(c) || hidden % (cpad / 4)) return (int)cudaErrorInvalidValue;
+    switch (cpad) {
+      case 128: launch_bf16<16>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+      case 256: launch_bf16<8>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+      case 512: launch_bf16<4>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+      default: launch_bf16<2>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+    }
+  } else if (dtype == kF32) {
+    if (cpad != c) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(BM32 * c + BM32 * HC32) * 4;
+    cudaFuncSetAttribute(fused_ff_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    fused_ff_f32<<<(m + BM32 - 1) / BM32, THREADS_F32, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(gam),
+        static_cast<const float*>(bet), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), static_cast<const float*>(w2),
+        static_cast<const float*>(b2), static_cast<float*>(out), m, c, hidden);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
