@@ -102,13 +102,13 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry `name` with its argument types set (pointers and the
-    stream must be c_void_p, or ctypes cuts them to 32 bits)."""
+def function(name: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C entry `name` with its argument and result types set (pointers
+    and the stream must be c_void_p, or ctypes cuts them to 32 bits)."""
     fn = getattr(library(), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 

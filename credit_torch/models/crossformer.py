@@ -1,5 +1,5 @@
-"""WXFormer / CrossFormer forward on folded kernels: port of
-credit_tpu/models/crossformer.py.
+"""WXFormer / CrossFormer forward: port of credit_tpu/models/crossformer.py,
+on folded kernels or with spectral-norm state (`sn_state=True`, training).
 
 Order: earth pad, frames to channels, four (cross-embed, transformer)
 stages, three UpBlocks with U-Net skip concats, the ConvTranspose k4/s2/p1
@@ -36,8 +36,10 @@ def _tup(v, n=4):
 @registry.register("model", "wxformer")
 class CrossFormer(nn.Module):
     """Constructor arguments mirror the reference config's model keys.
-    `use_spectral_norm` says whether the weights carry spectral norm: the
-    port always runs them folded (see convert_jax)."""
+    `use_spectral_norm` says whether the weights carry spectral norm. With
+    `sn_state=False` (inference) it is folded into the kernels (see
+    convert_jax); with `sn_state=True` every SN layer holds its u/v buffers
+    and normalizes its kernel at each forward, iterating in `train()` mode."""
 
     def __init__(self, image_height: int = 640, image_width: int = 1280,
                  patch_height: int = 1, patch_width: int = 1, frames: int = 2,
@@ -52,7 +54,7 @@ class CrossFormer(nn.Module):
                  upsample_with_ps: bool = False, padding_conf: Any = None,
                  use_interp: bool = True, compute_dtype: Any = torch.float32,
                  sharp_skip: bool = False, out_image_height: Any = None,
-                 out_image_width: Any = None, **routing):
+                 out_image_width: Any = None, sn_state: bool = False, **routing):
         super().__init__()
         unknown = set(routing) - set(TPU_ROUTING_KEYS)
         if unknown:
@@ -71,6 +73,7 @@ class CrossFormer(nn.Module):
         self.interp = interp
         self.use_spectral_norm = use_spectral_norm
         self.compute_dtype = dt = compute_dtype
+        sn = bool(use_spectral_norm and sn_state)
         self.base_input_channels = channels * levels + surface_channels + input_only_channels
         self.base_output_channels = channels * levels + surface_channels + output_only_channels
 
@@ -83,26 +86,26 @@ class CrossFormer(nn.Module):
 
         c = self.base_input_channels * frames
         for i in range(4):
-            self.add_module(f"cel{i}", CrossEmbedLayer(c, dims[i], ksizes[i], strides[i], dt))
+            self.add_module(f"cel{i}", CrossEmbedLayer(c, dims[i], ksizes[i], strides[i], dt, sn))
             self.add_module(f"transformer{i}",
-                            Transformer(dims[i], depths[i], lws[i], gws[i], dim_head, dt))
+                            Transformer(dims[i], depths[i], lws[i], gws[i], dim_head, dt, sn))
             c = dims[i]
         last, ng = dims[-1], dims[0]
-        self.up_block1 = UpBlock(last, last // 2, ng, dtype=dt)
-        self.up_block2 = UpBlock(last // 2 + dims[2], last // 4, ng, dtype=dt)
-        self.up_block3 = UpBlock(last // 4 + dims[1], last // 8, ng, dtype=dt)
+        self.up_block1 = UpBlock(last, last // 2, ng, dtype=dt, sn=sn)
+        self.up_block2 = UpBlock(last // 2 + dims[2], last // 4, ng, dtype=dt, sn=sn)
+        self.up_block3 = UpBlock(last // 4 + dims[1], last // 8, ng, dtype=dt, sn=sn)
         out_ch = self.base_output_channels * output_frames
-        self.up_block4 = ConvTranspose(last // 8 + dims[0], out_ch, 4, 2, 1, dt)
+        self.up_block4 = ConvTranspose(last // 8 + dims[0], out_ch, 4, 2, 1, dt, sn)
 
     @classmethod
-    def from_config(cls, conf: dict) -> "CrossFormer":
+    def from_config(cls, conf: dict, sn_state: bool = False) -> "CrossFormer":
         """Build from a gen2 config dict; model-section keys that are not
         constructor arguments are ignored, as in the reference."""
         import inspect
 
         names = set(inspect.signature(cls.__init__).parameters) | set(TPU_ROUTING_KEYS)
         mconf = {k: v for k, v in conf["model"].items() if k in names and k != "type"}
-        return cls(**mconf)
+        return cls(**mconf, sn_state=sn_state)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padder is not None:

@@ -1,84 +1,108 @@
-"""Building blocks of the CrossFormer, inference subset: port of
-credit_tpu/models/layers.py on folded kernels.
+"""Building blocks of the CrossFormer: port of credit_tpu/models/layers.py.
 
-Spectral norm is folded into the kernels before they reach these modules
-(`convert_jax.from_jax_variables`, `convert_jax.init_folded`), so the
-layers carry plain kernels. Parameter names mirror the flax tree
-(`kernel` HWIO or (in, out), `bias`, `scale`), so a state_dict key is the
-flax path joined with dots. Activations are channels-last. Each module has a
-compute `dtype`: weights are cast to it at use (a no-op when the model was
-cast once), norm statistics stay f32 as in the reference.
+Parameter names mirror the flax tree (`kernel` HWIO or (in, out), `bias`,
+`scale`), so a state_dict key is the flax path joined with dots. Activations
+are channels-last. Each module has a compute `dtype`: weights are cast to it
+at use (a no-op when the model was cast once), norm statistics stay f32 as
+in the reference.
 
-Train-mode spectral norm, `UpBlockPS`, `CubeEmbedding` and the camulator
-`sharp` skip are not ported yet (ROADMAP queue 1).
+Spectral norm comes in two forms. Folded (inference): it was divided into
+the kernels before they reached these modules (`convert_jax.init_folded`,
+`from_jax_variables`), and the layers carry plain kernels. With SN state
+(`sn=True`, training): every kernel-bearing layer also holds `u` (O,) and
+`v` (rest,) buffers, named like the flax `spectral` collection's leaves, and
+computes with `sn_kernel()` = kernel / sigma; in `train()` mode one power
+iteration refreshes u and v per forward (torch spectral_norm semantics, as
+credit_tpu's SNMixin).
+
+`UpBlockPS`, `CubeEmbedding` and the camulator `sharp` skip are not ported
+yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from credit_torch.models.spectral_utils import sn_kernel
 from credit_torch.ops import conv as conv_ops
 from credit_torch.ops import window_attention as wa
-from credit_torch.ops.cuda_attention import fused_window_attention
-from credit_torch.ops.cuda_ff import fused_ff
+from credit_torch.ops.cuda_attention import fused_window_attention_diff
+from credit_torch.ops.cuda_ff import fused_ff_diff
 
 
 def _param(*shape, fill: float = 0.0) -> nn.Parameter:
     return nn.Parameter(torch.full(shape, fill, dtype=torch.float32))
 
 
-class Dense(nn.Module):
+class _Kernel(nn.Module):
+    """A layer with a `kernel` (..., O) and, with SN state, its u and v."""
+
+    def _init_kernel(self, shape, sn: bool):
+        self.kernel = _param(*shape)
+        self.register_buffer("u", torch.zeros(shape[-1]) if sn else None)
+        self.register_buffer("v", torch.zeros(math.prod(shape[:-1])) if sn else None)
+
+    def sn_kernel(self) -> torch.Tensor:
+        """The kernel to compute with: kernel / sigma with SN state (one
+        power iteration first in train mode), the kernel itself without."""
+        if self.u is None:
+            return self.kernel
+        return sn_kernel(self.kernel, self.u, self.v, update=self.training)
+
+
+class Dense(_Kernel):
     """x @ kernel (in, out) + bias, as one 2-D GEMM in the compute dtype."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.kernel = _param(in_features, features)
+        self._init_kernel((in_features, features), sn)
         self.bias = _param(features) if use_bias else None
 
     def forward(self, x):
         x = x.to(self.dtype)
-        y = x.reshape(-1, x.shape[-1]) @ self.kernel.to(self.dtype)
+        y = x.reshape(-1, x.shape[-1]) @ self.sn_kernel().to(self.dtype)
         y = y.reshape(*x.shape[:-1], y.shape[-1])
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
 
 
-class Conv(nn.Module):
+class Conv(_Kernel):
     """2-D conv, torch-style symmetric padding, HWIO kernel."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dtype=torch.float32):
+                 padding: int = 0, dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.dtype, self.stride, self.padding = dtype, stride, padding
-        self.kernel = _param(kernel_size, kernel_size, in_ch, features)
+        self._init_kernel((kernel_size, kernel_size, in_ch, features), sn)
         self.bias = _param(features)
 
     def forward(self, x):
-        return conv_ops.conv2d(x.to(self.dtype), self.kernel.to(self.dtype), self.bias,
+        return conv_ops.conv2d(x.to(self.dtype), self.sn_kernel().to(self.dtype), self.bias,
                                self.stride, self.padding)
 
 
-class ConvTranspose(nn.Module):
+class ConvTranspose(_Kernel):
     """Transposed 2-D conv with torch ConvTranspose2d output semantics;
     kernel stored (kh, kw, in, out)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 2,
-                 padding: int = 0, dtype=torch.float32):
+                 padding: int = 0, dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.dtype, self.stride, self.padding = dtype, stride, padding
-        self.kernel = _param(kernel_size, kernel_size, in_ch, features)
+        self._init_kernel((kernel_size, kernel_size, in_ch, features), sn)
         self.bias = _param(features)
 
     def forward(self, x):
-        return conv_ops.conv_transpose2d(x.to(self.dtype), self.kernel.to(self.dtype),
+        return conv_ops.conv_transpose2d(x.to(self.dtype), self.sn_kernel().to(self.dtype),
                                          self.bias, self.stride, self.padding)
 
 
@@ -142,13 +166,13 @@ class DynamicPositionBias(nn.Module):
     """MLP on relative (dy, dx) offsets -> one scalar bias per offset: three
     Linear + LayerNorm + ReLU blocks, then Linear -> 1. Always f32."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, sn: bool = False):
         super().__init__()
         f32 = torch.float32
         for i in range(3):
-            self.add_module(f"fc{i}", Dense(2 if i == 0 else dim, dim, dtype=f32))
+            self.add_module(f"fc{i}", Dense(2 if i == 0 else dim, dim, dtype=f32, sn=sn))
             self.add_module(f"ln{i}", LayerNorm(dim, dtype=f32))
-        self.fc_out = Dense(dim, 1, dtype=f32)
+        self.fc_out = Dense(dim, 1, dtype=f32, sn=sn)
 
     def forward(self, rel):
         x = rel.float()
@@ -159,24 +183,25 @@ class DynamicPositionBias(nn.Module):
 
 class WindowAttention(nn.Module):
     """Short (windowed) or long (dilated-grid) multi-head attention: pre-norm,
-    one fused qkv GEMM, windowed attention (kernel 3) with the dynamic
-    position bias, output projection. The residual is added by the caller.
+    one fused qkv GEMM, windowed attention (kernel 3, differentiable) with
+    the dynamic position bias, output projection. The residual is added by
+    the caller.
 
     The (T, T) bias depends only on parameters; inside
     `position_bias_cache(model)` it is computed once and reused by later
     forwards, as the reference's dpb_cache collection does in a rollout."""
 
     def __init__(self, dim: int, attn_type: str, window_size: int, dim_head: int = 32,
-                 dtype=torch.float32):
+                 dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.dim, self.attn_type, self.window_size = dim, attn_type, window_size
         self.heads = dim // dim_head
         self.inner = self.heads * dim_head
         self.dtype = dtype
         self.norm = ChannelLayerNorm(dim, dtype=dtype)
-        self.to_qkv = Dense(dim, self.inner * 3, use_bias=False, dtype=dtype)
-        self.dpb = DynamicPositionBias(dim // 4)
-        self.to_out = Dense(self.inner, dim, dtype=dtype)
+        self.to_qkv = Dense(dim, self.inner * 3, use_bias=False, dtype=dtype, sn=sn)
+        self.dpb = DynamicPositionBias(dim // 4, sn=sn)
+        self.to_out = Dense(self.inner, dim, dtype=dtype, sn=sn)
         self.register_buffer("rel_grid", torch.from_numpy(wa.relative_position_grid(window_size)),
                              persistent=False)
         self.register_buffer("rel_index", torch.from_numpy(wa.relative_position_index(window_size)),
@@ -197,7 +222,7 @@ class WindowAttention(nn.Module):
         x = self.norm(x)
         xw = wa.window_partition(x, self.window_size, self.attn_type)
         q, k, v = self.to_qkv(xw).split(self.inner, dim=-1)
-        out = fused_window_attention(q, k, v, self.position_bias(), self.heads)
+        out = fused_window_attention_diff(q, k, v, self.position_bias(), self.heads)
         out = self.to_out(out)
         return wa.window_unpartition(out, self.window_size, h, w, self.attn_type)
 
@@ -218,34 +243,36 @@ def position_bias_cache(model: nn.Module):
 
 class FeedForward(nn.Module):
     """x + fc2(GELU(fc1(LN(x)))), the FF block with its residual, as one
-    call of the fused kernel (kernel 2)."""
+    call of the fused kernel (kernel 2; kernel 4 in the backward) on the
+    spectrally normalized kernels."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm = ChannelLayerNorm(dim, dtype=dtype)
-        self.fc1 = Dense(dim, dim * mult, dtype=dtype)
-        self.fc2 = Dense(dim * mult, dim, dtype=dtype)
+        self.fc1 = Dense(dim, dim * mult, dtype=dtype, sn=sn)
+        self.fc2 = Dense(dim * mult, dim, dtype=dtype, sn=sn)
 
     def forward(self, x):
-        return fused_ff(x.to(self.dtype), self.norm.scale, self.norm.bias, self.fc1.kernel,
-                        self.fc1.bias, self.fc2.kernel, self.fc2.bias)
+        return fused_ff_diff(x.to(self.dtype), self.norm.scale, self.norm.bias,
+                             self.fc1.sn_kernel(), self.fc1.bias, self.fc2.sn_kernel(),
+                             self.fc2.bias)
 
 
 class Transformer(nn.Module):
     """depth x (short-attn, FF, long-attn, FF) with residuals."""
 
     def __init__(self, dim: int, depth: int, local_window_size: int, global_window_size: int,
-                 dim_head: int = 32, dtype=torch.float32):
+                 dim_head: int = 32, dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             self.add_module(f"short_attn{i}",
-                            WindowAttention(dim, "short", local_window_size, dim_head, dtype))
-            self.add_module(f"short_ff{i}", FeedForward(dim, dtype=dtype))
+                            WindowAttention(dim, "short", local_window_size, dim_head, dtype, sn))
+            self.add_module(f"short_ff{i}", FeedForward(dim, dtype=dtype, sn=sn))
             self.add_module(f"long_attn{i}",
-                            WindowAttention(dim, "long", global_window_size, dim_head, dtype))
-            self.add_module(f"long_ff{i}", FeedForward(dim, dtype=dtype))
+                            WindowAttention(dim, "long", global_window_size, dim_head, dtype, sn))
+            self.add_module(f"long_ff{i}", FeedForward(dim, dtype=dtype, sn=sn))
 
     def forward(self, x):
         for i in range(self.depth):
@@ -271,7 +298,7 @@ class CrossEmbedLayer(nn.Module):
     """
 
     def __init__(self, dim_in: int, dim_out: int, kernel_sizes: Sequence[int], stride: int = 2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.ks = sorted(int(k) for k in kernel_sizes)
         n = len(self.ks)
@@ -279,7 +306,7 @@ class CrossEmbedLayer(nn.Module):
         self.dim_scales = [*scales, dim_out - sum(scales)]
         self.stride, self.dtype = stride, dtype
         for i, (k, d) in enumerate(zip(self.ks, self.dim_scales)):
-            self.add_module(f"conv{i}", Conv(dim_in, d, k, stride, (k - stride) // 2, dtype))
+            self.add_module(f"conv{i}", Conv(dim_in, d, k, stride, (k - stride) // 2, dtype, sn))
         kmax = self.ks[-1]
         kb = self.ks[-2] if n > 1 else kmax
         even2 = stride == 2 and all(k % 2 == 0 for k in self.ks) and n > 1
@@ -301,12 +328,13 @@ class CrossEmbedLayer(nn.Module):
             kernels, biases = [], []
             for cv, k in zip(convs[:-1], ks[:-1]):
                 p = (kb - k) // 2
-                kernels.append(F.pad(cv.kernel, (0, 0, 0, 0, p, p, p, p)))
+                kernels.append(F.pad(cv.sn_kernel(), (0, 0, 0, 0, p, p, p, p)))
                 biases.append(cv.bias)
             big = convs[-1]
+            kbig = big.sn_kernel()
             for a in range(q):
                 for bq in range(q):
-                    kernels.append(big.kernel[a * kb:(a + 1) * kb, bq * kb:(bq + 1) * kb])
+                    kernels.append(kbig[a * kb:(a + 1) * kb, bq * kb:(bq + 1) * kb])
                     biases.append(torch.zeros_like(big.bias))
             kmerged = torch.cat(kernels, dim=-1).to(self.dtype)
             out = conv_ops.conv2d(x, kmerged, torch.cat(biases), stride=2,
@@ -330,7 +358,7 @@ class CrossEmbedLayer(nn.Module):
             kernels = []
             for cv, k in zip(convs, ks):
                 p = (kmax - k) // 2
-                kernels.append(F.pad(cv.kernel, (0, 0, 0, 0, p, p, p, p)))
+                kernels.append(F.pad(cv.sn_kernel(), (0, 0, 0, 0, p, p, p, p)))
             return conv_ops.conv2d(x, torch.cat(kernels, dim=-1).to(self.dtype),
                                    torch.cat([cv.bias for cv in convs]), stride=2,
                                    padding=(kmax - 2) // 2)
@@ -342,12 +370,12 @@ class UpBlock(nn.Module):
     SiLU."""
 
     def __init__(self, in_ch: int, out_chans: int, num_groups: int, num_residuals: int = 2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, sn: bool = False):
         super().__init__()
         self.num_residuals = num_residuals
-        self.up = ConvTranspose(in_ch, out_chans, 2, 2, 0, dtype)
+        self.up = ConvTranspose(in_ch, out_chans, 2, 2, 0, dtype, sn)
         for i in range(num_residuals):
-            self.add_module(f"res_conv{i}", Conv(out_chans, out_chans, 3, 1, 1, dtype))
+            self.add_module(f"res_conv{i}", Conv(out_chans, out_chans, 3, 1, 1, dtype, sn))
             self.add_module(f"res_gn{i}", GroupNorm(num_groups, out_chans, dtype=dtype))
 
     def forward(self, x):

@@ -1,8 +1,10 @@
 """2-D convolution primitives, channels-last (NHWC / HWIO): port of
 credit_tpu/ops/conv.py with torch's output-size semantics.
 
-Routing: every stride-1 VALID conv with kh*kw > 1 runs kernel 1
-(`cuda_conv.conv2d_valid`); 1x1 convs are a `torch.matmul`. Every
+Routing: every stride-1 VALID conv with kh*kw > 1 runs kernel 1 through
+its autograd Function (`cuda_conv.conv2d_valid_diff`: kernel 1 forward and
+input gradient, kernel 5 weight gradient); 1x1 convs are a `torch.matmul`
+under autograd. Every
 even-kernel stride-2 conv is rewritten as space-to-depth plus a stride-1
 half-kernel conv, and the stride-2 transposes with k = 2p + 2 as a phase conv
 plus depth-to-space, so both land on the same two routes. Other strides
@@ -32,15 +34,15 @@ def _pad_hw(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> to
 
 
 def valid_conv(x: torch.Tensor, kernel: torch.Tensor, bias=None) -> torch.Tensor:
-    """Stride-1 VALID conv: 1x1 as a GEMM, anything larger through kernel 1.
-    The bias is added in the output dtype."""
+    """Stride-1 VALID conv: 1x1 as a GEMM, anything larger through kernel 1
+    (differentiable). The bias is added in the output dtype."""
     kh, kw, cin, cout = kernel.shape
     kernel = kernel.to(x.dtype)
     if kh == 1 and kw == 1:
         n, h, w, _ = x.shape
         out = (x.reshape(-1, cin) @ kernel.reshape(cin, cout)).reshape(n, h, w, cout)
     else:
-        out = cuda_conv.conv2d_valid(x, kernel)
+        out = cuda_conv.conv2d_valid_diff(x, kernel)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -7,6 +7,11 @@ The port of credit_tpu/ops/pallas_attention.py `fused_window_attention`.
 kernel: q scaled in its own dtype, f32 scores plus the f32 bias, a safe
 softmax in f32 with exact division, probabilities cast to v's dtype, P.V
 accumulated in f32, output in the input dtype.
+
+`fused_window_attention_diff` makes it differentiable. credit_tpu has no
+Pallas backward for attention (its training differentiates the jnp route
+with XLA's autodiff), so the backward here is autograd of the plain version,
+recomputed from the saved q, k, v and bias; the forward stays on the kernel.
 """
 
 from __future__ import annotations
@@ -82,3 +87,29 @@ def fused_window_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
 
 
 fused_window_attention.launches = 0
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward: kernel 3. Backward: autograd of the plain version,
+    recomputed from the saved inputs (the gradient of the bias flows on into
+    the dynamic position bias)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.num_heads = num_heads
+        return fused_window_attention(q, k, v, bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, gout):
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = fused_window_attention_plain(*ins, ctx.num_heads)
+            grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], gout))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def fused_window_attention_diff(q, k, v, bias, num_heads: int) -> torch.Tensor:
+    """Differentiable `fused_window_attention` (see the module note)."""
+    return _WindowAttention.apply(q, k, v, bias, num_heads)

@@ -22,12 +22,16 @@ import torch
 from __graft_entry__ import TINY_MODEL_CONF
 from credit_tpu.data.channels import ChannelSchema as JSchema
 from credit_tpu.models import load_model as jax_load_model
+from credit_tpu.models.scan_utils import stack_block_params
 from credit_tpu.models.spectral_utils import converge_spectral, fold_spectral
 from credit_tpu.rollout import make_scan_rollout as jax_scan_rollout
-from credit_torch.convert_jax import from_jax_variables, init_folded
+from credit_torch.convert_jax import from_jax_variables, init_folded, init_train
 from credit_torch.data.channels import ChannelSchema
 from credit_torch.models import load_model
+from credit_torch.losses import WeightedLoss
 from credit_torch.rollout import RolloutEngine, make_scan_rollout
+from credit_torch.trainers.scheduler import constant
+from credit_torch.trainers.trainer import make_optimizer, make_train_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -160,10 +164,18 @@ def test_bridge_rejects_unknown_missing_and_stacked_keys(built):
     del missing["params"]["up_block4"]
     with pytest.raises(KeyError, match="missing"):
         from_jax_variables(missing, conf, device="cpu")
-    stacked = copy.deepcopy(v)
-    stacked["params"]["transformer0"] = {"blocks": stacked["params"]["transformer0"]}
-    with pytest.raises(NotImplementedError, match="scan_blocks"):
-        from_jax_variables(stacked, conf, device="cpu")
+    # credit_tpu's scan_blocks checkpoints stack each stage's blocks under
+    # blocks/: params and spectral bridge to the same state, folded or not
+    stacked = jax.tree_util.tree_map(np.asarray, {
+        "params": stack_block_params(v["params"]),
+        "spectral": stack_block_params(v["spectral"])})
+    assert "blocks" in stacked["params"]["transformer0"]
+    for fold in (True, False):
+        want = from_jax_variables(v, conf, device="cpu", fold=fold)
+        got = from_jax_variables(stacked, conf, device="cpu", fold=fold)
+        assert set(got) == set(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
 
 def test_init_folded_gives_unit_spectral_norms_and_bounded_output():
@@ -215,7 +227,8 @@ def test_port_imports_no_jax(path):
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, credit_torch.rollout, credit_torch.models, credit_torch.convert_jax; "
+    code = ("import sys, credit_torch.rollout, credit_torch.models, credit_torch.convert_jax, "
+            "credit_torch.trainers.trainer, credit_torch.losses; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
@@ -230,11 +243,15 @@ def test_entry_points_without_device_need_cuda():
         load_model(conf)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_folded(conf, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train(conf, torch.Generator())
     model = load_model(conf, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_scan_rollout(model, schema, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RolloutEngine(model, schema)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(model, WeightedLoss(), make_optimizer({}, constant(1e-4)), schema)
 
 
 def test_rollout_engine_refuses_unported_options():
