@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --ptxas      # also print nvcc's register/smem report
-    python3 chip_smoke.py --profile    # also by-kernel profiles of both main paths
+    python3 chip_smoke.py --profile    # also by-kernel profiles of the four main paths
                                        # (every row in build/profile_*.txt)
 
 Phases (any failure exits non-zero):
   1. build the kernels from credit_torch/csrc with nvcc (printed seconds);
-  2. hold each kernel against its plain PyTorch version on the card, at
-     flagship shapes in bf16 and f32 (TF32 off), with the error beside its
-     limit and the kernel's, the plain version's and a library call's times;
-  3. a tiny CrossFormer, a 2-step rollout and a training step on the card
-     against the same model on the CPU (plain versions), and its train-mode
-     backward with bf16 compute on the card against f32 on the CPU;
+  2. hold each kernel against its plain PyTorch version on the card, at the
+     main paths' shapes in bf16 and f32 (TF32 off), the FF and its backward
+     in both forms (pre-norm: the WXFormer; post-norm: FuXi, and a width the
+     bf16 kernel pads), with the error beside its limit and the kernel's,
+     the plain version's and a library call's times;
+  3. a tiny CrossFormer and a tiny FuXi (two input frames), each with a
+     2-step rollout and a training step, on the card against the same model
+     on the CPU (plain versions), and each train-mode backward with bf16
+     compute on the card against f32 on the CPU;
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -21,7 +24,11 @@ Phases (any failure exits non-zero):
   5. main path 2, training: CONF_025 with 8 diagnostic outputs, seeded f32
      weights with spectral-norm state, bf16 compute, MSE, AdamW(0.9, 0.95)
      through make_train_step; a warm-up step, then timed steps whose kernel
-     launches are counted and checked, with ms/step and peak memory.
+     launches are counted and checked, with ms/step and peak memory;
+  6. main path 3, the FuXi forecast: CONF_FUXI (the reference arXiv FuXi,
+     below) as main path 1, with two input frames;
+  7. main path 4, FuXi training: CONF_FUXI as main path 2, with two input
+     frames.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -78,9 +85,57 @@ TINY_DATA = {"source": {"ERA5": {
     "variables": {"prognostic": {"vars_3D": ["U", "T"], "vars_2D": ["SP", "T2M"]},
                   "dynamic_forcing": {"vars_2D": ["TISR"]}}}}}
 
+# the reference arXiv FuXi (the JAX bench's CONF_FUXI): 640x1280, two input
+# frames, 2x4x4 cube patches, dim 1024, 16 SwinV2 blocks in windows of 7,
+# earth padding 80/80 in latitude; ~260.7 M parameters
+CONF_FUXI = {
+    "type": "fuxi", "frames": 2, "frame_patch_size": 2,
+    "image_height": 640, "image_width": 1280,
+    "patch_height": 4, "patch_width": 4,
+    "levels": 16, "channels": 4, "surface_channels": 7,
+    "input_only_channels": 3, "output_only_channels": 0,
+    "dim": 1024, "num_groups": 32, "num_heads": 8, "window_size": 7,
+    "depth": 16, "use_spectral_norm": True, "interp": True, "compute_dtype": "bfloat16",
+    "padding_conf": {"activate": True, "mode": "earth",
+                     "pad_lat": [80, 80], "pad_lon": [0, 0]},
+}
+# its data section: 4 3-D vars x 16 levels + 7 surface = 71 prognostic
+# (all the outputs), 2 static and tsi = 74 inputs
+DATA_FUXI = {"source": {"ERA5": {
+    "levels": list(range(16)),
+    "variables": {
+        "prognostic": {"vars_3D": ["U", "V", "T", "Q"],
+                       "vars_2D": ["SP", "VAR_2T", "VAR_10U", "VAR_10V", "V500", "U500",
+                                   "T500"]},
+        "dynamic_forcing": {"vars_2D": ["tsi"]},
+        "static": {"vars_2D": ["z_norm", "lsm"]},
+        "diagnostic": {"vars_2D": []},
+    }}}}
+# credit_tpu's tiny FuXi test config (its stage zero-pads 5x9 to 8x12)
+TINY_FUXI = {
+    "type": "fuxi", "image_height": 32, "image_width": 64, "patch_height": 4,
+    "patch_width": 4, "levels": 2, "frames": 2, "frame_patch_size": 2, "dim": 32,
+    "num_groups": 8, "channels": 2, "surface_channels": 2, "input_only_channels": 1,
+    "output_only_channels": 1, "num_heads": 4, "depth": 2, "window_size": 4,
+    "use_spectral_norm": True, "interp": True,
+    "padding_conf": {"activate": True, "mode": "earth", "pad_lat": [4, 4], "pad_lon": [4, 4]},
+}
+TINY_FUXI_DATA = {"source": {"ERA5": {
+    "levels": [0.0, 1.0],
+    "variables": {"prognostic": {"vars_3D": ["U", "T"], "vars_2D": ["SP", "T2M"]},
+                  "dynamic_forcing": {"vars_2D": ["TISR"]},
+                  "diagnostic": {"vars_2D": ["PRECIP"]}}}}}
+
 # published dense peaks of one H100 SXM at 700 W
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+
+# bf16 train-mode loss, gradients by norm and worst parameter of the tiny
+# models against f32, relative: a few times above the readings (bf16
+# rounding, not summation order) -- the CrossFormer's on the card (1.63e-4,
+# 1.35e-2, 6.5e-2), FuXi's with the plain versions in bf16 on a CPU
+# (6.4e-4, 2.7e-2, 2.1e-2)
+BF16_TRAIN_LIMITS = {"crossformer": (1e-3, 5e-2, 0.25), "fuxi": (3e-3, 0.1, 0.25)}
 
 ROLLOUT_STEPS = 3
 TRAIN_STEPS = 3
@@ -157,10 +212,17 @@ def conv_cases(torch, g):
     from credit_torch.ops import cuda_conv
 
     res = {}
-    # stage-0 quadrant embed after space-to-depth; the final 3x3 phase conv
-    # of the ConvTranspose head (ragged: 402x722 input, 224 outputs)
-    for label, (n, hp, wp, cin, kh, cout) in [("stage0_embed_8x8", (1, 415, 735, 240, 8, 176)),
-                                              ("head_phase_3x3", (1, 402, 722, 256, 3, 224))]:
+    # WXFormer: stage-0 quadrant embed after space-to-depth; the final 3x3
+    # phase conv of the ConvTranspose head (ragged: 402x722 input, 224
+    # outputs). FuXi: the DownBlock's 3x3/s2 conv after its zero-extension to
+    # 4x4 and space-to-depth (2x2 over 4096 channels, 7 of 16 taps zero), its
+    # 3x3 residual convs at 100x160 and the UpBlock's at 200x320
+    for label, (n, hp, wp, cin, kh, cout), iters in [
+            ("stage0_embed_8x8", (1, 415, 735, 240, 8, 176), 10),
+            ("head_phase_3x3", (1, 402, 722, 256, 3, 224), 10),
+            ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 1024), 3),
+            ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 1024), 3),
+            ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 1024), 3)]:
         for dt, tol in [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)]:
             x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
             k = (torch.randn((kh, kh, cin, cout), generator=g, device="cuda")
@@ -174,17 +236,23 @@ def conv_cases(torch, g):
                            lambda: cuda_conv.conv2d_valid_plain(x, k),
                            lambda: F.conv2d(xn, kn),
                            (x.numel() + k.numel() + n * ho * wo * cout) * isz,
-                           2.0 * n * ho * wo * kh * kh * cin * cout, tol, 10)
+                           2.0 * n * ho * wo * kh * kh * cin * cout, tol, iters)
             res[(label, dt)] = r
-    return res[("stage0_embed_8x8", torch.bfloat16)]
+    return res
 
 
 def ff_cases(torch, g):
     from credit_torch.ops import cuda_ff
 
     res = {}
-    for label, (h, w, c) in [("stage0_C128", (400, 720, 128)), ("stage2_C512", (100, 180, 512)),
-                             ("stage3_C1024", (50, 90, 1024))]:
+    # pre-norm at the WXFormer's stages; post-norm at FuXi's SwinV2 stage
+    # (105x161 tokens after the window pad) and at C = 192, which the bf16
+    # kernel pads to 256: the padded columns must stay out of the LN
+    for label, (h, w, c), post in [("stage0_C128", (400, 720, 128), False),
+                                   ("stage2_C512", (100, 180, 512), False),
+                                   ("stage3_C1024", (50, 90, 1024), False),
+                                   ("fuxi_C1024_post", (105, 161, 1024), True),
+                                   ("padded_C192_post", (100, 180, 192), True)]:
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]:
             hd = 4 * c
             x = torch.randn((1, h, w, c), generator=g, device="cuda").to(dt)
@@ -198,13 +266,13 @@ def ff_cases(torch, g):
             m = h * w
             isz = x.element_size()
             r = check_case(f"fused_ff {label}", str(dt).split(".")[1],
-                           lambda: cuda_ff.fused_ff(x, *prm),
-                           lambda: cuda_ff.fused_ff_plain(x, *prm),
+                           lambda: cuda_ff.fused_ff(x, *prm, post_norm=post),
+                           lambda: cuda_ff.fused_ff_plain(x, *prm, post_norm=post),
                            None,
                            (2 * m * c + 2 * c * hd + 3 * c + hd) * isz,
                            4.0 * m * c * hd, tol, 10)
             res[(label, dt)] = r
-    return res[("stage0_C128", torch.bfloat16)]
+    return res
 
 
 def attention_cases(torch, g):
@@ -246,11 +314,16 @@ def ff_bwd_cases(torch, g):
     from credit_torch.ops import cuda_ff
 
     res = {}
-    for label, (h, w, c) in [("stage0_C128", (400, 720, 128)), ("stage1_C256", (200, 360, 256)),
-                             ("stage2_C512", (100, 180, 512)), ("stage3_C1024", (50, 90, 1024))]:
-        # bf16: dx is rounded once at the end, and y, a, ct and dh1 enter the
-        # products rounded in both versions, so a flipped rounding moves dx by
-        # about an ulp; f32: summation order over up to 288000 rows
+    for label, (h, w, c), post in [("stage0_C128", (400, 720, 128), False),
+                                   ("stage1_C256", (200, 360, 256), False),
+                                   ("stage2_C512", (100, 180, 512), False),
+                                   ("stage3_C1024", (50, 90, 1024), False),
+                                   ("fuxi_C1024_post", (105, 161, 1024), True),
+                                   ("padded_C192_post", (100, 180, 192), True)]:
+        # bf16: dx is rounded once at the end, and y, a, ct, do2 and dh1
+        # enter the products rounded in both versions, so a flipped rounding
+        # moves dx by about an ulp; f32: summation order over up to 288000
+        # rows. Post-norm recomputes o2 = a.w2 as well: 12 M C H operations
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]:
             hd = 4 * c
             x = torch.randn((1, h, w, c), generator=g, device="cuda").to(dt)
@@ -265,29 +338,33 @@ def ff_bwd_cases(torch, g):
             m = h * w
             isz = x.element_size()
             r = check_case(f"fused_ff_bwd {label}", str(dt).split(".")[1],
-                           lambda: cuda_ff.fused_ff_bwd(x, ct, *prm),
-                           lambda: cuda_ff.fused_ff_bwd_plain(x, ct, *prm),
+                           lambda: cuda_ff.fused_ff_bwd(x, ct, *prm, post_norm=post),
+                           lambda: cuda_ff.fused_ff_bwd_plain(x, ct, *prm, post_norm=post),
                            None,
                            3 * m * c * isz + (2 * c * hd + 3 * c + hd) * (isz + 4),
-                           10.0 * m * c * hd, tol, 10)
+                           (12.0 if post else 10.0) * m * c * hd, tol, 10)
             res[(label, dt)] = r
-    return res[("stage0_C128", torch.bfloat16)]
+    return res
 
 
 def wgrad_cases(torch, g):
     from credit_torch.ops import cuda_conv
 
     res = {}
-    # every tap group the training step launches: the stage-0 embed's 8x8
+    # every tap group the training steps launch: the stage-0 embed's 8x8
     # after space-to-depth (rows of 4 taps), the stage 1-3 embeds' 2x2 after
     # space-to-depth (2x2 groups), the training head's 3x3 phase conv (rows
-    # of 3); both versions sum exact products of the same values in f32 over
-    # up to ~300000 pixels, in other orders
+    # of 3); FuXi's three conv shapes (conv_cases); both versions sum exact
+    # products of the same values in f32 over up to ~300000 pixels, in
+    # other orders
     for label, (n, hp, wp, cin, kh, cout) in [("stage0_embed_8x8", (1, 415, 735, 240, 8, 176)),
                                               ("stage1_embed_2x2", (1, 201, 361, 512, 2, 256)),
                                               ("stage2_embed_2x2", (1, 101, 181, 1024, 2, 512)),
                                               ("stage3_embed_2x2", (1, 51, 91, 2048, 2, 1024)),
-                                              ("head_phase_3x3", (1, 402, 722, 256, 3, 256))]:
+                                              ("head_phase_3x3", (1, 402, 722, 256, 3, 256)),
+                                              ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 1024)),
+                                              ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 1024)),
+                                              ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 1024))]:
         for dt, tol in [(torch.bfloat16, 5e-4), (torch.float32, 5e-4)]:
             ho, wo = hp - kh + 1, wp - kh + 1
             x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
@@ -299,23 +376,41 @@ def wgrad_cases(torch, g):
                            lambda: cuda_conv.conv2d_wgrad_plain(x, gy, kh, kh),
                            lambda: torch.nn.grad.conv2d_weight(xn, (cout, cin, kh, kh), gyn),
                            (x.numel() + gy.numel()) * isz + kh * kh * cin * cout * 4,
-                           2.0 * n * ho * wo * kh * kh * cin * cout, tol, 5)
+                           2.0 * n * ho * wo * kh * kh * cin * cout, tol,
+                           3 if label.startswith("fuxi") else 5)
             res[(label, dt)] = r
-    return res[("stage0_embed_8x8", torch.bfloat16)]
+    return res
 
 
-def tiny_agreement(torch):
-    """The tiny model on the card (kernels) against itself on the CPU (plain
-    versions, which the CPU tests hold against the JAX package)."""
+def probe_bounds() -> None:
+    """The bounds of the two TPU probes still to port with the tools (ROADMAP
+    queue 2, items 7-8), in bf16 at their shapes: the conv drafts compute
+    kernel 2's stage-0 8x8 embed, the identity reads and writes one array."""
+    n, hp, wp, cin, k, cout = 1, 415, 735, 240, 8, 176
+    ho, wo = hp - k + 1, wp - k + 1
+    conv = bound((n * hp * wp * cin + k * k * cin * cout + n * ho * wo * cout) * 2,
+                 2.0 * n * ho * wo * k * k * cin * cout, "bfloat16")
+    copy = bound(2 * 400 * 720 * 128 * 2, 0.0, "bfloat16")
+    log(f"  still to port: tools/bench_pallas_conv.py run (8x8 240->176 at 415x735) bound_ms "
+        f"{conv[0]:.4f} ({conv[1]}); tools/bench_conv_ffk.py pallas_identity (1, 400, 720, "
+        f"128) copy bound_ms {copy[0]:.4f} ({copy[1]})")
+
+
+def tiny_agreement(torch, model_conf: dict, data: dict):
+    """A tiny model on the card (kernels) against itself on the CPU (plain
+    versions, which the CPU tests hold against the JAX package); its
+    `frames` input frames are the rollout's and the train step's history."""
     from credit_torch.convert_jax import init_folded
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.rollout import make_scan_rollout
 
-    conf = {"model": TINY, "data": TINY_DATA}
+    conf = {"model": model_conf, "data": data}
+    frames = model_conf["frames"]
     schema = ChannelSchema.from_config(conf)
     cpu = init_folded(conf, torch.Generator().manual_seed(1), device="cpu")
     gpu = init_folded(conf, torch.Generator().manual_seed(1), device="cuda")
-    x0 = torch.randn((1, 1, 32, 64, schema.n_input), generator=torch.Generator().manual_seed(2))
+    x0 = torch.randn((1, frames, 32, 64, schema.n_input),
+                     generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         ref = cpu(x0)
         out = gpu(x0.cuda()).cpu()
@@ -323,8 +418,8 @@ def tiny_agreement(torch):
     log(f"  tiny forward f32 card vs CPU: rel err {err:.3e} limit 1e-4")
     if not err <= 1e-4:
         raise AssertionError("tiny forward on the card disagrees with the CPU")
-    xr, sr = make_scan_rollout(cpu, schema, 2, device="cpu")(x0)
-    xg, sg = make_scan_rollout(gpu, schema, 2, device="cuda")(x0)
+    xr, sr = make_scan_rollout(cpu, schema, 2, history_len=frames, device="cpu")(x0)
+    xg, sg = make_scan_rollout(gpu, schema, 2, history_len=frames, device="cuda")(x0)
     err = max(((xg.cpu() - xr).abs().max() / xr.abs().max()).item(),
               ((sg.cpu() - sr).abs().max() / sr.abs().max()).item())
     log(f"  tiny 2-step rollout f32 card vs CPU: rel err {err:.3e} limit 1e-4")
@@ -337,20 +432,21 @@ def tiny_agreement(torch):
         log(f"  tiny forward bf16 card vs f32 CPU: rel err {err:.3e} limit {tol:g}")
         if not err <= tol:
             raise AssertionError("tiny bf16 forward on the card is off")
-    tiny_training(torch, conf, schema)
+    tiny_training(torch, conf, schema, frames)
 
 
-def tiny_training(torch, conf, schema):
+def tiny_training(torch, conf, schema, frames: int):
     """Train-mode forward and backward of the tiny model with spectral-norm
-    state, and one 2-step make_train_step, on the card (kernels 1-5) against
-    the CPU (plain versions), f32: loss and gradients within 1e-4."""
+    state, and one 2-step make_train_step, on the card (the kernels in
+    autograd) against the CPU (plain versions), f32: loss and gradients
+    within 1e-4."""
     from credit_torch.convert_jax import init_train
     from credit_torch.losses import WeightedLoss
     from credit_torch.trainers.scheduler import constant
     from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
 
     g = torch.Generator().manual_seed(3)
-    x = torch.randn((1, 1, 32, 64, schema.n_input), generator=g)
+    x = torch.randn((1, frames, 32, 64, schema.n_input), generator=g)
     y = torch.randn((1, 2, 32, 64, schema.n_target), generator=g) * 0.5
     forcing = torch.randn((1, 2, 32, 64, len(schema.dynamic_forcing_indices())), generator=g)
     loss_fn = WeightedLoss(base="mse")
@@ -372,13 +468,15 @@ def tiny_training(torch, conf, schema):
         f"parameter: rel err {gerr:.3e}; limit 1e-4")
     if not (err <= 1e-4 and gerr <= 1e-4):
         raise AssertionError("tiny training forward/backward on the card disagrees with the CPU")
-    tiny_training_bf16(torch, conf, x, y, loss_fn, losses["cpu"], grads["cpu"])
+    tiny_training_bf16(torch, conf, x, y, loss_fn, losses["cpu"], grads["cpu"],
+                       BF16_TRAIN_LIMITS[conf["model"]["type"]])
     batch = {"x": x, "y": y, "forcing": forcing}
     metrics = {}
     for dev, model in models.items():
         opt = make_optimizer({"trainer": {"grad_max_norm": 1.0, "weight_decay": 0.01}},
                              constant(1e-3))
-        step = make_train_step(model, loss_fn, opt, schema, forecast_len=2, device=dev)
+        step = make_train_step(model, loss_fn, opt, schema, forecast_len=2, history_len=frames,
+                               device=dev)
         _, metrics[dev] = step(TrainState.create(model, opt, ema=True), batch)
     err = max(abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k])) / abs(float(metrics["cpu"][k]))
               for k in ("loss", "grad_norm"))
@@ -388,11 +486,11 @@ def tiny_training(torch, conf, schema):
         raise AssertionError("tiny train step on the card disagrees with the CPU")
 
 
-def tiny_training_bf16(torch, conf, x, y, loss_fn, loss_ref, grads_ref):
+def tiny_training_bf16(torch, conf, x, y, loss_fn, loss_ref, grads_ref, lims):
     """The same train-mode forward and backward with bf16 compute (f32
-    parameters, as in CONF_025_TRAIN) on the card, against the f32 CPU run:
-    kernels 1-5 in bf16 inside autograd, composed. The limits sit a few
-    times above the card's readings (bf16 rounding, not summation order)."""
+    parameters, as in the training paths) on the card, against the f32 CPU
+    run: the kernels in bf16 inside autograd, composed. `lims`: loss,
+    gradients by norm, worst parameter (BF16_TRAIN_LIMITS)."""
     from credit_torch.convert_jax import init_train
 
     cb = {**conf, "model": {**conf["model"], "compute_dtype": "bfloat16"}}
@@ -406,7 +504,6 @@ def tiny_training_bf16(torch, conf, x, y, loss_fn, loss_ref, grads_ref):
     gmax = max(v.abs().max().item() for v in grads_ref.values())
     worst = max((grads[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-2 * gmax)
                 for k, v in grads_ref.items())
-    lims = (1e-3, 5e-2, 0.25)
     log(f"  tiny train-mode bf16 card vs f32 CPU: loss rel err {err:.3e} limit {lims[0]:g}; "
         f"gradients, all parameters: rel err {num / den:.3e} limit {lims[1]:g}; worst "
         f"parameter: rel err {worst:.3e} limit {lims[2]:g}")
@@ -415,74 +512,99 @@ def tiny_training_bf16(torch, conf, x, y, loss_fn, loss_ref, grads_ref):
 
 
 def expected_per_step(conf: dict):
-    """Kernel launches of one forward under the port's routing: one FF and
-    one attention per half-block; one VALID conv per cross-embed (after
-    space-to-depth the stage-0 quadrant conv is 8x8, the padded 2/4 embeds
-    2x2), two 3x3 residual convs per UpBlock (its k2 transpose is a 1x1 GEMM)
-    and the head's 3x3 phase conv."""
+    """Kernel launches of one WXFormer forward under the port's routing: one
+    FF and one attention per half-block; one VALID conv per cross-embed
+    (after space-to-depth the stage-0 quadrant conv is 8x8, the padded 2/4
+    embeds 2x2), two 3x3 residual convs per UpBlock (its k2 transpose is a
+    1x1 GEMM) and the head's 3x3 phase conv."""
     blocks = sum(conf["depth"])
     return {"fused_ff": 2 * blocks, "fused_window_attention": 2 * blocks,
             "conv2d_valid": 4 + 3 * 2 + 1}
 
 
-def expected_train_per_step(conf: dict):
+def expected_fuxi_per_step(conf: dict):
+    """Kernel launches of one FuXi forward: one post-norm FF per SwinV2
+    block (its attention is plain PyTorch: no window-attention kernel);
+    five VALID convs, the DownBlock's 3x3/s2 (a 2x2 after space-to-depth)
+    and the two residual 3x3 convs of the Down- and UpBlock (the UpBlock's
+    k2 transpose is a 1x1 GEMM); the cube embed is a patch GEMM."""
+    return {"fused_ff": conf["depth"], "fused_window_attention": 0, "conv2d_valid": 5}
+
+
+def expected_train_per_step(fwd: dict, first_conv_needs_gx: bool):
     """Kernel launches of one training step at forecast_len 1: the forward's,
     plus per FF one backward kernel, per conv with kh*kw > 1 one weight
-    gradient and one input gradient (kernel 1 again) except for the stage-0
-    embed, whose input needs none. Attention's backward is autograd of its
-    plain version (no kernel)."""
-    fwd = expected_per_step(conf)
+    gradient and one input gradient (kernel 1 again) except for a first
+    conv whose input needs none (the WXFormer's stage-0 embed reads the
+    batch; FuXi's DownBlock reads the cube embed's output). Attention's
+    backward is autograd of its plain version (no kernel)."""
     return {**fwd, "fused_ff_bwd": fwd["fused_ff"], "conv2d_wgrad": fwd["conv2d_valid"],
-            "conv2d_valid": 2 * fwd["conv2d_valid"] - 1}
+            "conv2d_valid": 2 * fwd["conv2d_valid"] - (0 if first_conv_needs_gx else 1)}
 
 
-def main_path(torch, profile: bool = False):
+def _wrappers():
+    from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
+
+    return {"conv2d_valid": cuda_conv.conv2d_valid, "fused_ff": cuda_ff.fused_ff,
+            "fused_window_attention": cuda_attention.fused_window_attention,
+            "fused_ff_bwd": cuda_ff.fused_ff_bwd, "conv2d_wgrad": cuda_conv.conv2d_wgrad}
+
+
+def _check_counts(counts: dict, want: dict, steps: int) -> None:
+    for k in counts:
+        n = want.get(k, 0)
+        if counts[k] != n * steps:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {n} x {steps}")
+
+
+def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
+                 profile: bool = False) -> dict:
+    """A bf16 forecast of `model_conf` on seeded folded weights at batch 1:
+    a warm-up step, then ROLLOUT_STEPS steps whose kernel launches are
+    counted and checked against `want` per step; returns the counts."""
     from credit_torch.convert_jax import init_folded
     from credit_torch.data.channels import ChannelSchema
-    from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
     from credit_torch.rollout import make_scan_rollout
 
-    conf = {"model": CONF_025, "data": DATA_025}
+    conf = {"model": model_conf, "data": data}
+    frames = model_conf.get("frames", 1)
+    h, w = model_conf["image_height"], model_conf["image_width"]
     schema = ChannelSchema.from_config(conf)
     t0 = time.time()
     model = init_folded(conf, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     model = model.to(torch.bfloat16)  # weights cast once, as the JAX bench does
     torch.cuda.synchronize()
     nparam = sum(p.numel() for p in model.parameters())
-    log(f"  CONF_025 model: {nparam} parameters, init+converge+fold {time.time() - t0:.1f} s")
-    if schema.n_input != model.base_input_channels or schema.n_prognostic != 56:
-        raise AssertionError((schema.n_input, schema.n_prognostic, model.base_input_channels))
+    log(f"  {name} model: {nparam} parameters, init+converge+fold {time.time() - t0:.1f} s")
+    if schema.n_input != model.base_input_channels:
+        raise AssertionError((schema.n_input, model.base_input_channels))
     g = torch.Generator(device="cuda").manual_seed(0)
-    x0 = (torch.randn((1, 1, 721, 1440, schema.n_input), generator=g, device="cuda")
+    x0 = (torch.randn((1, frames, h, w, schema.n_input), generator=g, device="cuda")
           * 0.5).to(torch.bfloat16)
 
-    warm = make_scan_rollout(model, schema, 1, device="cuda")
+    warm = make_scan_rollout(model, schema, 1, history_len=frames, device="cuda")
     t0 = time.time()
-    xw, _ = warm(x0)
+    warm(x0)
     torch.cuda.synchronize()
     log(f"  warm-up step: {(time.time() - t0) * 1e3:.1f} ms")
 
-    wrappers = {"conv2d_valid": cuda_conv.conv2d_valid, "fused_ff": cuda_ff.fused_ff,
-                "fused_window_attention": cuda_attention.fused_window_attention}
-    run = make_scan_rollout(model, schema, ROLLOUT_STEPS, device="cuda")
+    wrappers = _wrappers()
+    run = make_scan_rollout(model, schema, ROLLOUT_STEPS, history_len=frames, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for w in wrappers.values():
-        w.launches = 0
+    for wr in wrappers.values():
+        wr.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     final_x, stats = run(x0)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = {k: wr.launches for k, wr in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
-    log(f"  rollout {ROLLOUT_STEPS} steps: {elapsed * 1e3 / ROLLOUT_STEPS:.1f} ms/step, "
+    log(f"  {name} rollout {ROLLOUT_STEPS} steps: {elapsed * 1e3 / ROLLOUT_STEPS:.1f} ms/step, "
         f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} allocated before it), "
         f"launches {counts}")
-    want = expected_per_step(CONF_025)
-    for k, n in want.items():
-        if counts[k] != n * ROLLOUT_STEPS:
-            raise AssertionError(f"{k}: {counts[k]} launches, expected {n} x {ROLLOUT_STEPS}")
+    _check_counts(counts, want, ROLLOUT_STEPS)
     if final_x.shape != x0.shape or stats.shape != (ROLLOUT_STEPS, model.base_output_channels):
         raise AssertionError((tuple(final_x.shape), tuple(stats.shape)))
     fin = torch.isfinite(final_x).all().item() and torch.isfinite(stats).all().item()
@@ -492,44 +614,54 @@ def main_path(torch, profile: bool = False):
     if not fin:
         raise AssertionError("rollout produced non-finite values")
     if profile:
-        from credit_torch.rollout import make_scan_rollout as rollout
-
-        profile_steps(torch, "rollout step", rollout(model, schema, 2, device="cuda"),
+        profile_steps(torch, f"{name} rollout step",
+                      make_scan_rollout(model, schema, 2, history_len=frames, device="cuda"),
                       (x0,), steps=2)
+    return counts
 
 
-def train_path(torch, wrappers, profile: bool = False):
+def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
+               profile: bool = False) -> dict:
+    """TRAIN_STEPS training steps of `model_conf` (seeded f32 weights with
+    spectral-norm state, its bf16 compute, MSE, AdamW(0.9, 0.95) at lr 1e-4,
+    forecast_len 1, batch 1, its frames as history) after a warm-up step;
+    the launches are counted and checked against `want` per step; returns
+    the counts."""
     from credit_torch.convert_jax import init_train
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.losses import WeightedLoss
     from credit_torch.trainers.scheduler import constant
     from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
 
-    conf = {"model": CONF_025_TRAIN, "data": DATA_025, "trainer": TRAINER}
+    conf = {"model": model_conf, "data": data, "trainer": TRAINER}
+    frames = model_conf.get("frames", 1)
+    h, w = model_conf["image_height"], model_conf["image_width"]
     schema = ChannelSchema.from_config(conf)
     t0 = time.time()
     model = init_train(conf, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    if schema.n_target != model.base_output_channels or schema.n_target != 64:
+    if schema.n_target != model.base_output_channels:
         raise AssertionError((schema.n_target, model.base_output_channels))
     nparam = sum(p.numel() for p in model.parameters())
-    log(f"  CONF_025 training model: {nparam} f32 parameters with spectral-norm state, "
+    log(f"  {name} training model: {nparam} f32 parameters with spectral-norm state, "
         f"init+converge {time.time() - t0:.1f} s")
     optimizer = make_optimizer(conf, constant(TRAINER["learning_rate"]))
     state = TrainState.create(model, optimizer)
     step = make_train_step(model, WeightedLoss(base="mse"), optimizer, schema, forecast_len=1,
-                           device="cuda")
+                           history_len=frames, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"x": torch.randn((1, 1, 721, 1440, schema.n_input), generator=g, device="cuda") * 0.5,
-             "y": torch.randn((1, 1, 721, 1440, schema.n_target), generator=g, device="cuda") * 0.5}
+    batch = {"x": torch.randn((1, frames, h, w, schema.n_input), generator=g,
+                              device="cuda") * 0.5,
+             "y": torch.randn((1, 1, h, w, schema.n_target), generator=g, device="cuda") * 0.5}
     t0 = time.time()
     state, m = step(state, batch)
     torch.cuda.synchronize()
     log(f"  warm-up step: {(time.time() - t0) * 1e3:.1f} ms, loss {float(m['loss']):.6f}")
+    wrappers = _wrappers()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for w in wrappers.values():
-        w.launches = 0
+    for wr in wrappers.values():
+        wr.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     losses, norms = [], []
@@ -539,21 +671,19 @@ def train_path(torch, wrappers, profile: bool = False):
         norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = {k: wr.launches for k, wr in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     losses, norms = [float(v) for v in losses], [float(v) for v in norms]
-    log(f"  CONF_025 training step: {elapsed * 1e3 / TRAIN_STEPS:.1f} ms/step over "
+    log(f"  {name} training step: {elapsed * 1e3 / TRAIN_STEPS:.1f} ms/step over "
         f"{TRAIN_STEPS} steps, peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} "
         f"allocated before it), launches {counts}")
     log(f"  losses {losses}, grad norms {norms}")
-    want = expected_train_per_step(CONF_025_TRAIN)
-    for k, n in want.items():
-        if counts[k] != n * TRAIN_STEPS:
-            raise AssertionError(f"{k}: {counts[k]} launches, expected {n} x {TRAIN_STEPS}")
+    _check_counts(counts, want, TRAIN_STEPS)
     if not all(math.isfinite(v) for v in losses + norms) or state.step != TRAIN_STEPS + 1:
         raise AssertionError("training produced a non-finite loss or gradient norm")
     if profile:
-        profile_steps(torch, "training step", lambda b: step(state, b), (batch,), steps=1)
+        profile_steps(torch, f"{name} training step", lambda b: step(state, b), (batch,),
+                      steps=1)
     return counts
 
 
@@ -617,6 +747,7 @@ def main() -> int:
                     help="after each main path, profile a 2-step rollout / a training step "
                          "by kernel")
     args = ap.parse_args()
+    t_start = time.time()
 
     import torch
 
@@ -651,39 +782,63 @@ def main() -> int:
         attn = attention_cases(torch, g)
         ff_bwd = ff_bwd_cases(torch, g)
         wgrad = wgrad_cases(torch, g)
+    probe_bounds()
     torch.cuda.empty_cache()
 
-    log("phase 3: tiny model on the card against the CPU")
+    log("phase 3: tiny models on the card against the CPU")
     before = torch.cuda.memory_allocated()
-    tiny_agreement(torch)
+    tiny_agreement(torch, TINY, TINY_DATA)
+    log("  tiny FuXi, two input frames:")
+    tiny_agreement(torch, TINY_FUXI, TINY_FUXI_DATA)
     log(f"  allocated on the card: {before} bytes before phase 3, "
         f"{torch.cuda.memory_allocated()} after it")
+    runs = {}
+    fwd_025, fwd_fuxi = expected_per_step(CONF_025), expected_fuxi_per_step(CONF_FUXI)
     log("phase 4: main path 1, CONF_025 bf16 rollout")
-    main_path(torch, args.profile)
+    runs["rollout_025"] = rollout_path(torch, "CONF_025", CONF_025, DATA_025, fwd_025,
+                                       args.profile)
     torch.cuda.empty_cache()
     log("phase 5: main path 2, CONF_025 training step")
-    from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
-
-    wrappers = {"conv2d_valid": cuda_conv.conv2d_valid, "fused_ff": cuda_ff.fused_ff,
-                "fused_window_attention": cuda_attention.fused_window_attention,
-                "fused_ff_bwd": cuda_ff.fused_ff_bwd, "conv2d_wgrad": cuda_conv.conv2d_wgrad}
-    counts = train_path(torch, wrappers, args.profile)
+    runs["train_025"] = train_path(torch, "CONF_025", CONF_025_TRAIN, DATA_025,
+                                   expected_train_per_step(fwd_025, False), args.profile)
+    torch.cuda.empty_cache()
+    log("phase 6: main path 3, CONF_FUXI bf16 rollout (two input frames)")
+    runs["rollout_fuxi"] = rollout_path(torch, "CONF_FUXI", CONF_FUXI, DATA_FUXI, fwd_fuxi,
+                                        args.profile)
+    torch.cuda.empty_cache()
+    log("phase 7: main path 4, CONF_FUXI training step (two input frames)")
+    runs["train_fuxi"] = train_path(torch, "CONF_FUXI", CONF_FUXI, DATA_FUXI,
+                                    expected_train_per_step(fwd_fuxi, True), args.profile)
 
     kernels = []
-    for name, src, replaces, r in [
-            ("conv2d_valid", "credit_torch/csrc/conv_valid.cu",
-             "credit_tpu/ops/pallas_conv.py:110", conv),
-            ("fused_ff", "credit_torch/csrc/fused_ff.cu", "credit_tpu/ops/pallas_ff.py:475", ff),
-            ("fused_window_attention", "credit_torch/csrc/window_attention.cu",
-             "credit_tpu/ops/pallas_attention.py:75", attn),
-            ("fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
-             "credit_tpu/ops/pallas_ff.py:346", ff_bwd),
-            ("conv2d_wgrad", "credit_torch/csrc/conv_wgrad.cu",
-             "credit_tpu/ops/pallas_conv.py:245", wgrad)]:
-        # launches: the training run's (main path 2 runs all five; main
-        # path 1's counts are checked in phase 4)
+    for name, wrapper, src, replaces, r, paths in [
+            ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
+             "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
+             runs),
+            ("fused_ff pre-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
+             ("rollout_025", "train_025")),
+            ("fused_ff post-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
+             ("rollout_fuxi", "train_fuxi")),
+            ("fused_window_attention", "fused_window_attention",
+             "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
+             attn, ("rollout_025", "train_025")),
+            ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
+             "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
+             ("train_025",)),
+            ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
+             "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
+             ("train_fuxi",)),
+            ("conv2d_wgrad", "conv2d_wgrad", "credit_torch/csrc/conv_wgrad.cu",
+             "credit_tpu/ops/pallas_conv.py:245", wgrad[("stage0_embed_8x8", torch.bfloat16)],
+             runs)]:
+        # launches: the main-path runs of this kernel (mode); each path runs
+        # one FF form only, so a path's count of the wrapper is the mode's
+        by_path = {p: runs[p][wrapper] for p in paths}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name], **r})
+                        "launches": sum(by_path.values()), "launches_by_path": by_path, **r})
+    log(f"chip_smoke: {time.time() - t_start:.1f} s end to end")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -83,35 +83,40 @@ def _seeded_kernels(model: torch.nn.Module, conf: dict, generator: torch.Generat
                     n_iter: int):
     """For each kernel of `model`: (module path, parameter, seeded kernel,
     u, v), the kernel he_uniform (U(-sqrt(6/fan_in), +sqrt(6/fan_in)),
-    fan_in = every axis but the last). With `use_spectral_norm` u and v are
-    random unit vectors run n_iter power iterations against it in f64, as
-    credit_tpu's converge_spectral does; without, they are None. Draws come
-    from `generator` on its own device."""
+    fan_in = every axis but the last). Where the layer carries spectral norm
+    (its `spectral` flag, under the config's `use_spectral_norm`) u and v
+    are random unit vectors run n_iter power iterations against it in f64,
+    as credit_tpu's converge_spectral does; elsewhere they are None. Draws
+    come from `generator` on its own device. Every other parameter keeps
+    the value its module starts with (biases 0, norm scales 1, SwinV2
+    logit scales log 10)."""
     use_sn = conf["model"].get("use_spectral_norm", True)
+    mods = dict(model.named_modules())
     gdev = generator.device
     for name, p in model.named_parameters():
         if not name.endswith("kernel"):
             continue
+        path = name.rpartition(".")[0]
         fan_in = math.prod(p.shape[:-1])
         limit = math.sqrt(6.0 / fan_in)
         k = ((torch.rand(p.shape, generator=generator, device=gdev) * 2 - 1) * limit).to(dev)
         u = v = None
-        if use_sn:
+        if use_sn and mods[path].spectral:
             w = k.double().reshape(-1, p.shape[-1]).T  # (O, rest)
             u = torch.randn(w.shape[0], generator=generator, device=gdev).to(dev).double()
             v = torch.randn(w.shape[1], generator=generator, device=gdev).to(dev).double()
             u, v = u / (u.norm() + 1e-12), v / (v.norm() + 1e-12)
             u, v = power_iteration(w, u, v, n_iter)
-        yield name.rpartition(".")[0], p, k, u, v
+        yield path, p, k, u, v
 
 
 def init_folded(conf: dict, generator: torch.Generator, device="cuda",
                 n_iter: int = 30) -> torch.nn.Module:
-    """The inference model for `conf` with seeded weights (`_seeded_kernels`;
-    biases zero, norm scales one). With `use_spectral_norm` (the default)
-    each kernel is divided by sigma = u . (W v) of its converged u, v, as
-    credit_tpu's converge_spectral + fold_spectral do, so activations stay
-    bounded at full scale."""
+    """The inference model for `conf` with seeded weights (`_seeded_kernels`).
+    With `use_spectral_norm` (the default) each kernel of a spectrally
+    normalised layer is divided by sigma = u . (W v) of its converged u, v,
+    as credit_tpu's converge_spectral + fold_spectral do, so activations
+    stay bounded at full scale."""
     dev = resolve_device(device)
     model = load_model(conf, device=dev)
     with torch.no_grad():

@@ -1,21 +1,28 @@
-// Fused pre-norm feed-forward with its residual: x + fc2(GELU(fc1(LN(x)))).
+// Fused feed-forward with its residual, in the two forms of the TPU kernel:
+//   pre-norm (CrossFormer):  x + fc2(GELU(fc1(LN(x))))
+//   post-norm (SwinV2/FuXi): x + LN(fc2(GELU(fc1(x))))
 //
 // Replaces credit_tpu/ops/pallas_ff.py fused_ff (_ff_kernel at :58, the
-// pallas_calls at :516 and :538), pre-norm form. Every transformer FF of the
-// flagship runs through it: 28 calls per rollout step at C = 128..1024 with
-// hidden = 4C.
+// pallas_calls at :516 and :538), both forms. Every transformer FF of the
+// flagship runs through the pre-norm form (28 calls per rollout step at
+// C = 128..1024, hidden = 4C); every SwinV2 MLP of FuXi through the
+// post-norm form (16 calls per step at C = 1024, M = 16905 tokens).
 //
 // Bound on the H100: at hidden = 4C each row does 16*C flops per byte-pair
 // of x and out, which is above the card's ridge from C ~ 64 upwards, so the
 // products bound it once the 4C-wide hidden stays out of device memory. The
-// design keeps it out: a block owns BM token rows; it computes the LN
-// statistics in f32 (one warp per row), keeps LN(x) in the input dtype in
-// shared memory, then walks the hidden dimension in chunks:
-//   h = LN(x) . w1[:, chunk] + b1   (f32 accumulators)
+// design keeps it out: a block owns BM token rows; pre-norm computes the LN
+// statistics in f32 (one warp per row) and keeps LN(x) in the input dtype in
+// shared memory, post-norm keeps x itself there; then it walks the hidden
+// dimension in chunks:
+//   h = y . w1[:, chunk] + b1       (f32 accumulators)
 //   GELU exact (erff), cast to the input dtype, into shared memory
 //   acc += h . w2[chunk, :]         (f32 accumulators)
-// and at the end adds b2, casts, and adds the residual x in the input dtype
-// -- the rounding points of the TPU kernel (pallas_ff.py:68-79).
+// and at the end adds b2 in f32; post-norm takes the LN of that f32 row (two
+// passes over the row: the mean, then the mean of squared deviations, summed
+// across the warps that share the row in shared memory, over the true C
+// only); then it casts and adds the residual x in the input dtype -- the
+// rounding points of the TPU kernel (pallas_ff.py:68-79).
 //
 // bf16 runs both products on the tensor cores with mma.sync m16n8k16 and
 // ldmatrix from shared memory. A block of 16 warps owns BM = 32768 / cpad
@@ -25,11 +32,12 @@
 // weights stream through a 4-deep cp.async ring of K-slices (ks1 rows of
 // w1[:, chunk] or ks2 = ks1/4 rows of w2[chunk, :], the same bytes), one
 // barrier per slice; the x tile arrives by cp.async with the first slices
-// and is normalised in place. One ~220 KB block per SM. Each block re-reads
+// and is normalised in place (pre-norm). One ~220 KB block per SM. Each block re-reads
 // all the weights from L2, so the larger BM is, the less L2 traffic: at
 // C = 1024 (BM = 32, 16 MB of weights a block) that traffic bounds the
-// kernel. f32 is plain FMA, 16 rows per block, accumulators in registers
-// (C <= 1024).
+// kernel. The wrapper zero-pads C; padded columns of the output are zero
+// before the post-norm LN, which leaves them out of its statistics. f32 is
+// plain FMA, 16 rows per block, accumulators in registers (C <= 1024).
 #include "common.cuh"
 
 namespace credit {
@@ -70,6 +78,15 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ g
     for (int k = lane; k < cpad; k += 32)
       yr[k] = k < c ? from_f32<T>((to_f32(xr[k]) - mean) * rstd * to_f32(gam[k]) + to_f32(bet[k]))
                     : from_f32<T>(0.f);
+  }
+}
+
+// x rows [m0, m0+BM) into y as they are (post-norm: fc1 reads x), zero past M.
+template <typename T>
+__device__ void copy_rows(const T* __restrict__ x, T* y, int m0, int bm, int m, int c) {
+  for (int i = threadIdx.x; i < bm * c; i += blockDim.x) {
+    const int r = i / c;
+    y[i] = m0 + r < m ? x[(size_t)m0 * c + i] : from_f32<T>(0.f);
   }
 }
 
@@ -223,7 +240,8 @@ __device__ inline void layer_norm_in_place(__nv_bfloat16* y, const __nv_bfloat16
 
 // x (m, c); w1 (cpad, hidden); w2 (hidden, cpad); gam, bet, b2 (cpad,);
 // b1 (hidden,); cpad = Tiling<RT>::CPAD, hidden % (cpad / 4) == 0.
-template <int RT>
+// POST: post-norm form (no input LN; LN of fc2's f32 output).
+template <int RT, bool POST>
 __global__ void __launch_bounds__(THREADS_BF16, 1)
 fused_ff_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gam,
               const __nv_bfloat16* __restrict__ bet, const __nv_bfloat16* __restrict__ w1,
@@ -273,7 +291,7 @@ fused_ff_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
   }
   cp_async_wait<NS - 1>();  // the x tile has landed
   __syncthreads();
-  layer_norm_in_place(sy, gam, bet, BM, c, LDY);
+  if constexpr (!POST) layer_norm_in_place(sy, gam, bet, BM, c, LDY);
 
   float hacc[2 * NFH][4], oacc[2 * NFO][4];
 #pragma unroll
@@ -318,17 +336,100 @@ fused_ff_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
     }
   }
 
-  // + b2 and cast, into the LN tile, then the residual in 16-byte vectors
-  __syncthreads();
+  // + b2 in f32; post-norm: LN of each f32 row; cast into the y tile, then
+  // the residual in 16-byte vectors. Element e of oacc[i * NFO + t] sits at
+  // row row0 + 16 i + lane / 4 + 8 (e / 2), column ocol0 + 8 t + 2 (lane % 4)
+  // + e % 2.
+  __syncthreads();  // every warp is done with the ring and the hidden tile
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < NFO; ++t) {
+      const int col = ocol0 + t * 8 + (lane % 4) * 2;
+      const float c0 = __bfloat162float(b2[col]), c1 = __bfloat162float(b2[col + 1]);
+      float* o = oacc[i * NFO + t];
+      o[0] += c0, o[1] += c1, o[2] += c0, o[3] += c1;
+    }
+  if constexpr (POST) {
+    // the row's partial sums of the WN warps that share it, summed in a
+    // fixed order; columns at or past c (zero-padded) are left out
+    float* red = reinterpret_cast<float*>(ring);  // [BM][WN]
+    const int wn = warp % Tl::WN;
+    auto row_sums = [&](float (&v)[2][2]) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[i][h] += __shfl_xor_sync(0xffffffffu, v[i][h], 1);
+          v[i][h] += __shfl_xor_sync(0xffffffffu, v[i][h], 2);
+          if (lane % 4 == 0) red[(row0 + 16 * i + lane / 4 + 8 * h) * Tl::WN + wn] = v[i][h];
+        }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* rr = red + (row0 + 16 * i + lane / 4 + 8 * h) * Tl::WN;
+          float s = 0.f;
+          for (int w = 0; w < Tl::WN; ++w) s += rr[w];
+          v[i][h] = s;
+        }
+      __syncthreads();
+    };
+    float mean[2][2] = {}, rstd[2][2] = {};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < NFO; ++t)
+        if (ocol0 + t * 8 < c) {  // c % 8 == 0: a column pair is in or out together
+          const float* o = oacc[i * NFO + t];
+          mean[i][0] += o[0] + o[1];
+          mean[i][1] += o[2] + o[3];
+        }
+    row_sums(mean);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mean[i][h] /= c;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < NFO; ++t)
+        if (ocol0 + t * 8 < c) {
+          const float* o = oacc[i * NFO + t];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float d = o[e] - mean[i][e / 2];
+            rstd[i][e / 2] += d * d;
+          }
+        }
+    row_sums(rstd);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rstd[i][h] = rsqrtf(rstd[i][h] / c + kEps);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < NFO; ++t) {
+        const int col = ocol0 + t * 8 + (lane % 4) * 2;
+        const float g0 = __bfloat162float(gam[col]), g1 = __bfloat162float(gam[col + 1]);
+        const float e0 = __bfloat162float(bet[col]), e1 = __bfloat162float(bet[col + 1]);
+        float* o = oacc[i * NFO + t];
+        o[0] = (o[0] - mean[i][0]) * rstd[i][0] * g0 + e0;
+        o[1] = (o[1] - mean[i][0]) * rstd[i][0] * g1 + e1;
+        o[2] = (o[2] - mean[i][1]) * rstd[i][1] * g0 + e0;
+        o[3] = (o[3] - mean[i][1]) * rstd[i][1] * g1 + e1;
+      }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int t = 0; t < NFO; ++t) {
       const int col = ocol0 + t * 8 + (lane % 4) * 2, r = row0 + i * 16 + lane / 4;
-      const float c0 = __bfloat162float(b2[col]), c1 = __bfloat162float(b2[col + 1]);
       const float* o = oacc[i * NFO + t];
-      *reinterpret_cast<uint32_t*>(sy + r * LDY + col) = pack_bf16(o[0] + c0, o[1] + c1);
-      *reinterpret_cast<uint32_t*>(sy + (r + 8) * LDY + col) = pack_bf16(o[2] + c0, o[3] + c1);
+      *reinterpret_cast<uint32_t*>(sy + r * LDY + col) = pack_bf16(o[0], o[1]);
+      *reinterpret_cast<uint32_t*>(sy + (r + 8) * LDY + col) = pack_bf16(o[2], o[3]);
     }
   __syncthreads();
   const int vecs = c / 8;
@@ -349,15 +450,16 @@ fused_ff_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
   }
 }
 
-template <int RT>
+template <int RT, bool POST>
 void launch_bf16(const void* x, const void* gam, const void* bet, const void* w1, const void* b1,
                  const void* w2, const void* b2, void* out, int m, int c, int hidden,
                  cudaStream_t s) {
   constexpr int CPAD = Tiling<RT>::CPAD, BM = Tiling<RT>::BM;
   const int ks2 = slice_rows(CPAD);
   const size_t smem = smem_bf16(CPAD, ks2);
-  cudaFuncSetAttribute(fused_ff_bf16<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  fused_ff_bf16<RT><<<(m + BM - 1) / BM, THREADS_BF16, smem, s>>>(
+  cudaFuncSetAttribute(fused_ff_bf16<RT, POST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  fused_ff_bf16<RT, POST><<<(m + BM - 1) / BM, THREADS_BF16, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gam),
       static_cast<const __nv_bfloat16*>(bet), static_cast<const __nv_bfloat16*>(w1),
       static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(w2),
@@ -369,6 +471,7 @@ constexpr int BM32 = 16;
 constexpr int HC32 = 64;
 constexpr int COLS32 = MAX_C / THREADS_F32;  // output columns per thread
 
+template <bool POST>
 __global__ void __launch_bounds__(THREADS_F32)
 fused_ff_f32(const float* __restrict__ x, const float* __restrict__ gam,
              const float* __restrict__ bet, const float* __restrict__ w1,
@@ -379,7 +482,10 @@ fused_ff_f32(const float* __restrict__ x, const float* __restrict__ gam,
   float* hs = y + BM32 * c;                   // (BM32, HC32)
   const int m0 = blockIdx.x * BM32;
 
-  layer_norm_rows(x, gam, bet, y, c, m0, BM32, m, c, c);
+  if constexpr (POST)
+    copy_rows(x, y, m0, BM32, m, c);
+  else
+    layer_norm_rows(x, gam, bet, y, c, m0, BM32, m, c, c);
 
   float acc[BM32][COLS32];
 #pragma unroll
@@ -420,14 +526,96 @@ fused_ff_f32(const float* __restrict__ x, const float* __restrict__ gam,
 #pragma unroll
   for (int q = 0; q < COLS32; ++q) {
     const int k = threadIdx.x + q * THREADS_F32;
+#pragma unroll
+    for (int r = 0; r < BM32; ++r) acc[r][q] = k < c ? acc[r][q] + b2[k] : 0.f;
+  }
+  if constexpr (POST) {
+    // LN of each f32 row: per-warp partial sums in shared memory, summed in
+    // a fixed order; two passes (mean, then squared deviations)
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float* red = hs;  // [BM32][WARPS_F32]
+    float mean[BM32], rstd[BM32];
+    auto row_sum = [&](float (&v)[BM32]) {
+      __syncthreads();  // the previous readers of hs are done
+#pragma unroll
+      for (int r = 0; r < BM32; ++r) {
+        const float s = warp_sum(v[r]);
+        if (lane == 0) red[r * WARPS_F32 + warp] = s;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < BM32; ++r) {
+        float s = 0.f;
+        for (int w = 0; w < WARPS_F32; ++w) s += red[r * WARPS_F32 + w];
+        v[r] = s;
+      }
+    };
+#pragma unroll
+    for (int r = 0; r < BM32; ++r) {
+      mean[r] = 0.f;
+#pragma unroll
+      for (int q = 0; q < COLS32; ++q) mean[r] += acc[r][q];  // zero past c
+    }
+    row_sum(mean);
+#pragma unroll
+    for (int r = 0; r < BM32; ++r) {
+      mean[r] /= c;
+      rstd[r] = 0.f;
+#pragma unroll
+      for (int q = 0; q < COLS32; ++q) {
+        const float d = acc[r][q] - mean[r];
+        if (threadIdx.x + q * THREADS_F32 < c) rstd[r] += d * d;
+      }
+    }
+    row_sum(rstd);
+#pragma unroll
+    for (int r = 0; r < BM32; ++r) rstd[r] = rsqrtf(rstd[r] / c + kEps);
+#pragma unroll
+    for (int q = 0; q < COLS32; ++q) {
+      const int k = threadIdx.x + q * THREADS_F32;
+      if (k >= c) continue;
+#pragma unroll
+      for (int r = 0; r < BM32; ++r)
+        acc[r][q] = (acc[r][q] - mean[r]) * rstd[r] * gam[k] + bet[k];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < COLS32; ++q) {
+    const int k = threadIdx.x + q * THREADS_F32;
     if (k >= c) continue;
 #pragma unroll
     for (int r = 0; r < BM32; ++r) {
       if (m0 + r >= m) continue;
       const size_t at = (size_t)(m0 + r) * c + k;
-      out[at] = x[at] + (acc[r][q] + b2[k]);
+      out[at] = x[at] + acc[r][q];
     }
   }
+}
+
+template <bool POST>
+void launch_bf16_width(const void* x, const void* gam, const void* bet, const void* w1,
+                       const void* b1, const void* w2, const void* b2, void* out, int m, int c,
+                       int cpad, int hidden, cudaStream_t s) {
+  switch (cpad) {
+    case 128: launch_bf16<16, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+    case 256: launch_bf16<8, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+    case 512: launch_bf16<4, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+    default: launch_bf16<2, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
+  }
+}
+
+template <bool POST>
+void launch_f32(const void* x, const void* gam, const void* bet, const void* w1, const void* b1,
+                const void* w2, const void* b2, void* out, int m, int c, int hidden,
+                cudaStream_t s) {
+  const size_t smem = (size_t)(BM32 * c + BM32 * HC32) * 4;
+  cudaFuncSetAttribute(fused_ff_f32<POST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  fused_ff_f32<POST><<<(m + BM32 - 1) / BM32, THREADS_F32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gam),
+      static_cast<const float*>(bet), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), m, c, hidden);
 }
 
 }  // namespace ff
@@ -447,29 +635,26 @@ extern "C" int credit_fused_ff_chunk(int cpad) { return cpad / 4; }
 // b1 (hidden,), w2 (hidden, cpad), cpad = credit_fused_ff_width(c),
 // zero-padded, hidden a multiple of credit_fused_ff_chunk(cpad); every
 // pointer 16-byte aligned. f32: the same with cpad == c and any hidden.
+// post_norm: 0 for x + fc2(GELU(fc1(LN(x)))), 1 for x + LN(fc2(GELU(fc1(x)))).
 extern "C" int credit_fused_ff(const void* x, const void* gam, const void* bet, const void* w1,
                                const void* b1, const void* w2, const void* b2, void* out,
-                               int dtype, int m, int c, int cpad, int hidden, void* stream) {
+                               int dtype, int m, int c, int cpad, int hidden, int post_norm,
+                               void* stream) {
   using namespace credit::ff;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || c < 1 || c > MAX_C || c % 8) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16) {
     if (cpad != padded_width(c) || hidden % (cpad / 4)) return (int)cudaErrorInvalidValue;
-    switch (cpad) {
-      case 128: launch_bf16<16>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-      case 256: launch_bf16<8>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-      case 512: launch_bf16<4>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-      default: launch_bf16<2>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-    }
+    if (post_norm)
+      launch_bf16_width<true>(x, gam, bet, w1, b1, w2, b2, out, m, c, cpad, hidden, s);
+    else
+      launch_bf16_width<false>(x, gam, bet, w1, b1, w2, b2, out, m, c, cpad, hidden, s);
   } else if (dtype == kF32) {
     if (cpad != c) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(BM32 * c + BM32 * HC32) * 4;
-    cudaFuncSetAttribute(fused_ff_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    fused_ff_f32<<<(m + BM32 - 1) / BM32, THREADS_F32, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gam),
-        static_cast<const float*>(bet), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<const float*>(b2), static_cast<float*>(out), m, c, hidden);
+    if (post_norm)
+      launch_f32<true>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s);
+    else
+      launch_f32<false>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

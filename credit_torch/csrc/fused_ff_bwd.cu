@@ -1,22 +1,28 @@
-// Backward of the fused pre-norm feed-forward x + fc2(GELU(fc1(LN(x)))):
+// Backward of the fused feed-forward with its residual, in the two forms of
+// the TPU kernel:
+//   pre-norm (CrossFormer):  out = x + fc2(GELU(fc1(LN(x))))
+//   post-norm (SwinV2/FuXi): out = x + LN(fc2(GELU(fc1(x))))
 // dx and the parameter gradients dg, db, dw1, db1, dw2, db2 summed over the
 // rows in f32, recomputed from x and the cotangent ct.
 //
 // Replaces credit_tpu/ops/pallas_ff.py fused_ff_bwd (_ff_bwd_kernel at :214,
-// the pallas_call at :400), pre-norm form. In the port's training step every
-// transformer FF's backward runs through it: 28 calls per step at
-// C = 128..1024, hidden H = 4C, M = 288000..4500 rows.
+// the pallas_call at :400), both forms. In the port's training step every
+// transformer FF's backward runs through it: 28 pre-norm calls per step at
+// C = 128..1024, hidden H = 4C, M = 288000..4500 rows (the WXFormer), 16
+// post-norm calls at C = 1024, M = 16905 (FuXi).
 //
-// Bound on the H100: operations. Five products of 2*M*C*H flops each
-// (h1 = y.w1, da = ct.w2^T, dy = dh1.w1^T, dw1 = y^T.dh1, dw2 = a^T.ct), 10 M C
-// H in all, against ~4 M C bytes of x, ct and dx: ~190 GFLOP per call at
-// every stage, 0.19 ms at the bf16 peak.
+// Bound on the H100: operations. Pre-norm has five products of 2*M*C*H flops
+// each (h1 = y.w1, da = ct.w2^T, dy = dh1.w1^T, dw1 = y^T.dh1, dw2 = a^T.ct),
+// 10 M C H in all, against ~4 M C bytes of x, ct and dx: ~190 GFLOP per call
+// at every WXFormer stage, 0.19 ms at the bf16 peak. Post-norm recomputes
+// o2 = a.w2 as well: 12 M C H.
 //
 // Design, right and simple first. The TPU kernel keeps the 4C-wide h1, GELU
 // and dh1 in VMEM and sums the weight gradients across a grid that runs in
 // order. On Hopper blocks run in parallel and a block cannot hold a C x 4C
 // f32 partial (256 KB at C = 128), so the weight gradients are split-K
-// products over the rows, and the work is six passes on the caller's stream:
+// products over the rows, and the work is a chain of passes on the caller's
+// stream. Pre-norm:
 //   1. LN rows: y = LN(x) in x's dtype (one warp per row, f32 statistics);
 //   2. h1 = y.w1 + b1 and da = ct.w2^T in one block tile (two tensor-core
 //      products), then a = GELU(h1) and dh1 = da * GELU'(h1), written to two
@@ -29,14 +35,24 @@
 //   5. dw1 = y^T.dh1 and dw2 = a^T.ct, split over the rows into partials;
 //   6. every partial summed in a fixed order, so the result does not change
 //      from run to run.
-// Unlike the TPU kernel it writes the two M x 4C intermediates a and dh1
-// (and M x C of y and of f32 dy) to device memory: at stage 0 in bf16 that
-// is ~2.0 GB of extra traffic per call (PERF.md counts it).
+// Post-norm (y = x, no input LN; the cotangent passes the output LN first):
+//   1. a = GELU(x.w1 + b1) in x's dtype;
+//   2. o2 = a.w2 (f32, M x C);
+//   3. per row: o2 + b2, its LN statistics (two passes) and ohat; do2 = the
+//      LN backward of ct g, in x's dtype, with per row block the column sums
+//      of ct ohat (dg), ct (db) and the f32 do2 (db2);
+//   4. pass 2 of pre-norm with y = x and do2 as the cotangent: dh1 and db1;
+//   5. dy = dh1.w1^T; 6. dx = ct + dy;
+//   7. dw1 = x^T.dh1 and dw2 = a^T.do2, split over the rows; 8. the sums.
+// Unlike the TPU kernel it writes the M x 4C intermediates a and dh1 (and
+// M x C of y or do2 and of f32 dy or o2) to device memory: at the WXFormer's
+// stage 0 in bf16 that is ~2.0 GB of extra traffic per call (PERF.md counts
+// it).
 //
-// Numerics are the TPU kernel's (pallas_ff.py:239-294): y, a, ct and dh1 are
-// in x's dtype where they enter a product; LN statistics, Phi, the pdf and
-// every accumulator are f32; erf is the exact erff, where the TPU kernel used
-// Abramowitz-Stegun 7.1.26 (1.5e-7 absolute). Any M is taken: ragged row
+// Numerics are the TPU kernel's (pallas_ff.py:239-294): y, a, ct, do2 and dh1
+// are in x's dtype where they enter a product; LN statistics, Phi, the pdf
+// and every accumulator are f32; erf is the exact erff, where the TPU kernel
+// used Abramowitz-Stegun 7.1.26 (1.5e-7 absolute). Any M is taken: ragged row
 // tiles are masked. bf16 runs the products on mma.sync m16n8k16 with
 // ldmatrix through a 3-deep cp.async ring; f32 runs them on FMA.
 #include <algorithm>
@@ -131,6 +147,67 @@ ln_bwd_rows(const T* __restrict__ x, const T* __restrict__ ct, const float* __re
     for (int w = 0; w < WARPS; ++w) s += cols[(size_t)w * 3 * c + k];
     part[(size_t)blockIdx.x * 3 * c + k] = s;
   }
+}
+
+// Post-norm LN backward, one warp per row, LN_ROWS rows per block: with
+// o = o2 + b2, ohat = (o - mean) rstd and dohat = ct g,
+// do2 = rstd (dohat - mean(dohat) - ohat mean(dohat ohat)) in x's dtype.
+// Column sums of ct ohat, ct and the f32 do2 over the block's rows go to
+// part[block][0..3c) (dg | db | db2), summed over the warps in order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ln_post_bwd_rows(const float* __restrict__ o2, const T* __restrict__ b2, const T* __restrict__ ct,
+                 const T* __restrict__ gam, T* __restrict__ do2, float* __restrict__ part, int m,
+                 int c) {
+  extern __shared__ __align__(16) float cols[];  // [WARPS][3][c]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* mine = cols + (size_t)warp * 3 * c;
+  for (int k = lane; k < 3 * c; k += 32) mine[k] = 0.f;
+  const int r0 = blockIdx.x * LN_ROWS;
+  for (int r = r0 + warp; r < min(m, r0 + LN_ROWS); r += WARPS) {
+    const float* orow = o2 + (size_t)r * c;
+    const T* cr = ct + (size_t)r * c;
+    float s = 0.f;
+    for (int k = lane; k < c; k += 32) s += orow[k] + to_f32(b2[k]);
+    const float mean = warp_sum(s) / c;
+    float v = 0.f;
+    for (int k = lane; k < c; k += 32) {
+      const float d = orow[k] + to_f32(b2[k]) - mean;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / c + kEps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = lane; k < c; k += 32) {
+      const float ohat = (orow[k] + to_f32(b2[k]) - mean) * rstd, g = to_f32(cr[k]);
+      const float doh = g * to_f32(gam[k]);
+      s1 += doh;
+      s2 += doh * ohat;
+      mine[k] += g * ohat;
+      mine[c + k] += g;
+    }
+    const float m1 = warp_sum(s1) / c, m2 = warp_sum(s2) / c;
+    for (int k = lane; k < c; k += 32) {
+      const float ohat = (orow[k] + to_f32(b2[k]) - mean) * rstd;
+      const float d = rstd * (to_f32(cr[k]) * to_f32(gam[k]) - m1 - ohat * m2);
+      mine[2 * c + k] += d;
+      do2[(size_t)r * c + k] = from_f32<T>(d);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < 3 * c; k += THREADS) {
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s += cols[(size_t)w * 3 * c + k];
+    part[(size_t)blockIdx.x * 3 * c + k] = s;
+  }
+}
+
+// dx = ct + dy in x's dtype (post-norm: the residual passes ct through)
+template <typename T>
+__global__ void add_rows(const T* __restrict__ ct, const float* __restrict__ dy,
+                         T* __restrict__ dx, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dx[i] = from_f32<T>(to_f32(ct[i]) + dy[i]);
 }
 
 // out[i] = sum over s < nsum of part[s * n + i], in that order
@@ -264,10 +341,12 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 // and column n0 + 8 NT wn + 8 j + 2 (lane % 4) + e % 2.
 
 // Pass 2: h1 = y.w1 + b1, da = ct.w2^T; a = GELU(h1), dh1 = da GELU'(h1)
-// into (m, hidden) arrays; the column sums of dh1 over this block's rows
-// into dbpart[blockIdx.y][hidden].
+// into (m, hidden) arrays (a only where a_out is given); the column sums of
+// dh1 over this block's rows into dbpart[blockIdx.y][hidden]. GRAD = false
+// (post-norm pass 1): h1 and a only.
 constexpr int G_MT = 4, G_NT = 2;  // 128 x 64 tiles
 
+template <bool GRAD>
 __global__ void __launch_bounds__(THREADS)
 gelu_bwd_bf16(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ ct,
               const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
@@ -284,7 +363,7 @@ gelu_bwd_bf16(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restri
   zero(h);
   zero(d);
   mma_loop<false, false>(h, y, c, w1, hidden, m, hidden, m0, n0, 0, c, smem);
-  mma_loop<false, true>(d, ct, c, w2, c, m, hidden, m0, n0, 0, c, smem);
+  if constexpr (GRAD) mma_loop<false, true>(d, ct, c, w2, c, m, hidden, m0, n0, 0, c, smem);
   // row group (wm, lane / 4) x column: one writer each, summed in order below
   float* red = reinterpret_cast<float*>(smem_raw);  // [16][BN]
   float colsum[G_NT][2];
@@ -301,11 +380,14 @@ gelu_bwd_bf16(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restri
         if (r >= m || col >= hidden) continue;
         const float h1 = h[i][j][e] + __bfloat162float(b1[col]);
         const float p = phi_of(h1);
-        const float dh = d[i][j][e] * (p + h1 * expf(-0.5f * h1 * h1) * kInvSqrt2Pi);
-        a_out[(size_t)r * hidden + col] = __float2bfloat16(h1 * p);
-        dh_out[(size_t)r * hidden + col] = __float2bfloat16(dh);
-        colsum[j][e % 2] += dh;
+        if (a_out != nullptr) a_out[(size_t)r * hidden + col] = __float2bfloat16(h1 * p);
+        if constexpr (GRAD) {
+          const float dh = d[i][j][e] * (p + h1 * expf(-0.5f * h1 * h1) * kInvSqrt2Pi);
+          dh_out[(size_t)r * hidden + col] = __float2bfloat16(dh);
+          colsum[j][e % 2] += dh;
+        }
       }
+  if constexpr (!GRAD) return;
 #pragma unroll
   for (int j = 0; j < G_NT; ++j)
 #pragma unroll
@@ -393,6 +475,7 @@ __device__ void fma_loop(float (&acc)[4][4], const float* __restrict__ A, int ld
   __syncthreads();
 }
 
+template <bool GRAD>
 __global__ void __launch_bounds__(THREADS)
 gelu_bwd_f32(const float* __restrict__ y, const float* __restrict__ ct,
              const float* __restrict__ w1, const float* __restrict__ b1,
@@ -404,7 +487,7 @@ gelu_bwd_f32(const float* __restrict__ y, const float* __restrict__ ct,
   const int m0 = blockIdx.y * F_B, n0 = blockIdx.x * F_B;
   float h[4][4] = {}, d[4][4] = {};
   fma_loop<false, false>(h, y, c, w1, hidden, m, hidden, m0, n0, 0, c, sa, sb);
-  fma_loop<false, true>(d, ct, c, w2, c, m, hidden, m0, n0, 0, c, sa, sb);
+  if constexpr (GRAD) fma_loop<false, true>(d, ct, c, w2, c, m, hidden, m0, n0, 0, c, sa, sb);
   float colsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -414,11 +497,14 @@ gelu_bwd_f32(const float* __restrict__ y, const float* __restrict__ ct,
       if (r >= m || col >= hidden) continue;
       const float h1 = h[i][j] + b1[col];
       const float p = phi_of(h1);
-      const float dh = d[i][j] * (p + h1 * expf(-0.5f * h1 * h1) * kInvSqrt2Pi);
-      a_out[(size_t)r * hidden + col] = h1 * p;
-      dh_out[(size_t)r * hidden + col] = dh;
-      colsum[j] += dh;
+      if (a_out != nullptr) a_out[(size_t)r * hidden + col] = h1 * p;
+      if constexpr (GRAD) {
+        const float dh = d[i][j] * (p + h1 * expf(-0.5f * h1 * h1) * kInvSqrt2Pi);
+        dh_out[(size_t)r * hidden + col] = dh;
+        colsum[j] += dh;
+      }
     }
+  if constexpr (!GRAD) return;
 #pragma unroll
   for (int j = 0; j < 4; ++j) red[tm][tn * 4 + j] = colsum[j];
   __syncthreads();
@@ -501,53 +587,91 @@ inline int kper_for(int k, int splits, int bk) {
 
 template <typename T>
 void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const T* b1,
-         const T* w2, T* dx, float* dln, float* dw1, float* db1, float* dw2, unsigned char* work,
-         int m, int c, int hidden, cudaStream_t s) {
+         const T* w2, const T* b2, T* dx, float* dln, float* dw1, float* db1, float* dw2,
+         unsigned char* work, int m, int c, int hidden, bool post, cudaStream_t s) {
   constexpr bool BF = sizeof(T) == 2;
   const Plan p = plan(BF ? kBF16 : kF32, m, c, hidden);
+  // pre-norm: y = LN(x); post-norm: the slot holds do2 and fc1 reads x
   T* y = reinterpret_cast<T*>(work + p.y);
   T* a = reinterpret_cast<T*>(work + p.a);
   T* dh = reinterpret_cast<T*>(work + p.dh);
+  // post-norm: o2 first, dy once o2 is consumed
   float* dy = reinterpret_cast<float*>(work + p.dy);
   float* p1 = p.s1 > 1 ? reinterpret_cast<float*>(work + p.p1) : dw1;
   float* p2 = p.s2 > 1 ? reinterpret_cast<float*>(work + p.p2) : dw2;
   float* pdb = reinterpret_cast<float*>(work + p.pdb);
   float* pln = reinterpret_cast<float*>(work + p.pln);
+  const T* fc1_in = post ? x : y;
+  const T* grad_out = post ? y : ct;  // the cotangent of fc2's output
 
-  // 1. y = LN(x)
-  ln_rows<T><<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(x, gam, bet, y, m, c);
-  // 2. a, dh1 and the db1 partials
   const dim3 g2((hidden + p.bn_gelu - 1) / p.bn_gelu, p.row_tiles);
-  // 3. dy = dh1 . w1^T (M x C)
   const dim3 g3((c + p.tile - 1) / p.tile, (m + p.tile - 1) / p.tile, 1);
-  // 5. dw1 = y^T . dh1 (C x H), dw2 = a^T . ct (H x C), split over rows
   const int tk = BF ? BK : F_K;
   const int kp1 = kper_for(m, p.s1, tk), kp2 = kper_for(m, p.s2, tk);
   const dim3 g5a((hidden + p.tile - 1) / p.tile, (c + p.tile - 1) / p.tile, p.s1);
   const dim3 g5b((c + p.tile - 1) / p.tile, (hidden + p.tile - 1) / p.tile, p.s2);
+  const size_t smln = (size_t)WARPS * 3 * c * 4;
+  const size_t sm2 = Tile<G_MT, G_NT>::SMEM, smp = Tile<P_MT, P_NT>::SMEM;
   if constexpr (BF) {
-    const size_t sm2 = Tile<G_MT, G_NT>::SMEM, smp = Tile<P_MT, P_NT>::SMEM;
-    cudaFuncSetAttribute(gelu_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm2);
-    gelu_bwd_bf16<<<g2, THREADS, sm2, s>>>(y, ct, w1, b1, w2, a, dh, pdb, m, c, hidden);
+    cudaFuncSetAttribute(gelu_bwd_bf16<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)sm2);
     cudaFuncSetAttribute(gemm_bf16<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smp);
-    gemm_bf16<false, true><<<g3, THREADS, smp, s>>>(dh, hidden, w1, hidden, dy, m, c, hidden,
-                                                    hidden);
     cudaFuncSetAttribute(gemm_bf16<true, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smp);
-    gemm_bf16<true, false><<<g5a, THREADS, smp, s>>>(y, c, dh, hidden, p1, c, hidden, m, kp1);
-    gemm_bf16<true, false><<<g5b, THREADS, smp, s>>>(a, hidden, ct, c, p2, hidden, c, m, kp2);
-  } else {
-    gelu_bwd_f32<<<g2, THREADS, 0, s>>>(y, ct, w1, b1, w2, a, dh, pdb, m, c, hidden);
-    gemm_f32<false, true><<<g3, THREADS, 0, s>>>(dh, hidden, w1, hidden, dy, m, c, hidden, hidden);
-    gemm_f32<true, false><<<g5a, THREADS, 0, s>>>(y, c, dh, hidden, p1, c, hidden, m, kp1);
-    gemm_f32<true, false><<<g5b, THREADS, 0, s>>>(a, hidden, ct, c, p2, hidden, c, m, kp2);
   }
-  // 4. dx and the dg / db / db2 partials
-  const size_t sm4 = (size_t)WARPS * 3 * c * 4;
-  cudaFuncSetAttribute(ln_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm4);
-  ln_bwd_rows<T><<<p.ln_blocks, THREADS, sm4, s>>>(x, ct, dy, gam, dx, pln, m, c);
-  // 6. the partials, in a fixed order
+  if (post) {
+    // 1. a = GELU(x.w1 + b1); 2. o2 = a.w2; 3. do2 and the dg / db / db2 partials
+    if constexpr (BF) {
+      cudaFuncSetAttribute(gelu_bwd_bf16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sm2);
+      gelu_bwd_bf16<false><<<g2, THREADS, sm2, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, c,
+                                                    hidden);
+      cudaFuncSetAttribute(gemm_bf16<false, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smp);
+      gemm_bf16<false, false><<<g3, THREADS, smp, s>>>(a, hidden, w2, c, dy, m, c, hidden,
+                                                       hidden);
+    } else {
+      gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, c,
+                                                 hidden);
+      gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, c, dy, m, c, hidden, hidden);
+    }
+    cudaFuncSetAttribute(ln_post_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smln);
+    ln_post_bwd_rows<T><<<p.ln_blocks, THREADS, smln, s>>>(dy, b2, ct, gam, y, pln, m, c);
+  } else {
+    // 1. y = LN(x)
+    ln_rows<T><<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(x, gam, bet, y, m, c);
+  }
+  // 2. dh1 and the db1 partials (a as well, pre-norm); 3. dy = dh1 . w1^T;
+  // 5. dw1 = y^T . dh1 (C x H), dw2 = a^T . grad_out (H x C), split over rows
+  T* a_out = post ? nullptr : a;
+  if constexpr (BF) {
+    gelu_bwd_bf16<true><<<g2, THREADS, sm2, s>>>(fc1_in, grad_out, w1, b1, w2, a_out, dh, pdb, m,
+                                                 c, hidden);
+    gemm_bf16<false, true><<<g3, THREADS, smp, s>>>(dh, hidden, w1, hidden, dy, m, c, hidden,
+                                                    hidden);
+    gemm_bf16<true, false><<<g5a, THREADS, smp, s>>>(fc1_in, c, dh, hidden, p1, c, hidden, m,
+                                                     kp1);
+    gemm_bf16<true, false><<<g5b, THREADS, smp, s>>>(a, hidden, grad_out, c, p2, hidden, c, m,
+                                                     kp2);
+  } else {
+    gelu_bwd_f32<true><<<g2, THREADS, 0, s>>>(fc1_in, grad_out, w1, b1, w2, a_out, dh, pdb, m, c,
+                                              hidden);
+    gemm_f32<false, true><<<g3, THREADS, 0, s>>>(dh, hidden, w1, hidden, dy, m, c, hidden, hidden);
+    gemm_f32<true, false><<<g5a, THREADS, 0, s>>>(fc1_in, c, dh, hidden, p1, c, hidden, m, kp1);
+    gemm_f32<true, false><<<g5b, THREADS, 0, s>>>(a, hidden, grad_out, c, p2, hidden, c, m, kp2);
+  }
+  if (post) {
+    // 6. dx = ct + dy
+    const size_t n = (size_t)m * c;
+    add_rows<T><<<(int)std::min<size_t>((n + 255) / 256, 4096), 256, 0, s>>>(ct, dy, dx, n);
+  } else {
+    // 4. dx and the dg / db / db2 partials
+    cudaFuncSetAttribute(ln_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smln);
+    ln_bwd_rows<T><<<p.ln_blocks, THREADS, smln, s>>>(x, ct, dy, gam, dx, pln, m, c);
+  }
+  // the partials, in a fixed order
   if (p.s1 > 1) sum_into(p1, dw1, (size_t)c * hidden, p.s1, s);
   if (p.s2 > 1) sum_into(p2, dw2, (size_t)hidden * c, p.s2, s);
   sum_into(pdb, db1, hidden, p.row_tiles, s);
@@ -564,17 +688,18 @@ extern "C" long long credit_fused_ff_bwd_workspace(int dtype, int m, int c, int 
   return (long long)ffb::plan(dtype, m, c, hidden).total;
 }
 
-// x, ct, dx (m, c); gam, bet (c,); w1 (c, hidden); b1 (hidden,); w2
+// x, ct, dx (m, c); gam, bet, b2 (c,); w1 (c, hidden); b1 (hidden,); w2
 // (hidden, c), all of one dtype (kF32 or kBF16), contiguous, 16-byte
 // aligned, c and hidden multiples of 8 (b2 shifts no statistic in pre-norm
-// form, so the backward does not read it). Outputs f32: dln (3, c) = dg |
-// db | db2, dw1 (c, hidden), db1 (hidden,), dw2 (hidden, c). work:
-// credit_fused_ff_bwd_workspace bytes.
+// form, which does not read it). post_norm: 0 for the backward of
+// x + fc2(GELU(fc1(LN(x)))), 1 for x + LN(fc2(GELU(fc1(x)))). Outputs f32:
+// dln (3, c) = dg | db | db2, dw1 (c, hidden), db1 (hidden,), dw2 (hidden,
+// c). work: credit_fused_ff_bwd_workspace bytes.
 extern "C" int credit_fused_ff_bwd(const void* x, const void* ct, const void* gam,
                                    const void* bet, const void* w1, const void* b1,
-                                   const void* w2, void* dx, void* dln, void* dw1, void* db1,
-                                   void* dw2, void* work, int dtype, int m, int c, int hidden,
-                                   void* stream) {
+                                   const void* w2, const void* b2, void* dx, void* dln, void* dw1,
+                                   void* db1, void* dw2, void* work, int dtype, int m, int c,
+                                   int hidden, int post_norm, void* stream) {
   using ffb::MAX_C;
   if (m < 1 || c < 8 || c % 8 || hidden < 8 || hidden % 8 || c > MAX_C)
     return (int)cudaErrorInvalidValue;
@@ -585,14 +710,15 @@ extern "C" int credit_fused_ff_bwd(const void* x, const void* ct, const void* ga
     using B = __nv_bfloat16;
     ffb::run<B>(static_cast<const B*>(x), static_cast<const B*>(ct), static_cast<const B*>(gam),
                 static_cast<const B*>(bet), static_cast<const B*>(w1), static_cast<const B*>(b1),
-                static_cast<const B*>(w2), static_cast<B*>(dx), fl(dln), fl(dw1), fl(db1),
-                fl(dw2), wk, m, c, hidden, s);
+                static_cast<const B*>(w2), static_cast<const B*>(b2), static_cast<B*>(dx),
+                fl(dln), fl(dw1), fl(db1), fl(dw2), wk, m, c, hidden, post_norm != 0, s);
   } else if (dtype == kF32) {
     ffb::run<float>(static_cast<const float*>(x), static_cast<const float*>(ct),
                     static_cast<const float*>(gam), static_cast<const float*>(bet),
                     static_cast<const float*>(w1), static_cast<const float*>(b1),
-                    static_cast<const float*>(w2), static_cast<float*>(dx), fl(dln), fl(dw1),
-                    fl(db1), fl(dw2), wk, m, c, hidden, s);
+                    static_cast<const float*>(w2), static_cast<const float*>(b2),
+                    static_cast<float*>(dx), fl(dln), fl(dw1), fl(db1), fl(dw2), wk, m, c,
+                    hidden, post_norm != 0, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

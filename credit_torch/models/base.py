@@ -1,9 +1,37 @@
 """Base model utilities (port of credit_tpu/models/base.py): the
-(B, T, H, W, C) <-> flat-channel reshapes."""
+(B, T, H, W, C) <-> flat-channel reshapes, and construction from a config's
+model section."""
 
 from __future__ import annotations
 
+import inspect
+
 import torch
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class BaseModel(nn.Module):
+    """A ported model whose constructor arguments mirror the reference
+    config's model keys. `ROUTING_KEYS` are the reference's TPU routing
+    switches: on CUDA the port always takes its kernels, so they are
+    accepted and ignored."""
+
+    ROUTING_KEYS: tuple = ()
+
+    def _check_routing(self, routing: dict) -> None:
+        unknown = set(routing) - set(self.ROUTING_KEYS)
+        if unknown:
+            raise TypeError(f"{type(self).__name__}: unexpected arguments {sorted(unknown)}")
+
+    @classmethod
+    def from_config(cls, conf: dict, sn_state: bool = False) -> "BaseModel":
+        """Build from a gen2 config dict; model-section keys that are not
+        constructor arguments are ignored, as in the reference."""
+        names = set(inspect.signature(cls.__init__).parameters) | set(cls.ROUTING_KEYS)
+        mconf = {k: v for k, v in conf["model"].items() if k in names and k != "type"}
+        return cls(**mconf, sn_state=sn_state)
 
 
 def frames_to_channels(x: torch.Tensor) -> torch.Tensor:

@@ -13,19 +13,12 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
-from torch import nn
 
 from credit_torch import registry
-from credit_torch.models.base import channels_to_frames, frames_to_channels
+from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames, frames_to_channels
 from credit_torch.models.layers import ConvTranspose, CrossEmbedLayer, Transformer, UpBlock
 from credit_torch.ops.padding import TensorPadding
 from credit_torch.ops.upsample import bilinear_resize
-
-# TPU routing switches of the reference model; on CUDA the port always takes
-# its kernels, so these are accepted and ignored
-TPU_ROUTING_KEYS = ("pallas_conv", "ff_fusion", "use_pallas_attention", "scan_blocks", "remat")
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _tup(v, n=4):
@@ -34,12 +27,14 @@ def _tup(v, n=4):
 
 @registry.register("model", "crossformer")
 @registry.register("model", "wxformer")
-class CrossFormer(nn.Module):
+class CrossFormer(BaseModel):
     """Constructor arguments mirror the reference config's model keys.
     `use_spectral_norm` says whether the weights carry spectral norm. With
     `sn_state=False` (inference) it is folded into the kernels (see
     convert_jax); with `sn_state=True` every SN layer holds its u/v buffers
     and normalizes its kernel at each forward, iterating in `train()` mode."""
+
+    ROUTING_KEYS = ("pallas_conv", "ff_fusion", "use_pallas_attention", "scan_blocks", "remat")
 
     def __init__(self, image_height: int = 640, image_width: int = 1280,
                  patch_height: int = 1, patch_width: int = 1, frames: int = 2,
@@ -56,11 +51,10 @@ class CrossFormer(nn.Module):
                  sharp_skip: bool = False, out_image_height: Any = None,
                  out_image_width: Any = None, sn_state: bool = False, **routing):
         super().__init__()
-        unknown = set(routing) - set(TPU_ROUTING_KEYS)
-        if unknown:
-            raise TypeError(f"CrossFormer: unexpected arguments {sorted(unknown)}")
+        self._check_routing(routing)
         if patch_height > 1 and patch_width > 1:
-            raise NotImplementedError("CubeEmbedding is not ported yet (ROADMAP queue 1, item 3)")
+            raise NotImplementedError("the CrossFormer's cube-embed branch is not ported yet "
+                                      "(ROADMAP queue 1, item 3)")
         if upsample_with_ps:
             raise NotImplementedError("UpBlockPS is not ported yet (ROADMAP queue 1, item 3)")
         if sharp_skip:
@@ -96,16 +90,6 @@ class CrossFormer(nn.Module):
         self.up_block3 = UpBlock(last // 4 + dims[1], last // 8, ng, dtype=dt, sn=sn)
         out_ch = self.base_output_channels * output_frames
         self.up_block4 = ConvTranspose(last // 8 + dims[0], out_ch, 4, 2, 1, dt, sn)
-
-    @classmethod
-    def from_config(cls, conf: dict, sn_state: bool = False) -> "CrossFormer":
-        """Build from a gen2 config dict; model-section keys that are not
-        constructor arguments are ignored, as in the reference."""
-        import inspect
-
-        names = set(inspect.signature(cls.__init__).parameters) | set(TPU_ROUTING_KEYS)
-        mconf = {k: v for k, v in conf["model"].items() if k in names and k != "type"}
-        return cls(**mconf, sn_state=sn_state)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padder is not None:

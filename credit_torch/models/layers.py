@@ -1,4 +1,5 @@
-"""Building blocks of the CrossFormer: port of credit_tpu/models/layers.py.
+"""Building blocks of the CrossFormer and FuXi: port of
+credit_tpu/models/layers.py.
 
 Parameter names mirror the flax tree (`kernel` HWIO or (in, out), `bias`,
 `scale`), so a state_dict key is the flax path joined with dots. Activations
@@ -13,10 +14,12 @@ the kernels before they reached these modules (`convert_jax.init_folded`,
 `v` (rest,) buffers, named like the flax `spectral` collection's leaves, and
 computes with `sn_kernel()` = kernel / sigma; in `train()` mode one power
 iteration refreshes u and v per forward (torch spectral_norm semantics, as
-credit_tpu's SNMixin).
+credit_tpu's SNMixin). A layer's `spectral` says whether the reference
+normalises its kernel at all when the model's `use_spectral_norm` is on:
+every kernel of the CrossFormer, only the SN convs of FuXi.
 
-`UpBlockPS`, `CubeEmbedding` and the camulator `sharp` skip are not ported
-yet (ROADMAP queue 1).
+`UpBlockPS` and the camulator `sharp` skip are not ported yet (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ def _param(*shape, fill: float = 0.0) -> nn.Parameter:
 class _Kernel(nn.Module):
     """A layer with a `kernel` (..., O) and, with SN state, its u and v."""
 
+    spectral = True  # the reference's SN layers (SNConv, SNDense, ...)
+
     def _init_kernel(self, shape, sn: bool):
         self.kernel = _param(*shape)
         self.register_buffer("u", torch.zeros(shape[-1]) if sn else None)
@@ -60,9 +65,9 @@ class Dense(_Kernel):
     """x @ kernel (in, out) + bias, as one 2-D GEMM in the compute dtype."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 dtype=torch.float32, sn: bool = False):
+                 dtype=torch.float32, sn: bool = False, spectral: bool = True):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.spectral = dtype, spectral
         self._init_kernel((in_features, features), sn)
         self.bias = _param(features) if use_bias else None
 
@@ -204,9 +209,12 @@ class WindowAttention(nn.Module):
         self.to_out = Dense(self.inner, dim, dtype=dtype, sn=sn)
         self.register_buffer("rel_grid", torch.from_numpy(wa.relative_position_grid(window_size)),
                              persistent=False)
-        self.register_buffer("rel_index", torch.from_numpy(wa.relative_position_index(window_size)),
+        self.register_buffer("rel_index", wa.relative_position_index(window_size),
                              persistent=False)
         self.cache_bias = False
+        self.bias_cache = None
+
+    def clear_cache(self):
         self.bias_cache = None
 
     def position_bias(self):
@@ -229,16 +237,20 @@ class WindowAttention(nn.Module):
 
 @contextlib.contextmanager
 def position_bias_cache(model: nn.Module):
-    """Within this block every WindowAttention of `model` computes its
-    position-bias table once; the tables are dropped on exit."""
-    mods = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    """Within this block every attention module of `model` that depends on
+    parameters and shapes alone (`WindowAttention`'s position-bias table;
+    `swin.WindowAttentionV2`'s CPB table and shifted-window masks) computes
+    it once; the tables are dropped on exit."""
+    mods = [m for m in model.modules() if hasattr(m, "cache_bias")]
     for m in mods:
-        m.cache_bias, m.bias_cache = True, None
+        m.cache_bias = True
+        m.clear_cache()
     try:
         yield
     finally:
         for m in mods:
-            m.cache_bias, m.bias_cache = False, None
+            m.cache_bias = False
+            m.clear_cache()
 
 
 class FeedForward(nn.Module):
@@ -386,3 +398,24 @@ class UpBlock(nn.Module):
             x = getattr(self, f"res_gn{i}")(x)
             x = F.silu(x)
         return x + shortcut
+
+
+class CubeEmbedding(_Kernel):
+    """Conv3d patch embed over (time, lat, lon), then LayerNorm over the
+    embed dim, without spectral norm (credit_tpu CubeEmbedding). Input
+    (B, T, H, W, C) -> (B, T', H', W', embed_dim)."""
+
+    spectral = False
+
+    def __init__(self, in_ch: int, embed_dim: int, patch_size: Sequence[int],
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype, self.patch_size = dtype, tuple(patch_size)
+        self._init_kernel((*self.patch_size, in_ch, embed_dim), False)
+        self.bias = _param(embed_dim)
+        self.norm = LayerNorm(embed_dim, dtype=dtype)
+
+    def forward(self, x):
+        y = conv_ops.conv3d(x.to(self.dtype), self.kernel.to(self.dtype), self.bias,
+                            stride=self.patch_size)
+        return self.norm(y)

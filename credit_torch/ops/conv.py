@@ -4,11 +4,14 @@ credit_tpu/ops/conv.py with torch's output-size semantics.
 Routing: every stride-1 VALID conv with kh*kw > 1 runs kernel 1 through
 its autograd Function (`cuda_conv.conv2d_valid_diff`: kernel 1 forward and
 input gradient, kernel 5 weight gradient); 1x1 convs are a `torch.matmul`
-under autograd. Every
-even-kernel stride-2 conv is rewritten as space-to-depth plus a stride-1
-half-kernel conv, and the stride-2 transposes with k = 2p + 2 as a phase conv
-plus depth-to-space, so both land on the same two routes. Other strides
-are not on the port's path yet and raise.
+under autograd. Every stride-2 conv is rewritten as space-to-depth plus a
+stride-1 half-kernel conv (an odd kernel is zero-extended to the next even
+size first: FuXi's 3x3/s2 DownBlock conv becomes a 2x2 conv over 4 Cin
+channels that wastes 7 of its 16 taps, where the TPU took a strided im2col),
+and the stride-2 transposes with k = 2p + 2 as a phase conv plus
+depth-to-space, so all land on the same two routes. `conv3d` takes the
+non-overlapping patch form (a GEMM, as in credit_tpu). Other strides and
+conv3d forms are not on the port's path yet and raise.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=1,
     s = _pair(stride)
     ph, pw = _pair(padding)
     kh, kw = kernel.shape[0], kernel.shape[1]
-    if s == (2, 2) and kh % 2 == 0 and kw % 2 == 0:
+    if s == (2, 2):
         return _conv2d_s2d(x, kernel, bias, (ph, pw))
     if s == (1, 1):
         return valid_conv(_pad_hw(x, ph, ph, pw, pw), kernel, bias)
@@ -65,14 +68,19 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=1,
 
 
 def _conv2d_s2d(x, kernel, bias, pad: Tuple[int, int]):
-    """Even-kernel stride-2 conv as space-to-depth + stride-1 VALID conv:
-    out[y,x] = sum_{a,b,r,s} phase_rs[y+a, x+b] K[2a+r, 2b+s]. Odd padded
-    dims get one extra zero row/col; the outputs it touches are cut off."""
+    """Stride-2 conv as space-to-depth + stride-1 VALID conv:
+    out[y,x] = sum_{a,b,r,s} phase_rs[y+a, x+b] K[2a+r, 2b+s]. An odd kernel
+    gets a zero last row/column first (the output size stays the odd
+    kernel's); odd padded dims get one extra zero row/col, and the outputs it
+    touches are cut off."""
     n, h, w, cin = x.shape
     kh, kw, _, cout = kernel.shape
     ph, pw = pad
     ho = (h + 2 * ph - kh) // 2 + 1
     wo = (w + 2 * pw - kw) // 2 + 1
+    if kh % 2 or kw % 2:
+        kernel = F.pad(kernel, (0, 0, 0, 0, 0, kw % 2, 0, kh % 2))
+        kh, kw = kernel.shape[0], kernel.shape[1]
     eh = (h + 2 * ph) % 2
     ew = (w + 2 * pw) % 2
     xp = _pad_hw(x, ph, ph + eh, pw, pw + ew)
@@ -156,3 +164,29 @@ def _conv_transpose2d_d2s(x, kernel, bias, pad: Tuple[int, int]):
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def conv3d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=(1, 1, 1),
+           padding=0) -> torch.Tensor:
+    """3-D conv, channels-last: x (N, D, H, W, Cin), kernel (kd, kh, kw, Cin,
+    Cout). Only the non-overlapping patch form (stride = kernel size, no
+    padding: the CubeEmbedding) is ported: one GEMM of the patches against
+    the flattened kernel in x's dtype, as credit_tpu's patch_conv3d_gemm;
+    torch's Conv3d truncates dims that the patch does not divide, and so
+    does this."""
+    if isinstance(stride, int):
+        stride = (stride,) * 3
+    kd, kh, kw, cin, cout = kernel.shape
+    if tuple(stride) != (kd, kh, kw) or padding not in (0, ((0, 0),) * 3):
+        raise NotImplementedError(
+            f"conv3d with stride {tuple(stride)}, kernel {(kd, kh, kw)} and padding {padding} "
+            "is not ported yet (ROADMAP queue 1, item 2: ops/conv.py)")
+    n, d, h, w, _ = x.shape
+    do, ho, wo = d // kd, h // kh, w // kw
+    p = x[:, :do * kd, :ho * kh, :wo * kw]
+    p = p.reshape(n, do, kd, ho, kh, wo, kw, cin).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    out = p.reshape(-1, kd * kh * kw * cin) @ kernel.to(x.dtype).reshape(-1, cout)
+    out = out.reshape(n, do, ho, wo, cout)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out

@@ -1,18 +1,21 @@
-"""Fused pre-norm feed-forward with its residual (kernel 2):
-x + fc2(GELU(fc1(LN(x)))), its backward (kernel 4) and the two joined as an
-autograd Function.
+"""Fused feed-forward with its residual (kernel 2), its backward (kernel 4)
+and the two joined as an autograd Function, in both forms:
+
+    pre-norm (CrossFormer):  x + fc2(GELU(fc1(LN(x))))
+    post-norm (SwinV2/FuXi): x + LN(fc2(GELU(fc1(x))))
 
 The port of credit_tpu/ops/pallas_ff.py `fused_ff`, `fused_ff_bwd` and
-`fused_ff_diff` (pre-norm). `fused_ff` and `fused_ff_bwd` launch the
-hand-written CUDA kernels (`csrc/fused_ff.cu`, `csrc/fused_ff_bwd.cu`) for
-CUDA tensors and run `fused_ff_plain` / `fused_ff_bwd_plain` for CPU
-tensors. As in the TPU wrapper, the LN parameters and biases are rounded to
-x's dtype first; LN statistics and every product accumulate in f32; LN(x)
-and GELU's output are cast to x's dtype before the next product; the
-residual is added in x's dtype. The backward keeps the rounding points of
-the TPU kernel (pallas_ff.py:239-294): y = LN(x), a = GELU(h1), the
-cotangent and dh1 are in x's dtype where they enter a product, while the LN
-statistics, Phi(h1), the pdf and every sum stay f32.
+`fused_ff_diff`. `fused_ff` and `fused_ff_bwd` launch the hand-written CUDA
+kernels (`csrc/fused_ff.cu`, `csrc/fused_ff_bwd.cu`) for CUDA tensors and run
+`fused_ff_plain` / `fused_ff_bwd_plain` for CPU tensors. As in the TPU
+wrapper, the LN parameters and biases are rounded to x's dtype first; LN
+statistics and every product accumulate in f32; LN(x) and GELU's output are
+cast to x's dtype before the next product; post-norm takes the LN of fc2's
+f32 output (b2 included) before its one cast; the residual is added in x's
+dtype. The backward keeps the rounding points of the TPU kernel
+(pallas_ff.py:239-294): y = LN(x) (pre-norm) or x, a = GELU(h1), the
+cotangent of fc2's output and dh1 are in x's dtype where they enter a
+product, while the LN statistics, Phi(h1), the pdf and every sum stay f32.
 """
 
 from __future__ import annotations
@@ -30,17 +33,28 @@ SQRT1_2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
 
 
-def fused_ff_plain(x, g, b, w1, b1, w2, b2) -> torch.Tensor:
+def _stats(v: torch.Tensor):
+    """(v - mean) * rstd and rstd over the last axis, f32: the mean, then the
+    mean of squared deviations, as the TPU kernel takes them."""
+    mean = v.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((v - mean) ** 2).mean(-1, keepdim=True) + EPS)
+    return (v - mean) * rstd, rstd
+
+
+def _ln(v: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _stats(v)[0] * g + b
+
+
+def fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
     """The same function in plain PyTorch, for x (..., C)."""
     dt = x.dtype
     g, b, b1, b2 = (t.to(dt).float() for t in (g, b, b1, b2))
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + EPS) * g + b).to(dt)
+    y = x if post_norm else _ln(x.float(), g, b).to(dt)
     h = y.float() @ w1.to(dt).float() + b1
     h = F.gelu(h).to(dt)
     o = h.float() @ w2.to(dt).float() + b2
+    if post_norm:
+        o = _ln(o, g, b)
     return x + o.to(dt)
 
 
@@ -52,10 +66,11 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
-def fused_ff(x, g, b, w1, b1, w2, b2) -> torch.Tensor:
-    """x (M, C) or (B, H, W, C); g, b, b2 (C,); w1 (C, Hd); b1 (Hd,); w2 (Hd, C)."""
+def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
+    """x (M, C) or (B, H, W, C); g, b, b2 (C,); w1 (C, Hd); b1 (Hd,); w2 (Hd, C).
+    post_norm selects the SwinV2 form."""
     if x.device.type == "cpu":
-        return fused_ff_plain(x, g, b, w1, b1, w2, b2)
+        return fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm)
     c = x.shape[-1]
     hidden = w1.shape[1]
     if c % 8 or c > MAX_C:
@@ -68,7 +83,8 @@ def fused_ff(x, g, b, w1, b1, w2, b2) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         # the warps tile a width of 128, 256, 512 or 1024: zero-pad C to it
         # and the hidden width to the kernel's chunk (zeros add nothing:
-        # GELU(0) = 0)
+        # GELU(0) = 0; the post-norm LN divides by the true C and leaves the
+        # padded columns out)
         cpad = _build.function("credit_fused_ff_width", [ctypes.c_int])(c)
         chunk = _build.function("credit_fused_ff_chunk", [ctypes.c_int])(cpad)
         hpad = -(-hidden // chunk) * chunk
@@ -82,9 +98,9 @@ def fused_ff(x, g, b, w1, b1, w2, b2) -> torch.Tensor:
                 for t in [x2] + [t.contiguous() for t in prm])
     out = torch.empty_like(x2)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 5 + [p])
+    fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 6 + [p])
     err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(), code,
-             m, c, cpad, hidden, _build.stream_ptr())
+             m, c, cpad, hidden, int(post_norm), _build.stream_ptr())
     _build.check(err, "credit_fused_ff")
     fused_ff.launches += 1
     return out.reshape(x.shape)
@@ -94,41 +110,58 @@ fused_ff.launches = 0
 
 
 # ------------------------------------------------------------------ backward
-def fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2):
+def _ln_bwd(d: torch.Tensor, vhat: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
+    """The input gradient of an LN whose normalised output vhat received d
+    (scale applied): rstd (d - mean(d) - vhat mean(d vhat))."""
+    return rstd * (d - d.mean(-1, keepdim=True) - vhat * (d * vhat).mean(-1, keepdim=True))
+
+
+def fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
     """The backward in plain PyTorch: (dx, dg, db, dw1, db1, dw2, db2) with
     dx in x's dtype and the parameter gradients summed over rows in f32."""
     dt = x.dtype
     c = x.shape[-1]
     xf = x.reshape(-1, c).float()
     ctf = ct.reshape(-1, c).to(dt).float()
-    g, b, b1 = (t.to(dt).float() for t in (g, b, b1))
+    g, b, b1, b2 = (t.to(dt).float() for t in (g, b, b1, b2))
     w1, w2 = w1.to(dt).float(), w2.to(dt).float()
-    mean = xf.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + EPS)
-    xhat = (xf - mean) * rstd
-    y = (xhat * g + b).to(dt).float()
+    if post_norm:
+        y = xf
+    else:
+        xhat, rstd = _stats(xf)
+        y = (xhat * g + b).to(dt).float()
     h1 = y @ w1 + b1
     phi = 0.5 * (1.0 + torch.erf(h1 * SQRT1_2))
     a = (h1 * phi).to(dt).float()
-    dw2 = a.T @ ctf
-    da = ctf @ w2.T
+    if post_norm:  # push ct through the output LN first; b2 moves its statistics
+        ohat, rstd_o = _stats(a @ w2 + b2)
+        dg, db = (ctf * ohat).sum(0), ctf.sum(0)
+        do2 = _ln_bwd(ctf * g, ohat, rstd_o)
+        db2 = do2.sum(0)
+        do2 = do2.to(dt).float()
+    else:
+        do2 = ctf
+        db2 = ctf.sum(0)
+    dw2 = a.T @ do2
+    da = do2 @ w2.T
     dh1 = da * (phi + h1 * torch.exp(-0.5 * h1 * h1) * INV_SQRT_2PI)
     dh1r = dh1.to(dt).float()
     dw1 = y.T @ dh1r
     dy = dh1r @ w1.T
-    dxhat = dy * g
-    dx = ctf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                       - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return (dx.to(dt).reshape(x.shape), (dy * xhat).sum(0), dy.sum(0), dw1, dh1.sum(0),
-            dw2, ctf.sum(0))
+    if post_norm:
+        dx = ctf + dy
+    else:
+        dg, db = (dy * xhat).sum(0), dy.sum(0)
+        dx = ctf + _ln_bwd(dy * g, xhat, rstd)
+    return dx.to(dt).reshape(x.shape), dg, db, dw1, dh1.sum(0), dw2, db2
 
 
-def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2):
+def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
     """Backward of `fused_ff` at x (M, C) or (B, H, W, C) with cotangent ct
     of x's shape. Returns (dx, dg, db, dw1, db1, dw2, db2): dx in x's dtype,
     the rest f32."""
     if x.device.type == "cpu":
-        return fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2)
+        return fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2, post_norm)
     c = x.shape[-1]
     hidden = w1.shape[1]
     if c % 8 or hidden % 8:
@@ -139,9 +172,9 @@ def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2):
     code = _build.dtype_code(x.dtype)
     x2 = x.contiguous().reshape(-1, c)
     m = x2.shape[0]
-    # b2 shifts no statistic in pre-norm form: the backward does not read it
+    # b2 shifts the post-norm LN's statistics (the pre-norm kernel ignores it)
     ins = [x2, ct.to(x.dtype).contiguous().reshape(-1, c)] + [
-        t.to(x.dtype).contiguous() for t in (g, b, w1, b1, w2)]
+        t.to(x.dtype).contiguous() for t in (g, b, w1, b1, w2, b2)]
     # the kernels read rows in 16-byte vectors
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -153,10 +186,10 @@ def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2):
     dln = torch.empty((3, c), **f32)  # dg | db | db2
     dw1, db1, dw2 = (torch.empty((c, hidden), **f32), torch.empty(hidden, **f32),
                      torch.empty((hidden, c), **f32))
-    fn = _build.function("credit_fused_ff_bwd", [p] * 13 + [i] * 4 + [p])
+    fn = _build.function("credit_fused_ff_bwd", [p] * 14 + [i] * 5 + [p])
     err = fn(*(t.data_ptr() for t in ins),
              *(t.data_ptr() for t in (dx, dln, dw1, db1, dw2, work)),
-             code, m, c, hidden, _build.stream_ptr())
+             code, m, c, hidden, int(post_norm), _build.stream_ptr())
     _build.check(err, "credit_fused_ff_bwd")
     fused_ff_bwd.launches += 1
     return dx.reshape(x.shape), dln[0], dln[1], dw1, db1, dw2, dln[2]
@@ -167,24 +200,23 @@ fused_ff_bwd.launches = 0
 
 class _FusedFF(torch.autograd.Function):
     """Forward: kernel 2. Saves x and the parameters only; the backward
-    (kernel 4) recomputes LN, fc1 and GELU from them."""
+    (kernel 4) recomputes the LN, fc1, GELU (and post-norm fc2) from them."""
 
     @staticmethod
-    def forward(ctx, x, g, b, w1, b1, w2, b2):
+    def forward(ctx, x, g, b, w1, b1, w2, b2, post_norm):
         ctx.save_for_backward(x, g, b, w1, b1, w2, b2)
-        return fused_ff(x, g, b, w1, b1, w2, b2)
+        ctx.post_norm = post_norm
+        return fused_ff(x, g, b, w1, b1, w2, b2, post_norm)
 
     @staticmethod
     def backward(ctx, ct):
         x, *prm = ctx.saved_tensors
-        dx, *grads = fused_ff_bwd(x, ct, *prm)
-        return (dx, *(d.to(p.dtype) for d, p in zip(grads, prm)))
+        dx, *grads = fused_ff_bwd(x, ct, *prm, post_norm=ctx.post_norm)
+        return (dx, *(d.to(p.dtype) for d, p in zip(grads, prm)), None)
 
 
 def fused_ff_diff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
-    """Differentiable `fused_ff`: kernel 2 forward, kernel 4 backward. The
-    parameter gradients come back in each parameter's own dtype."""
-    if post_norm:
-        raise NotImplementedError("the post-norm fused FF is not ported yet (ROADMAP queue 2, "
-                                  "item 6: the FuXi slice)")
-    return _FusedFF.apply(x, g, b, w1, b1, w2, b2)
+    """Differentiable `fused_ff`: kernel 2 forward, kernel 4 backward, in
+    either form. The parameter gradients come back in each parameter's own
+    dtype."""
+    return _FusedFF.apply(x, g, b, w1, b1, w2, b2, bool(post_norm))

@@ -44,14 +44,13 @@ def window_unpartition(x: torch.Tensor, wsz: int, h: int, w: int, kind: str) -> 
     return x.reshape(b, h, w, c)
 
 
-def relative_position_index(wsz: int) -> np.ndarray:
-    """(w*w, w*w) indices into the relative-position bias table, with the
-    reference's stride 2w-1."""
-    pos = np.arange(wsz)
-    grid = np.stack(np.meshgrid(pos, pos, indexing="ij")).reshape(2, -1).T
-    rel = grid[:, None] - grid[None, :]
-    rel += wsz - 1
-    return (rel[..., 0] * (2 * wsz - 1) + rel[..., 1]).astype(np.int64)
+def relative_position_index(wsz: int, device=None) -> torch.Tensor:
+    """(w*w, w*w) int64 indices into the relative-position bias table, with
+    the reference's stride 2w-1, made with arange on `device`."""
+    pos = torch.arange(wsz, device=device)
+    grid = torch.stack(torch.meshgrid(pos, pos, indexing="ij")).reshape(2, -1).T
+    rel = grid[:, None] - grid[None, :] + (wsz - 1)
+    return rel[..., 0] * (2 * wsz - 1) + rel[..., 1]
 
 
 def relative_position_grid(wsz: int) -> np.ndarray:

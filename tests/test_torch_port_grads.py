@@ -67,21 +67,21 @@ def test_fused_ff_bwd_plain_matches_pallas(shape):
         assert _rel(o, r) <= 1e-5, name
 
 
-def test_fused_ff_diff_matches_autograd_of_plain():
+@pytest.mark.parametrize("post_norm", [False, True], ids=["pre_norm", "post_norm"])
+def test_fused_ff_diff_matches_autograd_of_plain(post_norm):
     """The autograd Function (kernel 2 forward, kernel 4 backward) against
-    torch autograd through fused_ff_plain, f32, every input's gradient."""
+    torch autograd through fused_ff_plain, f32, every input's gradient, in
+    both forms."""
     x, ct, *prm = (_t(v) for v in _ff_args((3, 4, 7, 32), seed=1))
     leaves = [t.clone().requires_grad_() for t in [x, *prm]]
-    out = cuda_ff.fused_ff_diff(*leaves)
+    out = cuda_ff.fused_ff_diff(*leaves, post_norm=post_norm)
     grads = torch.autograd.grad(out, leaves, ct)
     leaves2 = [t.clone().requires_grad_() for t in [x, *prm]]
-    ref = cuda_ff.fused_ff_plain(*leaves2)
+    ref = cuda_ff.fused_ff_plain(*leaves2, post_norm=post_norm)
     refs = torch.autograd.grad(ref, leaves2, ct)
     assert _rel(out, ref) <= 1e-6
     for g, r in zip(grads, refs):
         assert _rel(g, r) <= 1e-5
-    with pytest.raises(NotImplementedError, match="FuXi"):
-        cuda_ff.fused_ff_diff(x, *prm, post_norm=True)
 
 
 # --------------------------------------------------------------- kernel 5

@@ -200,7 +200,7 @@ def test_load_model_routing_keys_and_unported_types():
                          scan_blocks=False, remat=False)
     assert load_model(conf, device="cpu") is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model({"model": {"type": "fuxi"}}, device="cpu")
+        load_model({"model": {"type": "unet"}}, device="cpu")
 
 
 # ------------------------------------------------------------- hygiene
@@ -228,6 +228,7 @@ def test_port_imports_no_jax(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, credit_torch.rollout, credit_torch.models, credit_torch.convert_jax, "
+            "credit_torch.models.fuxi, credit_torch.models.swin, "
             "credit_torch.trainers.trainer, credit_torch.losses; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
