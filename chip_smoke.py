@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --ptxas      # also print nvcc's register/smem report
-    python3 chip_smoke.py --profile    # also by-kernel profiles of the four main paths
+    python3 chip_smoke.py --profile    # also by-kernel profiles of main paths 1-5
                                        # (every row in build/profile_*.txt)
 
 Phases (any failure exits non-zero):
@@ -11,12 +11,14 @@ Phases (any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes in bf16 and f32 (TF32 off), the FF and its backward
      in both forms (pre-norm: the WXFormer; post-norm: FuXi, and a width the
-     bf16 kernel pads), with the error beside its limit and the kernel's,
-     the plain version's and a library call's times;
+     bf16 kernel pads), the conv up to 16x16 taps, the tools' row-band
+     conv drafts and copy, with the error beside its limit and the
+     kernel's, the plain version's and a library call's times;
   3. a tiny CrossFormer and a tiny FuXi (two input frames), each with a
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
-     compute on the card against f32 on the CPU;
+     compute on the card against f32 on the CPU; the tiny CrossFormer's
+     RolloutEngine with a Normalizer and the four fixers likewise;
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -28,7 +30,16 @@ Phases (any failure exits non-zero):
   6. main path 3, the FuXi forecast: CONF_FUXI (the reference arXiv FuXi,
      below) as main path 1, with two input frames;
   7. main path 4, FuXi training: CONF_FUXI as main path 2, with two input
-     frames.
+     frames;
+  8. main path 5, the forecast as users run it: CONF_025_POST (the training
+     config's model with its 8 diagnostics named for the conservation
+     fixers) through RolloutEngine with a seeded Normalizer and the tracer,
+     mass, water and energy fixers; a warm-up step, then timed steps whose
+     launches are counted and checked, and each fixer's budget read after
+     every step against its limit;
+  9. main path 6, the tool benches: credit_torch.tools.bench_conv (cuDNN,
+     kernel 2 and the two row-band drafts) and bench_conv_ffk (the 32x32/s2
+     conv + 4 FFs in five modes) at full size, launches counted per call.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -139,31 +150,54 @@ BF16_TRAIN_LIMITS = {"crossformer": (1e-3, 5e-2, 0.25), "fuxi": (3e-3, 0.1, 0.25
 
 ROLLOUT_STEPS = 3
 TRAIN_STEPS = 3
+POST_STEPS = 3
+# bench_conv_ffk's modes in phase 9: the plain FFs, the kernel's, and the
+# three identity copies
+FFK_MODES = ("xla", "pallas", "identity", "identity-input", "identity-end")
 # the JAX training bench's configuration (bench.py:557-630): CONF_025 with
 # output_only_channels raised so that the outputs cover the 8 diagnostic
 # targets (64 outputs, a 256 -> 256 head phase conv), forecast_len 1, batch 1
 CONF_025_TRAIN = {**CONF_025, "output_only_channels": 8}
 TRAINER = {"learning_rate": 1e-4}
 
+# the forecast as users run it (CONF_025_POST): CONF_025_TRAIN's model, its 8
+# diagnostics named for the conservation fixers (the reference's ERA5
+# configs), a seeded Normalizer, the tracer (Q >= 0), mass, water and energy
+# (net-flux form, tsi as the TOA input) fixers on 14 seeded monotone hybrid
+# coefficients and a seeded surface geopotential
+FIXER_DIAGNOSTICS = [
+    "total_precipitation", "evaporation", "top_net_solar_radiation",
+    "top_net_thermal_radiation", "surface_net_solar_radiation",
+    "surface_net_thermal_radiation", "surface_sensible_heat_flux", "surface_latent_heat_flux"]
+DATA_025_POST = {"source": {"ERA5": {
+    **DATA_025["source"]["ERA5"],
+    "variables": {**DATA_025["source"]["ERA5"]["variables"],
+                  "diagnostic": {"vars_2D": FIXER_DIAGNOSTICS}}}}}
+# physical mean and spread of each variable the seeded Normalizer sees
+STATS = {"U": (0.0, 10.0), "V": (0.0, 8.0), "T": (250.0, 20.0), "Q": (0.004, 0.004),
+         "SP": (1e5, 1000.0), "VAR_2T": (280.0, 15.0), "VAR_10U": (0.0, 5.0),
+         "VAR_10V": (0.0, 5.0), "tsi": (300.0, 150.0), "ci_mask": (0.1, 0.3),
+         "total_precipitation": (1e-4, 5e-4), "evaporation": (-5e-5, 1e-4),
+         "top_net_solar_radiation": (240.0, 100.0), "top_net_thermal_radiation": (-240.0, 40.0),
+         "surface_net_solar_radiation": (160.0, 80.0),
+         "surface_net_thermal_radiation": (-60.0, 30.0),
+         "surface_sensible_heat_flux": (-20.0, 30.0), "surface_latent_heat_flux": (-80.0, 50.0)}
+LEAD_SECONDS = 6 * 3600  # the fixers' default lead_time_periods, 6 hours
+# each fixer's budget after every step, relative (as tests/test_conservation.py
+# reads them, in f64 on the card): dry-air mass against the input state's;
+# the water budget's residual against sum |precipitation flux|; the energy
+# budget's against the net flux term
+POST_LIMITS = {"mass": 1e-4, "water": 1e-3, "energy": 5e-3}
+TINY_POST = {**TINY, "channels": 4, "surface_channels": 1, "output_only_channels": 8}
+TINY_POST_DATA = {"source": {"ERA5": {
+    "levels": [0.0, 1.0],
+    "variables": {"prognostic": {"vars_3D": ["U", "V", "T", "Q"], "vars_2D": ["SP"]},
+                  "dynamic_forcing": {"vars_2D": ["tsi"]},
+                  "diagnostic": {"vars_2D": FIXER_DIAGNOSTICS}}}}}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -177,6 +211,8 @@ def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol,
     three. tol is relative to max |plain|, for each output of a kernel that
     returns several (the printed error and limit are the worst output's)."""
     import torch
+
+    from credit_torch.tools import cuda_ms
 
     outs, refs = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -216,14 +252,24 @@ def conv_cases(torch, g):
     # phase conv of the ConvTranspose head (ragged: 402x722 input, 224
     # outputs). FuXi: the DownBlock's 3x3/s2 conv after its zero-extension to
     # 4x4 and space-to-depth (2x2 over 4096 channels, 7 of 16 taps zero), its
-    # 3x3 residual convs at 100x160 and the UpBlock's at 200x320
+    # 3x3 residual convs at 100x160 and the UpBlock's at 200x320. The conv
+    # bench's 32x32/s2 embed becomes a 16x16 conv: taps in 2x2 groups of 8x8
     for label, (n, hp, wp, cin, kh, cout), iters in [
             ("stage0_embed_8x8", (1, 415, 735, 240, 8, 176), 10),
             ("head_phase_3x3", (1, 402, 722, 256, 3, 224), 10),
             ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 1024), 3),
             ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 1024), 3),
-            ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 1024), 3)]:
-        for dt, tol in [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)]:
+            ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 1024), 3),
+            ("bench_embed_16x16", (1, 415, 735, 240, 16, 128), 3)]:
+        # f32: the kernel sums the kh*kh*cin products of an output one after
+        # another, and that sum's rounding grows as their count's square
+        # root (a random walk): the 8x8 (15,360 products) read 5.2e-6 of
+        # max |plain|, the 16x16 (61,440) 1.03e-5, twice as much, and the
+        # same against f64 sums, where the plain version's GEMMs read
+        # <= 1.7e-6. So the limit grows with that root beyond the 8x8's
+        # 15,360 products, keeping the 8x8's margin of about 2
+        f32_tol = 1e-5 * math.sqrt(max(1.0, kh * kh * cin / 15360))
+        for dt, tol in [(torch.bfloat16, 1e-2), (torch.float32, f32_tol)]:
             x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
             k = (torch.randn((kh, kh, cin, cout), generator=g, device="cuda")
                  / math.sqrt(kh * kh * cin)).to(dt)
@@ -238,7 +284,28 @@ def conv_cases(torch, g):
                            (x.numel() + k.numel() + n * ho * wo * cout) * isz,
                            2.0 * n * ho * wo * kh * kh * cin * cout, tol, iters)
             res[(label, dt)] = r
+            if dt == torch.float32:
+                # whose rounding the difference is: both against f64 sums
+                exact = conv_valid_f64(torch, x, k)
+                sc = exact.abs().max().item()
+                e_k, e_p = ((f(x, k).double() - exact).abs().max().item() / sc
+                            for f in (cuda_conv.conv2d_valid, cuda_conv.conv2d_valid_plain))
+                log(f"    against f64 sums, of max |ref|: kernel {e_k:.3e}, plain {e_p:.3e}")
+                del exact
     return res
+
+
+def conv_valid_f64(torch, x, k):
+    """The VALID conv with f64 sums (one f64 GEMM per tap)."""
+    n, hp, wp, _ = x.shape
+    kh, kw, _, cout = k.shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    xd, kd = x.double(), k.double()
+    out = torch.zeros((n, ho, wo, cout), dtype=torch.float64, device=x.device)
+    for di in range(kh):
+        for dj in range(kw):
+            out += xd[:, di:di + ho, dj:dj + wo, :] @ kd[di, dj]
+    return out
 
 
 def ff_cases(torch, g):
@@ -382,18 +449,38 @@ def wgrad_cases(torch, g):
     return res
 
 
-def probe_bounds() -> None:
-    """The bounds of the two TPU probes still to port with the tools (ROADMAP
-    queue 2, items 7-8), in bf16 at their shapes: the conv drafts compute
-    kernel 2's stage-0 8x8 embed, the identity reads and writes one array."""
-    n, hp, wp, cin, k, cout = 1, 415, 735, 240, 8, 176
-    ho, wo = hp - k + 1, wp - k + 1
-    conv = bound((n * hp * wp * cin + k * k * cin * cout + n * ho * wo * cout) * 2,
-                 2.0 * n * ho * wo * k * k * cin * cout, "bfloat16")
-    copy = bound(2 * 400 * 720 * 128 * 2, 0.0, "bfloat16")
-    log(f"  still to port: tools/bench_pallas_conv.py run (8x8 240->176 at 415x735) bound_ms "
-        f"{conv[0]:.4f} ({conv[1]}); tools/bench_conv_ffk.py pallas_identity (1, 400, 720, "
-        f"128) copy bound_ms {copy[0]:.4f} ({copy[1]})")
+def probe_cases(torch, g):
+    """The tools' kernels: the two row-band conv drafts at the probes' 8x8
+    shape in bands of the tools' default 24 rows (tolerances as kernel 2's),
+    and the identity copy of the stage-0 embed's output (bit-exact)."""
+    import torch.nn.functional as F
+
+    from credit_torch.ops import cuda_probes
+
+    res = {}
+    n, hp, wp, cin, kh, cout = 1, 415, 735, 240, 8, 176
+    ho, wo = hp - kh + 1, wp - kh + 1
+    for form, kernel_fn, plain_fn in [("dma", cuda_probes.conv_band_dma,
+                                       cuda_probes.conv_band_dma_plain),
+                                      ("halo", cuda_probes.conv_band_halo,
+                                       cuda_probes.conv_band_halo_plain)]:
+        for dt, tol, iters in [(torch.bfloat16, 1e-2, 10), (torch.float32, 1e-5, 3)]:
+            x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
+            k = (torch.randn((kh, kh, cin, cout), generator=g, device="cuda")
+                 / math.sqrt(kh * kh * cin)).to(dt)
+            xn, kn = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous()
+            r = check_case(f"conv_band {form} t24 stage0_embed_8x8", str(dt).split(".")[1],
+                           lambda: kernel_fn(x, k, 24), lambda: plain_fn(x, k, 24),
+                           lambda: F.conv2d(xn, kn),
+                           (x.numel() + k.numel() + n * ho * wo * cout) * x.element_size(),
+                           2.0 * n * ho * wo * kh * kh * cin * cout, tol, iters)
+            res[(form, dt)] = r
+    y = torch.randn((1, 400, 720, 128), generator=g, device="cuda").to(torch.bfloat16)
+    out = torch.empty_like(y)
+    res["copy"] = check_case("copy stage0_embed_out", "bfloat16", lambda: cuda_probes.copy(y),
+                             lambda: cuda_probes.copy_plain(y), lambda: out.copy_(y),
+                             2 * y.numel() * y.element_size(), 0.0, 0.0, 20)
+    return res
 
 
 def tiny_agreement(torch, model_conf: dict, data: dict):
@@ -542,12 +629,30 @@ def expected_train_per_step(fwd: dict, first_conv_needs_gx: bool):
             "conv2d_valid": 2 * fwd["conv2d_valid"] - (0 if first_conv_needs_gx else 1)}
 
 
-def _wrappers():
-    from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
+def _counters():
+    """(name, wrapper, attribute) of each launch count: a wrapper adds one
+    to its count where it launches its kernel; conv2d_valid counts kernels
+    beyond 8x8 (tap groups) apart."""
+    from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff, cuda_probes
 
-    return {"conv2d_valid": cuda_conv.conv2d_valid, "fused_ff": cuda_ff.fused_ff,
-            "fused_window_attention": cuda_attention.fused_window_attention,
-            "fused_ff_bwd": cuda_ff.fused_ff_bwd, "conv2d_wgrad": cuda_conv.conv2d_wgrad}
+    return [("conv2d_valid", cuda_conv.conv2d_valid, "launches"),
+            ("conv2d_valid_grouped", cuda_conv.conv2d_valid, "launches_grouped"),
+            ("fused_ff", cuda_ff.fused_ff, "launches"),
+            ("fused_window_attention", cuda_attention.fused_window_attention, "launches"),
+            ("fused_ff_bwd", cuda_ff.fused_ff_bwd, "launches"),
+            ("conv2d_wgrad", cuda_conv.conv2d_wgrad, "launches"),
+            ("conv_band_dma", cuda_probes.conv_band_dma, "launches"),
+            ("conv_band_halo", cuda_probes.conv_band_halo, "launches"),
+            ("copy", cuda_probes.copy, "launches")]
+
+
+def _zero_counts() -> None:
+    for _, wrapper, attr in _counters():
+        setattr(wrapper, attr, 0)
+
+
+def _read_counts() -> dict:
+    return {name: getattr(wrapper, attr) for name, wrapper, attr in _counters()}
 
 
 def _check_counts(counts: dict, want: dict, steps: int) -> None:
@@ -557,11 +662,265 @@ def _check_counts(counts: dict, want: dict, steps: int) -> None:
             raise AssertionError(f"{k}: {counts[k]} launches, expected {n} x {steps}")
 
 
+def forecast_setup(conf: dict, seed: int):
+    """The forecast's Normalizer and postblocks, seeded: per-variable means
+    and spreads (STATS, perturbed per level), 14 monotone hybrid
+    coefficients for 13 levels (ak rising from 0, bk from 0 to 1), a
+    surface geopotential, and post_conf's tracer, mass, water and energy
+    fixers between Denorm and Renorm. Returns (normalizer, blocks, core,
+    surface geopotential)."""
+    import numpy as np
+    import torch
+
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.data.normalize import Normalizer
+    from credit_torch.grid import grid_from_conf
+    from credit_torch.physics.core import HybridSigmaPhysics
+    from credit_torch.postblock import build_postblocks
+
+    schema = ChannelSchema.from_config(conf)
+    rng = np.random.default_rng(seed)
+    nlev = schema.n_levels
+    mean, std = {}, {}
+    for v, (m, s) in STATS.items():
+        lev = nlev if v in ("U", "V", "T", "Q") else 1
+        mean[v] = m + 0.05 * s * rng.standard_normal(lev)
+        std[v] = s * (1 + 0.1 * rng.uniform(size=lev))
+    normalizer = Normalizer.from_stats_dict(schema, mean, std)
+    ak = np.concatenate([[0.0], np.sort(rng.uniform(0.0, 2e4, nlev))])
+    bk = np.concatenate([[0.0], np.sort(rng.uniform(0.0, 1.0, nlev - 1)), [1.0]])
+    grid = grid_from_conf(conf)
+    gph = rng.uniform(0.0, 3e4, grid.shape).astype(np.float32)
+    sig = {"ak": ak, "bk": bk}
+    post = {"post_conf": {
+        "activate": True,
+        "tracer_fixer": {"activate": True, "tracer_vars": ["Q"], "tracer_thres": 0.0},
+        "global_mass_fixer": {"activate": True, **sig},
+        "global_water_fixer": {"activate": True, **sig},
+        "global_energy_fixer": {"activate": True, "surface_geopotential": gph,
+                                "toa_down_solar_input_var": "tsi",
+                                "surf_net_solar_var": "surface_net_solar_radiation",
+                                "surf_net_lw_var": "surface_net_thermal_radiation", **sig}}}
+    blocks = build_postblocks(post, schema, grid, normalizer)
+    return normalizer, blocks, HybridSigmaPhysics(grid, ak, bk, midpoint=True), torch.as_tensor(gph)
+
+
+def physical_state(torch, normalizer, shape, idx, gen, device):
+    """A seeded state in physical units: N(0, 0.5) in normalized space, for
+    the channels `idx` of the Normalizer's input statistics."""
+    z = torch.randn(shape, generator=gen, device=device) * 0.5
+    return z * normalizer.input_std.to(device)[idx] + normalizer.input_mean.to(device)[idx]
+
+
+class Recorder:
+    """A postblock that keeps each step's prediction (in physical units,
+    after the fixers) and the input the fixers were given."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, y_pred, x):
+        self.steps.append((y_pred, x))
+        return y_pred
+
+
+def budgets(torch, schema, core, gph, y, x) -> dict:
+    """Each fixer's budget on one step, in f64 on the card, as
+    tests/test_conservation.py reads them: the relative change of global
+    dry-air mass from the input state; the water budget's residual over
+    sum |precipitation flux|; the energy budget's over the net flux term;
+    and the least Q."""
+    from credit_torch.physics.constants import RHO_WATER
+
+    def v(t, name, target=True):
+        out = _var(schema, t, name, target).double()
+        return out if target else out[:, -1:]
+
+    q1, sp1, t1, u1, v1 = (v(y, n) for n in ("Q", "SP", "T", "U", "V"))
+    q0, sp0, t0, u0, v0 = (v(x, n, False) for n in ("Q", "SP", "T", "U", "V"))
+    m0, m1 = core.total_dry_air_mass(q0, sp0), core.total_dry_air_mass(q1, sp1)
+    p = v(y, "total_precipitation") * RHO_WATER / LEAD_SECONDS
+    e = v(y, "evaporation") * RHO_WATER / LEAD_SECONDS
+    dtwc = (core.total_column_water(q1, sp1) - core.total_column_water(q0, sp0)) / LEAD_SECONDS
+    gph = gph.double()
+    e0 = core.weighted_sum(core.total_energy(t0, q0, u0, v0, sp0, gph))
+    e1 = core.weighted_sum(core.total_energy(t1, q1, u1, v1, sp1, gph))
+    r_t = core.weighted_sum(v(x, "tsi", False) - v(y, "top_net_solar_radiation")
+                            - v(y, "top_net_thermal_radiation"))
+    f_s = core.weighted_sum(v(y, "surface_net_solar_radiation")
+                            + v(y, "surface_net_thermal_radiation")
+                            + v(y, "surface_sensible_heat_flux") + v(y, "surface_latent_heat_flux"))
+    rhs = LEAD_SECONDS * (r_t - f_s)
+    return {"mass": ((m1 - m0).abs() / m0.abs()).max().item(),
+            "water": (core.weighted_sum(dtwc + p + e).abs()
+                      / core.weighted_sum(p.abs())).max().item(),
+            "energy": ((e1 - e0 - rhs).abs() / rhs.abs()).max().item(),
+            "q_min": q1.min().item()}
+
+
+def tiny_post_rollout(torch) -> None:
+    """A 2-step RolloutEngine.run of a tiny CrossFormer with the seeded
+    Normalizer and the four fixers (one Normalizer and one pipeline for
+    both devices), on the card (kernels) against the CPU (plain versions),
+    f32: every emitted prediction within 1e-3 of its
+    channel's max |CPU| (the fixers' global ratios carry the forward's
+    summation-order differences into every cell)."""
+    import numpy as np
+
+    from credit_torch.convert_jax import init_folded
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.rollout import RolloutEngine
+
+    conf = {"model": TINY_POST, "data": TINY_POST_DATA}
+    schema = ChannelSchema.from_config(conf)
+    normalizer, blocks, _, _ = forecast_setup(conf, seed=3)
+    x0 = physical_state(torch, normalizer, (1, 1, 32, 64, schema.n_input),
+                        slice(None), torch.Generator().manual_seed(2), "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_folded(conf, torch.Generator().manual_seed(1), device=dev)
+        engine = RolloutEngine(model, schema, normalizer, postblocks=blocks, device=dev)
+        outs[dev] = engine.run(x0, 2)
+        engine.close()
+    err = 0.0
+    for out, ref in zip(outs["cuda"], outs["cpu"]):
+        o, r = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+        err = max(err, float((np.abs(o - r).max(0) / np.maximum(np.abs(r).max(0), 1e-30)).max()))
+    fin = all(np.isfinite(o).all() for o in outs["cuda"])
+    log(f"  tiny 2-step RolloutEngine with Normalizer and 4 fixers, f32 card vs CPU: worst "
+        f"channel rel err {err:.3e} limit 1e-3; finite {fin}")
+    if not (fin and err <= 1e-3):
+        raise AssertionError("tiny normalized rollout with fixers on the card disagrees with the CPU")
+
+
+def post_path(torch, want: dict, times: dict, profile: bool = False) -> dict:
+    """Main path 5: CONF_025_POST through RolloutEngine in physical units
+    with the seeded Normalizer, the four fixers and a seeded forcing each
+    step; a warm-up step, then POST_STEPS timed steps whose launches are
+    counted and checked against `want` per step, and each step's budgets
+    against POST_LIMITS; returns the counts."""
+    from credit_torch.convert_jax import init_folded
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.rollout import RolloutEngine
+
+    conf = {"model": CONF_025_TRAIN, "data": DATA_025_POST}
+    schema = ChannelSchema.from_config(conf)
+    h, w = CONF_025["image_height"], CONF_025["image_width"]
+    t0 = time.time()
+    model = init_folded(conf, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    model = model.to(torch.bfloat16)
+    normalizer, blocks, core, gph = forecast_setup(conf, seed=0)
+    core, gph = core.to("cuda"), gph.cuda()
+    rec = Recorder()
+    blocks = blocks[:-1] + [rec] + blocks[-1:]  # read the budgets before Renorm
+    torch.cuda.synchronize()
+    log(f"  CONF_025_POST: {schema.n_input} inputs, {schema.n_target} outputs, postblocks "
+        f"{[type(b).__name__ for b in blocks]}; set-up {time.time() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x0 = physical_state(torch, normalizer, (1, 1, h, w, schema.n_input), slice(None), g, "cuda")
+    dyn = schema.dynamic_forcing_indices()
+    forcing = [physical_state(torch, normalizer, (1, 1, h, w, len(dyn)), dyn, g, "cuda")
+               for _ in range(POST_STEPS + 1)]
+    engine = RolloutEngine(model, schema, normalizer, postblocks=blocks, device="cuda")
+    t0 = time.time()
+    engine.run(x0, 1, forcing_provider=lambda s: forcing[s], on_step=lambda s, y: None)
+    torch.cuda.synchronize()
+    log(f"  warm-up step: {(time.time() - t0) * 1e3:.1f} ms")
+    rec.steps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.run(x0, POST_STEPS, forcing_provider=lambda s: forcing[s], on_step=lambda s, y: None)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = elapsed * 1e3 / POST_STEPS
+    ref_ms = times.get("CONF_025")
+    log(f"  CONF_025_POST RolloutEngine {POST_STEPS} steps: {ms:.1f} ms/step (phase 4's "
+        f"make_scan_rollout: {ref_ms:.1f} ms/step), peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB; {base} allocated before it), launches {counts}")
+    times["CONF_025_POST"] = ms
+    _check_counts(counts, want, POST_STEPS)
+    if len(rec.steps) != POST_STEPS:
+        raise AssertionError(f"{len(rec.steps)} postblock passes, expected {POST_STEPS}")
+    for s, (y, x) in enumerate(rec.steps):
+        if y.shape != (1, 1, h, w, schema.n_target) or y.dtype != torch.float32:
+            raise AssertionError((tuple(y.shape), y.dtype))
+        fin = torch.isfinite(y).all().item()
+        b = budgets(torch, schema, core, gph, y, x)
+        ok = fin and b["q_min"] >= 0.0 and all(b[k] <= lim for k, lim in POST_LIMITS.items())
+        log(f"  step {s}: finite {fin}; dry-air mass rel change {b['mass']:.3e} limit "
+            f"{POST_LIMITS['mass']:g}; water budget residual {b['water']:.3e} limit "
+            f"{POST_LIMITS['water']:g}; energy budget residual {b['energy']:.3e} limit "
+            f"{POST_LIMITS['energy']:g}; min Q {b['q_min']:.3e} (>= 0){'' if ok else '  FAIL'}")
+        # the fixers see the normalized input (as credit_tpu's RolloutEngine
+        # hands it to them): the gap to the physical input state, not checked
+        bp = budgets(torch, schema, core, gph, y, normalizer.denormalize_input(x))
+        sp, t = (_var(schema, y, n) for n in ("SP", "T"))
+        log(f"    against the physical input state: dry-air mass rel change {bp['mass']:.3e}, "
+            f"water {bp['water']:.3e}, energy {bp['energy']:.3e}; fixed SP "
+            f"[{sp.min().item():.4g}, {sp.max().item():.4g}] Pa, T [{t.min().item():.4g}, "
+            f"{t.max().item():.4g}] K")
+        if not ok:
+            raise AssertionError(f"CONF_025_POST step {s}: a fixer's budget is off")
+    rec.steps.clear()
+    if profile:
+        profile_steps(torch, "CONF_025_POST RolloutEngine step",
+                      lambda: engine.run(x0, 2, forcing_provider=lambda s: forcing[s],
+                                         on_step=lambda s, y: None), (), steps=2)
+        rec.steps.clear()
+    engine.close()
+    return counts
+
+
+def _var(schema, flat, name: str, target: bool = True):
+    from credit_torch.postblock import _VarView
+
+    return _VarView(schema, name, target).get(flat)
+
+
+def tools_path(torch) -> dict:
+    """Main path 6: the port's tool benches at full size, each bench line's
+    launches counted and checked; returns the counts of all of them."""
+    from credit_torch.tools import bench_conv, bench_conv_ffk
+
+    total = {}
+    _zero_counts()
+    rows = bench_conv.run(th=24, iters=3)
+    counts = _read_counts()
+    calls = {r["name"].split(" ")[0]: r["calls"] for r in rows}
+    want = {"conv2d_valid": calls["conv2d_valid"], "conv_band_dma": calls["dma"],
+            "conv_band_halo": calls["blocked"]}
+    for r in rows:
+        log(f"  bench_conv {r['name']:14s}: {r['ms']:8.3f} ms ({r['tflops']:6.1f} TF/s) "
+            f"rel_err {r['rel_err']:.2e}")
+    log(f"  bench_conv launches {counts}")
+    _check_counts(counts, want, 1)
+    if not all(r["rel_err"] <= 1e-2 for r in rows):
+        raise AssertionError("bench_conv: an implementation disagrees with the plain version")
+    total.update(counts)
+    for mode in FFK_MODES:
+        _zero_counts()
+        r = bench_conv_ffk.run([mode], iters=2)[0]
+        counts = _read_counts()
+        log(f"  bench_conv_ffk {mode:15s}: {r['ms']:8.2f} ms per (conv + 4 FF), output "
+            f"{r['shape']} finite {r['finite']}, launches {counts}")
+        _check_counts(counts, bench_conv_ffk.launches_per_call(mode), r["calls"])
+        if r["shape"] != (1, 400, 720, 128) or not r["finite"]:
+            raise AssertionError(f"bench_conv_ffk {mode}: output {r['shape']}, finite {r['finite']}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    return total
+
+
 def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
-                 profile: bool = False) -> dict:
+                 profile: bool = False, times: dict = None) -> dict:
     """A bf16 forecast of `model_conf` on seeded folded weights at batch 1:
     a warm-up step, then ROLLOUT_STEPS steps whose kernel launches are
-    counted and checked against `want` per step; returns the counts."""
+    counted and checked against `want` per step; returns the counts and
+    puts the ms/step into `times[name]`."""
     from credit_torch.convert_jax import init_folded
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.rollout import make_scan_rollout
@@ -588,19 +947,19 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     torch.cuda.synchronize()
     log(f"  warm-up step: {(time.time() - t0) * 1e3:.1f} ms")
 
-    wrappers = _wrappers()
     run = make_scan_rollout(model, schema, ROLLOUT_STEPS, history_len=frames, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for wr in wrappers.values():
-        wr.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     final_x, stats = run(x0)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    counts = {k: wr.launches for k, wr in wrappers.items()}
+    counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
+    if times is not None:
+        times[name] = elapsed * 1e3 / ROLLOUT_STEPS
     log(f"  {name} rollout {ROLLOUT_STEPS} steps: {elapsed * 1e3 / ROLLOUT_STEPS:.1f} ms/step, "
         f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} allocated before it), "
         f"launches {counts}")
@@ -657,11 +1016,9 @@ def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     state, m = step(state, batch)
     torch.cuda.synchronize()
     log(f"  warm-up step: {(time.time() - t0) * 1e3:.1f} ms, loss {float(m['loss']):.6f}")
-    wrappers = _wrappers()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for wr in wrappers.values():
-        wr.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     losses, norms = [], []
@@ -671,7 +1028,7 @@ def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
         norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    counts = {k: wr.launches for k, wr in wrappers.items()}
+    counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, norms = [float(v) for v in losses], [float(v) for v in norms]
     log(f"  {name} training step: {elapsed * 1e3 / TRAIN_STEPS:.1f} ms/step over "
@@ -726,7 +1083,8 @@ def kernel_group(name: str) -> str:
     """A profile row's kind: one of the port's kernels, a library GEMM, or
     PyTorch glue by operation."""
     port = {"ffb::": "port fused_ff_bwd", "ff::": "port fused_ff", "wgrad::": "port conv2d_wgrad",
-            "conv::": "port conv2d_valid", "attn::": "port fused_window_attention"}
+            "conv::": "port conv2d_valid", "attn::": "port fused_window_attention",
+            "band::": "port conv_band", "copy::": "port copy"}
     for key, group in port.items():
         if f"credit::{key}" in name:
             return group
@@ -744,7 +1102,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true", help="print nvcc's -Xptxas -v report")
     ap.add_argument("--profile", action="store_true",
-                    help="after each main path, profile a 2-step rollout / a training step "
+                    help="after main paths 1-5, profile a 2-step rollout / a training step "
                          "by kernel")
     args = ap.parse_args()
     t_start = time.time()
@@ -782,7 +1140,7 @@ def main() -> int:
         attn = attention_cases(torch, g)
         ff_bwd = ff_bwd_cases(torch, g)
         wgrad = wgrad_cases(torch, g)
-    probe_bounds()
+        probe = probe_cases(torch, g)
     torch.cuda.empty_cache()
 
     log("phase 3: tiny models on the card against the CPU")
@@ -790,13 +1148,14 @@ def main() -> int:
     tiny_agreement(torch, TINY, TINY_DATA)
     log("  tiny FuXi, two input frames:")
     tiny_agreement(torch, TINY_FUXI, TINY_FUXI_DATA)
+    tiny_post_rollout(torch)
     log(f"  allocated on the card: {before} bytes before phase 3, "
         f"{torch.cuda.memory_allocated()} after it")
-    runs = {}
+    runs, times = {}, {}
     fwd_025, fwd_fuxi = expected_per_step(CONF_025), expected_fuxi_per_step(CONF_FUXI)
     log("phase 4: main path 1, CONF_025 bf16 rollout")
     runs["rollout_025"] = rollout_path(torch, "CONF_025", CONF_025, DATA_025, fwd_025,
-                                       args.profile)
+                                       args.profile, times)
     torch.cuda.empty_cache()
     log("phase 5: main path 2, CONF_025 training step")
     runs["train_025"] = train_path(torch, "CONF_025", CONF_025_TRAIN, DATA_025,
@@ -809,21 +1168,30 @@ def main() -> int:
     log("phase 7: main path 4, CONF_FUXI training step (two input frames)")
     runs["train_fuxi"] = train_path(torch, "CONF_FUXI", CONF_FUXI, DATA_FUXI,
                                     expected_train_per_step(fwd_fuxi, True), args.profile)
+    torch.cuda.empty_cache()
+    log("phase 8: main path 5, CONF_025_POST: RolloutEngine with the Normalizer and the fixers")
+    runs["post_025"] = post_path(torch, expected_per_step(CONF_025_TRAIN), times, args.profile)
+    torch.cuda.empty_cache()
+    log("phase 9: main path 6, the tool benches (credit_torch.tools)")
+    runs["tools"] = tools_path(torch)
 
     kernels = []
-    for name, wrapper, src, replaces, r, paths in [
+    for name, counter, src, replaces, r, paths in [
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
              runs),
+            ("conv2d_valid grouped", "conv2d_valid_grouped", "credit_torch/csrc/conv_valid.cu",
+             "credit_tpu/ops/pallas_conv.py:110", conv[("bench_embed_16x16", torch.bfloat16)],
+             ("tools",)),
             ("fused_ff pre-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
-             ("rollout_025", "train_025")),
+             ("rollout_025", "train_025", "post_025", "tools")),
             ("fused_ff post-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
-             attn, ("rollout_025", "train_025")),
+             attn, ("rollout_025", "train_025", "post_025")),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
              ("train_025",)),
@@ -832,10 +1200,16 @@ def main() -> int:
              ("train_fuxi",)),
             ("conv2d_wgrad", "conv2d_wgrad", "credit_torch/csrc/conv_wgrad.cu",
              "credit_tpu/ops/pallas_conv.py:245", wgrad[("stage0_embed_8x8", torch.bfloat16)],
-             runs)]:
+             runs),
+            ("conv_band dma", "conv_band_dma", "credit_torch/csrc/conv_band.cu",
+             "tools/bench_pallas_conv.py:60", probe[("dma", torch.bfloat16)], ("tools",)),
+            ("conv_band halo", "conv_band_halo", "credit_torch/csrc/conv_band.cu",
+             "tools/bench_pallas_conv.py:123", probe[("halo", torch.bfloat16)], ("tools",)),
+            ("copy", "copy", "credit_torch/csrc/copy.cu", "tools/bench_conv_ffk.py:75",
+             probe["copy"], ("tools",))]:
         # launches: the main-path runs of this kernel (mode); each path runs
-        # one FF form only, so a path's count of the wrapper is the mode's
-        by_path = {p: runs[p][wrapper] for p in paths}
+        # one FF form only, so a path's count is the mode's
+        by_path = {p: runs[p][counter] for p in paths}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path, **r})
     log(f"chip_smoke: {time.time() - t_start:.1f} s end to end")

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from credit_torch import _build
 
-MAX_K = 8  # largest kernel height/width the CUDA kernel's tiling takes
+MAX_TAPS = 8  # kernels taller or wider run their taps in groups of at most 8x8
 
 
 def conv2d_valid_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -38,15 +38,16 @@ def conv2d_valid_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """x (N, Hp, Wp, Cin), kernel (kh, kw, Cin, Cout) -> (N, Hp-kh+1, Wp-kw+1, Cout)."""
+    """x (N, Hp, Wp, Cin), kernel (kh, kw, Cin, Cout) -> (N, Hp-kh+1, Wp-kw+1, Cout),
+    any kh and kw (the CUDA kernel runs taps in groups of at most 8x8).
+    A launch adds one to `conv2d_valid.launches`, or to
+    `conv2d_valid.launches_grouped` for a kernel beyond 8x8."""
     if x.device.type == "cpu":
         return conv2d_valid_plain(x, kernel)
     n, hp, wp, cin = x.shape
     kh, kw, kcin, cout = kernel.shape
     if kcin != cin or hp < kh or wp < kw:
         raise ValueError(f"conv2d_valid: x {tuple(x.shape)} and kernel {tuple(kernel.shape)} do not fit")
-    if kh > MAX_K or kw > MAX_K:
-        raise ValueError(f"conv2d_valid: the CUDA kernel takes kh, kw <= {MAX_K}, got {kh}x{kw}")
     if kernel.dtype != x.dtype or kernel.device != x.device:
         raise TypeError("conv2d_valid: kernel must match x's dtype and device")
     # contiguous, with 16-byte aligned rows for the kernel's vector copies
@@ -58,11 +59,16 @@ def conv2d_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     err = fn(x.data_ptr(), kernel.data_ptr(), out.data_ptr(), _build.dtype_code(x.dtype),
              n, hp, wp, cin, kh, kw, cout, _build.stream_ptr())
     _build.check(err, "credit_conv_valid")
-    conv2d_valid.launches += 1
+    # counted apart: kernels beyond 8x8 run in tap groups (bf16: its own kernel)
+    if kh > MAX_TAPS or kw > MAX_TAPS:
+        conv2d_valid.launches_grouped += 1
+    else:
+        conv2d_valid.launches += 1
     return out
 
 
 conv2d_valid.launches = 0
+conv2d_valid.launches_grouped = 0
 
 
 # ------------------------------------------------------------ weight gradient

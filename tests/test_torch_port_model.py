@@ -27,6 +27,7 @@ from credit_tpu.models.spectral_utils import converge_spectral, fold_spectral
 from credit_tpu.rollout import make_scan_rollout as jax_scan_rollout
 from credit_torch.convert_jax import from_jax_variables, init_folded, init_train
 from credit_torch.data.channels import ChannelSchema
+from credit_torch.data.normalize import Normalizer
 from credit_torch.models import load_model
 from credit_torch.losses import WeightedLoss
 from credit_torch.rollout import RolloutEngine, make_scan_rollout
@@ -229,7 +230,9 @@ def test_port_imports_no_jax(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, credit_torch.rollout, credit_torch.models, credit_torch.convert_jax, "
             "credit_torch.models.fuxi, credit_torch.models.swin, "
-            "credit_torch.trainers.trainer, credit_torch.losses; "
+            "credit_torch.trainers.trainer, credit_torch.losses, credit_torch.postblock, "
+            "credit_torch.grid, credit_torch.physics.core, credit_torch.tools.bench_conv, "
+            "credit_torch.tools.bench_conv_ffk; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
@@ -256,10 +259,22 @@ def test_entry_points_without_device_need_cuda():
 
 
 def test_rollout_engine_refuses_unported_options():
+    """The Normalizer and stateless postblocks are ported; a stateful
+    postblock (SKEBS) and statistics read from netCDF are not, and raise."""
     conf = CONFS["padded"]
     schema = ChannelSchema.from_config({**conf, "data": DATA})
     model = load_model(conf, device="cpu")
-    with pytest.raises(NotImplementedError, match="Normalizer"):
-        RolloutEngine(model, schema, normalizer=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="postblocks"):
-        RolloutEngine(model, schema, postblocks=[lambda y: y], device="cpu")
+
+    class Stateful:
+        is_stateful = True
+
+        def __call__(self, y, x):
+            return y
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+        RolloutEngine(model, schema, postblocks=[Stateful()], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+        Normalizer.from_netcdf(schema, "mean.nc", "std.nc")
+    engine = RolloutEngine(model, schema, normalizer=Normalizer.identity(schema),
+                           postblocks=[lambda y, x: y], device="cpu")
+    engine.close()
