@@ -11,9 +11,15 @@ Phases (any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes in bf16 and f32 (TF32 off), the FF and its backward
      in both forms (pre-norm: the WXFormer; post-norm: FuXi, and a width the
-     bf16 kernel pads), the conv up to 16x16 taps, the tools' row-band
-     conv drafts and copy, with the error beside its limit and the
-     kernel's, the plain version's and a library call's times;
+     bf16 kernel pads) and at widths the fused kernel does not take (C > 1024,
+     C and hidden not multiples of 8: the forward in passes), window
+     attention at the paths' windows, a 12x12 window (T = 144) and heads of
+     128 (the FMA kernel), the conv and its weight gradient at every shape the
+     paths launch, up to 16x16 taps, with channels the wrapper pads and a
+     kernel taller than wide (the weight gradient also bit-identical on a
+     second call), the tools' row-band conv drafts and copy, with the error
+     beside its limit and the kernel's, the plain version's and a library
+     call's times;
   3. a tiny CrossFormer and a tiny FuXi (two input frames), each with a
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
@@ -242,47 +248,64 @@ def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol,
             "bound_by": b_by, "library_ms": lib_ms}
 
 
+# kernel 2's shapes (n, hp, wp, cin, kh, kw, cout) with the dtypes checked.
+# WXFormer: the stage-0 quadrant embed after space-to-depth; the final 3x3
+# phase conv of the ConvTranspose head (ragged: 402x722 input, 224
+# outputs); the stage 1-3 embeds (2x2 after space-to-depth) and the
+# UpBlocks' 3x3 residual convs. FuXi: the DownBlock's 3x3/s2 conv after its
+# zero-extension to 4x4 and space-to-depth (2x2 over 4096 channels, 7 of 16
+# taps zero), its 3x3 residual convs at 100x160 and the UpBlock's at
+# 200x320. The conv bench's 32x32/s2 embed is a 16x16 conv. Beyond the
+# paths: channels that are not multiples of 8 (the wrapper pads them) and
+# a kernel taller than wide
+BF16, BOTH = ("bfloat16",), ("bfloat16", "float32")
+CONV_SHAPES = [
+    ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
+    ("head_phase_3x3", (1, 402, 722, 256, 3, 3, 224), BOTH, 10),
+    ("stage1_embed_2x2", (1, 201, 361, 512, 2, 2, 256), BF16, 10),
+    ("stage2_embed_2x2", (1, 101, 181, 1024, 2, 2, 512), BF16, 10),
+    ("stage3_embed_2x2", (1, 51, 91, 2048, 2, 2, 1024), BF16, 10),
+    ("up1_res_3x3", (1, 102, 182, 512, 3, 3, 512), BF16, 10),
+    ("up2_res_3x3", (1, 202, 362, 256, 3, 3, 256), BF16, 10),
+    ("up3_res_3x3", (1, 402, 722, 128, 3, 3, 128), BF16, 10),
+    ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 2, 1024), BOTH, 3),
+    ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 3, 1024), BOTH, 3),
+    ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 3, 1024), BOTH, 3),
+    ("bench_embed_16x16", (1, 415, 735, 240, 16, 16, 128), BOTH, 3),
+    ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 10),
+    ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 10)]
+
+
 def conv_cases(torch, g):
     import torch.nn.functional as F
 
     from credit_torch.ops import cuda_conv
 
     res = {}
-    # WXFormer: stage-0 quadrant embed after space-to-depth; the final 3x3
-    # phase conv of the ConvTranspose head (ragged: 402x722 input, 224
-    # outputs). FuXi: the DownBlock's 3x3/s2 conv after its zero-extension to
-    # 4x4 and space-to-depth (2x2 over 4096 channels, 7 of 16 taps zero), its
-    # 3x3 residual convs at 100x160 and the UpBlock's at 200x320. The conv
-    # bench's 32x32/s2 embed becomes a 16x16 conv: taps in 2x2 groups of 8x8
-    for label, (n, hp, wp, cin, kh, cout), iters in [
-            ("stage0_embed_8x8", (1, 415, 735, 240, 8, 176), 10),
-            ("head_phase_3x3", (1, 402, 722, 256, 3, 224), 10),
-            ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 1024), 3),
-            ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 1024), 3),
-            ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 1024), 3),
-            ("bench_embed_16x16", (1, 415, 735, 240, 16, 128), 3)]:
-        # f32: the kernel sums the kh*kh*cin products of an output one after
+    for label, (n, hp, wp, cin, kh, kw, cout), dtypes, iters in CONV_SHAPES:
+        # f32: the kernel sums the kh*kw*cin products of an output one after
         # another, and that sum's rounding grows as their count's square
         # root (a random walk): the 8x8 (15,360 products) read 5.2e-6 of
         # max |plain|, the 16x16 (61,440) 1.03e-5, twice as much, and the
         # same against f64 sums, where the plain version's GEMMs read
         # <= 1.7e-6. So the limit grows with that root beyond the 8x8's
         # 15,360 products, keeping the 8x8's margin of about 2
-        f32_tol = 1e-5 * math.sqrt(max(1.0, kh * kh * cin / 15360))
-        for dt, tol in [(torch.bfloat16, 1e-2), (torch.float32, f32_tol)]:
+        f32_tol = 1e-5 * math.sqrt(max(1.0, kh * kw * cin / 15360))
+        for name in dtypes:
+            dt, tol = (torch.bfloat16, 1e-2) if name == "bfloat16" else (torch.float32, f32_tol)
             x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
-            k = (torch.randn((kh, kh, cin, cout), generator=g, device="cuda")
-                 / math.sqrt(kh * kh * cin)).to(dt)
+            k = (torch.randn((kh, kw, cin, cout), generator=g, device="cuda")
+                 / math.sqrt(kh * kw * cin)).to(dt)
             xn = x.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
             kn = k.permute(3, 2, 0, 1).contiguous()
-            ho, wo = hp - kh + 1, wp - kh + 1
+            ho, wo = hp - kh + 1, wp - kw + 1
             isz = x.element_size()
-            r = check_case(f"conv2d_valid {label}", str(dt).split(".")[1],
+            r = check_case(f"conv2d_valid {label}", name,
                            lambda: cuda_conv.conv2d_valid(x, k),
                            lambda: cuda_conv.conv2d_valid_plain(x, k),
                            lambda: F.conv2d(xn, kn),
                            (x.numel() + k.numel() + n * ho * wo * cout) * isz,
-                           2.0 * n * ho * wo * kh * kh * cin * cout, tol, iters)
+                           2.0 * n * ho * wo * kh * kw * cin * cout, tol, iters)
             res[(label, dt)] = r
             if dt == torch.float32:
                 # whose rounding the difference is: both against f64 sums
@@ -308,20 +331,30 @@ def conv_valid_f64(torch, x, k):
     return out
 
 
+# (label, (h, w, C), post-norm, hidden) of the FF and its backward
+FF_SHAPES = [("stage0_C128", (400, 720, 128), False, 512),
+             ("stage1_C256", (200, 360, 256), False, 1024),
+             ("stage2_C512", (100, 180, 512), False, 2048),
+             ("stage3_C1024", (50, 90, 1024), False, 4096),
+             ("fuxi_C1024_post", (105, 161, 1024), True, 4096),
+             ("padded_C192_post", (100, 180, 192), True, 768),
+             ("wide_C1152", (50, 90, 1152), False, 4608),
+             ("wide_C1152_post", (50, 90, 1152), True, 4608),
+             ("wide_C2304", (20, 45, 2304), False, 9216),
+             ("ragged_C100_H404_post", (100, 180, 100), True, 404)]
+
+
 def ff_cases(torch, g):
     from credit_torch.ops import cuda_ff
 
     res = {}
     # pre-norm at the WXFormer's stages; post-norm at FuXi's SwinV2 stage
     # (105x161 tokens after the window pad) and at C = 192, which the bf16
-    # kernel pads to 256: the padded columns must stay out of the LN
-    for label, (h, w, c), post in [("stage0_C128", (400, 720, 128), False),
-                                   ("stage2_C512", (100, 180, 512), False),
-                                   ("stage3_C1024", (50, 90, 1024), False),
-                                   ("fuxi_C1024_post", (105, 161, 1024), True),
-                                   ("padded_C192_post", (100, 180, 192), True)]:
+    # kernel pads to 256: the padded columns must stay out of the LN. Beyond
+    # the paths, the forward in passes: C = 1152 (> 1024) in both forms, and
+    # C = 100 with hidden 404 (neither a multiple of 8: the wrapper pads)
+    for label, (h, w, c), post, hd in FF_SHAPES:
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]:
-            hd = 4 * c
             x = torch.randn((1, h, w, c), generator=g, device="cuda").to(dt)
             prm = [1 + 0.1 * torch.randn(c, generator=g, device="cuda"),
                    0.1 * torch.randn(c, generator=g, device="cuda"),
@@ -349,12 +382,15 @@ def attention_cases(torch, g):
 
     res = {}
     # stage-0 local windows (T=100), stage-1 long windows (T=25), stage-3
-    # long windows (T=1); q, k, v are views of one fused qkv projection
-    for label, (nwin, t, heads) in [("stage0_T100", (2880, 100, 4)),
-                                    ("stage1_T25", (2880, 25, 8)),
-                                    ("stage3_T1", (4500, 1, 32))]:
+    # long windows (T=1); q, k, v are views of one fused qkv projection.
+    # Beyond the paths, on the FMA kernel: 12x12 windows (T = 144) and heads
+    # of 128
+    for label, (nwin, t, heads, dh) in [("stage0_T100", (2880, 100, 4, 32)),
+                                        ("stage1_T25", (2880, 25, 8, 32)),
+                                        ("stage3_T1", (4500, 1, 32, 32)),
+                                        ("window12_T144", (2000, 144, 4, 32)),
+                                        ("head128_T100", (2880, 100, 2, 128))]:
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)]:
-            dh = 32
             inner = heads * dh
             qkv = torch.randn((1, nwin, t, 3 * inner), generator=g, device="cuda").to(dt)
             q, k, v = qkv.split(inner, dim=-1)
@@ -381,18 +417,12 @@ def ff_bwd_cases(torch, g):
     from credit_torch.ops import cuda_ff
 
     res = {}
-    for label, (h, w, c), post in [("stage0_C128", (400, 720, 128), False),
-                                   ("stage1_C256", (200, 360, 256), False),
-                                   ("stage2_C512", (100, 180, 512), False),
-                                   ("stage3_C1024", (50, 90, 1024), False),
-                                   ("fuxi_C1024_post", (105, 161, 1024), True),
-                                   ("padded_C192_post", (100, 180, 192), True)]:
+    for label, (h, w, c), post, hd in FF_SHAPES:
         # bf16: dx is rounded once at the end, and y, a, ct, do2 and dh1
         # enter the products rounded in both versions, so a flipped rounding
         # moves dx by about an ulp; f32: summation order over up to 288000
         # rows. Post-norm recomputes o2 = a.w2 as well: 12 M C H operations
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]:
-            hd = 4 * c
             x = torch.randn((1, h, w, c), generator=g, device="cuda").to(dt)
             ct = (0.1 * torch.randn((1, h, w, c), generator=g, device="cuda")).to(dt)
             prm = [1 + 0.1 * torch.randn(c, generator=g, device="cuda"),
@@ -414,37 +444,50 @@ def ff_bwd_cases(torch, g):
     return res
 
 
+# kernel 5's shapes: every weight gradient the training steps launch (the
+# stage-0 embed's 8x8 after space-to-depth, the stage 1-3 embeds' 2x2, the
+# UpBlocks' 3x3 residual convs, the training head's 3x3 phase conv; FuXi's
+# three conv shapes), and the ragged and tall cases of CONV_SHAPES
+WGRAD_SHAPES = [
+    ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 5),
+    ("stage1_embed_2x2", (1, 201, 361, 512, 2, 2, 256), BOTH, 5),
+    ("stage2_embed_2x2", (1, 101, 181, 1024, 2, 2, 512), BOTH, 5),
+    ("stage3_embed_2x2", (1, 51, 91, 2048, 2, 2, 1024), BOTH, 5),
+    ("up1_res_3x3", (1, 102, 182, 512, 3, 3, 512), BF16, 5),
+    ("up2_res_3x3", (1, 202, 362, 256, 3, 3, 256), BF16, 5),
+    ("up3_res_3x3", (1, 402, 722, 128, 3, 3, 128), BF16, 5),
+    ("head_phase_3x3", (1, 402, 722, 256, 3, 3, 256), BOTH, 5),
+    ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 2, 1024), BOTH, 3),
+    ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 3, 1024), BOTH, 3),
+    ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 3, 1024), BOTH, 3),
+    ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 5),
+    ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 5)]
+
+
 def wgrad_cases(torch, g):
     from credit_torch.ops import cuda_conv
 
     res = {}
-    # every tap group the training steps launch: the stage-0 embed's 8x8
-    # after space-to-depth (rows of 4 taps), the stage 1-3 embeds' 2x2 after
-    # space-to-depth (2x2 groups), the training head's 3x3 phase conv (rows
-    # of 3); FuXi's three conv shapes (conv_cases); both versions sum exact
-    # products of the same values in f32 over up to ~300000 pixels, in
-    # other orders
-    for label, (n, hp, wp, cin, kh, cout) in [("stage0_embed_8x8", (1, 415, 735, 240, 8, 176)),
-                                              ("stage1_embed_2x2", (1, 201, 361, 512, 2, 256)),
-                                              ("stage2_embed_2x2", (1, 101, 181, 1024, 2, 512)),
-                                              ("stage3_embed_2x2", (1, 51, 91, 2048, 2, 1024)),
-                                              ("head_phase_3x3", (1, 402, 722, 256, 3, 256)),
-                                              ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 1024)),
-                                              ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 1024)),
-                                              ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 1024))]:
-        for dt, tol in [(torch.bfloat16, 5e-4), (torch.float32, 5e-4)]:
-            ho, wo = hp - kh + 1, wp - kh + 1
+    # both versions sum exact products of the same values in f32 over up to
+    # ~300000 pixels, in other orders; the bf16 kernel's fixed-order split
+    # sum gives the same bits on every call
+    for label, (n, hp, wp, cin, kh, kw, cout), dtypes, iters in WGRAD_SHAPES:
+        for name in dtypes:
+            dt, tol = (torch.bfloat16, 5e-4) if name == "bfloat16" else (torch.float32, 5e-4)
+            ho, wo = hp - kh + 1, wp - kw + 1
             x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
             gy = (torch.randn((n, ho, wo, cout), generator=g, device="cuda") * 0.1).to(dt)
             xn, gyn = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)  # NCHW views
             isz = x.element_size()
-            r = check_case(f"conv2d_wgrad {label}", str(dt).split(".")[1],
-                           lambda: cuda_conv.conv2d_wgrad(x, gy, kh, kh),
-                           lambda: cuda_conv.conv2d_wgrad_plain(x, gy, kh, kh),
-                           lambda: torch.nn.grad.conv2d_weight(xn, (cout, cin, kh, kh), gyn),
-                           (x.numel() + gy.numel()) * isz + kh * kh * cin * cout * 4,
-                           2.0 * n * ho * wo * kh * kh * cin * cout, tol,
-                           3 if label.startswith("fuxi") else 5)
+            r = check_case(f"conv2d_wgrad {label}", name,
+                           lambda: cuda_conv.conv2d_wgrad(x, gy, kh, kw),
+                           lambda: cuda_conv.conv2d_wgrad_plain(x, gy, kh, kw),
+                           lambda: torch.nn.grad.conv2d_weight(xn, (cout, cin, kh, kw), gyn),
+                           (x.numel() + gy.numel()) * isz + kh * kw * cin * cout * 4,
+                           2.0 * n * ho * wo * kh * kw * cin * cout, tol, iters)
+            if not torch.equal(cuda_conv.conv2d_wgrad(x, gy, kh, kw),
+                               cuda_conv.conv2d_wgrad(x, gy, kh, kw)):
+                raise AssertionError(f"conv2d_wgrad {label} [{name}]: two calls differ")
             res[(label, dt)] = r
     return res
 
@@ -621,7 +664,7 @@ def expected_fuxi_per_step(conf: dict):
 def expected_train_per_step(fwd: dict, first_conv_needs_gx: bool):
     """Kernel launches of one training step at forecast_len 1: the forward's,
     plus per FF one backward kernel, per conv with kh*kw > 1 one weight
-    gradient and one input gradient (kernel 1 again) except for a first
+    gradient and one input gradient (kernel 2 again) except for a first
     conv whose input needs none (the WXFormer's stage-0 embed reads the
     batch; FuXi's DownBlock reads the cube embed's output). Attention's
     backward is autograd of its plain version (no kernel)."""
@@ -631,12 +674,10 @@ def expected_train_per_step(fwd: dict, first_conv_needs_gx: bool):
 
 def _counters():
     """(name, wrapper, attribute) of each launch count: a wrapper adds one
-    to its count where it launches its kernel; conv2d_valid counts kernels
-    beyond 8x8 (tap groups) apart."""
+    to its count where it launches its kernel."""
     from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff, cuda_probes
 
     return [("conv2d_valid", cuda_conv.conv2d_valid, "launches"),
-            ("conv2d_valid_grouped", cuda_conv.conv2d_valid, "launches_grouped"),
             ("fused_ff", cuda_ff.fused_ff, "launches"),
             ("fused_window_attention", cuda_attention.fused_window_attention, "launches"),
             ("fused_ff_bwd", cuda_ff.fused_ff_bwd, "launches"),
@@ -1180,9 +1221,6 @@ def main() -> int:
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
              runs),
-            ("conv2d_valid grouped", "conv2d_valid_grouped", "credit_torch/csrc/conv_valid.cu",
-             "credit_tpu/ops/pallas_conv.py:110", conv[("bench_embed_16x16", torch.bfloat16)],
-             ("tools",)),
             ("fused_ff pre-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools")),

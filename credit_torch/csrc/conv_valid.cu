@@ -3,53 +3,52 @@
 //
 // Replaces credit_tpu/ops/pallas_conv.py conv2d_valid (_forward, the
 // pallas_call at :174). In the port it carries every patch embed (after the
-// space-to-depth rewrite), every 3x3 decoder residual conv and the final
-// 3x3 depth-to-space phase conv.
+// space-to-depth rewrite), every 3x3 decoder residual conv, the final 3x3
+// depth-to-space phase conv, and (on the padded cotangent, kernel flipped)
+// every conv's input gradient.
 //
 // Bound on the H100: operations. The flagship's stage-0 embed is an 8x8
 // conv over 240 channels to 176 at 408x728 outputs, ~1.6 TFLOP against
-// ~0.25 GB of traffic, far above the card's ~295 FLOP/byte ridge. So the
-// bf16 path runs its products on the tensor cores (mma.sync m16n8k16, f32
-// accumulators in registers). The f32 path is plain FMA.
+// ~0.25 GB of traffic, far above the card's ~295 FLOP/byte ridge; FuXi's
+// 3x3 1024 -> 1024 convs likewise. So bf16 runs on the tensor cores at the
+// only rate Hopper's reach: wgmma, fed by TMA. The f32 path is plain FMA.
 //
-// Design: implicit GEMM. A block owns TH x TW output pixels x BN output
-// channels. For each chunk of BK input channels it stages the input patch
-// with its (kh-1, kw-1) halo in shared memory once and runs every tap from
-// it, so each input element is read from device memory once per chunk
-// instead of kh*kw times. bf16: a warp owns 2 output rows of 16 pixels x
-// BN/2 channels, so per 16 channels of K two ldmatrix loads of the patch
-// (rows addressed per lane, shifted by the tap) and BN/32 of the weights
-// feed BN/4 products. One pipeline stage is one (chunk, tap): that tap's
-// BK x BN weight slice arrives by cp.async through a 4-deep ring, three
-// stages ahead of its products, and the chunk's patch through 3 buffers, in
-// ~110 KB so that two blocks share an SM. BN (64, 96 or 128) is picked from
-// Cout to waste the fewest padded channels. Ragged edges (rows, columns,
-// channels, output channels) are masked by the block itself: out-of-range
-// input reads as zero and out-of-range outputs are not stored. The TPU
+// bf16 design: an implicit GEMM, M = 128 output pixels (TH x TW rows of the
+// output, TW 16, 32 or 64), N = BN output channels (64, 128, 192 or 256,
+// picked by the wrapper), K = 64 input channels of one tap per step, the
+// chunk outer and the kh x kw taps inner, so any kernel size is one loop.
+//   A: one TMA load of the 4-D box {64 channels, TW, TH, 1} of the NHWC
+//      input at {c0, x0 + dj, y0 + di, b}: a tap is a shift of the box. It
+//      lands as 128 rows of 128 bytes with 128-byte swizzle, the K-major
+//      tile that wgmma reads by descriptor. The halo is re-read from L2
+//      (the taps of a chunk follow each other), not staged.
+//   B: BN / 64 TMA boxes {64 outputs, 64 channels, 1} of the HWIO kernel
+//      seen as (taps, Cin, Cout): MN-major (Cout contiguous), read with
+//      wgmma's transpose bit; no copy of the weights.
+//   Ragged edges: TMA zero-fills what lies outside the tensors (channels
+//      past Cin in the last chunk, rows and columns past the input), so no
+//      load is masked; stores past Ho, Wo or Cout are skipped.
+//   Pipeline: a ring of stages (A 16 KB + B BN x 128 bytes each) with full
+//      and empty mbarriers. One producer thread issues the loads (its
+//      warpgroup gives registers away with setmaxnreg); two consumer
+//      warpgroups, 64 pixels x BN each, run wgmma.mma_async with one group
+//      in flight and free a stage once its products are done. f32
+//      accumulators are rounded to bf16 once, in the epilogue.
+// The N tile is the fastest grid index, so the blocks that read one A tile
+// run together. TMA needs 16-byte strides: the wrapper zero-pads Cin and
+// Cout to multiples of 8. Kernels of any size run as one K loop (the TPU
 // kernel's sublane padding, f32 column rolls and two-ref halo trick have no
-// counterpart here.
-//
-// Kernels taller or wider than MAX_K (the conv bench's 32x32/s2 embed is a
-// 16x16 conv after space-to-depth) run their taps in ngh x ngw groups of
-// gh x gw <= 8x8 (as even as they go; taps past kh or kw in the last groups
-// are skipped). The staged patch covers one group's halo, so shared memory
-// stays at the 8x8 plan, and every tap of every group adds into the same
-// f32 accumulators, rounded to the output dtype once. The f32 kernel loops
-// over the groups itself (one group up to 8x8). bf16 has a grouped kernel
-// of its own, whose pipeline stage is one (chunk, group, tap), walked by a
-// cursor without divisions, at BN = 64 so that two blocks share an SM and
-// the accumulators stay in registers: folding the groups into the 8x8
-// kernel slowed it (per-stage divisions, more registers; PERF.md).
+// counterpart).
 #include "common.cuh"
 
 namespace credit {
 namespace conv {
 
-constexpr int TH = 8;         // output rows per block
-constexpr int TW = 16;        // output columns per block (one m16 tile)
-constexpr int BK = 32;        // input channels per staged chunk
-constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_K = 8;      // largest kh / kw of one tap group
+constexpr int TH = 8;         // f32: output rows per block
+constexpr int TW = 16;        // f32: output columns per block
+constexpr int BK = 32;        // f32: input channels per staged chunk
+constexpr int THREADS = 256;  // f32: 8 warps
+constexpr int MAX_K = 8;      // f32: largest kh / kw of one tap group
 
 struct Geom {
   int hp, wp, cin, kh, kw, cout, ho, wo, n_ntiles;
@@ -59,205 +58,132 @@ __host__ __device__ inline int patch_h(const Geom& g) { return TH + g.kh - 1; }
 __host__ __device__ inline int patch_w(const Geom& g) { return TW + g.kw - 1; }
 
 // ---------------------------------------------------------------- bf16
-constexpr int LDA = BK + 8;  // patch channel stride: 80 bytes, ldmatrix conflict-free
-constexpr int NW = 4;        // weight-slice ring
-constexpr int NP = 3;        // patch buffers
-
-__host__ __device__ inline int patch_elems(const Geom& g) { return patch_h(g) * patch_w(g) * LDA; }
-template <int BN>
-__host__ __device__ inline int slice_elems() { return BK * (BN + 8); }
+constexpr int TC_THREADS = 384;    // a producer warpgroup and two consumers
+constexpr int KS = 64;             // input channels per K step (one 128-byte row)
+constexpr int A_BYTES = 128 * KS * 2;
+constexpr int BOX_BYTES = 64 * KS * 2;  // one 64-output column block of B
 
 template <int BN>
-__host__ inline size_t smem_bf16(const Geom& g) {
-  return ((size_t)NP * patch_elems(g) + (size_t)NW * slice_elems<BN>()) * sizeof(__nv_bfloat16);
-}
+struct Ring {
+  static constexpr int STAGE = A_BYTES + BN * KS * 2;
+  static constexpr int STAGES = (kMaxSmem - 2048) / STAGE < 8 ? (kMaxSmem - 2048) / STAGE : 8;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+};
 
-// The (TH+kh-1) x (TW+kw-1) x BK patch of channel chunk c0: aligned 8-channel
-// groups by cp.async, the rest (and zeros past the edges) by plain stores.
-__device__ void load_patch(__nv_bfloat16* patch, const __nv_bfloat16* __restrict__ x,
-                           const Geom& g, int b, int y0, int x0, int c0, bool vec) {
-  const int pw = patch_w(g);
-  const int groups = patch_h(g) * pw * (BK / 8);
-  for (int gi = threadIdx.x; gi < groups; gi += THREADS) {
-    const int pix = gi / (BK / 8), cg = gi % (BK / 8);
-    const int gy = y0 + pix / pw, gx = x0 + pix % pw, c = c0 + cg * 8;
-    __nv_bfloat16* dst = patch + pix * LDA + cg * 8;
-    if (gy >= g.hp || gx >= g.wp || c >= g.cin) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      continue;
+struct TcGeom {
+  int kh, kw, nchunks;  // K steps: nchunks x kh x kw
+  int ho, wo, cout;
+  int tw_log2;          // TW = 1 << tw_log2, TH = 128 / TW
+  int nxt;              // pixel tiles per output row band
+};
+
+template <int BN>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+conv_valid_bf16(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tk,
+                __nv_bfloat16* __restrict__ out, TcGeom g) {
+  using R = Ring<BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  const int tw = 1 << g.tw_log2, th = 128 >> g.tw_log2;
+  const int n0 = blockIdx.x * BN;
+  const int x0 = (blockIdx.y % g.nxt) * tw, y0 = (blockIdx.y / g.nxt) * th;
+  const int b = blockIdx.z;
+  const int total = g.nchunks * g.kh * g.kw;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    const __nv_bfloat16* src = x + ((size_t)(b * g.hp + gy) * g.wp + gx) * g.cin + c;
-    if (vec) {  // cin % 8 == 0: the 8 channels are in range and aligned
-      cp_async16(dst, src);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[i] = (c + i < g.cin) ? src[i] : __float2bfloat16(0.f);
-    }
+    mbar_fence_init();
   }
-}
-
-// The BK x BN weight slice w[tap, c0:c0+BK, n0:n0+BN], row stride BN + 8.
-template <int BN>
-__device__ void load_slice(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ w, const Geom& g,
-                           int tap, int c0, int n0, bool vec) {
-  for (int gi = threadIdx.x; gi < BK * (BN / 8); gi += THREADS) {
-    const int k = gi / (BN / 8), n = n0 + (gi % (BN / 8)) * 8, c = c0 + k;
-    __nv_bfloat16* d = dst + k * (BN + 8) + (n - n0);
-    if (c >= g.cin || n >= g.cout) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-      continue;
-    }
-    const __nv_bfloat16* src = w + ((size_t)tap * g.cin + c) * g.cout + n;
-    if (vec && n + 8 <= g.cout) {  // cout % 8 == 0: 8 aligned values
-      cp_async16(d, src);
-    } else {
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int c = 0, di = 0, dj = 0, s = 0;
+      uint32_t ph = 0;
+      for (int it = 0; it < total; ++it) {
+        mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* st = smem + s * R::STAGE;
+        mbar_expect_tx(&full[s], R::STAGE);
+        tma_load_4d(st, &tx, &full[s], c * KS, x0 + dj, y0 + di, b);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = (n + i < g.cout) ? src[i] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// one tap's products over one channel chunk: the warp's 2 rows of 16 pixels
-// (A, rows addressed per lane) by its BN/2 output channels (B)
-template <int BN>
-__device__ __forceinline__ void tap_products(float (&acc)[2][BN / 16][4], const __nv_bfloat16* a,
-                                             const __nv_bfloat16* bw, int pw) {
-  constexpr int NF = BN / 16, LDB = BN + 8;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], a + i * pw * LDA + kk);
-#pragma unroll
-    for (int jp = 0; jp < NF / 2; ++jp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, bw + kk * LDB + jp * 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-        mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// acc[i][j] holds pixels lane/4 and lane/4 + 8 of output row y0 + 2wm + i,
-// channels n0 + wn BN/2 + 8j + 2 (lane % 4) and the next
-template <int BN>
-__device__ __forceinline__ void store_tile(const float (&acc)[2][BN / 16][4],
-                                           __nv_bfloat16* __restrict__ out, const Geom& g, int b,
-                                           int y0, int x0, int n0) {
-  constexpr int NF = BN / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int oy = y0 + 2 * wm + i;
-    if (oy >= g.ho) continue;
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int on = n0 + wn * (BN / 2) + j * 8 + 2 * (lane % 4);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ox = x0 + lane / 4 + 8 * h;
-        if (ox >= g.wo) continue;
-        __nv_bfloat16* o = out + ((size_t)(b * g.ho + oy) * g.wo + ox) * g.cout + on;
-        if (on + 1 < g.cout && g.cout % 2 == 0) {
-          *reinterpret_cast<uint32_t*>(o) = pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          if (on < g.cout) o[0] = __float2bfloat16(acc[i][j][2 * h]);
-          if (on + 1 < g.cout) o[1] = __float2bfloat16(acc[i][j][2 * h + 1]);
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_3d(st + A_BYTES + j * BOX_BYTES, &tk, &full[s], n0 + 64 * j, c * KS,
+                      di * g.kw + dj);
+        if (++dj == g.kw) {
+          dj = 0;
+          if (++di == g.kh) {
+            di = 0;
+            ++c;
+          }
+        }
+        if (++s == R::STAGES) {
+          s = 0;
+          ph ^= 1;
         }
       }
     }
+  } else {  // consumers: warpgroup cw owns pixels [64 cw, 64 cw + 64) of the tile
+    reg_alloc<232>();
+    const int cw = wg - 1, lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int s = 0, prev = -1;
+    uint32_t ph = 0;
+    for (int it = 0; it < total; ++it) {
+      mbar_wait(&full[s], ph);
+      const uint32_t a0 = smem_u32(smem + s * R::STAGE + cw * 64 * 128);
+      const uint32_t b0 = smem_u32(smem + s * R::STAGE + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk)  // A: K-major, 32 bytes a k16 step; B: 16 rows
+        Wgmma<BN>::template run<0, 1>(acc, desc_sw128(a0 + kk * 32, 16, 1024),
+                                      desc_sw128(b0 + kk * 2048, BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's products are done: free its stage
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == R::STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = cw * 64 + warp * 16 + lane / 4 + 8 * h;
+      const int oy = y0 + (p >> g.tw_log2), ox = x0 + (p & (tw - 1));
+      if (oy >= g.ho || ox >= g.wo) continue;
+      __nv_bfloat16* o = out + ((size_t)(b * g.ho + oy) * g.wo + ox) * g.cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int on = n0 + 8 * j + 2 * (lane % 4);  // cout % 8 == 0: on + 1 is in range too
+        if (on < g.cout)
+          *reinterpret_cast<uint32_t*>(o + on) = pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
   }
 }
 
-// Warp (wm, wn) owns output rows 2wm, 2wm+1 of the block (16 pixels each)
-// and channels [wn BN/2, (wn+1) BN/2): NF = BN/16 n8 tiles.
 template <int BN>
-__global__ void __launch_bounds__(THREADS, 2)
-conv_valid_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                __nv_bfloat16* __restrict__ out, Geom g, bool vec_in, bool vec_out) {
-  constexpr int NF = BN / 16, LDB = BN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* patches = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ring = patches + NP * patch_elems(g);
-  const int pw = patch_w(g);
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int b = blockIdx.z / g.n_ntiles, n0 = (blockIdx.z % g.n_ntiles) * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int taps = g.kh * g.kw;
-  const int total = (g.cin + BK - 1) / BK * taps;  // stages: (chunk, tap)
-
-  // stage s = (chunk s / taps, tap s % taps); a chunk's first stage also
-  // brings its patch. A slot is rewritten 4 stages later, a patch buffer 3
-  // chunks later: both after the barrier that follows their last reader
-  // (taps >= 2).
-  auto load_stage = [&](int s) {
-    const int c = s / taps, tap = s % taps;
-    if (tap == 0)
-      load_patch(patches + (c % NP) * patch_elems(g), x, g, b, y0, x0, c * BK, vec_in);
-    load_slice<BN>(ring + (s % NW) * slice_elems<BN>(), w, g, tap, c * BK, n0, vec_out);
-  };
-
-  float acc[2][NF][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int s = 0; s < NW - 1; ++s) {
-    if (s < total) load_stage(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<NW - 2>();  // stage s has landed
-    __syncthreads();          // for every thread, and stage s - 1 is consumed
-    if (s + NW - 1 < total) load_stage(s + NW - 1);
-    cp_async_commit();
-    const int tap = s % taps, di = tap / g.kw, dj = tap % g.kw;
-    // lane l addresses A row l % 16 (a pixel) at channel offset (l / 16) * 8,
-    // and B row (l % 8) + ((l / 8) % 2) * 8 at column offset (l / 16) * 8
-    const __nv_bfloat16* a = patches + (s / taps % NP) * patch_elems(g) +
-                             ((2 * wm + di) * pw + lane % 16 + dj) * LDA + (lane / 16) * 8;
-    const __nv_bfloat16* bw = ring + (s % NW) * slice_elems<BN>() +
-                              ((lane % 8) + ((lane / 8) % 2) * 8) * LDB + wn * (BN / 2) +
-                              (lane / 16) * 8;
-    tap_products<BN>(acc, a, bw, pw);
-  }
-  store_tile<BN>(acc, out, g, b, y0, x0, n0);
-}
-
-template <int BN>
-void launch_bf16(const void* x, const void* w, void* out, Geom g, int n, bool vec_in,
-                 bool vec_out, cudaStream_t s) {
-  g.n_ntiles = (g.cout + BN - 1) / BN;
-  const dim3 grid((g.wo + TW - 1) / TW, (g.ho + TH - 1) / TH, n * g.n_ntiles);
-  const size_t smem = smem_bf16<BN>(g);
+cudaError_t launch_bf16(const CUtensorMap& tx, const CUtensorMap& tk, void* out, const TcGeom& g,
+                        int n, int nyt, cudaStream_t s) {
+  const dim3 grid((g.cout + BN - 1) / BN, g.nxt * nyt, n);
   cudaFuncSetAttribute(conv_valid_bf16<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  conv_valid_bf16<BN><<<grid, THREADS, smem, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                  static_cast<const __nv_bfloat16*>(w),
-                                                  static_cast<__nv_bfloat16*>(out), g, vec_in,
-                                                  vec_out);
-}
-
-// the channel tile of 64, 96 or 128 that pads cout the least (the larger
-// on a tie: fewer blocks re-read the patch)
-inline int pick_bn(int cout) {
-  const int bns[3] = {128, 96, 64};
-  int best = bns[0];
-  for (int bn : bns)
-    if ((cout + bn - 1) / bn * bn < (cout + best - 1) / best * best) best = bn;
-  return best;
+                       (int)Ring<BN>::SMEM);
+  conv_valid_bf16<BN><<<grid, TC_THREADS, Ring<BN>::SMEM, s>>>(
+      tx, tk, static_cast<__nv_bfloat16*>(out), g);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- groups
-// The tap groups of a kernel: ngh x ngw groups of gh x gw (a single group
+// The f32 kernel's tap groups: ngh x ngw groups of gh x gw (a single group
 // up to MAX_K a side).
 struct Groups {
   int gh, gw, ngh, ngw;
@@ -267,95 +193,6 @@ struct Groups {
 __host__ __device__ inline Geom group_patch(Geom g, const Groups& G) {
   g.kh = G.gh, g.kw = G.gw;
   return g;
-}
-
-// A pipeline stage of the grouped bf16 kernel, stepped without divisions:
-// channel chunk c, group (qi, qj), tap (ti, tj) of the group, and p, the
-// running count of staged patches.
-struct Cursor {
-  int c = 0, qi = 0, qj = 0, ti = 0, tj = 0, p = 0;
-
-  __device__ void next(const Groups& G) {
-    if (++tj < G.gw) return;
-    tj = 0;
-    if (++ti < G.gh) return;
-    ti = 0;
-    ++p;
-    if (++qj < G.ngw) return;
-    qj = 0;
-    if (++qi < G.ngh) return;
-    qi = 0;
-    ++c;
-  }
-  __device__ int di(const Groups& G) const { return qi * G.gh + ti; }
-  __device__ int dj(const Groups& G) const { return qj * G.gw + tj; }
-};
-
-constexpr int BNG = 64;  // the grouped bf16 kernel's output-channel tile
-
-// As conv_valid_bf16 at BN = 64, one stage per (chunk, group, tap); a
-// group's first stage brings its patch (taps >= 2 a group, as there).
-__global__ void __launch_bounds__(THREADS, 2)
-conv_valid_bf16_grouped(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                        __nv_bfloat16* __restrict__ out, Geom g, Groups G, bool vec_in,
-                        bool vec_out) {
-  constexpr int BN = BNG, NF = BN / 16, LDB = BN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Geom pg = group_patch(g, G);
-  __nv_bfloat16* patches = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ring = patches + NP * patch_elems(pg);
-  const int pw = patch_w(pg);
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int b = blockIdx.z / g.n_ntiles, n0 = (blockIdx.z % g.n_ntiles) * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int total = (g.cin + BK - 1) / BK * G.ngh * G.ngw * G.gh * G.gw;
-
-  auto load_stage = [&](const Cursor& k, int s) {
-    if (k.ti == 0 && k.tj == 0)
-      load_patch(patches + (k.p % NP) * patch_elems(pg), x, pg, b, y0 + k.qi * G.gh,
-                 x0 + k.qj * G.gw, k.c * BK, vec_in);
-    if (k.di(G) < g.kh && k.dj(G) < g.kw)
-      load_slice<BN>(ring + (s % NW) * slice_elems<BN>(), w, g, k.di(G) * g.kw + k.dj(G),
-                     k.c * BK, n0, vec_out);
-  };
-
-  float acc[2][NF][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  Cursor ld, cu;  // the stage being loaded, the stage being computed
-  for (int s = 0; s < NW - 1; ++s) {
-    if (s < total) {
-      load_stage(ld, s);
-      ld.next(G);
-    }
-    cp_async_commit();
-  }
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<NW - 2>();
-    __syncthreads();
-    if (s + NW - 1 < total) {
-      load_stage(ld, s + NW - 1);
-      ld.next(G);
-    }
-    cp_async_commit();
-    // a tap past the kernel's edge in the last groups adds nothing
-    if (cu.di(G) < g.kh && cu.dj(G) < g.kw) {
-      const __nv_bfloat16* a = patches + (cu.p % NP) * patch_elems(pg) +
-                               ((2 * wm + cu.ti) * pw + lane % 16 + cu.tj) * LDA + (lane / 16) * 8;
-      const __nv_bfloat16* bw = ring + (s % NW) * slice_elems<BN>() +
-                                ((lane % 8) + ((lane / 8) % 2) * 8) * LDB + wn * (BN / 2) +
-                                (lane / 16) * 8;
-      tap_products<BN>(acc, a, bw, pw);
-    }
-    cu.next(G);
-  }
-  store_tile<BN>(acc, out, g, b, y0, x0, n0);
 }
 
 // ---------------------------------------------------------------- f32
@@ -464,43 +301,53 @@ using namespace credit;
 
 // x (n, hp, wp, cin), w (kh, kw, cin, cout), out (n, hp-kh+1, wp-kw+1, cout),
 // all contiguous, 16-byte aligned and of one dtype (kF32 or kBF16);
-// kh * kw >= 2 (a 1x1 conv is a plain GEMM), any kh and kw.
+// kh * kw >= 2 (a 1x1 conv is a plain GEMM), any kh and kw. bf16: cin and
+// cout multiples of 8, the wrapper's plan of bn (64, 128, 192 or 256) output
+// channels and tw (16, 32 or 64) output columns a block; f32: bn 64, tw 16.
 extern "C" int credit_conv_valid(const void* x, const void* w, void* out, int dtype, int n, int hp,
-                                 int wp, int cin, int kh, int kw, int cout, void* stream) {
+                                 int wp, int cin, int kh, int kw, int cout, int bn, int tw,
+                                 void* stream) {
   using namespace credit::conv;
-  if (kh < 1 || kw < 1 || kh * kw < 2 || hp < kh || wp < kw) return (int)cudaErrorInvalidValue;
-  Geom g{hp, wp, cin, kh, kw, cout, hp - kh + 1, wp - kw + 1, 0};
-  const bool vec_in = cin % 8 == 0, vec_out = cout % 8 == 0;
+  if (kh < 1 || kw < 1 || kh * kw < 2 || hp < kh || wp < kw || n < 1 || cin < 1 || cout < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ho = hp - kh + 1, wo = wp - kw + 1;
+  if (dtype == kBF16) {
+    if (cin % 8 || cout % 8 || (tw != 16 && tw != 32 && tw != 64)) return (int)cudaErrorInvalidValue;
+    const int th = 128 / tw;
+    TcGeom g{kh, kw, (cin + KS - 1) / KS, ho, wo, cout, tw == 16 ? 4 : (tw == 32 ? 5 : 6),
+             (wo + tw - 1) / tw};
+    const int nyt = (ho + th - 1) / th;
+    CUtensorMap tx, tk;
+    const cuuint64_t xd[4] = {(cuuint64_t)cin, (cuuint64_t)wp, (cuuint64_t)hp, (cuuint64_t)n};
+    const cuuint64_t xs[3] = {(cuuint64_t)cin * 2, (cuuint64_t)wp * cin * 2,
+                              (cuuint64_t)hp * wp * cin * 2};
+    const cuuint32_t xb[4] = {KS, (cuuint32_t)tw, (cuuint32_t)th, 1};
+    const cuuint64_t kd[3] = {(cuuint64_t)cout, (cuuint64_t)cin, (cuuint64_t)kh * kw};
+    const cuuint64_t ks[2] = {(cuuint64_t)cout * 2, (cuuint64_t)cin * cout * 2};
+    const cuuint32_t kb[3] = {64, KS, 1};
+    if (!bf16_map(&tx, x, 4, xd, xs, xb) || !bf16_map(&tk, w, 3, kd, ks, kb))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    switch (bn) {
+      case 64: err = launch_bf16<64>(tx, tk, out, g, n, nyt, s); break;
+      case 128: err = launch_bf16<128>(tx, tk, out, g, n, nyt, s); break;
+      case 192: err = launch_bf16<192>(tx, tk, out, g, n, nyt, s); break;
+      case 256: err = launch_bf16<256>(tx, tk, out, g, n, nyt, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)err;
+  }
+  if (dtype != kF32 || bn != BN32 || tw != TW) return (int)cudaErrorInvalidValue;
+  Geom g{hp, wp, cin, kh, kw, cout, ho, wo, (cout + BN32 - 1) / BN32};
   // the fewest groups of at most MAX_K taps a side, as even as they go
   const int ngh = (kh + MAX_K - 1) / MAX_K, ngw = (kw + MAX_K - 1) / MAX_K;
   const Groups G{(kh + ngh - 1) / ngh, (kw + ngw - 1) / ngw, ngh, ngw};
-  const Geom pg = group_patch(g, G);
-  if (dtype == kBF16 && ngh * ngw > 1) {
-    g.n_ntiles = (cout + BNG - 1) / BNG;
-    const dim3 grid((g.wo + TW - 1) / TW, (g.ho + TH - 1) / TH, n * g.n_ntiles);
-    const size_t smem = smem_bf16<BNG>(pg);
-    cudaFuncSetAttribute(conv_valid_bf16_grouped, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    conv_valid_bf16_grouped<<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), g, G, vec_in, vec_out);
-  } else if (dtype == kBF16) {
-    switch (pick_bn(cout)) {
-      case 64: launch_bf16<64>(x, w, out, g, n, vec_in, vec_out, s); break;
-      case 96: launch_bf16<96>(x, w, out, g, n, vec_in, vec_out, s); break;
-      default: launch_bf16<128>(x, w, out, g, n, vec_in, vec_out, s); break;
-    }
-  } else if (dtype == kF32) {
-    g.n_ntiles = (cout + BN32 - 1) / BN32;
-    const dim3 grid((g.wo + TW - 1) / TW, (g.ho + TH - 1) / TH, n * g.n_ntiles);
-    const size_t smem = smem_f32(pg);
-    cudaFuncSetAttribute(conv_valid_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    conv_valid_f32<<<grid, THREADS, smem, s>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(w),
-                                               static_cast<float*>(out), g, G);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((wo + TW - 1) / TW, (ho + TH - 1) / TH, n * g.n_ntiles);
+  const size_t smem = smem_f32(group_patch(g, G));
+  cudaFuncSetAttribute(conv_valid_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  conv_valid_f32<<<grid, THREADS, smem, s>>>(static_cast<const float*>(x),
+                                             static_cast<const float*>(w),
+                                             static_cast<float*>(out), g, G);
   return (int)cudaGetLastError();
 }

@@ -5,27 +5,36 @@
 // :320). In the port's training step it gives the kernel gradient of every
 // conv with kh*kw > 1: the four patch embeds (8x8 after space-to-depth at
 // stage 0, 2x2 at stages 1-3), the six 3x3 decoder residual convs and the
-// head's 3x3 phase conv.
+// head's 3x3 phase conv; in FuXi's, the DownBlock's 2x2 (its 3x3/s2 after
+// space-to-depth) and the four 3x3 residual convs.
 //
 // Bound on the H100: operations. The stage-0 embed's gradient is an 8x8 x
 // 240 x 176 product over 408x728 pixels, 1.61 TFLOP against ~0.25 GB of
 // traffic, far above the card's ~295 FLOP/byte ridge. bf16 runs the products
-// on the tensor cores (mma.sync m16n8k16, f32 accumulators); f32 is FMA.
+// on wgmma fed by TMA, as kernel 2 does; f32 is FMA.
 //
-// Design: a GEMM per tap, (Cin x pixels) . (pixels x Cout), with the pixels
-// as the contraction. A block owns a 64 (Cin) x 64 (Cout) tile of a group of
-// TR x TC neighbouring taps and a share of the pixels (split-K). It walks its
-// pixels in chunks of one output row segment: per chunk the gy segment and
-// the TR input row strips the group's taps read (TC - 1 columns of halo)
-// arrive once by cp.async through a 3-deep ring, and every tap of the group
-// is a pointer shift into the strips, so one gy fragment feeds TR*TC
-// products. The TPU kernel summed its tiles in order into one VMEM block;
-// here blocks run in parallel, so each split writes its own partial gk to a
-// scratch buffer (the caller's, `credit_conv_wgrad_workspace` bytes) and a
-// second pass adds the splits in a fixed order: the result does not change
-// from run to run. Ragged pixels, channels and taps are masked by zeros on
-// load and by bounds on store. The TPU kernel's lane tricks (the f32 roll,
-// gy padded to the lane tile, the Cin sublane pad) have no counterpart.
+// bf16 design: a GEMM per tap, gk[tap] = x_tap^T . gy, with the pixels as
+// the contraction. A block owns (tap, a tile of 128 input channels, a tile
+// of BN output channels, a split of the pixels); K steps are 64 pixels, SH
+// output rows x SW columns (SW 64, 32 or 16, picked by the wrapper to waste
+// the fewest pixels at the right edge).
+//   A: two TMA boxes {64 channels, SW, SH, 1} of x at {c0, x0 + dj, y + di,
+//      b} (one per consumer warpgroup), 64 pixel rows of 128 bytes each:
+//      MN-major (channels contiguous), read with wgmma's transpose bit.
+//   B: BN / 64 boxes {64 outputs, SW, SH, 1} of gy at {o0, x0, y, b}, MN-major
+//      as well. Pixels past Wo and Ho come as zeros from gy's zero fill, so
+//      no load is masked (x may read real pixels there: they meet zeros).
+//   Pipeline, warp roles and the stage ring as in kernel 2 (conv_valid.cu).
+// The tap is the fastest grid index and every block walks its split's
+// pixels in the same order, so the kh*kw blocks that read one chunk of x and
+// gy run together and find it in L2 (the 8x8 embed's gy is 104 MB and x 146
+// MB, both beyond the 50 MB L2). The TPU kernel summed its tiles in order
+// into one VMEM block; here blocks run in parallel, so each split writes its
+// own partial gk to a scratch buffer (the caller's) and a second pass adds
+// the splits in a fixed order: the result does not change from run to run.
+// TMA needs 16-byte strides: the wrapper zero-pads Cin and Cout to
+// multiples of 8. The TPU kernel's lane tricks (the f32 roll, gy padded to
+// the lane tile, the Cin sublane pad) have no counterpart.
 #include <algorithm>
 
 #include "common.cuh"
@@ -33,12 +42,139 @@
 namespace credit {
 namespace wgrad {
 
+// ---------------------------------------------------------------- bf16
+constexpr int TC_THREADS = 384;         // a producer warpgroup and two consumers
+constexpr int KP = 64;                  // pixels per K step
+constexpr int BOX_BYTES = KP * 64 * 2;  // one box: 64 pixels x 64 channels
+constexpr int A_BYTES = 2 * BOX_BYTES;  // 128 input channels
+
+template <int BN>
+struct Ring {
+  static constexpr int STAGE = A_BYTES + BN / 64 * BOX_BYTES;
+  static constexpr int STAGES = (kMaxSmem - 2048) / STAGE < 8 ? (kMaxSmem - 2048) / STAGE : 8;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+};
+
+struct TcGeom {
+  int kw, taps, cin, cout;
+  int nct;              // input-channel tiles of 128
+  int sw_log2;          // SW = 1 << sw_log2, SH = 64 / SW
+  int nxs, nys;         // pixel segments per row band, row bands per image
+  int nchunks, per;     // K steps in all and per split
+};
+
+template <int BN>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+wgrad_bf16(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tg,
+           float* __restrict__ part, TcGeom g) {
+  using R = Ring<BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  int t = blockIdx.x;
+  const int tap = t % g.taps;
+  t /= g.taps;
+  const int c0 = (t % g.nct) * 128, o0 = (t / g.nct) * BN;
+  const int di = tap / g.kw, dj = tap % g.kw;
+  const int split = blockIdx.y;
+  const int ch0 = split * g.per, nch = max(0, min(g.nchunks, ch0 + g.per) - ch0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const int sw = 1 << g.sw_log2, sh = KP >> g.sw_log2;
+      int xs = ch0 % g.nxs, ys = ch0 / g.nxs % g.nys, b = ch0 / (g.nxs * g.nys), s = 0;
+      uint32_t ph = 0;
+      for (int it = 0; it < nch; ++it) {
+        const int x0 = xs * sw, y0 = ys * sh;
+        mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* st = smem + s * R::STAGE;
+        mbar_expect_tx(&full[s], R::STAGE);
+        tma_load_4d(st, &tx, &full[s], c0, x0 + dj, y0 + di, b);
+        tma_load_4d(st + BOX_BYTES, &tx, &full[s], c0 + 64, x0 + dj, y0 + di, b);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_4d(st + A_BYTES + j * BOX_BYTES, &tg, &full[s], o0 + 64 * j, x0, y0, b);
+        if (++xs == g.nxs) {
+          xs = 0;
+          if (++ys == g.nys) {
+            ys = 0;
+            ++b;
+          }
+        }
+        if (++s == R::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {  // consumers: warpgroup cw owns channels [c0 + 64 cw, c0 + 64 cw + 64)
+    reg_alloc<232>();
+    const int cw = wg - 1, lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int s = 0, prev = -1;
+    uint32_t ph = 0;
+    for (int it = 0; it < nch; ++it) {
+      mbar_wait(&full[s], ph);
+      const uint32_t a0 = smem_u32(smem + s * R::STAGE + cw * BOX_BYTES);
+      const uint32_t b0 = smem_u32(smem + s * R::STAGE + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KP / 16; ++kk)  // both MN-major: a k16 step is 16 rows
+        Wgmma<BN>::template run<1, 1>(acc, desc_sw128(a0 + kk * 2048, BOX_BYTES, 1024),
+                                      desc_sw128(b0 + kk * 2048, BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's products are done: free its stage
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == R::STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    float* dst = part + (size_t)split * g.taps * g.cin * g.cout + (size_t)tap * g.cin * g.cout;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + cw * 64 + warp * 16 + lane / 4 + 8 * h;
+      if (c >= g.cin) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int o = o0 + 8 * j + 2 * (lane % 4);  // cout % 8 == 0: o + 1 is in range too
+        if (o < g.cout)
+          *reinterpret_cast<float2*>(dst + (size_t)c * g.cout + o) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch_bf16(const CUtensorMap& tx, const CUtensorMap& tg, float* part,
+                        const TcGeom& g, int splits, cudaStream_t s) {
+  const dim3 grid(g.taps * g.nct * ((g.cout + BN - 1) / BN), splits);
+  cudaFuncSetAttribute(wgrad_bf16<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)Ring<BN>::SMEM);
+  wgrad_bf16<BN><<<grid, TC_THREADS, Ring<BN>::SMEM, s>>>(tx, tg, part, g);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- f32
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BM = 64;        // input channels per block
 constexpr int BN = 64;        // output channels per block
-constexpr int P = 64;         // pixels per chunk (bf16)
-constexpr int NS = 3;         // chunk ring depth
-constexpr int LDS = BM + 8;   // shared row stride (BM == BN): 144 bytes, ldmatrix conflict-free
 
 struct Geom {
   int n, hp, wp, cin, kh, kw, cout, ho, wo;
@@ -55,149 +191,6 @@ __device__ __forceinline__ void chunk_at(const Geom& g, int ci, int p, int& b, i
   b = ci / (g.nxc * g.ho);
 }
 
-// ---------------------------------------------------------------- bf16
-template <int TR, int TC>
-struct Plan {
-  static constexpr int SW = P + TC - 1;                  // strip width in pixels
-  static constexpr int G_ELEMS = P * LDS;                // gy segment
-  static constexpr int X_ELEMS = TR * SW * LDS;          // input strips
-  static constexpr int STAGE = G_ELEMS + X_ELEMS;
-  static constexpr size_t SMEM = (size_t)NS * STAGE * sizeof(__nv_bfloat16);
-};
-
-// 8 consecutive channels from src (count valid), zero past it, into dst
-__device__ __forceinline__ void load8(__nv_bfloat16* dst, const __nv_bfloat16* src, int valid,
-                                      bool vec) {
-  if (valid >= 8 && vec) {
-    cp_async16(dst, src);
-  } else if (valid <= 0) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = i < valid ? src[i] : __float2bfloat16(0.f);
-  }
-}
-
-template <int TR, int TC>
-__device__ void load_chunk(__nv_bfloat16* stage, const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ gy, const Geom& g, int ci, int c0,
-                           int o0, int di0, int dj0, bool vec_x, bool vec_g) {
-  using Pl = Plan<TR, TC>;
-  int b, y, x0;
-  chunk_at(g, ci, P, b, y, x0);
-  __nv_bfloat16* sg = stage;
-  __nv_bfloat16* sx = stage + Pl::G_ELEMS;
-  for (int i = threadIdx.x; i < P * (BN / 8); i += THREADS) {
-    const int r = i / (BN / 8), v = (i % (BN / 8)) * 8;
-    const int xx = x0 + r;
-    const bool in = xx < g.wo;
-    const __nv_bfloat16* src = gy + ((size_t)(b * g.ho + y) * g.wo + (in ? xx : 0)) * g.cout + o0 + v;
-    load8(sg + r * LDS + v, src, in ? g.cout - o0 - v : 0, vec_g);
-  }
-  for (int i = threadIdx.x; i < TR * Pl::SW * (BM / 8); i += THREADS) {
-    const int v = (i % (BM / 8)) * 8, j = (i / (BM / 8)) % Pl::SW, tr = i / (BM / 8 * Pl::SW);
-    const int yy = y + di0 + tr, xx = x0 + dj0 + j;
-    const bool in = yy < g.hp && xx < g.wp;
-    const __nv_bfloat16* src =
-        x + ((size_t)(b * g.hp + (in ? yy : 0)) * g.wp + (in ? xx : 0)) * g.cin + c0 + v;
-    load8(sx + (tr * Pl::SW + j) * LDS + v, src, in ? g.cin - c0 - v : 0, vec_x);
-  }
-}
-
-// Warp (wm, wn) of 4 x 2 owns channels [16 wm, 16 wm + 16) and outputs
-// [32 wn, 32 wn + 32) of the block tile, for each of the TR*TC taps.
-template <int TR, int TC>
-__global__ void __launch_bounds__(THREADS, 2)
-wgrad_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gy,
-           float* __restrict__ part, Geom g, bool vec_x, bool vec_g) {
-  using Pl = Plan<TR, TC>;
-  constexpr int TG = TR * TC;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  int t = blockIdx.x;
-  const int o0 = (t % g.n_ot) * BN;
-  t /= g.n_ot;
-  const int c0 = (t % g.n_ct) * BM;
-  t /= g.n_ct;
-  const int di0 = (t / g.ngc) * TR, dj0 = (t % g.ngc) * TC;
-  const int split = blockIdx.y;
-  const int per = (g.nchunks + g.splits - 1) / g.splits;
-  const int ch0 = split * per, nch = max(0, min(g.nchunks, ch0 + per) - ch0);
-
-  float acc[TG][4][4];
-#pragma unroll
-  for (int q = 0; q < TG; ++q)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.f;
-
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < nch)
-      load_chunk<TR, TC>(ring + s * Pl::STAGE, x, gy, g, ch0 + s, c0, o0, di0, dj0, vec_x, vec_g);
-    cp_async_commit();
-  }
-  for (int s = 0; s < nch; ++s) {
-    cp_async_wait<NS - 2>();  // chunk s has landed
-    __syncthreads();          // for every thread, and chunk s - 1 is consumed
-    if (s + NS - 1 < nch)
-      load_chunk<TR, TC>(ring + (s + NS - 1) % NS * Pl::STAGE, x, gy, g, ch0 + s + NS - 1, c0, o0,
-                         di0, dj0, vec_x, vec_g);
-    cp_async_commit();
-    const __nv_bfloat16* sg = ring + (s % NS) * Pl::STAGE;
-    const __nv_bfloat16* sx = sg + Pl::G_ELEMS;
-    // B = gy (pixels x outputs, row-major): transposed ldmatrix, lane l
-    // addresses pixel (l % 8) + ((l / 8) % 2) * 8 at output (l / 16) * 8.
-    // A = x^T (channels x pixels) from the [pixel][channel] strips:
-    // transposed ldmatrix, lane l addresses pixel (l % 8) + (l / 16) * 8 at
-    // channel ((l / 8) % 2) * 8; a tap (tr, tc) shifts the strip and pixel.
-    const __nv_bfloat16* bptr =
-        sg + ((lane % 8) + ((lane / 8) % 2) * 8) * LDS + wn * 32 + (lane / 16) * 8;
-    const __nv_bfloat16* aptr =
-        sx + ((lane % 8) + (lane / 16) * 8) * LDS + wm * 16 + ((lane / 8) % 2) * 8;
-#pragma unroll
-    for (int kk = 0; kk < P; kk += 16) {
-      uint32_t bf[2][4];
-      ldmatrix_x4_trans(bf[0], bptr + kk * LDS);
-      ldmatrix_x4_trans(bf[1], bptr + kk * LDS + 16);
-#pragma unroll
-      for (int tr = 0; tr < TR; ++tr)
-#pragma unroll
-        for (int tc = 0; tc < TC; ++tc) {
-          uint32_t af[4];
-          ldmatrix_x4_trans(af, aptr + (tr * Pl::SW + kk + tc) * LDS);
-          float(&a)[4][4] = acc[tr * TC + tc];
-          mma_bf16(a[0], af, bf[0][0], bf[0][1]);
-          mma_bf16(a[1], af, bf[0][2], bf[0][3]);
-          mma_bf16(a[2], af, bf[1][0], bf[1][1]);
-          mma_bf16(a[3], af, bf[1][2], bf[1][3]);
-        }
-    }
-  }
-
-  // acc[q][j]: channels c0 + 16 wm + lane / 4 (+ 8), outputs
-  // o0 + 32 wn + 8 j + 2 (lane % 4) (+ 1)
-  const size_t total = (size_t)g.kh * g.kw * g.cin * g.cout;
-  float* dst = part + (size_t)split * total;
-#pragma unroll
-  for (int q = 0; q < TG; ++q) {
-    const int di = di0 + q / TC, dj = dj0 + q % TC;
-    if (di >= g.kh || dj >= g.kw) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + wm * 16 + lane / 4 + (e / 2) * 8;
-        const int o = o0 + wn * 32 + j * 8 + 2 * (lane % 4) + e % 2;
-        if (c < g.cin && o < g.cout)
-          dst[((size_t)(di * g.kw + dj) * g.cin + c) * g.cout + o] = acc[q][j][e];
-      }
-  }
-}
-
-// ---------------------------------------------------------------- f32
 constexpr int P32 = 32;  // pixels per chunk
 
 // thread (tm, tn) of 16 x 16 owns channels 4 tm.. and outputs 4 tn.., per tap
@@ -289,53 +282,10 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   }
 }
 
-// The tap group of a kernel: a kernel row of 3 for 3-wide kernels, 2x2 for
-// 2x2 (and smaller), otherwise rows of 4 taps (the 8x8 embed).
-inline void tap_group(int kh, int kw, int& tr, int& tc) {
-  if (kh <= 2 && kw <= 2) {
-    tr = 2, tc = 2;
-  } else if (kw == 3) {
-    tr = 1, tc = 3;
-  } else {
-    tr = 1, tc = 4;
-  }
-}
-
-// Geometry and the split count: enough blocks for ~4 waves of two per SM,
-// and at least 8 chunks a split.
-inline Geom plan(int dtype, int n, int hp, int wp, int cin, int kh, int kw, int cout) {
-  Geom g{};
-  g.n = n, g.hp = hp, g.wp = wp, g.cin = cin, g.kh = kh, g.kw = kw, g.cout = cout;
-  g.ho = hp - kh + 1, g.wo = wp - kw + 1;
-  const int p = dtype == kBF16 ? P : P32;
-  g.nxc = (g.wo + p - 1) / p;
-  g.nchunks = n * g.ho * g.nxc;
-  int tr, tc;
-  tap_group(kh, kw, tr, tc);
-  g.ngc = (kw + tc - 1) / tc;
-  g.n_ct = (cin + BM - 1) / BM, g.n_ot = (cout + BN - 1) / BN;
-  const int tiles = g.n_ct * g.n_ot * g.ngc * ((kh + tr - 1) / tr);
-  int s = (4 * 2 * 132 + tiles - 1) / tiles;
-  s = std::min(s, std::max(1, g.nchunks / 8));
-  g.splits = std::max(1, s);
-  return g;
-}
-
 template <int TR, int TC>
-void launch(int dtype, const void* x, const void* gy, float* part, const Geom& g, bool vec_x,
-            bool vec_g, cudaStream_t s) {
+void launch_f32(const float* x, const float* gy, float* part, const Geom& g, cudaStream_t s) {
   const dim3 grid(g.n_ot * g.n_ct * g.ngc * ((g.kh + TR - 1) / TR), g.splits);
-  if (dtype == kBF16) {
-    const size_t smem = Plan<TR, TC>::SMEM;
-    cudaFuncSetAttribute(wgrad_bf16<TR, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    wgrad_bf16<TR, TC><<<grid, THREADS, smem, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                    static_cast<const __nv_bfloat16*>(gy), part, g,
-                                                    vec_x, vec_g);
-  } else {
-    wgrad_f32<TR, TC><<<grid, THREADS, 0, s>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(gy), part, g);
-  }
+  wgrad_f32<TR, TC><<<grid, THREADS, 0, s>>>(x, gy, part, g);
 }
 
 }  // namespace wgrad
@@ -343,41 +293,76 @@ void launch(int dtype, const void* x, const void* gy, float* part, const Geom& g
 
 using namespace credit;
 
-// Bytes of scratch `credit_conv_wgrad` needs for these shapes (0 when one
-// split suffices).
-extern "C" long long credit_conv_wgrad_workspace(int dtype, int n, int hp, int wp, int cin,
-                                                 int kh, int kw, int cout) {
-  if (hp < kh || wp < kw || kh < 1 || kw < 1) return 0;
-  const wgrad::Geom g = wgrad::plan(dtype, n, hp, wp, cin, kh, kw, cout);
-  return g.splits > 1 ? (long long)g.splits * kh * kw * cin * cout * 4 : 0;
-}
-
 // x (n, hp, wp, cin), gy (n, hp-kh+1, wp-kw+1, cout), one dtype (kF32 or
-// kBF16), contiguous and 16-byte aligned; gk (kh, kw, cin, cout) f32;
-// work: credit_conv_wgrad_workspace bytes.
+// kBF16), contiguous and 16-byte aligned; gk (kh, kw, cin, cout) f32. The
+// wrapper's plan: bf16 takes cin and cout multiples of 8, bn (64, 128, 192
+// or 256) output channels a block and K steps of 64 pixels sw (16, 32 or
+// 64) wide, one tap a block (tr = tc = 1); f32 bn 64, sw 32 (one row
+// segment) and a tap group of tr x tc (2x2, 1x3 or 1x4). `splits` blocks share
+// each tile's pixels; with more than one, `work` holds splits x kh x kw x
+// cin x cout f32 partials, added in order into gk.
 extern "C" int credit_conv_wgrad(const void* x, const void* gy, void* gk, void* work, int dtype,
-                                 int n, int hp, int wp, int cin, int kh, int kw, int cout,
-                                 void* stream) {
+                                 int n, int hp, int wp, int cin, int kh, int kw, int cout, int bn,
+                                 int sw, int tr, int tc, int splits, void* stream) {
   using namespace credit::wgrad;
-  if (n < 1 || kh < 1 || kw < 1 || hp < kh || wp < kw || cin < 1 || cout < 1 ||
-      (dtype != kBF16 && dtype != kF32))
+  if (n < 1 || kh < 1 || kw < 1 || hp < kh || wp < kw || cin < 1 || cout < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geom g = plan(dtype, n, hp, wp, cin, kh, kw, cout);
-  float* part = g.splits > 1 ? static_cast<float*>(work) : static_cast<float*>(gk);
-  const bool vec_x = cin % 8 == 0, vec_g = cout % 8 == 0;
-  int tr, tc;
-  tap_group(kh, kw, tr, tc);
-  if (tr == 2)
-    launch<2, 2>(dtype, x, gy, part, g, vec_x, vec_g, s);
-  else if (tc == 3)
-    launch<1, 3>(dtype, x, gy, part, g, vec_x, vec_g, s);
-  else
-    launch<1, 4>(dtype, x, gy, part, g, vec_x, vec_g, s);
-  if (g.splits > 1) {
+  const int ho = hp - kh + 1, wo = wp - kw + 1;
+  float* part = splits > 1 ? static_cast<float*>(work) : static_cast<float*>(gk);
+  if (dtype == kBF16) {
+    if (cin % 8 || cout % 8 || (sw != 16 && sw != 32 && sw != 64) || tr != 1 || tc != 1)
+      return (int)cudaErrorInvalidValue;
+    const int sh = KP / sw;
+    TcGeom g{kw, kh * kw, cin, cout, (cin + 127) / 128, sw == 16 ? 4 : (sw == 32 ? 5 : 6),
+             (wo + sw - 1) / sw, (ho + sh - 1) / sh, 0, 0};
+    g.nchunks = n * g.nxs * g.nys;
+    g.per = (g.nchunks + splits - 1) / splits;
+    CUtensorMap tx, tg;
+    const cuuint64_t xd[4] = {(cuuint64_t)cin, (cuuint64_t)wp, (cuuint64_t)hp, (cuuint64_t)n};
+    const cuuint64_t xs[3] = {(cuuint64_t)cin * 2, (cuuint64_t)wp * cin * 2,
+                              (cuuint64_t)hp * wp * cin * 2};
+    const cuuint64_t gd[4] = {(cuuint64_t)cout, (cuuint64_t)wo, (cuuint64_t)ho, (cuuint64_t)n};
+    const cuuint64_t gs[3] = {(cuuint64_t)cout * 2, (cuuint64_t)wo * cout * 2,
+                              (cuuint64_t)ho * wo * cout * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)sw, (cuuint32_t)sh, 1};
+    if (!bf16_map(&tx, x, 4, xd, xs, box) || !bf16_map(&tg, gy, 4, gd, gs, box))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    switch (bn) {
+      case 64: err = launch_bf16<64>(tx, tg, part, g, splits, s); break;
+      case 128: err = launch_bf16<128>(tx, tg, part, g, splits, s); break;
+      case 192: err = launch_bf16<192>(tx, tg, part, g, splits, s); break;
+      case 256: err = launch_bf16<256>(tx, tg, part, g, splits, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
+  } else if (dtype == kF32) {
+    const bool group = (tr == 2 && tc == 2) || (tr == 1 && (tc == 3 || tc == 4));
+    if (bn != BN || sw != P32 || !group) return (int)cudaErrorInvalidValue;
+    Geom g{};
+    g.n = n, g.hp = hp, g.wp = wp, g.cin = cin, g.kh = kh, g.kw = kw, g.cout = cout;
+    g.ho = ho, g.wo = wo;
+    g.nxc = (wo + P32 - 1) / P32;
+    g.nchunks = n * ho * g.nxc;
+    g.ngc = (kw + tc - 1) / tc;
+    g.n_ct = (cin + BM - 1) / BM, g.n_ot = (cout + BN - 1) / BN;
+    g.splits = splits;
+    const float* xf = static_cast<const float*>(x);
+    const float* gf = static_cast<const float*>(gy);
+    if (tr == 2)
+      launch_f32<2, 2>(xf, gf, part, g, s);
+    else if (tc == 3)
+      launch_f32<1, 3>(xf, gf, part, g, s);
+    else
+      launch_f32<1, 4>(xf, gf, part, g, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (splits > 1) {
     const size_t total = (size_t)kh * kw * cin * cout;
     const int blocks = (int)std::min<size_t>((total + 255) / 256, 4096);
-    sum_splits<<<blocks, 256, 0, s>>>(part, static_cast<float*>(gk), total, g.splits);
+    sum_splits<<<blocks, 256, 0, s>>>(part, static_cast<float*>(gk), total, splits);
   }
   return (int)cudaGetLastError();
 }

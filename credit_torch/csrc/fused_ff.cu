@@ -38,6 +38,8 @@
 // kernel. The wrapper zero-pads C; padded columns of the output are zero
 // before the post-norm LN, which leaves them out of its statistics. f32 is
 // plain FMA, 16 rows per block, accumulators in registers (C <= 1024).
+// Widths past 1024 or not a multiple of 8 run the same function in passes
+// (credit_fused_ff_passes in fused_ff_bwd.cu).
 #include "common.cuh"
 
 namespace credit {

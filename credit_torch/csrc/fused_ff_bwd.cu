@@ -53,8 +53,12 @@
 // are in x's dtype where they enter a product; LN statistics, Phi, the pdf
 // and every accumulator are f32; erf is the exact erff, where the TPU kernel
 // used Abramowitz-Stegun 7.1.26 (1.5e-7 absolute). Any M is taken: ragged row
-// tiles are masked. bf16 runs the products on mma.sync m16n8k16 with
-// ldmatrix through a 3-deep cp.async ring; f32 runs them on FMA.
+// tiles are masked. Any C is taken: rows are zero-padded to ld, a multiple of
+// 8 (the wrapper's copy), the statistics run over the true C, and the LN
+// backward splits rows wider than 2048 into column slices over its grid. The
+// same passes give the forward at widths the fused kernel does not take
+// (credit_fused_ff_passes, at the end). bf16 runs the products on mma.sync
+// m16n8k16 with ldmatrix through a 3-deep cp.async ring; f32 runs them on FMA.
 #include <algorithm>
 
 #include "common.cuh"
@@ -67,137 +71,190 @@ constexpr float kSqrt1_2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 constexpr int THREADS = 256;  // 8 warps everywhere
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_C = 2048;  // the LN backward keeps 3 x 8 x C f32 column sums in shared memory
 
 __device__ __forceinline__ float phi_of(float h) { return 0.5f * (1.f + erff(h * kSqrt1_2)); }
 
 // ---------------------------------------------------------------- rows
-// y = LN(x) * g + b in x's dtype, one warp per row
-template <typename T>
+// Every row kernel reads rows of `ld` elements (ld >= c, a multiple of 8 in
+// bf16: the wrapper zero-pads a width that is not) and takes its statistics
+// over the true width c; the columns in [c, ld) of what it writes are zero.
+
+// mean and rstd of V, an expression of the column k, over k < c: one warp per
+// row, two passes, the loops inline in each kernel
+#define ROW_STATS(V, c, mean, rstd)                          \
+  do {                                                       \
+    float s_ = 0.f;                                          \
+    for (int k = lane; k < c; k += 32) s_ += (V);            \
+    mean = warp_sum(s_) / c;                                 \
+    float q_ = 0.f;                                          \
+    for (int k = lane; k < c; k += 32) {                     \
+      const float d_ = (V) - mean;                           \
+      q_ += d_ * d_;                                         \
+    }                                                        \
+    rstd = rsqrtf(warp_sum(q_) / c + kEps);                  \
+  } while (0)
+
+// y = LN(x) * g + b in x's dtype, one warp per row. PAD: ld > c, and the
+// padded columns of y are zeroed.
+template <typename T, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 ln_rows(const T* __restrict__ x, const T* __restrict__ gam, const T* __restrict__ bet,
-        T* __restrict__ y, int m, int c) {
+        T* __restrict__ y, int m, int c, int ld) {
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * WARPS + threadIdx.x / 32;
   if (r >= m) return;
-  const T* xr = x + (size_t)r * c;
-  float s = 0.f;
-  for (int k = lane; k < c; k += 32) s += to_f32(xr[k]);
-  const float mean = warp_sum(s) / c;
-  float v = 0.f;
-  for (int k = lane; k < c; k += 32) {
-    const float d = to_f32(xr[k]) - mean;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / c + kEps);
+  const T* xr = x + (size_t)r * ld;
+  float mean, rstd;
+  ROW_STATS(to_f32(xr[k]), c, mean, rstd);
   for (int k = lane; k < c; k += 32)
-    y[(size_t)r * c + k] =
+    y[(size_t)r * ld + k] =
         from_f32<T>((to_f32(xr[k]) - mean) * rstd * to_f32(gam[k]) + to_f32(bet[k]));
+  if constexpr (PAD)
+    for (int k = c + lane; k < ld; k += 32) y[(size_t)r * ld + k] = from_f32<T>(0.f);
+}
+
+// The LN backward kernels keep per-warp column sums in shared memory for
+// LN_CW columns (3 x 8 x 2048 f32 = 192 KB). WIDE (ld > c or ld > LN_CW):
+// blockIdx.y picks a slice of LN_CW columns, every slice recomputes the
+// rows' statistics, and the padded columns of the output are zeroed; the
+// other form (the paths' widths) is the slice [0, c). Slices over the grid
+// and the form as a template keep the paths' kernel at its 40 registers: a
+// loop over slices inside the kernel took 63 and ran the stage-0 LN backward
+// 22-62% slower on the H100.
+constexpr int LN_ROWS = 64;
+constexpr int LN_CW = 2048;
+
+__host__ __device__ inline int ln_cols(int ld) { return ld < LN_CW ? ld : LN_CW; }
+
+// The per-warp sums [WARPS][3][cw] of columns [c0, c1) summed over the warps
+// in order into part[block][j * ld + c0 + k], j = 0, 1, 2.
+__device__ inline void store_col_sums(const float* cols, float* __restrict__ part, int cw, int c0,
+                                      int c1, int ld) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * cw; i += THREADS) {
+    const int j = i / cw, k = i % cw;
+    if (c0 + k >= c1) continue;
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s += cols[(size_t)w * 3 * cw + i];
+    part[((size_t)blockIdx.x * 3 + j) * ld + c0 + k] = s;
+  }
 }
 
 // LN backward, one warp per row, LN_ROWS rows per block:
 // dx = ct + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dy g.
 // Column sums of dy xhat, dy and ct over the block's rows go to
-// part[block][0..3c) (dg | db | db2), summed over the warps in order.
-constexpr int LN_ROWS = 64;
-
-template <typename T>
+// part[block][0..3 ld) (dg | db | db2), summed over the warps in order.
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 ln_bwd_rows(const T* __restrict__ x, const T* __restrict__ ct, const float* __restrict__ dy,
             const T* __restrict__ gam, T* __restrict__ dx, float* __restrict__ part, int m,
-            int c) {
-  extern __shared__ __align__(16) float cols[];  // [WARPS][3][c]
+            int c, int ld) {
+  extern __shared__ __align__(16) float cols[];  // [WARPS][3][cw]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* mine = cols + (size_t)warp * 3 * c;
-  for (int k = lane; k < 3 * c; k += 32) mine[k] = 0.f;
+  const int cw = WIDE ? ln_cols(ld) : c;
+  const int c0 = WIDE ? blockIdx.y * LN_CW : 0, c1 = WIDE ? min(ld, c0 + cw) : c;
+  float* mine = cols + (size_t)warp * 3 * cw;
+  for (int k = lane; k < 3 * cw; k += 32) mine[k] = 0.f;
   const int r0 = blockIdx.x * LN_ROWS;
   for (int r = r0 + warp; r < min(m, r0 + LN_ROWS); r += WARPS) {
-    const T* xr = x + (size_t)r * c;
-    const T* cr = ct + (size_t)r * c;
-    const float* dr = dy + (size_t)r * c;
-    float s = 0.f;
-    for (int k = lane; k < c; k += 32) s += to_f32(xr[k]);
-    const float mean = warp_sum(s) / c;
-    float v = 0.f;
-    for (int k = lane; k < c; k += 32) {
-      const float d = to_f32(xr[k]) - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / c + kEps);
+    const T* xr = x + (size_t)r * ld;
+    const T* cr = ct + (size_t)r * ld;
+    const float* dr = dy + (size_t)r * ld;
+    float mean, rstd;
+    ROW_STATS(to_f32(xr[k]), c, mean, rstd);
     float s1 = 0.f, s2 = 0.f;
     for (int k = lane; k < c; k += 32) {
       const float xhat = (to_f32(xr[k]) - mean) * rstd, d = dr[k];
       const float dxh = d * to_f32(gam[k]);
       s1 += dxh;
       s2 += dxh * xhat;
-      mine[k] += d * xhat;
-      mine[c + k] += d;
-      mine[2 * c + k] += to_f32(cr[k]);
+      if (!WIDE || (k >= c0 && k < c1)) {
+        mine[k - c0] += d * xhat;
+        mine[cw + k - c0] += d;
+        mine[2 * cw + k - c0] += to_f32(cr[k]);
+      }
     }
     const float m1 = warp_sum(s1) / c, m2 = warp_sum(s2) / c;
-    for (int k = lane; k < c; k += 32) {
+    for (int k = c0 + lane; k < (WIDE ? min(c, c1) : c); k += 32) {
       const float xhat = (to_f32(xr[k]) - mean) * rstd;
       const float dxh = dr[k] * to_f32(gam[k]);
-      dx[(size_t)r * c + k] = from_f32<T>(to_f32(cr[k]) + rstd * (dxh - m1 - xhat * m2));
+      dx[(size_t)r * ld + k] = from_f32<T>(to_f32(cr[k]) + rstd * (dxh - m1 - xhat * m2));
     }
+    if constexpr (WIDE)
+      for (int k = max(c, c0) + lane; k < c1; k += 32) dx[(size_t)r * ld + k] = from_f32<T>(0.f);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < 3 * c; k += THREADS) {
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += cols[(size_t)w * 3 * c + k];
-    part[(size_t)blockIdx.x * 3 * c + k] = s;
-  }
+  store_col_sums(cols, part, cw, c0, c1, ld);
 }
 
 // Post-norm LN backward, one warp per row, LN_ROWS rows per block: with
 // o = o2 + b2, ohat = (o - mean) rstd and dohat = ct g,
 // do2 = rstd (dohat - mean(dohat) - ohat mean(dohat ohat)) in x's dtype.
 // Column sums of ct ohat, ct and the f32 do2 over the block's rows go to
-// part[block][0..3c) (dg | db | db2), summed over the warps in order.
-template <typename T>
+// part[block][0..3 ld) (dg | db | db2), summed over the warps in order.
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 ln_post_bwd_rows(const float* __restrict__ o2, const T* __restrict__ b2, const T* __restrict__ ct,
                  const T* __restrict__ gam, T* __restrict__ do2, float* __restrict__ part, int m,
-                 int c) {
-  extern __shared__ __align__(16) float cols[];  // [WARPS][3][c]
+                 int c, int ld) {
+  extern __shared__ __align__(16) float cols[];  // [WARPS][3][cw]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* mine = cols + (size_t)warp * 3 * c;
-  for (int k = lane; k < 3 * c; k += 32) mine[k] = 0.f;
+  const int cw = WIDE ? ln_cols(ld) : c;
+  const int c0 = WIDE ? blockIdx.y * LN_CW : 0, c1 = WIDE ? min(ld, c0 + cw) : c;
+  float* mine = cols + (size_t)warp * 3 * cw;
+  for (int k = lane; k < 3 * cw; k += 32) mine[k] = 0.f;
   const int r0 = blockIdx.x * LN_ROWS;
   for (int r = r0 + warp; r < min(m, r0 + LN_ROWS); r += WARPS) {
-    const float* orow = o2 + (size_t)r * c;
-    const T* cr = ct + (size_t)r * c;
-    float s = 0.f;
-    for (int k = lane; k < c; k += 32) s += orow[k] + to_f32(b2[k]);
-    const float mean = warp_sum(s) / c;
-    float v = 0.f;
-    for (int k = lane; k < c; k += 32) {
-      const float d = orow[k] + to_f32(b2[k]) - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / c + kEps);
+    const float* orow = o2 + (size_t)r * ld;
+    const T* cr = ct + (size_t)r * ld;
+    float mean, rstd;
+    ROW_STATS(orow[k] + to_f32(b2[k]), c, mean, rstd);
     float s1 = 0.f, s2 = 0.f;
     for (int k = lane; k < c; k += 32) {
       const float ohat = (orow[k] + to_f32(b2[k]) - mean) * rstd, g = to_f32(cr[k]);
       const float doh = g * to_f32(gam[k]);
       s1 += doh;
       s2 += doh * ohat;
-      mine[k] += g * ohat;
-      mine[c + k] += g;
+      if (!WIDE || (k >= c0 && k < c1)) {
+        mine[k - c0] += g * ohat;
+        mine[cw + k - c0] += g;
+      }
     }
     const float m1 = warp_sum(s1) / c, m2 = warp_sum(s2) / c;
-    for (int k = lane; k < c; k += 32) {
+    for (int k = c0 + lane; k < (WIDE ? min(c, c1) : c); k += 32) {
       const float ohat = (orow[k] + to_f32(b2[k]) - mean) * rstd;
       const float d = rstd * (to_f32(cr[k]) * to_f32(gam[k]) - m1 - ohat * m2);
-      mine[2 * c + k] += d;
-      do2[(size_t)r * c + k] = from_f32<T>(d);
+      mine[2 * cw + k - c0] += d;
+      do2[(size_t)r * ld + k] = from_f32<T>(d);
     }
+    if constexpr (WIDE)
+      for (int k = max(c, c0) + lane; k < c1; k += 32) do2[(size_t)r * ld + k] = from_f32<T>(0.f);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < 3 * c; k += THREADS) {
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += cols[(size_t)w * 3 * c + k];
-    part[(size_t)blockIdx.x * 3 * c + k] = s;
+  store_col_sums(cols, part, cw, c0, c1, ld);
+}
+
+// The forward's last pass, one warp per row: v = o2 + b2 in f32, post-norm
+// its LN (f32 statistics over the true c), rounded to x's dtype, then
+// out = x + v in x's dtype -- the fused kernel's rounding points.
+template <typename T, bool POST>
+__global__ void __launch_bounds__(THREADS)
+ff_out_rows(const T* __restrict__ x, const float* __restrict__ o2, const T* __restrict__ b2,
+            const T* __restrict__ gam, const T* __restrict__ bet, T* __restrict__ out, int m,
+            int c, int ld) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (r >= m) return;
+  const float* orow = o2 + (size_t)r * ld;
+  const T* xr = x + (size_t)r * ld;
+  float mean = 0.f, rstd = 1.f;
+  if constexpr (POST) ROW_STATS(orow[k] + to_f32(b2[k]), c, mean, rstd);
+  for (int k = lane; k < ld; k += 32) {
+    float o = 0.f;
+    if (k < c) {
+      o = orow[k] + to_f32(b2[k]);
+      if constexpr (POST) o = (o - mean) * rstd * to_f32(gam[k]) + to_f32(bet[k]);
+      o = to_f32(xr[k]) + to_f32(from_f32<T>(o));
+    }
+    out[(size_t)r * ld + k] = from_f32<T>(o);
   }
 }
 
@@ -539,6 +596,7 @@ gemm_f32(const float* __restrict__ A, int lda, const float* __restrict__ B, int 
 // ---------------------------------------------------------------- plan
 inline size_t al(size_t v) { return align_up(v, 256); }
 
+// Every offset and extent below is in the padded width ld (see the rows).
 struct Plan {
   int bm_gelu, bn_gelu, tile;  // pass-2 tile and the product tile (square)
   int row_tiles, ln_blocks;
@@ -552,7 +610,7 @@ inline int splits_for(int rows, int cols, int tile, int m) {
   return std::max(1, std::min(s, m / 512));
 }
 
-inline Plan plan(int dtype, int m, int c, int hidden) {
+inline Plan plan(int dtype, int m, int ld, int hidden) {
   Plan p{};
   const size_t esz = dtype == kBF16 ? 2 : 4;
   p.bm_gelu = dtype == kBF16 ? Tile<G_MT, G_NT>::BM : F_B;
@@ -560,17 +618,17 @@ inline Plan plan(int dtype, int m, int c, int hidden) {
   p.tile = dtype == kBF16 ? Tile<P_MT, P_NT>::BM : F_B;
   p.row_tiles = (m + p.bm_gelu - 1) / p.bm_gelu;
   p.ln_blocks = (m + LN_ROWS - 1) / LN_ROWS;
-  p.s1 = splits_for(c, hidden, p.tile, m);
-  p.s2 = splits_for(hidden, c, p.tile, m);
+  p.s1 = splits_for(ld, hidden, p.tile, m);
+  p.s2 = splits_for(hidden, ld, p.tile, m);
   size_t o = 0;
-  p.y = o, o += al((size_t)m * c * esz);
+  p.y = o, o += al((size_t)m * ld * esz);
   p.a = o, o += al((size_t)m * hidden * esz);
   p.dh = o, o += al((size_t)m * hidden * esz);
-  p.dy = o, o += al((size_t)m * c * 4);
-  p.p1 = o, o += p.s1 > 1 ? al((size_t)p.s1 * c * hidden * 4) : 0;
-  p.p2 = o, o += p.s2 > 1 ? al((size_t)p.s2 * hidden * c * 4) : 0;
+  p.dy = o, o += al((size_t)m * ld * 4);
+  p.p1 = o, o += p.s1 > 1 ? al((size_t)p.s1 * ld * hidden * 4) : 0;
+  p.p2 = o, o += p.s2 > 1 ? al((size_t)p.s2 * hidden * ld * 4) : 0;
   p.pdb = o, o += al((size_t)p.row_tiles * hidden * 4);
-  p.pln = o, o += al((size_t)p.ln_blocks * 3 * c * 4);
+  p.pln = o, o += al((size_t)p.ln_blocks * 3 * ld * 4);
   p.total = o;
   return p;
 }
@@ -585,12 +643,14 @@ inline int kper_for(int k, int splits, int bk) {
   return (per + bk - 1) / bk * bk;
 }
 
+inline size_t ln_smem(int ld) { return (size_t)WARPS * 3 * ln_cols(ld) * 4; }
+
 template <typename T>
 void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const T* b1,
          const T* w2, const T* b2, T* dx, float* dln, float* dw1, float* db1, float* dw2,
-         unsigned char* work, int m, int c, int hidden, bool post, cudaStream_t s) {
+         unsigned char* work, int m, int c, int ld, int hidden, bool post, cudaStream_t s) {
   constexpr bool BF = sizeof(T) == 2;
-  const Plan p = plan(BF ? kBF16 : kF32, m, c, hidden);
+  const Plan p = plan(BF ? kBF16 : kF32, m, ld, hidden);
   // pre-norm: y = LN(x); post-norm: the slot holds do2 and fc1 reads x
   T* y = reinterpret_cast<T*>(work + p.y);
   T* a = reinterpret_cast<T*>(work + p.a);
@@ -605,12 +665,14 @@ void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const
   const T* grad_out = post ? y : ct;  // the cotangent of fc2's output
 
   const dim3 g2((hidden + p.bn_gelu - 1) / p.bn_gelu, p.row_tiles);
-  const dim3 g3((c + p.tile - 1) / p.tile, (m + p.tile - 1) / p.tile, 1);
+  const dim3 g3((ld + p.tile - 1) / p.tile, (m + p.tile - 1) / p.tile, 1);
   const int tk = BF ? BK : F_K;
   const int kp1 = kper_for(m, p.s1, tk), kp2 = kper_for(m, p.s2, tk);
-  const dim3 g5a((hidden + p.tile - 1) / p.tile, (c + p.tile - 1) / p.tile, p.s1);
-  const dim3 g5b((c + p.tile - 1) / p.tile, (hidden + p.tile - 1) / p.tile, p.s2);
-  const size_t smln = (size_t)WARPS * 3 * c * 4;
+  const dim3 g5a((hidden + p.tile - 1) / p.tile, (ld + p.tile - 1) / p.tile, p.s1);
+  const dim3 g5b((ld + p.tile - 1) / p.tile, (hidden + p.tile - 1) / p.tile, p.s2);
+  const size_t smln = ln_smem(ld);
+  const bool wide = ld > c || ld > LN_CW;  // the LN backward's padded or column-sliced form
+  const dim3 gln(p.ln_blocks, (ld + LN_CW - 1) / LN_CW);
   const size_t sm2 = Tile<G_MT, G_NT>::SMEM, smp = Tile<P_MT, P_NT>::SMEM;
   if constexpr (BF) {
     cudaFuncSetAttribute(gelu_bwd_bf16<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -625,57 +687,122 @@ void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const
     if constexpr (BF) {
       cudaFuncSetAttribute(gelu_bwd_bf16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sm2);
-      gelu_bwd_bf16<false><<<g2, THREADS, sm2, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, c,
+      gelu_bwd_bf16<false><<<g2, THREADS, sm2, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, ld,
                                                     hidden);
       cudaFuncSetAttribute(gemm_bf16<false, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smp);
-      gemm_bf16<false, false><<<g3, THREADS, smp, s>>>(a, hidden, w2, c, dy, m, c, hidden,
+      gemm_bf16<false, false><<<g3, THREADS, smp, s>>>(a, hidden, w2, ld, dy, m, ld, hidden,
                                                        hidden);
     } else {
-      gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, c,
+      gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, ld,
                                                  hidden);
-      gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, c, dy, m, c, hidden, hidden);
+      gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, dy, m, ld, hidden, hidden);
     }
-    cudaFuncSetAttribute(ln_post_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smln);
-    ln_post_bwd_rows<T><<<p.ln_blocks, THREADS, smln, s>>>(dy, b2, ct, gam, y, pln, m, c);
+    auto kern = wide ? ln_post_bwd_rows<T, true> : ln_post_bwd_rows<T, false>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smln);
+    kern<<<gln, THREADS, smln, s>>>(dy, b2, ct, gam, y, pln, m, c, ld);
   } else {
     // 1. y = LN(x)
-    ln_rows<T><<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(x, gam, bet, y, m, c);
+    (ld > c ? ln_rows<T, true> : ln_rows<T, false>)<<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+        x, gam, bet, y, m, c, ld);
   }
   // 2. dh1 and the db1 partials (a as well, pre-norm); 3. dy = dh1 . w1^T;
   // 5. dw1 = y^T . dh1 (C x H), dw2 = a^T . grad_out (H x C), split over rows
   T* a_out = post ? nullptr : a;
   if constexpr (BF) {
     gelu_bwd_bf16<true><<<g2, THREADS, sm2, s>>>(fc1_in, grad_out, w1, b1, w2, a_out, dh, pdb, m,
-                                                 c, hidden);
-    gemm_bf16<false, true><<<g3, THREADS, smp, s>>>(dh, hidden, w1, hidden, dy, m, c, hidden,
+                                                 ld, hidden);
+    gemm_bf16<false, true><<<g3, THREADS, smp, s>>>(dh, hidden, w1, hidden, dy, m, ld, hidden,
                                                     hidden);
-    gemm_bf16<true, false><<<g5a, THREADS, smp, s>>>(fc1_in, c, dh, hidden, p1, c, hidden, m,
+    gemm_bf16<true, false><<<g5a, THREADS, smp, s>>>(fc1_in, ld, dh, hidden, p1, ld, hidden, m,
                                                      kp1);
-    gemm_bf16<true, false><<<g5b, THREADS, smp, s>>>(a, hidden, grad_out, c, p2, hidden, c, m,
+    gemm_bf16<true, false><<<g5b, THREADS, smp, s>>>(a, hidden, grad_out, ld, p2, hidden, ld, m,
                                                      kp2);
   } else {
-    gelu_bwd_f32<true><<<g2, THREADS, 0, s>>>(fc1_in, grad_out, w1, b1, w2, a_out, dh, pdb, m, c,
+    gelu_bwd_f32<true><<<g2, THREADS, 0, s>>>(fc1_in, grad_out, w1, b1, w2, a_out, dh, pdb, m, ld,
                                               hidden);
-    gemm_f32<false, true><<<g3, THREADS, 0, s>>>(dh, hidden, w1, hidden, dy, m, c, hidden, hidden);
-    gemm_f32<true, false><<<g5a, THREADS, 0, s>>>(fc1_in, c, dh, hidden, p1, c, hidden, m, kp1);
-    gemm_f32<true, false><<<g5b, THREADS, 0, s>>>(a, hidden, grad_out, c, p2, hidden, c, m, kp2);
+    gemm_f32<false, true><<<g3, THREADS, 0, s>>>(dh, hidden, w1, hidden, dy, m, ld, hidden,
+                                                 hidden);
+    gemm_f32<true, false><<<g5a, THREADS, 0, s>>>(fc1_in, ld, dh, hidden, p1, ld, hidden, m, kp1);
+    gemm_f32<true, false><<<g5b, THREADS, 0, s>>>(a, hidden, grad_out, ld, p2, hidden, ld, m,
+                                                  kp2);
   }
   if (post) {
     // 6. dx = ct + dy
-    const size_t n = (size_t)m * c;
+    const size_t n = (size_t)m * ld;
     add_rows<T><<<(int)std::min<size_t>((n + 255) / 256, 4096), 256, 0, s>>>(ct, dy, dx, n);
   } else {
     // 4. dx and the dg / db / db2 partials
-    cudaFuncSetAttribute(ln_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smln);
-    ln_bwd_rows<T><<<p.ln_blocks, THREADS, smln, s>>>(x, ct, dy, gam, dx, pln, m, c);
+    auto kern = wide ? ln_bwd_rows<T, true> : ln_bwd_rows<T, false>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smln);
+    kern<<<gln, THREADS, smln, s>>>(x, ct, dy, gam, dx, pln, m, c, ld);
   }
   // the partials, in a fixed order
-  if (p.s1 > 1) sum_into(p1, dw1, (size_t)c * hidden, p.s1, s);
-  if (p.s2 > 1) sum_into(p2, dw2, (size_t)hidden * c, p.s2, s);
+  if (p.s1 > 1) sum_into(p1, dw1, (size_t)ld * hidden, p.s1, s);
+  if (p.s2 > 1) sum_into(p2, dw2, (size_t)hidden * ld, p.s2, s);
   sum_into(pdb, db1, hidden, p.row_tiles, s);
-  sum_into(pln, dln, (size_t)3 * c, p.ln_blocks, s);
+  sum_into(pln, dln, (size_t)3 * ld, p.ln_blocks, s);
+}
+
+// ---------------------------------------------------------------- forward in passes
+// The forward at widths the fused kernel (fused_ff.cu) does not take --
+// C > 1024, or C % 8 != 0 (padded to ld) -- as the backward's passes:
+// pre-norm y = LN(x); a = GELU(fc1_in . w1 + b1) in x's dtype; o2 = a . w2
+// in f32; then out = x + (o2 + b2) or x + LN(o2 + b2). The rounding points
+// are the fused kernel's. Workspace: y (pre-norm), a and o2.
+struct FwdPlan {
+  size_t y, a, o2, total;
+};
+
+inline FwdPlan fwd_plan(int dtype, int m, int ld, int hidden) {
+  const size_t esz = dtype == kBF16 ? 2 : 4;
+  FwdPlan p{};
+  size_t o = 0;
+  p.y = o, o += al((size_t)m * ld * esz);
+  p.a = o, o += al((size_t)m * hidden * esz);
+  p.o2 = o, o += al((size_t)m * ld * 4);
+  p.total = o;
+  return p;
+}
+
+template <typename T>
+void run_fwd(const T* x, const T* gam, const T* bet, const T* w1, const T* b1, const T* w2,
+             const T* b2, T* out, unsigned char* work, int m, int c, int ld, int hidden,
+             bool post, cudaStream_t s) {
+  constexpr bool BF = sizeof(T) == 2;
+  const FwdPlan p = fwd_plan(BF ? kBF16 : kF32, m, ld, hidden);
+  T* y = reinterpret_cast<T*>(work + p.y);
+  T* a = reinterpret_cast<T*>(work + p.a);
+  float* o2 = reinterpret_cast<float*>(work + p.o2);
+  const T* fc1_in = post ? x : y;
+  if (!post)
+    (ld > c ? ln_rows<T, true> : ln_rows<T, false>)<<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+        x, gam, bet, y, m, c, ld);
+  if constexpr (BF) {
+    using G = Tile<G_MT, G_NT>;
+    using P = Tile<P_MT, P_NT>;
+    cudaFuncSetAttribute(gelu_bwd_bf16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)G::SMEM);
+    cudaFuncSetAttribute(gemm_bf16<false, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)P::SMEM);
+    const dim3 g2((hidden + G::BN - 1) / G::BN, (m + G::BM - 1) / G::BM);
+    gelu_bwd_bf16<false><<<g2, THREADS, G::SMEM, s>>>(fc1_in, nullptr, w1, b1, nullptr, a,
+                                                      nullptr, nullptr, m, ld, hidden);
+    const dim3 g3((ld + P::BN - 1) / P::BN, (m + P::BM - 1) / P::BM, 1);
+    gemm_bf16<false, false><<<g3, THREADS, P::SMEM, s>>>(a, hidden, w2, ld, o2, m, ld, hidden,
+                                                         hidden);
+  } else {
+    const dim3 g2((hidden + F_B - 1) / F_B, (m + F_B - 1) / F_B);
+    gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(fc1_in, nullptr, w1, b1, nullptr, a, nullptr,
+                                               nullptr, m, ld, hidden);
+    const dim3 g3((ld + F_B - 1) / F_B, (m + F_B - 1) / F_B, 1);
+    gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, o2, m, ld, hidden, hidden);
+  }
+  const int blocks = (m + WARPS - 1) / WARPS;
+  if (post)
+    ff_out_rows<T, true><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
+  else
+    ff_out_rows<T, false><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
 }
 
 }  // namespace ffb
@@ -683,25 +810,26 @@ void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const
 
 using namespace credit;
 
-// Bytes of workspace `credit_fused_ff_bwd` needs for (m, c, hidden).
-extern "C" long long credit_fused_ff_bwd_workspace(int dtype, int m, int c, int hidden) {
-  return (long long)ffb::plan(dtype, m, c, hidden).total;
+// Bytes of workspace `credit_fused_ff_bwd` needs for (m, ld, hidden).
+extern "C" long long credit_fused_ff_bwd_workspace(int dtype, int m, int ld, int hidden) {
+  return (long long)ffb::plan(dtype, m, ld, hidden).total;
 }
 
-// x, ct, dx (m, c); gam, bet, b2 (c,); w1 (c, hidden); b1 (hidden,); w2
-// (hidden, c), all of one dtype (kF32 or kBF16), contiguous, 16-byte
-// aligned, c and hidden multiples of 8 (b2 shifts no statistic in pre-norm
-// form, which does not read it). post_norm: 0 for the backward of
-// x + fc2(GELU(fc1(LN(x)))), 1 for x + LN(fc2(GELU(fc1(x)))). Outputs f32:
-// dln (3, c) = dg | db | db2, dw1 (c, hidden), db1 (hidden,), dw2 (hidden,
-// c). work: credit_fused_ff_bwd_workspace bytes.
+// x, ct, dx (m, ld); gam, bet, b2 (ld,); w1 (ld, hidden); b1 (hidden,); w2
+// (hidden, ld), all of one dtype (kF32 or kBF16), contiguous, 16-byte
+// aligned; ld and hidden multiples of 8, ld >= c, the true width: columns
+// past c and the parameters' rows / columns there are zero, and stay out of
+// every statistic (b2 shifts no statistic in pre-norm form, which does not
+// read it). post_norm: 0 for the backward of x + fc2(GELU(fc1(LN(x)))), 1
+// for x + LN(fc2(GELU(fc1(x)))). Outputs f32: dln (3, ld) = dg | db | db2,
+// dw1 (ld, hidden), db1 (hidden,), dw2 (hidden, ld); zero past c. work:
+// credit_fused_ff_bwd_workspace bytes.
 extern "C" int credit_fused_ff_bwd(const void* x, const void* ct, const void* gam,
                                    const void* bet, const void* w1, const void* b1,
                                    const void* w2, const void* b2, void* dx, void* dln, void* dw1,
                                    void* db1, void* dw2, void* work, int dtype, int m, int c,
-                                   int hidden, int post_norm, void* stream) {
-  using ffb::MAX_C;
-  if (m < 1 || c < 8 || c % 8 || hidden < 8 || hidden % 8 || c > MAX_C)
+                                   int ld, int hidden, int post_norm, void* stream) {
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* wk = static_cast<unsigned char*>(work);
@@ -711,14 +839,50 @@ extern "C" int credit_fused_ff_bwd(const void* x, const void* ct, const void* ga
     ffb::run<B>(static_cast<const B*>(x), static_cast<const B*>(ct), static_cast<const B*>(gam),
                 static_cast<const B*>(bet), static_cast<const B*>(w1), static_cast<const B*>(b1),
                 static_cast<const B*>(w2), static_cast<const B*>(b2), static_cast<B*>(dx),
-                fl(dln), fl(dw1), fl(db1), fl(dw2), wk, m, c, hidden, post_norm != 0, s);
+                fl(dln), fl(dw1), fl(db1), fl(dw2), wk, m, c, ld, hidden, post_norm != 0, s);
   } else if (dtype == kF32) {
     ffb::run<float>(static_cast<const float*>(x), static_cast<const float*>(ct),
                     static_cast<const float*>(gam), static_cast<const float*>(bet),
                     static_cast<const float*>(w1), static_cast<const float*>(b1),
                     static_cast<const float*>(w2), static_cast<const float*>(b2),
-                    static_cast<float*>(dx), fl(dln), fl(dw1), fl(db1), fl(dw2), wk, m, c,
+                    static_cast<float*>(dx), fl(dln), fl(dw1), fl(db1), fl(dw2), wk, m, c, ld,
                     hidden, post_norm != 0, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of workspace `credit_fused_ff_passes` needs for (m, ld, hidden).
+extern "C" long long credit_fused_ff_passes_workspace(int dtype, int m, int ld, int hidden) {
+  return (long long)ffb::fwd_plan(dtype, m, ld, hidden).total;
+}
+
+// The fused feed-forward's forward in passes, for widths the fused kernel
+// does not take. Operands as credit_fused_ff_bwd's: x, out (m, ld), the
+// parameters zero-padded to ld and hidden (multiples of 8), c the true
+// width. work: credit_fused_ff_passes_workspace bytes.
+extern "C" int credit_fused_ff_passes(const void* x, const void* gam, const void* bet,
+                                      const void* w1, const void* b1, const void* w2,
+                                      const void* b2, void* out, void* work, int dtype, int m,
+                                      int c, int ld, int hidden, int post_norm, void* stream) {
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* wk = static_cast<unsigned char*>(work);
+  if (dtype == kBF16) {
+    using B = __nv_bfloat16;
+    ffb::run_fwd<B>(static_cast<const B*>(x), static_cast<const B*>(gam),
+                    static_cast<const B*>(bet), static_cast<const B*>(w1),
+                    static_cast<const B*>(b1), static_cast<const B*>(w2),
+                    static_cast<const B*>(b2), static_cast<B*>(out), wk, m, c, ld, hidden,
+                    post_norm != 0, s);
+  } else if (dtype == kF32) {
+    ffb::run_fwd<float>(static_cast<const float*>(x), static_cast<const float*>(gam),
+                        static_cast<const float*>(bet), static_cast<const float*>(w1),
+                        static_cast<const float*>(b1), static_cast<const float*>(w2),
+                        static_cast<const float*>(b2), static_cast<float*>(out), wk, m, c, ld,
+                        hidden, post_norm != 0, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -23,8 +23,12 @@
 // keys masked), the bias is added from L1 (the same padded (T, T) f32 table
 // serves every problem), the softmax runs on the registers with quad
 // shuffles, and P, rounded to bf16, is re-packed in registers as the A
-// operand of P . V. f32 (and other head widths) take plain FMA: a block
-// stages the bias once and loops over problems, one warp per query row.
+// operand of P . V. f32, and bf16 at other head widths or windows past 128
+// tokens, take plain FMA: a block stages one problem's k and v and loops
+// over problems, one warp per query row with its scores in shared memory,
+// the bias read through the cache. Any T and dh whose k and v fit in shared
+// memory (2 T (dh + 1) + 8 (T + dh) f32 <= 227 KiB: T = 144 at dh = 32 takes
+// 43 KiB, T = 400 at dh = 64 218 KiB) are taken.
 // The TPU kernel's block-diagonal window grouping, which exists only to
 // give the MXU 128-wide shapes, has no counterpart here.
 #include <cmath>
@@ -36,14 +40,13 @@ namespace attn {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_T = 128;
-constexpr int MAX_DH = 64;
 
 __host__ __device__ inline int ldk(int dh) { return dh + 1; }
 __host__ __device__ inline int pad16(int t) { return (t + 15) / 16 * 16; }
 
+// k and v of one problem, and per warp its query row and probability row
 __host__ inline size_t smem_bytes(int t, int dh) {
-  return ((size_t)t * t + 3 * (size_t)t * ldk(dh) + (size_t)WARPS * MAX_T) * 4;
+  return (2 * (size_t)t * ldk(dh) + (size_t)WARPS * (t + dh)) * 4;
 }
 
 template <typename T>
@@ -53,65 +56,53 @@ window_attention_fma(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ out, int problems, int heads, int t, int dh,
                      int in_stride, int out_stride, float scale) {
   extern __shared__ __align__(16) float sm[];
-  float* sb = sm;                  // (t, t) bias
-  float* sq = sb + t * t;          // (t, dh+1) scaled q
-  float* sk = sq + t * ldk(dh);    // (t, dh+1)
+  float* sk = sm;                  // (t, dh+1)
   float* sv = sk + t * ldk(dh);    // (t, dh+1)
-  float* sp = sv + t * ldk(dh);    // (WARPS, MAX_T) probabilities
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sq = sv + t * ldk(dh) + warp * (t + dh);  // this warp's scaled query row
+  float* prow = sq + dh;                           // and its scores / probabilities
   const T scale_t = from_f32<T>(scale);
-
-  for (int i = threadIdx.x; i < t * t; i += THREADS) sb[i] = bias[(i / t) * ldb + i % t];
 
   for (int pr = blockIdx.x; pr < problems; pr += gridDim.x) {
     const int win = pr / heads, h = pr % heads;
-    __syncthreads();  // the previous problem is done with q, k, v
+    __syncthreads();  // the previous problem is done with k, v
     for (int e = threadIdx.x; e < t * dh; e += THREADS) {
       const int row = e / dh, d = e % dh;
       const size_t at = ((size_t)win * t + row) * in_stride + (size_t)h * dh + d;
-      // q * scale rounded to q's dtype, then widened
-      sq[row * ldk(dh) + d] = to_f32(from_f32<T>(to_f32(q[at]) * to_f32(scale_t)));
       sk[row * ldk(dh) + d] = to_f32(k[at]);
       sv[row * ldk(dh) + d] = to_f32(v[at]);
     }
     __syncthreads();
-    float* prow = sp + warp * MAX_T;
     for (int i = warp; i < t; i += WARPS) {
-      float s[MAX_T / 32];
+      const size_t row = (size_t)win * t + i;
+      // q * scale rounded to q's dtype, then widened
+      for (int d = lane; d < dh; d += 32)
+        sq[d] = to_f32(from_f32<T>(to_f32(q[row * in_stride + (size_t)h * dh + d]) *
+                                   to_f32(scale_t)));
+      __syncwarp();
       float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < MAX_T / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        s[jj] = -INFINITY;
-        if (j < t) {
-          float acc = 0.f;
-          for (int d = 0; d < dh; ++d) acc = fmaf(sq[i * ldk(dh) + d], sk[j * ldk(dh) + d], acc);
-          s[jj] = acc + sb[i * t + j];
-          mx = fmaxf(mx, s[jj]);
-        }
+      for (int j = lane; j < t; j += 32) {
+        float acc = 0.f;
+        for (int d = 0; d < dh; ++d) acc = fmaf(sq[d], sk[j * ldk(dh) + d], acc);
+        prow[j] = acc + bias[(size_t)i * ldb + j];
+        mx = fmaxf(mx, prow[j]);
       }
       mx = warp_max(mx);
       float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < MAX_T / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        s[jj] = j < t ? expf(s[jj] - mx) : 0.f;
-        sum += s[jj];
+      for (int j = lane; j < t; j += 32) {
+        prow[j] = expf(prow[j] - mx);
+        sum += prow[j];
       }
       sum = warp_sum(sum);
-#pragma unroll
-      for (int jj = 0; jj < MAX_T / 32; ++jj) {
-        const int j = lane + 32 * jj;
-        // p rounded to v's dtype before the P.V product
-        if (j < t) prow[j] = to_f32(from_f32<T>(s[jj] / sum));
-      }
+      // p rounded to v's dtype before the P.V product
+      for (int j = lane; j < t; j += 32) prow[j] = to_f32(from_f32<T>(prow[j] / sum));
       __syncwarp();
       for (int d = lane; d < dh; d += 32) {
         float acc = 0.f;
         for (int j = 0; j < t; ++j) acc = fmaf(prow[j], sv[j * ldk(dh) + d], acc);
-        out[((size_t)win * t + i) * out_stride + (size_t)h * dh + d] = from_f32<T>(acc);
+        out[row * out_stride + (size_t)h * dh + d] = from_f32<T>(acc);
       }
-      __syncwarp();  // prow is rewritten by this warp's next row
+      __syncwarp();  // sq and prow are rewritten by this warp's next row
     }
   }
 }
@@ -319,7 +310,7 @@ extern "C" int credit_window_attention(const void* q, const void* k, const void*
                                        int heads, int t, int dh, int in_stride, int out_stride,
                                        float scale, void* stream) {
   using namespace credit::attn;
-  if (t < 1 || t > MAX_T || dh < 1 || dh > MAX_DH || windows < 1 || heads < 1)
+  if (t < 1 || dh < 1 || windows < 1 || heads < 1 || smem_bytes(t, dh) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const int problems = windows * heads;
   int device = 0, sms = 0;

@@ -255,7 +255,7 @@ def position_bias_cache(model: nn.Module):
 
 class FeedForward(nn.Module):
     """x + fc2(GELU(fc1(LN(x)))), the FF block with its residual, as one
-    call of the fused kernel (kernel 2; kernel 4 in the backward) on the
+    call of the fused kernel (kernel 1; kernel 4 in the backward) on the
     spectrally normalized kernels."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, sn: bool = False):

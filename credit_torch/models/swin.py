@@ -4,7 +4,7 @@ credit_tpu/models/swin.py.
 Cosine attention with a learned per-head logit scale, the log-spaced
 continuous relative-position bias (CPB MLP), shifted windows with a -100
 mask, post-norm residuals. Channels-last; windows partition as reshapes.
-The MLP half of every block is the fused post-norm FF (kernel 2 forward,
+The MLP half of every block is the fused post-norm FF (kernel 1 forward,
 kernel 4 backward) whatever the reference's `mlp_fuse` gate says: that gate
 is a TPU routing key. The attention has no Pallas kernel in credit_tpu and
 runs here as plain PyTorch with the reference's numerics (f32 scores and

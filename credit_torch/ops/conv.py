@@ -1,8 +1,8 @@
 """2-D convolution primitives, channels-last (NHWC / HWIO): port of
 credit_tpu/ops/conv.py with torch's output-size semantics.
 
-Routing: every stride-1 VALID conv with kh*kw > 1 runs kernel 1 through
-its autograd Function (`cuda_conv.conv2d_valid_diff`: kernel 1 forward and
+Routing: every stride-1 VALID conv with kh*kw > 1 runs kernel 2 through
+its autograd Function (`cuda_conv.conv2d_valid_diff`: kernel 2 forward and
 input gradient, kernel 5 weight gradient); 1x1 convs are a `torch.matmul`
 under autograd. Every stride-2 conv is rewritten as space-to-depth plus a
 stride-1 half-kernel conv (an odd kernel is zero-extended to the next even
@@ -37,7 +37,7 @@ def _pad_hw(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> to
 
 
 def valid_conv(x: torch.Tensor, kernel: torch.Tensor, bias=None) -> torch.Tensor:
-    """Stride-1 VALID conv: 1x1 as a GEMM, anything larger through kernel 1
+    """Stride-1 VALID conv: 1x1 as a GEMM, anything larger through kernel 2
     (differentiable). The bias is added in the output dtype."""
     kh, kw, cin, cout = kernel.shape
     kernel = kernel.to(x.dtype)

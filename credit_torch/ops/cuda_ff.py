@@ -1,4 +1,4 @@
-"""Fused feed-forward with its residual (kernel 2), its backward (kernel 4)
+"""Fused feed-forward with its residual (kernel 1), its backward (kernel 4)
 and the two joined as an autograd Function, in both forms:
 
     pre-norm (CrossFormer):  x + fc2(GELU(fc1(LN(x))))
@@ -16,6 +16,13 @@ dtype. The backward keeps the rounding points of the TPU kernel
 (pallas_ff.py:239-294): y = LN(x) (pre-norm) or x, a = GELU(h1), the
 cotangent of fc2's output and dh1 are in x's dtype where they enter a
 product, while the LN statistics, Phi(h1), the pdf and every sum stay f32.
+
+Every width runs on the card. The fused forward kernel takes C % 8 == 0 and
+C <= 1024 (its output tile lives in registers); any other C runs the
+forward in passes (`credit_fused_ff_passes`, in `csrc/fused_ff_bwd.cu`),
+and the backward's passes take any C. Where C or the hidden width is not a
+multiple of 8 the wrappers zero-pad them (a copy in, the result cut back);
+the kernels take every LN statistic over the true C.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch.nn.functional as F
 from credit_torch import _build
 
 EPS = 1e-5
-MAX_C = 1024  # widest channel count the CUDA kernel's register plan takes
+MAX_C = 1024  # widest channel count the fused kernel's register plan takes
 SQRT1_2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
 
@@ -58,6 +65,18 @@ def fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Te
     return x + o.to(dt)
 
 
+def fused_width(c: int) -> bool:
+    """True when the fused kernel (`csrc/fused_ff.cu`) takes width c:
+    C % 8 == 0 and C <= MAX_C. Every other width runs the forward in passes
+    (`credit_fused_ff_passes`, fc1 and fc2 as tiled products with the
+    intermediates in device memory) on rows zero-padded to a multiple of 8."""
+    return c % 8 == 0 and c <= MAX_C
+
+
+def _up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     extra = size - t.shape[dim]
     if extra == 0:
@@ -66,19 +85,50 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
+def _aligned(ts):
+    """Each tensor contiguous with a 16-byte aligned base (the kernels copy
+    rows in 16-byte vectors)."""
+    ts = [t.contiguous() for t in ts]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
+def _padded(x2, prm, ld: int, hpad: int):
+    """x (M, C) and (g, b, w1, b1, w2, b2) zero-padded to width ld and hidden
+    width hpad: zeros add nothing to a product, GELU(0) = 0, and the kernels
+    keep the padded columns out of every LN statistic."""
+    g, b, w1, b1, w2, b2 = prm
+    return _pad_to(x2, 1, ld), [
+        _pad_to(g, 0, ld), _pad_to(b, 0, ld), _pad_to(_pad_to(w1, 0, ld), 1, hpad),
+        _pad_to(b1, 0, hpad), _pad_to(_pad_to(w2, 0, hpad), 1, ld), _pad_to(b2, 0, ld)]
+
+
 def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
     """x (M, C) or (B, H, W, C); g, b, b2 (C,); w1 (C, Hd); b1 (Hd,); w2 (Hd, C).
-    post_norm selects the SwinV2 form."""
+    post_norm selects the SwinV2 form. Any C and Hd: the fused kernel where
+    it takes C (`fused_width`), else the forward in passes."""
     if x.device.type == "cpu":
         return fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm)
     c = x.shape[-1]
     hidden = w1.shape[1]
-    if c % 8 or c > MAX_C:
-        raise ValueError(f"fused_ff: the CUDA kernel takes C % 8 == 0 and C <= {MAX_C}, got {c}")
     code = _build.dtype_code(x.dtype)
     x2 = x.contiguous().reshape(-1, c)
     m = x2.shape[0]
     prm = [t.to(x.dtype) for t in (g, b, w1, b1, w2, b2)]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if not fused_width(c):
+        ld, hpad = _up8(c), _up8(hidden)
+        x2, prm = _padded(x2, prm, ld, hpad)
+        x2, *prm = _aligned([x2] + prm)
+        nbytes = _build.function("credit_fused_ff_passes_workspace", [i] * 4,
+                                 ctypes.c_longlong)(code, m, ld, hpad)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        out = torch.empty_like(x2)
+        fn = _build.function("credit_fused_ff_passes", [p] * 9 + [i] * 6 + [p])
+        err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(), work.data_ptr(),
+                 code, m, c, ld, hpad, int(post_norm), _build.stream_ptr())
+        _build.check(err, "credit_fused_ff_passes")
+        fused_ff.launches += 1
+        return out[:, :c].reshape(x.shape)
     cpad = c
     if x.dtype == torch.bfloat16:
         # the warps tile a width of 128, 256, 512 or 1024: zero-pad C to it
@@ -93,11 +143,8 @@ def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
                _pad_to(_pad_to(w1, 0, cpad), 1, hpad), _pad_to(b1, 0, hpad),
                _pad_to(_pad_to(w2, 0, hpad), 1, cpad), _pad_to(b2, 0, cpad)]
         hidden = hpad
-    # the kernel copies rows in 16-byte vectors
-    x2, *prm = (t if t.data_ptr() % 16 == 0 else t.clone()
-                for t in [x2] + [t.contiguous() for t in prm])
+    x2, *prm = _aligned([x2] + prm)
     out = torch.empty_like(x2)
-    p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 6 + [p])
     err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(), code,
              m, c, cpad, hidden, int(post_norm), _build.stream_ptr())
@@ -158,40 +205,41 @@ def fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
 
 def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
     """Backward of `fused_ff` at x (M, C) or (B, H, W, C) with cotangent ct
-    of x's shape. Returns (dx, dg, db, dw1, db1, dw2, db2): dx in x's dtype,
-    the rest f32."""
+    of x's shape, any C and hidden width (zero-padded to multiples of 8 for
+    the kernels' 16-byte row vectors). Returns (dx, dg, db, dw1, db1, dw2,
+    db2): dx in x's dtype, the rest f32."""
     if x.device.type == "cpu":
         return fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2, post_norm)
     c = x.shape[-1]
     hidden = w1.shape[1]
-    if c % 8 or hidden % 8:
-        raise ValueError(f"fused_ff_bwd: the CUDA kernel takes C and hidden % 8 == 0, "
-                         f"got {c}, {hidden}")
     if ct.shape != x.shape:
         raise ValueError(f"fused_ff_bwd: ct {tuple(ct.shape)} != x {tuple(x.shape)}")
     code = _build.dtype_code(x.dtype)
+    ld, hpad = _up8(c), _up8(hidden)
     x2 = x.contiguous().reshape(-1, c)
     m = x2.shape[0]
     # b2 shifts the post-norm LN's statistics (the pre-norm kernel ignores it)
-    ins = [x2, ct.to(x.dtype).contiguous().reshape(-1, c)] + [
-        t.to(x.dtype).contiguous() for t in (g, b, w1, b1, w2, b2)]
-    # the kernels read rows in 16-byte vectors
-    ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
+    x2, prm = _padded(x2, [t.to(x.dtype) for t in (g, b, w1, b1, w2, b2)], ld, hpad)
+    ct2 = _pad_to(ct.to(x.dtype).reshape(-1, c), 1, ld)
+    ins = _aligned([x2, ct2] + prm)
     p, i = ctypes.c_void_p, ctypes.c_int
     nbytes = _build.function("credit_fused_ff_bwd_workspace", [i] * 4,
-                             ctypes.c_longlong)(code, m, c, hidden)
+                             ctypes.c_longlong)(code, m, ld, hpad)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x2)
-    dln = torch.empty((3, c), **f32)  # dg | db | db2
-    dw1, db1, dw2 = (torch.empty((c, hidden), **f32), torch.empty(hidden, **f32),
-                     torch.empty((hidden, c), **f32))
-    fn = _build.function("credit_fused_ff_bwd", [p] * 14 + [i] * 5 + [p])
+    dx = torch.empty_like(ins[0])
+    dln = torch.empty((3, ld), **f32)  # dg | db | db2
+    dw1, db1, dw2 = (torch.empty((ld, hpad), **f32), torch.empty(hpad, **f32),
+                     torch.empty((hpad, ld), **f32))
+    fn = _build.function("credit_fused_ff_bwd", [p] * 14 + [i] * 6 + [p])
     err = fn(*(t.data_ptr() for t in ins),
              *(t.data_ptr() for t in (dx, dln, dw1, db1, dw2, work)),
-             code, m, c, hidden, int(post_norm), _build.stream_ptr())
+             code, m, c, ld, hpad, int(post_norm), _build.stream_ptr())
     _build.check(err, "credit_fused_ff_bwd")
     fused_ff_bwd.launches += 1
+    if (ld, hpad) != (c, hidden):
+        dx, dln = dx[:, :c], dln[:, :c]
+        dw1, db1, dw2 = dw1[:c, :hidden], db1[:hidden], dw2[:hidden, :c]
     return dx.reshape(x.shape), dln[0], dln[1], dw1, db1, dw2, dln[2]
 
 
@@ -199,7 +247,7 @@ fused_ff_bwd.launches = 0
 
 
 class _FusedFF(torch.autograd.Function):
-    """Forward: kernel 2. Saves x and the parameters only; the backward
+    """Forward: kernel 1. Saves x and the parameters only; the backward
     (kernel 4) recomputes the LN, fc1, GELU (and post-norm fc2) from them."""
 
     @staticmethod
@@ -216,7 +264,7 @@ class _FusedFF(torch.autograd.Function):
 
 
 def fused_ff_diff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
-    """Differentiable `fused_ff`: kernel 2 forward, kernel 4 backward, in
+    """Differentiable `fused_ff`: kernel 1 forward, kernel 4 backward, in
     either form. The parameter gradients come back in each parameter's own
     dtype."""
     return _FusedFF.apply(x, g, b, w1, b1, w2, b2, bool(post_norm))

@@ -55,10 +55,10 @@ def parse(name: str):
 
 def launches_per_call(name: str) -> Dict[str, int]:
     """Kernel launches of one (conv + 4 FF) in this mode: one VALID conv
-    (16x16, so counted as `conv2d_valid_grouped`), four fused FFs in the
-    kernel modes, one copy in the identity modes."""
+    (16x16), four fused FFs in the kernel modes, one copy in the identity
+    modes."""
     _, ff = parse(name)
-    return {"conv2d_valid_grouped": 1, "fused_ff": 4 if ff in ("pallas", "pallas-t") else 0,
+    return {"conv2d_valid": 1, "fused_ff": 4 if ff in ("pallas", "pallas-t") else 0,
             "copy": 1 if ff.startswith("identity") else 0}
 
 

@@ -117,7 +117,7 @@ def test_fused_ff_plain_matches_pallas_and_xla(form, dtype):
 
 
 # --------------------------------------------------------------- kernel 3
-@pytest.mark.parametrize("t", [1, 4, 25, 100])
+@pytest.mark.parametrize("t", [1, 4, 25, 100, 144])
 def test_window_attention_plain_matches_pallas_f32(t):
     """f32: scores and softmax in f32 on every side; only the summation
     order differs (2e-5)."""
@@ -331,10 +331,17 @@ def cuda():
 def test_kernels_match_plain_on_card(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    x = torch.randn((1, 21, 37, 24), generator=g, device=cuda).to(dtype)
-    k = (torch.randn((3, 3, 24, 40), generator=g, device=cuda) * 0.1).to(dtype)
-    assert _rel_err(cuda_conv.conv2d_valid(x, k).cpu(),
-                    cuda_conv.conv2d_valid_plain(x, k).cpu()) < tol
+    # 3x3; channels not multiples of 8 (bf16: padded by the wrapper); a
+    # kernel taller than wide; 2x2 over two K chunks to a ragged N tile; a
+    # flat output (64-wide tiles); 8x8
+    for n, h, w, cin, kh, kw, cout in [(1, 21, 37, 24, 3, 3, 40), (1, 14, 21, 20, 3, 3, 12),
+                                       (1, 20, 30, 72, 3, 2, 64), (2, 12, 19, 128, 2, 2, 200),
+                                       (1, 4, 70, 64, 3, 3, 136), (1, 24, 27, 24, 8, 8, 40)]:
+        x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
+        k = (torch.randn((kh, kw, cin, cout), generator=g, device=cuda) * 0.1).to(dtype)
+        out = cuda_conv.conv2d_valid(x, k)
+        assert out.shape == (n, h - kh + 1, w - kw + 1, cout) and out.is_contiguous()
+        assert _rel_err(out.cpu(), cuda_conv.conv2d_valid_plain(x, k).cpu()) < tol, (cin, kh, kw)
     xf = torch.randn((3, 5, 7, 64), generator=g, device=cuda).to(dtype)
     prm = [torch.randn(s, generator=g, device=cuda).to(dtype) * 0.1
            for s in [(64,), (64,), (64, 256), (256,), (256, 64), (64,)]]
@@ -344,3 +351,41 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     bias = torch.randn((25, 25), generator=g, device=cuda)
     assert _rel_err(cuda_attention.fused_window_attention(q, kk, v, bias, 2).cpu(),
                     cuda_attention.fused_window_attention_plain(q, kk, v, bias, 2).cpu()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ff_and_attention_past_the_fast_kernels_match_plain_on_card(cuda, dtype):
+    """The FF forward in passes and its backward at C > 1024 (2304: the LN
+    backward's column passes), C and hidden not multiples of 8 (padded by
+    the wrappers), both forms; attention on the FMA kernel at T = 144 and
+    at heads of 128."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for m, c, hd, post in [(300, 1152, 4608, False), (300, 1152, 4608, True),
+                           (90, 2304, 9216, False), (90, 2304, 9216, True),
+                           (500, 100, 404, False), (500, 100, 404, True)]:
+        x = torch.randn((m, c), generator=g, device=cuda).to(dtype)
+        ct = (0.1 * torch.randn((m, c), generator=g, device=cuda)).to(dtype)
+        prm = [1 + 0.1 * torch.randn(c, generator=g, device=cuda),
+               0.1 * torch.randn(c, generator=g, device=cuda),
+               torch.randn((c, hd), generator=g, device=cuda) / c ** 0.5,
+               0.02 * torch.randn(hd, generator=g, device=cuda),
+               torch.randn((hd, c), generator=g, device=cuda) / hd ** 0.5,
+               0.02 * torch.randn(c, generator=g, device=cuda)]
+        prm = [p.to(dtype) for p in prm]
+        out = cuda_ff.fused_ff(x, *prm, post_norm=post)
+        assert out.shape == x.shape and out.dtype == dtype
+        assert _rel_err(out.cpu(), cuda_ff.fused_ff_plain(x, *prm, post_norm=post).cpu()) < tol
+        got = cuda_ff.fused_ff_bwd(x, ct, *prm, post_norm=post)
+        want = cuda_ff.fused_ff_bwd_plain(x, ct, *prm, post_norm=post)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert _rel_err(a.cpu(), b.cpu()) < tol, (c, post)
+    for nwin, t, heads, dh in [(40, 144, 4, 32), (40, 100, 2, 128)]:
+        qkv = torch.randn((1, nwin, t, 3 * heads * dh), generator=g, device=cuda).to(dtype)
+        q, kk, v = qkv.split(heads * dh, dim=-1)
+        bias = torch.randn((t, t), generator=g, device=cuda)
+        assert _rel_err(cuda_attention.fused_window_attention(q, kk, v, bias, heads).cpu(),
+                        cuda_attention.fused_window_attention_plain(q, kk, v, bias,
+                                                                    heads).cpu()) < tol

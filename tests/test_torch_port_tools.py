@@ -144,10 +144,10 @@ def test_bench_modes_and_launch_counts():
     assert len(bench_conv_ffk.MODES) == 12
     assert bench_conv_ffk.parse("pallas-t-firewall") == (True, "pallas-t")
     assert bench_conv_ffk.parse("identity-end") == (False, "identity-end")
-    assert bench_conv_ffk.launches_per_call("pallas") == {"conv2d_valid_grouped": 1,
+    assert bench_conv_ffk.launches_per_call("pallas") == {"conv2d_valid": 1,
                                                           "fused_ff": 4, "copy": 0}
     assert bench_conv_ffk.launches_per_call("identity-input-firewall") == {
-        "conv2d_valid_grouped": 1, "fused_ff": 0, "copy": 1}
+        "conv2d_valid": 1, "fused_ff": 0, "copy": 1}
     for bad in ("pallas-tiny", "tpu"):
         with pytest.raises(ValueError, match="pallas-tiny|unknown"):
             bench_conv_ffk.parse(bad)
