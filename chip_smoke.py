@@ -11,15 +11,18 @@ Phases (any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes in bf16 and f32 (TF32 off), the FF and its backward
      in both forms (pre-norm: the WXFormer; post-norm: FuXi, and a width the
-     bf16 kernel pads) and at widths the fused kernel does not take (C > 1024,
-     C and hidden not multiples of 8: the forward in passes), window
-     attention at the paths' windows, a 12x12 window (T = 144) and heads of
-     128 (the FMA kernel), the conv and its weight gradient at every shape the
-     paths launch, up to 16x16 taps, with channels the wrapper pads and a
-     kernel taller than wide (the weight gradient also bit-identical on a
-     second call), the tools' row-band conv drafts and copy, with the error
-     beside its limit and the kernel's, the plain version's and a library
-     call's times;
+     bf16 kernel pads; bf16 from C = 256 on on the split route, whose fc1
+     and fc2 run on wgmma, timed beside the fused kernel in turns at four
+     widths; every FF beside PyTorch's own composition) and at widths the
+     fused kernel does not take (C > 1024, C and hidden not multiples of 8:
+     the split route in bf16, the forward in passes in f32), window
+     attention at the paths' windows, 12x12 and 24x24 windows (T = 144 and
+     576: key blocks with an online softmax) and heads of 128, the conv and
+     its weight gradient at every shape the paths launch, up to 16x16 taps,
+     with channels the wrapper pads and a kernel taller than wide (the
+     weight gradient also bit-identical on a second call), the tools'
+     row-band conv drafts and copy, with the error beside its limit and the
+     kernel's, the plain version's and a library call's times;
   3. a tiny CrossFormer and a tiny FuXi (two input frames), each with a
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
@@ -344,15 +347,38 @@ FF_SHAPES = [("stage0_C128", (400, 720, 128), False, 512),
              ("ragged_C100_H404_post", (100, 180, 100), True, 404)]
 
 
+# FF cases timed on both bf16 routes in turns on one card: the widths where
+# the plan picks the split route, and the two below them
+FF_TURNS = ("stage0_C128", "stage1_C256", "stage2_C512", "fuxi_C1024_post")
+
+
+def ff_composition(torch, x, prm, post):
+    """The FF as PyTorch's own calls compose it (layer norm, two linears,
+    GELU, the residual): a yardstick for the kernel's time, as no single
+    PyTorch call computes it; the port never calls it."""
+    import torch.nn.functional as F
+
+    g, b, w1, b1, w2, b2 = prm
+    c = x.shape[-1]
+    if post:
+        h = F.linear(F.gelu(F.linear(x, w1.t(), b1)), w2.t(), b2)
+        return x + F.layer_norm(h, (c,), g, b)
+    y = F.layer_norm(x, (c,), g, b)
+    return x + F.linear(F.gelu(F.linear(y, w1.t(), b1)), w2.t(), b2)
+
+
 def ff_cases(torch, g):
     from credit_torch.ops import cuda_ff
+    from credit_torch.tools import cuda_ms
 
     res = {}
     # pre-norm at the WXFormer's stages; post-norm at FuXi's SwinV2 stage
     # (105x161 tokens after the window pad) and at C = 192, which the bf16
     # kernel pads to 256: the padded columns must stay out of the LN. Beyond
-    # the paths, the forward in passes: C = 1152 (> 1024) in both forms, and
-    # C = 100 with hidden 404 (neither a multiple of 8: the wrapper pads)
+    # the paths: C = 1152 (> 1024) in both forms, and C = 100 with hidden
+    # 404 (neither a multiple of 8: the wrapper pads). bf16 from C = 256 on
+    # and at ragged widths takes the split route, whose plain version is its
+    # passes (cuda_ff.fused_ff_split_plain); f32 past 1024 the passes
     for label, (h, w, c), post, hd in FF_SHAPES:
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]:
             x = torch.randn((1, h, w, c), generator=g, device="cuda").to(dt)
@@ -365,12 +391,29 @@ def ff_cases(torch, g):
             prm = [p.to(dt) for p in prm]
             m = h * w
             isz = x.element_size()
+            route = cuda_ff.ff_plan(m, c, hd, dt, post).route
+            plain = cuda_ff.fused_ff_split_plain if route == "split" else cuda_ff.fused_ff_plain
+            comp_ms = cuda_ms(lambda: ff_composition(torch, x, prm, post), 10)
+            log(f"  fused_ff {label} [{str(dt).split('.')[1]}] route {route}, "
+                f"composition_ms {comp_ms:.4f} (layer_norm + linear + gelu + linear + add)")
             r = check_case(f"fused_ff {label}", str(dt).split(".")[1],
                            lambda: cuda_ff.fused_ff(x, *prm, post_norm=post),
-                           lambda: cuda_ff.fused_ff_plain(x, *prm, post_norm=post),
+                           lambda: plain(x, *prm, post_norm=post),
                            None,
                            (2 * m * c + 2 * c * hd + 3 * c + hd) * isz,
                            4.0 * m * c * hd, tol, 10)
+            r["composition_ms"] = comp_ms
+            if label in FF_TURNS and dt == torch.bfloat16:
+                # the fused kernel against the split route on this card, in
+                # turns: fused, split, split, fused
+                turns = [(rt, cuda_ms(lambda: cuda_ff.fused_ff(x, *prm, post_norm=post,
+                                                               route=rt), 10))
+                         for rt in ("fused", "split", "split", "fused")]
+                err = (cuda_ff.fused_ff(x, *prm, post_norm=post, route="fused").float()
+                       - plain(x, *prm, post_norm=post).float()).abs().max().item()
+                log(f"    routes in turns: " + ", ".join(f"{rt} {ms:.4f}" for rt, ms in turns)
+                    + f" ms; the fused kernel's max_abs_err {err:.3e}")
+                r["turns_ms"] = turns
             res[(label, dt)] = r
     return res
 
@@ -381,14 +424,21 @@ def attention_cases(torch, g):
     from credit_torch.ops import cuda_attention
 
     res = {}
-    # stage-0 local windows (T=100), stage-1 long windows (T=25), stage-3
-    # long windows (T=1); q, k, v are views of one fused qkv projection.
-    # Beyond the paths, on the FMA kernel: 12x12 windows (T = 144) and heads
-    # of 128
+    # stage-0 local windows (T=100, 4 heads), stage-1 and stage-3 local
+    # windows (8 and 32 heads: 2 and 8 head groups an item), stage-1 long
+    # windows (T=25), stage-3 long windows (T=1, packs of 16); q, k, v are
+    # views of one fused qkv projection. Beyond the paths: 12x12 windows
+    # (T = 144) and 24x24 windows at heads of 64 (T = 576, past what one
+    # block of keys in shared memory holds) run the online softmax over key
+    # blocks in bf16 (2e-2: p is rounded before the division) and the FMA
+    # kernel in f32; heads of 128
     for label, (nwin, t, heads, dh) in [("stage0_T100", (2880, 100, 4, 32)),
+                                        ("stage1_T100", (720, 100, 8, 32)),
+                                        ("stage3_T100", (45, 100, 32, 32)),
                                         ("stage1_T25", (2880, 25, 8, 32)),
                                         ("stage3_T1", (4500, 1, 32, 32)),
                                         ("window12_T144", (2000, 144, 4, 32)),
+                                        ("window24_T576", (500, 576, 4, 64)),
                                         ("head128_T100", (2880, 100, 2, 128))]:
         for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)]:
             inner = heads * dh
@@ -408,7 +458,7 @@ def attention_cases(torch, g):
                                                                                heads),
                            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
                            4 * nwin * t * inner * isz + t * t * 4,
-                           4.0 * nwin * heads * t * t * dh, tol, 10)
+                           4.0 * nwin * heads * t * t * dh, tol, 3 if t > 128 else 10)
             res[(label, dt)] = r
     return res[("stage0_T100", torch.bfloat16)]
 
@@ -648,17 +698,29 @@ def expected_per_step(conf: dict):
     embeds 2x2), two 3x3 residual convs per UpBlock (its k2 transpose is a
     1x1 GEMM) and the head's 3x3 phase conv."""
     blocks = sum(conf["depth"])
-    return {"fused_ff": 2 * blocks, "fused_window_attention": 2 * blocks,
-            "conv2d_valid": 4 + 3 * 2 + 1}
+    return {"fused_ff": 2 * blocks, "fused_ff_split": sum(
+                2 * d for dim, d in zip(conf["dim"], conf["depth"]) if _split(dim, False)),
+            "fused_window_attention": 2 * blocks, "conv2d_valid": 4 + 3 * 2 + 1}
+
+
+def _split(dim: int, post_norm: bool) -> bool:
+    """Whether a bf16 FF of width dim (hidden 4 dim) takes the split route."""
+    import torch
+
+    from credit_torch.ops import cuda_ff
+
+    return cuda_ff.ff_plan(1, dim, 4 * dim, torch.bfloat16, post_norm).route == "split"
 
 
 def expected_fuxi_per_step(conf: dict):
     """Kernel launches of one FuXi forward: one post-norm FF per SwinV2
-    block (its attention is plain PyTorch: no window-attention kernel);
-    five VALID convs, the DownBlock's 3x3/s2 (a 2x2 after space-to-depth)
+    block (the split route at dim 1024; its attention is plain PyTorch: no
+    window-attention kernel); five VALID convs, the DownBlock's 3x3/s2 (a 2x2 after space-to-depth)
     and the two residual 3x3 convs of the Down- and UpBlock (the UpBlock's
     k2 transpose is a 1x1 GEMM); the cube embed is a patch GEMM."""
-    return {"fused_ff": conf["depth"], "fused_window_attention": 0, "conv2d_valid": 5}
+    return {"fused_ff": conf["depth"],
+            "fused_ff_split": conf["depth"] if _split(conf["dim"], True) else 0,
+            "fused_window_attention": 0, "conv2d_valid": 5}
 
 
 def expected_train_per_step(fwd: dict, first_conv_needs_gx: bool):
@@ -679,6 +741,7 @@ def _counters():
 
     return [("conv2d_valid", cuda_conv.conv2d_valid, "launches"),
             ("fused_ff", cuda_ff.fused_ff, "launches"),
+            ("fused_ff_split", cuda_ff.fused_ff, "split_launches"),
             ("fused_window_attention", cuda_attention.fused_window_attention, "launches"),
             ("fused_ff_bwd", cuda_ff.fused_ff_bwd, "launches"),
             ("conv2d_wgrad", cuda_conv.conv2d_wgrad, "launches"),
@@ -1123,7 +1186,8 @@ def profile_steps(torch, what: str, run, args, steps: int) -> None:
 def kernel_group(name: str) -> str:
     """A profile row's kind: one of the port's kernels, a library GEMM, or
     PyTorch glue by operation."""
-    port = {"ffb::": "port fused_ff_bwd", "ff::": "port fused_ff", "wgrad::": "port conv2d_wgrad",
+    port = {"ffb::": "port fused_ff_bwd", "ff::fused_ff": "port fused_ff: fused kernel",
+            "ff::": "port fused_ff: split route and row passes", "wgrad::": "port conv2d_wgrad",
             "conv::": "port conv2d_valid", "attn::": "port fused_window_attention",
             "band::": "port conv_band", "copy::": "port copy"}
     for key, group in port.items():
@@ -1221,10 +1285,13 @@ def main() -> int:
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
              runs),
-            ("fused_ff pre-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
+            ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools")),
-            ("fused_ff post-norm", "fused_ff", "credit_torch/csrc/fused_ff.cu",
+            ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
+             ("rollout_025", "train_025", "post_025")),
+            ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
@@ -1246,8 +1313,10 @@ def main() -> int:
             ("copy", "copy", "credit_torch/csrc/copy.cu", "tools/bench_conv_ffk.py:75",
              probe["copy"], ("tools",))]:
         # launches: the main-path runs of this kernel (mode); each path runs
-        # one FF form only, so a path's count is the mode's
-        by_path = {p: runs[p][counter] for p in paths}
+        # one FF form only, so a path's count is the mode's; the fused FF
+        # kernel's are the FF calls the split route did not take
+        by_path = {p: runs[p]["fused_ff"] - runs[p]["fused_ff_split"] if counter == "fused_ff_fused"
+                   else runs[p][counter] for p in paths}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path, **r})
     log(f"chip_smoke: {time.time() - t_start:.1f} s end to end")

@@ -18,8 +18,10 @@ namespace credit {
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
-// sharedMemPerBlockOptin of an H100 (227 KB)
+// sharedMemPerBlockOptin of an H100 (227 KB), and the shared memory of one
+// SM (228 KB), of which each resident block also takes 1 KB
 constexpr int kMaxSmem = 232448;
+constexpr int kSmSmem = 233472;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -102,7 +104,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ------------------------------------------------------------ Hopper (sm_90a)
 // mbarriers, TMA and wgmma, shared by the conv kernels (conv_valid.cu,
-// conv_wgrad.cu) and the row-band drafts (conv_band.cu).
+// conv_wgrad.cu), the feed-forward's split route (fused_ff.cu, through
+// tma_gemm.cuh), window attention (window_attention.cu) and the row-band
+// drafts (conv_band.cu).
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -154,6 +158,14 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
 // TMA: the box of `map` at element coordinates (innermost first) into dst,
 // completing its bytes on bar; the parts of the box outside the tensor are
 // zero-filled and counted all the same
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -170,6 +182,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// TMA store: the box of `map` at the coordinates from src; the parts of the
+// box outside the tensor are not written. Commit the stores issued so far as
+// a group; wait until no group still reads shared memory.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, whole warps
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // warp specialisation: a warpgroup gives up or takes registers (all four

@@ -8,13 +8,16 @@
 // C = 128..1024, hidden = 4C); every SwinV2 MLP of FuXi through the
 // post-norm form (16 calls per step at C = 1024, M = 16905 tokens).
 //
-// Bound on the H100: at hidden = 4C each row does 16*C flops per byte-pair
-// of x and out, which is above the card's ridge from C ~ 64 upwards, so the
-// products bound it once the 4C-wide hidden stays out of device memory. The
-// design keeps it out: a block owns BM token rows; pre-norm computes the LN
-// statistics in f32 (one warp per row) and keeps LN(x) in the input dtype in
-// shared memory, post-norm keeps x itself there; then it walks the hidden
-// dimension in chunks:
+// Bound on the H100: operations. Each row does 4*C*H flops (H = 4C) against
+// a few bytes of x and out, far above the card's ~295 FLOP/byte ridge once
+// the hidden activations stay cheap to move.
+//
+// Two bf16 designs, picked per shape by cuda_ff.ff_plan:
+//
+// Fused (C < 256): a block owns BM token rows and keeps the 4C-wide hidden
+// on chip; pre-norm computes the LN statistics in f32 (one warp per row) and
+// keeps LN(x) in the input dtype in shared memory, post-norm keeps x itself
+// there; then it walks the hidden dimension in chunks:
 //   h = y . w1[:, chunk] + b1       (f32 accumulators)
 //   GELU exact (erff), cast to the input dtype, into shared memory
 //   acc += h . w2[chunk, :]         (f32 accumulators)
@@ -22,32 +25,37 @@
 // passes over the row: the mean, then the mean of squared deviations, summed
 // across the warps that share the row in shared memory, over the true C
 // only); then it casts and adds the residual x in the input dtype -- the
-// rounding points of the TPU kernel (pallas_ff.py:68-79).
+// rounding points of the TPU kernel (pallas_ff.py:68-79). Both products run
+// on mma.sync m16n8k16 with ldmatrix from shared memory. A block of 16 warps
+// owns BM = 32768 / cpad rows (cpad = C padded to 128 or 256; the kernel
+// also takes 512 and 1024, which the split route now runs faster). Its BM x cpad f32 output tile stays in
+// registers, beside the f32 fc1 output of one hidden chunk of cpad/4
+// columns. The weights stream through a 4-deep cp.async ring of K-slices;
+// each block re-reads all the weights from L2, so the smaller BM is, the
+// more L2 traffic: at C = 1024 (BM = 32, 16 MB of weights a block) that
+// traffic bounded it at 12.4x its bound (PERF.md), which is why wider rows
+// take the split route.
 //
-// bf16 runs both products on the tensor cores with mma.sync m16n8k16 and
-// ldmatrix from shared memory. A block of 16 warps owns BM = 32768 / cpad
-// rows (cpad = C padded to 128, 256, 512 or 1024). Its BM x cpad f32 output
-// tile stays in registers (16 m16n8 tiles per warp), beside the f32 fc1
-// output of one hidden chunk of cpad/4 columns (4 tiles per warp). The
-// weights stream through a 4-deep cp.async ring of K-slices (ks1 rows of
-// w1[:, chunk] or ks2 = ks1/4 rows of w2[chunk, :], the same bytes), one
-// barrier per slice; the x tile arrives by cp.async with the first slices
-// and is normalised in place (pre-norm). One ~220 KB block per SM. Each block re-reads
-// all the weights from L2, so the larger BM is, the less L2 traffic: at
-// C = 1024 (BM = 32, 16 MB of weights a block) that traffic bounds the
-// kernel. The wrapper zero-pads C; padded columns of the output are zero
-// before the post-norm LN, which leaves them out of its statistics. f32 is
-// plain FMA, 16 rows per block, accumulators in registers (C <= 1024).
-// Widths past 1024 or not a multiple of 8 run the same function in passes
-// (credit_fused_ff_passes in fused_ff_bwd.cu).
-#include "common.cuh"
+// Split (C >= 256, C % 8 != 0, C > 1024): LN rows, then fc1 and fc2 as two
+// warp-specialised TMA + wgmma GEMMs (tma_gemm.cuh, the VALID conv's
+// mainloop) whose epilogues add the biases, apply GELU, round and add the
+// residual; the 4C-wide hidden goes to device memory once, in bf16 (138 MB
+// for FuXi's 16,905 rows), and both products run at wgmma's rate. Post-norm
+// writes fc2's f32 output and a row pass takes its LN. See "bf16, split".
+//
+// The wrapper zero-pads C; padded columns of the output are zero before the
+// post-norm LN, which leaves them out of its statistics. f32 is plain FMA,
+// 16 rows per block, accumulators in registers (C <= 1024); wider or ragged
+// f32 widths run the same function in passes (credit_fused_ff_passes in
+// fused_ff_bwd.cu).
+#include "ff_rows.cuh"
+#include "tma_gemm.cuh"
 
 namespace credit {
 namespace ff {
 
 constexpr int THREADS_F32 = 256;  // the f32 kernel's block
 constexpr int WARPS_F32 = THREADS_F32 / 32;
-constexpr float kEps = 1e-5f;
 constexpr int MAX_C = 1024;
 
 __device__ __forceinline__ float gelu(float h) {
@@ -620,23 +628,115 @@ void launch_f32(const void* x, const void* gam, const void* bet, const void* w1,
       static_cast<const float*>(b2), static_cast<float*>(out), m, c, hidden);
 }
 
+// ---------------------------------------------------------------- bf16, split
+// The route for C >= 256, ragged C and C > 1024 (cuda_ff.ff_plan): the
+// hidden activations leave the SM once, in bf16, and both products run on
+// wgmma through tma_gemm.cuh's mainloop:
+//   (pre-norm) ln_rows: y = LN(x) in bf16 (ff_rows.cuh);
+//   fc1: H = GELU(A . w1 + b1) in bf16, A = y (pre-norm) or x (post-norm);
+//   fc2: pre-norm out = x + bf16(H . w2 + b2); post-norm z = H . w2 in f32,
+//        then out_rows: x + bf16(LN(z + b2)) (ff_rows.cuh).
+// The rounding points are the fused kernel's. Every operand is row-major:
+// A (rows x K) lands K-major in 128-row x 64 boxes, B (K x N) MN-major in
+// 64 x 64 boxes; TMA zero-fills past M, K and N, so only stores are masked.
+enum Epilogue { kEpiGelu = 0, kEpiResidual = 1, kEpiF32 = 2 };
+
+struct GemmArgs {
+  int m, n, steps;                 // output rows and columns, K steps of 64
+  const __nv_bfloat16* bias;       // (n,): b1 (kEpiGelu) or b2 (kEpiResidual)
+  const __nv_bfloat16* x;          // the residual (kEpiResidual), rows of n
+  void* out;                       // H (bf16), out (bf16) or z (f32), rows of n
+};
+
+template <int BN, int EPI, int CTAS>
+__global__ void __launch_bounds__(tma::Ring<BN, CTAS>::THREADS, CTAS)
+ff_gemm(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+        const GemmArgs g) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * 128;
+  tma::gemm_tile<BN, CTAS>(
+      smem_raw, g.steps,
+      [&](int it, unsigned char* st, uint64_t* bar) {
+        tma_load_2d(st, &ta, bar, it * tma::KS, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(st + tma::A_BYTES + j * tma::BOX_BYTES, &tb, bar, n0 + 64 * j,
+                      it * tma::KS);
+      },
+      [&](float (&acc)[BN / 2], int cw) {
+        const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + cw * 64 + warp * 16 + lane / 4 + 8 * h;
+          if (row >= g.m) continue;
+          const size_t at = (size_t)row * g.n;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = n0 + 8 * j + 2 * (lane % 4);  // n % 8 == 0: col + 1 is in range too
+            if (col >= g.n) continue;
+            const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+            if constexpr (EPI == kEpiF32) {
+              *reinterpret_cast<float2*>(static_cast<float*>(g.out) + at + col) = make_float2(a0, a1);
+            } else {
+              const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(g.bias + col);
+              const float v0 = a0 + __low2float(bb), v1 = a1 + __high2float(bb);
+              uint32_t packed;
+              if constexpr (EPI == kEpiGelu) {
+                packed = pack_bf16(gelu(v0), gelu(v1));
+              } else {  // bf16(o), then + x in bf16
+                const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(g.x + at + col);
+                packed = pack_bf16(__low2float(xv) + __bfloat162float(__float2bfloat16(v0)),
+                                   __high2float(xv) + __bfloat162float(__float2bfloat16(v1)));
+              }
+              *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(g.out) + at + col) = packed;
+            }
+          }
+        }
+      });
+}
+
+// A launch of ff_gemm<BN, EPI, CTAS> over g's output
+template <int BN, int EPI, int CTAS>
+cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const GemmArgs& g,
+                        cudaStream_t s) {
+  using R = tma::Ring<BN, CTAS>;
+  cudaFuncSetAttribute(ff_gemm<BN, EPI, CTAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)R::SMEM);
+  const dim3 grid((g.n + BN - 1) / BN, (g.m + 127) / 128);  // the N tile fastest
+  ff_gemm<BN, EPI, CTAS><<<grid, R::THREADS, R::SMEM, s>>>(ta, tb, g);
+  return cudaGetLastError();
+}
+
+// fc2: bn output columns a block (64, 128, 192 or 256), one block an SM
+template <int EPI>
+cudaError_t launch_fc2(int bn, const CUtensorMap& ta, const CUtensorMap& tb, const GemmArgs& g,
+                       cudaStream_t s) {
+  switch (bn) {
+    case 64: return launch_gemm<64, EPI, 1>(ta, tb, g, s);
+    case 128: return launch_gemm<128, EPI, 1>(ta, tb, g, s);
+    case 192: return launch_gemm<192, EPI, 1>(ta, tb, g, s);
+    case 256: return launch_gemm<256, EPI, 1>(ta, tb, g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// a row-major bf16 (rows x cols) operand's map: boxes of `box_rows` x 64
+inline bool operand_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return bf16_map(map, base, 2, dims, strides, box);
+}
+
 }  // namespace ff
 }  // namespace credit
 
 using namespace credit;
 
-// Padded width of the bf16 kernel for a width c (a multiple of 8): 128,
-// 256, 512 or 1024; 0 if unsupported.
-extern "C" int credit_fused_ff_width(int c) { return c % 8 ? 0 : ff::padded_width(c); }
-
-// Hidden chunk of the bf16 kernel at padded width cpad: the hidden width
-// must be a multiple of it.
-extern "C" int credit_fused_ff_chunk(int cpad) { return cpad / 4; }
-
-// bf16: x (m, c), out (m, c); gam, bet, b2 (cpad,), w1 (cpad, hidden),
-// b1 (hidden,), w2 (hidden, cpad), cpad = credit_fused_ff_width(c),
-// zero-padded, hidden a multiple of credit_fused_ff_chunk(cpad); every
-// pointer 16-byte aligned. f32: the same with cpad == c and any hidden.
+// The fused kernel. bf16: x (m, c), out (m, c); gam, bet, b2 (cpad,), w1
+// (cpad, hidden), b1 (hidden,), w2 (hidden, cpad), cpad = c padded to 128,
+// 256, 512 or 1024 (cuda_ff.ff_plan), zero-padded, hidden a multiple of
+// cpad / 4; every pointer 16-byte aligned. f32: the same with cpad == c and any hidden.
 // post_norm: 0 for x + fc2(GELU(fc1(LN(x)))), 1 for x + LN(fc2(GELU(fc1(x)))).
 extern "C" int credit_fused_ff(const void* x, const void* gam, const void* bet, const void* w1,
                                const void* b1, const void* w2, const void* b2, void* out,
@@ -659,6 +759,55 @@ extern "C" int credit_fused_ff(const void* x, const void* gam, const void* bet, 
       launch_f32<false>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The split route, bf16 (see above): x, out (m, ld); gam, bet, b2 (ld,), w1
+// (ld, hidden), b1 (hidden,), w2 (hidden, ld), zero-padded past the true
+// width c; ld and hidden multiples of 8, every pointer 16-byte aligned.
+// Workspace from the caller: y (m, ld) bf16 (pre-norm; else unused), h (m,
+// hidden) bf16, z (m, ld) f32 (post-norm; else unused). fc1 runs 128 x 128
+// tiles, two blocks an SM, so that one block's GELU epilogue runs beside the
+// other's products; bn2: fc2's output columns a block (cuda_ff.ff_plan).
+extern "C" int credit_fused_ff_split(const void* x, const void* gam, const void* bet,
+                                     const void* w1, const void* b1, const void* w2,
+                                     const void* b2, void* out, void* y, void* h, void* z, int m,
+                                     int c, int ld, int hidden, int post_norm, int bn2,
+                                     void* stream) {
+  using namespace credit::ff;
+  using B = __nv_bfloat16;
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const B* fc1_in = static_cast<const B*>(x);
+  if (!post_norm) {
+    (ld > c ? ln_rows<B, true> : ln_rows<B, false>)<<<(m + ROW_WARPS - 1) / ROW_WARPS,
+                                                     ROW_THREADS, 0, s>>>(
+        static_cast<const B*>(x), static_cast<const B*>(gam), static_cast<const B*>(bet),
+        static_cast<B*>(y), m, c, ld);
+    fc1_in = static_cast<const B*>(y);
+  }
+  CUtensorMap ta1, tb1, ta2, tb2;
+  if (!operand_map(&ta1, fc1_in, m, ld, 128) || !operand_map(&tb1, w1, ld, hidden, 64) ||
+      !operand_map(&ta2, h, m, hidden, 128) || !operand_map(&tb2, w2, hidden, ld, 64))
+    return (int)cudaErrorInvalidValue;
+  const GemmArgs g1{m, hidden, (ld + tma::KS - 1) / tma::KS, static_cast<const B*>(b1), nullptr,
+                    h};
+  cudaError_t err = launch_gemm<128, kEpiGelu, 2>(ta1, tb1, g1, s);
+  if (err != cudaSuccess) return (int)err;
+  const int k2 = (hidden + tma::KS - 1) / tma::KS;
+  if (post_norm) {
+    err = launch_fc2<kEpiF32>(bn2, ta2, tb2, GemmArgs{m, ld, k2, nullptr, nullptr, z}, s);
+    if (err != cudaSuccess) return (int)err;
+    out_rows<B, true><<<(m + ROW_WARPS - 1) / ROW_WARPS, ROW_THREADS, 0, s>>>(
+        static_cast<const B*>(x), static_cast<const float*>(z), static_cast<const B*>(b2),
+        static_cast<const B*>(gam), static_cast<const B*>(bet), static_cast<B*>(out), m, c, ld);
+  } else {
+    err = launch_fc2<kEpiResidual>(
+        bn2, ta2, tb2, GemmArgs{m, ld, k2, static_cast<const B*>(b2), static_cast<const B*>(x), out},
+        s);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -56,12 +56,12 @@
 // tiles are masked. Any C is taken: rows are zero-padded to ld, a multiple of
 // 8 (the wrapper's copy), the statistics run over the true C, and the LN
 // backward splits rows wider than 2048 into column slices over its grid. The
-// same passes give the forward at widths the fused kernel does not take
+// same passes give the f32 forward at widths the fused kernel does not take
 // (credit_fused_ff_passes, at the end). bf16 runs the products on mma.sync
 // m16n8k16 with ldmatrix through a 3-deep cp.async ring; f32 runs them on FMA.
 #include <algorithm>
 
-#include "common.cuh"
+#include "ff_rows.cuh"
 
 namespace credit {
 namespace ffb {
@@ -78,40 +78,6 @@ __device__ __forceinline__ float phi_of(float h) { return 0.5f * (1.f + erff(h *
 // Every row kernel reads rows of `ld` elements (ld >= c, a multiple of 8 in
 // bf16: the wrapper zero-pads a width that is not) and takes its statistics
 // over the true width c; the columns in [c, ld) of what it writes are zero.
-
-// mean and rstd of V, an expression of the column k, over k < c: one warp per
-// row, two passes, the loops inline in each kernel
-#define ROW_STATS(V, c, mean, rstd)                          \
-  do {                                                       \
-    float s_ = 0.f;                                          \
-    for (int k = lane; k < c; k += 32) s_ += (V);            \
-    mean = warp_sum(s_) / c;                                 \
-    float q_ = 0.f;                                          \
-    for (int k = lane; k < c; k += 32) {                     \
-      const float d_ = (V) - mean;                           \
-      q_ += d_ * d_;                                         \
-    }                                                        \
-    rstd = rsqrtf(warp_sum(q_) / c + kEps);                  \
-  } while (0)
-
-// y = LN(x) * g + b in x's dtype, one warp per row. PAD: ld > c, and the
-// padded columns of y are zeroed.
-template <typename T, bool PAD>
-__global__ void __launch_bounds__(THREADS)
-ln_rows(const T* __restrict__ x, const T* __restrict__ gam, const T* __restrict__ bet,
-        T* __restrict__ y, int m, int c, int ld) {
-  const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (r >= m) return;
-  const T* xr = x + (size_t)r * ld;
-  float mean, rstd;
-  ROW_STATS(to_f32(xr[k]), c, mean, rstd);
-  for (int k = lane; k < c; k += 32)
-    y[(size_t)r * ld + k] =
-        from_f32<T>((to_f32(xr[k]) - mean) * rstd * to_f32(gam[k]) + to_f32(bet[k]));
-  if constexpr (PAD)
-    for (int k = c + lane; k < ld; k += 32) y[(size_t)r * ld + k] = from_f32<T>(0.f);
-}
 
 // The LN backward kernels keep per-warp column sums in shared memory for
 // LN_CW columns (3 x 8 x 2048 f32 = 192 KB). WIDE (ld > c or ld > LN_CW):
@@ -230,32 +196,6 @@ ln_post_bwd_rows(const float* __restrict__ o2, const T* __restrict__ b2, const T
       for (int k = max(c, c0) + lane; k < c1; k += 32) do2[(size_t)r * ld + k] = from_f32<T>(0.f);
   }
   store_col_sums(cols, part, cw, c0, c1, ld);
-}
-
-// The forward's last pass, one warp per row: v = o2 + b2 in f32, post-norm
-// its LN (f32 statistics over the true c), rounded to x's dtype, then
-// out = x + v in x's dtype -- the fused kernel's rounding points.
-template <typename T, bool POST>
-__global__ void __launch_bounds__(THREADS)
-ff_out_rows(const T* __restrict__ x, const float* __restrict__ o2, const T* __restrict__ b2,
-            const T* __restrict__ gam, const T* __restrict__ bet, T* __restrict__ out, int m,
-            int c, int ld) {
-  const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (r >= m) return;
-  const float* orow = o2 + (size_t)r * ld;
-  const T* xr = x + (size_t)r * ld;
-  float mean = 0.f, rstd = 1.f;
-  if constexpr (POST) ROW_STATS(orow[k] + to_f32(b2[k]), c, mean, rstd);
-  for (int k = lane; k < ld; k += 32) {
-    float o = 0.f;
-    if (k < c) {
-      o = orow[k] + to_f32(b2[k]);
-      if constexpr (POST) o = (o - mean) * rstd * to_f32(gam[k]) + to_f32(bet[k]);
-      o = to_f32(xr[k]) + to_f32(from_f32<T>(o));
-    }
-    out[(size_t)r * ld + k] = from_f32<T>(o);
-  }
 }
 
 // dx = ct + dy in x's dtype (post-norm: the residual passes ct through)
@@ -703,7 +643,7 @@ void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const
     kern<<<gln, THREADS, smln, s>>>(dy, b2, ct, gam, y, pln, m, c, ld);
   } else {
     // 1. y = LN(x)
-    (ld > c ? ln_rows<T, true> : ln_rows<T, false>)<<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+    (ld > c ? ff::ln_rows<T, true> : ff::ln_rows<T, false>)<<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(
         x, gam, bet, y, m, c, ld);
   }
   // 2. dh1 and the db1 partials (a as well, pre-norm); 3. dy = dh1 . w1^T;
@@ -745,64 +685,46 @@ void run(const T* x, const T* ct, const T* gam, const T* bet, const T* w1, const
 }
 
 // ---------------------------------------------------------------- forward in passes
-// The forward at widths the fused kernel (fused_ff.cu) does not take --
+// The f32 forward at widths the fused kernel (fused_ff.cu) does not take --
 // C > 1024, or C % 8 != 0 (padded to ld) -- as the backward's passes:
-// pre-norm y = LN(x); a = GELU(fc1_in . w1 + b1) in x's dtype; o2 = a . w2
-// in f32; then out = x + (o2 + b2) or x + LN(o2 + b2). The rounding points
-// are the fused kernel's. Workspace: y (pre-norm), a and o2.
+// pre-norm y = LN(x); a = GELU(fc1_in . w1 + b1); o2 = a . w2; then
+// out = x + (o2 + b2) or x + LN(o2 + b2). (bf16 takes fused_ff.cu's split
+// route at those widths.) Workspace: y (pre-norm), a and o2.
 struct FwdPlan {
   size_t y, a, o2, total;
 };
 
-inline FwdPlan fwd_plan(int dtype, int m, int ld, int hidden) {
-  const size_t esz = dtype == kBF16 ? 2 : 4;
+inline FwdPlan fwd_plan(int m, int ld, int hidden) {
   FwdPlan p{};
   size_t o = 0;
-  p.y = o, o += al((size_t)m * ld * esz);
-  p.a = o, o += al((size_t)m * hidden * esz);
+  p.y = o, o += al((size_t)m * ld * 4);
+  p.a = o, o += al((size_t)m * hidden * 4);
   p.o2 = o, o += al((size_t)m * ld * 4);
   p.total = o;
   return p;
 }
 
-template <typename T>
-void run_fwd(const T* x, const T* gam, const T* bet, const T* w1, const T* b1, const T* w2,
-             const T* b2, T* out, unsigned char* work, int m, int c, int ld, int hidden,
-             bool post, cudaStream_t s) {
-  constexpr bool BF = sizeof(T) == 2;
-  const FwdPlan p = fwd_plan(BF ? kBF16 : kF32, m, ld, hidden);
-  T* y = reinterpret_cast<T*>(work + p.y);
-  T* a = reinterpret_cast<T*>(work + p.a);
+void run_fwd(const float* x, const float* gam, const float* bet, const float* w1,
+             const float* b1, const float* w2, const float* b2, float* out,
+             unsigned char* work, int m, int c, int ld, int hidden, bool post, cudaStream_t s) {
+  const FwdPlan p = fwd_plan(m, ld, hidden);
+  float* y = reinterpret_cast<float*>(work + p.y);
+  float* a = reinterpret_cast<float*>(work + p.a);
   float* o2 = reinterpret_cast<float*>(work + p.o2);
-  const T* fc1_in = post ? x : y;
-  if (!post)
-    (ld > c ? ln_rows<T, true> : ln_rows<T, false>)<<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(
-        x, gam, bet, y, m, c, ld);
-  if constexpr (BF) {
-    using G = Tile<G_MT, G_NT>;
-    using P = Tile<P_MT, P_NT>;
-    cudaFuncSetAttribute(gelu_bwd_bf16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)G::SMEM);
-    cudaFuncSetAttribute(gemm_bf16<false, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)P::SMEM);
-    const dim3 g2((hidden + G::BN - 1) / G::BN, (m + G::BM - 1) / G::BM);
-    gelu_bwd_bf16<false><<<g2, THREADS, G::SMEM, s>>>(fc1_in, nullptr, w1, b1, nullptr, a,
-                                                      nullptr, nullptr, m, ld, hidden);
-    const dim3 g3((ld + P::BN - 1) / P::BN, (m + P::BM - 1) / P::BM, 1);
-    gemm_bf16<false, false><<<g3, THREADS, P::SMEM, s>>>(a, hidden, w2, ld, o2, m, ld, hidden,
-                                                         hidden);
-  } else {
-    const dim3 g2((hidden + F_B - 1) / F_B, (m + F_B - 1) / F_B);
-    gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(fc1_in, nullptr, w1, b1, nullptr, a, nullptr,
-                                               nullptr, m, ld, hidden);
-    const dim3 g3((ld + F_B - 1) / F_B, (m + F_B - 1) / F_B, 1);
-    gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, o2, m, ld, hidden, hidden);
-  }
+  const float* fc1_in = post ? x : y;
   const int blocks = (m + WARPS - 1) / WARPS;
+  if (!post)
+    (ld > c ? ff::ln_rows<float, true> : ff::ln_rows<float, false>)<<<blocks, THREADS, 0, s>>>(
+        x, gam, bet, y, m, c, ld);
+  const dim3 g2((hidden + F_B - 1) / F_B, (m + F_B - 1) / F_B);
+  gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(fc1_in, nullptr, w1, b1, nullptr, a, nullptr,
+                                             nullptr, m, ld, hidden);
+  const dim3 g3((ld + F_B - 1) / F_B, (m + F_B - 1) / F_B, 1);
+  gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, o2, m, ld, hidden, hidden);
   if (post)
-    ff_out_rows<T, true><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
+    ff::out_rows<float, true><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
   else
-    ff_out_rows<T, false><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
+    ff::out_rows<float, false><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
 }
 
 }  // namespace ffb
@@ -853,38 +775,24 @@ extern "C" int credit_fused_ff_bwd(const void* x, const void* ct, const void* ga
   return (int)cudaGetLastError();
 }
 
-// Bytes of workspace `credit_fused_ff_passes` needs for (m, ld, hidden).
-extern "C" long long credit_fused_ff_passes_workspace(int dtype, int m, int ld, int hidden) {
-  return (long long)ffb::fwd_plan(dtype, m, ld, hidden).total;
+// Bytes of workspace `credit_fused_ff_passes` needs for (m, ld, hidden), f32.
+extern "C" long long credit_fused_ff_passes_workspace(int m, int ld, int hidden) {
+  return (long long)ffb::fwd_plan(m, ld, hidden).total;
 }
 
-// The fused feed-forward's forward in passes, for widths the fused kernel
-// does not take. Operands as credit_fused_ff_bwd's: x, out (m, ld), the
-// parameters zero-padded to ld and hidden (multiples of 8), c the true
+// The fused feed-forward's f32 forward in passes, for widths the fused
+// kernel does not take. Operands as credit_fused_ff_bwd's: x, out (m, ld),
+// the parameters zero-padded to ld and hidden (multiples of 8), c the true
 // width. work: credit_fused_ff_passes_workspace bytes.
 extern "C" int credit_fused_ff_passes(const void* x, const void* gam, const void* bet,
                                       const void* w1, const void* b1, const void* w2,
-                                      const void* b2, void* out, void* work, int dtype, int m,
-                                      int c, int ld, int hidden, int post_norm, void* stream) {
+                                      const void* b2, void* out, void* work, int m, int c, int ld,
+                                      int hidden, int post_norm, void* stream) {
   if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* wk = static_cast<unsigned char*>(work);
-  if (dtype == kBF16) {
-    using B = __nv_bfloat16;
-    ffb::run_fwd<B>(static_cast<const B*>(x), static_cast<const B*>(gam),
-                    static_cast<const B*>(bet), static_cast<const B*>(w1),
-                    static_cast<const B*>(b1), static_cast<const B*>(w2),
-                    static_cast<const B*>(b2), static_cast<B*>(out), wk, m, c, ld, hidden,
-                    post_norm != 0, s);
-  } else if (dtype == kF32) {
-    ffb::run_fwd<float>(static_cast<const float*>(x), static_cast<const float*>(gam),
-                        static_cast<const float*>(bet), static_cast<const float*>(w1),
-                        static_cast<const float*>(b1), static_cast<const float*>(w2),
-                        static_cast<const float*>(b2), static_cast<float*>(out), wk, m, c, ld,
-                        hidden, post_norm != 0, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  ffb::run_fwd(f(x), f(gam), f(bet), f(w1), f(b1), f(w2), f(b2), static_cast<float*>(out),
+               static_cast<unsigned char*>(work), m, c, ld, hidden, post_norm != 0,
+               static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

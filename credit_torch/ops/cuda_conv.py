@@ -83,18 +83,23 @@ class ConvPlan:
 def conv_plan(dtype: torch.dtype, n: int, hp: int, wp: int, cin: int, kh: int, kw: int,
               cout: int, sms: int = SMS) -> ConvPlan:
     """bf16: the tile width that wastes the fewest output pixels (16 on a
-    tie), then the BN whose waves x block cost is least: a block's time
-    grows as BN + 64 (the A tile's loads stay whatever BN is), and padded
-    output channels count as work (the larger BN on a tie). f32: the FMA
-    kernel's fixed 8 x 16 pixels x 64 channels."""
+    tie), then `wgmma_bn`'s BN. f32: the FMA kernel's fixed 8 x 16 pixels
+    x 64 channels."""
     ho, wo = hp - kh + 1, wp - kw + 1
     if dtype == torch.float32:
         return ConvPlan(cin, cout, 64, 16)
     cin, cout = _up(cin, CHANNEL_ALIGN), _up(cout, CHANNEL_ALIGN)
     tw = min(TILE_WIDTHS, key=lambda t: _up(wo, t) * _up(ho, 128 // t))
     tiles = n * _cdiv(wo, tw) * _cdiv(ho, 128 // tw)
-    bn = min(BN_CHOICES[::-1], key=lambda b: _cdiv(tiles * _cdiv(cout, b), sms) * (b + 64))
-    return ConvPlan(cin, cout, bn, tw)
+    return ConvPlan(cin, cout, wgmma_bn(tiles, cout, sms), tw)
+
+
+def wgmma_bn(tiles: int, n: int, sms: int = SMS) -> int:
+    """The BN of 128-row x BN wgmma tiles (`csrc/tma_gemm.cuh`) over `tiles`
+    row tiles and n output columns whose waves x block cost is least: a
+    block's time grows as BN + 64 (the A tile's loads stay whatever BN is),
+    and padded columns count as work (the larger BN on a tie)."""
+    return min(BN_CHOICES[::-1], key=lambda b: _cdiv(tiles * _cdiv(n, b), sms) * (b + 64))
 
 
 def conv2d_valid_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

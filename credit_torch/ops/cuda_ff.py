@@ -17,25 +17,38 @@ dtype. The backward keeps the rounding points of the TPU kernel
 cotangent of fc2's output and dh1 are in x's dtype where they enter a
 product, while the LN statistics, Phi(h1), the pdf and every sum stay f32.
 
-Every width runs on the card. The fused forward kernel takes C % 8 == 0 and
-C <= 1024 (its output tile lives in registers); any other C runs the
-forward in passes (`credit_fused_ff_passes`, in `csrc/fused_ff_bwd.cu`),
-and the backward's passes take any C. Where C or the hidden width is not a
-multiple of 8 the wrappers zero-pad them (a copy in, the result cut back);
-the kernels take every LN statistic over the true C.
+Every width runs on the card; `ff_plan` picks the route per shape. bf16
+widths of 256 and up, widths past 1024 and widths that are not multiples of
+8 run the split route (`credit_fused_ff_split`: LN rows, then fc1 and fc2
+as TMA + wgmma GEMMs with the biases, GELU and residual in their epilogues,
+the hidden activations in device memory once, in bf16); narrower bf16
+widths and f32 widths up to 1024 run the fused kernel (the 4C hidden kept
+on chip); wider or ragged f32 widths run the forward in passes
+(`credit_fused_ff_passes`, in `csrc/fused_ff_bwd.cu`), and the backward's
+passes take any C. Where C or the hidden width is not a multiple of 8 the
+wrappers zero-pad them (a copy in, the result cut back); the kernels take
+every LN statistic over the true C.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from credit_torch import _build
+from credit_torch.ops.cuda_conv import SMS, wgmma_bn
 
 EPS = 1e-5
 MAX_C = 1024  # widest channel count the fused kernel's register plan takes
+# bf16: from this width on the split route is the faster (one H100, in turns
+# with the fused kernel: 0.404-0.413 ms against 0.660-0.672 at C = 256,
+# 72,000 rows; at C = 128 it read 0.72-0.74 against 0.80-0.81, but would
+# hold a 295 MB hidden buffer at the WXFormer's stage 0: PERF.md)
+SPLIT_MIN_C = 256
 SQRT1_2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
 
@@ -65,11 +78,32 @@ def fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Te
     return x + o.to(dt)
 
 
+def fused_ff_split_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
+    """The split route's passes in plain PyTorch, on its operands
+    zero-padded to multiples of 8: y = LN(x) over the true C in x's dtype
+    (pre-norm), h = GELU(y w1 + b1) in x's dtype, then pre-norm x + (h w2 +
+    b2) in x's dtype, or post-norm z = h w2 in f32 and x + LN(z + b2) over
+    the true C. The same function as `fused_ff_plain`, at the kernels'
+    padding and rounding points."""
+    dt = x.dtype
+    c, hidden = x.shape[-1], w1.shape[1]
+    x2 = x.reshape(-1, c)
+    ld = _up8(c)
+    xp, (gp, bp, w1p, b1p, w2p, b2p) = _padded(x2, [t.to(dt) for t in (g, b, w1, b1, w2, b2)],
+                                               ld, _up8(hidden))
+    gf, bf, b2f = gp[:c].float(), bp[:c].float(), b2p[:c].float()
+    y = xp if post_norm else _pad_to(_ln(x2.float(), gf, bf).to(dt), 1, ld)
+    h = F.gelu(y.float() @ w1p.float() + b1p.float()).to(dt)
+    z = (h.float() @ w2p.float())[:, :c]
+    v = _ln(z + b2f, gf, bf) if post_norm else z + b2f
+    return (x2 + v.to(dt)).reshape(x.shape)
+
+
 def fused_width(c: int) -> bool:
     """True when the fused kernel (`csrc/fused_ff.cu`) takes width c:
-    C % 8 == 0 and C <= MAX_C. Every other width runs the forward in passes
-    (`credit_fused_ff_passes`, fc1 and fc2 as tiled products with the
-    intermediates in device memory) on rows zero-padded to a multiple of 8."""
+    C % 8 == 0 and C <= MAX_C. Every other width runs a route with the
+    hidden activations in device memory (`ff_plan`) on rows zero-padded to
+    a multiple of 8."""
     return c % 8 == 0 and c <= MAX_C
 
 
@@ -102,58 +136,127 @@ def _padded(x2, prm, ld: int, hpad: int):
         _pad_to(b1, 0, hpad), _pad_to(_pad_to(w2, 0, hpad), 1, ld), _pad_to(b2, 0, ld)]
 
 
-def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
+@dataclass(frozen=True)
+class FFPlan:
+    """How one `fused_ff` call runs: the route ("fused", "split" or
+    "passes"), the width `ld` and hidden width `hidden` the kernels see
+    (zero-padded), the split route's output columns a block of fc2 (`bn2`;
+    fc1's tiles are fixed, `csrc/fused_ff.cu`), and the shapes of the
+    workspace the wrapper allocates:
+    the split route's y = LN(x) (pre-norm), hidden activations h and f32 z
+    = fc2's output (post-norm); None where a route needs none."""
+
+    route: str
+    ld: int
+    hidden: int
+    bn2: int = 0
+    y: tuple | None = None
+    h: tuple | None = None
+    z: tuple | None = None
+
+
+def _fused_plan(c: int, hidden: int) -> FFPlan:
+    """The fused bf16 kernel's: c padded to 128, 256, 512 or 1024 (the
+    kernel takes each; the plan sends it C <= 128, and C = 192 padded to
+    256), the hidden width to its chunk of cpad / 4."""
+    cpad = 128
+    while cpad < c:
+        cpad *= 2
+    return FFPlan("fused", cpad, -(-hidden // (cpad // 4)) * (cpad // 4))
+
+
+def _split_plan(m: int, c: int, hidden: int, post_norm: bool, sms: int) -> FFPlan:
+    """The split route's: ld, hidden padded to multiples of 8, fc2's tiles by
+    `cuda_conv.wgmma_bn` (fc1's are 128 x 128, two blocks an SM: on one H100
+    FuXi's C = 1024 FF read 0.644-0.656 ms so, 0.711 at 128 x 256 and one
+    block an SM, PERF.md), the workspace shapes."""
+    ld, hpad = _up8(c), _up8(hidden)
+    return FFPlan("split", ld, hpad, bn2=wgmma_bn(-(-m // 128), ld, sms),
+                  y=None if post_norm else (m, ld), h=(m, hpad), z=(m, ld) if post_norm else None)
+
+
+@functools.lru_cache(maxsize=1024)
+def ff_plan(m: int, c: int, hidden: int, dtype: torch.dtype, post_norm: bool,
+            sms: int = SMS) -> FFPlan:
+    """The route of one call at m rows, width c and hidden width `hidden`.
+    bf16: the split route from SPLIT_MIN_C on, past MAX_C and wherever c is
+    not a multiple of 8, else the fused kernel. f32: the fused kernel where
+    it takes c (`fused_width`), else the passes (ld, hidden padded to
+    multiples of 8)."""
+    if dtype == torch.bfloat16:
+        if fused_width(c) and c < SPLIT_MIN_C:
+            return _fused_plan(c, hidden)
+        return _split_plan(m, c, hidden, post_norm, sms)
+    if fused_width(c):
+        return FFPlan("fused", c, hidden)
+    return FFPlan("passes", _up8(c), _up8(hidden))
+
+
+def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False,
+             route: str | None = None) -> torch.Tensor:
     """x (M, C) or (B, H, W, C); g, b, b2 (C,); w1 (C, Hd); b1 (Hd,); w2 (Hd, C).
-    post_norm selects the SwinV2 form. Any C and Hd: the fused kernel where
-    it takes C (`fused_width`), else the forward in passes."""
+    post_norm selects the SwinV2 form. Any C and Hd, on the route `ff_plan`
+    picks; `route` ("fused" or "split", bf16) overrides it to compare the
+    two where both take C. A launch adds one to `fused_ff.launches` and, on
+    the split route, to `fused_ff.split_launches`."""
     if x.device.type == "cpu":
         return fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm)
     c = x.shape[-1]
     hidden = w1.shape[1]
-    code = _build.dtype_code(x.dtype)
     x2 = x.contiguous().reshape(-1, c)
     m = x2.shape[0]
+    plan_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = ff_plan(m, c, hidden, x.dtype, bool(post_norm), plan_sms)
+    if route is not None and route != plan.route:
+        if x.dtype != torch.bfloat16 or route not in ("fused", "split") or not fused_width(c):
+            raise ValueError(f"fused_ff: no {route} route at C={c} in {x.dtype}")
+        plan = (_fused_plan(c, hidden) if route == "fused"
+                else _split_plan(m, c, hidden, bool(post_norm), plan_sms))
     prm = [t.to(x.dtype) for t in (g, b, w1, b1, w2, b2)]
     p, i = ctypes.c_void_p, ctypes.c_int
-    if not fused_width(c):
-        ld, hpad = _up8(c), _up8(hidden)
-        x2, prm = _padded(x2, prm, ld, hpad)
+    if plan.route == "fused":
+        # zeros add nothing (GELU(0) = 0); the post-norm LN divides by the
+        # true C and leaves the padded columns out
+        gp, bp, w1p, b1p, w2p, b2p = prm
+        prm = [_pad_to(gp, 0, plan.ld), _pad_to(bp, 0, plan.ld),
+               _pad_to(_pad_to(w1p, 0, plan.ld), 1, plan.hidden), _pad_to(b1p, 0, plan.hidden),
+               _pad_to(_pad_to(w2p, 0, plan.hidden), 1, plan.ld), _pad_to(b2p, 0, plan.ld)]
         x2, *prm = _aligned([x2] + prm)
-        nbytes = _build.function("credit_fused_ff_passes_workspace", [i] * 4,
-                                 ctypes.c_longlong)(code, m, ld, hpad)
-        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         out = torch.empty_like(x2)
-        fn = _build.function("credit_fused_ff_passes", [p] * 9 + [i] * 6 + [p])
-        err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(), work.data_ptr(),
-                 code, m, c, ld, hpad, int(post_norm), _build.stream_ptr())
-        _build.check(err, "credit_fused_ff_passes")
+        fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 6 + [p])
+        err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(),
+                 _build.dtype_code(x.dtype), m, c, plan.ld, plan.hidden, int(post_norm),
+                 _build.stream_ptr())
+        _build.check(err, "credit_fused_ff")
         fused_ff.launches += 1
-        return out[:, :c].reshape(x.shape)
-    cpad = c
-    if x.dtype == torch.bfloat16:
-        # the warps tile a width of 128, 256, 512 or 1024: zero-pad C to it
-        # and the hidden width to the kernel's chunk (zeros add nothing:
-        # GELU(0) = 0; the post-norm LN divides by the true C and leaves the
-        # padded columns out)
-        cpad = _build.function("credit_fused_ff_width", [ctypes.c_int])(c)
-        chunk = _build.function("credit_fused_ff_chunk", [ctypes.c_int])(cpad)
-        hpad = -(-hidden // chunk) * chunk
-        g, b, w1, b1, w2, b2 = prm
-        prm = [_pad_to(g, 0, cpad), _pad_to(b, 0, cpad),
-               _pad_to(_pad_to(w1, 0, cpad), 1, hpad), _pad_to(b1, 0, hpad),
-               _pad_to(_pad_to(w2, 0, hpad), 1, cpad), _pad_to(b2, 0, cpad)]
-        hidden = hpad
+        return out.reshape(x.shape)
+    x2, prm = _padded(x2, prm, plan.ld, plan.hidden)
     x2, *prm = _aligned([x2] + prm)
     out = torch.empty_like(x2)
-    fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 6 + [p])
-    err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(), code,
-             m, c, cpad, hidden, int(post_norm), _build.stream_ptr())
-    _build.check(err, "credit_fused_ff")
+    if plan.route == "split":
+        work = [torch.empty(shape, dtype=torch.float32 if name == "z" else x.dtype,
+                            device=x.device) if shape else None
+                for name, shape in (("y", plan.y), ("h", plan.h), ("z", plan.z))]
+        fn = _build.function("credit_fused_ff_split", [p] * 11 + [i] * 6 + [p])
+        err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in work), m, c, plan.ld,
+                 plan.hidden, int(post_norm), plan.bn2, _build.stream_ptr())
+        _build.check(err, "credit_fused_ff_split")
+        fused_ff.split_launches += 1
+    else:
+        nbytes = _build.function("credit_fused_ff_passes_workspace", [i] * 3,
+                                 ctypes.c_longlong)(m, plan.ld, plan.hidden)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        fn = _build.function("credit_fused_ff_passes", [p] * 9 + [i] * 5 + [p])
+        err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(), work.data_ptr(),
+                 m, c, plan.ld, plan.hidden, int(post_norm), _build.stream_ptr())
+        _build.check(err, "credit_fused_ff_passes")
     fused_ff.launches += 1
-    return out.reshape(x.shape)
+    return out[:, :c].reshape(x.shape)
 
 
 fused_ff.launches = 0
+fused_ff.split_launches = 0
 
 
 # ------------------------------------------------------------------ backward

@@ -341,28 +341,3 @@ def test_load_model_builds_fuxi_and_swin_with_routing_keys():
         for c in (FUXI_CONF, SWIN_CONF):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 load_model(c)
-
-
-# --------------------------------------------------------------- on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels build and run only there")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_post_norm_kernels_match_plain_on_card(cuda, dtype):
-    """Kernels 2 and 4 in post-norm mode against their plain versions, at
-    C = 128 and at C = 192, which the bf16 forward pads to 256 (the padded
-    columns must stay out of the LN statistics)."""
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for shape in [(3, 5, 7, 128), (2, 9, 11, 192)]:
-        a = [_t(v).to(cuda, dtype) for v in _ff_args(shape, seed=3)]
-        x, ct, prm = a[0], a[1], a[2:]
-        assert _rel(cuda_ff.fused_ff(x, *prm, post_norm=True).float().cpu().numpy(),
-                    cuda_ff.fused_ff_plain(x, *prm, post_norm=True).float().cpu().numpy()) < tol
-        for o, r in zip(cuda_ff.fused_ff_bwd(x, ct, *prm, post_norm=True),
-                        cuda_ff.fused_ff_bwd_plain(x, ct, *prm, post_norm=True)):
-            assert _rel(o.float().cpu().numpy(), r.float().cpu().numpy()) < tol

@@ -234,28 +234,3 @@ def test_power_iter_spectral_matches_reference():
             for p in path:
                 o, r = o[p], r[p]
             np.testing.assert_allclose(o.numpy(), r, atol=1e-5, err_msg=str((n, path)))
-
-
-# --------------------------------------------------------------- on the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels build and run only there")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernels_match_plain_on_card(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    # one case per tap group of the kernel: 2x2, rows of 3, rows of 4
-    for k in (2, 3, 8):
-        x = torch.randn((2, 13, 17, 24), generator=g, device=cuda).to(dtype)
-        gy = (torch.randn((2, 14 - k, 18 - k, 40), generator=g, device=cuda) * 0.1).to(dtype)
-        assert _rel(cuda_conv.conv2d_wgrad(x, gy, k, k).cpu(),
-                    cuda_conv.conv2d_wgrad_plain(x, gy, k, k).cpu()) < 1e-4, k
-    a = [torch.from_numpy(np.asarray(v, np.float32)).to(cuda, dtype)
-         for v in _ff_args((3, 5, 7, 64), seed=2)]
-    for o, r in zip(cuda_ff.fused_ff_bwd(*a), cuda_ff.fused_ff_bwd_plain(*a)):
-        assert _rel(o.cpu(), r.cpu()) < tol
