@@ -20,9 +20,10 @@ Phases (any failure exits non-zero):
      576: key blocks with an online softmax) and heads of 128, the conv and
      its weight gradient at every shape the paths launch, up to 16x16 taps,
      with channels the wrapper pads and a kernel taller than wide (the
-     weight gradient also bit-identical on a second call), the tools'
-     row-band conv drafts and copy, with the error beside its limit and the
-     kernel's, the plain version's and a library call's times;
+     weight gradient also bit-identical on a second call, as is the FF
+     backward in bf16, timed beside PyTorch's autograd of its composition),
+     the tools' row-band conv drafts and copy, with the error beside its
+     limit and the kernel's, the plain version's and a library call's times;
   3. a tiny CrossFormer and a tiny FuXi (two input frames), each with a
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
@@ -367,6 +368,22 @@ def ff_composition(torch, x, prm, post):
     return x + F.linear(F.gelu(F.linear(y, w1.t(), b1)), w2.t(), b2)
 
 
+def ff_composition_bwd(torch, x, ct, prm, post):
+    """PyTorch's own backward of `ff_composition` at x with cotangent ct:
+    autograd through the saved activations of one forward run, a yardstick
+    for kernel 4's time (no single PyTorch call computes it; the kernel
+    recomputes h1, and post-norm o2, where autograd saved them). Returns a
+    function that runs the backward once; the port never calls it."""
+    leaves = [t.detach().clone().requires_grad_() for t in [x, *prm]]
+    with torch.enable_grad():
+        out = ff_composition(torch, leaves[0], leaves[1:], post)
+
+    def run():
+        with torch.enable_grad():
+            return torch.autograd.grad(out, leaves, ct, retain_graph=True)
+    return run
+
+
 def ff_cases(torch, g):
     from credit_torch.ops import cuda_ff
     from credit_torch.tools import cuda_ms
@@ -465,6 +482,7 @@ def attention_cases(torch, g):
 
 def ff_bwd_cases(torch, g):
     from credit_torch.ops import cuda_ff
+    from credit_torch.tools import cuda_ms
 
     res = {}
     for label, (h, w, c), post, hd in FF_SHAPES:
@@ -484,12 +502,26 @@ def ff_bwd_cases(torch, g):
             prm = [p.to(dt) for p in prm]
             m = h * w
             isz = x.element_size()
-            r = check_case(f"fused_ff_bwd {label}", str(dt).split(".")[1],
+            name = str(dt).split(".")[1]
+            comp_ms = cuda_ms(ff_composition_bwd(torch, x, ct, prm, post), 10)
+            log(f"  fused_ff_bwd {label} [{name}] composition_backward_ms {comp_ms:.4f} "
+                "(autograd of layer_norm + linear + gelu + linear + add)")
+            r = check_case(f"fused_ff_bwd {label}", name,
                            lambda: cuda_ff.fused_ff_bwd(x, ct, *prm, post_norm=post),
                            lambda: cuda_ff.fused_ff_bwd_plain(x, ct, *prm, post_norm=post),
                            None,
                            3 * m * c * isz + (2 * c * hd + 3 * c + hd) * (isz + 4),
                            (12.0 if post else 10.0) * m * c * hd, tol, 10)
+            r["composition_ms"] = comp_ms
+            if dt == torch.bfloat16:
+                # the weight gradients' row splits and every partial are
+                # summed in a fixed order: a second call gives the same bits
+                first = cuda_ff.fused_ff_bwd(x, ct, *prm, post_norm=post)
+                second = cuda_ff.fused_ff_bwd(x, ct, *prm, post_norm=post)
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    raise AssertionError(f"fused_ff_bwd {label}: two calls differ")
+                log(f"    a second call is bitwise equal to the first "
+                    f"({cuda_ff.ffb_plan(m, c, hd, post)})")
             res[(label, dt)] = r
     return res
 

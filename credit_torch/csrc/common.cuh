@@ -187,6 +187,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 // TMA store: the box of `map` at the coordinates from src; the parts of the
 // box outside the tensor are not written. Commit the stores issued so far as
 // a group; wait until no group still reads shared memory.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2) {
   asm volatile(

@@ -1,5 +1,6 @@
 // The feed-forward's row passes, one warp per row, shared by the forward's
-// bf16 route (fused_ff.cu) and the passes of fused_ff_bwd.cu: y = LN(x)
+// bf16 route (fused_ff.cu) and the passes of fused_ff_bwd.cu (with the
+// split route's products, declared below): y = LN(x)
 // before fc1 (pre-norm), and the last pass that adds b2 to fc2's f32
 // output, takes its LN (post-norm) and adds the residual. Rows are `ld`
 // elements (ld >= c; the wrapper zero-pads a width that is not a multiple
@@ -31,6 +32,16 @@ namespace ff {
 constexpr float kEps = 1e-5f;
 constexpr int ROW_THREADS = 256;  // 8 rows a block
 constexpr int ROW_WARPS = ROW_THREADS / 32;
+
+// The split route's two products (fused_ff.cu), which the backward's
+// post-norm form recomputes (fused_ff_bwd.cu), row-major bf16 operands
+// zero-padded to ld and hidden (multiples of 8), launched on s:
+// h = GELU(in . w1 + b1) in bf16, in (m, ld), w1 (ld, hidden); z = h . w2 in
+// f32, w2 (hidden, ld), bn2 output columns a block (64, 128, 192 or 256).
+cudaError_t split_fc1(const __nv_bfloat16* in, const __nv_bfloat16* w1, const __nv_bfloat16* b1,
+                      __nv_bfloat16* h, int m, int ld, int hidden, cudaStream_t s);
+cudaError_t split_fc2_f32(const __nv_bfloat16* h, const __nv_bfloat16* w2, float* z, int m,
+                          int ld, int hidden, int bn2, cudaStream_t s);
 
 // y = LN(x) * g + b in x's dtype. PAD: ld > c, and the padded columns of y
 // are zeroed.

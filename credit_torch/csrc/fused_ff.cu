@@ -720,12 +720,24 @@ cudaError_t launch_fc2(int bn, const CUtensorMap& ta, const CUtensorMap& tb, con
   }
 }
 
-// a row-major bf16 (rows x cols) operand's map: boxes of `box_rows` x 64
-inline bool operand_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  return bf16_map(map, base, 2, dims, strides, box);
+using tma::operand_map;
+
+cudaError_t split_fc1(const __nv_bfloat16* in, const __nv_bfloat16* w1, const __nv_bfloat16* b1,
+                      __nv_bfloat16* h, int m, int ld, int hidden, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (!operand_map(&ta, in, m, ld, 128) || !operand_map(&tb, w1, ld, hidden, 64))
+    return cudaErrorInvalidValue;
+  return launch_gemm<128, kEpiGelu, 2>(
+      ta, tb, GemmArgs{m, hidden, (ld + tma::KS - 1) / tma::KS, b1, nullptr, h}, s);
+}
+
+cudaError_t split_fc2_f32(const __nv_bfloat16* h, const __nv_bfloat16* w2, float* z, int m,
+                          int ld, int hidden, int bn2, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (!operand_map(&ta, h, m, hidden, 128) || !operand_map(&tb, w2, hidden, ld, 64))
+    return cudaErrorInvalidValue;
+  return launch_fc2<kEpiF32>(
+      bn2, ta, tb, GemmArgs{m, ld, (hidden + tma::KS - 1) / tma::KS, nullptr, nullptr, z}, s);
 }
 
 }  // namespace ff
@@ -788,24 +800,24 @@ extern "C" int credit_fused_ff_split(const void* x, const void* gam, const void*
         static_cast<B*>(y), m, c, ld);
     fc1_in = static_cast<const B*>(y);
   }
-  CUtensorMap ta1, tb1, ta2, tb2;
-  if (!operand_map(&ta1, fc1_in, m, ld, 128) || !operand_map(&tb1, w1, ld, hidden, 64) ||
-      !operand_map(&ta2, h, m, hidden, 128) || !operand_map(&tb2, w2, hidden, ld, 64))
-    return (int)cudaErrorInvalidValue;
-  const GemmArgs g1{m, hidden, (ld + tma::KS - 1) / tma::KS, static_cast<const B*>(b1), nullptr,
-                    h};
-  cudaError_t err = launch_gemm<128, kEpiGelu, 2>(ta1, tb1, g1, s);
+  cudaError_t err = split_fc1(fc1_in, static_cast<const B*>(w1), static_cast<const B*>(b1),
+                              static_cast<B*>(h), m, ld, hidden, s);
   if (err != cudaSuccess) return (int)err;
-  const int k2 = (hidden + tma::KS - 1) / tma::KS;
   if (post_norm) {
-    err = launch_fc2<kEpiF32>(bn2, ta2, tb2, GemmArgs{m, ld, k2, nullptr, nullptr, z}, s);
+    err = split_fc2_f32(static_cast<const B*>(h), static_cast<const B*>(w2), static_cast<float*>(z),
+                        m, ld, hidden, bn2, s);
     if (err != cudaSuccess) return (int)err;
     out_rows<B, true><<<(m + ROW_WARPS - 1) / ROW_WARPS, ROW_THREADS, 0, s>>>(
         static_cast<const B*>(x), static_cast<const float*>(z), static_cast<const B*>(b2),
         static_cast<const B*>(gam), static_cast<const B*>(bet), static_cast<B*>(out), m, c, ld);
   } else {
+    CUtensorMap ta2, tb2;
+    if (!operand_map(&ta2, h, m, hidden, 128) || !operand_map(&tb2, w2, hidden, ld, 64))
+      return (int)cudaErrorInvalidValue;
     err = launch_fc2<kEpiResidual>(
-        bn2, ta2, tb2, GemmArgs{m, ld, k2, static_cast<const B*>(b2), static_cast<const B*>(x), out},
+        bn2, ta2, tb2,
+        GemmArgs{m, ld, (hidden + tma::KS - 1) / tma::KS, static_cast<const B*>(b2),
+                 static_cast<const B*>(x), out},
         s);
     if (err != cudaSuccess) return (int)err;
   }

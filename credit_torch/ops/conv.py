@@ -9,9 +9,14 @@ stride-1 half-kernel conv (an odd kernel is zero-extended to the next even
 size first: FuXi's 3x3/s2 DownBlock conv becomes a 2x2 conv over 4 Cin
 channels that wastes 7 of its 16 taps, where the TPU took a strided im2col),
 and the stride-2 transposes with k = 2p + 2 as a phase conv plus
-depth-to-space, so all land on the same two routes. `conv3d` takes the
-non-overlapping patch form (a GEMM, as in credit_tpu). Other strides and
-conv3d forms are not on the port's path yet and raise.
+depth-to-space, so all land on the same two routes. `conv3d`'s
+non-overlapping patch form is a GEMM, as in credit_tpu. The forms no model
+of the port reaches -- other strides, other transposes, other conv3d --
+run PyTorch's own convolutions on the channels-last tensors, where
+credit_tpu runs `lax.conv_general_dilated` (no Pallas kernel of the
+reference computes them). Padding takes credit_tpu's forms: an int, a
+(h, w) pair, or "VALID" / "SAME" / "SAME_LOWER" (lax's), and for conv3d an
+int, three (low, high) pairs or one of those strings.
 """
 
 from __future__ import annotations
@@ -51,20 +56,62 @@ def valid_conv(x: torch.Tensor, kernel: torch.Tensor, bias=None) -> torch.Tensor
     return out
 
 
+def _same_pads(size: int, k: int, s: int, lower: bool) -> Tuple[int, int]:
+    """lax's SAME (or SAME_LOWER) padding of one dim: the output is
+    ceil(size / s), the total pad split with the odd element high (low)."""
+    total = max(0, (-(-size // s) - 1) * s + k - size)
+    return (total - total // 2, total // 2) if lower else (total // 2, total - total // 2)
+
+
+def _pads(padding, spatial: Sequence[int], kernel: Sequence[int],
+          stride: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """(low, high) per spatial dim of credit_tpu's padding argument."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return tuple((0, 0) for _ in spatial)
+        if mode in ("SAME", "SAME_LOWER"):
+            return tuple(_same_pads(n, k, s, mode == "SAME_LOWER")
+                         for n, k, s in zip(spatial, kernel, stride))
+        raise ValueError(f"padding {padding!r}: VALID, SAME or SAME_LOWER")
+    if isinstance(padding, int):
+        return tuple((padding, padding) for _ in spatial)
+    pads = tuple(tuple(p) if isinstance(p, (tuple, list)) else (int(p), int(p)) for p in padding)
+    if len(pads) != len(spatial):
+        raise ValueError(f"padding {padding!r} for {len(spatial)} spatial dims")
+    return pads
+
+
+def _torch_conv(conv, x: torch.Tensor, weight: torch.Tensor, bias, **kw) -> torch.Tensor:
+    """PyTorch's conv (F.conv2d, F.conv_transpose2d, F.conv3d) on a
+    channels-last x, weight in PyTorch's layout, back to channels-last in
+    x's dtype; the bias added in that dtype."""
+    last = x.dim() - 1
+    to_first = (0, last) + tuple(range(1, last))
+    to_last = (0,) + tuple(range(2, last + 1)) + (1,)
+    out = conv(x.permute(to_first), weight.to(x.dtype), **kw).permute(to_last).contiguous()
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=1,
-           padding: Union[int, Sequence[int]] = 0) -> torch.Tensor:
-    """Conv with torch-style symmetric integer padding.
-    x: (N, H, W, Cin); kernel: (kh, kw, Cin, Cout)."""
+           padding: Union[int, Sequence[int], str] = 0) -> torch.Tensor:
+    """Conv with torch-style symmetric integer padding, or credit_tpu's
+    other padding forms (see the module). x: (N, H, W, Cin); kernel: (kh,
+    kw, Cin, Cout). Strides 1 and 2 run kernel 2, any other stride
+    PyTorch's conv."""
     s = _pair(stride)
-    ph, pw = _pair(padding)
     kh, kw = kernel.shape[0], kernel.shape[1]
-    if s == (2, 2):
-        return _conv2d_s2d(x, kernel, bias, (ph, pw))
-    if s == (1, 1):
-        return valid_conv(_pad_hw(x, ph, ph, pw, pw), kernel, bias)
-    raise NotImplementedError(
-        f"conv2d stride {s} with a {kh}x{kw} kernel is not ported yet "
-        "(ROADMAP queue 1, item 2: ops/conv.py)")
+    (top, bottom), (left, right) = _pads(padding, x.shape[1:3], (kh, kw), s)
+    if s in ((1, 1), (2, 2)):
+        if top != bottom or left != right:  # pad first, then a padding-free conv
+            x, top, left = _pad_hw(x, top, bottom, left, right), 0, 0
+        if s == (2, 2):
+            return _conv2d_s2d(x, kernel, bias, (top, left))
+        return valid_conv(_pad_hw(x, top, top, left, left), kernel, bias)
+    return _torch_conv(F.conv2d, _pad_hw(x, top, bottom, left, right),
+                       kernel.permute(3, 2, 0, 1), bias, stride=s)
 
 
 def _conv2d_s2d(x, kernel, bias, pad: Tuple[int, int]):
@@ -102,15 +149,15 @@ def conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=2,
     """Transposed conv with torch ConvTranspose2d semantics,
     out = (H - 1) * stride - 2 * padding + k. kernel: (kh, kw, Cin, Cout).
     Stride-2 transposes whose output is exactly 2H x 2W (k = 2p + 2: the
-    decoder's k2/p0 and k4/p1) run as one phase conv + depth-to-space."""
+    decoder's k2/p0 and k4/p1) run as one phase conv + depth-to-space on
+    kernel 2, any other PyTorch's transposed conv."""
     s = _pair(stride)
     ph, pw = _pair(padding)
     kh, kw = kernel.shape[0], kernel.shape[1]
     if s == (2, 2) and kh == 2 * ph + 2 and kw == 2 * pw + 2:
         return _conv_transpose2d_d2s(x, kernel, bias, (ph, pw))
-    raise NotImplementedError(
-        f"conv_transpose2d stride {s}, kernel {kh}x{kw}, padding {(ph, pw)} is "
-        "not ported yet (ROADMAP queue 1, item 2: ops/conv.py)")
+    return _torch_conv(F.conv_transpose2d, x, kernel.permute(2, 3, 0, 1), bias, stride=s,
+                       padding=(ph, pw))
 
 
 def _phase_taps(k: int, p: int):
@@ -169,18 +216,21 @@ def _conv_transpose2d_d2s(x, kernel, bias, pad: Tuple[int, int]):
 def conv3d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=(1, 1, 1),
            padding=0) -> torch.Tensor:
     """3-D conv, channels-last: x (N, D, H, W, Cin), kernel (kd, kh, kw, Cin,
-    Cout). Only the non-overlapping patch form (stride = kernel size, no
-    padding: the CubeEmbedding) is ported: one GEMM of the patches against
-    the flattened kernel in x's dtype, as credit_tpu's patch_conv3d_gemm;
+    Cout). The non-overlapping patch form (stride = kernel size, no
+    padding: the CubeEmbedding) is one GEMM of the patches against the
+    flattened kernel in x's dtype, as credit_tpu's patch_conv3d_gemm;
     torch's Conv3d truncates dims that the patch does not divide, and so
-    does this."""
+    does this. Any other stride and padding (an int, three (low, high)
+    pairs, or lax's strings) runs PyTorch's conv3d."""
     if isinstance(stride, int):
         stride = (stride,) * 3
     kd, kh, kw, cin, cout = kernel.shape
-    if tuple(stride) != (kd, kh, kw) or padding not in (0, ((0, 0),) * 3):
-        raise NotImplementedError(
-            f"conv3d with stride {tuple(stride)}, kernel {(kd, kh, kw)} and padding {padding} "
-            "is not ported yet (ROADMAP queue 1, item 2: ops/conv.py)")
+    pads = _pads(padding, x.shape[1:4], (kd, kh, kw), stride)
+    if tuple(stride) != (kd, kh, kw) or any(p != (0, 0) for p in pads):
+        (d0, d1), (h0, h1), (w0, w1) = pads
+        xp = F.pad(x, (0, 0, w0, w1, h0, h1, d0, d1)) if any(map(any, pads)) else x
+        return _torch_conv(F.conv3d, xp, kernel.permute(4, 3, 0, 1, 2), bias,
+                           stride=tuple(stride))
     n, d, h, w, _ = x.shape
     do, ho, wo = d // kd, h // kh, w // kw
     p = x[:, :do * kd, :ho * kh, :wo * kw]

@@ -25,7 +25,8 @@ the hidden activations in device memory once, in bf16); narrower bf16
 widths and f32 widths up to 1024 run the fused kernel (the 4C hidden kept
 on chip); wider or ragged f32 widths run the forward in passes
 (`credit_fused_ff_passes`, in `csrc/fused_ff_bwd.cu`), and the backward's
-passes take any C. Where C or the hidden width is not a multiple of 8 the
+passes take any C: in bf16 on the same wgmma mainloop as the split route,
+with the tiles and splits `ffb_plan` picks, in f32 on FMA. Where C or the hidden width is not a multiple of 8 the
 wrappers zero-pad them (a copy in, the result cut back); the kernels take
 every LN statistic over the true C.
 """
@@ -40,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from credit_torch import _build
-from credit_torch.ops.cuda_conv import SMS, wgmma_bn
+from credit_torch.ops.cuda_conv import BN_CHOICES, HBM_BYTES_PER_S, SM_FLOPS, SMS, wgmma_bn
 
 EPS = 1e-5
 MAX_C = 1024  # widest channel count the fused kernel's register plan takes
@@ -51,6 +52,9 @@ MAX_C = 1024  # widest channel count the fused kernel's register plan takes
 SPLIT_MIN_C = 256
 SQRT1_2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
+ROW_TILE = 128  # rows a product tile (`csrc/fused_ff_bwd.cu` ROW_TILE)
+LN_ROWS = 64  # rows a block of the LN backward (LN_ROWS), 16 where rows are few
+K_STEP = 64  # K values a mainloop step (`csrc/tma_gemm.cuh` KS)
 
 
 def _stats(v: torch.Tensor):
@@ -306,13 +310,109 @@ def fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
     return dx.to(dt).reshape(x.shape), dg, db, dw1, dh1.sum(0), dw2, db2
 
 
+@dataclass(frozen=True)
+class FFBPlan:
+    """How one bf16 `fused_ff_bwd` call runs on the card
+    (`csrc/fused_ff_bwd.cu`, every product on the wgmma mainloop): the m
+    rows, width `ld` and hidden width `hidden` the kernels see (zero-padded
+    to multiples of 8), which size the workspace; the LN backward's rows a
+    block `ln_rows`; the output columns of a 128-row tile of post-norm o2 =
+    a w2 (`bn_o2`, 0 in pre-norm form) and of dy = dh1 w1^T (`bn_dy`); the
+    weight gradients' `bn_w1` / `bn_w2` and their splits over the rows `s1`
+    / `s2` (dw1 is ld x hidden, dw2 hidden x ld). Pass 2 (h1 = y w1 and da
+    = g w2^T into two accumulator sets) always runs 128 x 128 tiles."""
+
+    m: int
+    ld: int
+    hidden: int
+    ln_rows: int
+    bn_o2: int
+    bn_dy: int
+    bn_w1: int
+    s1: int
+    bn_w2: int
+    s2: int
+
+    def workspace(self) -> dict:
+        """name -> (shape, dtype) of each buffer the kernels need, in the
+        order of `credit_fused_ff_bwd_bf16`'s arguments; None where unused:
+        y = LN(x) (post-norm do2), a = GELU(h1), dh1, f32 dy (post-norm o2),
+        the weight gradients' split partials, the db1 partials per row tile
+        and the LN backward's dg | db | db2 partials per block."""
+        m, ld, hd = self.m, self.ld, self.hidden
+        bf, f32 = torch.bfloat16, torch.float32
+        return {"y": ((m, ld), bf), "a": ((m, hd), bf), "dh": ((m, hd), bf),
+                "dy": ((m, ld), f32),
+                "p1": ((self.s1, ld, hd), f32) if self.s1 > 1 else None,
+                "p2": ((self.s2, hd, ld), f32) if self.s2 > 1 else None,
+                "pdb": ((-(-m // ROW_TILE), hd), f32),
+                "pln": ((-(-m // self.ln_rows), 3, ld), f32)}
+
+
+def wgrad_tiles(rows: int, cols: int, bn: int) -> int:
+    """128 x bn output tiles of a rows x cols weight gradient."""
+    return -(-rows // ROW_TILE) * -(-cols // bn)
+
+
+def _wgrad_plan(rows: int, cols: int, m: int, sms: int):
+    """(bn, splits) of an f32 rows x cols weight gradient contracted over m
+    rows in K steps of 64, one block an SM. Splits only where the output
+    has fewer tiles than the card has SMs; then the count whose waves x K
+    steps a block (a block's step costing as BN + 64, as in `wgmma_bn`)
+    plus the partials' traffic (each written, read, and the sum written)
+    take least time, at least 8 K steps a split and none left empty; the
+    fewest splits, then the larger BN, on a tie."""
+    steps = -(-m // K_STEP)
+    best = None
+    for bn in BN_CHOICES[::-1]:
+        tiles = wgrad_tiles(rows, cols, bn)
+        top = 1 if tiles >= sms else max(1, steps // 8)
+        for s in range(1, top + 1):
+            per = -(-steps // s)
+            s = -(-steps // per)  # no split left empty
+            t = (-(-tiles * s // sms) * per * 2.0 * ROW_TILE * (bn + 64) * K_STEP / SM_FLOPS
+                 + (s > 1) * (2 * s + 1) * rows * cols * 4 / HBM_BYTES_PER_S)
+            if best is None or (t, s) < best[0]:
+                best = ((t, s), bn, s)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=1024)
+def ffb_plan(m: int, c: int, hidden: int, post_norm: bool, sms: int = SMS) -> FFBPlan:
+    """The bf16 backward's plan at m rows, width c and hidden width
+    `hidden`: the LN backward at LN_ROWS rows a block, or 16 where that
+    leaves fewer than two blocks an SM; o2 and dy by `wgmma_bn` over the
+    row tiles; the weight gradients by `_wgrad_plan`."""
+    ld, hpad = _up8(c), _up8(hidden)
+    row_tiles = -(-m // ROW_TILE)
+    bn_w1, s1 = _wgrad_plan(ld, hpad, m, sms)
+    bn_w2, s2 = _wgrad_plan(hpad, ld, m, sms)
+    ln_rows = LN_ROWS if -(-m // LN_ROWS) >= 2 * sms else 16
+    bn = wgmma_bn(row_tiles, ld, sms)
+    return FFBPlan(m, ld, hpad, ln_rows=ln_rows, bn_o2=bn if post_norm else 0, bn_dy=bn,
+                   bn_w1=bn_w1, s1=s1, bn_w2=bn_w2, s2=s2)
+
+
 def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
     """Backward of `fused_ff` at x (M, C) or (B, H, W, C) with cotangent ct
     of x's shape, any C and hidden width (zero-padded to multiples of 8 for
-    the kernels' 16-byte row vectors). Returns (dx, dg, db, dw1, db1, dw2,
-    db2): dx in x's dtype, the rest f32."""
+    TMA's 16-byte strides and the row vectors). bf16 runs on `ffb_plan`'s
+    plan, f32 on FMA passes. Returns (dx, dg, db, dw1, db1, dw2, db2): dx in
+    x's dtype, the rest f32."""
     if x.device.type == "cpu":
         return fused_ff_bwd_plain(x, ct, g, b, w1, b1, w2, b2, post_norm)
+    plan = None
+    if x.dtype == torch.bfloat16:
+        m = x.numel() // x.shape[-1]
+        plan = ffb_plan(m, x.shape[-1], w1.shape[1], bool(post_norm),
+                        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    return fused_ff_bwd_planned(x, ct, g, b, w1, b1, w2, b2, post_norm, plan)
+
+
+def fused_ff_bwd_planned(x, ct, g, b, w1, b1, w2, b2, post_norm: bool, plan: FFBPlan | None):
+    """`fused_ff_bwd` on the card with a given bf16 plan (None for f32), so
+    that a test or a measurement can run another tiling or split than
+    `ffb_plan`'s. A launch adds one to `fused_ff_bwd.launches`."""
     c = x.shape[-1]
     hidden = w1.shape[1]
     if ct.shape != x.shape:
@@ -321,24 +421,38 @@ def fused_ff_bwd(x, ct, g, b, w1, b1, w2, b2, post_norm: bool = False):
     ld, hpad = _up8(c), _up8(hidden)
     x2 = x.contiguous().reshape(-1, c)
     m = x2.shape[0]
+    if (plan is None) != (code == _build.F32) or (
+            plan is not None and (plan.m, plan.ld, plan.hidden) != (m, ld, hpad)):
+        raise ValueError(f"fused_ff_bwd: plan {plan} does not fit {x.dtype} (M={m}, C={c}, "
+                         f"hidden={hidden})")
     # b2 shifts the post-norm LN's statistics (the pre-norm kernel ignores it)
     x2, prm = _padded(x2, [t.to(x.dtype) for t in (g, b, w1, b1, w2, b2)], ld, hpad)
     ct2 = _pad_to(ct.to(x.dtype).reshape(-1, c), 1, ld)
     ins = _aligned([x2, ct2] + prm)
     p, i = ctypes.c_void_p, ctypes.c_int
-    nbytes = _build.function("credit_fused_ff_bwd_workspace", [i] * 4,
-                             ctypes.c_longlong)(code, m, ld, hpad)
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(ins[0])
     dln = torch.empty((3, ld), **f32)  # dg | db | db2
     dw1, db1, dw2 = (torch.empty((ld, hpad), **f32), torch.empty(hpad, **f32),
                      torch.empty((hpad, ld), **f32))
-    fn = _build.function("credit_fused_ff_bwd", [p] * 14 + [i] * 6 + [p])
-    err = fn(*(t.data_ptr() for t in ins),
-             *(t.data_ptr() for t in (dx, dln, dw1, db1, dw2, work)),
-             code, m, c, ld, hpad, int(post_norm), _build.stream_ptr())
-    _build.check(err, "credit_fused_ff_bwd")
+    outs = [t.data_ptr() for t in (dx, dln, dw1, db1, dw2)]
+    if plan is None:
+        nbytes = _build.function("credit_fused_ff_bwd_workspace", [i] * 3,
+                                 ctypes.c_longlong)(m, ld, hpad)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        fn = _build.function("credit_fused_ff_bwd_f32", [p] * 14 + [i] * 5 + [p])
+        err = fn(*(t.data_ptr() for t in ins), *outs, work.data_ptr(), m, c, ld, hpad,
+                 int(post_norm), _build.stream_ptr())
+        _build.check(err, "credit_fused_ff_bwd_f32")
+    else:
+        work = [None if v is None else torch.empty(v[0], dtype=v[1], device=x.device)
+                for v in plan.workspace().values()]
+        fn = _build.function("credit_fused_ff_bwd_bf16", [p] * 21 + [i] * 12 + [p])
+        err = fn(*(t.data_ptr() for t in ins), *outs,
+                 *(None if t is None else t.data_ptr() for t in work), m, c, ld, hpad,
+                 int(post_norm), plan.ln_rows, plan.bn_o2, plan.bn_dy, plan.bn_w1, plan.s1,
+                 plan.bn_w2, plan.s2, _build.stream_ptr())
+        _build.check(err, "credit_fused_ff_bwd_bf16")
     fused_ff_bwd.launches += 1
     if (ld, hpad) != (c, hidden):
         dx, dln = dx[:, :c], dln[:, :c]

@@ -1,15 +1,19 @@
-"""The routes of the port's FF (kernel 1) and window attention (kernel 3),
-and the card-side tests of every FF and conv kernel.
+"""The routes of the port's FF (kernel 1), its backward (kernel 4) and
+window attention (kernel 3), and the card-side tests of every FF and conv
+kernel.
 
-`cuda_ff.ff_plan` and `cuda_attention.attention_plan` pick each call's
-kernel and sizes in Python: these tests check them at the paths' shapes and
-past them. The split FF route's plain version and the plain attention at
-windows past one key block are held against credit_tpu's Pallas kernels run
-interpreted and its reference compositions. The tests marked `cuda` hold
+`cuda_ff.ff_plan`, `cuda_ff.ffb_plan` and `cuda_attention.attention_plan`
+pick each call's kernel and sizes in Python: these tests check them at the
+paths' shapes and past them. The split FF route's plain version, the FF
+backward's at ragged shapes and the plain attention at windows past one key
+block are held against credit_tpu's Pallas kernels run interpreted and its
+reference compositions. The tests marked `cuda` hold
 the kernels against their plain versions on a card. This file imports
 credit_tpu's ops (jax only) and no flax model, so it collects on a machine
 without flax: `python -m pytest tests/test_torch_port_kernels.py -m cuda`.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +25,7 @@ from credit_tpu.ops import window_attention as jwa
 from credit_tpu.ops.pallas_attention import fused_window_attention as j_fused_attn
 from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
 from credit_torch.ops.cuda_attention import attention_plan
-from credit_torch.ops.cuda_ff import ff_plan
+from credit_torch.ops.cuda_ff import ff_plan, ffb_plan
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -121,6 +125,85 @@ def test_split_plain_matches_pallas_and_xla(c, post, dtype):
         assert _rel(out, ref) <= SPLIT_TOL[dtype]
     ref = jff._xla_ff(xj.reshape(-1, c), *pj, post_norm=post).reshape(xj.shape)
     assert _rel(out, ref) <= SPLIT_TOL[dtype]
+
+
+# --------------------------------------------------------------- kernel 4
+@pytest.mark.parametrize("m,c,hidden,post", FF_PATH)
+def test_ffb_plan_at_path_shapes(m, c, hidden, post):
+    """The bf16 backward's plan: the widths as they are (multiples of 8),
+    o2 (post-norm only) and dy on the conv's tile rule, each weight
+    gradient unsplit where it has a tile for every SM, else split over the
+    rows with at least 8 K steps a split and none left empty; the
+    workspace sized to the plan. Stage 0's 128 x 512 gradients split,
+    FuXi's 1024 x 4096 do not."""
+    plan = ffb_plan(m, c, hidden, post)
+    assert (plan.m, plan.ld, plan.hidden) == (m, c, hidden)
+    row_tiles = -(-m // 128)
+    assert plan.bn_dy == cuda_conv.wgmma_bn(row_tiles, c)
+    assert plan.bn_o2 == (cuda_conv.wgmma_bn(row_tiles, c) if post else 0)
+    steps = -(-m // 64)
+    for rows, cols, bn, splits in [(c, hidden, plan.bn_w1, plan.s1),
+                                   (hidden, c, plan.bn_w2, plan.s2)]:
+        assert bn in cuda_conv.BN_CHOICES
+        if cuda_ff.wgrad_tiles(rows, cols, bn) >= cuda_conv.SMS:
+            assert splits == 1
+        per = -(-steps // splits)
+        assert (splits - 1) * per < steps and (splits == 1 or per >= 8)
+    if c == 128:
+        assert plan.s1 > 1 and plan.s2 > 1
+    if c == 1024:
+        assert plan.s1 == plan.s2 == 1
+    ws = plan.workspace()
+    assert ws["a"][0] == ws["dh"][0] == (m, hidden) and ws["dy"][0] == (m, c)
+    assert ws["p1"] == (None if plan.s1 == 1 else ((plan.s1, c, hidden), F32))
+    assert ws["p2"] == (None if plan.s2 == 1 else ((plan.s2, hidden, c), F32))
+    assert ws["pdb"][0] == (row_tiles, hidden)
+    assert ws["pln"][0] == (-(-m // plan.ln_rows), 3, c)
+    assert plan.ln_rows == (64 if -(-m // 64) >= 2 * cuda_conv.SMS else 16)
+
+
+@pytest.mark.parametrize("m,c,hidden,ld,hpad", [(1000, 100, 404, 104, 408),
+                                                (300, 1152, 4608, 1152, 4608),
+                                                (130, 72, 200, 72, 200)])
+def test_ffb_plan_past_the_paths(m, c, hidden, ld, hpad):
+    """Ragged widths are padded to multiples of 8 (TMA's 16-byte strides).
+    The splits follow the card: FuXi's weight gradients (128 tiles of 128 x
+    256) stay whole on 132 SMs and split on a card of 200."""
+    plan = ffb_plan(m, c, hidden, True)
+    assert (plan.ld, plan.hidden) == (ld, hpad)
+    assert plan.workspace()["y"][0] == (m, ld)
+    assert cuda_ff.wgrad_tiles(1024, 4096, 256) == 128
+    assert ffb_plan(16905, 1024, 4096, True, 132).s1 == 1
+    assert ffb_plan(16905, 1024, 4096, True, 200).s1 > 1
+
+
+# f32: erff against the TPU kernel's A&S erf (1.5e-7) and another summation
+# order over the rows: 1e-5 of max |ref|. bf16: y, a, ct, do2 and dh1 are
+# rounded at the same points on both sides; a flipped rounding (the erf,
+# the order of the f32 sums before it) moves dx by a bf16 ulp of its
+# magnitude (2^-8 relative) and a weight gradient by less: 2e-2.
+FFB_TOL = {F32: 1e-5, BF16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("post", [False, True], ids=["pre_norm", "post_norm"])
+@pytest.mark.parametrize("shape,hidden", [((2, 5, 13, 72), 200), ((1, 10, 13, 100), 404)],
+                         ids=["C72_H200", "C100_H404"])
+def test_ffb_plain_at_ragged_shapes_matches_pallas(shape, hidden, post, dtype):
+    """The backward's plain version (the wrapper's CPU route) at M = 130
+    rows (no multiple of the 128-row tiles), C and hidden no multiples of
+    64 (72 and 200), and C and hidden the bf16 route pads (100 and 404, to
+    104 and 408), against credit_tpu's fused_ff_bwd interpreted: dx and the
+    six parameter gradients, in both forms."""
+    a = _ff_args(shape, seed=shape[-1], hidden=hidden)
+    jdt = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    aj = [jnp.asarray(v, jdt) for v in a]
+    at = [torch.from_numpy(np.asarray(v.astype(jnp.float32))).to(dtype) for v in aj]
+    ref = jff.fused_ff_bwd(*aj, interpret=True, post_norm=post)
+    out = cuda_ff.fused_ff_bwd(*at, post_norm=post)
+    assert out[0].dtype == dtype and all(o.dtype == F32 for o in out[1:])
+    for name, o, r in zip(["dx", "dg", "db", "dw1", "db1", "dw2", "db2"], out, ref):
+        assert _rel(o, r) <= FFB_TOL[dtype], name
 
 
 # --------------------------------------------------------------- kernel 3
@@ -297,6 +380,33 @@ def test_split_route_matches_plain_on_card(cuda, post):
         if c in (512, 1024):
             fused = cuda_ff.fused_ff(x, *prm, post_norm=post, route="fused")
             assert _rel(fused, out) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("post", [False, True], ids=["pre_norm", "post_norm"])
+def test_ffb_wgmma_route_matches_plain_on_card(cuda, post):
+    """Kernel 4's bf16 route (every product on the wgmma mainloop) against
+    its plain version (2e-2, FFB_TOL), at ragged rows, a ragged width (C =
+    100 and hidden 404, padded to 104 and 408), a width of several
+    128-column tiles (C = 320) and C = 1152, on the plan's tiles and splits
+    and on other ones (split weight gradients where the plan keeps them
+    whole and the reverse, other BN); each bitwise the same on a second
+    call."""
+    for m, c, hidden in [(1000, 100, 404), (777, 320, 1280), (300, 1152, 4608)]:
+        x, ct, *prm = _on(_ff_args((m, c), seed=c, hidden=hidden), cuda, BF16)
+        ref = cuda_ff.fused_ff_bwd_plain(x, ct, *prm, post_norm=post)
+        plan = ffb_plan(m, c, hidden, post)
+        other = dataclasses.replace(
+            plan, bn_dy=64, bn_w1=192, bn_w2=64, ln_rows=16,
+            s1=1 if plan.s1 > 1 else 3, s2=1 if plan.s2 > 1 else 2)
+        for p in (plan, other):
+            before = cuda_ff.fused_ff_bwd.launches
+            out = cuda_ff.fused_ff_bwd_planned(x, ct, *prm, post, p)
+            assert cuda_ff.fused_ff_bwd.launches == before + 1
+            for name, o, r in zip(["dx", "dg", "db", "dw1", "db1", "dw2", "db2"], out, ref):
+                assert _rel(o, r) < FFB_TOL[BF16], (m, c, p, name)
+            again = cuda_ff.fused_ff_bwd_planned(x, ct, *prm, post, p)
+            assert all(torch.equal(o, a) for o, a in zip(out, again)), (m, c, p)
 
 
 @pytest.mark.cuda

@@ -202,12 +202,52 @@ def test_conv_transpose2d_matches_reference(k, p):
     assert _rel_err(out, ref) < 1e-5
 
 
+# Convs the reference computes through lax.conv_general_dilated (no Pallas
+# kernel), which the port runs on PyTorch's own convolutions: conv2d at
+# other strides and with credit_tpu's padding forms (a (h, w) pair, lax's
+# strings; stride 1 and 2 stay on kernel 2's routes), every other transpose,
+# and conv3d past the patch form.
+CONV2D_FORMS = [  # (kernel, stride, padding)
+    (3, 3, 1), (3, (1, 2), 1), (3, 3, "SAME"), (4, 1, "SAME"), (3, 2, "SAME"),
+    (3, 1, "VALID"), (5, (3, 1), (1, 2)), (4, 2, "SAME_LOWER")]
+TRANSPOSE_FORMS = [(3, 2, 1), (3, 1, 1), (4, 3, 0), (5, 2, 2), (2, 2, 1), (3, (2, 3), (1, 0))]
+CONV3D_FORMS = [((2, 3, 3), (1, 2, 2), 1), ((3, 3, 3), 1, ((1, 0), (0, 1), (1, 1))),
+                ((2, 2, 2), 2, "SAME"), ((1, 3, 3), (1, 1, 1), "VALID")]
+
+
+@pytest.mark.parametrize("op,case", [("conv2d", c) for c in CONV2D_FORMS]
+                         + [("conv_transpose2d", c) for c in TRANSPOSE_FORMS]
+                         + [("conv3d", c) for c in CONV3D_FORMS])
+def test_conv_forms_past_the_kernels_match_reference(op, case):
+    k, stride, padding = case
+    rng = np.random.default_rng(len(str(case)))
+    if op == "conv3d":
+        x = rng.standard_normal((1, 5, 9, 10, 3)).astype(np.float32)
+        kern = (rng.standard_normal(tuple(k) + (3, 4)) * 0.2).astype(np.float32)
+    else:
+        x = rng.standard_normal((2, 13, 17, 5)).astype(np.float32)
+        kern = (rng.standard_normal((k, k, 5, 4)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(4).astype(np.float32)
+    ref = getattr(jconv, op)(jnp.asarray(x), jnp.asarray(kern), jnp.asarray(bias),
+                             stride=stride, padding=padding)
+    out = getattr(tconv, op)(torch.from_numpy(x), torch.from_numpy(kern), torch.from_numpy(bias),
+                             stride=stride, padding=padding)
+    assert _rel_err(out, ref) < 1e-5  # f32, summation order only
+
+
 def test_conv_unported_strides_raise():
-    x = torch.zeros((1, 8, 8, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.conv2d(x, torch.zeros((3, 3, 2, 2)), stride=3, padding=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.conv_transpose2d(x, torch.zeros((3, 3, 2, 2)), stride=2, padding=0)
+    """The stride-3 conv and the k3/s2/p0 transpose raised until the port
+    took every form the reference computes: neither raises now, and both
+    agree with credit_tpu."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 8, 8, 2)).astype(np.float32)
+    kern = (rng.standard_normal((3, 3, 2, 2)) * 0.3).astype(np.float32)
+    for op, stride, padding in [("conv2d", 3, 1), ("conv_transpose2d", 2, 0)]:
+        ref = getattr(jconv, op)(jnp.asarray(x), jnp.asarray(kern), stride=stride,
+                                 padding=padding)
+        out = getattr(tconv, op)(torch.from_numpy(x), torch.from_numpy(kern), stride=stride,
+                                 padding=padding)
+        assert _rel_err(out, ref) < 1e-5
 
 
 # --------------------------------------------------------------- padding
