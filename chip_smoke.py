@@ -11,11 +11,13 @@ Phases (any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes in bf16 and f32 (TF32 off), the FF and its backward
      in both forms (pre-norm: the WXFormer; post-norm: FuXi, and a width the
-     bf16 kernel pads; bf16 from C = 256 on on the split route, whose fc1
-     and fc2 run on wgmma, timed beside the fused kernel in turns at four
-     widths; every FF beside PyTorch's own composition) and at widths the
-     fused kernel does not take (C > 1024, C and hidden not multiples of 8:
-     the split route in bf16, the forward in passes in f32), window
+     bf16 kernel pads; bf16 up to C = 256 on the fused wgmma kernel, the
+     hidden layer in registers, bit-identical on a second call at stage 0
+     and C = 192, with its TFLOP/s; past C = 256 on the split route, whose
+     fc1 and fc2 run on wgmma; the two routes timed in turns at the widths
+     both take; every FF beside PyTorch's own composition) and at widths
+     the fused kernels do not take (C > 1024, C and hidden not multiples of
+     8: the split route in bf16, the forward in passes in f32), window
      attention at the paths' windows, 12x12 and 24x24 windows (T = 144 and
      576: key blocks with an online softmax) and heads of 128, the conv and
      its weight gradient at every shape the paths launch, up to 16x16 taps,
@@ -32,7 +34,7 @@ Phases (any failure exits non-zero):
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
-     config;
+     config, and three more rollouts timed for the spread;
   5. main path 2, training: CONF_025 with 8 diagnostic outputs, seeded f32
      weights with spectral-norm state, bf16 compute, MSE, AdamW(0.9, 0.95)
      through make_train_step; a warm-up step, then timed steps whose kernel
@@ -159,6 +161,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TRAIN_LIMITS = {"crossformer": (1e-3, 5e-2, 0.25), "fuxi": (3e-3, 0.1, 0.25)}
 
 ROLLOUT_STEPS = 3
+# rollouts timed again after the counted one, for the spread: the host sets
+# the WXFormer's step time, and one timed rollout read from 42.7 to 92.0
+# ms/step on one H100 80GB HBM3 at 700 W from call to call (PERF.md)
+ROLLOUT_REPEATS = 3
 TRAIN_STEPS = 3
 POST_STEPS = 3
 # bench_conv_ffk's modes in phase 9: the plain FFs, the kernel's, and the
@@ -348,9 +354,11 @@ FF_SHAPES = [("stage0_C128", (400, 720, 128), False, 512),
              ("ragged_C100_H404_post", (100, 180, 100), True, 404)]
 
 
-# FF cases timed on both bf16 routes in turns on one card: the widths where
-# the plan picks the split route, and the two below them
-FF_TURNS = ("stage0_C128", "stage1_C256", "stage2_C512", "fuxi_C1024_post")
+# FF cases timed on both bf16 routes in turns on one card (fused, split,
+# split, fused): the widths both routes take
+FF_TURNS = ("stage0_C128", "stage1_C256", "padded_C192_post")
+# bf16 FF cases whose fused kernel is also checked bitwise on a second call
+FF_REPEAT = ("stage0_C128", "padded_C192_post")
 
 
 def ff_composition(torch, x, prm, post):
@@ -420,7 +428,16 @@ def ff_cases(torch, g):
                            (2 * m * c + 2 * c * hd + 3 * c + hd) * isz,
                            4.0 * m * c * hd, tol, 10)
             r["composition_ms"] = comp_ms
-            if label in FF_TURNS and dt == torch.bfloat16:
+            if dt != torch.bfloat16:
+                res[(label, dt)] = r
+                continue
+            if label in FF_REPEAT:
+                first = cuda_ff.fused_ff(x, *prm, post_norm=post)
+                if not torch.equal(first, cuda_ff.fused_ff(x, *prm, post_norm=post)):
+                    raise AssertionError(f"fused_ff {label}: two calls differ")
+                log(f"    {route} route bit-identical on a second call; "
+                    f"{4.0 * m * c * hd / r['ms'] / 1e9:.1f} TFLOP/s")
+            if label in FF_TURNS:
                 # the fused kernel against the split route on this card, in
                 # turns: fused, split, split, fused
                 turns = [(rt, cuda_ms(lambda: cuda_ff.fused_ff(x, *prm, post_norm=post,
@@ -428,8 +445,11 @@ def ff_cases(torch, g):
                          for rt in ("fused", "split", "split", "fused")]
                 err = (cuda_ff.fused_ff(x, *prm, post_norm=post, route="fused").float()
                        - plain(x, *prm, post_norm=post).float()).abs().max().item()
+                fused_ms = [ms for rt, ms in turns if rt == "fused"]
                 log(f"    routes in turns: " + ", ".join(f"{rt} {ms:.4f}" for rt, ms in turns)
-                    + f" ms; the fused kernel's max_abs_err {err:.3e}")
+                    + f" ms; the fused kernel's max_abs_err {err:.3e}, "
+                    f"{4.0 * m * c * hd / min(fused_ms) / 1e9:.1f} TFLOP/s, against bound "
+                    f"{r['bound_ms']:.4f} and composition {comp_ms:.4f} ms")
                 r["turns_ms"] = turns
             res[(label, dt)] = r
     return res
@@ -1055,8 +1075,9 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
                  profile: bool = False, times: dict = None) -> dict:
     """A bf16 forecast of `model_conf` on seeded folded weights at batch 1:
     a warm-up step, then ROLLOUT_STEPS steps whose kernel launches are
-    counted and checked against `want` per step; returns the counts and
-    puts the ms/step into `times[name]`."""
+    counted and checked against `want` per step, then ROLLOUT_REPEATS more
+    such rollouts timed for the spread; returns the counts and puts the
+    first rollout's ms/step into `times[name]`."""
     from credit_torch.convert_jax import init_folded
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.rollout import make_scan_rollout
@@ -1108,6 +1129,15 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
         f"range [{stats.float().min().item():.3e}, {stats.float().max().item():.3e}]")
     if not fin:
         raise AssertionError("rollout produced non-finite values")
+    spread = []
+    for _ in range(ROLLOUT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run(x0)
+        torch.cuda.synchronize()
+        spread.append((time.time() - t0) * 1e3 / ROLLOUT_STEPS)
+    log(f"  {ROLLOUT_REPEATS} more rollouts of {ROLLOUT_STEPS} steps: "
+        + ", ".join(f"{v:.1f}" for v in spread) + " ms/step")
     if profile:
         profile_steps(torch, f"{name} rollout step",
                       make_scan_rollout(model, schema, 2, history_len=frames, device="cuda"),
@@ -1218,7 +1248,7 @@ def profile_steps(torch, what: str, run, args, steps: int) -> None:
 def kernel_group(name: str) -> str:
     """A profile row's kind: one of the port's kernels, a library GEMM, or
     PyTorch glue by operation."""
-    port = {"ffb::": "port fused_ff_bwd", "ff::fused_ff": "port fused_ff: fused kernel",
+    port = {"ffb::": "port fused_ff_bwd", "ff::fused": "port fused_ff: fused kernel",
             "ff::": "port fused_ff: split route and row passes", "wgrad::": "port conv2d_wgrad",
             "conv::": "port conv2d_valid", "attn::": "port fused_window_attention",
             "band::": "port conv_band", "copy::": "port copy"}
@@ -1351,6 +1381,13 @@ def main() -> int:
                    else runs[p][counter] for p in paths}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path, **r})
+        if name == "fused_ff":
+            kernels[-1]["design"] = (
+                "bf16 C <= 256: persistent blocks, a TMA producer warp and 64-row consumer "
+                "warpgroups (three up to C = 128, two at 256) on wgmma; per 64-column hidden "
+                "chunk fc1's f32 accumulators take b1 and the exact GELU in registers and, "
+                "packed to bf16, are fc2's A operand (the hidden layer never leaves the "
+                "registers); LN, post-norm LN and the residual in the warpgroups, a TMA store")
     log(f"chip_smoke: {time.time() - t_start:.1f} s end to end")
     log(smi)
     print(json.dumps({"kernels": kernels}))

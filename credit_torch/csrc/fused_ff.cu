@@ -14,39 +14,44 @@
 //
 // Two bf16 designs, picked per shape by cuda_ff.ff_plan:
 //
-// Fused (C < 256): a block owns BM token rows and keeps the 4C-wide hidden
-// on chip; pre-norm computes the LN statistics in f32 (one warp per row) and
-// keeps LN(x) in the input dtype in shared memory, post-norm keeps x itself
-// there; then it walks the hidden dimension in chunks:
-//   h = y . w1[:, chunk] + b1       (f32 accumulators)
-//   GELU exact (erff), cast to the input dtype, into shared memory
-//   acc += h . w2[chunk, :]         (f32 accumulators)
-// and at the end adds b2 in f32; post-norm takes the LN of that f32 row (two
-// passes over the row: the mean, then the mean of squared deviations, summed
-// across the warps that share the row in shared memory, over the true C
-// only); then it casts and adds the residual x in the input dtype -- the
-// rounding points of the TPU kernel (pallas_ff.py:68-79). Both products run
-// on mma.sync m16n8k16 with ldmatrix from shared memory. A block of 16 warps
-// owns BM = 32768 / cpad rows (cpad = C padded to 128 or 256; the kernel
-// also takes 512 and 1024, which the split route now runs faster). Its BM x cpad f32 output tile stays in
-// registers, beside the f32 fc1 output of one hidden chunk of cpad/4
-// columns. The weights stream through a 4-deep cp.async ring of K-slices;
-// each block re-reads all the weights from L2, so the smaller BM is, the
-// more L2 traffic: at C = 1024 (BM = 32, 16 MB of weights a block) that
-// traffic bounded it at 12.4x its bound (PERF.md), which is why wider rows
-// take the split route.
+// Fused (C <= 256, C % 8 == 0; fused_ff_wgmma): the 4C-wide hidden layer
+// never leaves the SM, nor even its registers. Persistent blocks walk row
+// tiles; a producer warp feeds TMA loads of each tile's x and of w1 / w2 in
+// chunks of 64 hidden columns through an mbarrier ring (tma_gemm.cuh's
+// scheme), and consumer warpgroups of 64 rows each run, per chunk:
+//   h = y . w1[:, chunk]            wgmma, A = y from shared memory, f32
+//   + b1, exact GELU (erff), cast   in registers
+//   acc += h . w2[chunk, :]         wgmma with A from registers (WgmmaRS)
+// y = LN(x) (pre-norm: f32 statistics, cast to bf16, into a swizzled tile
+// beside x) or x itself (post-norm). fc2 of a chunk is in flight while the
+// next chunk's GELU runs, and the other warpgroups' products fill the
+// gaps. After the last chunk: + b2 in f32, post-norm the LN of each f32 row
+// over the true C (a row's columns sit in one quad of lanes: two shuffles,
+// no shared memory), the cast, + x in bf16 from the staged tile, and a TMA
+// store -- the rounding points of the TPU kernel (pallas_ff.py:68-79).
+// What bounds it is the GELU: erff compiles branch-free, each term's
+// coefficient selected per value, and at the WXFormer's stage 0 (C = 128,
+// hidden 512: 147 M hidden values) the kernel without its GELU takes half
+// the time, while the 256 KB of weights each tile reads again from L2 cost
+// ~2%. The GELU and the products do not overlap: as much erff work on
+// values no product gives, issued while the products are in flight, costs
+// as much again (tools/ff_probe.py on one H100 80GB HBM3 at 700 W,
+// PERF.md). An earlier mma.sync design (16 warps in step, each
+// chunk's GELU through shared memory behind a block barrier) read 0.80 ms
+// at stage 0 on that card, this one 0.33.
 //
-// Split (C >= 256, C % 8 != 0, C > 1024): LN rows, then fc1 and fc2 as two
+// Split (C > 256, C % 8 != 0): LN rows, then fc1 and fc2 as two
 // warp-specialised TMA + wgmma GEMMs (tma_gemm.cuh, the VALID conv's
 // mainloop) whose epilogues add the biases, apply GELU, round and add the
 // residual; the 4C-wide hidden goes to device memory once, in bf16 (138 MB
 // for FuXi's 16,905 rows), and both products run at wgmma's rate. Post-norm
 // writes fc2's f32 output and a row pass takes its LN. See "bf16, split".
 //
-// The wrapper zero-pads C; padded columns of the output are zero before the
-// post-norm LN, which leaves them out of its statistics. f32 is plain FMA,
-// 16 rows per block, accumulators in registers (C <= 1024); wider or ragged
-// f32 widths run the same function in passes (credit_fused_ff_passes in
+// Padded columns (zero-filled by TMA in the fused kernel, zero-padded to a
+// multiple of 8 by the split route's wrapper) are zero before the post-norm
+// LN, which leaves them out of its statistics. f32 is plain FMA, 16 rows per
+// block, accumulators in registers (C <= 1024); wider or ragged f32 widths
+// run the same function in passes (credit_fused_ff_passes in
 // fused_ff_bwd.cu).
 #include "ff_rows.cuh"
 #include "tma_gemm.cuh"
@@ -100,381 +105,396 @@ __device__ void copy_rows(const T* __restrict__ x, T* y, int m0, int bm, int m, 
   }
 }
 
-// ---------------------------------------------------------------- bf16
-// The width is padded to cpad = 128, 256, 512 or 1024 (the wrapper pads the
-// parameters with zeros) and a block owns BM = 32768 / cpad rows: RT = BM / 16
-// row tiles of 16. The 16 warps form a WM x WN grid over them; each warp owns
-// two m16 row tiles and, of the BM x cpad output, 8 n8 column tiles (64
-// columns), of each BM x cpad/4 hidden chunk 2 n8 tiles (16 columns).
-constexpr int THREADS_BF16 = 512;
-constexpr int WARPS_BF16 = THREADS_BF16 / 32;
-constexpr int NS = 4;  // depth of the weight-slice ring
+// ---------------------------------------------------------------- bf16, fused
+// A persistent block walks row tiles: a producer warpgroup (one thread
+// issues TMA) and consumer warpgroups of 64 rows each, three (ROWS = 192)
+// up to CP = 128 and two (ROWS = 128) at 256. Every operand stays at its
+// own width: TMA zero-fills each tile to CP = 64, 128 or 256 columns and
+// the hidden width to chunks of HC = 64 (and clips the stores past c and
+// m), and the bias and LN vectors are read only below c and hidden. Shared memory: XS slots of the x tile
+// (CP / 64 boxes of ROWS rows x 64 columns, 128-byte swizzled, K-major: fc1's
+// A in post-norm form and the residual's source), pre-norm the y = LN(x)
+// tile in the same layout, and a ring of weight stages, each one chunk of
+// w1 (CP x 64) or of w2 (64 x CP) as CP / 64 MN-major 64 x 64 boxes. A
+// tile's 2n ring items (n chunks) come in the order w1(0), w1(1), w2(0),
+// w1(2), w2(1), ..., w2(n-1): the order in which the consumers take them.
+namespace fused {
 
-template <int RT>
-struct Tiling {
-  static constexpr int BM = 16 * RT;
-  static constexpr int CPAD = 2048 / RT;
-  static constexpr int HC = CPAD / 4;  // hidden chunk
-  static constexpr int WM = RT / 2;
-  static constexpr int WN = WARPS_BF16 / WM;
-  static constexpr int NF_OUT = 8, NF_HID = 2;  // n8 tiles per warp
-  static_assert(WN * NF_OUT * 8 == CPAD && WN * NF_HID * 8 == HC, "warps tile the block");
+constexpr int HC = 64;  // hidden columns a chunk
+
+// consumer warpgroups (64 rows each) at width CP: three where their
+// registers fit (acc CP / 2, h 32 and a 16 beside the addresses, in 160),
+// two at CP = 256
+__host__ __device__ constexpr int warpgroups(int cp) { return cp <= 128 ? 3 : 2; }
+
+template <int CP, bool POST>
+struct Layout {
+  static_assert(CP == 64 || CP == 128 || CP == 256, "CP: 64, 128 or 256");
+  static constexpr int NWG = warpgroups(CP);
+  static constexpr int ROWS = 64 * NWG;              // rows a tile
+  static constexpr int THREADS = 128 * (NWG + 1);    // the producer warpgroup first
+  // registers a producer and a consumer thread keep by setmaxnreg: all the
+  // SM's 65,536 at three consumer warpgroups
+  static constexpr int PRODUCER_REGS = NWG == 3 ? 32 : 40, REGS = NWG == 3 ? 160 : 232;
+  static constexpr int X_BOX = ROWS * 128;           // one 64-column box of a row tile
+  static constexpr int KB = CP / 64;                 // 64-column boxes a row
+  static constexpr int X = KB * X_BOX;               // one row tile
+  static constexpr int Y = POST ? 0 : X;
+  static constexpr int STAGE = KB * tma::BOX_BYTES;  // one chunk of w1 or of w2
+  static constexpr int FIXED = 1024 + Y + 256;       // alignment slack, y, barriers
+  // two x slots where three stages still fit beside them: the next tile's x
+  // lands during this tile's products
+  static constexpr int XS = FIXED + 2 * X + 3 * STAGE <= kMaxSmem ? 2 : 1;
+  static constexpr int FIT = (kMaxSmem - FIXED - XS * X) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr size_t SMEM = (size_t)FIXED + XS * X + STAGES * STAGE;
+  static_assert(STAGES >= 3, "a warpgroup holds two stages, and one is loading");
 };
 
-// cpad for a width c (a multiple of 8), 0 past MAX_C
-__host__ __device__ inline int padded_width(int c) {
-  int cpad = 128;
-  while (cpad < c) cpad *= 2;
-  return cpad <= MAX_C ? cpad : 0;
+// item i of a tile's ring: true for w2, with its chunk in j
+__device__ __forceinline__ bool ring_item(int i, int n, int& j) {
+  const bool w2 = i == 2 * n - 1 || (i > 0 && i % 2 == 0);
+  j = i == 2 * n - 1 ? n - 1 : w2 ? i / 2 - 1 : (i + 1) / 2;
+  return w2;
 }
 
-// rows of w + 8 elements: 16 bytes of skew keep ldmatrix free of bank
-// conflicts (the row stride is an odd number of 16-byte units) and every row
-// 16-byte aligned
-__host__ __device__ inline int ldw(int w) { return w + 8; }
-
-// Weight slices: fc1 reads ks1 = 4 * ks2 rows of w1[:, chunk] (cpad/4 wide),
-// fc2 ks2 rows of w2[chunk, :] (cpad wide): the same bytes, so one ring slot
-// (ks2 * (cpad + 32) elements) holds either, and a chunk has nk = cpad / ks1
-// slices of each.
-__host__ __device__ inline size_t slot_elems(int cpad, int ks2) {
-  return (size_t)ks2 * (cpad + 32);
+// byte offset of (row r, 8-column group v) in a row tile of 64-column boxes
+// of x_box bytes, 128-byte swizzled
+__device__ __forceinline__ int tile_offset(int r, int v, int x_box) {
+  return (v / 8) * x_box + r * 128 + (((v % 8) ^ (r % 8)) << 4);
 }
 
-__host__ inline size_t smem_bf16(int cpad, int ks2) {
-  const int bm = 32768 / cpad;
-  return ((size_t)bm * ldw(cpad) + (size_t)bm * ldw(cpad / 4) + NS * slot_elems(cpad, ks2)) *
-         sizeof(__nv_bfloat16);
-}
-
-__host__ inline int slice_rows(int cpad) {  // ks2: 32 where the ring fits, else 16
-  int ks2 = cpad / 4 < 32 ? cpad / 4 : 32;
-  while (ks2 > 16 && smem_bf16(cpad, ks2) > (size_t)kMaxSmem) ks2 /= 2;
-  return ks2;
-}
-
-// acc[i * NF + j] += A[m16 tile i, 0:ks] . B[0:ks, n8 tile j] over the warp's
-// two row tiles and NF column tiles. a: the warp's first row of A at the
-// slice's first K column (row stride lda); b: the slice's first row at the
-// warp's first column (row stride ldb).
-template <int NF>
-__device__ __forceinline__ void warp_mma(float (&acc)[2 * NF][4], const __nv_bfloat16* a,
-                                         int lda, const __nv_bfloat16* b, int ldb, int ks) {
-  const int lane = threadIdx.x % 32;
-  a += (lane % 16) * lda + (lane / 16) * 8;
-  b += ((lane % 8) + ((lane / 8) % 2) * 8) * ldb + (lane / 16) * 8;
-  for (int kk = 0; kk < ks; kk += 16) {
-    uint32_t af[2][4];
+// LN of the warpgroup's 64 rows of the x tile into the y tile, f32
+// statistics over the true c (columns past c are zero and stay so): G lanes
+// a row, VPL 16-byte vectors each (vectors sub, sub + G, ...: the rows of a
+// warp read every bank evenly), 64 / (4 RPW) passes of RPW rows a warp
+template <int CP, int X_BOX>
+__device__ __forceinline__ void layer_norm_tile(const unsigned char* xt, unsigned char* yt,
+                                                const __nv_bfloat16* __restrict__ gam,
+                                                const __nv_bfloat16* __restrict__ bet, int c,
+                                                int cw, int wt) {
+  constexpr int VPL = CP / 32 < 4 ? CP / 32 : 4, G = CP / 8 / VPL, RPW = 32 / G;
+  const int warp = wt / 32, lane = wt % 32, sub = lane % G;
+  const float inv_c = 1.f / c;
+  float g[VPL][8], b[VPL][8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], a + i * 16 * lda + kk);
+  for (int i = 0; i < VPL; ++i) {
+    const int v = sub + G * i;
+    const bool in = 8 * v < c;  // c % 8 == 0: a vector is in or out whole
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    const uint4 graw = in ? *reinterpret_cast<const uint4*>(gam + 8 * v) : zero;
+    const uint4 braw = in ? *reinterpret_cast<const uint4*>(bet + 8 * v) : zero;
 #pragma unroll
-    for (int jp = 0; jp < NF / 2; ++jp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b + kk * ldb + jp * 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i * NF + 2 * jp], af[i], bf[0], bf[1]);
-        mma_bf16(acc[i * NF + 2 * jp + 1], af[i], bf[2], bf[3]);
-      }
+    for (int k = 0; k < 8; ++k) {
+      g[i][k] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&graw)[k]);
+      b[i][k] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&braw)[k]);
     }
   }
-}
-
-// Stage the block's x rows into y (row stride ld) with cp.async; rows past
-// m and columns past c are zero-filled with plain stores.
-__device__ inline void load_x_tile(__nv_bfloat16* y, const __nv_bfloat16* __restrict__ x, int m0,
-                                   int bm, int m, int c, int cpad) {
-  const int per_row = cpad / 8, ld = ldw(cpad);
-  for (int i = threadIdx.x; i < bm * per_row; i += THREADS_BF16) {
-    const int r = i / per_row, j = (i % per_row) * 8;
-    __nv_bfloat16* dst = y + r * ld + j;
-    if (m0 + r < m && j < c)
-      cp_async16(dst, x + (size_t)(m0 + r) * c + j);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// LN over each staged row in place: one warp per row, 8 values per lane per
-// 16-byte vector, f32 statistics from registers. Columns past c stay zero.
-__device__ inline void layer_norm_in_place(__nv_bfloat16* y, const __nv_bfloat16* __restrict__ gam,
-                                           const __nv_bfloat16* __restrict__ bet, int bm, int c,
-                                           int ld) {
-  constexpr int MAXV = MAX_C / 8 / 32;  // 16-byte vectors per lane
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nvec = c / 8;
-  for (int r = warp; r < bm; r += WARPS_BF16) {
-    __nv_bfloat16* row = y + r * ld;
-    float v[MAXV][8];
-    float sum = 0.f;
 #pragma unroll
-    for (int q = 0; q < MAXV; ++q) {
-      const int vi = lane + 32 * q;
-      if (vi < nvec) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(row + vi * 8);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  for (int pass = 0; pass < 64 / (4 * RPW); ++pass) {
+    const int r = cw * 64 + (pass * 4 + warp) * RPW + lane / G;
+    float f[VPL][8], sum = 0.f;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          v[q][t] = __bfloat162float(e[t]);
-          sum += v[q][t];
-        }
-      }
+    for (int i = 0; i < VPL; ++i) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xt + tile_offset(r, sub + G * i, X_BOX));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        sum += f[i][k] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&raw)[k]);
     }
-    const float mean = warp_sum(sum) / c;
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum * inv_c;
     float var = 0.f;
 #pragma unroll
-    for (int q = 0; q < MAXV; ++q)
-      if (lane + 32 * q < nvec)
+    for (int i = 0; i < VPL; ++i)
+      if (8 * (sub + G * i) < c)
 #pragma unroll
-        for (int t = 0; t < 8; ++t) var += (v[q][t] - mean) * (v[q][t] - mean);
-    const float rstd = rsqrtf(warp_sum(var) / c + kEps);
+        for (int k = 0; k < 8; ++k) var += (f[i][k] - mean) * (f[i][k] - mean);
 #pragma unroll
-    for (int q = 0; q < MAXV; ++q) {
-      const int vi = lane + 32 * q;
-      if (vi < nvec) {
-        const uint4 graw = *reinterpret_cast<const uint4*>(gam + vi * 8);
-        const uint4 braw = *reinterpret_cast<const uint4*>(bet + vi * 8);
-        const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&graw);
-        const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&braw);
-        uint4 raw;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+    for (int o = G / 2; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+    const float rstd = rsqrtf(var * inv_c + kEps);
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          e[t] = __float2bfloat16((v[q][t] - mean) * rstd * __bfloat162float(ge[t]) +
-                                  __bfloat162float(be[t]));
-        *reinterpret_cast<uint4*>(row + vi * 8) = raw;
-      }
+    for (int i = 0; i < VPL; ++i) {
+      uint4 out;
+#pragma unroll
+      for (int k = 0; k < 8; k += 2)
+        reinterpret_cast<uint32_t*>(&out)[k / 2] =
+            pack_bf16((f[i][k] - mean) * rstd * g[i][k] + b[i][k],
+                      (f[i][k + 1] - mean) * rstd * g[i][k + 1] + b[i][k + 1]);
+      *reinterpret_cast<uint4*>(yt + tile_offset(r, sub + G * i, X_BOX)) = out;
     }
   }
 }
 
-// x (m, c); w1 (cpad, hidden); w2 (hidden, cpad); gam, bet, b2 (cpad,);
-// b1 (hidden,); cpad = Tiling<RT>::CPAD, hidden % (cpad / 4) == 0.
-// POST: post-norm form (no input LN; LN of fc2's f32 output).
-template <int RT, bool POST>
-__global__ void __launch_bounds__(THREADS_BF16, 1)
-fused_ff_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gam,
-              const __nv_bfloat16* __restrict__ bet, const __nv_bfloat16* __restrict__ w1,
-              const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-              const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out, int m, int c,
-              int hidden, int ks2) {
-  using Tl = Tiling<RT>;
-  constexpr int BM = Tl::BM, CPAD = Tl::CPAD, HC = Tl::HC;
-  constexpr int NFO = Tl::NF_OUT, NFH = Tl::NF_HID;
-  constexpr int LDY = CPAD + 8, LDH = HC + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sy = reinterpret_cast<__nv_bfloat16*>(smem);  // LN(x), later the output
-  __nv_bfloat16* sh = sy + BM * LDY;                            // GELU of one hidden chunk
-  __nv_bfloat16* ring = sh + BM * LDH;                          // NS weight slices
-  const int slot = (int)slot_elems(CPAD, ks2);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = (warp / Tl::WN) * 32;         // the warp's first row in the block
-  const int ocol0 = (warp % Tl::WN) * NFO * 8;   // and its first output column
-  const int hcol0 = (warp % Tl::WN) * NFH * 8;   // and its first column of a chunk
-  const int m0 = blockIdx.x * BM;
-  const int ks1 = 4 * ks2;
-  const int nk = CPAD / ks1;                     // slices per product and chunk
-  const int total = (hidden / HC) * 2 * nk;      // slices in the whole stream
-
-  // slice s: chunk s / (2 nk); fc1 (w1 rows) for its first nk, then fc2
-  auto load_slice = [&](int s) {
-    const int j = s % nk, h0 = (s / (2 * nk)) * HC;
-    __nv_bfloat16* dst = ring + (s % NS) * slot;
-    if ((s / nk) % 2 == 0) {  // ks1 x HC of w1
-      for (int i = threadIdx.x; i < ks1 * (HC / 8); i += THREADS_BF16) {
-        const int r = i / (HC / 8), v = (i % (HC / 8)) * 8;
-        cp_async16(dst + r * LDH + v, w1 + (size_t)(j * ks1 + r) * hidden + h0 + v);
-      }
-    } else {  // ks2 x CPAD of w2
-      for (int i = threadIdx.x; i < ks2 * (CPAD / 8); i += THREADS_BF16) {
-        const int r = i / (CPAD / 8), v = (i % (CPAD / 8)) * 8;
-        cp_async16(dst + r * LDY + v, w2 + (size_t)(h0 + j * ks2 + r) * CPAD + v);
-      }
+// x, out: (m, c) row tiles (load boxes of ROWS rows, store boxes of 64); w1
+// (c, hidden), w2 (hidden, c): 64 x 64 boxes; gam, bet, b2 (c,), b1
+// (hidden,); c <= CP, hidden % 8 == 0
+template <int CP, bool POST>
+__global__ void __launch_bounds__(Layout<CP, POST>::THREADS, 1)
+fused_ff_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tout,
+               const __grid_constant__ CUtensorMap tw1, const __grid_constant__ CUtensorMap tw2,
+               const __nv_bfloat16* __restrict__ gam, const __nv_bfloat16* __restrict__ bet,
+               const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ b2, int m,
+               int c, int hidden) {
+  using L = Layout<CP, POST>;
+  constexpr int S = L::STAGES, ROWS = L::ROWS, X_BOX = L::X_BOX;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* xs = align1024(smem_raw);
+  unsigned char* ys = xs + L::XS * L::X;
+  unsigned char* ring = ys + L::Y;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * L::STAGE);
+  uint64_t* empty = full + S;
+  uint64_t* xfull = empty + S;
+  uint64_t* xempty = xfull + L::XS;
+  const int tiles = (m + ROWS - 1) / ROWS, chunks = (hidden + HC - 1) / HC, items = 2 * chunks;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * L::NWG);  // one arrival per consumer warp
     }
-  };
-
-  load_x_tile(sy, x, m0, BM, m, c, CPAD);
-  cp_async_commit();
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < total) load_slice(s);
-    cp_async_commit();
+    for (int s = 0; s < L::XS; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], L::NWG);  // one per consumer warpgroup, once its stores have read it
+    }
+    mbar_fence_init();
   }
-  cp_async_wait<NS - 1>();  // the x tile has landed
   __syncthreads();
-  if constexpr (!POST) layer_norm_in_place(sy, gam, bet, BM, c, LDY);
 
-  float hacc[2 * NFH][4], oacc[2 * NFO][4];
+  if (threadIdx.x < 128) {  // the producer
+    reg_dealloc<L::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int p = 0;  // ring items issued
+      for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+        const int xsl = it % L::XS;
+        mbar_wait(&xempty[xsl], ((it / L::XS) & 1) ^ 1);
+        mbar_expect_tx(&xfull[xsl], L::X);
 #pragma unroll
-  for (int i = 0; i < 2 * NFO; ++i)
+        for (int kb = 0; kb < L::KB; ++kb)
+          tma_load_2d(xs + xsl * L::X + kb * X_BOX, &tx, &xfull[xsl], 64 * kb, t * ROWS);
+        for (int i = 0; i < items; ++i, ++p) {
+          const int s = p % S;
+          mbar_wait(&empty[s], ((p / S) & 1) ^ 1);
+          mbar_expect_tx(&full[s], L::STAGE);
+          unsigned char* st = ring + s * L::STAGE;
+          int j;
+          if (ring_item(i, chunks, j)) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
-
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<NS - 2>();  // slice s has landed
-    // every warp is done with slice s - 1's slot and, at a chunk's first
-    // fc1 slice, with the previous chunk's GELU tile
-    __syncthreads();
-    if (s + NS - 1 < total) load_slice(s + NS - 1);
-    cp_async_commit();
-    const int j = s % nk;
-    const __nv_bfloat16* w = ring + (s % NS) * slot;
-    if ((s / nk) % 2 == 0) {  // fc1
-      if (j == 0) {
+            for (int b = 0; b < L::KB; ++b)
+              tma_load_2d(st + b * tma::BOX_BYTES, &tw2, &full[s], 64 * b, HC * j);
+          } else {
 #pragma unroll
-        for (int i = 0; i < 2 * NFH; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) hacc[i][e] = 0.f;
-      }
-      warp_mma<NFH>(hacc, sy + row0 * LDY + j * ks1, LDY, w + hcol0, LDH, ks1);
-      if (j == nk - 1) {  // + b1, exact GELU, cast: the chunk's A operand of fc2
-        const __nv_bfloat16* bias = b1 + (s / (2 * nk)) * HC;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int t = 0; t < NFH; ++t) {
-            const int col = hcol0 + t * 8 + (lane % 4) * 2, r = row0 + i * 16 + lane / 4;
-            const float c0 = __bfloat162float(bias[col]), c1 = __bfloat162float(bias[col + 1]);
-            const float* h = hacc[i * NFH + t];
-            *reinterpret_cast<uint32_t*>(sh + r * LDH + col) =
-                pack_bf16(gelu(h[0] + c0), gelu(h[1] + c1));
-            *reinterpret_cast<uint32_t*>(sh + (r + 8) * LDH + col) =
-                pack_bf16(gelu(h[2] + c0), gelu(h[3] + c1));
-          }
-      }
-    } else {  // fc2
-      warp_mma<NFO>(oacc, sh + row0 * LDH + j * ks2, LDH, w + ocol0, LDY, ks2);
-    }
-  }
-
-  // + b2 in f32; post-norm: LN of each f32 row; cast into the y tile, then
-  // the residual in 16-byte vectors. Element e of oacc[i * NFO + t] sits at
-  // row row0 + 16 i + lane / 4 + 8 (e / 2), column ocol0 + 8 t + 2 (lane % 4)
-  // + e % 2.
-  __syncthreads();  // every warp is done with the ring and the hidden tile
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int t = 0; t < NFO; ++t) {
-      const int col = ocol0 + t * 8 + (lane % 4) * 2;
-      const float c0 = __bfloat162float(b2[col]), c1 = __bfloat162float(b2[col + 1]);
-      float* o = oacc[i * NFO + t];
-      o[0] += c0, o[1] += c1, o[2] += c0, o[3] += c1;
-    }
-  if constexpr (POST) {
-    // the row's partial sums of the WN warps that share it, summed in a
-    // fixed order; columns at or past c (zero-padded) are left out
-    float* red = reinterpret_cast<float*>(ring);  // [BM][WN]
-    const int wn = warp % Tl::WN;
-    auto row_sums = [&](float (&v)[2][2]) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          v[i][h] += __shfl_xor_sync(0xffffffffu, v[i][h], 1);
-          v[i][h] += __shfl_xor_sync(0xffffffffu, v[i][h], 2);
-          if (lane % 4 == 0) red[(row0 + 16 * i + lane / 4 + 8 * h) * Tl::WN + wn] = v[i][h];
-        }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float* rr = red + (row0 + 16 * i + lane / 4 + 8 * h) * Tl::WN;
-          float s = 0.f;
-          for (int w = 0; w < Tl::WN; ++w) s += rr[w];
-          v[i][h] = s;
-        }
-      __syncthreads();
-    };
-    float mean[2][2] = {}, rstd[2][2] = {};
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int t = 0; t < NFO; ++t)
-        if (ocol0 + t * 8 < c) {  // c % 8 == 0: a column pair is in or out together
-          const float* o = oacc[i * NFO + t];
-          mean[i][0] += o[0] + o[1];
-          mean[i][1] += o[2] + o[3];
-        }
-    row_sums(mean);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) mean[i][h] /= c;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int t = 0; t < NFO; ++t)
-        if (ocol0 + t * 8 < c) {
-          const float* o = oacc[i * NFO + t];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float d = o[e] - mean[i][e / 2];
-            rstd[i][e / 2] += d * d;
+            for (int b = 0; b < L::KB; ++b)
+              tma_load_2d(st + b * tma::BOX_BYTES, &tw1, &full[s], HC * j, 64 * b);
           }
         }
-    row_sums(rstd);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) rstd[i][h] = rsqrtf(rstd[i][h] / c + kEps);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int t = 0; t < NFO; ++t) {
-        const int col = ocol0 + t * 8 + (lane % 4) * 2;
-        const float g0 = __bfloat162float(gam[col]), g1 = __bfloat162float(gam[col + 1]);
-        const float e0 = __bfloat162float(bet[col]), e1 = __bfloat162float(bet[col + 1]);
-        float* o = oacc[i * NFO + t];
-        o[0] = (o[0] - mean[i][0]) * rstd[i][0] * g0 + e0;
-        o[1] = (o[1] - mean[i][0]) * rstd[i][0] * g1 + e1;
-        o[2] = (o[2] - mean[i][1]) * rstd[i][1] * g0 + e0;
-        o[3] = (o[3] - mean[i][1]) * rstd[i][1] * g1 + e1;
       }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int t = 0; t < NFO; ++t) {
-      const int col = ocol0 + t * 8 + (lane % 4) * 2, r = row0 + i * 16 + lane / 4;
-      const float* o = oacc[i * NFO + t];
-      *reinterpret_cast<uint32_t*>(sy + r * LDY + col) = pack_bf16(o[0], o[1]);
-      *reinterpret_cast<uint32_t*>(sy + (r + 8) * LDY + col) = pack_bf16(o[2], o[3]);
     }
-  __syncthreads();
-  const int vecs = c / 8;
-  for (int e = threadIdx.x; e < BM * vecs; e += THREADS_BF16) {
-    const int r = e / vecs, k = (e % vecs) * 8;
-    if (m0 + r >= m) continue;
-    const size_t at = (size_t)(m0 + r) * c + k;
-    const uint4 xr = *reinterpret_cast<const uint4*>(x + at);
-    const uint4 orr = *reinterpret_cast<const uint4*>(sy + r * LDY + k);
-    const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr);
-    const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&orr);
-    uint4 res;
-    __nv_bfloat16* re = reinterpret_cast<__nv_bfloat16*>(&res);
+  } else {  // the consumers
+    reg_alloc<L::REGS>();
+    const int cw = threadIdx.x / 128 - 1, wt = threadIdx.x % 128;
+    const int warp = wt / 32, lane = wt % 32, q = lane % 4;
+    int got = 0, freed = 0;  // ring items waited for and freed
+    for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+      const int xsl = it % L::XS;
+      unsigned char* xt = xs + xsl * L::X;
+      mbar_wait(&xfull[xsl], (it / L::XS) & 1);
+      if constexpr (!POST) {
+        layer_norm_tile<CP, X_BOX>(xt, ys, gam, bet, c, cw, wt);
+        fence_proxy_async();  // y's generic writes, before wgmma reads them
+        named_sync(1 + cw, 128);
+      }
+      // fc1's A: the warpgroup's 64 rows of y (pre-norm) or x, K-major
+      const uint32_t a_base = smem_u32(POST ? xt : ys) + cw * tma::BOX_BYTES;
+
+      // the ring is consumed and freed in its order
+      auto stage = [&]() {
+        const int g = got++;
+        mbar_wait(&full[g % S], (g / S) & 1);
+        return smem_u32(ring + (g % S) * L::STAGE);
+      };
+      auto release = [&]() {
+        if (lane == 0) mbar_arrive(&empty[freed % S]);
+        ++freed;
+      };
+      // h = A . w1[:, chunk], into f32 accumulators
+      auto fc1 = [&](float (&h)[32]) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      re[t] = __float2bfloat16(__bfloat162float(xe[t]) + __bfloat162float(oe[t]));
-    *reinterpret_cast<uint4*>(out + at) = res;
+        for (int i = 0; i < 32; ++i) h[i] = 0.f;
+        const uint32_t st = stage();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < CP / 16; ++kk)
+          Wgmma<64>::run<0, 1>(h, desc_sw128(a_base + (kk / 4) * X_BOX + (kk % 4) * 32, 16, 1024),
+                               desc_sw128(st + kk * 2048, tma::BOX_BYTES, 1024));
+        wgmma_commit();
+      };
+      // h = GELU(h + b1) of chunk j, in place (hidden columns past `hidden`
+      // are zero: no bias)
+      auto activate = [&](float (&h)[32], int j) {
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          const int col = HC * j + 8 * n8 + 2 * q;  // hidden % 8 == 0: col + 1 too
+          const float2 bb = col < hidden ? __bfloat1622float2(*reinterpret_cast<
+                                               const __nv_bfloat162*>(b1 + col))
+                                         : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[4 * n8 + e] = gelu(h[4 * n8 + e] + (e % 2 ? bb.y : bb.x));
+        }
+      };
+      // bf16 pairs of h as fc2's A fragments
+      auto pack = [&](const float (&h)[32], uint32_t (&a)[16]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) a[i] = pack_bf16(h[2 * i], h[2 * i + 1]);
+      };
+      float acc[CP / 2];
+#pragma unroll
+      for (int i = 0; i < CP / 2; ++i) acc[i] = 0.f;
+      // acc += a . w2[chunk, :]
+      auto fc2 = [&](const uint32_t (&a)[16]) {
+        const uint32_t st = stage();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaRS<CP>::template run<1>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                                       a[4 * kk + 3],
+                                       desc_sw128(st + kk * 2048, tma::BOX_BYTES, 1024));
+        wgmma_commit();
+      };
+
+      // Chunk by chunk, the products of chunk j + 1's fc1 and chunk j's fc2
+      // go out together; the first is waited for, and its GELU runs while
+      // the second is in flight. Every wait retires products issued in the
+      // same iteration, which lets ptxas keep the wgmmas asynchronous.
+      float h[32];
+      uint32_t a[16];
+      fc1(h);
+      wgmma_wait<0>();
+      fence_regs(h);
+      release();
+      activate(h, 0);
+      pack(h, a);
+#pragma unroll 1
+      for (int j = 0; j + 1 < chunks; ++j) {
+        fc1(h);
+        fc2(a);
+        wgmma_wait<1>();
+        fence_regs(h);
+        release();
+        activate(h, j + 1);
+        wgmma_wait<0>();
+        release();
+        pack(h, a);
+      }
+      fc2(a);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release();
+
+      // + b2 in f32; post-norm: the LN of each f32 row, whose CP columns
+      // sit in one quad of lanes (thread: rows r and r + 8, columns 8 n8 +
+      // 2 q + {0, 1}), over the true c. c % 8 == 0: an n8 tile is in or out
+      // whole, and the columns past c are zero and never stored.
+      auto pair = [&](const __nv_bfloat16* v, int n8) {
+        return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v + 8 * n8 + 2 * q));
+      };
+#pragma unroll
+      for (int n8 = 0; n8 < CP / 8; ++n8)
+        if (8 * n8 < c) {
+          const float2 bb = pair(b2, n8);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) acc[4 * n8 + 2 * h] += bb.x, acc[4 * n8 + 2 * h + 1] += bb.y;
+        }
+      if constexpr (POST) {
+        float mean[2] = {0.f, 0.f}, var[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n8 = 0; n8 < CP / 8; ++n8)
+          if (8 * n8 < c)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) mean[h] += acc[4 * n8 + 2 * h] + acc[4 * n8 + 2 * h + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 1);
+          mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 2);
+          mean[h] /= c;
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < CP / 8; ++n8)
+          if (8 * n8 < c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float d = acc[4 * n8 + e] - mean[e / 2];
+              var[e / 2] += d * d;
+            }
+        float rstd[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          var[h] += __shfl_xor_sync(0xffffffffu, var[h], 1);
+          var[h] += __shfl_xor_sync(0xffffffffu, var[h], 2);
+          rstd[h] = rsqrtf(var[h] / c + kEps);
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < CP / 8; ++n8)
+          if (8 * n8 < c) {
+            const float2 gg = pair(gam, n8), ee = pair(bet, n8);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[4 * n8 + e] = (acc[4 * n8 + e] - mean[e / 2]) * rstd[e / 2] *
+                                    (e % 2 ? gg.y : gg.x) + (e % 2 ? ee.y : ee.x);
+          }
+      }
+      // out = x + bf16(o) in bf16, written over the x tile in place (each
+      // thread reads and writes the same elements), then stored by TMA
+#pragma unroll
+      for (int n8 = 0; n8 < CP / 8; ++n8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (8 * n8 >= c) continue;
+          const int r = cw * 64 + warp * 16 + lane / 4 + 8 * h;
+          __nv_bfloat162* px =
+              reinterpret_cast<__nv_bfloat162*>(xt + tile_offset(r, n8, X_BOX) + 4 * q);
+          const float2 xv = __bfloat1622float2(*px);
+          const float o0 = __bfloat162float(__float2bfloat16(acc[4 * n8 + 2 * h]));
+          const float o1 = __bfloat162float(__float2bfloat16(acc[4 * n8 + 2 * h + 1]));
+          *reinterpret_cast<uint32_t*>(px) = pack_bf16(xv.x + o0, xv.y + o1);
+        }
+      fence_proxy_async();  // the tile's generic writes, before the TMA stores read them
+      named_sync(1 + cw, 128);
+      if (wt == 0) {
+#pragma unroll
+        for (int kb = 0; kb < L::KB; ++kb)
+          tma_store_2d(&tout, xt + kb * X_BOX + cw * tma::BOX_BYTES, 64 * kb,
+                       t * ROWS + cw * 64);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(&xempty[xsl]);  // the slot may be loaded again
+      }
+    }
+    if (wt == 0) bulk_wait_all();  // shared memory outlives the stores
   }
 }
 
-template <int RT, bool POST>
-void launch_bf16(const void* x, const void* gam, const void* bet, const void* w1, const void* b1,
-                 const void* w2, const void* b2, void* out, int m, int c, int hidden,
-                 cudaStream_t s) {
-  constexpr int CPAD = Tiling<RT>::CPAD, BM = Tiling<RT>::BM;
-  const int ks2 = slice_rows(CPAD);
-  const size_t smem = smem_bf16(CPAD, ks2);
-  cudaFuncSetAttribute(fused_ff_bf16<RT, POST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  fused_ff_bf16<RT, POST><<<(m + BM - 1) / BM, THREADS_BF16, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gam),
-      static_cast<const __nv_bfloat16*>(bet), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(out), m, c, hidden, ks2);
+template <int CP, bool POST>
+cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tout, const CUtensorMap& tw1,
+                   const CUtensorMap& tw2, const void* gam, const void* bet, const void* b1,
+                   const void* b2, int m, int c, int hidden, int grid, cudaStream_t s) {
+  using L = Layout<CP, POST>;
+  using B = __nv_bfloat16;
+  cudaFuncSetAttribute(fused_ff_wgmma<CP, POST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)L::SMEM);
+  fused_ff_wgmma<CP, POST><<<grid, L::THREADS, L::SMEM, s>>>(
+      tx, tout, tw1, tw2, static_cast<const B*>(gam), static_cast<const B*>(bet),
+      static_cast<const B*>(b1), static_cast<const B*>(b2), m, c, hidden);
+  return cudaGetLastError();
 }
+
+// CP for a width c (a multiple of 8): 64, 128 or 256; 0 past 256
+__host__ inline int padded_width(int c) {
+  int cp = 64;
+  while (cp < c) cp *= 2;
+  return cp <= 256 ? cp : 0;
+}
+
+}  // namespace fused
 
 // ---------------------------------------------------------------- f32
 constexpr int BM32 = 16;
@@ -603,18 +623,6 @@ fused_ff_f32(const float* __restrict__ x, const float* __restrict__ gam,
 }
 
 template <bool POST>
-void launch_bf16_width(const void* x, const void* gam, const void* bet, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* out, int m, int c,
-                       int cpad, int hidden, cudaStream_t s) {
-  switch (cpad) {
-    case 128: launch_bf16<16, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-    case 256: launch_bf16<8, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-    case 512: launch_bf16<4, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-    default: launch_bf16<2, POST>(x, gam, bet, w1, b1, w2, b2, out, m, c, hidden, s); break;
-  }
-}
-
-template <bool POST>
 void launch_f32(const void* x, const void* gam, const void* bet, const void* w1, const void* b1,
                 const void* w2, const void* b2, void* out, int m, int c, int hidden,
                 cudaStream_t s) {
@@ -629,7 +637,7 @@ void launch_f32(const void* x, const void* gam, const void* bet, const void* w1,
 }
 
 // ---------------------------------------------------------------- bf16, split
-// The route for C >= 256, ragged C and C > 1024 (cuda_ff.ff_plan): the
+// The route for C > 256 and ragged C (cuda_ff.ff_plan): the
 // hidden activations leave the SM once, in bf16, and both products run on
 // wgmma through tma_gemm.cuh's mainloop:
 //   (pre-norm) ln_rows: y = LN(x) in bf16 (ff_rows.cuh);
@@ -745,24 +753,37 @@ cudaError_t split_fc2_f32(const __nv_bfloat16* h, const __nv_bfloat16* w2, float
 
 using namespace credit;
 
-// The fused kernel. bf16: x (m, c), out (m, c); gam, bet, b2 (cpad,), w1
-// (cpad, hidden), b1 (hidden,), w2 (hidden, cpad), cpad = c padded to 128,
-// 256, 512 or 1024 (cuda_ff.ff_plan), zero-padded, hidden a multiple of
-// cpad / 4; every pointer 16-byte aligned. f32: the same with cpad == c and any hidden.
+// The fused kernel. x (m, c), out (m, c); gam, bet, b2 (c,), w1 (c,
+// hidden), b1 (hidden,), w2 (hidden, c); every pointer 16-byte aligned.
+// bf16: c <= 256 and hidden multiples of 8, cpad = c padded to 64, 128 or
+// 256 (cuda_ff.ff_plan; TMA zero-fills each tile to it), grid: the
+// persistent blocks (at most one an SM). f32: c <= 1024, any hidden, cpad
+// == c, grid unused.
 // post_norm: 0 for x + fc2(GELU(fc1(LN(x)))), 1 for x + LN(fc2(GELU(fc1(x)))).
 extern "C" int credit_fused_ff(const void* x, const void* gam, const void* bet, const void* w1,
                                const void* b1, const void* w2, const void* b2, void* out,
                                int dtype, int m, int c, int cpad, int hidden, int post_norm,
-                               void* stream) {
+                               int grid, void* stream) {
   using namespace credit::ff;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || c < 1 || c > MAX_C || c % 8) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16) {
-    if (cpad != padded_width(c) || hidden % (cpad / 4)) return (int)cudaErrorInvalidValue;
+    if (cpad != fused::padded_width(c) || hidden < 8 || hidden % 8 || grid < 1)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tx, tout, tw1, tw2;
+    if (!tma::operand_map(&tx, x, m, c, 64 * fused::warpgroups(cpad)) ||
+        !tma::operand_map(&tout, out, m, c, 64) ||
+        !tma::operand_map(&tw1, w1, c, hidden, 64) || !tma::operand_map(&tw2, w2, hidden, c, 64))
+      return (int)cudaErrorInvalidValue;
+    using fused::launch;
+    decltype(&launch<64, true>) go;
     if (post_norm)
-      launch_bf16_width<true>(x, gam, bet, w1, b1, w2, b2, out, m, c, cpad, hidden, s);
+      go = cpad == 64 ? &launch<64, true> : cpad == 128 ? &launch<128, true> : &launch<256, true>;
     else
-      launch_bf16_width<false>(x, gam, bet, w1, b1, w2, b2, out, m, c, cpad, hidden, s);
+      go = cpad == 64    ? &launch<64, false>
+           : cpad == 128 ? &launch<128, false>
+                         : &launch<256, false>;
+    return (int)go(tx, tout, tw1, tw2, gam, bet, b1, b2, m, c, hidden, grid, s);
   } else if (dtype == kF32) {
     if (cpad != c) return (int)cudaErrorInvalidValue;
     if (post_norm)

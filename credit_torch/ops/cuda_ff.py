@@ -18,17 +18,18 @@ cotangent of fc2's output and dh1 are in x's dtype where they enter a
 product, while the LN statistics, Phi(h1), the pdf and every sum stay f32.
 
 Every width runs on the card; `ff_plan` picks the route per shape. bf16
-widths of 256 and up, widths past 1024 and widths that are not multiples of
-8 run the split route (`credit_fused_ff_split`: LN rows, then fc1 and fc2
-as TMA + wgmma GEMMs with the biases, GELU and residual in their epilogues,
-the hidden activations in device memory once, in bf16); narrower bf16
-widths and f32 widths up to 1024 run the fused kernel (the 4C hidden kept
-on chip); wider or ragged f32 widths run the forward in passes
+widths past 256 and widths that are not multiples of 8 run the split route
+(`credit_fused_ff_split`: LN rows, then fc1 and fc2 as TMA + wgmma GEMMs
+with the biases, GELU and residual in their epilogues, the hidden
+activations in device memory once, in bf16); narrower bf16 widths run the
+fused wgmma kernel (the 4C hidden layer kept in registers, from fc1's
+accumulators to fc2's A operand), f32 widths up to 1024 the fused FMA
+kernel; wider or ragged f32 widths run the forward in passes
 (`credit_fused_ff_passes`, in `csrc/fused_ff_bwd.cu`), and the backward's
 passes take any C: in bf16 on the same wgmma mainloop as the split route,
-with the tiles and splits `ffb_plan` picks, in f32 on FMA. Where C or the hidden width is not a multiple of 8 the
-wrappers zero-pad them (a copy in, the result cut back); the kernels take
-every LN statistic over the true C.
+with the tiles and splits `ffb_plan` picks, in f32 on FMA. Where C or the
+hidden width is not a multiple of 8 the wrappers zero-pad them (a copy in,
+the result cut back); the kernels take every LN statistic over the true C.
 """
 
 from __future__ import annotations
@@ -44,12 +45,14 @@ from credit_torch import _build
 from credit_torch.ops.cuda_conv import BN_CHOICES, HBM_BYTES_PER_S, SM_FLOPS, SMS, wgmma_bn
 
 EPS = 1e-5
-MAX_C = 1024  # widest channel count the fused kernel's register plan takes
-# bf16: from this width on the split route is the faster (one H100, in turns
-# with the fused kernel: 0.404-0.413 ms against 0.660-0.672 at C = 256,
-# 72,000 rows; at C = 128 it read 0.72-0.74 against 0.80-0.81, but would
-# hold a 295 MB hidden buffer at the WXFormer's stage 0: PERF.md)
-SPLIT_MIN_C = 256
+MAX_C = 1024  # widest f32 channel count the fused FMA kernel's register plan takes
+# widest bf16 width the fused wgmma kernel takes (its tiles padded to 64, 128
+# or 256 columns), and past which the split route runs: on one H100 80GB HBM3
+# at 700 W, in turns with the split route, 0.274-0.277 ms against 0.405-0.413
+# at C = 256 and 72,000 rows, 0.326-0.348 against 0.721-0.731 at C = 128 and
+# 288,000 rows (PERF.md)
+FUSED_MAX_C = 256
+HIDDEN_CHUNK = 64  # hidden columns a chunk of the fused wgmma kernel
 SQRT1_2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
 ROW_TILE = 128  # rows a product tile (`csrc/fused_ff_bwd.cu` ROW_TILE)
@@ -104,11 +107,15 @@ def fused_ff_split_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> to
 
 
 def fused_width(c: int) -> bool:
-    """True when the fused kernel (`csrc/fused_ff.cu`) takes width c:
-    C % 8 == 0 and C <= MAX_C. Every other width runs a route with the
-    hidden activations in device memory (`ff_plan`) on rows zero-padded to
-    a multiple of 8."""
+    """True when a fused kernel (`csrc/fused_ff.cu`) takes width c in f32:
+    C % 8 == 0 and C <= MAX_C (bf16: also C <= FUSED_MAX_C). Every other
+    width runs a route with the hidden activations in device memory
+    (`ff_plan`) on rows zero-padded to a multiple of 8."""
     return c % 8 == 0 and c <= MAX_C
+
+
+def _fused_takes(c: int, dtype: torch.dtype) -> bool:
+    return fused_width(c) and (dtype != torch.bfloat16 or c <= FUSED_MAX_C)
 
 
 def _up8(n: int) -> int:
@@ -130,43 +137,59 @@ def _aligned(ts):
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 
 
-def _padded(x2, prm, ld: int, hpad: int):
-    """x (M, C) and (g, b, w1, b1, w2, b2) zero-padded to width ld and hidden
-    width hpad: zeros add nothing to a product, GELU(0) = 0, and the kernels
-    keep the padded columns out of every LN statistic."""
+def _padded_params(prm, ld: int, hpad: int):
+    """(g, b, w1, b1, w2, b2) zero-padded to width ld and hidden width hpad:
+    zeros add nothing to a product, GELU(0) = 0, and the kernels keep the
+    padded columns out of every LN statistic."""
     g, b, w1, b1, w2, b2 = prm
-    return _pad_to(x2, 1, ld), [
-        _pad_to(g, 0, ld), _pad_to(b, 0, ld), _pad_to(_pad_to(w1, 0, ld), 1, hpad),
-        _pad_to(b1, 0, hpad), _pad_to(_pad_to(w2, 0, hpad), 1, ld), _pad_to(b2, 0, ld)]
+    return [_pad_to(g, 0, ld), _pad_to(b, 0, ld), _pad_to(_pad_to(w1, 0, ld), 1, hpad),
+            _pad_to(b1, 0, hpad), _pad_to(_pad_to(w2, 0, hpad), 1, ld), _pad_to(b2, 0, ld)]
+
+
+def _padded(x2, prm, ld: int, hpad: int):
+    """x (M, C) and the parameters zero-padded to width ld and hidden width
+    hpad (`_padded_params`)."""
+    return _pad_to(x2, 1, ld), _padded_params(prm, ld, hpad)
 
 
 @dataclass(frozen=True)
 class FFPlan:
     """How one `fused_ff` call runs: the route ("fused", "split" or
     "passes"), the width `ld` and hidden width `hidden` the kernels see
-    (zero-padded), the split route's output columns a block of fc2 (`bn2`;
-    fc1's tiles are fixed, `csrc/fused_ff.cu`), and the shapes of the
-    workspace the wrapper allocates:
-    the split route's y = LN(x) (pre-norm), hidden activations h and f32 z
-    = fc2's output (post-norm); None where a route needs none."""
+    (zero-padded; the bf16 fused kernel reads C wide rows, zero-filled to
+    `ld` in shared memory); that kernel's hidden chunk, rows a tile and
+    persistent blocks (`chunk`, `rows`, `grid`; 0 elsewhere); the split
+    route's output columns a block of fc2 (`bn2`; fc1's tiles are fixed,
+    `csrc/fused_ff.cu`); and the shapes of the workspace the wrapper
+    allocates: the split route's y = LN(x) (pre-norm), hidden activations h
+    and f32 z = fc2's output (post-norm); None where a route needs none."""
 
     route: str
     ld: int
     hidden: int
+    chunk: int = 0
+    rows: int = 0
+    grid: int = 0
     bn2: int = 0
     y: tuple | None = None
     h: tuple | None = None
     z: tuple | None = None
 
 
-def _fused_plan(c: int, hidden: int) -> FFPlan:
-    """The fused bf16 kernel's: c padded to 128, 256, 512 or 1024 (the
-    kernel takes each; the plan sends it C <= 128, and C = 192 padded to
-    256), the hidden width to its chunk of cpad / 4."""
-    cpad = 128
+def _fused_plan(m: int, c: int, hidden: int, sms: int) -> FFPlan:
+    """The fused bf16 kernel's: the width it pads each tile to (64, 128 or
+    256, one wgmma width each, by TMA's zero fill), the hidden width padded
+    to a multiple of 8 for TMA's 16-byte strides (the kernel walks it in
+    chunks of 64, zero-filled past it), tiles of 64 rows a consumer
+    warpgroup (three up to 128 columns, two at 256), one persistent block
+    an SM (shared memory holds one) or one a row tile where the tiles are
+    fewer."""
+    cpad = 64
     while cpad < c:
         cpad *= 2
-    return FFPlan("fused", cpad, -(-hidden // (cpad // 4)) * (cpad // 4))
+    rows = 64 * (3 if cpad <= 128 else 2)  # 64 a consumer warpgroup (`warpgroups`)
+    return FFPlan("fused", cpad, _up8(hidden), chunk=HIDDEN_CHUNK, rows=rows,
+                  grid=min(-(-m // rows), sms))
 
 
 def _split_plan(m: int, c: int, hidden: int, post_norm: bool, sms: int) -> FFPlan:
@@ -183,13 +206,13 @@ def _split_plan(m: int, c: int, hidden: int, post_norm: bool, sms: int) -> FFPla
 def ff_plan(m: int, c: int, hidden: int, dtype: torch.dtype, post_norm: bool,
             sms: int = SMS) -> FFPlan:
     """The route of one call at m rows, width c and hidden width `hidden`.
-    bf16: the split route from SPLIT_MIN_C on, past MAX_C and wherever c is
-    not a multiple of 8, else the fused kernel. f32: the fused kernel where
-    it takes c (`fused_width`), else the passes (ld, hidden padded to
+    bf16: the fused wgmma kernel up to FUSED_MAX_C at multiples of 8, else
+    the split route. f32: the fused FMA kernel
+    where it takes c (`fused_width`), else the passes (ld, hidden padded to
     multiples of 8)."""
     if dtype == torch.bfloat16:
-        if fused_width(c) and c < SPLIT_MIN_C:
-            return _fused_plan(c, hidden)
+        if _fused_takes(c, dtype):
+            return _fused_plan(m, c, hidden, sms)
         return _split_plan(m, c, hidden, post_norm, sms)
     if fused_width(c):
         return FFPlan("fused", c, hidden)
@@ -201,8 +224,9 @@ def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False,
     """x (M, C) or (B, H, W, C); g, b, b2 (C,); w1 (C, Hd); b1 (Hd,); w2 (Hd, C).
     post_norm selects the SwinV2 form. Any C and Hd, on the route `ff_plan`
     picks; `route` ("fused" or "split", bf16) overrides it to compare the
-    two where both take C. A launch adds one to `fused_ff.launches` and, on
-    the split route, to `fused_ff.split_launches`."""
+    two where both take C (C % 8 == 0, C <= FUSED_MAX_C). A launch adds one
+    to `fused_ff.launches` and, on the split route, to
+    `fused_ff.split_launches`."""
     if x.device.type == "cpu":
         return fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm)
     c = x.shape[-1]
@@ -212,25 +236,24 @@ def fused_ff(x, g, b, w1, b1, w2, b2, post_norm: bool = False,
     plan_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = ff_plan(m, c, hidden, x.dtype, bool(post_norm), plan_sms)
     if route is not None and route != plan.route:
-        if x.dtype != torch.bfloat16 or route not in ("fused", "split") or not fused_width(c):
+        if (x.dtype != torch.bfloat16 or route not in ("fused", "split")
+                or not _fused_takes(c, x.dtype)):
             raise ValueError(f"fused_ff: no {route} route at C={c} in {x.dtype}")
-        plan = (_fused_plan(c, hidden) if route == "fused"
+        plan = (_fused_plan(m, c, hidden, plan_sms) if route == "fused"
                 else _split_plan(m, c, hidden, bool(post_norm), plan_sms))
     prm = [t.to(x.dtype) for t in (g, b, w1, b1, w2, b2)]
     p, i = ctypes.c_void_p, ctypes.c_int
     if plan.route == "fused":
-        # zeros add nothing (GELU(0) = 0); the post-norm LN divides by the
-        # true C and leaves the padded columns out
-        gp, bp, w1p, b1p, w2p, b2p = prm
-        prm = [_pad_to(gp, 0, plan.ld), _pad_to(bp, 0, plan.ld),
-               _pad_to(_pad_to(w1p, 0, plan.ld), 1, plan.hidden), _pad_to(b1p, 0, plan.hidden),
-               _pad_to(_pad_to(w2p, 0, plan.hidden), 1, plan.ld), _pad_to(b2p, 0, plan.ld)]
+        # every operand at width C (TMA zero-fills each tile to plan.ld and
+        # clips the stores), the hidden width a multiple of 8; zeros add
+        # nothing (GELU(0) = 0), and the LNs divide by the true C
+        prm = _padded_params(prm, c, plan.hidden)
         x2, *prm = _aligned([x2] + prm)
         out = torch.empty_like(x2)
-        fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 6 + [p])
+        fn = _build.function("credit_fused_ff", [p] * 8 + [i] * 7 + [p])
         err = fn(x2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(),
                  _build.dtype_code(x.dtype), m, c, plan.ld, plan.hidden, int(post_norm),
-                 _build.stream_ptr())
+                 plan.grid, _build.stream_ptr())
         _build.check(err, "credit_fused_ff")
         fused_ff.launches += 1
         return out.reshape(x.shape)

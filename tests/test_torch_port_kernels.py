@@ -4,10 +4,10 @@ kernel.
 
 `cuda_ff.ff_plan`, `cuda_ff.ffb_plan` and `cuda_attention.attention_plan`
 pick each call's kernel and sizes in Python: these tests check them at the
-paths' shapes and past them. The split FF route's plain version, the FF
-backward's at ragged shapes and the plain attention at windows past one key
-block are held against credit_tpu's Pallas kernels run interpreted and its
-reference compositions. The tests marked `cuda` hold
+paths' shapes and past them. The plain versions of the FF's fused form and
+split route, the FF backward's at ragged shapes and the plain attention at
+windows past one key block are held against credit_tpu's Pallas kernels run
+interpreted and its reference compositions. The tests marked `cuda` hold
 the kernels against their plain versions on a card. This file imports
 credit_tpu's ops (jax only) and no flax model, so it collects on a machine
 without flax: `python -m pytest tests/test_torch_port_kernels.py -m cuda`.
@@ -62,33 +62,51 @@ FF_PATH = [(288000, 128, 512, False), (72000, 256, 1024, False), (18000, 512, 20
 
 @pytest.mark.parametrize("m,c,hidden,post", FF_PATH)
 def test_ff_plan_at_path_shapes(m, c, hidden, post):
-    """bf16 takes the split route from C = 256 on, with the hidden
-    activations (and post-norm z, pre-norm y) as workspace; narrower widths
-    the fused kernel, padded to 128 or 256; f32 the fused kernel."""
+    """bf16 takes the split route past C = 256, with the hidden activations
+    (and post-norm z, pre-norm y) as workspace; narrower widths the fused
+    wgmma kernel, its tiles padded to 128 or 256 columns, hidden
+    in chunks of 64, tiles of 64 rows a consumer warpgroup (three up to 128
+    columns, two at 256) over one persistent block an SM (stage 0's 288,000
+    rows: 1500 tiles on 132 blocks); f32 the fused kernel."""
     plan = ff_plan(m, c, hidden, BF16, post)
-    if c >= 256:
+    if c > 256:
         assert (plan.route, plan.ld, plan.hidden) == ("split", c, hidden)
         assert plan.h == (m, hidden)
         assert (plan.y, plan.z) == ((None, (m, c)) if post else ((m, c), None))
         assert plan.bn2 == cuda_conv.wgmma_bn(-(-m // 128), c)  # fc2: the conv's tile rule
+        assert plan.chunk == plan.rows == plan.grid == 0
     else:
-        cpad = 128 if c <= 128 else 256
-        assert (plan.route, plan.ld, plan.hidden) == ("fused", cpad, -(-hidden // (cpad // 4))
-                                                      * (cpad // 4))
+        cpad = 128 if c <= 128 else 256  # C = 192 and 256
+        assert (plan.route, plan.ld, plan.hidden) == ("fused", cpad, hidden)
+        rows = 192 if cpad == 128 else 128
+        assert (plan.chunk, plan.rows) == (64, rows)
+        assert plan.grid == min(-(-m // rows), cuda_ff.SMS)
         assert plan.y is plan.h is plan.z is None
+        assert plan.bn2 == 0
+    if m == 288000:
+        assert plan.grid == 132 and -(-m // plan.rows) == 1500
     assert ff_plan(m, c, hidden, F32, post).route == "fused"
 
 
 @pytest.mark.parametrize("c,hidden,ld,hpad", [(1152, 4608, 1152, 4608), (100, 404, 104, 408),
-                                              (2304, 9216, 2304, 9216), (160, 640, 256, 640)])
+                                              (2304, 9216, 2304, 9216), (160, 640, 256, 640),
+                                              (64, 256, 64, 256), (72, 288, 128, 288),
+                                              (248, 992, 256, 992), (96, 300, 128, 304)])
 def test_ff_plan_past_the_paths(c, hidden, ld, hpad):
     """Widths past 1024 and ragged widths take the split route in bf16
-    (padded to multiples of 8) and the passes in f32; C = 160 stays on the
-    fused kernel (below SPLIT_MIN_C, padded to 256)."""
+    (padded to multiples of 8) and the passes in f32; every multiple of 8
+    up to FUSED_MAX_C stays on the fused wgmma kernel, its tiles padded to
+    64, 128 or 256 columns, the hidden width to a multiple of 8, on one
+    block for each of 300 rows' tiles (192 rows up to 128 columns, 128
+    past them)."""
     plan = ff_plan(300, c, hidden, BF16, True)
     assert (plan.ld, plan.hidden) == (ld, hpad)
-    if c == 160:
-        assert plan.route == "fused"
+    if c <= cuda_ff.FUSED_MAX_C and c % 8 == 0:
+        rows = 192 if ld <= 128 else 128
+        assert (plan.route, plan.chunk, plan.rows, plan.grid) == ("fused", 64, rows,
+                                                                  -(-300 // rows))
+        assert ff_plan(300, c, hidden, F32, False) == cuda_ff.FFPlan("fused", c, hidden)
+        assert plan.chunk * -(-plan.hidden // plan.chunk) >= hidden
         return
     assert plan.route == "split" and plan.h == (300, hpad) and plan.z == (300, ld)
     assert ff_plan(300, c, hidden, BF16, False).y == (300, ld)
@@ -123,6 +141,29 @@ def test_split_plain_matches_pallas_and_xla(c, post, dtype):
     if c % 8 == 0:  # the TPU kernel's lane tiling takes C = 64, not 100
         ref = jff.fused_ff(xj, *pj, interpret=True, post_norm=post)
         assert _rel(out, ref) <= SPLIT_TOL[dtype]
+    ref = jff._xla_ff(xj.reshape(-1, c), *pj, post_norm=post).reshape(xj.shape)
+    assert _rel(out, ref) <= SPLIT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,hidden,post", [(128, 512, False), (128, 512, True), (192, 768, True)],
+                         ids=["C128_pre_norm", "C128_post_norm", "C192_post_norm"])
+def test_fused_plain_matches_pallas_and_xla(c, hidden, post, dtype):
+    """The fused kernel's plain version at the WXFormer's stage-0 width (C =
+    128, hidden 512) in both forms and at C = 192 post-norm (which the
+    kernel pads to 256), against the TPU kernel interpreted and the XLA
+    composition (SPLIT_TOL: the same rounding points)."""
+    x, _, *prm = _ff_args((2, 4, 10, c), seed=c + post, hidden=hidden)
+    jdt = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    xj = jnp.asarray(x, jdt)
+    pj = [jnp.asarray(p, jdt) for p in prm]
+    xt = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(dtype)
+    pt = [torch.from_numpy(np.asarray(p.astype(jnp.float32))).to(dtype) for p in pj]
+    out = cuda_ff.fused_ff(xt, *pt, post_norm=post)  # a CPU tensor: the plain version
+    assert out.dtype == dtype and out.shape == xt.shape
+    assert torch.equal(out, cuda_ff.fused_ff_plain(xt, *pt, post_norm=post))
+    ref = jff.fused_ff(xj, *pj, interpret=True, post_norm=post)
+    assert _rel(out, ref) <= SPLIT_TOL[dtype]
     ref = jff._xla_ff(xj.reshape(-1, c), *pj, post_norm=post).reshape(xj.shape)
     assert _rel(out, ref) <= SPLIT_TOL[dtype]
 
@@ -366,10 +407,11 @@ def test_backward_kernels_match_plain_on_card(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("post", [False, True], ids=["pre_norm", "post_norm"])
 def test_split_route_matches_plain_on_card(cuda, post):
-    """The split route (wgmma GEMMs) in bf16 at C = 512 and 1024 (both
-    routes: the fused kernel takes them too), ragged rows, a ragged width
-    (100, hidden 404) and C = 1152, against its plain version (2e-2: the
-    rounding points are the same, the sums' order is not)."""
+    """The split route (wgmma GEMMs) in bf16 at C = 512 and 1024, ragged
+    rows, a ragged width (100, hidden 404) and C = 1152, against its plain
+    version (2e-2: the rounding points are the same, the sums' order is
+    not); and at C = 128 and 256, where the fused kernel takes the width
+    too, against the fused kernel."""
     for m, c, hidden in [(1000, 512, 2048), (333, 1024, 4096), (500, 100, 404),
                          (300, 1152, 4608)]:
         x, _, *prm = _on(_ff_args((m, c), seed=c, hidden=hidden), cuda, BF16)
@@ -377,9 +419,42 @@ def test_split_route_matches_plain_on_card(cuda, post):
         out = cuda_ff.fused_ff(x, *prm, post_norm=post)
         assert cuda_ff.fused_ff.split_launches == before + 1
         assert _rel(out, cuda_ff.fused_ff_split_plain(x, *prm, post_norm=post)) < 2e-2
-        if c in (512, 1024):
-            fused = cuda_ff.fused_ff(x, *prm, post_norm=post, route="fused")
-            assert _rel(fused, out) < 2e-2
+    for m, c, hidden in [(1000, 128, 512), (333, 256, 1024)]:
+        x, _, *prm = _on(_ff_args((m, c), seed=c, hidden=hidden), cuda, BF16)
+        out = cuda_ff.fused_ff(x, *prm, post_norm=post, route="split")
+        assert _rel(out, cuda_ff.fused_ff_split_plain(x, *prm, post_norm=post)) < 2e-2
+        fused = cuda_ff.fused_ff(x, *prm, post_norm=post, route="fused")
+        assert _rel(fused, out) < 2e-2
+
+
+# (rows, C, hidden, post-norm): the WXFormer's stage-0 width in both forms,
+# C = 192 post-norm (padded to 256), C = 64; rows of one tile, of part of
+# one and of several waves of the persistent blocks (at 100,000 rows each
+# block reuses its x slots); C = 72 (padded to 128,
+# hidden 288: part of a chunk), 160, 248, and hidden 300 (padded to 304)
+FUSED_CARD = [(1000, 128, 512, False), (1000, 128, 512, True), (1000, 192, 768, True),
+              (1000, 64, 256, False), (1000, 64, 256, True), (1, 128, 512, False),
+              (127, 128, 512, True), (40000, 128, 512, False), (40000, 192, 768, True),
+              (100000, 128, 512, False), (100000, 64, 256, True),
+              (200, 72, 288, False), (500, 160, 640, False), (333, 248, 992, True),
+              (300, 96, 300, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,hidden,post", FUSED_CARD)
+def test_fused_wgmma_matches_plain_on_card(cuda, m, c, hidden, post):
+    """The fused bf16 kernel (wgmma, the hidden layer in registers) against
+    its plain version within 2e-2 of max |plain| (the rounding points are
+    the same, the sums' order is not), one launch off the split route, and
+    bitwise the same on a second call."""
+    x, _, *prm = _on(_ff_args((m, c), seed=m + c, hidden=hidden), cuda, BF16)
+    assert ff_plan(m, c, hidden, BF16, post).route == "fused"
+    before = (cuda_ff.fused_ff.launches, cuda_ff.fused_ff.split_launches)
+    out = cuda_ff.fused_ff(x, *prm, post_norm=post)
+    assert (cuda_ff.fused_ff.launches, cuda_ff.fused_ff.split_launches) == (
+        before[0] + 1, before[1])
+    assert _rel(out, cuda_ff.fused_ff_plain(x, *prm, post_norm=post)) < 2e-2
+    assert torch.equal(out, cuda_ff.fused_ff(x, *prm, post_norm=post))
 
 
 @pytest.mark.cuda
