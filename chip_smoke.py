@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --ptxas      # also print nvcc's register/smem report
     python3 chip_smoke.py --profile    # also by-kernel profiles of main paths 1-5
-                                       # (every row in build/profile_*.txt)
+                                       # and 7 (every row in build/profile_*.txt)
 
 Phases (any failure exits non-zero):
   1. build the kernels from credit_torch/csrc with nvcc (printed seconds);
@@ -30,7 +30,9 @@ Phases (any failure exits non-zero):
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
      compute on the card against f32 on the CPU; the tiny CrossFormer's
-     RolloutEngine with a Normalizer and the four fixers likewise;
+     RolloutEngine with a Normalizer and the four fixers likewise, and its
+     2-epoch run_training on a seeded 32x64 zarr store (training_log.csv
+     cell by cell);
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -51,7 +53,16 @@ Phases (any failure exits non-zero):
      every step against its limit;
   9. main path 6, the tool benches: credit_torch.tools.bench_conv (cuDNN,
      kernel 2 and the two row-band drafts) and bench_conv_ffk (the 32x32/s2
-     conv + 4 FFs in five modes) at full size, launches counted per call.
+     conv + 4 FFs in five modes) at full size, launches counted per call;
+ 10. main path 7, `credit train` at CONF_025: a seeded 721x1440 zarr ERA5
+     store (DATA_025's variables, 13 levels, 8 six-hourly times, one zlib
+     chunk per (time, level) slab) and its mean/std netCDF files, then
+     run_training for 2 epochs of 3 steps and 1 validation batch (EMA,
+     best weights, per-variable metrics, prefetch 2), then a resume for one
+     more epoch: the log, the checkpoints, the resumed state and the
+     launches checked; the step, validation, batch assembly and copy times
+     and the peak memory printed (with --profile, the resumed epoch's
+     device idle share).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -159,6 +170,19 @@ HBM_BYTES_PER_S = 3.35e12
 # 1.35e-2, 6.5e-2), FuXi's with the plain versions in bf16 on a CPU
 # (6.4e-4, 2.7e-2, 2.1e-2)
 BF16_TRAIN_LIMITS = {"crossformer": (1e-3, 5e-2, 0.25), "fuxi": (3e-3, 0.1, 0.25)}
+
+# main path 7, credit train: CONF_025_TRAIN on a store of DATA_025's
+# variables at 13 pressure levels and FIT_TIMES six-hourly times; 3 training
+# init times (00-24 h) and 1 validation init time (30-42 h), batch 1
+FIT_LEVELS = [50.0, 100.0, 150.0, 200.0, 250.0, 300.0, 400.0, 500.0, 600.0, 700.0, 850.0,
+              925.0, 1000.0]
+FIT_TIMES = 8
+FIT_TRAINER = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 3,
+               "valid_batches_per_epoch": 1, "use_ema": True, "save_best_weights": True,
+               "log_variable_metrics": True, "prefetch": 2, "learning_rate": 1e-4}
+# the tiny fit of phase 3 on the card against the CPU, f32: every log cell
+# but its seconds, relative
+TINY_FIT_TOL = 1e-4
 
 ROLLOUT_STEPS = 3
 # rollouts timed again after the counted one, for the spread: the host sets
@@ -1210,6 +1234,249 @@ def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     return counts
 
 
+def write_store(torch, root: str, data: dict, shape, n_times: int, seed: int) -> tuple:
+    """A seeded zarr ERA5 store of the data section's variables at `shape`
+    (lat, lon), through the port's zarrlite.write_array: (time, level, lat,
+    lon) 3-D variables, one zlib chunk per (time, level) slab as ERA5 stores
+    are chunked, (time, lat, lon) 2-D ones, (lat, lon) statics, a `level`
+    coordinate (the source's levels) and a six-hourly `time` axis in hours
+    since 1979-01-01. Values are N(mean, std) in physical units around
+    STATS (per level for 3-D variables; (0, 1) for the rest), drawn on the
+    card; the arrays are compressed and written on 8 threads, one variable
+    each. Also the mean/std netCDF files of those statistics (the port's
+    ncio). Returns (mean path, std path)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from credit_torch.data import zarrlite
+    from credit_torch.utils.ncio import Dataset
+
+    src = data["source"]["ERA5"]
+    levels, variables = src["levels"], src["variables"]
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mean, std = {}, {}
+    os.makedirs(root, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        jobs = []
+        for group, kinds in variables.items():
+            for kind, names in kinds.items():
+                for name in names:
+                    m, sd = STATS.get(name, (0.0, 1.0))
+                    lev = len(levels) if kind == "vars_3D" else 1
+                    mean[name] = m + 0.05 * sd * rng.standard_normal(lev)
+                    std[name] = sd * (1 + 0.1 * rng.uniform(size=lev))
+                    if group == "static":
+                        dims, chunks = shape, shape
+                    elif kind == "vars_3D":
+                        dims, chunks = (n_times, lev, *shape), (1, 1, *shape)
+                    else:
+                        dims, chunks = (n_times, *shape), (1, *shape)
+                    m_t = torch.as_tensor(mean[name], dtype=torch.float32, device="cuda")
+                    s_t = torch.as_tensor(std[name], dtype=torch.float32, device="cuda")
+                    if kind == "vars_3D":
+                        m_t, s_t = m_t[:, None, None], s_t[:, None, None]
+                    arr = (torch.randn(dims, generator=g, device="cuda") * s_t + m_t).cpu().numpy()
+                    jobs.append(pool.submit(zarrlite.write_array, root, name, arr, chunks=chunks))
+        for j in jobs:
+            j.result()
+    zarrlite.write_array(root, "level", np.asarray(levels))
+    zarrlite.write_array(root, "time", np.arange(n_times, dtype=np.int64) * 6,
+                         attrs={"units": "hours since 1979-01-01", "calendar": "standard"})
+    paths = []
+    for kind, table in (("mean", mean), ("std", std)):
+        paths.append(os.path.join(root, f"{kind}.nc"))
+        Dataset({v: (("level",), a.astype(np.float32)) if a.size > 1 else ((), np.float32(a[0]))
+                 for v, a in table.items()}).to_netcdf(paths[-1])
+    return tuple(paths)
+
+
+def fit_conf(model: dict, data: dict, store: str, stats, save_loc: str, trainer: dict,
+             train_window, valid_window) -> dict:
+    """A `credit train` config (a dict, no YAML): the zarr source on the
+    store, a training and a later validation clock window, forecast_len 1,
+    history_len 1, the Normalizer from the netCDF statistics, the
+    latitude-weighted MSE."""
+    src = {**data["source"]["ERA5"], "dataset_type": "zarr", "store_path": store}
+
+    def section(window, **kw):
+        return {"source": {"ERA5": src}, "start_datetime": window[0],
+                "end_datetime": window[1], "timestep": "6h", "forecast_len": 1,
+                "history_len": 1, **kw}
+
+    return {"model": model, "save_loc": save_loc, "seed": 0,
+            "data": section(train_window, mean_path=stats[0], std_path=stats[1]),
+            "data_valid": section(valid_window),
+            "loss": {"training_loss": "mse", "use_latitude_weights": True},
+            "trainer": trainer}
+
+
+def read_log(path: str):
+    import csv
+
+    with open(os.path.join(path, "training_log.csv")) as f:
+        return list(csv.reader(f))
+
+
+def tiny_fit(torch) -> None:
+    """Phase 3's fit: the tiny CrossFormer (f32) for 2 epochs of 2 steps and
+    1 validation batch through run_training on a seeded 32x64 zarr store,
+    on the card (pinned batches copied asynchronously, validation on the
+    EMA weights there) against the same run on the CPU: every
+    training_log.csv cell but `seconds` within TINY_FIT_TOL relative."""
+    import shutil
+
+    from credit_torch.applications import run_training
+
+    root = os.path.join(HERE, "build", "fit_tiny")
+    shutil.rmtree(root, ignore_errors=True)
+    data = {"source": {"ERA5": {**TINY_DATA["source"]["ERA5"], "levels": [500.0, 850.0]}}}
+    stats = write_store(torch, os.path.join(root, "era5.zarr"), data, (32, 64), 8, seed=5)
+    trainer = {**FIT_TRAINER, "batches_per_epoch": 2, "learning_rate": 1e-3}
+    logs = {}
+    for dev in ("cpu", "cuda"):
+        conf = fit_conf(TINY, data, os.path.join(root, "era5.zarr"), stats,
+                        os.path.join(root, dev), trainer, ("1979-01-01T00", "1979-01-01T18"),
+                        ("1979-01-02T00", "1979-01-02T12"))
+        run_training(conf, device=dev)
+        logs[dev] = read_log(conf["save_loc"])
+    header = logs["cpu"][0]
+    err = 0.0
+    for grow, crow in zip(logs["cuda"][1:], logs["cpu"][1:]):
+        for name, a, b in zip(header, grow, crow):
+            if name != "seconds":
+                err = max(err, abs(float(a) - float(b)) / max(abs(float(b)), 1e-12))
+    ok = logs["cuda"][0] == header and len(logs["cuda"]) == len(logs["cpu"]) == 3
+    log(f"  tiny 2-epoch run_training on a 32x64 zarr store, f32 card vs CPU: "
+        f"{len(header)} log columns, worst cell rel err {err:.3e} limit {TINY_FIT_TOL:g}")
+    if not (ok and err <= TINY_FIT_TOL):
+        raise AssertionError("tiny fit on the card disagrees with the CPU")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def fit_path(torch, want_train: dict, want_valid: dict, profile: bool = False) -> dict:
+    """Main path 7, `credit train` at CONF_025: the store, run_training for
+    2 epochs, then a resumed run of 1 epoch, each checked; returns the
+    first run's launch counts."""
+    import shutil
+
+    from credit_torch.applications import prepare_training, run_training
+    from credit_torch.trainers.trainer import Trainer
+
+    root = os.path.join(HERE, "build", "fit_025")
+    shutil.rmtree(root, ignore_errors=True)
+    store = os.path.join(root, "era5.zarr")
+    data = {"source": {"ERA5": {**DATA_025["source"]["ERA5"], "levels": FIT_LEVELS}}}
+    h, w = CONF_025["image_height"], CONF_025["image_width"]
+    t0 = time.time()
+    stats = write_store(torch, store, data, (h, w), FIT_TIMES, seed=0)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store) for f in fs)
+    log(f"  store: {FIT_TIMES} times x {len(FIT_LEVELS)} levels at {h}x{w}, {size} bytes "
+        f"written in {time.time() - t0:.1f} s (zlib level 1, 8 writer threads)")
+    conf = fit_conf(CONF_025_TRAIN, data, store, stats, os.path.join(root, "run"), FIT_TRAINER,
+                    ("1979-01-01T00", "1979-01-02T00"), ("1979-01-02T06", "1979-01-02T18"))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    trainer, state, start, seed = prepare_training(conf)
+    log(f"  run_training set-up (data, model, trainer, seeded weights): {time.time() - t0:.1f} s")
+    state = trainer.fit(state, seed=seed, start_epoch=start)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  run_training 2 epochs: {time.time() - t0:.1f} s end to end, peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB), launches {counts}; preflight and warm-up add none (the "
+        f"preflight reads a host sample only, the weights are seeded without a forward)")
+    fit_times(trainer)
+    _check_counts(counts, {k: 6 * want_train.get(k, 0) + 2 * want_valid.get(k, 0)
+                           for k in counts}, 1)
+    rows = read_log(conf["save_loc"])
+    header, body = rows[0], rows[1:]
+    names = trainer.schema.target_names
+    need = [f"{split}_{kind}_{n}" for split in ("train", "valid")
+            for kind in ("mse", "rmse", "mae", "acc") for n in names]
+    missing = [c for c in need if c not in header]
+    losses = [(float(r[1]), float(r[2])) for r in body]
+    log(f"  training_log.csv: {len(body)} rows, {len(header)} columns ({len(need)} per-variable "
+        f"columns for {len(names)} targets, missing {missing[:4]}); (train, valid) loss by epoch "
+        f"{losses}")
+    if (len(body) != 2 or len(names) != 64 or missing
+            or not all(math.isfinite(v) for pair in losses for v in pair)):
+        raise AssertionError("the CONF_025 fit's log is incomplete or not finite")
+    run = conf["save_loc"]
+    for name in ("checkpoint", "backup_checkpoint", "best"):
+        if not os.path.exists(os.path.join(run, name, Trainer.CHECKPOINT_FILE)):
+            raise AssertionError(f"no {name}/ after the fit")
+    for name in ("epoch.txt", "channel_schema.json"):
+        if not os.path.exists(os.path.join(run, name)):
+            raise AssertionError(f"no {name} after the fit")
+    saved = torch.load(os.path.join(run, "checkpoint", Trainer.CHECKPOINT_FILE),
+                       map_location="cpu", weights_only=True)
+    del state, trainer
+    torch.cuda.empty_cache()
+
+    resume = {**conf, "trainer": {**FIT_TRAINER, "load_weights": True, "num_epoch": 1}}
+    _zero_counts()
+    trainer, state, start, seed = prepare_training(resume)
+    same = all(torch.equal(v.cpu(), saved["model"][k]) for k, v in state.model.state_dict().items())
+    same = same and all(torch.equal(v.cpu(), saved["ema_params"][k])
+                        for k, v in state.ema_params.items())
+    log(f"  resume: state at step {state.step}, epoch {start}; parameters, u/v and EMA bitwise "
+        f"equal to the checkpoint before the first step: {same}")
+    if not same or state.step != 6 or start != 2:
+        raise AssertionError("the resumed state is not the saved one")
+    done = {}
+
+    def resumed():
+        done["state"] = trainer.fit(state, seed=seed, start_epoch=start)
+
+    if profile:
+        profile_steps(torch, "CONF_025 resumed fit epoch", resumed, (), steps=1)
+    else:
+        resumed()
+    state_step = done["state"].step
+    torch.cuda.synchronize()
+    counts2 = _read_counts()
+    log(f"  resumed run: launches {counts2}, step now {state_step}")
+    fit_times(trainer)
+    _check_counts(counts2, {k: 3 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts2},
+                  1)
+    rows = read_log(run)
+    if [r[0] for r in rows[1:]] != ["0", "1", "2"] or state_step != 9:
+        raise AssertionError(f"the resumed run did not continue: epochs {[r[0] for r in rows[1:]]}")
+    del state, trainer, saved, done
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def fit_times(trainer) -> None:
+    """Each epoch's batch assembly (host, producer thread), copy, train
+    step and validation times of the trainer's run, and the train steps'
+    spread without the run's first (which may meet cold caches)."""
+
+    def fmt(v):
+        return "[" + ", ".join(f"{x:.1f}" for x in v) + "]"
+
+    for e in trainer.epoch_timings:
+        log(f"  epoch {e['epoch']}: train step ms {fmt(e['train_ms'])}, validation batch ms "
+            f"{fmt(e['valid_ms'])}, batch assembly host ms {fmt(e['assemble_ms'])}, copy to the "
+            f"card ms {fmt(e['copy_ms'])}")
+    steps = [v for e in trainer.epoch_timings for v in e["train_ms"]][1:]
+    if steps:
+        log(f"  train steps but the run's first: {len(steps)}, ms min {min(steps):.1f} mean "
+            f"{sum(steps) / len(steps):.1f} max {max(steps):.1f}")
+    rows = read_log(trainer.save_loc)
+    wall = {int(r[0]): float(r[3]) * 1e3 for r in rows[1:]}
+    for e in trainer.epoch_timings:
+        spans = sum(e["train_ms"]) + sum(e["valid_ms"]) + sum(e["copy_ms"])
+        host = sum(e["assemble_ms"])
+        log(f"  epoch {e['epoch']}: wall {wall[e['epoch']]:.0f} ms; batch assembly {host:.0f} ms "
+            f"on the producer thread against {sum(e['train_ms']) + sum(e['valid_ms']):.0f} ms of "
+            f"steps; the device spans (steps, validation, copies; gaps inside them included) "
+            f"cover {spans / wall[e['epoch']]:.3f} of the wall time")
+
+
 def profile_steps(torch, what: str, run, args, steps: int) -> None:
     """torch.profiler over run(*args), which takes `steps` steps: device time
     by kernel and the card's idle share of the wall time (profiler overhead
@@ -1270,7 +1537,7 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true", help="print nvcc's -Xptxas -v report")
     ap.add_argument("--profile", action="store_true",
                     help="after main paths 1-5, profile a 2-step rollout / a training step "
-                         "by kernel")
+                         "by kernel; in main path 7, the resumed fit's epoch")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -1316,6 +1583,7 @@ def main() -> int:
     log("  tiny FuXi, two input frames:")
     tiny_agreement(torch, TINY_FUXI, TINY_FUXI_DATA)
     tiny_post_rollout(torch)
+    tiny_fit(torch)
     log(f"  allocated on the card: {before} bytes before phase 3, "
         f"{torch.cuda.memory_allocated()} after it")
     runs, times = {}, {}
@@ -1341,6 +1609,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 9: main path 6, the tool benches (credit_torch.tools)")
     runs["tools"] = tools_path(torch)
+    torch.cuda.empty_cache()
+    log("phase 10: main path 7, credit train at CONF_025 (run_training on a zarr ERA5 store)")
+    runs["fit_025"] = fit_path(torch, expected_train_per_step(fwd_025, False),
+                               expected_per_step(CONF_025_TRAIN), args.profile)
 
     kernels = []
     for name, counter, src, replaces, r, paths in [
@@ -1349,19 +1621,19 @@ def main() -> int:
              runs),
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025", "tools")),
+             ("rollout_025", "train_025", "post_025", "tools", "fit_025")),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025")),
+             ("rollout_025", "train_025", "post_025", "fit_025")),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
-             attn, ("rollout_025", "train_025", "post_025")),
+             attn, ("rollout_025", "train_025", "post_025", "fit_025")),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
-             ("train_025",)),
+             ("train_025", "fit_025")),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),

@@ -136,12 +136,23 @@ def init_train(conf: dict, generator: torch.Generator, device="cuda",
     buffers, as after credit_tpu's init + converge_spectral. In eval mode;
     call `.train()` to iterate spectral norm per forward."""
     dev = resolve_device(device)
-    model = load_model(conf, device=dev, sn_state=True)
+    return seed_train_(load_model(conf, device=dev, sn_state=True), conf, generator, n_iter)
+
+
+def seed_train_(model: torch.nn.Module, conf: dict, generator: torch.Generator,
+                n_iter: int = 30) -> torch.nn.Module:
+    """`init_train`'s weights written into `model` in place (a model of
+    `load_model(conf, sn_state=True)`, on any device): the seeded kernels,
+    and each spectrally normalised layer's converged u, v."""
+    dev = next(model.parameters()).device
     mods = dict(model.named_modules())
     with torch.no_grad():
         for path, p, k, u, v in _seeded_kernels(model, conf, generator, dev, n_iter):
             p.copy_(k)
             if u is not None:
+                if mods[path].u is None:
+                    raise ValueError(f"{path} has no spectral-norm state: build the model "
+                                     "with load_model(conf, sn_state=True)")
                 mods[path].u.copy_(u)
                 mods[path].v.copy_(v)
     return model

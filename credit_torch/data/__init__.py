@@ -1,1 +1,3 @@
-"""Data contracts of the port (channel layout)."""
+"""The port's data pipeline: the channel layout, the Normalizer, the zarr
+and netCDF readers, the CF clock, the datasets, the sampler, prefetch and
+replay (port of credit_tpu/data)."""

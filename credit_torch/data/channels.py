@@ -10,6 +10,8 @@ Channels-last layout: tensors are (..., lat, lon, C).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, List, Optional
 
 import torch
@@ -129,6 +131,28 @@ class ChannelSchema:
             else:
                 parts.append(x_prev[..., a:b])
         return torch.cat(parts, dim=-1)
+
+    def save(self, save_loc: str) -> str:
+        """Persist as channel_schema.json (the reference persists a schema file
+        alongside checkpoints, trainer_gen2.py:98-113)."""
+        path = os.path.join(save_loc, "channel_schema.json")
+        payload = {
+            "n_levels": self.n_levels,
+            "input": [[e.name, e.source, e.field_type] for e in self.input_entries],
+            "target": [[e.name, e.source, e.field_type] for e in self.target_entries],
+        }
+        os.makedirs(save_loc, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1)
+        return path
+
+    @classmethod
+    def load(cls, save_loc: str) -> "ChannelSchema":
+        with open(os.path.join(save_loc, "channel_schema.json")) as f:
+            payload = json.load(f)
+        ins = [ChannelEntry(n, s, ft, i) for i, (n, s, ft) in enumerate(payload["input"])]
+        tgts = [ChannelEntry(n, s, ft, i) for i, (n, s, ft) in enumerate(payload["target"])]
+        return cls(ins, tgts, _field_slices(ins), _field_slices(tgts), payload["n_levels"])
 
 
 def _field_slices(entries):

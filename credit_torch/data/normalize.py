@@ -98,9 +98,12 @@ class Normalizer:
     @classmethod
     def from_netcdf(cls, schema: ChannelSchema, mean_path: str, std_path: str,
                     level_coord: str = "level") -> "Normalizer":
-        """Load mean/std from the reference's mean/std netCDF files: not
-        ported yet."""
-        raise NotImplementedError(
-            "Normalizer.from_netcdf is not ported yet: its netCDF reader (utils/ncio) comes "
-            "with the data pipeline (ROADMAP queue 1, item 12); build the Normalizer with "
-            "from_stats_dict")
+        """Load mean/std from the reference's mean/std netCDF files
+        (reference: conf data.mean_path/std_path)."""
+        from credit_torch.utils.ncio import open_dataset
+
+        ds_m = open_dataset(mean_path)
+        ds_s = open_dataset(std_path)
+        mean = {v: np.asarray(ds_m[v].values) for v in ds_m.data_vars}
+        std = {v: np.asarray(ds_s[v].values) for v in ds_s.data_vars}
+        return cls.from_stats_dict(schema, mean, std)

@@ -1,0 +1,274 @@
+"""Minimal zarr-v2 reader and writer: the port's copy of
+credit_tpu/data/zarrlite.py.
+
+Implements just what the cloud datasets need from the zarr v2 spec
+(reference behavior: credit/datasets/gen_2/era5.py:56 opens ARCO-ERA5 /
+WeatherBench2 zarr stores through xarray+zarr+gcsfs): consolidated or
+per-key JSON metadata, C-order chunk grids, little/big-endian primitive
+dtypes, and the compressors none/raw, zlib, gzip and zstd (`zstandard` is
+imported only for a zstd store). Blosc-compressed stores raise a clear
+error naming the missing codec.
+
+Stores are addressed through fsspec (imported only then) when the path
+looks remote (gs://, http(s)://, s3://) and plain files otherwise, so the
+same reader serves local stores and the public buckets.
+
+Chunks are read and inflated one after another on the calling thread:
+credit_tpu's native thread pool (`native/fastload.py`) is not ported yet,
+and the batch producer of `Trainer.fit` runs this reader on its own thread.
+
+This is a reader, not a framework: arrays expose shape/dtype/attrs and
+orthogonal basic indexing via `read(selection)` returning numpy arrays.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import zlib
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+_REMOTE_PREFIXES = ("gs://", "gcs://", "http://", "https://", "s3://", "az://")
+
+
+class _Store:
+    """Byte-addressed key/value view of a zarr store (dir or remote)."""
+
+    def __init__(self, root: str):
+        self.root = root.rstrip("/")
+        self.remote = root.startswith(_REMOTE_PREFIXES)
+        self._fs = None
+        if self.remote:
+            import fsspec
+
+            self._fs = fsspec.filesystem(root.split("://", 1)[0])
+
+    def _path(self, key: str) -> str:
+        return f"{self.root}/{key}"
+
+    def get(self, key: str) -> Optional[bytes]:
+        p = self._path(key)
+        try:
+            if self.remote:
+                with self._fs.open(p.split("://", 1)[1], "rb") as f:
+                    return f.read()
+            with open(p, "rb") as f:
+                return f.read()
+        except (FileNotFoundError, OSError):
+            return None
+
+    def exists(self, key: str) -> bool:
+        if self.remote:
+            return self._fs.exists(self._path(key).split("://", 1)[1])
+        return os.path.exists(self._path(key))
+
+
+def _decompress(raw: bytes, compressor: Optional[dict]) -> bytes:
+    if compressor is None:
+        return raw
+    cid = compressor.get("id")
+    if cid in ("zlib",):
+        return zlib.decompress(raw)
+    if cid == "gzip":
+        import gzip
+
+        return gzip.decompress(raw)
+    if cid == "zstd":
+        import zstandard
+
+        return zstandard.ZstdDecompressor().decompress(
+            raw, max_output_size=1 << 31)
+    raise NotImplementedError(
+        f"zarr compressor {cid!r} not available in this environment "
+        f"(supported: none, zlib, gzip, zstd). Re-chunk the store or "
+        f"install the codec.")
+
+
+def _index(axes):
+    """Scatter/gather index: plain slices when every axis is a contiguous
+    run (bulk reads — numpy slice assignment is ~70x faster than the
+    advanced-indexing copy np.ix_ triggers), np.ix_ otherwise."""
+    slices = []
+    for a in axes:
+        if len(a) and (len(a) == 1 or (np.diff(a) == 1).all()):
+            slices.append(slice(int(a[0]), int(a[-1]) + 1))
+        else:
+            return np.ix_(*axes)
+    return tuple(slices)
+
+
+class ZarrArray:
+    def __init__(self, store: _Store, path: str, meta: dict, attrs: dict):
+        self.store = store
+        self.path = path
+        self.shape: Tuple[int, ...] = tuple(meta["shape"])
+        self.chunks: Tuple[int, ...] = tuple(meta["chunks"])
+        self.dtype = np.dtype(meta["dtype"])
+        self.fill_value = meta.get("fill_value")
+        self.compressor = meta.get("compressor")
+        self.order = meta.get("order", "C")
+        self.sep = meta.get("dimension_separator", ".")
+        if meta.get("filters"):
+            raise NotImplementedError("zarr filters not supported")
+        self.attrs = attrs
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def _chunk_key(self, coords: Sequence[int]) -> str:
+        name = self.sep.join(str(c) for c in coords)
+        return f"{self.path}/{name}" if self.path else name
+
+    def _read_chunk(self, coords: Sequence[int]) -> np.ndarray:
+        raw = self.store.get(self._chunk_key(coords))
+        if raw is None:
+            fill = 0 if self.fill_value is None else self.fill_value
+            return np.full(self.chunks, fill, self.dtype)
+        buf = _decompress(raw, self.compressor)
+        arr = np.frombuffer(buf, self.dtype).reshape(self.chunks,
+                                                     order=self.order)
+        return arr
+
+    def read(self, selection: Optional[Sequence[Union[slice, int,
+                                                      Sequence[int]]]] = None
+             ) -> np.ndarray:
+        """Orthogonal basic indexing; ints keep the axis dropped, slices and
+        integer lists keep it. Gathers only the chunks the selection touches.
+        """
+        sel = list(selection or ())
+        sel += [slice(None)] * (self.ndim - len(sel))
+        # normalize: per-axis sorted unique index arrays + drop flags
+        idx_per_axis, drop = [], []
+        for ax, s in enumerate(sel):
+            n = self.shape[ax]
+            if isinstance(s, slice):
+                idx = np.arange(*s.indices(n))
+                drop.append(False)
+            elif isinstance(s, (int, np.integer)):
+                idx = np.asarray([int(s) % n if s < 0 else int(s)])
+                drop.append(True)
+            else:
+                idx = np.asarray(list(s), dtype=np.int64)
+                drop.append(False)
+            if idx.size and (idx.min() < 0 or idx.max() >= n):
+                raise IndexError(f"axis {ax}: index out of range 0..{n - 1}")
+            idx_per_axis.append(idx)
+
+        out_shape = tuple(len(i) for i in idx_per_axis)
+        out = np.empty(out_shape, self.dtype)
+        # group output positions by chunk coordinate per axis
+        chunk_ids = [i // c for i, c in zip(idx_per_axis, self.chunks)]
+        uniq = [np.unique(c) for c in chunk_ids]
+
+        tasks = []  # (coords, out_slices, in_slices)
+
+        def plan(ax: int, coords: Tuple[int, ...], out_slices, in_slices):
+            if ax == self.ndim:
+                tasks.append((coords, list(out_slices), list(in_slices)))
+                return
+            for cid in uniq[ax]:
+                mask = chunk_ids[ax] == cid
+                opos = np.nonzero(mask)[0]
+                ipos = idx_per_axis[ax][mask] - cid * self.chunks[ax]
+                plan(ax + 1, coords + (int(cid),),
+                     out_slices + [opos], in_slices + [ipos])
+
+        if out.size:
+            plan(0, (), [], [])
+        chunks = [self._read_chunk(t[0]) for t in tasks]
+        for chunk, (_, out_slices, in_slices) in zip(chunks, tasks):
+            o, i = _index(out_slices), _index(in_slices)
+            out[o] = chunk[i]
+        keep = tuple(0 if d else slice(None) for d in drop)
+        return out[keep]
+
+    def __getitem__(self, key):
+        if not isinstance(key, tuple):
+            key = (key,)
+        return self.read(key)
+
+
+class ZarrGroup:
+    """Open a zarr-v2 group; prefers consolidated metadata (.zmetadata)."""
+
+    def __init__(self, root: str):
+        self.store = _Store(root)
+        self._consolidated: Optional[Dict[str, dict]] = None
+        zmeta = self.store.get(".zmetadata")
+        if zmeta is not None:
+            self._consolidated = json.loads(zmeta)["metadata"]
+        elif not self.store.exists(".zgroup"):
+            raise FileNotFoundError(f"{root}: not a zarr group "
+                                    f"(no .zgroup/.zmetadata)")
+
+    def _meta(self, key: str) -> Optional[dict]:
+        if self._consolidated is not None:
+            return self._consolidated.get(key)
+        raw = self.store.get(key)
+        return None if raw is None else json.loads(raw)
+
+    def attrs(self, path: str = "") -> dict:
+        key = f"{path}/.zattrs" if path else ".zattrs"
+        return self._meta(key) or {}
+
+    def array_keys(self):
+        if self._consolidated is not None:
+            return sorted(k[:-len("/.zarray")] for k in self._consolidated
+                          if k.endswith("/.zarray"))
+        raise NotImplementedError(
+            "listing requires consolidated metadata; open arrays by name")
+
+    def __contains__(self, name: str) -> bool:
+        return self._meta(f"{name}/.zarray") is not None
+
+    def __getitem__(self, name: str) -> ZarrArray:
+        meta = self._meta(f"{name}/.zarray")
+        if meta is None:
+            raise KeyError(f"no array {name!r} in {self.store.root}")
+        attrs = self._meta(f"{name}/.zattrs") or {}
+        return ZarrArray(self.store, name, meta, attrs)
+
+
+def open_group(root: str) -> ZarrGroup:
+    return ZarrGroup(root)
+
+
+# ---------------------------------------------------------------------------
+# writer (tests + preprocess outputs): enough to round-trip our own reader
+def write_array(root: str, name: str, data: np.ndarray,
+                chunks: Optional[Sequence[int]] = None, attrs: dict = None,
+                compressor: str = "zlib"):
+    os.makedirs(os.path.join(root, name), exist_ok=True)
+    if not os.path.exists(os.path.join(root, ".zgroup")):
+        with open(os.path.join(root, ".zgroup"), "w") as f:
+            json.dump({"zarr_format": 2}, f)
+    chunks = tuple(chunks or data.shape)
+    meta = {
+        "zarr_format": 2, "shape": list(data.shape), "chunks": list(chunks),
+        "dtype": data.dtype.str, "fill_value": None, "order": "C",
+        "filters": None,
+        "compressor": {"id": "zlib", "level": 1} if compressor == "zlib" else None,
+    }
+    with open(os.path.join(root, name, ".zarray"), "w") as f:
+        json.dump(meta, f)
+    if attrs:
+        with open(os.path.join(root, name, ".zattrs"), "w") as f:
+            json.dump(attrs, f)
+    grid = [range((s + c - 1) // c) for s, c in zip(data.shape, chunks)]
+    import itertools
+
+    for coords in itertools.product(*grid):
+        sl = tuple(slice(c * ch, (c + 1) * ch) for c, ch in zip(coords, chunks))
+        block = data[sl]
+        # pad partial edge chunks to full chunk shape (zarr v2 stores full chunks)
+        if block.shape != chunks:
+            pad = [(0, ch - bs) for bs, ch in zip(block.shape, chunks)]
+            block = np.pad(block, pad)
+        buf = np.ascontiguousarray(block).tobytes()
+        if compressor == "zlib":
+            buf = zlib.compress(buf, 1)
+        with open(os.path.join(root, name, ".".join(map(str, coords))), "wb") as f:
+            f.write(buf)

@@ -4,7 +4,7 @@ latitude- and variable-weighted `WeightedLoss`.
 Layout is channels-last (B, T, lat, lon, C). Elementwise losses return
 unreduced fields; `WeightedLoss` applies the weights and takes the mean.
 The spectral and power terms, the CRPS family and `DownscalingLoss` are not
-ported yet (ROADMAP queue 1, item 6) and raise.
+ported yet (ROADMAP queue 1, item 3) and raise.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def xsigmoid(target, pred):
 def load_loss(name: str, **kw) -> Callable:
     """Look up an elementwise loss by config key."""
     if is_crps_loss(name) or name in ("spectral", "power", "covmse"):
-        raise NotImplementedError(f"loss {name!r} is not ported yet (ROADMAP queue 1, item 6)")
+        raise NotImplementedError(f"loss {name!r} is not ported yet (ROADMAP queue 1, item 3)")
     fn = registry.get("loss", name)
     return functools.partial(fn, **kw) if kw else fn
 
@@ -89,7 +89,7 @@ class WeightedLoss:
                  wavenum_init: int = 20, validation: bool = False, **base_kw):
         if (spectral_lambda or power_lambda) and not validation:
             raise NotImplementedError("the spectral and power loss terms are not ported yet "
-                                      "(ROADMAP queue 1, item 6)")
+                                      "(ROADMAP queue 1, item 3)")
         self.base_name = base
         self.base = load_loss(base, **base_kw)
         self.lat_weights = None if lat_weights is None else torch.as_tensor(
@@ -102,7 +102,7 @@ class WeightedLoss:
         """From the config's `loss` section. `grid` gives the latitude weights
         through its `coslat_weights()`, as credit_tpu's Grid does."""
         if "datasets" in (conf.get("data") or {}):
-            raise NotImplementedError("DownscalingLoss is not ported yet (ROADMAP queue 1, item 6)")
+            raise NotImplementedError("DownscalingLoss is not ported yet (ROADMAP queue 1, item 3)")
         lconf = conf.get("loss", {})
         key = "validation_loss" if (validation and "validation_loss" in lconf) else "training_loss"
         lat_w = None

@@ -27,7 +27,7 @@ def load_model(conf: dict, device="cuda", sn_state: bool = False) -> torch.nn.Mo
     mtype = conf["model"]["type"]
     if mtype not in PORTED:
         raise NotImplementedError(
-            f"model type {mtype!r} is not ported yet (ROADMAP queue 1, item 9); "
+            f"model type {mtype!r} is not ported yet (ROADMAP queue 1, item 7); "
             f"ported: {list(PORTED)}")
     dev = resolve_device(device)
     cls = registry.get("model", mtype)

@@ -54,11 +54,11 @@ class CrossFormer(BaseModel):
         self._check_routing(routing)
         if patch_height > 1 and patch_width > 1:
             raise NotImplementedError("the CrossFormer's cube-embed branch is not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "(ROADMAP queue 1, item 6)")
         if upsample_with_ps:
-            raise NotImplementedError("UpBlockPS is not ported yet (ROADMAP queue 1, item 3)")
+            raise NotImplementedError("UpBlockPS is not ported yet (ROADMAP queue 1, item 6)")
         if sharp_skip:
-            raise NotImplementedError("the sharp skip conv is not ported yet (ROADMAP queue 1, item 3)")
+            raise NotImplementedError("the sharp skip conv is not ported yet (ROADMAP queue 1, item 6)")
         if isinstance(compute_dtype, str):
             compute_dtype = DTYPES[compute_dtype]
         self.image_height, self.image_width = image_height, image_width

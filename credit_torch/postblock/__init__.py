@@ -134,11 +134,12 @@ class WetMaskSamudra(BasePostblock):
     target channel by the wet mask (1 = ocean)."""
 
     def __init__(self, schema: ChannelSchema, wet_mask, **_):
-        if isinstance(wet_mask, str):
-            raise NotImplementedError(
-                "wet_mask_samudra from a netCDF path is not ported yet: its reader "
-                "(utils/ncio) comes with the data pipeline (ROADMAP queue 1, item 12); "
-                "pass the mask as an array")
+        if isinstance(wet_mask, str):  # path to a netCDF mask file
+            from credit_torch.utils.ncio import open_dataset
+
+            ds = open_dataset(wet_mask)
+            name = "wet_mask" if "wet_mask" in ds else next(iter(ds.keys()))
+            wet_mask = np.asarray(ds[name].values)
         self.mask = torch.as_tensor(np.asarray(wet_mask, np.float32))  # (lat, lon) or (lat, lon, L)
 
     def __call__(self, y_pred, x):
@@ -368,14 +369,14 @@ def _unported(key: str, item: str):
 
 
 for _key, _item in [
-        ("skebs", "ROADMAP queue 1, item 7: postblock/stochastic.py, physics/skebs"),
+        ("skebs", "ROADMAP queue 1, item 5: postblock/stochastic.py, physics/skebs"),
         ("semilagrangian_advection",
-         "ROADMAP queue 1, item 7: postblock/stochastic.py, physics/advection"),
-        ("wind_artifact_filter", "ROADMAP queue 1, item 7: postblock/wind_filter.py"),
-        ("hybrid_level_interp", "ROADMAP queue 1, item 7: physics/interp.py"),
-        ("pressure_interp_diagnostic", "ROADMAP queue 1, item 7: physics/interp.py"),
-        ("mslp_diagnostic", "ROADMAP queue 1, item 7: physics/interp.py"),
-        ("geopotential_diagnostic", "ROADMAP queue 1, item 7: physics/interp.py")]:
+         "ROADMAP queue 1, item 5: postblock/stochastic.py, physics/advection"),
+        ("wind_artifact_filter", "ROADMAP queue 1, item 5: postblock/wind_filter.py"),
+        ("hybrid_level_interp", "ROADMAP queue 1, item 5: physics/interp.py"),
+        ("pressure_interp_diagnostic", "ROADMAP queue 1, item 5: physics/interp.py"),
+        ("mslp_diagnostic", "ROADMAP queue 1, item 5: physics/interp.py"),
+        ("geopotential_diagnostic", "ROADMAP queue 1, item 5: physics/interp.py")]:
     _unported(_key, _item)
 
 

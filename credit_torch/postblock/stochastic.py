@@ -2,7 +2,7 @@
 runner (`apply_postblocks_stateful`, `init_postblock_states`, reference
 stochastic.py:187-207).
 
-Stateful blocks (SKEBS and its pattern state, ROADMAP queue 1, item 7) are
+Stateful blocks (SKEBS and its pattern state, ROADMAP queue 1, item 5) are
 not ported: a block with `is_stateful` raises. Their per-block state, PRNG
 key and parameters come back with them.
 """
@@ -18,7 +18,7 @@ def check_stateless(blocks) -> None:
         if getattr(b, "is_stateful", False):
             raise NotImplementedError(
                 f"stateful postblock {type(b).__name__} is not ported yet (SKEBS and the "
-                "stateful path: ROADMAP queue 1, item 7)")
+                "stateful path: ROADMAP queue 1, item 5)")
 
 
 def apply_postblocks_stateful(blocks, y_pred, x, states: dict):

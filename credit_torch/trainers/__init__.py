@@ -1,2 +1,3 @@
-"""Training (port of credit_tpu/trainers): the train step and its optimizer
-(`trainer.py`) and the learning-rate schedules (`scheduler.py`)."""
+"""Training (port of credit_tpu/trainers): the train and eval steps, the
+optimizer and `Trainer.fit` (`trainer.py`), the preflight checks
+(`preflight.py`) and the learning-rate schedules (`scheduler.py`)."""

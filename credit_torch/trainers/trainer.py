@@ -1,9 +1,10 @@
-"""Multi-step truncated-BPTT train step: port of credit_tpu/trainers/trainer.py
-(`TrainState`, `make_optimizer`, `make_train_step`).
+"""Multi-step truncated-BPTT training: port of credit_tpu/trainers/trainer.py
+(`TrainState`, `make_optimizer`, `make_train_step`, `make_eval_step`,
+`Trainer` with `fit`, `load_trainer`).
 
 Per optimizer step, for rollout steps s = 0..forecast_len-1:
 
-    y_pred_s = model(x_s)              (train mode: one SN power iteration)
+    y_pred_s = postblocks(model(x_s))  (train mode: one SN power iteration)
     if s in backprop_on_timestep: backward of loss_s, gradients summed
     x_{s+1} = update_x(x_s, y_pred_s, forcing_s), detached
 
@@ -13,23 +14,40 @@ loss (the AdamW moments still advance; the parameters stay), AdamW with
 optax's formulas updates the parameters, and the EMA follows with decay
 min(decay, (1+n)/(10+n)). The reference's one jitted program becomes eager
 PyTorch on the model's own parameters and u/v buffers, updated in place.
+Batches come in physical units when a Normalizer is given and are
+normalized on their device inside the step, in f32.
+
+`Trainer.fit` runs epochs of sampled init times through that step, with
+batches assembled and pinned on a producer thread, validation on the EMA
+weights, latitude-weighted per-variable metrics kept on the device and
+fetched once an epoch, `training_log.csv`, checkpoints and early stopping.
 
 The TPU levers `flatten_optimizer`, `scan_blocks` and `remat` are accepted
-and ignored. `Trainer.fit`, the eval step, the normalizer, pre/postblocks,
-ensembles, metrics and `sn_external` are not ported yet (ROADMAP queue 1,
-item 6) and raise.
+and ignored. Not ported yet, and raising: ensembles, `sn_external` and
+`grad_accum_every` (ROADMAP queue 1, item 3), preblocks and stateful
+postblocks (item 5), the diffusion and IC-optimisation trainers (item 7)
+and `trainer.parallelism` beyond one device (item 8).
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import logging
+import os
+import shutil
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from credit_torch import resolve_device
+from credit_torch import registry, resolve_device
 from credit_torch.data.channels import ChannelSchema
+from credit_torch.postblock.stochastic import check_stateless
 from credit_torch.trainers.scheduler import Schedule
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -101,13 +119,48 @@ def make_optimizer(conf: dict, schedule: Schedule) -> AdamW:
     and, where `grad_max_norm` > 0, global-norm clipping first."""
     t = conf.get("trainer", {})
     if int(t.get("grad_accum_every", 1)) > 1:
-        raise NotImplementedError("grad_accum_every is not ported yet (ROADMAP queue 1, item 6)")
+        raise NotImplementedError("grad_accum_every is not ported yet (ROADMAP queue 1, item 3)")
     return AdamW(schedule, weight_decay=float(t.get("weight_decay", 0.0)),
                  clip=float(t.get("grad_max_norm", 0.0) or 0.0))
 
 
 def _ema_decay(base: float, n: int) -> float:
     return min(base, (1.0 + n) / (10.0 + n))
+
+
+
+
+def _refuse_unported(preblocks=(), preblocks_ic=(), ensemble_size: int = 1,
+                     sn_external: bool = False, postblocks=()) -> None:
+    if preblocks or preblocks_ic:
+        raise NotImplementedError("preblocks are not ported yet (preblock/__init__.py: "
+                                  "ROADMAP queue 1, item 5)")
+    if ensemble_size > 1:
+        raise NotImplementedError("ensembles (trainer.ensemble_size > 1) are not ported yet "
+                                  "(ROADMAP queue 1, item 3)")
+    if sn_external:
+        raise NotImplementedError("trainer.sn_external is not ported yet (ROADMAP queue 1, item 3)")
+    check_stateless(postblocks)
+
+
+def _prepare(batch: Dict[str, torch.Tensor], dev, normalizer, schema: ChannelSchema):
+    """The batch on `dev` in f32, normalized there when a Normalizer is
+    given (credit_tpu's in-step normalization)."""
+    out = {k: v.to(dev).float() for k, v in batch.items() if v is not None}
+    if normalizer is not None:
+        out["x"] = normalizer.normalize_input(out["x"])
+        out["y"] = normalizer.normalize_target(out["y"])
+        if "forcing" in out:
+            out["forcing"] = normalizer.normalize_forcing(out["forcing"], schema)
+    return out
+
+
+def _next_input(schema, x, y_pred, forcing, s: int, history_len: int):
+    """The next step's input (no gradient): forcing frame s is valid at
+    t0+1+s, the next state's time."""
+    f_next = None if forcing is None else forcing[:, s:s + 1]
+    new = schema.update_x(x[:, -1:], y_pred[:, -1:], f_next)
+    return torch.cat([x[:, 1:], new], dim=1) if history_len > 1 else new
 
 
 def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelSchema,
@@ -119,19 +172,26 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
     """The multi-step train step, `train_step(state, batch) -> (state,
     metrics)` with state.model being `model`. batch: {'x': (B, T_hist, H, W,
     C_in), 'y': (B, S, H, W, C_t), 'forcing': (B, S, H, W, n_dyn) or absent},
-    in normalized units. metrics: 'loss' and 'grad_norm' (0-d tensors) and
-    'finite' (1.0 or 0.0). The step updates the model in place."""
-    unported = {"normalizer": normalizer is not None, "preblocks": bool(preblocks),
-                "preblocks_ic": bool(preblocks_ic), "postblocks": bool(postblocks),
-                "ensembles": ensemble_size > 1, "metrics_fn": metrics_fn is not None,
-                "return_final_state": return_final_state, "sn_external": sn_external}
-    for name, used in unported.items():
-        if used:
-            raise NotImplementedError(f"make_train_step: {name} is not ported yet "
-                                      "(ROADMAP queue 1, item 6)")
+    in physical units when a `normalizer` is given (normalized on the
+    device inside the step), else normalized. Stateless `postblocks` act on
+    each step's prediction before its loss. metrics: 'loss' and 'grad_norm'
+    (0-d tensors), 'finite' (1.0 or 0.0); with `metrics_fn` (a
+    LatWeightedMetrics) its per-variable metrics of each rollout step,
+    averaged over forecast_len, as 0-d tensors; with `return_final_state`,
+    '_final_x', the predicted input state one step past the batch, in
+    physical units (replay training stores it). The step updates the model
+    in place and reads the device twice: the loss's finiteness and, with
+    clipping, the gradient norm against the clip."""
+    _refuse_unported(preblocks, preblocks_ic, ensemble_size, sn_external, postblocks)
     dev = resolve_device(device)
     bp = set(backprop_on_timestep or range(forecast_len))
     n_bp = max(len(bp), 1)
+
+    def forward(mdl, x):
+        y_pred = mdl(x)
+        for b in postblocks:
+            y_pred = b(y_pred, x)
+        return y_pred
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         mdl = state.model
@@ -139,25 +199,27 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
         params = dict(mdl.named_parameters())
         for p in params.values():
             p.grad = None
-        x = batch["x"].to(dev)
-        forcing = batch.get("forcing")
+        batch = _prepare(batch, dev, normalizer, schema)
+        x = batch["x"]
         total = torch.zeros((), device=dev)
+        mvals = None
         for s in range(forecast_len):
-            y_t = batch["y"][:, s:s + 1].to(dev)
+            y_t = batch["y"][:, s:s + 1]
             if s in bp:
-                y_pred = mdl(x)
+                y_pred = forward(mdl, x)
                 loss = loss_fn(y_t, y_pred)
                 loss.backward()  # sums into .grad across the backpropagated steps
                 total = total + loss.detach()
             else:
                 with torch.no_grad():
-                    y_pred = mdl(x)
-            if s + 1 < forecast_len:
-                # the next input is detached, as the reference's stop_gradient
-                f_next = None if forcing is None else forcing[:, s:s + 1].to(dev)
+                    y_pred = forward(mdl, x)
+            if metrics_fn is not None:
                 with torch.no_grad():
-                    new = schema.update_x(x[:, -1:], y_pred[:, -1:], f_next)
-                    x = torch.cat([x[:, 1:], new], dim=1) if history_len > 1 else new
+                    v = metrics_fn.values(y_t, y_pred.detach()) / forecast_len
+                mvals = v if mvals is None else mvals + v
+            if s + 1 < forecast_len:
+                with torch.no_grad():  # the reference's stop_gradient
+                    x = _next_input(schema, x, y_pred, batch.get("forcing"), s, history_len)
         names = list(state.opt_state["mu"])
         plist = [params[k] for k in names]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in plist]
@@ -181,6 +243,560 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
         for p in plist:
             p.grad = None
         new_state = TrainState(state.step + 1, mdl, opt_state, ema)
-        return new_state, {"loss": mean_loss, "grad_norm": gnorm, "finite": float(finite)}
+        metrics = {"loss": mean_loss, "grad_norm": gnorm, "finite": float(finite)}
+        if mvals is not None:
+            metrics.update(metrics_fn.named(mvals))
+        if return_final_state:
+            with torch.no_grad():
+                final = schema.update_x(x[:, -1:], y_pred[:, -1:], None)
+                if normalizer is not None:
+                    final = normalizer.denormalize_input(final)
+            metrics["_final_x"] = final
+        return new_state, metrics
 
     return train_step
+
+
+def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len: int = 1,
+                   history_len: int = 1, normalizer=None, ensemble_size: int = 1,
+                   metrics_fn=None, preblocks=(), preblocks_ic=(), postblocks=(),
+                   device="cuda"):
+    """Validation step scoring the same pipeline the train step runs
+    (normalizer, per-step postblocks, the rollout), `eval_step(state,
+    batch, generator=None) -> metrics` ('loss' and metrics_fn's, 0-d
+    tensors, averaged over forecast_len). The model runs in eval mode, so
+    spectral norm reads its u/v without advancing them, and on the EMA
+    weights where the state has them, through torch.func.functional_call
+    (the model's own parameters are not touched). `generator` is the noise
+    source of stochastic models and blocks, none of which is ported yet."""
+    _refuse_unported(preblocks, preblocks_ic, ensemble_size, False, postblocks)
+    dev = resolve_device(device)
+
+    def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
+        mdl = state.model
+        mdl.eval()
+        tensors = None
+        if state.ema_params is not None:
+            tensors = {**state.ema_params, **dict(mdl.named_buffers())}
+
+        def forward(x):
+            y_pred = (mdl(x) if tensors is None
+                      else torch.func.functional_call(mdl, tensors, (x,)))
+            for b in postblocks:
+                y_pred = b(y_pred, x)
+            return y_pred
+
+        with torch.no_grad():
+            batch = _prepare(batch, dev, normalizer, schema)
+            x = batch["x"]
+            total = torch.zeros((), device=dev)
+            mvals = None
+            for s in range(forecast_len):
+                y_t = batch["y"][:, s:s + 1]
+                y_pred = forward(x)
+                total = total + loss_fn(y_t, y_pred)
+                if metrics_fn is not None:
+                    v = metrics_fn.values(y_t, y_pred) / forecast_len
+                    mvals = v if mvals is None else mvals + v
+                if s + 1 < forecast_len:
+                    x = _next_input(schema, x, y_pred, batch.get("forcing"), s, history_len)
+        out = {"loss": total / forecast_len}
+        if mvals is not None:
+            out.update(metrics_fn.named(mvals))
+        return out
+
+    return eval_step
+
+
+def _mark(dev: torch.device):
+    """A point in the device's stream order (a CUDA event) or, on the
+    CPU, the host clock."""
+    if dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _span_ms(a, b) -> float:
+    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
+
+
+def _accumulate(acc: Optional[dict], metrics: dict) -> dict:
+    """acc + metrics, key by key, on the device: the tensors in one foreach
+    add, no host read."""
+    if acc is None:
+        keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+        acc = dict(metrics)
+        acc.update(zip(keys, torch._foreach_add([metrics[k] for k in keys], 0.0)))
+        return acc
+    keys = [k for k, v in acc.items() if torch.is_tensor(v)]
+    torch._foreach_add_([acc[k] for k in keys], [metrics[k] for k in keys])
+    for k, v in acc.items():
+        if not torch.is_tensor(v):
+            acc[k] = v + metrics[k]
+    return acc
+
+
+def _fetch(acc: Optional[dict]) -> Dict[str, float]:
+    """The accumulated metrics as floats, in one copy from the device."""
+    if not acc:
+        return {}
+    keys = [k for k, v in acc.items() if torch.is_tensor(v)]
+    vals = torch.stack([acc[k].float() for k in keys]).cpu().tolist() if keys else []
+    return {**{k: float(v) for k, v in acc.items() if not torch.is_tensor(v)},
+            **dict(zip(keys, vals))}
+
+
+def _unported_trainer(key: str, item: str):
+    class Unported:
+        def __init__(self, *_, **__):
+            raise NotImplementedError(f"trainer type '{key}' is not ported yet ({item})")
+
+    Unported.__name__ = Unported.__qualname__ = f"Unported_{key}"
+    registry.register("trainer", key)(Unported)
+
+
+_unported_trainer("era5-diffusion", "ROADMAP queue 1, item 7: trainers/diffusion.py")
+_unported_trainer("ic-opt", "ROADMAP queue 1, item 7: trainers/ic_optimization.py")
+
+
+@registry.register("trainer", "era5-v2")
+@registry.register("trainer", "era5")
+class Trainer:
+    """fit() loop: epochs x batches, validation, CSV logging, checkpointing,
+    early stopping (reference: BaseTrainer.fit, base_trainer.py:503), on
+    one device.
+
+    `epoch_timings` holds, per epoch run, the host ms to assemble each
+    batch (measured on the producer thread: read, decode, stack, pin), the
+    ms of each batch's copy to the device, of each train step and of each
+    validation batch; device spans are CUDA events, read once an epoch."""
+
+    def __init__(self, conf: dict, model, loss_fn, valid_loss_fn, schema: ChannelSchema,
+                 dataset, valid_dataset=None, save_loc: Optional[str] = None,
+                 normalizer=None, device="cuda"):
+        self.device = resolve_device(device)
+        self.conf = conf
+        t = conf.get("trainer", {})
+        self.model = model
+        self.schema = schema
+        self.dataset = dataset
+        self.valid_dataset = valid_dataset or dataset
+        self.save_loc = save_loc or conf.get("save_loc", "./ckpt")
+        self.forecast_len = int(conf.get("data", {}).get("forecast_len", 1)) or 1
+        self.history_len = int(conf.get("data", {}).get("history_len", 1)) or 1
+        self.batch_size = int(t.get("train_batch_size", 1))
+        self.valid_batch_size = int(t.get("valid_batch_size", self.batch_size))
+        self.num_epoch = int(t.get("num_epoch", t.get("epochs", 1)))
+        self.batches_per_epoch = int(t.get("batches_per_epoch", 0))
+        self.valid_batches = int(t.get("valid_batches_per_epoch", 0))
+        self.stopping_patience = int(t.get("stopping_patience", 999))
+        self.use_ema = bool(t.get("use_ema", False))
+        self.ema_decay = float(t.get("ema_decay", 0.999))
+        self.ensemble_size = int(t.get("ensemble_size", 1))
+        bp = t.get("backprop_on_timestep")
+        self.backprop_on = [b - 1 for b in bp] if bp else None  # config is 1-based
+        par = t.get("parallelism") or {}
+        if any(par.get(k) not in (None, "none") and int(par[k]) > 1
+               for k in ("data", "tensor", "domain")):
+            raise NotImplementedError("trainer.parallelism beyond one device is not ported yet "
+                                      "(parallel/: ROADMAP queue 1, item 8)")
+        _refuse_unported(conf.get("preblocks") or (), (), self.ensemble_size,
+                         bool(t.get("sn_external", False)))
+
+        from credit_torch.trainers.scheduler import load_scheduler
+
+        self.schedule = load_scheduler(conf)
+        self.optimizer = make_optimizer(conf, self.schedule)
+        self.loss_fn = loss_fn
+        self.valid_loss_fn = valid_loss_fn
+        self.normalizer = normalizer
+
+        from credit_torch.grid import grid_from_conf
+
+        grid = grid_from_conf(conf)
+        post = self._build_train_postblocks(grid)
+        self.train_postblocks = post
+        self.metrics_fn = None
+        if t.get("log_variable_metrics", True):
+            from credit_torch.metrics import LatWeightedMetrics
+
+            self.metrics_fn = LatWeightedMetrics(grid, var_names=list(schema.target_names))
+        # replay training: bounded pool of model-predicted states re-served
+        # as initial conditions (reference: credit/replay_buffer.py
+        # ReplayBuffer:77 + its Trainer:384). Costs one small host fetch per
+        # batch.
+        rp = t.get("replay")
+        self.replay = None
+        if rp:
+            from credit_torch.data.replay_buffer import ReplayBuffer
+
+            rp = rp if isinstance(rp, dict) else {}
+            self.replay = ReplayBuffer(capacity=int(rp.get("capacity", 128)),
+                                       replay_probability=float(rp.get("probability", 0.5)),
+                                       seed=int(conf.get("seed", 0)))
+        self._step_kw = dict(
+            history_len=self.history_len, ema_decay=self.ema_decay if self.use_ema else 0.0,
+            normalizer=normalizer, postblocks=tuple(post), metrics_fn=self.metrics_fn,
+            return_final_state=self.replay is not None, device=self.device)
+        self._step_cache = {}
+        # scheduled-rollout sampling: anneal the epoch's rollout length from
+        # short to forecast_len (reference: scheduler.py:220
+        # annealed_probability, passed as BaseTrainer.fit rollout_scheduler)
+        rs = t.get("rollout_schedule")
+        self.rollout_schedule = ({"type": rs} if isinstance(rs, str) else rs) if rs else None
+        self._eval_step = make_eval_step(
+            model, valid_loss_fn, schema, self.forecast_len, self.history_len,
+            normalizer=normalizer, metrics_fn=self.metrics_fn, postblocks=tuple(post),
+            device=self.device)
+        self.epoch_timings: List[dict] = []
+
+    def _train_step_for(self, flen: int):
+        """Train step for a scheduled rollout length (cached per length).
+        Truncated backprop keeps its meaning under rollout_schedule: when
+        every configured step lies past the scheduled length, backprop on
+        the last step only (an empty filter must not become None, which
+        means all steps)."""
+        if flen not in self._step_cache:
+            bp = ([b for b in self.backprop_on if b < flen] or [flen - 1]
+                  if self.backprop_on else None)
+            self._step_cache[flen] = make_train_step(
+                self.model, self.loss_fn, self.optimizer, self.schema, flen, bp,
+                **self._step_kw)
+        return self._step_cache[flen]
+
+    def _scheduled_forecast_len(self, epoch: int, seed: int) -> int:
+        """Epoch's rollout length under trainer.rollout_schedule: a geometric
+        draw with the annealed termination probability, capped at
+        data.forecast_len. Seeded by (seed, epoch) only."""
+        if not self.rollout_schedule:
+            return self.forecast_len
+        from credit_torch.trainers.scheduler import annealed_probability
+
+        rs = self.rollout_schedule
+        p = annealed_probability(
+            epoch, int(rs.get("max_epochs", self.num_epoch)),
+            float(rs.get("min_probability", 0.01)),
+            float(rs.get("max_probability", 1.0)))
+        rng = np.random.default_rng(seed * 100003 + epoch)
+        flen = 1
+        while flen < self.forecast_len and rng.random() > p:
+            flen += 1
+        return flen
+
+    # optuna pruning hook (reference: base_trainer.py trial.report/should_prune)
+    optuna_trial = None
+
+    def _optuna_report(self, valid_loss: float, epoch: int):
+        self.optuna_trial.report(valid_loss, step=epoch)
+        if self.optuna_trial.should_prune():
+            import optuna
+
+            raise optuna.TrialPruned()
+
+    def _build_train_postblocks(self, grid):
+        """Per-step postblocks run inside the train step (reference:
+        trainer_gen2.py applies the model's post_conf pipeline every step).
+        Empty unless post_conf activates some; a block that fails to build
+        raises."""
+        from credit_torch.postblock import build_postblocks
+
+        return build_postblocks(self.conf, self.schema, grid, self.normalizer)
+
+    # ------------------------------------------------------------------
+    def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
+        """Seeded weights for the model (convert_jax.seed_train_: kernels
+        he_uniform from `generator`, a CPU generator seeded 0 by default, so
+        every device draws the same weights; spectral-norm u/v converged),
+        fresh AdamW moments and, with use_ema, the EMA."""
+        from credit_torch.convert_jax import seed_train_
+
+        seed_train_(self.model, self.conf, generator or torch.Generator().manual_seed(0))
+        state = TrainState.create(self.model, self.optimizer, ema=self.use_ema)
+        n = sum(p.numel() for p in self.model.parameters())
+        logger.info("model parameters: %.2fM", n / 1e6)
+        return state
+
+    def _host_tensor(self, name: str, v: np.ndarray) -> torch.Tensor:
+        """A batch array as a tensor, pinned when the device is CUDA (so the
+        copy to the card can be asynchronous). Only native float32 reaches
+        the model."""
+        if v.dtype != np.float32:
+            raise TypeError(f"batch array {name!r} is {v.dtype}; the datasets emit native "
+                            "float32")
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _batches(self, sampler, dataset, flen: int, replay: bool, prefetch_depth: int):
+        """(host batch, t_next, host ms) per sampled batch of init times:
+        the batch read from `dataset` (with replayed states swapped in under
+        `replay`), its arrays pinned; t_next are its post-rollout time
+        indices. Assembled `prefetch_depth` ahead on a producer thread
+        (data/prefetch.py) so it overlaps the device steps."""
+
+        def assemble(tidx):
+            t0 = time.perf_counter()
+            raw = (self.replay.make_batch(dataset, tidx, flen) if replay
+                   else dataset.batch(tidx, flen))
+            batch = {k: self._host_tensor(k, v) for k, v in raw.items() if v is not None}
+            return batch, np.asarray(tidx) + flen, (time.perf_counter() - t0) * 1e3
+
+        if prefetch_depth > 0:
+            from credit_torch.data.prefetch import Prefetcher
+
+            return Prefetcher(iter(sampler), assemble, depth=prefetch_depth)
+        return map(assemble, sampler)
+
+    def _to_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The pinned batch onto the device, asynchronously, on the current
+        stream: the step's kernels follow it in stream order, and PyTorch's
+        pinned-memory allocator keeps each host block until its copy is
+        done."""
+        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    def fit(self, state: Optional[TrainState] = None, seed: int = 0,
+            start_epoch: int = 0) -> TrainState:
+        """Train for num_epoch epochs, numbered from `start_epoch` (a resumed
+        run continues the epoch count, so the sampler draws the epochs an
+        uninterrupted run would). Returns the final state."""
+        from credit_torch.data.sampler import MultiStepSampler
+        from credit_torch.trainers import preflight as pf
+
+        if state is None:
+            state = self.init_state(torch.Generator().manual_seed(seed))
+        t = self.conf.get("trainer", {})
+        vidx = (self.dataset.valid_init_indices(self.forecast_len)
+                if hasattr(self.dataset, "valid_init_indices") else None)
+        vvidx = (self.valid_dataset.valid_init_indices(self.forecast_len)
+                 if hasattr(self.valid_dataset, "valid_init_indices") else None)
+        sampler = MultiStepSampler(
+            len(self.dataset), self.batch_size, self.forecast_len, self.history_len, seed=seed,
+            batches_per_epoch=self.batches_per_epoch, valid_indices=vidx)
+        vsampler = MultiStepSampler(
+            len(self.valid_dataset), self.valid_batch_size, self.forecast_len,
+            self.history_len, seed=seed + 1, shuffle=False,
+            batches_per_epoch=self.valid_batches, valid_indices=vvidx)
+
+        os.makedirs(self.save_loc, exist_ok=True)
+        self.schema.save(self.save_loc)
+        log_path = os.path.join(self.save_loc, "training_log.csv")
+        best_loss = np.inf
+        patience = 0
+
+        # preflight (reference: base_trainer.py:573 runs preflight before the
+        # epoch loop). 'full' also runs one train step for the CUDA
+        # allocator's peak (the reference's synthetic VRAM probe), so it is
+        # opt-in.
+        pfmode = t.get("preflight", True)
+        if pfmode:
+            pf.estimate_batch_ram(self.dataset, self.batch_size, self.forecast_len)
+            p_gb = sum(p.numel() * p.element_size() for p in state.model.parameters()) / 2**30
+            o_gb = sum(v.numel() * v.element_size() for m in ("mu", "nu")
+                       for v in state.opt_state[m].values()) / 2**30
+            logger.info("preflight: device bytes: params %.3f GB, optimizer %.3f GB", p_gb, o_gb)
+            if pfmode == "full":
+                raw0 = self.dataset.batch([self.dataset.history_len] * self.batch_size,
+                                          self.forecast_len)
+                batch0 = self._to_device({k: self._host_tensor(k, v) for k, v in raw0.items()
+                                          if v is not None})
+                pf.estimate_train_memory(self._train_step_for(self.forecast_len), state, batch0)
+
+        tb = None
+        if t.get("use_tensorboard", False):
+            try:
+                from tensorboardX import SummaryWriter
+
+                tb = SummaryWriter(os.path.join(self.save_loc, "tensorboard"))
+            except ImportError:
+                logger.warning("tensorboardX not available; skipping TB logging")
+
+        fetch_every = int(t.get("metrics_fetch_every", 50))
+        prefetch_depth = int(t.get("prefetch", 2))
+        dev = self.device
+
+        for epoch in range(start_epoch, start_epoch + self.num_epoch):
+            sampler.set_epoch(epoch)
+            t0 = time.time()
+            eff_len = self._scheduled_forecast_len(epoch, seed)
+            if eff_len != self.forecast_len:
+                logger.info("epoch %d scheduled rollout length: %d", epoch, eff_len)
+            step_fn = self._train_step_for(eff_len)
+            spans = {"assemble_ms": [], "copy": [], "train": [], "valid": []}
+            # metrics stay on the device: fetched once an epoch, and for the
+            # log line every metrics_fetch_every batches
+            acc, n_tr = None, 0
+            for host, t_next, host_ms in self._batches(sampler, self.dataset, eff_len,
+                                                       self.replay is not None, prefetch_depth):
+                spans["assemble_ms"].append(host_ms)
+                m0 = _mark(dev)
+                batch = self._to_device(host)
+                m1 = _mark(dev)
+                if epoch == start_epoch and n_tr == 0 and pfmode:
+                    # the first step may build the kernels (nvcc, a cold
+                    # build directory): run it under the startup watchdog,
+                    # which warns and never raises (reference: preflight.py:109)
+                    state, metrics = pf.first_batch_watchdog(
+                        lambda s=state, b=batch: step_fn(s, b),
+                        timeout_s=float(t.get("first_batch_timeout", 300.0)),
+                        name="first train step (kernel build)")
+                else:
+                    state, metrics = step_fn(state, batch)
+                spans["copy"].append((m0, m1))
+                spans["train"].append((m1, _mark(dev)))
+                if self.replay is not None:
+                    fx = metrics.pop("_final_x").cpu().numpy()
+                    for i, tn in enumerate(t_next):
+                        # the bound uses the SCHEDULED length: replayed states
+                        # must leave room for this epoch's rollout window
+                        if tn + eff_len < len(self.dataset):
+                            self.replay.add(int(tn), fx[i])
+                acc = _accumulate(acc, metrics)
+                n_tr += 1
+                if fetch_every and n_tr % fetch_every == 0:
+                    logger.info("epoch %d batch %d loss %.5f", epoch, n_tr, float(metrics["loss"]))
+            vacc, n_va = None, 0
+            # the eval noise source varies per (epoch, batch), seeded from
+            # seed + 0x5EED as the reference's; torch generators, so the
+            # draws are not JAX's keys
+            for host, _, host_ms in self._batches(vsampler, self.valid_dataset,
+                                                  self.forecast_len, False, prefetch_depth):
+                spans["assemble_ms"].append(host_ms)
+                m0 = _mark(dev)
+                batch = self._to_device(host)
+                m1 = _mark(dev)
+                gen = torch.Generator().manual_seed(
+                    int(np.random.SeedSequence([seed + 0x5EED, epoch, n_va]).generate_state(1)[0]))
+                vm = self._eval_step(state, batch, gen)
+                spans["copy"].append((m0, m1))
+                spans["valid"].append((m1, _mark(dev)))
+                vacc = _accumulate(vacc, vm)
+                n_va += 1
+            acc_h, vacc_h = _fetch(acc), _fetch(vacc)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.epoch_timings.append({
+                "epoch": epoch, "assemble_ms": spans["assemble_ms"],
+                **{f"{k}_ms": [_span_ms(a, b) for a, b in spans[k]]
+                   for k in ("copy", "train", "valid")}})
+            tr = float(acc_h.get("loss", np.nan)) / max(n_tr, 1)
+            va = float(vacc_h.get("loss")) / n_va if n_va else tr
+            dt = time.time() - t0
+            logger.info("epoch %d train %.5f valid %.5f (%.1fs)", epoch, tr, va, dt)
+            # per-variable columns (reference: base_trainer.py:663-703 writes
+            # the full metrics dict to training_log.csv)
+            var_cols = sorted(k for k in acc_h if k not in ("loss", "grad_norm", "finite"))
+            vvar_cols = sorted(k for k in vacc_h if k != "loss")
+            lr = float(self.schedule(state.step))
+            write_header = not os.path.exists(log_path)
+            with open(log_path, "a", newline="") as f:
+                wcsv = csv.writer(f)
+                if write_header:
+                    wcsv.writerow(["epoch", "train_loss", "valid_loss", "seconds", "lr",
+                                   "grad_norm"] + [f"train_{k}" for k in var_cols]
+                                  + [f"valid_{k}" for k in vvar_cols])
+                wcsv.writerow(
+                    [epoch, tr, va, dt, lr, float(acc_h.get("grad_norm", np.nan)) / max(n_tr, 1)]
+                    + [float(acc_h[k]) / max(n_tr, 1) for k in var_cols]
+                    + [float(vacc_h[k]) / max(n_va, 1) for k in vvar_cols])
+            if tb is not None:
+                tb.add_scalar("loss/train", tr, epoch)
+                tb.add_scalar("loss/valid", va, epoch)
+                tb.add_scalar("lr", lr, epoch)
+                for k in var_cols:
+                    tb.add_scalar(f"train/{k}", float(acc_h[k]) / max(n_tr, 1), epoch)
+                tb.flush()
+            if self.optuna_trial is not None:
+                self._optuna_report(va, epoch)
+
+            self.save_checkpoint(state, epoch)
+            if va < best_loss:
+                best_loss = va
+                patience = 0
+                if t.get("save_best_weights"):
+                    self.save_checkpoint(state, epoch, tag="best")
+            else:
+                patience += 1
+                if patience >= self.stopping_patience:
+                    logger.info("early stopping at epoch %d", epoch)
+                    break
+        return state
+
+    # ------------------------------------------------------------------
+    CHECKPOINT_FILE = "state.pt"
+
+    def save_checkpoint(self, state: TrainState, epoch: int, tag: str = "checkpoint"):
+        """Full training state in `save_loc/tag/state.pt` (torch.save): the
+        model's parameters and spectral-norm u/v buffers, `step`, the AdamW
+        moments and count, and the EMA (reference: base_trainer.
+        _save_checkpoint; the directory names are credit_tpu's, the format
+        is the port's own). The previous checkpoint is kept as
+        backup_checkpoint (save_backup_weights). The file is written beside
+        the old one and renamed into place; epoch.txt, the resume marker,
+        is written last."""
+        path = os.path.join(self.save_loc, tag)
+        ckpt = os.path.join(path, self.CHECKPOINT_FILE)
+        if (tag == "checkpoint" and os.path.exists(path)
+                and self.conf.get("trainer", {}).get("save_backup_weights", True)):
+            backup = os.path.join(self.save_loc, "backup_checkpoint")
+            shutil.rmtree(backup, ignore_errors=True)
+            shutil.copytree(path, backup)
+        os.makedirs(path, exist_ok=True)
+        payload = {"model": state.model.state_dict(), "step": state.step,
+                   "opt_state": state.opt_state, "ema_params": state.ema_params}
+        torch.save(payload, ckpt + ".tmp")
+        os.replace(ckpt + ".tmp", ckpt)
+        with open(os.path.join(self.save_loc, "epoch.txt"), "w") as f:
+            f.write(str(epoch))
+
+    def load_checkpoint(self, state: TrainState, tag: str = "checkpoint",
+                        load_optimizer: bool = True) -> TrainState:
+        """`state` with the checkpoint's parameters, u/v, step and EMA (where
+        it has one), and its optimizer state unless load_optimizer is off.
+        The tensors are copied into the state's own, on its device."""
+        path = os.path.join(self.save_loc, tag, self.CHECKPOINT_FILE)
+        saved = torch.load(path, map_location=self.device, weights_only=True)
+        state.model.load_state_dict(saved["model"])
+        opt_state = state.opt_state
+        if load_optimizer:
+            with torch.no_grad():
+                for m in ("mu", "nu"):
+                    for k, v in opt_state[m].items():
+                        v.copy_(saved["opt_state"][m][k])
+            opt_state = {**opt_state, "count": saved["opt_state"]["count"]}
+        ema = state.ema_params
+        if ema is not None and saved.get("ema_params") is not None:
+            with torch.no_grad():
+                for k, v in ema.items():
+                    v.copy_(saved["ema_params"][k])
+        return TrainState(saved["step"], state.model, opt_state, ema)
+
+    def checkpoint_epoch(self) -> int:
+        """The last epoch a checkpoint was written for (epoch.txt)."""
+        with open(os.path.join(self.save_loc, "epoch.txt")) as f:
+            return int(f.read())
+
+
+def load_trainer(conf: dict):
+    """Registry dispatch (reference: credit/trainers/__init__.py:81): every
+    reference trainer key resolves here; the per-domain classes' deltas are
+    config-driven in this design. The diffusion and IC-optimisation
+    trainers are registered but raise until they are ported."""
+    ttype = conf.get("trainer", {}).get("type", "era5-v2")
+    aliases = {"era5-gen1": "era5", "cam": "era5",
+               "gen2": "era5-v2", "era5-gen2": "era5-v2",
+               "era5-ensemble": "era5-v2", "era5-ensemble-v2": "era5-v2",
+               "universal": "era5-v2",
+               "les": "era5-v2", "standard-les": "era5-v2",
+               "wrf": "era5-v2", "standard-wrf": "era5-v2",
+               "multi-step-wrf": "era5-v2",
+               "conus404": "era5-v2", "downscaling": "era5-v2",
+               "samudra": "era5-v2",
+               "era5-ic-opt": "ic-opt"}
+    name = aliases.get(ttype, ttype)
+    try:
+        return registry.get("trainer", name)
+    except KeyError:
+        logger.warning("unknown trainer type %r; using era5-v2", ttype)
+        return registry.get("trainer", "era5-v2")

@@ -21,6 +21,7 @@ import torch
 
 from __graft_entry__ import TINY_MODEL_CONF
 from credit_tpu.data.channels import ChannelSchema as JSchema
+from credit_tpu.data.normalize import Normalizer as JNormalizer
 from credit_tpu.models import load_model as jax_load_model
 from credit_tpu.models.scan_utils import stack_block_params
 from credit_tpu.models.spectral_utils import converge_spectral, fold_spectral
@@ -33,6 +34,7 @@ from credit_torch.losses import WeightedLoss
 from credit_torch.rollout import RolloutEngine, make_scan_rollout
 from credit_torch.trainers.scheduler import constant
 from credit_torch.trainers.trainer import make_optimizer, make_train_step
+from credit_torch.utils.ncio import Dataset
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -232,7 +234,11 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.models.fuxi, credit_torch.models.swin, "
             "credit_torch.trainers.trainer, credit_torch.losses, credit_torch.postblock, "
             "credit_torch.grid, credit_torch.physics.core, credit_torch.tools.bench_conv, "
-            "credit_torch.tools.bench_conv_ffk; "
+            "credit_torch.tools.bench_conv_ffk, credit_torch.applications, credit_torch.config, "
+            "credit_torch.metrics, credit_torch.data.local, credit_torch.data.era5, "
+            "credit_torch.data.multi_source, credit_torch.data.prefetch, "
+            "credit_torch.data.replay_buffer, credit_torch.data.sampler, "
+            "credit_torch.trainers.preflight, credit_torch.utils.ncio; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
@@ -258,9 +264,9 @@ def test_entry_points_without_device_need_cuda():
         make_train_step(model, WeightedLoss(), make_optimizer({}, constant(1e-4)), schema)
 
 
-def test_rollout_engine_refuses_unported_options():
-    """The Normalizer and stateless postblocks are ported; a stateful
-    postblock (SKEBS) and statistics read from netCDF are not, and raise."""
+def test_rollout_engine_refuses_unported_options(tmp_path):
+    """The Normalizer (from netCDF statistics too) and stateless postblocks
+    are ported; a stateful postblock (SKEBS) is not, and raises."""
     conf = CONFS["padded"]
     schema = ChannelSchema.from_config({**conf, "data": DATA})
     model = load_model(conf, device="cpu")
@@ -271,10 +277,19 @@ def test_rollout_engine_refuses_unported_options():
         def __call__(self, y, x):
             return y
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         RolloutEngine(model, schema, postblocks=[Stateful()], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        Normalizer.from_netcdf(schema, "mean.nc", "std.nc")
+    paths = [str(tmp_path / "mean.nc"), str(tmp_path / "std.nc")]
+    for path, (a, b) in zip(paths, [((0.0, 1.0), 5.0), ((2.0, 3.0), 7.0)]):
+        Dataset({"U": (("level",), np.asarray(a, np.float32)),
+                 "T": (("level",), np.asarray(a, np.float32) + 1), "SP": ((), np.float32(b)),
+                 "T2M": ((), np.float32(b + 1)), "TISR": ((), np.float32(b + 2)),
+                 "PRECIP": ((), np.float32(b + 3))}).to_netcdf(path)
+    ours = Normalizer.from_netcdf(schema, *paths)
+    ref = JNormalizer.from_netcdf(JSchema.from_config({**conf, "data": DATA}), *paths)
+    for stat in ("input_mean", "input_std", "target_mean", "target_std"):
+        assert np.array_equal(getattr(ours, stat).numpy(), np.asarray(getattr(ref, stat))), stat
+    assert ours.input_std.numpy().tolist()[:2] == [2.0, 3.0]
     engine = RolloutEngine(model, schema, normalizer=Normalizer.identity(schema),
                            postblocks=[lambda y, x: y], device="cpu")
     engine.close()

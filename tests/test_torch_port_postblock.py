@@ -37,6 +37,7 @@ from credit_torch.models import load_model
 from credit_torch.physics import core as tcore
 from credit_torch.postblock.stochastic import apply_postblocks_stateful, init_postblock_states
 from credit_torch.rollout import RolloutEngine
+from credit_torch.utils.ncio import Dataset
 
 NLEV = 4
 H, W = 10, 20
@@ -362,7 +363,7 @@ def test_build_postblocks_pipeline_and_dtypes_match_reference(env):
 def test_unported_postblocks_raise(env, key):
     _, schema, _, _ = env
     conf = {"post_conf": {"activate": True, key: {"activate": True}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         registry.get("postblock", key)(schema=schema, grid=None)
     if key not in ("hybrid_level_interp", "pressure_interp_diagnostic"):
         # (the reference's build_postblocks never builds those two)
@@ -370,8 +371,11 @@ def test_unported_postblocks_raise(env, key):
             tpb.build_postblocks(conf, schema, None)
 
 
-def test_stateful_postblocks_and_netcdf_stats_raise(env):
-    _, schema, _, _ = env
+def test_stateful_postblocks_and_netcdf_stats_raise(env, tmp_path):
+    """A stateful postblock (SKEBS) still raises. The statistics and the
+    wet mask read from netCDF (written with the port's ncio) equal
+    credit_tpu's from the same files."""
+    jschema, schema, _, y = env
 
     class Stateful:
         is_stateful = True
@@ -381,10 +385,23 @@ def test_stateful_postblocks_and_netcdf_stats_raise(env):
 
     with pytest.raises(NotImplementedError, match="stateful"):
         init_postblock_states([Stateful()], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        Normalizer.from_netcdf(schema, "mean.nc", "std.nc")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        tpb.WetMaskSamudra(schema, wet_mask="mask.nc")
+    mean, std = _stats(schema)
+    paths = []
+    for name, table in (("mean", mean), ("std", std)):
+        paths.append(str(tmp_path / f"{name}.nc"))
+        Dataset({v: (("level",), np.asarray(a, np.float32)) if np.ndim(a) else
+                 ((), np.float32(a)) for v, a in table.items()}).to_netcdf(paths[-1])
+    ours, ref = Normalizer.from_netcdf(schema, *paths), JNormalizer.from_netcdf(jschema, *paths)
+    for stat in ("input_mean", "input_std", "target_mean", "target_std"):
+        np.testing.assert_allclose(getattr(ours, stat).numpy(), np.asarray(getattr(ref, stat)),
+                                   rtol=1e-7, atol=0, err_msg=stat)
+    mask = (np.arange(H * W).reshape(H, W) % 3 > 0).astype(np.float32)
+    Dataset({"wet_mask": (("lat", "lon"), mask)}).to_netcdf(str(tmp_path / "mask.nc"))
+    tb = tpb.WetMaskSamudra(schema, wet_mask=str(tmp_path / "mask.nc"))
+    jb = jpb.WetMaskSamudra(jschema, wet_mask=str(tmp_path / "mask.nc"))
+    out = tb(torch.from_numpy(y), None).numpy()
+    assert np.array_equal(out, np.asarray(jb(jnp.asarray(y), None)))
+    assert np.array_equal(out, y * mask[..., None])
 
 
 # --------------------------------------------------------------- the rollout

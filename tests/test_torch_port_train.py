@@ -262,15 +262,23 @@ def test_nan_guard_keeps_params_and_advances_moments(setup):
 
 
 def test_train_step_refuses_unported_options(setup):
+    """The normalizer, stateless postblocks, metrics and the final state
+    are ported (tests/test_torch_port_fit.py); preblocks, stateful
+    postblocks, ensembles and sn_external raise, naming their item."""
     _, _, schema, _ = setup
     model = load_model(CONF, device="cpu")
     opt = make_optimizer(CONF, tsched.constant(LR))
     loss = tlosses.WeightedLoss()
-    for kw in [{"normalizer": object()}, {"preblocks": [lambda x: x]},
-               {"postblocks": [lambda y, x: y]}, {"ensemble_size": 2},
-               {"sn_external": True}]:
+
+    class Stateful:
+        is_stateful = True
+
+    for kw in [{"preblocks": [lambda x: x]}, {"preblocks_ic": [lambda x: x]},
+               {"postblocks": [Stateful()]}, {"ensemble_size": 2}, {"sn_external": True}]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(model, loss, opt, schema, device="cpu", **kw)
+    assert make_train_step(model, loss, opt, schema, device="cpu", normalizer=object(),
+                           postblocks=[lambda y, x: y], return_final_state=True) is not None
     # the TPU levers are accepted and ignored
     conf = copy.deepcopy(CONF)
     conf["trainer"]["flatten_optimizer"] = True

@@ -1,0 +1,99 @@
+"""Fixtures shared by the port's data and training tests: a seeded
+ERA5-like zarr store, its config sections and mean/std netCDF files. Numpy
+only (the writer and the netCDF module are passed in), so the card's test
+files can use them without credit_tpu.
+"""
+
+import copy
+
+import numpy as np
+
+from __graft_entry__ import TINY_MODEL_CONF
+
+H, W = 32, 64
+STORE_LEVELS = [500.0, 700.0, 850.0]
+STORE_HOURS = 3  # the store is 3-hourly; the clocks below step 6 h (stride 2)
+N_STORE_TIMES = 41
+STATS = {"U": (0.0, 10.0), "T": (250.0, 20.0), "SP": (1e5, 1000.0), "T2M": (280.0, 15.0),
+         "TISR": (300.0, 150.0), "PRECIP": (1e-4, 5e-4), "LSM": (0.3, 0.4)}
+VARS_3D = ("U", "T")
+
+
+def write_era5_store(root, writer, seed: int = 0, n_times: int = N_STORE_TIMES):
+    """A seeded ERA5-like zarr store: (time, level, lat, lon) 3-D variables
+    chunked one (time, level) slab a chunk, (time, lat, lon) 2-D ones, a
+    static (lat, lon) land-sea mask, a `level` coordinate and a 3-hourly
+    `time` axis in hours since 1979-01-01; values in physical units around
+    STATS."""
+    rng = np.random.default_rng(seed)
+    root = str(root)
+    for name, (m, s) in STATS.items():
+        if name == "LSM":
+            writer(root, name, (m + s * rng.standard_normal((H, W))).astype(np.float32))
+        elif name in VARS_3D:
+            data = m + s * rng.standard_normal((n_times, len(STORE_LEVELS), H, W))
+            writer(root, name, data.astype(np.float32), chunks=(1, 1, H, W))
+        else:
+            data = m + s * rng.standard_normal((n_times, H, W))
+            writer(root, name, data.astype(np.float32), chunks=(1, H, W))
+    writer(root, "level", np.asarray(STORE_LEVELS), attrs={"units": "hPa"})
+    writer(root, "time", np.arange(n_times, dtype=np.int64) * STORE_HOURS,
+           attrs={"units": "hours since 1979-01-01", "calendar": "standard"})
+    return root
+
+
+def era5_source(store: str, static: bool = True) -> dict:
+    variables = {"prognostic": {"vars_3D": list(VARS_3D), "vars_2D": ["SP", "T2M"]},
+                 "dynamic_forcing": {"vars_2D": ["TISR"]},
+                 "diagnostic": {"vars_2D": ["PRECIP"]}}
+    if static:
+        variables["static"] = {"vars_2D": ["LSM"]}
+    return {"dataset_type": "zarr", "store_path": store, "levels": [500.0, 850.0],
+            "variables": variables}
+
+
+def era5_data(store: str, start="1979-01-01T06", end="1979-01-04T00", static=True, **kw) -> dict:
+    return {"source": {"ERA5": era5_source(store, static)}, "start_datetime": start,
+            "end_datetime": end, "timestep": "6h", **kw}
+
+
+def write_stats(tmp_path, ncio, seed: int = 1):
+    """Mean and std netCDF files (the reference's data.mean_path/std_path):
+    3-D variables per level, 2-D ones as scalars."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for kind in ("mean", "std"):
+        data_vars = {}
+        for name, (m, s) in STATS.items():
+            if name in VARS_3D:
+                val = (m if kind == "mean" else s) * (1 + 0.1 * rng.uniform(size=2))
+                data_vars[name] = (("level",), val.astype(np.float32))
+            else:
+                data_vars[name] = ((), np.float32(m if kind == "mean" else s))
+        path = str(tmp_path / f"{kind}.nc")
+        ncio.Dataset(data_vars, coords={"level": np.asarray([500.0, 850.0])}).to_netcdf(path)
+        paths.append(path)
+    return paths
+
+
+TRAINER = {"learning_rate": 1e-4, "weight_decay": 0.01, "grad_max_norm": 1.0,
+           "train_batch_size": 2, "num_epoch": 2, "batches_per_epoch": 2,
+           "valid_batches_per_epoch": 1, "use_ema": True, "ema_decay": 0.99,
+           "save_best_weights": True, "log_variable_metrics": True, "prefetch": 2,
+           "replay": {"capacity": 8, "probability": 0.0}}
+POST_CONF = {"activate": True, "tracer_fixer": {"activate": True, "tracer_vars": ["PRECIP"],
+                                                "tracer_thres": 0.0}}
+
+
+def fit_conf(store, stats, save_loc, **trainer) -> dict:
+    """The tiny CrossFormer on the zarr store: 2 init-time batches of 2 an
+    epoch from a training window, 1 validation batch from a later one, the
+    Normalizer from the netCDF statistics, a tracer fixer inside the loss."""
+    data = era5_data(store, end="1979-01-02T12", static=False, forecast_len=1, history_len=1,
+                     mean_path=stats[0], std_path=stats[1])
+    valid = era5_data(store, start="1979-01-03T00", end="1979-01-03T18", static=False,
+                      forecast_len=1, history_len=1)
+    model = {**copy.deepcopy(TINY_MODEL_CONF["model"]), "post_conf": POST_CONF}
+    return {"model": model, "data": data, "data_valid": valid, "save_loc": str(save_loc),
+            "seed": 0, "loss": {"training_loss": "mse", "use_latitude_weights": True},
+            "trainer": {**TRAINER, **trainer}}
