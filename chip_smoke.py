@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --ptxas      # also print nvcc's register/smem report
     python3 chip_smoke.py --profile    # also by-kernel profiles of main paths 1-5
-                                       # and 7 (every row in build/profile_*.txt)
+                                       # (every row in build/profile_*.txt)
 
 Phases (any failure exits non-zero):
   1. build the kernels from credit_torch/csrc with nvcc (printed seconds);
@@ -30,9 +30,10 @@ Phases (any failure exits non-zero):
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
      compute on the card against f32 on the CPU; the tiny CrossFormer's
-     RolloutEngine with a Normalizer and the four fixers likewise, and its
+     RolloutEngine with a Normalizer and the four fixers likewise, its
      2-epoch run_training on a seeded 32x64 zarr store (training_log.csv
-     cell by cell);
+     cell by cell), and a tiny crossformer-ensemble's members and CRPS
+     train step with the same noise on both;
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -61,8 +62,20 @@ Phases (any failure exits non-zero):
      best weights, per-variable metrics, prefetch 2), then a resume for one
      more epoch: the log, the checkpoints, the resumed state and the
      launches checked; the step, validation, batch assembly and copy times
-     and the peak memory printed (with --profile, the resumed epoch's
-     device idle share).
+     and the peak memory printed; the store read through the native chunk
+     pool (every chunk it decodes counted against every chunk read), the
+     resumed epoch profiled for the device's idle share, and four more
+     one-epoch fits in turns, through the pool and through the Python path,
+     for the step time beside each;
+ 11. main path 8, ensemble CRPS training at CONF_025 width: run_training on
+     phase 10's store with CONF_025_TRAIN's model as crossformer-ensemble,
+     2 members under the almost-fair CRPS, grad_accum_every 2 and
+     sn_external, one epoch of 4 micro-steps and 1 validation batch: the
+     log, the parameters unchanged after the first micro-step and changed
+     after the second, the validation members apart and the launches
+     checked; step and validation times and peak memory printed. Phase 3
+     also runs a tiny crossformer-ensemble step at 3 members on the card
+     against the CPU with the same noise.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -183,6 +196,32 @@ FIT_TRAINER = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 3,
 # the tiny fit of phase 3 on the card against the CPU, f32: every log cell
 # but its seconds, relative
 TINY_FIT_TOL = 1e-4
+# phase 10 before the native chunk pool (one thread inflating every chunk)
+# on one NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed beside its own
+# figures: batch assembly, train step, the profiled resumed epoch's idle share
+ONE_THREAD_FIT = "assembly 7.4-9.7 s a batch, train step ~390-420 ms, idle 0.978"
+# main path 8, ensemble CRPS training: CONF_025_TRAIN's model as credit_tpu's
+# noise-injection CrossFormer (crossformer-ensemble), 2 members, the
+# almost-fair CRPS with latitude weights for training and validation,
+# gradients accumulated over 2 micro-steps, spectral norm iterated outside
+# the step; one epoch of 4 micro-steps (2 updates) and 1 validation batch
+# on phase 10's store, batch 1
+ENS_TRAINER = {"train_batch_size": 1, "num_epoch": 1, "batches_per_epoch": 4,
+               "valid_batches_per_epoch": 1, "use_ema": True, "log_variable_metrics": True,
+               "prefetch": 2, "learning_rate": 1e-4, "ensemble_size": 2,
+               "grad_accum_every": 2, "sn_external": True}
+ENS_LOSS = {"training_loss": "almost-fair-crps", "validation_loss": "almost-fair-crps",
+            "use_latitude_weights": True}
+# phase 10's clock windows: 3 training init times (00-12 h) and 1 validation
+# init time (30 h); phase 11's training window runs 6 hours longer, for 4
+# init times (00-18 h), one a micro-step
+FIT_WINDOWS = (("1979-01-01T00", "1979-01-02T00"), ("1979-01-02T06", "1979-01-02T18"))
+ENS_WINDOWS = (("1979-01-01T00", "1979-01-02T06"), FIT_WINDOWS[1])
+# phase 3's tiny ensemble step: its members
+TINY_MEMBERS = 3
+# the training step's ms/step of phase 5 (and 7) by model name, for
+# phase 10's turns with and without the chunk pool
+STEP_MS = {}
 
 ROLLOUT_STEPS = 3
 # rollouts timed again after the counted one, for the spread: the host sets
@@ -198,6 +237,7 @@ FFK_MODES = ("xla", "pallas", "identity", "identity-input", "identity-end")
 # output_only_channels raised so that the outputs cover the 8 diagnostic
 # targets (64 outputs, a 256 -> 256 head phase conv), forecast_len 1, batch 1
 CONF_025_TRAIN = {**CONF_025, "output_only_channels": 8}
+CONF_025_ENS = {**CONF_025_TRAIN, "type": "crossformer-ensemble"}
 TRAINER = {"learning_rate": 1e-4}
 
 # the forecast as users run it (CONF_025_POST): CONF_025_TRAIN's model, its 8
@@ -938,6 +978,79 @@ def budgets(torch, schema, core, gph, y, x) -> dict:
             "q_min": q1.min().item()}
 
 
+def ensemble_noise(torch, model, x, generator) -> dict:
+    """A noise dict for `model` (a crossformer-ensemble) on input x, drawn
+    from `generator` on the CPU: the latent and each noise layer's pixels
+    at the shape its feature takes (read in one eval-mode forward, which
+    leaves the spectral-norm state as it was)."""
+    from credit_torch.models.sdl import DECODER_NOISE, ENCODER_NOISE
+
+    shapes, hooks = {}, []
+    for name in ENCODER_NOISE + DECODER_NOISE:
+        hooks.append(getattr(model, name).register_forward_pre_hook(
+            lambda mod, args, name=name: shapes.__setitem__(name, args[0].shape)))
+    model.eval()
+    with torch.no_grad():
+        model(x, generator=torch.Generator().manual_seed(0))
+    for h in hooks:
+        h.remove()
+    noise = {"latent": torch.randn((x.shape[0], model.noise_latent_dim), generator=generator)}
+    noise.update({k: torch.randn(v, generator=generator) for k, v in shapes.items()})
+    return noise
+
+
+def tiny_ensemble(torch) -> None:
+    """The tiny CrossFormer as crossformer-ensemble (f32, seeded weights
+    with spectral-norm state) at TINY_MEMBERS members, on the card against
+    the CPU with the same latent and pixel noise (drawn on the CPU, replayed
+    on both): every member's forward and one make_train_step under the
+    almost-fair CRPS, its loss and gradient norm, within 1e-4 relative.
+    (The CRPS's gradient is piecewise constant in the prediction: a member
+    pair within rounding of a kink on one device and not on the other
+    would turn one sign, ~1e-3 of the norm, tests/
+    test_torch_port_ensemble_fit.py; these seeded inputs have none.)"""
+    import functools
+
+    from credit_torch.convert_jax import init_train
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.losses import WeightedLoss
+    from credit_torch.trainers.scheduler import constant
+    from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
+
+    conf = {"model": {**TINY, "type": "crossformer-ensemble"}, "data": TINY_DATA}
+    schema = ChannelSchema.from_config(conf)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((1, 1, 32, 64, schema.n_input), generator=g)
+    y = torch.randn((1, 1, 32, 64, schema.n_target), generator=g) * 0.5
+    xe = torch.repeat_interleave(x, TINY_MEMBERS, dim=0)
+    models = {dev: init_train(conf, torch.Generator().manual_seed(7), device=dev)
+              for dev in ("cpu", "cuda")}
+    noise = ensemble_noise(torch, models["cpu"], xe, g)
+    outs, metrics = {}, {}
+    for dev, model in models.items():
+        nz = {k: v.to(dev) for k, v in noise.items()}
+        with torch.no_grad():
+            outs[dev] = model.eval()(xe.to(dev), noise=nz).cpu()
+        # the train step's draws replaced by the same noise on both devices
+        model.forward = functools.partial(type(model).forward, model, noise=nz)
+        opt = make_optimizer({"trainer": {"grad_max_norm": 1.0, "weight_decay": 0.01}},
+                             constant(1e-3))
+        step = make_train_step(model, WeightedLoss(base="almost-fair-crps"), opt, schema,
+                               ensemble_size=TINY_MEMBERS, device=dev)
+        _, metrics[dev] = step(TrainState.create(model, opt, ema=True), {"x": x, "y": y})
+        del model.forward
+    ref = outs["cpu"]
+    err = ((outs["cuda"] - ref).abs().max() / ref.abs().max()).item()
+    spread = (ref[0] - ref[1]).abs().max().item()
+    lerr, gerr = (abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k]))
+                  / abs(float(metrics["cpu"][k])) for k in ("loss", "grad_norm"))
+    log(f"  tiny crossformer-ensemble, {TINY_MEMBERS} members, f32 card vs CPU, same noise: "
+        f"forward rel err {err:.3e} limit 1e-4 (members apart by {spread:.3e}); CRPS train step "
+        f"loss rel err {lerr:.3e}, grad norm rel err {gerr:.3e}, limit 1e-4")
+    if not (err <= 1e-4 and spread > 0 and lerr <= 1e-4 and gerr <= 1e-4):
+        raise AssertionError("the tiny ensemble on the card disagrees with the CPU")
+
+
 def tiny_post_rollout(torch) -> None:
     """A 2-step RolloutEngine.run of a tiny CrossFormer with the seeded
     Normalizer and the four fixers (one Normalizer and one pipeline for
@@ -1221,6 +1334,7 @@ def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, norms = [float(v) for v in losses], [float(v) for v in norms]
+    STEP_MS[name] = elapsed * 1e3 / TRAIN_STEPS
     log(f"  {name} training step: {elapsed * 1e3 / TRAIN_STEPS:.1f} ms/step over "
         f"{TRAIN_STEPS} steps, peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} "
         f"allocated before it), launches {counts}")
@@ -1355,13 +1469,17 @@ def tiny_fit(torch) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
-def fit_path(torch, want_train: dict, want_valid: dict, profile: bool = False) -> dict:
+def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     """Main path 7, `credit train` at CONF_025: the store, run_training for
-    2 epochs, then a resumed run of 1 epoch, each checked; returns the
-    first run's launch counts."""
+    2 epochs, then a resumed run of 1 epoch under the profiler, each
+    checked, the store read through the native chunk pool. Returns the
+    first run's launch counts and (store, statistics, data section) for
+    main path 8, which removes the store."""
     import shutil
 
-    from credit_torch.applications import prepare_training, run_training
+    from credit_torch.applications import prepare_training
+    from credit_torch.data import zarrlite
+    from credit_torch.native import fastload
     from credit_torch.trainers.trainer import Trainer
 
     root = os.path.join(HERE, "build", "fit_025")
@@ -1375,9 +1493,10 @@ def fit_path(torch, want_train: dict, want_valid: dict, profile: bool = False) -
     log(f"  store: {FIT_TIMES} times x {len(FIT_LEVELS)} levels at {h}x{w}, {size} bytes "
         f"written in {time.time() - t0:.1f} s (zlib level 1, 8 writer threads)")
     conf = fit_conf(CONF_025_TRAIN, data, store, stats, os.path.join(root, "run"), FIT_TRAINER,
-                    ("1979-01-01T00", "1979-01-02T00"), ("1979-01-02T06", "1979-01-02T18"))
+                    *FIT_WINDOWS)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    read0, pool0 = zarrlite.chunks_read, fastload.decoded
     t0 = time.time()
     trainer, state, start, seed = prepare_training(conf)
     log(f"  run_training set-up (data, model, trainer, seeded weights): {time.time() - t0:.1f} s")
@@ -1385,6 +1504,11 @@ def fit_path(torch, want_train: dict, want_valid: dict, profile: bool = False) -
     torch.cuda.synchronize()
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
+    read, pool = zarrlite.chunks_read - read0, fastload.decoded - pool0
+    log(f"  chunk pool (credit_torch/native/fastload.cpp): {fastload.default_threads()} threads "
+        f"(os.cpu_count() {os.cpu_count()}); chunks decoded by the pool {pool} of {read} read")
+    if pool != read or read == 0:
+        raise AssertionError(f"{read - pool} of {read} chunks bypassed the native pool")
     log(f"  run_training 2 epochs: {time.time() - t0:.1f} s end to end, peak memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB), launches {counts}; preflight and warm-up add none (the "
         f"preflight reads a host sample only, the weights are seeded without a forward)")
@@ -1431,10 +1555,7 @@ def fit_path(torch, want_train: dict, want_valid: dict, profile: bool = False) -
     def resumed():
         done["state"] = trainer.fit(state, seed=seed, start_epoch=start)
 
-    if profile:
-        profile_steps(torch, "CONF_025 resumed fit epoch", resumed, (), steps=1)
-    else:
-        resumed()
+    idle = profile_steps(torch, "CONF_025 resumed fit epoch", resumed, (), steps=1)
     state_step = done["state"].step
     torch.cuda.synchronize()
     counts2 = _read_counts()
@@ -1445,7 +1566,164 @@ def fit_path(torch, want_train: dict, want_valid: dict, profile: bool = False) -
     rows = read_log(run)
     if [r[0] for r in rows[1:]] != ["0", "1", "2"] or state_step != 9:
         raise AssertionError(f"the resumed run did not continue: epochs {[r[0] for r in rows[1:]]}")
+    log(f"  resumed epoch (profiled) idle share {idle:.3f}; phase 10 before the chunk pool: "
+        f"{ONE_THREAD_FIT}")
+    assembly_breakdown(trainer)
     del state, trainer, saved, done
+    shutil.rmtree(run, ignore_errors=True)
+    pool_step_turns(torch, conf)
+    return counts, (store, stats, data)
+
+
+def pool_step_turns(torch, conf: dict) -> None:
+    """Whether the chunk pool's threads slow the thread that launches the
+    step: one-epoch fits from the seeded state in turns, the chunks read
+    through the native pool and through the Python path (codec_id patched
+    to None, as assembly_breakdown does), pool, Python, pool, Python; each
+    turn's train step, assembly and wall times, then each path's mean step
+    over its turns (each run's first step left out) beside phase 5's step
+    alone (no data pipeline, no metrics)."""
+    import shutil
+
+    from credit_torch.applications import prepare_training
+    from credit_torch.native import fastload
+
+    codec_id = fastload.codec_id
+    steps = {"native pool": [], "Python path": []}
+    try:
+        for turn, path in enumerate(["native pool", "Python path"] * 2):
+            fastload.codec_id = codec_id if path == "native pool" else (lambda compressor: None)
+            run = {**conf, "save_loc": f"{conf['save_loc']}_turn{turn}",
+                   "trainer": {**conf["trainer"], "num_epoch": 1}}
+            trainer, state, start, seed = prepare_training(run)
+            trainer.fit(state, seed=seed, start_epoch=start)
+            torch.cuda.synchronize()
+            e = trainer.epoch_timings[0]
+            wall = float(read_log(run["save_loc"])[1][3]) * 1e3
+            steps[path] += e["train_ms"][1:]
+            log(f"  turn {turn}, {path}: train step ms "
+                f"{[round(v, 1) for v in e['train_ms']]}, batch assembly host ms "
+                f"{[round(v) for v in e['assemble_ms']]}, epoch wall {wall:.0f} ms")
+            del trainer, state
+            shutil.rmtree(run["save_loc"], ignore_errors=True)
+    finally:
+        fastload.codec_id = codec_id
+    means = {k: sum(v) / len(v) for k, v in steps.items()}
+    log(f"  train step but each run's first, mean over the turns: native pool "
+        f"{means['native pool']:.1f} ms ({len(steps['native pool'])} steps), Python path "
+        f"{means['Python path']:.1f} ms ({len(steps['Python path'])} steps); phase 5's step "
+        f"alone {STEP_MS.get('CONF_025', float('nan')):.1f} ms")
+
+
+def assembly_breakdown(trainer) -> None:
+    """One training batch assembled on this thread while the card idles,
+    through the native pool and then through the Python path (chunk by
+    chunk, as the reader did before the pool): the whole (`dataset.batch`
+    and pinning), the time inside the zarr reads and, of it, inside the
+    pool's read and inflate; the rest is `_stack`'s copies and the
+    pinning."""
+    from credit_torch.data import zarrlite
+    from credit_torch.native import fastload
+
+    spent = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    read, pool, codec_id = zarrlite.ZarrArray.read, fastload.read_decode_batch, fastload.codec_id
+    zarrlite.ZarrArray.read = timed("read", read)
+    fastload.read_decode_batch = timed("pool", pool)
+    try:
+        for path in ("native pool", "Python path"):
+            if path == "Python path":
+                fastload.codec_id = lambda compressor: None
+            spent.update(read=0.0, pool=0.0)
+            t0 = time.perf_counter()
+            raw = trainer.dataset.batch([0], 1)
+            batch = {k: trainer._host_tensor(k, v) for k, v in raw.items() if v is not None}
+            whole = (time.perf_counter() - t0) * 1e3
+            nbytes = sum(v.numel() * v.element_size() for v in batch.values())
+            log(f"  one batch ({nbytes} bytes) assembled alone, {path}: {whole:.0f} ms; zarr reads "
+                f"{spent['read'] * 1e3:.0f} ms (the pool's read and inflate "
+                f"{spent['pool'] * 1e3:.0f} ms); stacking and pinning "
+                f"{whole - spent['read'] * 1e3:.0f} ms")
+    finally:
+        zarrlite.ZarrArray.read, fastload.read_decode_batch = read, pool
+        fastload.codec_id = codec_id
+
+
+def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> dict:
+    """Main path 8, ensemble CRPS training at CONF_025 width: run_training
+    (prepare_training + fit) of CONF_025_ENS on main path 7's store for one
+    epoch of ENS_TRAINER. Checks: the log finite in every cell, the
+    parameters bitwise unchanged by the first micro-step and changed by the
+    second (grad_accum_every 2), the two members of the validation batch
+    apart, the launches (4 micro-steps of 2 members and a 2-member
+    validation forward); prints the step, validation and assembly times
+    and the peak memory. Removes the store; returns the launch counts."""
+    import shutil
+
+    from credit_torch.applications import prepare_training
+
+    store, stats, data = store_info
+    root = os.path.dirname(store)
+    conf = fit_conf(CONF_025_ENS, data, store, stats, os.path.join(root, "ens"), ENS_TRAINER,
+                    *ENS_WINDOWS)
+    conf["loss"] = ENS_LOSS
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    trainer, state, start, seed = prepare_training(conf)
+    log(f"  set-up (data, crossformer-ensemble model, trainer, seeded weights): "
+        f"{time.time() - t0:.1f} s; {sum(p.numel() for p in trainer.model.parameters())} f32 "
+        f"parameters")
+    params = list(trainer.model.parameters())
+    step, unchanged = trainer._train_step_for(1), []
+
+    def watched(state, batch):
+        # the first two micro-steps: the parameters before and after, on the host
+        before = ([p.detach().to("cpu", copy=True) for p in params] if len(unchanged) < 2
+                  else None)
+        out = step(state, batch)
+        if before is not None:
+            unchanged.append(all(torch.equal(p.detach().cpu(), b) for p, b in zip(params, before)))
+        return out
+
+    trainer._step_cache[1] = watched
+    spread = []
+
+    def members(module, args, out):
+        if not module.training:  # validation: batch 1, members 0 and 1
+            spread.append((out[0] - out[1]).abs().max().item())
+
+    hook = trainer.model.register_forward_hook(members)
+    state = trainer.fit(state, seed=seed, start_epoch=start)
+    torch.cuda.synchronize()
+    hook.remove()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  run_training 1 epoch: {time.time() - t0:.1f} s end to end, peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB), launches {counts}")
+    fit_times(trainer)
+    log(f"  parameters unchanged by micro-step 1, by micro-step 2: {unchanged} (expected "
+        f"[True, False]); validation members apart by {spread}; step {state.step}, optimizer "
+        f"count {state.opt_state['count']}")
+    rows = read_log(conf["save_loc"])
+    cells = [float(c) for r in rows[1:] for c in r[1:]]
+    log(f"  training_log.csv: {len(rows) - 1} row, {len(rows[0])} columns, (train, valid) loss "
+        f"{[(float(r[1]), float(r[2])) for r in rows[1:]]}")
+    if (unchanged != [True, False] or not spread or not all(v > 0 for v in spread)
+            or len(rows) != 2 or not all(math.isfinite(v) for v in cells)
+            or state.step != 4 or state.opt_state["count"] != 2):
+        raise AssertionError("the CONF_025 ensemble fit failed its checks")
+    _check_counts(counts, {k: 4 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
+    del state, trainer, params, step
     shutil.rmtree(root, ignore_errors=True)
     return counts
 
@@ -1477,10 +1755,10 @@ def fit_times(trainer) -> None:
             f"cover {spans / wall[e['epoch']]:.3f} of the wall time")
 
 
-def profile_steps(torch, what: str, run, args, steps: int) -> None:
+def profile_steps(torch, what: str, run, args, steps: int) -> float:
     """torch.profiler over run(*args), which takes `steps` steps: device time
     by kernel and the card's idle share of the wall time (profiler overhead
-    included)."""
+    included), which it returns."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1494,8 +1772,9 @@ def profile_steps(torch, what: str, run, args, steps: int) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
     log(f"  profile of {steps} x {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+        f"idle share {idle:.3f}")
     groups = {}
     for name, ms, count in rows:
         g = kernel_group(name)
@@ -1510,6 +1789,7 @@ def profile_steps(torch, what: str, run, args, steps: int) -> None:
         for name, ms, count in rows:
             f.write(f"{ms / steps:9.3f}\t{count // steps}\t{kernel_group(name)}\t{name}\n")
     log(f"    (every kernel: {os.path.relpath(path, HERE)})")
+    return idle
 
 
 def kernel_group(name: str) -> str:
@@ -1537,7 +1817,7 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true", help="print nvcc's -Xptxas -v report")
     ap.add_argument("--profile", action="store_true",
                     help="after main paths 1-5, profile a 2-step rollout / a training step "
-                         "by kernel; in main path 7, the resumed fit's epoch")
+                         "by kernel (main path 7's resumed epoch is profiled in every run)")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -1584,6 +1864,7 @@ def main() -> int:
     tiny_agreement(torch, TINY_FUXI, TINY_FUXI_DATA)
     tiny_post_rollout(torch)
     tiny_fit(torch)
+    tiny_ensemble(torch)
     log(f"  allocated on the card: {before} bytes before phase 3, "
         f"{torch.cuda.memory_allocated()} after it")
     runs, times = {}, {}
@@ -1611,8 +1892,13 @@ def main() -> int:
     runs["tools"] = tools_path(torch)
     torch.cuda.empty_cache()
     log("phase 10: main path 7, credit train at CONF_025 (run_training on a zarr ERA5 store)")
-    runs["fit_025"] = fit_path(torch, expected_train_per_step(fwd_025, False),
-                               expected_per_step(CONF_025_TRAIN), args.profile)
+    runs["fit_025"], store = fit_path(torch, expected_train_per_step(fwd_025, False),
+                                      expected_per_step(CONF_025_TRAIN))
+    torch.cuda.empty_cache()
+    log("phase 11: main path 8, ensemble CRPS training at CONF_025 width (crossformer-ensemble, "
+        "2 members, grad_accum_every 2, sn_external)")
+    runs["fit_ens_025"] = ensemble_fit_path(torch, store, expected_train_per_step(fwd_025, False),
+                                            expected_per_step(CONF_025_TRAIN))
 
     kernels = []
     for name, counter, src, replaces, r, paths in [
@@ -1621,19 +1907,19 @@ def main() -> int:
              runs),
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025", "tools", "fit_025")),
+             ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025")),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025", "fit_025")),
+             ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025")),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
-             attn, ("rollout_025", "train_025", "post_025", "fit_025")),
+             attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025")),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
-             ("train_025", "fit_025")),
+             ("train_025", "fit_025", "fit_ens_025")),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),

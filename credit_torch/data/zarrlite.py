@@ -13,9 +13,16 @@ Stores are addressed through fsspec (imported only then) when the path
 looks remote (gs://, http(s)://, s3://) and plain files otherwise, so the
 same reader serves local stores and the public buckets.
 
-Chunks are read and inflated one after another on the calling thread:
-credit_tpu's native thread pool (`native/fastload.py`) is not ported yet,
-and the batch producer of `Trainer.fit` runs this reader on its own thread.
+The chunks of a read go through the native thread pool
+(`credit_torch/native/fastload.py`, C++ read and inflate with the GIL
+released, built with g++ at first use) when the array is in C order and its
+codec is one the library decodes, as credit_tpu's reader does; a local
+store's files are read by the pool itself, a remote store's bytes are
+fetched here and inflated there. Unlike credit_tpu's, a read of one chunk
+takes the pool too, so that every chunk of an ERA5 batch, its 2-D fields
+included, is inflated off the interpreter lock. Fortran-order arrays and
+other codecs take the Python path, chunk by chunk. `chunks_read` counts
+every chunk read in this process, beside `fastload.decoded`.
 
 This is a reader, not a framework: arrays expose shape/dtype/attrs and
 orthogonal basic indexing via `read(selection)` returning numpy arrays.
@@ -25,12 +32,18 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import zlib
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from credit_torch.native import fastload
+
 _REMOTE_PREFIXES = ("gs://", "gcs://", "http://", "https://", "s3://", "az://")
+
+chunks_read = 0  # chunks read by ZarrArray.read in this process (under _count_lock)
+_count_lock = threading.Lock()
 
 
 class _Store:
@@ -178,12 +191,43 @@ class ZarrArray:
 
         if out.size:
             plan(0, (), [], [])
-        chunks = [self._read_chunk(t[0]) for t in tasks]
+        chunks = self._read_chunks([t[0] for t in tasks])
         for chunk, (_, out_slices, in_slices) in zip(chunks, tasks):
             o, i = _index(out_slices), _index(in_slices)
             out[o] = chunk[i]
         keep = tuple(0 if d else slice(None) for d in drop)
         return out[keep]
+
+    def _read_chunks(self, coords_list):
+        """Fetch and decode a batch of chunks (credit_tpu/data/zarrlite.py
+        `_read_chunks`): through the native pool for C-order arrays of a
+        codec it decodes, a local store's files read by the pool, a remote
+        store's fetched here; missing chunks are the fill value. Otherwise
+        the Python path, chunk by chunk."""
+        global chunks_read
+        with _count_lock:
+            chunks_read += len(coords_list)
+        codec = fastload.codec_id(self.compressor) if self.order == "C" else None
+        if codec is None:
+            return [self._read_chunk(c) for c in coords_list]
+        outs = [np.empty(self.chunks, self.dtype) for _ in coords_list]
+        codecs = [codec] * len(coords_list)
+        fill = 0 if self.fill_value is None else self.fill_value
+        if not self.store.remote:
+            paths = [self.store._path(self._chunk_key(c)) for c in coords_list]
+            found = fastload.read_decode_batch(paths, codecs, outs)
+            for i, ok in enumerate(found):
+                if not ok:
+                    outs[i].fill(fill)
+            return outs
+        raws = [self.store.get(self._chunk_key(c)) for c in coords_list]
+        present = [i for i, r in enumerate(raws) if r is not None]
+        fastload.decode_batch([raws[i] for i in present], [codecs[i] for i in present],
+                              [outs[i] for i in present])
+        for i, r in enumerate(raws):
+            if r is None:
+                outs[i].fill(fill)
+        return outs
 
     def __getitem__(self, key):
         if not isinstance(key, tuple):

@@ -1,10 +1,13 @@
-"""Losses: port of credit_tpu/losses/__init__.py, elementwise losses and the
-latitude- and variable-weighted `WeightedLoss`.
+"""Losses: port of credit_tpu/losses/__init__.py: the elementwise losses,
+the CRPS family, the spectral-domain losses and the latitude- and
+variable-weighted `WeightedLoss` with its spectral and power terms.
 
-Layout is channels-last (B, T, lat, lon, C). Elementwise losses return
-unreduced fields; `WeightedLoss` applies the weights and takes the mean.
-The spectral and power terms, the CRPS family and `DownscalingLoss` are not
-ported yet (ROADMAP queue 1, item 3) and raise.
+Layout is channels-last (B, T, lat, lon, C); ensemble losses take the
+prediction with an ensemble axis 1, (B, E, T, lat, lon, C). Elementwise and
+CRPS losses return unreduced fields; `WeightedLoss` applies the weights and
+takes the mean. `DownscalingLoss` (with the downscaling model, ROADMAP
+queue 1, item 7) and the device-ring `ring-crps` (with parallel/, item 8)
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -61,10 +64,121 @@ def xsigmoid(target, pred):
     return 2.0 * e * torch.sigmoid(e) - e
 
 
+# --------------------------------------------------------------------------
+# CRPS family (ensemble): pred has ensemble axis 1, (B, E, ...)
+
+
+def kcrps(target, pred, biased: bool = False):
+    """Kernel CRPS, O(m log m) through a sort over the members (reference:
+    credit/losses/kcrps.py, the Zamo & Naveau fair estimator when
+    biased=False). Returns the CRPS field with the shape of `target`."""
+    m = pred.shape[1]
+    skill = torch.abs(pred - target[:, None]).mean(dim=1)
+    ps = torch.sort(pred, dim=1).values
+    i = torch.arange(1, m + 1, dtype=pred.dtype, device=pred.device)
+    denom = m * m if biased else m * (m - 1)
+    factor = (2 * i - m - 1) / denom
+    spread = torch.tensordot(factor, ps.movedim(1, 0), dims=1)
+    return skill - spread
+
+
+registry.register("loss", "KCRPS")(kcrps)
+
+
+@registry.register("loss", "almost-fair-crps")
+def almost_fair_crps(target, pred, alpha: float = 1.0):
+    """Almost-fair kernel CRPS (reference: credit/losses/almost_fair_crps.py):
+    skill - (1 - eps) * spread with eps = (1 - alpha) / m; the spread
+    excludes i == j. It forms the (B, m, m, ...) member differences."""
+    m = pred.shape[1]
+    eps = (1.0 - alpha) / m
+    skill = torch.abs(pred - target[:, None]).mean(dim=1)
+    diffs = torch.abs(pred[:, :, None] - pred[:, None, :])
+    spread = diffs.sum(dim=(1, 2)) / (2.0 * m * (m - 1))
+    return skill - (1.0 - eps) * spread
+
+
+def crps_ensemble(target, pred):
+    """Unreduced fair kernel CRPS per grid point (alias used by metrics)."""
+    return kcrps(target, pred, biased=False)
+
+
+_RING_CRPS = ("loss 'ring-crps' is not ported yet (parallel/ring_crps.py: ROADMAP queue 1, "
+              "item 8)")
+
+
+@registry.register("loss", "ring-crps")
+def ring_crps_loss(target, pred, axis_name=None):
+    """The device-ring CRPS (one member per data-parallel device) waits for
+    parallel/ (ROADMAP queue 1, item 8)."""
+    raise NotImplementedError(_RING_CRPS)
+
+
+# --------------------------------------------------------------------------
+# spectral-domain losses (scalars)
+
+
+@registry.register("loss", "spectral")
+def spectral_loss(target, pred, lat_weights=None, wavenum_init: int = 20):
+    """FFT-amplitude loss over longitude (reference:
+    credit/losses/spectral.py): rfft over lon, |.|, the mean over latitude
+    (weighted by lat_weights / nlat when given), the squared error over
+    wavenumbers >= wavenum_init, in f32. Layout (..., lat, lon, C)."""
+    p = pred.float().movedim(-1, -3)  # (..., C, lat, lon)
+    t = target.float().movedim(-1, -3)
+    pf = torch.abs(torch.fft.rfft(p, dim=-1))
+    tf = torch.abs(torch.fft.rfft(t, dim=-1))
+    if lat_weights is not None:
+        w = (torch.as_tensor(lat_weights, device=pf.device) / lat_weights.shape[-1]).float()
+        pm = torch.einsum("l,...lk->...k", w, pf)
+        tm = torch.einsum("l,...lk->...k", w, tf)
+    else:
+        pm = pf.mean(dim=-2)
+        tm = tf.mean(dim=-2)
+    return torch.mean((pm[..., wavenum_init:] - tm[..., wavenum_init:]) ** 2)
+
+
+@registry.register("loss", "power")
+def power_loss(target, pred, lat_weights=None, wavenum_init: int = 20):
+    """Log-PSD squared-error loss (reference: credit/losses/power.py): the
+    one-sided power spectrum over longitude (rfft, norm="forward"), the
+    squared difference of its logs past wavenum_init, averaged over
+    latitude with weights lat_weights / sum (1 / nlat without)."""
+
+    def psd(x):
+        xk = torch.fft.rfft(x.float(), dim=-1, norm="forward")
+        mag = (xk * torch.conj(xk)).real
+        scale = torch.full((mag.shape[-1],), 2.0, device=mag.device)
+        scale[0] = 1.0
+        return mag * scale
+
+    p = pred.movedim(-1, -3)
+    t = target.movedim(-1, -3)
+    diff = (torch.log(psd(t) + 1e-8) - torch.log(psd(p) + 1e-8))[..., wavenum_init:] ** 2
+    nlat = diff.shape[-2]
+    if lat_weights is None:
+        w = torch.full((nlat,), 1.0 / nlat, device=diff.device)
+    else:
+        lw = torch.as_tensor(lat_weights, device=diff.device)
+        w = (lw / lw.sum()).float()
+    return torch.mean(torch.einsum("l,...lk->...k", w, diff))
+
+
+@registry.register("loss", "covmse")
+def covariance_weighted_mse(target, pred):
+    """The squared error over each channel's variance of the target (all
+    axes but the last, population variance) + 1e-8, as credit_tpu's
+    covmse."""
+    err = (pred - target) ** 2
+    var = torch.var(target, dim=tuple(range(target.ndim - 1)), keepdim=True,
+                    correction=0) + 1e-8
+    return err / var
+
+
 def load_loss(name: str, **kw) -> Callable:
-    """Look up an elementwise loss by config key."""
-    if is_crps_loss(name) or name in ("spectral", "power", "covmse"):
-        raise NotImplementedError(f"loss {name!r} is not ported yet (ROADMAP queue 1, item 3)")
+    """Look up a loss by config key (reference: credit/losses/__init__.py:176)."""
+    if name == "ring-crps":
+        raise NotImplementedError(_RING_CRPS)
     fn = registry.get("loss", name)
     return functools.partial(fn, **kw) if kw else fn
 
@@ -74,35 +188,41 @@ def is_crps_loss(name: str) -> bool:
 
 
 class WeightedLoss:
-    """Latitude- and variable-weighted total loss (credit_tpu's WeightedLoss
-    without its auxiliary terms).
+    """Latitude- and variable-weighted total loss with optional spectral and
+    power terms (reference: VariableTotalLoss2D,
+    credit/losses/weighted_loss.py:85).
 
     Args:
-      base: elementwise loss key, e.g. 'mse'.
+      base: loss key, e.g. 'mse' or 'almost-fair-crps'.
       lat_weights: (nlat,) cos-lat weights normalized to mean 1, or None.
       var_weights: (C,) per-channel weights, or None.
-      spectral_lambda / power_lambda: must be 0 (not ported yet).
+      spectral_lambda / power_lambda: the terms' coefficients (0 disables;
+        validation losses take neither).
+    `is_ensemble` says whether the base is of the CRPS family, whose
+    prediction carries the ensemble axis.
     """
 
     def __init__(self, base: str = "mse", lat_weights=None, var_weights=None,
                  spectral_lambda: float = 0.0, power_lambda: float = 0.0,
                  wavenum_init: int = 20, validation: bool = False, **base_kw):
-        if (spectral_lambda or power_lambda) and not validation:
-            raise NotImplementedError("the spectral and power loss terms are not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
         self.base_name = base
         self.base = load_loss(base, **base_kw)
         self.lat_weights = None if lat_weights is None else torch.as_tensor(
             np.asarray(lat_weights, np.float32))
         self.var_weights = None if var_weights is None else torch.as_tensor(
             np.asarray(var_weights, np.float32))
+        self.spectral_lambda = 0.0 if validation else spectral_lambda
+        self.power_lambda = 0.0 if validation else power_lambda
+        self.wavenum_init = wavenum_init
+        self.is_ensemble = is_crps_loss(base)
 
     @classmethod
     def from_config(cls, conf: dict, grid=None, validation: bool = False) -> "WeightedLoss":
         """From the config's `loss` section. `grid` gives the latitude weights
         through its `coslat_weights()`, as credit_tpu's Grid does."""
         if "datasets" in (conf.get("data") or {}):
-            raise NotImplementedError("DownscalingLoss is not ported yet (ROADMAP queue 1, item 3)")
+            raise NotImplementedError("DownscalingLoss is not ported yet (it comes with the "
+                                      "downscaling model, ROADMAP queue 1, item 7)")
         lconf = conf.get("loss", {})
         key = "validation_loss" if (validation and "validation_loss" in lconf) else "training_loss"
         lat_w = None
@@ -121,10 +241,20 @@ class WeightedLoss:
                    wavenum_init=lconf.get("spectral_wavenum_init", 20), validation=validation)
 
     def __call__(self, target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
-        """target, pred: (B, T, lat, lon, C). Returns a scalar."""
+        """target: (B, T, lat, lon, C); pred the same, or (B, E, T, lat,
+        lon, C) for a CRPS-family base. Returns a scalar; the spectral and
+        power terms score the member mean."""
         field = self.base(target, pred)
-        if self.lat_weights is not None:
-            field = field * self.lat_weights.to(field.device)[:, None, None]
+        lat_w = None if self.lat_weights is None else self.lat_weights.to(field.device)
+        if lat_w is not None:
+            field = field * lat_w[:, None, None]
         if self.var_weights is not None:
             field = field * self.var_weights.to(field.device)
-        return torch.mean(field)
+        loss = torch.mean(field)
+        p2 = pred if pred.dim() == target.dim() else pred.mean(dim=1)
+        if self.power_lambda:
+            loss = loss + self.power_lambda * power_loss(target, p2, lat_w, self.wavenum_init)
+        if self.spectral_lambda:
+            loss = loss + self.spectral_lambda * spectral_loss(target, p2, lat_w,
+                                                               self.wavenum_init)
+        return loss

@@ -6,15 +6,16 @@ import torch
 
 from credit_torch import registry, resolve_device
 
-PORTED = ("crossformer", "wxformer", "fuxi", "swin")
+PORTED = ("crossformer", "wxformer", "crossformer-ensemble", "crossformer-style", "fuxi", "swin")
 
 
 def load_model(conf: dict, device="cuda", sn_state: bool = False) -> torch.nn.Module:
     """Build the model from a gen2 config dict on `device`, in eval mode.
 
     `conf['model']['type']` selects the architecture; the CrossFormer
-    (`crossformer` / `wxformer`), FuXi (`fuxi`) and the standalone SwinV2
-    (`swin`) are ported. The reference's TPU routing keys (`pallas_conv`,
+    (`crossformer` / `wxformer`), its noise-injection ensemble
+    (`crossformer-ensemble` / `crossformer-style`), FuXi (`fuxi`) and the
+    standalone SwinV2 (`swin`) are ported. The reference's TPU routing keys (`pallas_conv`,
     `ff_fusion`, `use_pallas_attention`, `scan_blocks`, `remat`, as each
     model has them) are accepted and ignored: on CUDA the port always takes
     its kernels. `sn_state=True` keeps spectral norm as u/v buffers beside
@@ -22,7 +23,7 @@ def load_model(conf: dict, device="cuda", sn_state: bool = False) -> torch.nn.Mo
     `convert_jax.init_folded`, `init_train` or `from_jax_variables`; the
     modules start with zero kernels.
     """
-    from credit_torch.models import crossformer, fuxi, swin  # noqa: F401  (registration)
+    from credit_torch.models import crossformer, fuxi, sdl, swin  # noqa: F401  (registration)
 
     mtype = conf["model"]["type"]
     if mtype not in PORTED:

@@ -29,7 +29,10 @@ class BaseModel(nn.Module):
     def from_config(cls, conf: dict, sn_state: bool = False) -> "BaseModel":
         """Build from a gen2 config dict; model-section keys that are not
         constructor arguments are ignored, as in the reference."""
-        names = set(inspect.signature(cls.__init__).parameters) | set(cls.ROUTING_KEYS)
+        names = set(cls.ROUTING_KEYS)
+        for klass in cls.__mro__:  # a subclass's own arguments and its bases'
+            if issubclass(klass, BaseModel) and "__init__" in vars(klass):
+                names |= set(inspect.signature(klass.__init__).parameters)
         mconf = {k: v for k, v in conf["model"].items() if k in names and k != "type"}
         return cls(**mconf, sn_state=sn_state)
 

@@ -71,7 +71,8 @@ class CrossFormer(BaseModel):
         self.base_input_channels = channels * levels + surface_channels + input_only_channels
         self.base_output_channels = channels * levels + surface_channels + output_only_channels
 
-        dims, depths = _tup(dim), _tup(depth)
+        self.dims = dims = _tup(dim)
+        depths = _tup(depth)
         gws, lws = _tup(global_window_size), _tup(local_window_size)
         strides = _tup(cross_embed_strides)
         ksizes = tuple(tuple(k) for k in cross_embed_kernel_sizes)

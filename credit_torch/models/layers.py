@@ -14,9 +14,10 @@ the kernels before they reached these modules (`convert_jax.init_folded`,
 `v` (rest,) buffers, named like the flax `spectral` collection's leaves, and
 computes with `sn_kernel()` = kernel / sigma; in `train()` mode one power
 iteration refreshes u and v per forward (torch spectral_norm semantics, as
-credit_tpu's SNMixin). A layer's `spectral` says whether the reference
-normalises its kernel at all when the model's `use_spectral_norm` is on:
-every kernel of the CrossFormer, only the SN convs of FuXi.
+credit_tpu's SNMixin), except inside `freeze_sn_updates()`. A layer's
+`spectral` says whether the reference normalises its kernel at all when the
+model's `use_spectral_norm` is on: every kernel of the CrossFormer, only the
+SN convs of FuXi.
 
 `UpBlockPS` and the camulator `sharp` skip are not ported yet (ROADMAP
 queue 1).
@@ -25,6 +26,7 @@ queue 1).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Sequence
 
@@ -37,6 +39,22 @@ from credit_torch.ops import conv as conv_ops
 from credit_torch.ops import window_attention as wa
 from credit_torch.ops.cuda_attention import fused_window_attention_diff
 from credit_torch.ops.cuda_ff import fused_ff_diff
+
+
+_SN_FREEZE = contextvars.ContextVar("credit_torch_sn_freeze", default=False)
+
+
+@contextlib.contextmanager
+def freeze_sn_updates(enable: bool = True):
+    """Inside this context, train-mode forwards skip the per-forward u/v
+    power iteration and divide by the differentiable sigma from the stored
+    vectors (credit_tpu's freeze_sn_updates; trainer.sn_external updates
+    u/v before the step with `spectral_utils.power_iter_model_`)."""
+    tok = _SN_FREEZE.set(enable)
+    try:
+        yield
+    finally:
+        _SN_FREEZE.reset(tok)
 
 
 def _param(*shape, fill: float = 0.0) -> nn.Parameter:
@@ -55,10 +73,12 @@ class _Kernel(nn.Module):
 
     def sn_kernel(self) -> torch.Tensor:
         """The kernel to compute with: kernel / sigma with SN state (one
-        power iteration first in train mode), the kernel itself without."""
+        power iteration first in train mode, unless `freeze_sn_updates` is
+        on), the kernel itself without."""
         if self.u is None:
             return self.kernel
-        return sn_kernel(self.kernel, self.u, self.v, update=self.training)
+        return sn_kernel(self.kernel, self.u, self.v,
+                         update=self.training and not _SN_FREEZE.get())
 
 
 class Dense(_Kernel):

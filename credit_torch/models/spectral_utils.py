@@ -80,6 +80,20 @@ def power_iter_spectral(params: Dict[str, Any], spectral: Dict[str, Any], n_iter
     return _walk(spectral, params, layer)
 
 
+def power_iter_model_(model: torch.nn.Module, n_iter: int = 1) -> None:
+    """In place: n_iter power iterations (f32) of every spectral-norm u/v
+    buffer pair of `model` against its layer's current kernel, as
+    credit_tpu's power_iter_spectral does to the spectral tree (the
+    out-of-step half of trainer.sn_external)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if getattr(m, "u", None) is None or getattr(m, "kernel", None) is None:
+                continue
+            u, v = power_iteration(_w2d(m.kernel, torch.float32), m.u.float(), m.v.float(), n_iter)
+            m.u.copy_(u)
+            m.v.copy_(v)
+
+
 def converge_spectral(variables: Dict[str, Any], n_iter: int = 30) -> Dict[str, Any]:
     """A copy of `variables` with every u/v pair run n_iter power iterations
     (v = normalize(W^T u); u = normalize(W v)) against its kernel, in f64."""

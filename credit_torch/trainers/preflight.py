@@ -58,16 +58,18 @@ def first_batch_watchdog(fn, timeout_s: float = 120.0, name: str = "first batch"
 def estimate_train_memory(train_step, state, batch) -> Optional[Dict[str, float]]:
     """Peak device memory of one train step, read from the CUDA allocator
     (the reference's synthetic VRAM probe, :223). The step really runs:
-    the model's parameters and buffers, the AdamW moments and the EMA are
-    copied to the host first and put back after (the step returns a new
-    state and leaves the given one's counts as they were), so training
-    continues from the state it was given. None off CUDA."""
+    the model's parameters and buffers, the optimizer's tensors, the EMA
+    and the noise generator's state are copied to the host first and put
+    back after (the step returns a new state and leaves the given one's
+    counts as they were), so training continues from the state it was
+    given. None off CUDA."""
     model = state.model
     dev = next(model.parameters()).device
     if dev.type != "cuda":
         logger.info("preflight: device memory probe skipped on %s", dev)
         return None
     saved = [t.detach().cpu() for t in _state_tensors(state)]
+    noise = None if state.noise is None else state.noise.get_state()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     train_step(state, batch)
@@ -76,6 +78,8 @@ def estimate_train_memory(train_step, state, batch) -> Optional[Dict[str, float]
     with torch.no_grad():
         for t, s in zip(_state_tensors(state), saved):
             t.copy_(s)
+    if noise is not None:
+        state.noise.set_state(noise)
     out = {"peak_gb": peak / 2**30, "state_gb": base / 2**30}
     logger.info("preflight: device memory peak %.2f GB over one step (%.2f GB before it)",
                 out["peak_gb"], out["state_gb"])
@@ -84,7 +88,9 @@ def estimate_train_memory(train_step, state, batch) -> Optional[Dict[str, float]
 
 def _state_tensors(state):
     tensors = list(state.model.state_dict().values())
-    tensors += list(state.opt_state["mu"].values()) + list(state.opt_state["nu"].values())
+    for part in state.opt_state.values():  # the moments; MultiSteps' running mean
+        if isinstance(part, dict):
+            tensors += list(part.values())
     if state.ema_params is not None:
         tensors += list(state.ema_params.values())
     return tensors

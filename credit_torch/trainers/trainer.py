@@ -17,16 +17,26 @@ PyTorch on the model's own parameters and u/v buffers, updated in place.
 Batches come in physical units when a Normalizer is given and are
 normalized on their device inside the step, in f32.
 
+Ensembles (`trainer.ensemble_size` E > 1) repeat each sample E times in a
+row (jnp.repeat), so the model sees (B*E, ...) and the loss the (B, E, ...)
+members; metrics and the next step's input take the member mean. A model
+with noise (`crossformer-ensemble`) draws it from the state's generator,
+which the checkpoint keeps. `grad_accum_every` k wraps AdamW as
+optax.MultiSteps does: the micro-gradients are averaged, and clipping,
+AdamW and its schedule count run on every k-th call only. With
+`sn_external` the u/v power iterations run before the step
+(`Trainer.fit`), and the step's forwards divide by sigma from the frozen
+vectors.
+
 `Trainer.fit` runs epochs of sampled init times through that step, with
 batches assembled and pinned on a producer thread, validation on the EMA
 weights, latitude-weighted per-variable metrics kept on the device and
 fetched once an epoch, `training_log.csv`, checkpoints and early stopping.
 
 The TPU levers `flatten_optimizer`, `scan_blocks` and `remat` are accepted
-and ignored. Not ported yet, and raising: ensembles, `sn_external` and
-`grad_accum_every` (ROADMAP queue 1, item 3), preblocks and stateful
-postblocks (item 5), the diffusion and IC-optimisation trainers (item 7)
-and `trainer.parallelism` beyond one device (item 8).
+and ignored. Not ported yet, and raising: preblocks and stateful
+postblocks (ROADMAP queue 1, item 5), the diffusion and IC-optimisation
+trainers (item 7) and `trainer.parallelism` beyond one device (item 8).
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ import torch
 
 from credit_torch import registry, resolve_device
 from credit_torch.data.channels import ChannelSchema
+from credit_torch.models.layers import freeze_sn_updates
+from credit_torch.models.spectral_utils import power_iter_model_
 from credit_torch.postblock.stochastic import check_stateless
 from credit_torch.trainers.scheduler import Schedule
 
@@ -52,20 +64,33 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class TrainState:
-    """step: optimizer steps taken; model: holds the parameters and the
-    spectral u/v buffers; opt_state: the optimizer's (`AdamW.init`);
-    ema_params: name -> EMA of each parameter, or None (EMA off)."""
+    """step: train steps taken (micro-steps under grad_accum_every); model:
+    holds the parameters and the spectral u/v buffers; opt_state: the
+    optimizer's (`AdamW.init` / `MultiSteps.init`); ema_params: name -> EMA
+    of each parameter, or None (EMA off); noise: the generator of a noisy
+    model's draws in the train step, on the model's device, or None
+    (torch's default generator)."""
 
     step: int
     model: torch.nn.Module
     opt_state: dict
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    noise: Optional[torch.Generator] = None
 
     @classmethod
-    def create(cls, model: torch.nn.Module, optimizer: "AdamW", ema: bool = False) -> "TrainState":
+    def create(cls, model: torch.nn.Module, optimizer: "AdamW", ema: bool = False,
+               noise_seed: int = 0) -> "TrainState":
         params = dict(model.named_parameters())
         ema_params = {k: p.detach().clone() for k, p in params.items()} if ema else None
-        return cls(0, model, optimizer.init(params), ema_params)
+        dev = next(model.parameters()).device
+        noise = torch.Generator(device=dev).manual_seed(_derived_seed(noise_seed, 0x401E))
+        return cls(0, model, optimizer.init(params), ema_params, noise)
+
+
+def _derived_seed(*keys: int) -> int:
+    """A generator seed from integer keys (numpy's SeedSequence), so that
+    streams seeded from one config seed do not coincide."""
+    return int(np.random.SeedSequence(list(keys)).generate_state(1)[0])
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -114,14 +139,49 @@ class AdamW:
         return upd, {**state, "count": count}
 
 
-def make_optimizer(conf: dict, schedule: Schedule) -> AdamW:
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k_schedule=every) with its default
+    use_grad_mean: each call folds its gradients into a running mean (acc
+    + (g - acc) / (n + 1)); the every-th call runs the inner chain (clip,
+    AdamW, its schedule count) on the mean, returns its updates and
+    restarts the mean; the other calls return None and leave the inner
+    state as it was. The state is the inner one plus `mini_step` and the
+    mean `acc`."""
+
+    def __init__(self, inner: AdamW, every: int):
+        self.inner, self.every = inner, every
+
+    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+        state = self.inner.init(params)
+        state["acc"] = {k: torch.zeros_like(p, memory_format=torch.preserve_format)
+                        for k, p in params.items()}
+        state["mini_step"] = 0
+        return state
+
+    def update(self, grads: List[torch.Tensor], state: dict, params: List[torch.Tensor]):
+        """(updates or None, new state), grads and params in the order of
+        the state's keys; the mean is updated in place."""
+        n = state["mini_step"]
+        acc = list(state["acc"].values())
+        delta = torch._foreach_sub(list(grads), acc)
+        torch._foreach_div_(delta, float(n + 1))
+        torch._foreach_add_(acc, delta)
+        if n + 1 < self.every:
+            return None, {**state, "mini_step": n + 1}
+        updates, new = self.inner.update(acc, state, params)
+        torch._foreach_zero_(acc)
+        return updates, {**new, "mini_step": 0}
+
+
+def make_optimizer(conf: dict, schedule: Schedule):
     """AdamW betas (0.9, 0.95) with the trainer section's `weight_decay`
-    and, where `grad_max_norm` > 0, global-norm clipping first."""
+    and, where `grad_max_norm` > 0, global-norm clipping first; wrapped in
+    MultiSteps where `grad_accum_every` > 1."""
     t = conf.get("trainer", {})
-    if int(t.get("grad_accum_every", 1)) > 1:
-        raise NotImplementedError("grad_accum_every is not ported yet (ROADMAP queue 1, item 3)")
-    return AdamW(schedule, weight_decay=float(t.get("weight_decay", 0.0)),
-                 clip=float(t.get("grad_max_norm", 0.0) or 0.0))
+    opt = AdamW(schedule, weight_decay=float(t.get("weight_decay", 0.0)),
+                clip=float(t.get("grad_max_norm", 0.0) or 0.0))
+    accum = int(t.get("grad_accum_every", 1))
+    return MultiSteps(opt, accum) if accum > 1 else opt
 
 
 def _ema_decay(base: float, n: int) -> float:
@@ -130,17 +190,17 @@ def _ema_decay(base: float, n: int) -> float:
 
 
 
-def _refuse_unported(preblocks=(), preblocks_ic=(), ensemble_size: int = 1,
-                     sn_external: bool = False, postblocks=()) -> None:
+def _refuse_unported(preblocks=(), preblocks_ic=(), postblocks=()) -> None:
     if preblocks or preblocks_ic:
         raise NotImplementedError("preblocks are not ported yet (preblock/__init__.py: "
                                   "ROADMAP queue 1, item 5)")
-    if ensemble_size > 1:
-        raise NotImplementedError("ensembles (trainer.ensemble_size > 1) are not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
-    if sn_external:
-        raise NotImplementedError("trainer.sn_external is not ported yet (ROADMAP queue 1, item 3)")
     check_stateless(postblocks)
+
+
+def _members(y_pred: torch.Tensor, b: int, ensemble_size: int) -> torch.Tensor:
+    """(B*E, ...) predictions as (B, E, ...): sample-major, the layout of
+    repeat_interleave (jnp.repeat) over the batch."""
+    return y_pred.reshape(b, ensemble_size, *y_pred.shape[1:])
 
 
 def _prepare(batch: Dict[str, torch.Tensor], dev, normalizer, schema: ChannelSchema):
@@ -174,21 +234,27 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
     C_in), 'y': (B, S, H, W, C_t), 'forcing': (B, S, H, W, n_dyn) or absent},
     in physical units when a `normalizer` is given (normalized on the
     device inside the step), else normalized. Stateless `postblocks` act on
-    each step's prediction before its loss. metrics: 'loss' and 'grad_norm'
-    (0-d tensors), 'finite' (1.0 or 0.0); with `metrics_fn` (a
-    LatWeightedMetrics) its per-variable metrics of each rollout step,
-    averaged over forecast_len, as 0-d tensors; with `return_final_state`,
-    '_final_x', the predicted input state one step past the batch, in
-    physical units (replay training stores it). The step updates the model
-    in place and reads the device twice: the loss's finiteness and, with
-    clipping, the gradient norm against the clip."""
-    _refuse_unported(preblocks, preblocks_ic, ensemble_size, sn_external, postblocks)
+    each member's prediction before its loss. With ensemble_size E > 1 the
+    loss takes the (B, E, ...) members (a CRPS-family loss) and the rest
+    of the step their mean; a noisy model draws from state.noise. With
+    `sn_external` the forwards leave u/v as they are (the caller iterates
+    them first). metrics: 'loss' and 'grad_norm' (0-d tensors), 'finite'
+    (1.0 or 0.0); with `metrics_fn` (a LatWeightedMetrics) its per-variable
+    metrics of each rollout step, averaged over forecast_len, as 0-d
+    tensors; with `return_final_state`, '_final_x', the predicted input
+    state one step past the batch, in physical units (replay training
+    stores it). The step updates the model in place (under MultiSteps only
+    on every k-th call) and reads the device twice: the loss's finiteness
+    and, with clipping, the gradient norm against the clip."""
+    _refuse_unported(preblocks, preblocks_ic, postblocks)
     dev = resolve_device(device)
     bp = set(backprop_on_timestep or range(forecast_len))
     n_bp = max(len(bp), 1)
+    stochastic = getattr(model, "stochastic", False)
 
-    def forward(mdl, x):
-        y_pred = mdl(x)
+    def forward(mdl, x, gen):
+        with freeze_sn_updates(sn_external):
+            y_pred = mdl(x, generator=gen) if stochastic else mdl(x)
         for b in postblocks:
             y_pred = b(y_pred, x)
         return y_pred
@@ -201,18 +267,27 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
             p.grad = None
         batch = _prepare(batch, dev, normalizer, schema)
         x = batch["x"]
+        b = x.shape[0]
         total = torch.zeros((), device=dev)
         mvals = None
         for s in range(forecast_len):
             y_t = batch["y"][:, s:s + 1]
+            x_in = torch.repeat_interleave(x, ensemble_size, dim=0) if ensemble_size > 1 else x
             if s in bp:
-                y_pred = forward(mdl, x)
-                loss = loss_fn(y_t, y_pred)
+                y_pred = forward(mdl, x_in, state.noise)
+                if ensemble_size > 1:
+                    y_e = _members(y_pred, b, ensemble_size)
+                    loss = loss_fn(y_t, y_e)
+                    y_pred = y_e.mean(dim=1)
+                else:
+                    loss = loss_fn(y_t, y_pred)
                 loss.backward()  # sums into .grad across the backpropagated steps
                 total = total + loss.detach()
             else:
                 with torch.no_grad():
-                    y_pred = forward(mdl, x)
+                    y_pred = forward(mdl, x_in, state.noise)
+                    if ensemble_size > 1:
+                        y_pred = _members(y_pred, b, ensemble_size).mean(dim=1)
             if metrics_fn is not None:
                 with torch.no_grad():
                     v = metrics_fn.values(y_t, y_pred.detach()) / forecast_len
@@ -231,7 +306,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
                 for g in grads:
                     g.zero_()
             updates, opt_state = optimizer.update(grads, state.opt_state, plist)
-            if finite:
+            if finite and updates is not None:
                 torch._foreach_add_(plist, updates)
             ema = state.ema_params
             if ema is not None:
@@ -242,7 +317,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
             gnorm = global_norm(grads)
         for p in plist:
             p.grad = None
-        new_state = TrainState(state.step + 1, mdl, opt_state, ema)
+        new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise)
         metrics = {"loss": mean_loss, "grad_norm": gnorm, "finite": float(finite)}
         if mvals is not None:
             metrics.update(metrics_fn.named(mvals))
@@ -267,10 +342,13 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
     tensors, averaged over forecast_len). The model runs in eval mode, so
     spectral norm reads its u/v without advancing them, and on the EMA
     weights where the state has them, through torch.func.functional_call
-    (the model's own parameters are not touched). `generator` is the noise
-    source of stochastic models and blocks, none of which is ported yet."""
-    _refuse_unported(preblocks, preblocks_ic, ensemble_size, False, postblocks)
+    (the model's own parameters are not touched). With ensemble_size E > 1
+    the loss scores the (B, E, ...) members and the metrics and rollout
+    their mean. `generator` is the noise source of a noisy model, on its
+    device."""
+    _refuse_unported(preblocks, preblocks_ic, postblocks)
     dev = resolve_device(device)
+    stochastic = getattr(model, "stochastic", False)
 
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         mdl = state.model
@@ -279,9 +357,11 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
         if state.ema_params is not None:
             tensors = {**state.ema_params, **dict(mdl.named_buffers())}
 
+        kw = {"generator": generator} if stochastic else {}
+
         def forward(x):
-            y_pred = (mdl(x) if tensors is None
-                      else torch.func.functional_call(mdl, tensors, (x,)))
+            y_pred = (mdl(x, **kw) if tensors is None
+                      else torch.func.functional_call(mdl, tensors, (x,), kw))
             for b in postblocks:
                 y_pred = b(y_pred, x)
             return y_pred
@@ -289,12 +369,19 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
         with torch.no_grad():
             batch = _prepare(batch, dev, normalizer, schema)
             x = batch["x"]
+            b = x.shape[0]
             total = torch.zeros((), device=dev)
             mvals = None
             for s in range(forecast_len):
                 y_t = batch["y"][:, s:s + 1]
-                y_pred = forward(x)
-                total = total + loss_fn(y_t, y_pred)
+                if ensemble_size > 1:
+                    y_e = _members(forward(torch.repeat_interleave(x, ensemble_size, dim=0)),
+                                   b, ensemble_size)
+                    total = total + loss_fn(y_t, y_e)
+                    y_pred = y_e.mean(dim=1)
+                else:
+                    y_pred = forward(x)
+                    total = total + loss_fn(y_t, y_pred)
                 if metrics_fn is not None:
                     v = metrics_fn.values(y_t, y_pred) / forecast_len
                     mvals = v if mvals is None else mvals + v
@@ -402,8 +489,7 @@ class Trainer:
                for k in ("data", "tensor", "domain")):
             raise NotImplementedError("trainer.parallelism beyond one device is not ported yet "
                                       "(parallel/: ROADMAP queue 1, item 8)")
-        _refuse_unported(conf.get("preblocks") or (), (), self.ensemble_size,
-                         bool(t.get("sn_external", False)))
+        _refuse_unported(conf.get("preblocks") or ())
 
         from credit_torch.trainers.scheduler import load_scheduler
 
@@ -436,20 +522,30 @@ class Trainer:
             self.replay = ReplayBuffer(capacity=int(rp.get("capacity", 128)),
                                        replay_probability=float(rp.get("probability", 0.5)),
                                        seed=int(conf.get("seed", 0)))
+        # external spectral norm (trainer.sn_external): fit() runs the u/v
+        # power iterations before each step, as many as the epoch's rollout
+        # steps (the in-step form iterates once per forward); the step's
+        # forwards then divide by sigma from the frozen vectors
+        self.sn_external = bool(t.get("sn_external", False))
         self._step_kw = dict(
             history_len=self.history_len, ema_decay=self.ema_decay if self.use_ema else 0.0,
-            normalizer=normalizer, postblocks=tuple(post), metrics_fn=self.metrics_fn,
-            return_final_state=self.replay is not None, device=self.device)
+            ensemble_size=self.ensemble_size, normalizer=normalizer, postblocks=tuple(post),
+            metrics_fn=self.metrics_fn, return_final_state=self.replay is not None,
+            sn_external=self.sn_external, device=self.device)
         self._step_cache = {}
         # scheduled-rollout sampling: anneal the epoch's rollout length from
         # short to forecast_len (reference: scheduler.py:220
         # annealed_probability, passed as BaseTrainer.fit rollout_scheduler)
         rs = t.get("rollout_schedule")
         self.rollout_schedule = ({"type": rs} if isinstance(rs, str) else rs) if rs else None
+        # CRPS-family validation needs >= 2 members (reference:
+        # losses/__init__.py CRPS_LOSSES gate on trainer.ensemble_size)
+        self.valid_ensemble_size = (max(self.ensemble_size, 2)
+                                    if getattr(valid_loss_fn, "is_ensemble", False) else 1)
         self._eval_step = make_eval_step(
             model, valid_loss_fn, schema, self.forecast_len, self.history_len,
-            normalizer=normalizer, metrics_fn=self.metrics_fn, postblocks=tuple(post),
-            device=self.device)
+            normalizer=normalizer, ensemble_size=self.valid_ensemble_size,
+            metrics_fn=self.metrics_fn, postblocks=tuple(post), device=self.device)
         self.epoch_timings: List[dict] = []
 
     def _train_step_for(self, flen: int):
@@ -505,15 +601,18 @@ class Trainer:
         return build_postblocks(self.conf, self.schema, grid, self.normalizer)
 
     # ------------------------------------------------------------------
-    def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
+    def init_state(self, generator: Optional[torch.Generator] = None,
+                   noise_seed: int = 0) -> TrainState:
         """Seeded weights for the model (convert_jax.seed_train_: kernels
         he_uniform from `generator`, a CPU generator seeded 0 by default, so
         every device draws the same weights; spectral-norm u/v converged),
-        fresh AdamW moments and, with use_ema, the EMA."""
+        fresh AdamW moments, with use_ema the EMA, and the train step's
+        noise generator seeded from `noise_seed`."""
         from credit_torch.convert_jax import seed_train_
 
         seed_train_(self.model, self.conf, generator or torch.Generator().manual_seed(0))
-        state = TrainState.create(self.model, self.optimizer, ema=self.use_ema)
+        state = TrainState.create(self.model, self.optimizer, ema=self.use_ema,
+                                  noise_seed=noise_seed)
         n = sum(p.numel() for p in self.model.parameters())
         logger.info("model parameters: %.2fM", n / 1e6)
         return state
@@ -565,7 +664,7 @@ class Trainer:
         from credit_torch.trainers import preflight as pf
 
         if state is None:
-            state = self.init_state(torch.Generator().manual_seed(seed))
+            state = self.init_state(torch.Generator().manual_seed(seed), noise_seed=seed)
         t = self.conf.get("trainer", {})
         vidx = (self.dataset.valid_init_indices(self.forecast_len)
                 if hasattr(self.dataset, "valid_init_indices") else None)
@@ -633,6 +732,8 @@ class Trainer:
                 m0 = _mark(dev)
                 batch = self._to_device(host)
                 m1 = _mark(dev)
+                if self.sn_external:
+                    power_iter_model_(state.model, max(1, eff_len))
                 if epoch == start_epoch and n_tr == 0 and pfmode:
                     # the first step may build the kernels (nvcc, a cold
                     # build directory): run it under the startup watchdog,
@@ -666,8 +767,8 @@ class Trainer:
                 m0 = _mark(dev)
                 batch = self._to_device(host)
                 m1 = _mark(dev)
-                gen = torch.Generator().manual_seed(
-                    int(np.random.SeedSequence([seed + 0x5EED, epoch, n_va]).generate_state(1)[0]))
+                gen = torch.Generator(device=dev).manual_seed(
+                    _derived_seed(seed + 0x5EED, epoch, n_va))
                 vm = self._eval_step(state, batch, gen)
                 spans["copy"].append((m0, m1))
                 spans["valid"].append((m1, _mark(dev)))
@@ -728,8 +829,9 @@ class Trainer:
 
     def save_checkpoint(self, state: TrainState, epoch: int, tag: str = "checkpoint"):
         """Full training state in `save_loc/tag/state.pt` (torch.save): the
-        model's parameters and spectral-norm u/v buffers, `step`, the AdamW
-        moments and count, and the EMA (reference: base_trainer.
+        model's parameters and spectral-norm u/v buffers, `step`, the
+        optimizer state (AdamW moments and count; MultiSteps' mean and
+        mini-step), the EMA and the noise generator's state (reference: base_trainer.
         _save_checkpoint; the directory names are credit_tpu's, the format
         is the port's own). The previous checkpoint is kept as
         backup_checkpoint (save_backup_weights). The file is written beside
@@ -744,7 +846,8 @@ class Trainer:
             shutil.copytree(path, backup)
         os.makedirs(path, exist_ok=True)
         payload = {"model": state.model.state_dict(), "step": state.step,
-                   "opt_state": state.opt_state, "ema_params": state.ema_params}
+                   "opt_state": state.opt_state, "ema_params": state.ema_params,
+                   "noise": None if state.noise is None else state.noise.get_state()}
         torch.save(payload, ckpt + ".tmp")
         os.replace(ckpt + ".tmp", ckpt)
         with open(os.path.join(self.save_loc, "epoch.txt"), "w") as f:
@@ -752,25 +855,30 @@ class Trainer:
 
     def load_checkpoint(self, state: TrainState, tag: str = "checkpoint",
                         load_optimizer: bool = True) -> TrainState:
-        """`state` with the checkpoint's parameters, u/v, step and EMA (where
-        it has one), and its optimizer state unless load_optimizer is off.
-        The tensors are copied into the state's own, on its device."""
+        """`state` with the checkpoint's parameters, u/v, step, EMA and noise
+        generator state (where it has them), and its optimizer state unless
+        load_optimizer is off. The tensors are copied into the state's own,
+        on its device."""
         path = os.path.join(self.save_loc, tag, self.CHECKPOINT_FILE)
         saved = torch.load(path, map_location=self.device, weights_only=True)
         state.model.load_state_dict(saved["model"])
         opt_state = state.opt_state
         if load_optimizer:
             with torch.no_grad():
-                for m in ("mu", "nu"):
-                    for k, v in opt_state[m].items():
-                        v.copy_(saved["opt_state"][m][k])
-            opt_state = {**opt_state, "count": saved["opt_state"]["count"]}
+                for name, part in opt_state.items():
+                    if isinstance(part, dict):
+                        for k, v in part.items():
+                            v.copy_(saved["opt_state"][name][k])
+            opt_state = {**opt_state, **{k: v for k, v in saved["opt_state"].items()
+                                         if not isinstance(v, dict)}}
         ema = state.ema_params
         if ema is not None and saved.get("ema_params") is not None:
             with torch.no_grad():
                 for k, v in ema.items():
                     v.copy_(saved["ema_params"][k])
-        return TrainState(saved["step"], state.model, opt_state, ema)
+        if state.noise is not None and saved.get("noise") is not None:
+            state.noise.set_state(saved["noise"].cpu())
+        return TrainState(saved["step"], state.model, opt_state, ema, state.noise)
 
     def checkpoint_epoch(self) -> int:
         """The last epoch a checkpoint was written for (epoch.txt)."""

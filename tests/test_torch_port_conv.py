@@ -19,6 +19,7 @@ import torch
 from credit_tpu.ops import pallas_conv as jpc
 from credit_torch.ops import cuda_conv
 from credit_torch.ops.cuda_conv import conv_plan, wgrad_plan
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 BF16 = torch.bfloat16
 

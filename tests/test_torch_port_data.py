@@ -50,6 +50,7 @@ from credit_torch.grid import Grid
 from credit_torch.utils import ncio as tncio
 from torch_port_fixtures import (H, STATS, VARS_3D, W, era5_data, era5_source,
                                        write_era5_store, write_stats)
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 WRITERS = {"credit_tpu": jzarr.write_array, "credit_torch": tzarr.write_array}
 READERS = {"credit_tpu": jzarr.open_group, "credit_torch": tzarr.open_group}

@@ -438,21 +438,38 @@ def test_unported_trainers_raise(name):
 
 
 @pytest.mark.parametrize("option", ["parallelism", "ensemble", "sn_external", "preblocks",
-                                    "grad_accum"])
+                                    "grad_accum", "ring_crps", "downscaling"])
 def test_trainer_refuses_unported_options(env, tmp_path, option):
+    """Parallelism, preblocks, the device-ring CRPS and downscaling raise,
+    naming their ROADMAP item. Ensembles, sn_external and grad_accum_every,
+    once refused, now build the trainer (their parity with credit_tpu:
+    tests/test_torch_port_ensemble.py and ..._ensemble_fit.py)."""
     conf = fit_conf(env["store"], env["stats"], tmp_path)
     t = conf["trainer"]
     if option == "parallelism":
         t["parallelism"] = {"data": 2, "tensor": 1, "domain": 1}
     elif option == "ensemble":
-        t["ensemble_size"] = 2
+        t["ensemble_size"] = 3
+        conf["loss"]["validation_loss"] = "almost-fair-crps"
     elif option == "sn_external":
         t["sn_external"] = True
     elif option == "preblocks":
         conf["preblocks"] = [{"type": "regrid"}]
-    else:
+    elif option == "grad_accum":
         t["grad_accum_every"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item [358]"):
+    elif option == "ring_crps":
+        t["ensemble_size"] = 2
+        conf["loss"]["training_loss"] = "ring-crps"
+    else:
+        conf["data"]["datasets"] = {}
+    if option in ("ensemble", "sn_external", "grad_accum"):
+        trainer = port_trainer(conf)
+        assert trainer.ensemble_size == (3 if option == "ensemble" else 1)
+        assert trainer.valid_ensemble_size == (3 if option == "ensemble" else 1)
+        assert trainer.sn_external == (option == "sn_external")
+        assert isinstance(trainer.optimizer, ttrainer.MultiSteps) == (option == "grad_accum")
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item [578]"):
         port_trainer(conf)
 
 

@@ -37,6 +37,7 @@ from credit_torch.ops import window_attention as twa
 from credit_torch.rollout import make_scan_rollout
 from tests.test_fuxi_swin import FUXI_CONF, SWIN_CONF
 from tests.test_torch_port_model import DATA, _bf16, _numpy_variables, _rel, _to_numpy
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 # the tiny config of credit_tpu's own FuXi test, and a dim-128 variant whose
 # SwinV2 MLPs credit_tpu can run through its fused post-norm Pallas kernel

@@ -36,6 +36,7 @@ from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train
 from tests.test_fuxi_swin import FUXI_CONF
 from tests.test_torch_port_model import DATA, _numpy_variables, _to_numpy
 from tests.test_torch_port_train import _flat
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 LR = 1e-3
 CONF = {**copy.deepcopy(FUXI_CONF), "data": DATA,

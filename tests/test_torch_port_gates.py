@@ -28,6 +28,7 @@ from credit_torch.models import layers, swin
 from credit_torch.models.layers import FeedForward, WindowAttention
 from credit_torch.models.swin import SwinBlockV2
 from credit_torch.ops import cuda_attention, cuda_ff
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # f32: the same composition in f32, summation order only. bf16: both round

@@ -24,6 +24,7 @@ from credit_torch.models import load_model
 from credit_torch.models import spectral_utils as tsu
 from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
 from tests.test_torch_port_model import CONFS, _numpy_variables, _to_numpy
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 
 def _np(a) -> np.ndarray:

@@ -35,6 +35,7 @@ from credit_torch.rollout import RolloutEngine, make_scan_rollout
 from credit_torch.trainers.scheduler import constant
 from credit_torch.trainers.trainer import make_optimizer, make_train_step
 from credit_torch.utils.ncio import Dataset
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -238,7 +239,8 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.metrics, credit_torch.data.local, credit_torch.data.era5, "
             "credit_torch.data.multi_source, credit_torch.data.prefetch, "
             "credit_torch.data.replay_buffer, credit_torch.data.sampler, "
-            "credit_torch.trainers.preflight, credit_torch.utils.ncio; "
+            "credit_torch.trainers.preflight, credit_torch.utils.ncio, credit_torch.models.sdl, "
+            "credit_torch.native.fastload, credit_torch.data.zarrlite; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

@@ -30,6 +30,7 @@ from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
 from credit_torch.ops import padding as tpad
 from credit_torch.ops import upsample as tup
 from credit_torch.ops import window_attention as twa
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

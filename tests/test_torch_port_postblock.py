@@ -38,6 +38,7 @@ from credit_torch.physics import core as tcore
 from credit_torch.postblock.stochastic import apply_postblocks_stateful, init_postblock_states
 from credit_torch.rollout import RolloutEngine
 from credit_torch.utils.ncio import Dataset
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 NLEV = 4
 H, W = 10, 20

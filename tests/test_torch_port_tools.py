@@ -24,6 +24,7 @@ from credit_tpu.ops import pallas_ff as jff
 from credit_torch.ops import conv as tconv
 from credit_torch.ops import cuda_conv, cuda_ff, cuda_probes
 from credit_torch.tools import bench_conv, bench_conv_ffk
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # f32: f32 sums in other orders; bf16: both round the f32 sum once, and

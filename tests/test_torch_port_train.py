@@ -33,6 +33,7 @@ from credit_torch.models import load_model
 from credit_torch.trainers import scheduler as tsched
 from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
 from tests.test_torch_port_model import DATA, _numpy_variables, _to_numpy
+from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 
 def _np(a) -> np.ndarray:
@@ -81,12 +82,20 @@ def test_weighted_loss_from_config_and_unported_terms():
     t, p = (rng.standard_normal((1, 1, 3, 4, 3)).astype(np.float32) for _ in range(2))
     np.testing.assert_allclose(float(tl(torch.from_numpy(t), torch.from_numpy(p))),
                                float(jl(jnp.asarray(t), jnp.asarray(p))), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.WeightedLoss(base="mse", spectral_lambda=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.WeightedLoss(base="KCRPS")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the spectral and power terms and the CRPS family are ported
+    # (tests/test_torch_port_ensemble.py holds each against credit_tpu)
+    conf["loss"].update(use_spectral_loss=True, spectral_lambda_reg=0.1, spectral_wavenum_init=1)
+    tl = tlosses.WeightedLoss.from_config(conf, Grid())
+    jl = jlosses.WeightedLoss.from_config(conf, Grid())
+    assert tl.spectral_lambda == 0.1 and not tl.is_ensemble
+    np.testing.assert_allclose(float(tl(torch.from_numpy(t), torch.from_numpy(p))),
+                               float(jl(jnp.asarray(t), jnp.asarray(p))), rtol=1e-6)
+    assert tlosses.WeightedLoss(base="KCRPS").is_ensemble
+    # still raising: DownscalingLoss (item 7) and the device-ring CRPS (item 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         tlosses.WeightedLoss.from_config({"data": {"datasets": {}}})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        tlosses.WeightedLoss(base="ring-crps")
 
 
 # --------------------------------------------------------------- schedules
@@ -263,8 +272,9 @@ def test_nan_guard_keeps_params_and_advances_moments(setup):
 
 def test_train_step_refuses_unported_options(setup):
     """The normalizer, stateless postblocks, metrics and the final state
-    are ported (tests/test_torch_port_fit.py); preblocks, stateful
-    postblocks, ensembles and sn_external raise, naming their item."""
+    (tests/test_torch_port_fit.py), ensembles and sn_external
+    (tests/test_torch_port_ensemble.py) are ported; preblocks and stateful
+    postblocks raise, naming their item."""
     _, _, schema, _ = setup
     model = load_model(CONF, device="cpu")
     opt = make_optimizer(CONF, tsched.constant(LR))
@@ -274,11 +284,13 @@ def test_train_step_refuses_unported_options(setup):
         is_stateful = True
 
     for kw in [{"preblocks": [lambda x: x]}, {"preblocks_ic": [lambda x: x]},
-               {"postblocks": [Stateful()]}, {"ensemble_size": 2}, {"sn_external": True}]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+               {"postblocks": [Stateful()]}]:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
             make_train_step(model, loss, opt, schema, device="cpu", **kw)
     assert make_train_step(model, loss, opt, schema, device="cpu", normalizer=object(),
                            postblocks=[lambda y, x: y], return_final_state=True) is not None
+    assert make_train_step(model, loss, opt, schema, device="cpu", ensemble_size=2,
+                           sn_external=True) is not None
     # the TPU levers are accepted and ignored
     conf = copy.deepcopy(CONF)
     conf["trainer"]["flatten_optimizer"] = True

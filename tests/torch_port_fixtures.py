@@ -1,12 +1,14 @@
-"""Fixtures shared by the port's data and training tests: a seeded
-ERA5-like zarr store, its config sections and mean/std netCDF files. Numpy
-only (the writer and the netCDF module are passed in), so the card's test
-files can use them without credit_tpu.
+"""Fixtures shared by the port's tests: a seeded ERA5-like zarr store, its
+config sections and mean/std netCDF files, and the cap on PyTorch's CPU
+threads. Numpy only (the writer and the netCDF module are passed in;
+torch is imported inside the fixture), so the card's test files can use
+them without credit_tpu.
 """
 
 import copy
 
 import numpy as np
+import pytest
 
 from __graft_entry__ import TINY_MODEL_CONF
 
@@ -97,3 +99,19 @@ def fit_conf(store, stats, save_loc, **trainer) -> dict:
     return {"model": model, "data": data, "data_valid": valid, "save_loc": str(save_loc),
             "seed": 0, "loss": {"training_loss": "mse", "use_latitude_weights": True},
             "trainer": {**TRAINER, **trainer}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """PyTorch's CPU kernels on at most two threads while a module's tests
+    run (imported by each port test module, where it applies as an autouse
+    fixture). By default every test worker spreads them over every core,
+    and six workers on one host then spin on each other's cores: a tiny
+    ensemble fit beside six busy processes on 8 cores runs an order of
+    magnitude slower than on two threads."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
