@@ -32,8 +32,11 @@ Phases (any failure exits non-zero):
      compute on the card against f32 on the CPU; the tiny CrossFormer's
      RolloutEngine with a Normalizer and the four fixers likewise, its
      2-epoch run_training on a seeded 32x64 zarr store (training_log.csv
-     cell by cell), and a tiny crossformer-ensemble's members and CRPS
-     train step with the same noise on both;
+     cell by cell), as it is and with preblocks in the steps (an IC clamp,
+     fill_values, log_transform), run_rollout from that fit's checkpoint
+     (two init times of 2 steps, the files compared by diff_rollout), and
+     a tiny crossformer-ensemble's members and CRPS train step with the
+     same noise on both;
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -51,7 +54,9 @@ Phases (any failure exits non-zero):
      fixers) through RolloutEngine with a seeded Normalizer and the tracer,
      mass, water and energy fixers; a warm-up step, then timed steps whose
      launches are counted and checked, and each fixer's budget read after
-     every step against its limit;
+     every step against its limit; each prediction goes to the host
+     through the engine's ring of pinned buffers on a side stream, each
+     copy's ms printed;
   9. main path 6, the tool benches: credit_torch.tools.bench_conv (cuDNN,
      kernel 2 and the two row-band drafts) and bench_conv_ffk (the 32x32/s2
      conv + 4 FFs in five modes) at full size, launches counted per call;
@@ -75,7 +80,15 @@ Phases (any failure exits non-zero):
      after the second, the validation members apart and the launches
      checked; step and validation times and peak memory printed. Phase 3
      also runs a tiny crossformer-ensemble step at 3 members on the card
-     against the CPU with the same noise.
+     against the CPU with the same noise;
+ 12. main path 9, `credit rollout` at CONF_025 width: run_rollout of phase
+     10's config over its store's 8 times from its checkpoint's EMA
+     weights, two init times of 6 steps each written to netCDF by the
+     engine's writer threads: the files' names, every variable's shape, CF
+     attributes and finite values, the launches per step, and the first
+     file against RolloutEngine.step of the same folded weights; wall
+     ms/step with the writes, copy ms, ms and MB per file and peak memory
+     printed. Removes phase 10's store.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -194,8 +207,13 @@ FIT_TRAINER = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 3,
                "valid_batches_per_epoch": 1, "use_ema": True, "save_best_weights": True,
                "log_variable_metrics": True, "prefetch": 2, "learning_rate": 1e-4}
 # the tiny fit of phase 3 on the card against the CPU, f32: every log cell
-# but its seconds, relative
+# but its seconds, relative; its rollouts' files by diff_rollout (each
+# variable against its maximum)
 TINY_FIT_TOL = 1e-4
+# phase 3's second tiny fit: an IC clamp, then every step NaN/inf filled and
+# log1p of surface pressure (in normalized units)
+TINY_PREBLOCKS = [{"type": "clamp", "phase": "ic_only", "min": -3.0, "max": 3.0},
+                  {"type": "fill_values"}, {"type": "log_transform", "variables": ["SP"]}]
 # phase 10 before the native chunk pool (one thread inflating every chunk)
 # on one NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed beside its own
 # figures: batch assembly, train step, the profiled resumed epoch's idle share
@@ -230,6 +248,19 @@ ROLLOUT_STEPS = 3
 ROLLOUT_REPEATS = 3
 TRAIN_STEPS = 3
 POST_STEPS = 3
+# phase 8 before the pinned copy ring (RolloutEngine.run copying each
+# prediction to pageable memory in stream order) on one NVIDIA H100 80GB
+# HBM3 at 700.00 W (PERF.md), printed beside its own
+POST_PAGEABLE = "149.0-175.8 ms/step"
+# main path 9, credit rollout at CONF_025 width: phase 10's run (config,
+# checkpoint, EMA) and store, its whole clock (8 six-hourly times), two init
+# times (00 and 06 h) of as many steps as the store's times allow; each file
+# against RolloutEngine.step straight from the folded model, relative to the
+# variable's maximum (bf16 compute on both sides)
+NC_WINDOW = ("1979-01-01T00", "1979-01-02T18")
+NC_INIT_HOURS = (0, 6)
+NC_STEPS = FIT_TIMES - 1 - NC_INIT_HOURS[-1] // 6
+NC_TOL = 1e-2
 # bench_conv_ffk's modes in phase 9: the plain FFs, the kernel's, and the
 # three identity copies
 FFK_MODES = ("xla", "pallas", "identity", "identity-input", "identity-end")
@@ -1132,9 +1163,13 @@ def post_path(torch, want: dict, times: dict, profile: bool = False) -> dict:
     peak = torch.cuda.max_memory_allocated()
     ms = elapsed * 1e3 / POST_STEPS
     ref_ms = times.get("CONF_025")
+    copy_ms = engine.copy_ms
     log(f"  CONF_025_POST RolloutEngine {POST_STEPS} steps: {ms:.1f} ms/step (phase 4's "
-        f"make_scan_rollout: {ref_ms:.1f} ms/step), peak memory {peak} bytes "
+        f"make_scan_rollout: {ref_ms:.1f} ms/step; before the pinned copy ring: "
+        f"{POST_PAGEABLE}), peak memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB; {base} allocated before it), launches {counts}")
+    log(f"  each prediction's copy to pinned host memory on the side stream, ms: "
+        f"{[round(v, 2) for v in copy_ms]} ({y_bytes(schema, h, w)} bytes each)")
     times["CONF_025_POST"] = ms
     _check_counts(counts, want, POST_STEPS)
     if len(rec.steps) != POST_STEPS:
@@ -1167,6 +1202,12 @@ def post_path(torch, want: dict, times: dict, profile: bool = False) -> dict:
         rec.steps.clear()
     engine.close()
     return counts
+
+
+def y_bytes(schema, h: int, w: int) -> int:
+    """Bytes of one f32 prediction (B = 1, T = 1) that RolloutEngine.run
+    hands to the host."""
+    return 4 * h * w * schema.n_target
 
 
 def _var(schema, flat, name: str, target: bool = True):
@@ -1434,11 +1475,16 @@ def read_log(path: str):
 
 
 def tiny_fit(torch) -> None:
-    """Phase 3's fit: the tiny CrossFormer (f32) for 2 epochs of 2 steps and
+    """Phase 3's fits: the tiny CrossFormer (f32) for 2 epochs of 2 steps and
     1 validation batch through run_training on a seeded 32x64 zarr store,
     on the card (pinned batches copied asynchronously, validation on the
-    EMA weights there) against the same run on the CPU: every
-    training_log.csv cell but `seconds` within TINY_FIT_TOL relative."""
+    EMA weights there) against the same run on the CPU, as it is and with
+    TINY_PREBLOCKS in the train and eval steps: every training_log.csv cell
+    but `seconds` within TINY_FIT_TOL relative to itself, and with the
+    preblocks relative to the largest of its metric in the row (their fit's
+    anomaly correlations sit near 0, where the CPU alone on 1 and 6 threads
+    parts by 2.8e-4 of a -7.6e-4 cell). Then tiny_rollout from the card's
+    checkpoint."""
     import shutil
 
     from credit_torch.applications import run_training
@@ -1448,33 +1494,75 @@ def tiny_fit(torch) -> None:
     data = {"source": {"ERA5": {**TINY_DATA["source"]["ERA5"], "levels": [500.0, 850.0]}}}
     stats = write_store(torch, os.path.join(root, "era5.zarr"), data, (32, 64), 8, seed=5)
     trainer = {**FIT_TRAINER, "batches_per_epoch": 2, "learning_rate": 1e-3}
-    logs = {}
-    for dev in ("cpu", "cuda"):
-        conf = fit_conf(TINY, data, os.path.join(root, "era5.zarr"), stats,
-                        os.path.join(root, dev), trainer, ("1979-01-01T00", "1979-01-01T18"),
-                        ("1979-01-02T00", "1979-01-02T12"))
-        run_training(conf, device=dev)
-        logs[dev] = read_log(conf["save_loc"])
-    header = logs["cpu"][0]
-    err = 0.0
-    for grow, crow in zip(logs["cuda"][1:], logs["cpu"][1:]):
-        for name, a, b in zip(header, grow, crow):
-            if name != "seconds":
-                err = max(err, abs(float(a) - float(b)) / max(abs(float(b)), 1e-12))
-    ok = logs["cuda"][0] == header and len(logs["cuda"]) == len(logs["cpu"]) == 3
-    log(f"  tiny 2-epoch run_training on a 32x64 zarr store, f32 card vs CPU: "
-        f"{len(header)} log columns, worst cell rel err {err:.3e} limit {TINY_FIT_TOL:g}")
-    if not (ok and err <= TINY_FIT_TOL):
-        raise AssertionError("tiny fit on the card disagrees with the CPU")
+    for what, extra in (("", {}), (" with preblocks", {"preblocks": TINY_PREBLOCKS})):
+        logs = {}
+        for dev in ("cpu", "cuda"):
+            conf = fit_conf(TINY, data, os.path.join(root, "era5.zarr"), stats,
+                            os.path.join(root, dev + what.replace(" ", "_")), trainer,
+                            ("1979-01-01T00", "1979-01-01T18"), ("1979-01-02T00", "1979-01-02T12"))
+            conf.update(extra)
+            run_training(conf, device=dev)
+            logs[dev] = read_log(conf["save_loc"])
+        header = logs["cpu"][0]
+        cell, kind = (0.0, ""), 0.0
+        for grow, crow in zip(logs["cuda"][1:], logs["cpu"][1:]):
+            cols = [(n, float(a), float(b)) for n, a, b in zip(header, grow, crow)
+                    if n != "seconds"]
+            scale = {}
+            for n, _, b in cols:
+                scale[_kind(n)] = max(scale.get(_kind(n), 1e-12), abs(b))
+            for n, a, b in cols:
+                cell = max(cell, (abs(a - b) / max(abs(b), 1e-12), n))
+                kind = max(kind, abs(a - b) / scale[_kind(n)])
+        ok = logs["cuda"][0] == header and len(logs["cuda"]) == len(logs["cpu"]) == 3
+        log(f"  tiny 2-epoch run_training{what} on a 32x64 zarr store, f32 card vs CPU: "
+            f"{len(header)} log columns, worst cell rel err {cell[0]:.3e} ({cell[1]}), worst "
+            f"cell against its metric's largest in the row {kind:.3e}; limit {TINY_FIT_TOL:g} "
+            f"{'on the latter' if extra else 'on the former'}")
+        if not (ok and (kind if extra else cell[0]) <= TINY_FIT_TOL):
+            raise AssertionError(f"tiny fit{what} on the card disagrees with the CPU")
+    tiny_rollout(conf)
     shutil.rmtree(root, ignore_errors=True)
+
+
+def _kind(column: str) -> str:
+    """A training_log.csv column's metric: its split and kind
+    ('valid_acc' for valid_acc_T_L1)."""
+    return "_".join(column.split("_")[:2])
+
+
+def tiny_rollout(conf: dict) -> None:
+    """run_rollout from the card's tiny checkpoint (EMA weights), two init
+    times of 2 steps, on the card and on the CPU: the same 4 files, each
+    variable within TINY_FIT_TOL of its maximum by the port's
+    diff_rollout."""
+    from credit_torch.applications import diff_rollout, run_rollout
+
+    paths, out = {}, {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = os.path.join(conf["save_loc"], f"forecast_{dev}")
+        run = {**conf, "predict": {
+            "forecasts": {"start_year": 1979, "start_month": 1, "start_day": 1,
+                          "start_hours": [0, 6], "duration": 1},
+            "forecast_steps": 2, "save_forecast": out[dev]}}
+        paths[dev] = run_rollout(run, use_ema=True, device=dev)
+    names = sorted(os.path.relpath(p, out["cuda"]) for p in paths["cuda"])
+    report = diff_rollout(paths["cuda"], out["cpu"], rtol=TINY_FIT_TOL, atol=TINY_FIT_TOL)
+    worst = max((v.get("rel", math.inf) for r in report for v in r.get("vars", {}).values()),
+                default=math.inf)
+    log(f"  tiny run_rollout, 2 init times x 2 steps, f32 card vs CPU: files {names}, worst "
+        f"variable rel err {worst:.3e} limit {TINY_FIT_TOL:g} (diff_rollout)")
+    if (len(names) != 4 or names != sorted(os.path.relpath(p, out["cpu"]) for p in paths["cpu"])
+            or not all(r["ok"] for r in report)):
+        raise AssertionError("the tiny rollout on the card disagrees with the CPU")
 
 
 def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     """Main path 7, `credit train` at CONF_025: the store, run_training for
     2 epochs, then a resumed run of 1 epoch under the profiler, each
     checked, the store read through the native chunk pool. Returns the
-    first run's launch counts and (store, statistics, data section) for
-    main path 8, which removes the store."""
+    first run's launch counts and (store, statistics, data section, run
+    directory) for main paths 8 and 9; main path 9 removes them."""
     import shutil
 
     from credit_torch.applications import prepare_training
@@ -1570,9 +1658,8 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
         f"{ONE_THREAD_FIT}")
     assembly_breakdown(trainer)
     del state, trainer, saved, done
-    shutil.rmtree(run, ignore_errors=True)
     pool_step_turns(torch, conf)
-    return counts, (store, stats, data)
+    return counts, (store, stats, data, run)
 
 
 def pool_step_turns(torch, conf: dict) -> None:
@@ -1666,12 +1753,12 @@ def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> 
     second (grad_accum_every 2), the two members of the validation batch
     apart, the launches (4 micro-steps of 2 members and a 2-member
     validation forward); prints the step, validation and assembly times
-    and the peak memory. Removes the store; returns the launch counts."""
+    and the peak memory. Returns the launch counts."""
     import shutil
 
     from credit_torch.applications import prepare_training
 
-    store, stats, data = store_info
+    store, stats, data, _ = store_info
     root = os.path.dirname(store)
     conf = fit_conf(CONF_025_ENS, data, store, stats, os.path.join(root, "ens"), ENS_TRAINER,
                     *ENS_WINDOWS)
@@ -1724,6 +1811,125 @@ def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> 
         raise AssertionError("the CONF_025 ensemble fit failed its checks")
     _check_counts(counts, {k: 4 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
     del state, trainer, params, step
+    shutil.rmtree(conf["save_loc"], ignore_errors=True)
+    return counts
+
+
+def rollout_nc_path(torch, store_info, want: dict) -> dict:
+    """Main path 9, `credit rollout` at CONF_025 width: run_rollout of
+    phase 10's config over the store's whole clock, from its checkpoint's
+    EMA weights, for NC_INIT_HOURS of NC_STEPS steps each, every step
+    written to netCDF by the engine's writer threads. Checks the files'
+    names, every target variable's dimensions, shape and CF attributes,
+    that every value is finite, the launches per step against `want`, and
+    the first file of the first init against RolloutEngine.step of the same
+    folded weights, denormalized. Prints the wall ms/step with the writes,
+    the copy ms, ms and MB per written file and the peak memory. Removes
+    phase 10's store and run; returns the launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from credit_torch import output, rollout
+    from credit_torch.applications import experiment, run_rollout
+    from credit_torch.metadata import variable_attrs
+    from credit_torch.trainers.trainer import Trainer
+    from credit_torch.utils.ncio import open_dataset
+
+    store, stats, data, run = store_info
+    root = os.path.dirname(store)
+    out = os.path.join(root, "forecasts")
+    conf = fit_conf(CONF_025_TRAIN, data, store, stats, run, FIT_TRAINER, NC_WINDOW,
+                    FIT_WINDOWS[1])
+    conf["predict"] = {"forecasts": {"start_year": 1979, "start_month": 1, "start_day": 1,
+                                     "start_hours": list(NC_INIT_HOURS), "duration": 1},
+                       "forecast_steps": NC_STEPS, "save_forecast": out}
+    runs, files = [], []
+    engine_run, save = rollout.RolloutEngine.run, output.save_netcdf_increment
+
+    def timed_run(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = engine_run(self, *args, **kw)
+        runs.append(((time.perf_counter() - t0) * 1e3, list(self.copy_ms)))
+        return res
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        files.append(((time.perf_counter() - t0) * 1e3, os.path.getsize(path)))
+        return path
+
+    rollout.RolloutEngine.run, output.save_netcdf_increment = timed_run, timed_save
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        t0 = time.time()
+        paths = run_rollout(conf, use_ema=True)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    finally:
+        rollout.RolloutEngine.run, output.save_netcdf_increment = engine_run, save
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(NC_INIT_HOURS) * NC_STEPS
+    log(f"  run_rollout (use_ema) {len(NC_INIT_HOURS)} init times x {NC_STEPS} steps: "
+        f"{wall:.0f} ms end to end, of which set-up (data, trainer, checkpoint, "
+        f"converge_spectral and fold) {wall - sum(r[0] for r in runs):.0f} ms; peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB); launches {counts}")
+    for (ms, copies), hour in zip(runs, NC_INIT_HOURS):
+        log(f"  init {hour:02d} h: {ms / NC_STEPS:.1f} ms/step with the writes (all written when "
+            f"run returns); copy ms {[round(v, 2) for v in copies]}")
+    fms = [f[0] for f in files]
+    log(f"  {len(files)} files written: ms per file min {min(fms):.0f} mean "
+        f"{sum(fms) / len(fms):.0f} max {max(fms):.0f}; MB per file {files[0][1] / 1e6:.1f} "
+        f"(two writer threads)")
+    _check_counts(counts, want, steps)
+
+    names = sorted(os.path.relpath(p, out) for p in paths)
+    want_names = sorted(os.path.join(f"1979-01-01T{h:02d}Z", f"pred_1979-01-01T{h:02d}Z_"
+                                     f"{6 * (s + 1):03d}.nc")
+                        for h in NC_INIT_HOURS for s in range(NC_STEPS))
+    if names != want_names:
+        raise AssertionError(f"files {names}, expected {want_names}")
+    exp = experiment.build_data(conf)
+    schema, h, w = exp["schema"], CONF_025["image_height"], CONF_025["image_width"]
+    # each target variable's levels (None for a 2-D one), as output.py splits them
+    levels = {k: v.shape[1] if v.ndim == 4 else None for k, v in output.split_channels(
+        np.zeros((1, 1, 1, schema.n_target), np.float32), schema).items()}
+    first = os.path.join(out, want_names[0])
+    t0 = time.time()
+    for path in sorted(paths):
+        ds = open_dataset(path)
+        for name, lev in levels.items():
+            v = ds[name]
+            dims, shape = ((("time", "level", "lat", "lon"), (1, lev, h, w)) if lev
+                           else (("time", "lat", "lon"), (1, h, w)))
+            if (tuple(v.dims) != dims or v.values.shape != shape
+                    or dict(v.attrs) != variable_attrs(name) or not np.isfinite(v.values).all()):
+                raise AssertionError(f"{path}: {name} {v.dims} {v.values.shape} {v.attrs}")
+        if path == first:
+            written = {name: np.asarray(ds[name].values)[0] for name in levels}
+    log(f"  every file: {len(levels)} variables with their (time[, level], lat, lon) shape, CF "
+        f"attributes and finite values (read back in {time.time() - t0:.1f} s)")
+
+    saved = torch.load(os.path.join(run, "checkpoint", Trainer.CHECKPOINT_FILE),
+                       map_location="cuda", weights_only=True)
+    model = experiment._inference_model(conf, {**saved["model"], **saved["ema_params"]},
+                                        torch.device("cuda"))
+    del saved
+    engine = rollout.RolloutEngine(model, schema, exp["normalizer"], device="cuda")
+    x0 = torch.as_tensor(exp["dataset"].input_at(exp["dataset"].index_of(
+        f"1979-01-01T{NC_INIT_HOURS[0]:02d}:00:00"))[None])
+    y, _ = engine.step(exp["normalizer"].normalize_input(x0))
+    y = exp["normalizer"].denormalize_target(y).float()[0].cpu().numpy()
+    engine.close()
+    err = max(float(np.abs(a[0] - written[k]).max() / np.abs(written[k]).max())
+              for k, a in output.split_channels(y, schema).items())
+    log(f"  {want_names[0]} against RolloutEngine.step of the same folded EMA weights, "
+        f"denormalized: worst variable rel err {err:.3e} limit {NC_TOL:g} (bf16 compute)")
+    if not err <= NC_TOL:
+        raise AssertionError("the written forecast disagrees with the engine's step")
+    del model, engine
     shutil.rmtree(root, ignore_errors=True)
     return counts
 
@@ -1899,6 +2105,10 @@ def main() -> int:
         "2 members, grad_accum_every 2, sn_external)")
     runs["fit_ens_025"] = ensemble_fit_path(torch, store, expected_train_per_step(fwd_025, False),
                                             expected_per_step(CONF_025_TRAIN))
+    torch.cuda.empty_cache()
+    log("phase 12: main path 9, credit rollout at CONF_025 width (run_rollout to netCDF from "
+        "phase 10's checkpoint and store)")
+    runs["rollout_nc"] = rollout_nc_path(torch, store, expected_per_step(CONF_025_TRAIN))
 
     kernels = []
     for name, counter, src, replaces, r, paths in [
@@ -1907,16 +2117,18 @@ def main() -> int:
              runs),
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025")),
+             ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
+              "rollout_nc")),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025")),
+             ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc")),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
-             attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025")),
+             attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
+                    "rollout_nc")),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
              ("train_025", "fit_025", "fit_ens_025")),

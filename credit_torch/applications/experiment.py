@@ -3,13 +3,16 @@ trainer) and the train entry point (port of
 credit_tpu/applications/experiment.py).
 
 This is the gen2 application layer (reference:
-credit/applications/train_gen2.py:57 main_cli wiring) on one CUDA device:
-`run_training(conf)` is `credit train`. The rollout entry point waits for
-`output.py` and raises.
+credit/applications/train_gen2.py:57 main_cli wiring and
+credit/applications/rollout_to_netcdf.py:195 predict) on one CUDA device:
+`run_training(conf)` is `credit train`, `run_rollout(conf)` is `credit
+rollout` to per-step netCDF files, and `diff_rollout` compares two such
+trees of files.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from typing import Any, Dict, Optional
@@ -101,9 +104,188 @@ def run_training(conf: dict, seed: Optional[int] = None, device="cuda"):
     return trainer.fit(state, seed=seed, start_epoch=start_epoch)
 
 
+def _inference_model(conf: dict, tensors: Dict[str, torch.Tensor], dev):
+    """The inference model (`load_model(conf)`, spectral norm folded) from
+    the training model's tensors: each u, v pair run 30 power iterations
+    against its kernel in f64 (converge_spectral), then the kernel divided
+    by sigma in f32 (fold_spectral), as credit_tpu's rollout folds."""
+    from credit_torch.convert_jax import _flatten
+    from credit_torch.models import load_model
+    from credit_torch.models.spectral_utils import converge_spectral, fold_spectral
+
+    def nest(flat):
+        tree = {}
+        for name, v in flat.items():
+            *path, leaf = name.split(".")
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+        return tree
+
+    model = load_model(conf, device=dev)
+    keys = set(model.state_dict())
+    variables = {"params": nest({k: v for k, v in tensors.items() if k in keys}),
+                 "spectral": nest({k: v for k, v in tensors.items() if k not in keys})}
+    folded = fold_spectral(converge_spectral(variables))
+    model.load_state_dict(_flatten(folded["params"]))
+    return model
+
+
 def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[str] = None,
-                use_ema: bool = False):
-    """credit rollout to netCDF: not ported yet."""
-    raise NotImplementedError("run_rollout writes through output.py, which is not ported yet "
-                              "(ROADMAP queue 1, item 5); credit_torch.rollout.RolloutEngine "
-                              "runs the forecast itself")
+                use_ema: bool = False, device="cuda"):
+    """credit rollout (reference: applications/rollout_to_netcdf.py:195
+    predict) on one device, CUDA unless the caller asks for the CPU: the
+    weights of save_loc's checkpoint (the EMA with use_ema; a fresh seeded
+    init, with a warning, where there is no checkpoint), folded for
+    inference; then for each init time of `predict` an autoregressive
+    rollout through RolloutEngine with the config's postblocks, each step
+    written by the engine's writer threads to
+    <save_dir>/<init>/pred_<init>_<FHR>.nc. Returns the written paths.
+    Ensembles (predict.ensemble_size > 1) are not ported yet and raise."""
+    from credit_torch.forecast import strided_for_rank
+    from credit_torch.output import save_netcdf_increment
+    from credit_torch.postblock import build_postblocks
+    from credit_torch.rollout import RolloutEngine
+    from credit_torch.trainers.trainer import TrainState, load_trainer
+
+    dev = resolve_device(device)
+    pconf = conf.get("predict", {}) or {}
+    if int(pconf.get("ensemble_size", 1) or 1) > 1:
+        raise NotImplementedError("predict.ensemble_size > 1 perturbs the initial state through "
+                                  "ensemble/noise.py and ensemble/bred_vector.py, which are not "
+                                  "ported yet (ROADMAP queue 1, item 7)")
+    exp = build_experiment(conf, dev)
+    n_steps = n_steps or int(pconf.get("forecast_steps", 4))
+    save_dir = save_dir or pconf.get("save_forecast") or os.path.join(
+        conf.get("save_loc", "."), "forecasts")
+    lead_hours = int(conf.get("data", {}).get("lead_time_periods", 6))
+    schema, grid = exp["schema"], exp["grid"]
+
+    cls = load_trainer(conf)
+    trainer = cls(conf, exp["model"], exp["loss"], exp["valid_loss"], schema, exp["dataset"],
+                  exp["valid_dataset"], save_loc=conf.get("save_loc", "./ckpt"),
+                  normalizer=exp["normalizer"], device=dev)
+    ckpt = os.path.join(trainer.save_loc, "checkpoint")
+    if os.path.exists(os.path.join(ckpt, trainer.CHECKPOINT_FILE)):
+        # no noise generator: the train step's draws are no part of a
+        # rollout, and a checkpoint written on another kind of device holds
+        # another kind of generator's state
+        state = dataclasses.replace(TrainState.create(trainer.model, trainer.optimizer,
+                                                      ema=trainer.use_ema), noise=None)
+        state = trainer.load_checkpoint(state, load_optimizer=False)
+        logger.info("loaded weights from %s", ckpt)
+    else:
+        logger.warning("no checkpoint at %s — rolling out with fresh init", ckpt)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+    if use_ema and state.ema_params is None:
+        raise ValueError("use_ema: the trainer keeps no EMA (trainer.use_ema is off)")
+    tensors = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+    if use_ema:
+        tensors.update(state.ema_params)
+    model = _inference_model(conf, tensors, dev)
+    del state, trainer, tensors, exp["model"]
+
+    postblocks = build_postblocks(conf, schema, grid, exp["normalizer"])
+    engine = RolloutEngine(model, schema, exp["normalizer"],
+                           history_len=int(conf.get("data", {}).get("history_len", 1)) or 1,
+                           postblocks=postblocks, device=dev)
+    dataset = exp["dataset"]
+    # rank-strided multi-init loop (reference: rollout_to_netcdf.py:266);
+    # the port runs one process until parallel/ is ported (item 8)
+    inits = strided_for_rank(_resolve_init_indices(pconf, dataset), 0, 1)
+    written = []
+    for t0, label in inits:
+        x0 = dataset.input_at(t0)[None]
+
+        def forcing(s, t0=t0):
+            f = dataset.forcing_at(t0 + s) if hasattr(dataset, "forcing_at") else None
+            return None if f is None else f[None]
+
+        def writer(step, y, label=label):
+            written.append(save_netcdf_increment(y[0], schema, grid, save_dir, label,
+                                                 (step + 1) * lead_hours))
+
+        engine.run(x0, n_steps, forcing_provider=forcing, on_step=writer)
+    engine.close()
+    logger.info("wrote %d forecast files (%d inits) to %s", len(written), len(inits), save_dir)
+    return written
+
+
+def diff_rollout(paths, ref, rtol: float = 2e-4, atol: float = 2e-4):
+    """Compare produced rollout netCDFs against reference files (reference:
+    credit_tpu/applications/experiment.py diff_rollout). `ref` is a
+    directory mirroring the output tree (matched by relative path, falling
+    back to basename) or a single file when one path was written. Returns a
+    report list; entry['ok'] per file, per-variable max-abs/rel errors.
+    atol is applied RELATIVE to each variable's reference max-abs."""
+    import numpy as np
+
+    from credit_torch.utils.ncio import open_dataset
+
+    paths = list(paths)
+    report = []
+    for p in paths:
+        if os.path.isdir(ref):
+            cand = [os.path.join(ref, os.path.join(
+                os.path.basename(os.path.dirname(p)), os.path.basename(p))),
+                os.path.join(ref, os.path.basename(p))]
+            rp = next((c for c in cand if os.path.exists(c)), None)
+        elif len(paths) == 1:
+            rp = ref
+        else:
+            # several outputs against one reference file: only the output
+            # whose basename matches is compared
+            rp = ref if (os.path.exists(ref) and os.path.basename(p)
+                         == os.path.basename(ref)) else None
+        if rp is None or not os.path.exists(rp):
+            report.append({"path": p, "ref": None, "ok": False,
+                           "error": "no matching reference file"})
+            continue
+        ours, theirs = open_dataset(p), open_dataset(rp)
+        entry = {"path": p, "ref": rp, "vars": {}, "ok": True}
+        for name in theirs.keys():
+            if name not in ours:
+                entry["vars"][name] = {"missing": True}
+                entry["ok"] = False
+                continue
+            a = np.asarray(ours[name].values, np.float64)
+            b = np.asarray(theirs[name].values, np.float64)
+            if a.shape != b.shape:
+                entry["vars"][name] = {"shape": (a.shape, b.shape)}
+                entry["ok"] = False
+                continue
+            scale = np.abs(b).max() or 1.0
+            err = np.abs(a - b).max()
+            ok = bool(err <= atol * scale + rtol * scale)
+            entry["vars"][name] = {"max_abs": float(err),
+                                   "rel": float(err / scale), "ok": ok}
+            entry["ok"] = entry["ok"] and ok
+        report.append(entry)
+    return report
+
+
+def _resolve_init_indices(pconf: dict, dataset):
+    """-> [(clock_index, label)]: predict.forecasts datetimes when the
+    dataset has a datetime clock (reference: forecast.py:39
+    generate_forecasts), explicit integer indices, or the single default
+    init at history_len."""
+    from credit_torch.forecast import generate_forecasts
+
+    fc = pconf.get("forecasts")
+    if fc is not None and hasattr(dataset, "index_of"):
+        out = []
+        for when in generate_forecasts(pconf):
+            idx = dataset.index_of(when.isoformat())
+            out.append((idx, when.strftime("%Y-%m-%dT%HZ")))
+        return out
+    if isinstance(fc, list) and fc and isinstance(fc[0], int):
+        return [(int(i), f"init{int(i):04d}") for i in fc]
+    if fc is not None and not hasattr(dataset, "index_of"):
+        # integer-clock datasets: expand duration x start_hours as offsets
+        base = dataset.history_len
+        n = len(generate_forecasts(pconf))
+        return [(base + i, f"init{base + i:04d}")
+                for i in range(n) if base + i < len(dataset) - 1]
+    t0 = dataset.history_len
+    return [(t0, pconf.get("init_label", f"init{t0:04d}"))]

@@ -8,12 +8,15 @@ round trip. The position-bias tables are computed on the first step and
 reused by the rest (`layers.position_bias_cache`).
 
 `RolloutEngine` runs in normalized space with its `Normalizer` and applies
-its postblocks every step, as the reference's. Not ported yet (ROADMAP
-queue 1, item 5): `rk4_step`.
+its postblocks every step, as the reference's. `RolloutEngine.run` hands
+each prediction to the host through pinned memory on a side CUDA stream
+and to a pool of writer threads, so that the next steps run on the card
+while earlier ones are copied and written.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 from typing import Callable, List, Optional, Sequence
 
@@ -80,6 +83,8 @@ class RolloutEngine:
         self.history_len = history_len
         self.postblocks = list(postblocks or [])
         check_stateless(self.postblocks)
+        self._ring: Optional[List[torch.Tensor]] = None  # run's pinned host buffers
+        self.copy_ms: List[float] = []
         self._cache = contextlib.ExitStack()
         self._cache.enter_context(position_bias_cache(model))
 
@@ -100,29 +105,119 @@ class RolloutEngine:
     def run(self, x0, n_steps: int,
             forcing_provider: Optional[Callable[[int], np.ndarray]] = None,
             on_step: Optional[Callable[[int, np.ndarray], None]] = None,
-            denormalize: bool = True) -> List[np.ndarray]:
-        """Run n_steps. Returns the (denormalized) predictions as numpy
-        arrays, or streams them to on_step(step, y) and returns [].
-        forcing_provider(s) gives the (B, 1, H, W, n_dyn) forcing of the next
-        input, or None. x0 and the forcing are in physical units when a
-        normalizer is set: they are normalized on entry."""
+            denormalize: bool = True, async_writers: int = 2) -> List[np.ndarray]:
+        """Run n_steps. Returns the (denormalized) f32 predictions as numpy
+        arrays that own their memory, or streams them to on_step(step, y)
+        on `async_writers` writer threads and returns []; every writer has
+        finished, and a writer's exception is raised, when run returns. On
+        CUDA the y given to on_step is a view of a pinned host buffer that
+        is reused once on_step returns: copy what must outlive the call.
+        forcing_provider(s) gives the (B, 1, H, W, n_dyn) forcing of the
+        next input, or None. x0 and the forcing are in physical units when
+        a normalizer is set: they are normalized on entry. On CUDA,
+        `copy_ms` holds each step's device-to-host copy time afterwards."""
         x = torch.as_tensor(x0).to(self.device)
         if self.normalizer is not None:
             x = self.normalizer.normalize_input(x)
-        outs: List[np.ndarray] = []
-        for s in range(n_steps):
-            f = forcing_provider(s + 1) if forcing_provider is not None else None
-            if f is not None:
-                f = torch.as_tensor(f).to(self.device)
-                if self.normalizer is not None:
-                    f = self.normalizer.normalize_forcing(f, self.schema)
-                f = f.to(x.dtype)
-            y, x = self.step(x, f)
-            if denormalize and self.normalizer is not None:
-                y = self.normalizer.denormalize_target(y)
-            y_host = y.float().cpu().numpy()
-            if on_step is not None:
-                on_step(s, y_host)
-            else:
-                outs.append(y_host)
-        return outs
+        outs: List[np.ndarray] = [None] * n_steps if on_step is None else []
+
+        def collect(s, y):
+            outs[s] = y.copy()
+
+        copies = _HostCopies(self, async_writers + 1)
+        with concurrent.futures.ThreadPoolExecutor(max(async_writers, 1)) as pool:
+            try:
+                for s in range(n_steps):
+                    f = forcing_provider(s + 1) if forcing_provider is not None else None
+                    if f is not None:
+                        f = torch.as_tensor(f).to(self.device)
+                        if self.normalizer is not None:
+                            f = self.normalizer.normalize_forcing(f, self.schema)
+                        f = f.to(x.dtype)
+                    y, x = self.step(x, f)
+                    if denormalize and self.normalizer is not None:
+                        y = self.normalizer.denormalize_target(y)
+                    copies.submit(pool, s, y.float(), on_step or collect)
+                copies.wait_all()
+            finally:
+                copies.cancel()
+        self.copy_ms = copies.elapsed_ms()
+        return outs if on_step is None else []
+
+
+class _HostCopies:
+    """The host hand-off of `RolloutEngine.run`. On CUDA, a step's
+    prediction is copied into one of a ring of pinned host buffers on a
+    side stream, after an event recorded behind the step on the compute
+    stream; a writer thread waits for the copy's event and then gets the
+    buffer as a numpy view. A slot is reused only after the writer holding
+    it has finished, which also bounds how many predictions wait behind
+    slow writes. On the CPU the copy is a contiguous clone."""
+
+    def __init__(self, engine: "RolloutEngine", slots: int):
+        self.engine = engine
+        self.cuda = engine.device.type == "cuda"
+        self.slots = slots
+        self.futures: List[Optional[concurrent.futures.Future]] = [None] * slots
+        self.events = []
+        if self.cuda:
+            self.stream = torch.cuda.Stream(engine.device)
+
+    def _buffers(self, y: torch.Tensor) -> List[torch.Tensor]:
+        ring = self.engine._ring
+        if ring is None or len(ring) != self.slots or ring[0].shape != y.shape:
+            ring = [torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                    for _ in range(self.slots)]
+            self.engine._ring = ring
+        return ring
+
+    def submit(self, pool, s: int, y: torch.Tensor, emit: Callable) -> None:
+        k = s % self.slots
+        if self.futures[k] is not None:
+            self.futures[k].result()  # the slot's writer is done (or raises)
+        if not self.cuda:
+            host = y.contiguous().clone().numpy()
+            self.futures[k] = pool.submit(emit, s, host)
+            return
+        buf = self._buffers(y)[k]
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.engine.device))
+        start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            start.record(self.stream)
+            buf.copy_(y, non_blocking=True)
+            done.record(self.stream)
+        y.record_stream(self.stream)  # y's memory stays until the copy has run
+        self.events.append((start, done))
+
+        def write():
+            done.synchronize()
+            emit(s, buf.numpy())
+
+        self.futures[k] = pool.submit(write)
+
+    def wait_all(self) -> None:
+        for fu in self.futures:
+            if fu is not None:
+                fu.result()
+
+    def cancel(self) -> None:
+        for fu in self.futures:
+            if fu is not None:
+                fu.cancel()
+
+    def elapsed_ms(self) -> List[float]:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def rk4_step(apply_fn, x: torch.Tensor) -> torch.Tensor:
+    """Runge-Kutta-4 composition of the single-step model (reference:
+    crossformer.py:738 rk4 -- treats the model output as a state estimate
+    and averages four staged evaluations). apply_fn: x -> y_pred with
+    matching prognostic channel count."""
+    k1 = apply_fn(x)
+    k2 = apply_fn(x + 0.5 * (k1 - x))
+    k3 = apply_fn(x + 0.5 * (k2 - x))
+    k4 = apply_fn(x + (k3 - x))
+    return (k1 + 2 * k2 + 2 * k3 + k4) / 6.0

@@ -33,10 +33,15 @@ batches assembled and pinned on a producer thread, validation on the EMA
 weights, latitude-weighted per-variable metrics kept on the device and
 fetched once an epoch, `training_log.csv`, checkpoints and early stopping.
 
+Preblocks (`conf["preblocks"]`, `preblock.build_preblocks`) run where the
+reference runs them: the 'ic_only' phase once on the normalized initial
+state, the 'per_step' phase on x at the top of every rollout step, before
+the ensemble repeat.
+
 The TPU levers `flatten_optimizer`, `scan_blocks` and `remat` are accepted
-and ignored. Not ported yet, and raising: preblocks and stateful
-postblocks (ROADMAP queue 1, item 5), the diffusion and IC-optimisation
-trainers (item 7) and `trainer.parallelism` beyond one device (item 8).
+and ignored. Not ported yet, and raising: stateful postblocks (ROADMAP
+queue 1, item 5), the diffusion and IC-optimisation trainers (item 7) and
+`trainer.parallelism` beyond one device (item 8).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from credit_torch.data.channels import ChannelSchema
 from credit_torch.models.layers import freeze_sn_updates
 from credit_torch.models.spectral_utils import power_iter_model_
 from credit_torch.postblock.stochastic import check_stateless
+from credit_torch.preblock import apply_preblocks, build_preblocks
 from credit_torch.trainers.scheduler import Schedule
 
 logger = logging.getLogger(__name__)
@@ -190,13 +196,6 @@ def _ema_decay(base: float, n: int) -> float:
 
 
 
-def _refuse_unported(preblocks=(), preblocks_ic=(), postblocks=()) -> None:
-    if preblocks or preblocks_ic:
-        raise NotImplementedError("preblocks are not ported yet (preblock/__init__.py: "
-                                  "ROADMAP queue 1, item 5)")
-    check_stateless(postblocks)
-
-
 def _members(y_pred: torch.Tensor, b: int, ensemble_size: int) -> torch.Tensor:
     """(B*E, ...) predictions as (B, E, ...): sample-major, the layout of
     repeat_interleave (jnp.repeat) over the batch."""
@@ -245,8 +244,10 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
     state one step past the batch, in physical units (replay training
     stores it). The step updates the model in place (under MultiSteps only
     on every k-th call) and reads the device twice: the loss's finiteness
-    and, with clipping, the gradient norm against the clip."""
-    _refuse_unported(preblocks, preblocks_ic, postblocks)
+    and, with clipping, the gradient norm against the clip. `preblocks_ic`
+    run once on the normalized initial state, `preblocks` on x at the top
+    of every rollout step."""
+    check_stateless(postblocks)
     dev = resolve_device(device)
     bp = set(backprop_on_timestep or range(forecast_len))
     n_bp = max(len(bp), 1)
@@ -266,12 +267,13 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
         for p in params.values():
             p.grad = None
         batch = _prepare(batch, dev, normalizer, schema)
-        x = batch["x"]
+        x = apply_preblocks(preblocks_ic, batch["x"])
         b = x.shape[0]
         total = torch.zeros((), device=dev)
         mvals = None
         for s in range(forecast_len):
             y_t = batch["y"][:, s:s + 1]
+            x = apply_preblocks(preblocks, x)
             x_in = torch.repeat_interleave(x, ensemble_size, dim=0) if ensemble_size > 1 else x
             if s in bp:
                 y_pred = forward(mdl, x_in, state.noise)
@@ -345,8 +347,8 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
     (the model's own parameters are not touched). With ensemble_size E > 1
     the loss scores the (B, E, ...) members and the metrics and rollout
     their mean. `generator` is the noise source of a noisy model, on its
-    device."""
-    _refuse_unported(preblocks, preblocks_ic, postblocks)
+    device. Preblocks run as in the train step."""
+    check_stateless(postblocks)
     dev = resolve_device(device)
     stochastic = getattr(model, "stochastic", False)
 
@@ -368,12 +370,13 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
 
         with torch.no_grad():
             batch = _prepare(batch, dev, normalizer, schema)
-            x = batch["x"]
+            x = apply_preblocks(preblocks_ic, batch["x"])
             b = x.shape[0]
             total = torch.zeros((), device=dev)
             mvals = None
             for s in range(forecast_len):
                 y_t = batch["y"][:, s:s + 1]
+                x = apply_preblocks(preblocks, x)
                 if ensemble_size > 1:
                     y_e = _members(forward(torch.repeat_interleave(x, ensemble_size, dim=0)),
                                    b, ensemble_size)
@@ -489,7 +492,6 @@ class Trainer:
                for k in ("data", "tensor", "domain")):
             raise NotImplementedError("trainer.parallelism beyond one device is not ported yet "
                                       "(parallel/: ROADMAP queue 1, item 8)")
-        _refuse_unported(conf.get("preblocks") or ())
 
         from credit_torch.trainers.scheduler import load_scheduler
 
@@ -502,6 +504,10 @@ class Trainer:
         from credit_torch.grid import grid_from_conf
 
         grid = grid_from_conf(conf)
+        # in-step pipelines (reference: trainer_gen2.py:270-497 applies
+        # preblocks and postblocks inside train_one_epoch)
+        pre = {phase: tuple(build_preblocks(conf, schema, normalizer, phase=phase, grid=grid))
+               for phase in ("ic_only", "per_step")}
         post = self._build_train_postblocks(grid)
         self.train_postblocks = post
         self.metrics_fn = None
@@ -529,7 +535,8 @@ class Trainer:
         self.sn_external = bool(t.get("sn_external", False))
         self._step_kw = dict(
             history_len=self.history_len, ema_decay=self.ema_decay if self.use_ema else 0.0,
-            ensemble_size=self.ensemble_size, normalizer=normalizer, postblocks=tuple(post),
+            ensemble_size=self.ensemble_size, normalizer=normalizer, preblocks=pre["per_step"],
+            preblocks_ic=pre["ic_only"], postblocks=tuple(post),
             metrics_fn=self.metrics_fn, return_final_state=self.replay is not None,
             sn_external=self.sn_external, device=self.device)
         self._step_cache = {}
@@ -545,7 +552,8 @@ class Trainer:
         self._eval_step = make_eval_step(
             model, valid_loss_fn, schema, self.forecast_len, self.history_len,
             normalizer=normalizer, ensemble_size=self.valid_ensemble_size,
-            metrics_fn=self.metrics_fn, postblocks=tuple(post), device=self.device)
+            metrics_fn=self.metrics_fn, preblocks=pre["per_step"], preblocks_ic=pre["ic_only"],
+            postblocks=tuple(post), device=self.device)
         self.epoch_timings: List[dict] = []
 
     def _train_step_for(self, flen: int):

@@ -440,9 +440,11 @@ def test_unported_trainers_raise(name):
 @pytest.mark.parametrize("option", ["parallelism", "ensemble", "sn_external", "preblocks",
                                     "grad_accum", "ring_crps", "downscaling"])
 def test_trainer_refuses_unported_options(env, tmp_path, option):
-    """Parallelism, preblocks, the device-ring CRPS and downscaling raise,
-    naming their ROADMAP item. Ensembles, sn_external and grad_accum_every,
-    once refused, now build the trainer (their parity with credit_tpu:
+    """Parallelism, the device-ring CRPS and downscaling raise, naming their
+    ROADMAP item; a `regrid` preblock raises naming the ROADMAP step that
+    brings ops/regrid.py (the ported preblocks: tests/test_torch_port_
+    preblock.py). Ensembles, sn_external and grad_accum_every, once
+    refused, now build the trainer (their parity with credit_tpu:
     tests/test_torch_port_ensemble.py and ..._ensemble_fit.py)."""
     conf = fit_conf(env["store"], env["stats"], tmp_path)
     t = conf["trainer"]
@@ -469,7 +471,9 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
         assert trainer.sn_external == (option == "sn_external")
         assert isinstance(trainer.optimizer, ttrainer.MultiSteps) == (option == "grad_accum")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item [578]"):
+    match = (r"ROADMAP queue 1, step 2 \(item 4\)" if option == "preblocks"
+             else "ROADMAP queue 1, item [578]")
+    with pytest.raises(NotImplementedError, match=match):
         port_trainer(conf)
 
 

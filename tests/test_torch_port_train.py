@@ -273,8 +273,9 @@ def test_nan_guard_keeps_params_and_advances_moments(setup):
 def test_train_step_refuses_unported_options(setup):
     """The normalizer, stateless postblocks, metrics and the final state
     (tests/test_torch_port_fit.py), ensembles and sn_external
-    (tests/test_torch_port_ensemble.py) are ported; preblocks and stateful
-    postblocks raise, naming their item."""
+    (tests/test_torch_port_ensemble.py) and preblocks
+    (tests/test_torch_port_preblock.py) are ported; stateful postblocks
+    raise, naming their item."""
     _, _, schema, _ = setup
     model = load_model(CONF, device="cpu")
     opt = make_optimizer(CONF, tsched.constant(LR))
@@ -283,10 +284,10 @@ def test_train_step_refuses_unported_options(setup):
     class Stateful:
         is_stateful = True
 
-    for kw in [{"preblocks": [lambda x: x]}, {"preblocks_ic": [lambda x: x]},
-               {"postblocks": [Stateful()]}]:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            make_train_step(model, loss, opt, schema, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+        make_train_step(model, loss, opt, schema, device="cpu", postblocks=[Stateful()])
+    assert make_train_step(model, loss, opt, schema, device="cpu", preblocks=[lambda x: x],
+                           preblocks_ic=[lambda x: x]) is not None
     assert make_train_step(model, loss, opt, schema, device="cpu", normalizer=object(),
                            postblocks=[lambda y, x: y], return_final_state=True) is not None
     assert make_train_step(model, loss, opt, schema, device="cpu", ensemble_size=2,
