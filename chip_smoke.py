@@ -69,7 +69,7 @@ Phases (any failure exits non-zero):
      launches checked; the step, validation, batch assembly and copy times
      and the peak memory printed; the store read through the native chunk
      pool (every chunk it decodes counted against every chunk read), the
-     resumed epoch profiled for the device's idle share, and four more
+     resumed epoch profiled for the device's idle share, and two more
      one-epoch fits in turns, through the pool and through the Python path,
      for the step time beside each;
  11. main path 8, ensemble CRPS training at CONF_025 width: run_training on
@@ -88,7 +88,25 @@ Phases (any failure exits non-zero):
      attributes and finite values, the launches per step, and the first
      file against RolloutEngine.step of the same folded weights; wall
      ms/step with the writes, copy ms, ms and MB per file and peak memory
-     printed. Removes phase 10's store.
+     printed;
+ 13. main path 10, `credit train` on computed solar forcing at CONF_025:
+     run_training on phase 10's store with tsi taken out of the store's
+     dynamic forcing and computed by a `tisr` source on the model grid over
+     the store's clock (its mean and std from the computed fields), one
+     epoch of 2 steps and 1 validation batch, profiled for the idle share:
+     the batch's tsi channel on the card against tisr_accumulated
+     recomputed on the host (bitwise), the log finite and the launches
+     checked; step, validation, assembly (and the tisr fields' share of
+     it) and copy times and the peak memory printed. Then, at full size:
+     the regrid preblock (bilinear and nearest 181x360 -> 721x1440,
+     conservative 721x1440 -> 181x360, 60 channels) on the card against the
+     CPU; divergent_rotational_spectra of phase 12's forecast's U and V (13
+     levels, 721x1440) timed as users call it (the SHT's table build and
+     copy included) and with the tables prebuilt, host and device memory, a round trip of a field band-limited to
+     l < 360 on 721 Gauss latitudes and the spectra at 181x360 on the card
+     against the CPU; GOES ABI CONUS, HRRR and MRMS granules at their real
+     sizes, two each, one sample read of each on the host. Removes phase
+     10's store.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -99,6 +117,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -261,6 +280,34 @@ NC_WINDOW = ("1979-01-01T00", "1979-01-02T18")
 NC_INIT_HOURS = (0, 6)
 NC_STEPS = FIT_TIMES - 1 - NC_INIT_HOURS[-1] // 6
 NC_TOL = 1e-2
+# main path 10, credit train on computed solar forcing: CONF_025_TRAIN on
+# phase 10's store with tsi taken out of the store's dynamic forcing and
+# computed by a `tisr` source (SUN: 6-hour accumulations, J/m^2) on the
+# model grid over the store's clock; one epoch of 2 steps and 1 validation
+# batch in phase 10's windows
+TISR_TRAINER = {**FIT_TRAINER, "num_epoch": 1, "batches_per_epoch": 2}
+SUN_SOURCE = {"dataset_type": "tisr", "variables": {"dynamic_forcing": {"vars_2D": ["tsi"]}}}
+# phase 13's regrid preblock at full size on a (1, 1, H, W, 60) f32 batch,
+# (method, source grid, destination grid), the card against the CPU
+# relative to max |x|
+REGRID_CASES = (("bilinear", (181, 360), (721, 1440)), ("nearest", (181, 360), (721, 1440)),
+                ("conservative", (721, 1440), (181, 360)))
+REGRID_TOL = 1e-5
+# phase 13's SHT: a field band-limited to l < SHT_BAND through grid2spec and
+# spec2grid on 721 Gauss-Legendre latitudes, relative to max |f| (on the
+# equiangular grid the quadrature is approximate: credit_tpu's own round-trip
+# test allows 2e-2 there, so that reading is printed, not held); the spectra
+# at 181x360 on the card against the CPU, relative to each one's largest
+SHT_BAND = 360
+SHT_ROUNDTRIP_TOL = 1e-4
+SHT_SPECTRA_TOL = 1e-5
+# phase 13's granules at real sizes (y, x): GOES-16 ABI CONUS (the MCMIPC
+# sector, 56-microradian pixels from these scan angles; three bands), HRRR
+# on its Lambert grid (T and U at five pressure levels), the MRMS CONUS
+# mosaic (0.01 degrees)
+GOES_SHAPE, GOES_X0, GOES_Y0, GOES_STEP = (1500, 2500), -0.101332, 0.128212, 56e-6
+HRRR_SHAPE, HRRR_LEVELS = (1059, 1799), [250.0, 500.0, 700.0, 850.0, 925.0]
+MRMS_SHAPE = (3500, 7000)
 # bench_conv_ffk's modes in phase 9: the plain FFs, the kernel's, and the
 # three identity copies
 FFK_MODES = ("xla", "pallas", "identity", "identity-input", "identity-end")
@@ -1485,8 +1532,6 @@ def tiny_fit(torch) -> None:
     anomaly correlations sit near 0, where the CPU alone on 1 and 6 threads
     parts by 2.8e-4 of a -7.6e-4 cell). Then tiny_rollout from the card's
     checkpoint."""
-    import shutil
-
     from credit_torch.applications import run_training
 
     root = os.path.join(HERE, "build", "fit_tiny")
@@ -1562,9 +1607,7 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     2 epochs, then a resumed run of 1 epoch under the profiler, each
     checked, the store read through the native chunk pool. Returns the
     first run's launch counts and (store, statistics, data section, run
-    directory) for main paths 8 and 9; main path 9 removes them."""
-    import shutil
-
+    directory) for main paths 8 to 10; main path 10 removes them."""
     from credit_torch.applications import prepare_training
     from credit_torch.data import zarrlite
     from credit_torch.native import fastload
@@ -1666,19 +1709,18 @@ def pool_step_turns(torch, conf: dict) -> None:
     """Whether the chunk pool's threads slow the thread that launches the
     step: one-epoch fits from the seeded state in turns, the chunks read
     through the native pool and through the Python path (codec_id patched
-    to None, as assembly_breakdown does), pool, Python, pool, Python; each
-    turn's train step, assembly and wall times, then each path's mean step
-    over its turns (each run's first step left out) beside phase 5's step
-    alone (no data pipeline, no metrics)."""
-    import shutil
-
+    to None, as assembly_breakdown does), pool then Python (two turns, so
+    that phase 13 fits in the run's time); each turn's train step,
+    assembly and wall times, then each path's mean step (each run's first
+    step left out) beside phase 5's step alone (no data pipeline, no
+    metrics)."""
     from credit_torch.applications import prepare_training
     from credit_torch.native import fastload
 
     codec_id = fastload.codec_id
     steps = {"native pool": [], "Python path": []}
     try:
-        for turn, path in enumerate(["native pool", "Python path"] * 2):
+        for turn, path in enumerate(["native pool", "Python path"]):
             fastload.codec_id = codec_id if path == "native pool" else (lambda compressor: None)
             run = {**conf, "save_loc": f"{conf['save_loc']}_turn{turn}",
                    "trainer": {**conf["trainer"], "num_epoch": 1}}
@@ -1754,8 +1796,6 @@ def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> 
     apart, the launches (4 micro-steps of 2 members and a 2-member
     validation forward); prints the step, validation and assembly times
     and the peak memory. Returns the launch counts."""
-    import shutil
-
     from credit_torch.applications import prepare_training
 
     store, stats, data, _ = store_info
@@ -1824,10 +1864,9 @@ def rollout_nc_path(torch, store_info, want: dict) -> dict:
     that every value is finite, the launches per step against `want`, and
     the first file of the first init against RolloutEngine.step of the same
     folded weights, denormalized. Prints the wall ms/step with the writes,
-    the copy ms, ms and MB per written file and the peak memory. Removes
-    phase 10's store and run; returns the launch counts."""
-    import shutil
-
+    the copy ms, ms and MB per written file and the peak memory. Returns
+    the launch counts and the first file's path (phase 13 reads its
+    winds)."""
     import numpy as np
 
     from credit_torch import output, rollout
@@ -1930,8 +1969,373 @@ def rollout_nc_path(torch, store_info, want: dict) -> dict:
     if not err <= NC_TOL:
         raise AssertionError("the written forecast disagrees with the engine's step")
     del model, engine
-    shutil.rmtree(root, ignore_errors=True)
+    return counts, first
+
+
+def tisr_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> dict:
+    """Main path 10, `credit train` on computed solar forcing: run_training
+    (prepare_training + fit) of CONF_025_TRAIN on main path 7's store with
+    tsi from a `tisr` source (SUN_SOURCE) instead of the store, for one
+    epoch of TISR_TRAINER under the profiler. tsi's mean and std come from
+    the fields of the store's clock, computed on the host as the source
+    computes them (tisr_accumulated at the day of year and hour of each
+    time). Checks: the first training batch's tsi input and forcing on the
+    card bitwise equal to those fields at its init time and the next, the
+    log finite, the launches (2 steps and a validation batch). Prints the
+    channel order, the host ms of one field, the step, validation,
+    assembly and copy times, the tisr fields' share of the assembly, the
+    idle share and the peak memory. Returns the launch counts."""
+    import datetime as dt
+    import threading
+
+    import numpy as np
+
+    from credit_torch.applications import prepare_training
+    from credit_torch.data import tisr
+    from credit_torch.grid import Grid
+    from credit_torch.physics import solar
+    from credit_torch.utils.ncio import Dataset, open_dataset
+
+    store, stats, data, _ = store_info
+    root = os.path.dirname(store)
+    era5 = data["source"]["ERA5"]
+    variables = {**era5["variables"], "dynamic_forcing": {"vars_2D": [
+        v for v in era5["variables"]["dynamic_forcing"]["vars_2D"] if v != "tsi"]}}
+    store_data = {"source": {"ERA5": {**era5, "variables": variables}}}
+    grid = Grid.regular(CONF_025["image_height"], CONF_025["image_width"])
+
+    def host_field(k: int):
+        doy, hour = tisr._doy_hour(np.datetime64("1979-01-01T00", "s") + np.timedelta64(6 * k, "h"))
+        when = dt.datetime(2001, 1, 1) + dt.timedelta(days=doy - 1, hours=hour)
+        return np.asarray(solar.tisr_accumulated(grid.lat, grid.lon, when, 6.0), np.float32)
+
+    t0 = time.perf_counter()
+    fields = [host_field(k) for k in range(FIT_TIMES)]
+    one_ms = (time.perf_counter() - t0) * 1e3 / FIT_TIMES
+    mean, std = float(np.mean(fields, dtype=np.float64)), float(np.std(fields, dtype=np.float64))
+    tisr_stats = []
+    for kind, path, value in (("mean", stats[0], mean), ("std", stats[1], std)):
+        old = open_dataset(path)
+        tisr_stats.append(os.path.join(root, f"{kind}_tisr.nc"))
+        Dataset({**{k: (old[k].dims, np.asarray(old[k].values)) for k in old.keys()},
+                 "tsi": ((), np.float32(value))}).to_netcdf(tisr_stats[-1])
+    log(f"  tsi computed on the host (tisr_accumulated, 6-hour accumulation, {grid.nlat}x"
+        f"{grid.nlon} in float64): {one_ms:.0f} ms a field; mean {mean:.6e} std {std:.6e} J/m^2 "
+        f"over the store's {FIT_TIMES} times, written into the statistics files")
+    conf = fit_conf(CONF_025_TRAIN, store_data, store, tisr_stats, os.path.join(root, "tisr"),
+                    TISR_TRAINER, *FIT_WINDOWS)
+    for split in ("data", "data_valid"):
+        conf[split]["source"]["SUN"] = SUN_SOURCE
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    trainer, state, start, seed = prepare_training(conf)
+    schema = trainer.schema
+    i_tsi = schema.input_names.index("tsi")
+    j_tsi = schema.dynamic_forcing_indices().index(i_tsi)
+    log(f"  set-up (data, model, trainer, seeded weights): {time.time() - t0:.1f} s; sources "
+        f"{list(trainer.dataset.sources)}, {schema.n_input} inputs, tsi input channel {i_tsi}, "
+        f"forcing {[schema.input_names[i] for i in schema.dynamic_forcing_indices()]}")
+    step, seen, field_ms = trainer._train_step_for(1), [], []
+
+    def watched(state, batch):
+        if not seen:  # the first training batch as it reached the card
+            seen.append((batch["x"][0, 0, ..., i_tsi].cpu().numpy(),
+                         batch["forcing"][0, 0, ..., j_tsi].cpu().numpy()))
+        return step(state, batch)
+
+    field = tisr.TISRDataset._field
+
+    def timed_field(self, t_idx):
+        t1 = time.perf_counter()
+        try:
+            return field(self, t_idx)
+        finally:  # the producer threads' batches only, not the preflight's sample
+            if threading.current_thread() is not threading.main_thread():
+                field_ms.append((time.perf_counter() - t1) * 1e3)
+
+    trainer._step_cache[1] = watched
+    done = {}
+
+    def run():
+        done["state"] = trainer.fit(state, seed=seed, start_epoch=start)
+
+    tisr.TISRDataset._field = timed_field
+    try:
+        idle = profile_steps(torch, "CONF_025 fit on computed tsi", run, (), steps=2)
+    finally:
+        tisr.TISRDataset._field = field
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  run_training 1 epoch: {time.time() - t0:.1f} s end to end (profiled), peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {counts}")
+    fit_times(trainer)
+    assembled = [v for e in trainer.epoch_timings for v in e["assemble_ms"]]
+    log(f"  batch assembly host ms mean {sum(assembled) / len(assembled):.0f} over "
+        f"{len(assembled)} batches, of which the tisr fields {sum(field_ms):.0f} ms of "
+        f"{sum(assembled):.0f} ({sum(field_ms) / sum(assembled):.3f}; {len(field_ms)} fields, "
+        f"{sum(field_ms) / max(len(field_ms), 1):.0f} ms each); idle share {idle:.3f}")
+    x_tsi, f_tsi = seen[0]
+    match = [k for k, f in enumerate(fields) if np.array_equal(f, x_tsi)]
+    same = (len(match) == 1 and match[0] + 1 < FIT_TIMES
+            and np.array_equal(fields[match[0] + 1], f_tsi))
+    log(f"  first training batch on the card: tsi input bitwise equal to tisr_accumulated at "
+        f"clock index {match} (the store's 6-hourly times), its forcing to the next time's: "
+        f"{same}")
+    rows = read_log(conf["save_loc"])
+    cells = [float(c) for r in rows[1:] for c in r[1:]]
+    log(f"  training_log.csv: {len(rows) - 1} row, {len(rows[0])} columns, (train, valid) loss "
+        f"{[(float(r[1]), float(r[2])) for r in rows[1:]]}")
+    if (not same or len(rows) != 2 or not all(math.isfinite(v) for v in cells)
+            or done["state"].step != 2):
+        raise AssertionError("the CONF_025 fit on computed tsi failed its checks")
+    _check_counts(counts, {k: 2 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
+    del state, trainer, step, done
     return counts
+
+
+def regrid_phase(torch) -> None:
+    """The regrid preblock at full size (REGRID_CASES) on a seeded (1, 1, H,
+    W, 60) f32 batch: ms per call on the card (its index and weight tables
+    moved there at the first call), the same block's output on the CPU
+    against the card's within REGRID_TOL of max |x|."""
+    from credit_torch.grid import Grid
+    from credit_torch.preblock import RegridPreblock
+    from credit_torch.tools import cuda_ms
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for method, src, dst in REGRID_CASES:
+        s, d = Grid.regular(*src), Grid.regular(*dst)
+        t0 = time.time()
+        block = RegridPreblock(src_lat=s.lat, src_lon=s.lon, dst_lat=d.lat, dst_lon=d.lon,
+                               method=method)
+        build = time.time() - t0
+        x = torch.randn((1, 1, *src, 60), generator=g, device="cuda")
+        y = block(x)
+        ms = cuda_ms(lambda: block(x), 10)
+        ref = RegridPreblock(src_lat=s.lat, src_lon=s.lon, dst_lat=d.lat, dst_lon=d.lon,
+                             method=method)(x.cpu())
+        err = float((y.cpu() - ref).abs().max() / x.abs().max())
+        log(f"  regrid {method} {src[0]}x{src[1]} -> {dst[0]}x{dst[1]}, 60 channels: tables "
+            f"{build * 1e3:.0f} ms on the host, {ms:.3f} ms a call on the card; card vs CPU "
+            f"{err:.3e} of max|x|, limit {REGRID_TOL:g}")
+        if tuple(y.shape) != (1, 1, *dst, 60) or not err <= REGRID_TOL:
+            raise AssertionError(f"the {method} regrid on the card disagrees with the CPU")
+
+
+class HostPeak:
+    """The process's resident memory, sampled every 10 ms on a thread while
+    the block runs: `bytes` is its peak above the level at the start."""
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        import threading
+
+        self.start, self.peak, self._stop = self._rss(), 0, threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, self._rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.bytes = max(self.peak, self._rss()) - self.start
+
+
+def sht_phase(torch, forecast: str) -> None:
+    """divergent_rotational_spectra at 0.25 degrees on the U and V (13
+    levels) of phase 12's first forecast file, called as users call it (it
+    builds its SHT: the tables on the host, copied to the card): the whole
+    call in s with the set-up's share, the host memory it took, the
+    tables' device bytes and the device peak; then ms per call with the
+    tables prebuilt (ops.sht.SHT pointed at the built instance for the
+    timing); spectra finite. A round trip of a field band-limited to
+    l < SHT_BAND on 721 Gauss latitudes within SHT_ROUNDTRIP_TOL (the
+    equiangular grid's reading printed beside it), and the spectra of the
+    winds sampled to 181x360 on the card against the CPU within
+    SHT_SPECTRA_TOL of each spectrum's largest degree."""
+    import numpy as np
+
+    from credit_torch import metrics
+    from credit_torch.grid import Grid
+    from credit_torch.ops import sht as sht_mod
+    from credit_torch.tools import cuda_ms
+    from credit_torch.utils.ncio import open_dataset
+
+    h, w = CONF_025["image_height"], CONF_025["image_width"]
+    ds = open_dataset(forecast)
+    u, v = (torch.from_numpy(np.asarray(ds[k].values, np.float32)[0]).cuda() for k in ("U", "V"))
+    grid = Grid.regular(h, w)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    real_sht = sht_mod.SHT
+
+    def band_limited(sht):
+        c = torch.randn((sht.lmax, sht.mmax, 2), generator=g, device="cuda")
+        flm = torch.view_as_complex(c)
+        l, m = torch.arange(sht.lmax, device="cuda")[:, None], sht.m[None, :]
+        flm = torch.where((l < SHT_BAND) & (m <= l), flm, torch.zeros_like(flm))
+        flm[:, 0] = flm[:, 0].real
+        return flm
+
+    def round_trip(sht):
+        f = sht.spec2grid(band_limited(sht))
+        return float((sht.spec2grid(sht.grid2spec(f)) - f).abs().max() / f.abs().max())
+
+    def timed_sht(*args, **kwargs):
+        t0 = time.time()
+        sht = real_sht(*args, **kwargs)
+        torch.cuda.synchronize()
+        built.append((sht, time.time() - t0))
+        return sht
+
+    for name, lat, kind in (("equiangular", grid.lat, "equiangular"),
+                            ("legendre-gauss", np.rad2deg(np.arcsin(
+                                np.polynomial.legendre.leggauss(h)[0])), "legendre-gauss")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        built = []
+        with HostPeak() as host:
+            t0 = time.time()
+            if kind == "equiangular":
+                sht_mod.SHT = timed_sht
+                try:
+                    rot, div = metrics.divergent_rotational_spectra(u, v, grid)
+                finally:
+                    sht_mod.SHT = real_sht
+            else:
+                timed_sht(lat, w, grid=kind, device="cuda")
+            torch.cuda.synchronize()
+            whole = time.time() - t0
+        (sht, setup), = built
+        tables = sum(t.numel() * t.element_size() for t in (sht.pct, sht.pw, sht.dpct, sht.w))
+        log(f"  SHT {name} {h}x{w} (lmax {sht.lmax}, mmax {sht.mmax}): set-up {setup:.1f} s "
+            f"(tables built on the host and copied), host memory +{host.bytes / 2**30:.2f} GiB "
+            f"at its peak, tables {tables} bytes ({tables / 2**30:.2f} GiB) on the card")
+        if kind == "equiangular":
+            sht_mod.SHT = lambda *args, **kwargs: sht
+            try:
+                ms = cuda_ms(lambda: metrics.divergent_rotational_spectra(u, v, grid), 5)
+            finally:
+                sht_mod.SHT = real_sht
+            dev_peak = torch.cuda.max_memory_allocated()
+            finite = bool(torch.isfinite(rot).all() and torch.isfinite(div).all())
+            log(f"  divergent_rotational_spectra of U, V {tuple(u.shape)}: {whole:.1f} s a call "
+                f"as users make it (set-up {setup:.1f} s of it), {ms:.2f} ms a call with the "
+                f"tables prebuilt, device peak {dev_peak} bytes ({dev_peak / 2**30:.2f} GiB); "
+                f"spectra {tuple(rot.shape)} finite {finite}; rotational KE at l = 1, 10, 100: "
+                f"{[float(rot[0, k]) for k in (1, 10, 100) if k < h]}")
+            if not finite or tuple(rot.shape) != (13, h):
+                raise AssertionError("the 0.25-degree spectra are not finite")
+            log(f"  round trip, l < {SHT_BAND}, equiangular (approximate quadrature; printed, "
+                f"not held): {round_trip(sht):.3e} of max|f|")
+        else:
+            err = round_trip(sht)
+            log(f"  round trip, l < {SHT_BAND}, legendre-gauss: {err:.3e} of max|f|, limit "
+                f"{SHT_ROUNDTRIP_TOL:g}")
+            if not err <= SHT_ROUNDTRIP_TOL:
+                raise AssertionError("the SHT round trip at 721x1440 failed")
+        del sht, built
+        torch.cuda.empty_cache()
+    us, vs = u[:, ::4, ::4].contiguous(), v[:, ::4, ::4].contiguous()
+    small = Grid.regular(*us.shape[-2:])
+    card = metrics.divergent_rotational_spectra(us, vs, small)
+    cpu = metrics.divergent_rotational_spectra(us.cpu(), vs.cpu(), small)
+    err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(card, cpu))
+    log(f"  spectra at {small.nlat}x{small.nlon} (U, V every 4th point), card vs CPU: {err:.3e} of the largest "
+        f"degree, limit {SHT_SPECTRA_TOL:g}")
+    if not err <= SHT_SPECTRA_TOL:
+        raise AssertionError("the spectra on the card disagree with the CPU")
+
+
+def granule_phase() -> None:
+    """Two granules each of GOES ABI CONUS, HRRR and MRMS at their real sizes
+    (the port's netCDF writer, seeded values), then one sample (inputs at
+    the first time, targets at the second: both granules) of each source
+    read through build_multi_source, the multi-source dispatch, on the
+    host: ms and MB of each."""
+    import datetime as dt
+    import numpy as np
+
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.data.multi_source import build_multi_source
+    from credit_torch.utils.ncio import Dataset, Variable
+
+    root = os.path.join(HERE, "build", "granules")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(15)
+    ny, nx = GOES_SHAPE
+    goes_coords = {"x": GOES_X0 + GOES_STEP * np.arange(nx), "y": GOES_Y0 - GOES_STEP * np.arange(ny)}
+    projection = Variable((), np.zeros(()), {
+        "longitude_of_projection_origin": -75.0, "perspective_point_height": 35786023.0,
+        "semi_major_axis": 6378137.0, "semi_minor_axis": 6356752.31414})
+    my, mx = MRMS_SHAPE
+    mrms_coords = {"lat": 54.995 - 0.01 * np.arange(my), "lon": 230.005 + 0.01 * np.arange(mx)}
+
+    def goes(t):
+        doy = t.timetuple().tm_yday
+        name = f"OR_ABI-L2-MCMIPC-M6_G16_s{t.year}{doy:03d}{t:%H%M%S}2_e0_c0.nc"
+        return name, Dataset({**{f"CMI_C{b:02d}": (("y", "x"), rng.uniform(
+            200, 300, GOES_SHAPE).astype(np.float32)) for b in (2, 7, 13)},
+            "goes_imager_projection": projection}, coords=goes_coords)
+
+    def hrrr(t):
+        shape = (len(HRRR_LEVELS), *HRRR_SHAPE)
+        return f"HRRR_{t:%Y%m%d-%H%M%S}.nc", Dataset({
+            "T": (("level", "y", "x"), rng.uniform(220, 300, shape).astype(np.float32)),
+            "U": (("level", "y", "x"), rng.normal(0, 10, shape).astype(np.float32))},
+            coords={"level": np.asarray(HRRR_LEVELS)})
+
+    def mrms(t):
+        return f"MRMS_{t:%Y%m%d-%H%M%S}.nc", Dataset({"MultiSensor_QPE_01H_Pass2": (
+            ("lat", "lon"), rng.exponential(1.0, MRMS_SHAPE).astype(np.float32))},
+            coords=mrms_coords)
+
+    cases = [
+        ("GOES", goes, dt.datetime(2021, 6, 1), dt.timedelta(hours=6), dt.timedelta(minutes=1),
+         {"dataset_type": "goes", "variables": {"prognostic": {"vars_2D": [
+             "CMI_C02", "CMI_C07", "CMI_C13"]}}}),
+        ("HRRR", hrrr, dt.datetime(2022, 3, 1), dt.timedelta(hours=6), dt.timedelta(0),
+         {"dataset_type": "hrrr", "levels": HRRR_LEVELS,
+          "variables": {"prognostic": {"vars_3D": ["T", "U"]}}}),
+        ("MRMS", mrms, dt.datetime(2024, 6, 1), dt.timedelta(hours=1), dt.timedelta(0),
+         {"dataset_type": "mrms", "variables": {"prognostic": {"vars_2D": [
+             "MultiSensor_QPE_01H_Pass2"]}}})]
+    try:
+        for name, make, t0, step, offset, src in cases:
+            path = os.path.join(root, name)
+            os.makedirs(path)
+            w0 = time.perf_counter()
+            for k in range(2):
+                fname, ds = make(t0 + k * step + offset)
+                ds.to_netcdf(os.path.join(path, fname))
+            size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            write = time.perf_counter() - w0
+            conf = {"data": {"source": {name: {**src, "mode": "local", "path": path}},
+                             "start_datetime": f"{t0:%Y-%m-%d %H:%M}",
+                             "end_datetime": f"{t0 + step:%Y-%m-%d %H:%M}",
+                             "timestep": f"{int(step.total_seconds()) // 60}min"}}
+            r0 = time.perf_counter()
+            ds = build_multi_source(conf, ChannelSchema.from_config(conf), None)
+            sample = ds.sample(0, 1)
+            ms = (time.perf_counter() - r0) * 1e3
+            nbytes = sum(a.nbytes for a in sample.values() if a is not None)
+            ok = all(np.isfinite(a).all() for a in sample.values() if a is not None)
+            log(f"  {name}: 2 granules, {size} bytes written in {write:.1f} s; one sample "
+                f"(x {sample['x'].shape}, y {sample['y'].shape}) read in {ms:.0f} ms on the host, "
+                f"{nbytes / 1e6:.1f} MB; finite {ok}")
+            if not ok or sample["x"].shape[-1] != len(ds.schema.input_names):
+                raise AssertionError(f"the {name} granules read wrong")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def fit_times(trainer) -> None:
@@ -2108,7 +2512,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 12: main path 9, credit rollout at CONF_025 width (run_rollout to netCDF from "
         "phase 10's checkpoint and store)")
-    runs["rollout_nc"] = rollout_nc_path(torch, store, expected_per_step(CONF_025_TRAIN))
+    runs["rollout_nc"], forecast = rollout_nc_path(torch, store,
+                                                   expected_per_step(CONF_025_TRAIN))
+    torch.cuda.empty_cache()
+    log("phase 13: main path 10, credit train at CONF_025 on computed solar forcing (a tisr "
+        "source); the regrid preblock, the SHT and the granule readers at full size")
+    runs["fit_tisr_025"] = tisr_fit_path(torch, store, expected_train_per_step(fwd_025, False),
+                                         expected_per_step(CONF_025_TRAIN))
+    torch.cuda.empty_cache()
+    regrid_phase(torch)
+    sht_phase(torch, forecast)
+    granule_phase()
+    shutil.rmtree(os.path.dirname(store[0]), ignore_errors=True)
 
     kernels = []
     for name, counter, src, replaces, r, paths in [
@@ -2118,20 +2533,21 @@ def main() -> int:
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
-              "rollout_nc")),
+              "rollout_nc", "fit_tisr_025")),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
-             ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc")),
+             ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc",
+              "fit_tisr_025")),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
              attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
-                    "rollout_nc")),
+                    "rollout_nc", "fit_tisr_025")),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
-             ("train_025", "fit_025", "fit_ens_025")),
+             ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025")),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),

@@ -5,9 +5,9 @@ Fills the role of the reference's gen2 LocalDataset
 (reference: credit/datasets/gen_2/local.py — zarr/netCDF per-variable reads
 on a master clock). Files readable via credit_torch.utils.ncio (netCDF-3)
 or numpy .npz are supported, one file per timestamp. Zarr sources
-(`data/era5.py`) plug in through the same interface. The observation and
-solar-forcing sources (goes, hrrr, mrms, tisr) are registered as entries
-that raise `NotImplementedError` naming their ROADMAP item.
+(`data/era5.py`), the observation granules (`data/obs.py`: goes, hrrr,
+mrms) and the computed solar forcing (`data/tisr.py`) plug in through the
+same interface.
 """
 
 from __future__ import annotations
@@ -131,8 +131,10 @@ def load_dataset(conf: dict, schema: ChannelSchema, grid, split: str = "train"):
                                 history_len)
 
 
+# "HRRR" is registered beside "hrrr" (data/obs.py); credit_tpu's tuple
+# leaves it out, so its load_dataset cannot build an "HRRR" source
 CLOCKED_TYPES = ("zarr", "arco_era5", "wb2_era5", "tisr", "goes", "hrrr",
-                 "mrms")
+                 "HRRR", "mrms")
 
 
 def build_source_dataset(dtype: str, schema, src: dict, dconf: dict,
@@ -140,6 +142,8 @@ def build_source_dataset(dtype: str, schema, src: dict, dconf: dict,
     """Instantiate one source dataset (reference: gen_2 _SOURCE_REGISTRY
     routing, multi_source.py:99 route_to_dataset_class)."""
     from credit_torch.data import era5 as _era5  # noqa: F401 (registration)
+    from credit_torch.data import obs as _obs  # noqa: F401
+    from credit_torch.data import tisr as _tisr  # noqa: F401
 
     cls = registry.get("dataset", dtype)
     if dtype in CLOCKED_TYPES:
@@ -151,22 +155,3 @@ def build_source_dataset(dtype: str, schema, src: dict, dconf: dict,
         return cls(schema, src, dconf, **kwargs)
     return cls(schema, path=src["path"], history_len=history_len)
 
-
-def _unported(key: str, item: str):
-    """A registry entry for a reference dataset type the port does not have
-    yet: building it raises, naming its ROADMAP item."""
-
-    class Unported:
-        def __init__(self, *_, **__):
-            raise NotImplementedError(f"dataset_type '{key}' is not ported yet ({item})")
-
-    Unported.__name__ = Unported.__qualname__ = f"Unported_{key}"
-    registry.register("dataset", key)(Unported)
-
-
-for _key, _item in [("goes", "ROADMAP queue 1, item 2: data/obs.py"),
-                    ("hrrr", "ROADMAP queue 1, item 2: data/obs.py"),
-                    ("HRRR", "ROADMAP queue 1, item 2: data/obs.py"),
-                    ("mrms", "ROADMAP queue 1, item 2: data/obs.py"),
-                    ("tisr", "ROADMAP queue 1, item 5: physics/solar.py, data/tisr.py")]:
-    _unported(_key, _item)

@@ -177,8 +177,20 @@ def binned_spread_skill(target: torch.Tensor, pred_ens: torch.Tensor, n_bins: in
     return sp_bin, rmse_bin, cnt
 
 
-def divergent_rotational_spectra(u, v, grid):
+def divergent_rotational_spectra(u: torch.Tensor, v: torch.Tensor, grid):
     """Per-degree divergent and rotational kinetic-energy spectra via the
-    SHT (reference: credit/verification/standard.py:50): not ported yet."""
-    raise NotImplementedError("divergent_rotational_spectra needs ops/sht.py, which is not "
-                              "ported yet (ROADMAP queue 1, item 4)")
+    SHT (reference: credit/verification/standard.py:50): KE_l from the
+    vorticity/divergence coefficients. u, v: (..., lat, lon); the SHT's
+    tables are built on u's device."""
+    from credit_torch.ops.sht import SHT
+
+    sht = SHT(np.asarray(grid.lat), grid.nlon, grid="equiangular", device=u.device)
+    vrt, div = sht.vrtdiv_spec(u, v)
+    eig = -sht.laplacian
+    inv = torch.where(eig > 0, 1.0 / torch.clamp(eig, min=1e-30), torch.zeros_like(eig))[:, None]
+    # KE_l = l(l+1)/(2) * |psi_lm|^2 summed over m, psi = invlap(vrt)
+    scale = torch.ones(sht.mmax, device=eig.device)
+    scale[1:] = 2.0  # hermitian doubling
+    ke_rot = 0.5 * torch.sum(vrt.abs() ** 2 * inv * scale, dim=-1)
+    ke_div = 0.5 * torch.sum(div.abs() ** 2 * inv * scale, dim=-1)
+    return ke_rot, ke_div

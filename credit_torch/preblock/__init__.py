@@ -9,8 +9,8 @@ state, 'per_step' blocks on the input of every rollout step (the train
 and eval steps, `trainers/trainer.py`). Constant tensors are made on the
 CPU and follow the input's device at the first call.
 
-Ported: era5_normalizer, log_transform, sqrt_transform, fill_values, clamp
-and bridgescaler_transform. regrid, hybrid_level_interp and
+Ported: era5_normalizer, log_transform, sqrt_transform, fill_values, clamp,
+regrid and bridgescaler_transform. hybrid_level_interp and
 semilagrangian_advection are registered and raise `NotImplementedError`
 when built, naming the ROADMAP step that brings the module they need.
 """
@@ -24,6 +24,7 @@ import torch
 
 from credit_torch import registry
 from credit_torch.data.channels import ChannelSchema
+from credit_torch.ops.regrid import make_regridder
 from credit_torch.postblock import _VarView
 
 
@@ -116,6 +117,30 @@ def apply_preblocks(blocks: Sequence[Callable], x):
     return x
 
 
+@registry.register("preblock", "regrid")
+class RegridPreblock(BasePreblock):
+    """Horizontal regrid of the whole input tensor onto the model grid
+    (reference: credit/preblock/regrid.py Regridder — xesmf weights there,
+    precomputed index/weight gathers here via credit_torch/ops/regrid.py,
+    whose tables follow the input's device)."""
+
+    def __init__(self, schema=None, src_lat=None, src_lon=None,
+                 dst_lat=None, dst_lon=None, method: str = "bilinear",
+                 grid=None, **_):
+        if dst_lat is None and grid is not None:
+            dst_lat, dst_lon = grid.lat, grid.lon
+        self.rg = make_regridder(method, np.asarray(src_lat),
+                                 np.asarray(src_lon), np.asarray(dst_lat),
+                                 np.asarray(dst_lon))
+
+    def __call__(self, x):
+        b, t, h, w, c = x.shape
+        flat = x.permute(0, 1, 4, 2, 3).reshape(b * t * c, h, w)
+        out = self.rg(flat)
+        h2, w2 = out.shape[-2:]
+        return out.reshape(b, t, c, h2, w2).permute(0, 1, 3, 4, 2)
+
+
 def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """jnp.interp row by row: x (R, N) at the knots xp (R, n), increasing
     with possible ties, and values fp (R, n). The interval is the last knot
@@ -200,7 +225,6 @@ def _unported(key: str, item: str):
 
 
 for _key, _item in [
-        ("regrid", "needs ops/regrid.py: ROADMAP queue 1, step 2 (item 4)"),
         ("hybrid_level_interp", "needs physics/interp.py: ROADMAP queue 1, step 4 (item 5)"),
         ("semilagrangian_advection",
          "needs physics/advection.py: ROADMAP queue 1, step 4 (item 5)")]:

@@ -50,6 +50,7 @@ from credit_torch.grid import Grid
 from credit_torch.utils import ncio as tncio
 from torch_port_fixtures import (H, STATS, VARS_3D, W, era5_data, era5_source,
                                        write_era5_store, write_stats)
+from test_obs_readers import GOES_CONF, HRRR_CONF, MRMS_CONF, _goes_dir, _hrrr_dir, _mrms_granule
 from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 WRITERS = {"credit_tpu": jzarr.write_array, "credit_torch": tzarr.write_array}
@@ -271,14 +272,47 @@ def test_multi_source_matches_reference(tmp_path):
         MultiSourceDataset(ours.schema, {"ERA5": ours.sources["ERA5"]})
 
 
+def _obs_conf(key: str, tmp_path) -> dict:
+    """A one-source config of dataset_type `key` on granules written by
+    tests/test_obs_readers.py's helpers (tisr: computed, no files)."""
+    if key == "tisr":
+        return {"data": {"source": {"SUN": {"dataset_type": "tisr", "variables": {
+            "dynamic_forcing": {"vars_2D": ["tisr"]}}}}, "start_datetime": "1979-01-01 00:00",
+            "end_datetime": "1979-01-02 00:00", "timestep": "6h"}}
+    base = {"goes": GOES_CONF, "hrrr": HRRR_CONF, "HRRR": HRRR_CONF, "mrms": MRMS_CONF}[key]
+    conf = copy.deepcopy(base)
+    src = next(iter(conf["data"]["source"].values()))
+    if key == "goes":
+        src["path"] = _goes_dir(tmp_path)
+    elif key == "mrms":
+        src["path"] = str(tmp_path)
+        for k in range(3):
+            t = np.datetime64("2024-06-01T00") + np.timedelta64(k, "h")
+            _mrms_granule(str(tmp_path / f"MRMS_{t.item():%Y%m%d-%H%M%S}.nc"), seed=k)
+    else:
+        src["path"] = _hrrr_dir(tmp_path)
+    src["dataset_type"] = key
+    return conf
+
+
 @pytest.mark.parametrize("key", ["goes", "hrrr", "HRRR", "mrms", "tisr"])
-def test_unported_dataset_types_raise(key):
-    """The observation and solar-forcing sources are registered and raise,
-    naming their ROADMAP item; none is dropped silently."""
-    conf = {"data": {"source": {"ERA5": {**era5_source("unused"), "dataset_type": key,
-                                         "path": "unused"}}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item [25]"):
-        tlocal.load_dataset(conf, ChannelSchema.from_config(conf), Grid.regular(H, W))
+def test_unported_dataset_types_raise(key, tmp_path):
+    """The observation and solar-forcing sources, once registered to raise,
+    now build through load_dataset, and each first batch equals
+    credit_tpu's bitwise. credit_tpu's load_dataset cannot build an "HRRR"
+    source (its CLOCKED_TYPES lacks the key it registers beside "hrrr"), so
+    that one is held against its "hrrr"."""
+    conf = _obs_conf(key, tmp_path)
+    ours = tlocal.load_dataset(conf, ChannelSchema.from_config(conf), Grid.regular(H, W))
+    jconf = copy.deepcopy(conf)
+    if key == "HRRR":
+        jconf["data"]["source"]["HRRR"]["dataset_type"] = "hrrr"
+    ref = jlocal.load_dataset(jconf, JSchema.from_config(jconf), JGrid.regular(H, W))
+    assert type(ours).__name__ == type(ref).__name__
+    b, r = ours.batch([0], 1), ref.batch([0], 1)
+    assert set(b) == set(r)
+    for k in r:
+        assert b[k].dtype == np.float32 and np.array_equal(b[k], r[k]), k
 
 
 # --------------------------------------------------------------- sampler

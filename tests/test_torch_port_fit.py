@@ -146,8 +146,9 @@ def test_lat_weighted_metrics_match_reference(form):
 
 
 def test_ensemble_verification_matches_reference():
-    """spread_error, its regional form, the zonal spectrum and the binned
-    spread-skill relation; the SHT spectra raise until ops/sht.py lands."""
+    """spread_error, its regional form, the zonal spectrum, the binned
+    spread-skill relation and the SHT's rotational and divergent spectra
+    (within 1e-5 of each spectrum's largest degree)."""
     t, pe = _rand((2, 1, 8, 16, 2), 4), _rand((2, 5, 1, 8, 16, 2), 5)
     tt, tp, jt_, jp = torch.from_numpy(t), torch.from_numpy(pe), jnp.asarray(t), jnp.asarray(pe)
     for a, b in zip(tmetrics.spread_error(tt, tp), jmetrics.spread_error(jt_, jp)):
@@ -163,8 +164,12 @@ def test_ensemble_verification_matches_reference():
                                atol=1e-7)
     for a, b in zip(tmetrics.binned_spread_skill(tt, tp, 4), jmetrics.binned_spread_skill(jt_, jp, 4)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        tmetrics.divergent_rotational_spectra(tt, tt, Grid.regular(8, 16))
+    got = tmetrics.divergent_rotational_spectra(tt[..., 0], tt[..., 1], Grid.regular(8, 16))
+    want = jmetrics.divergent_rotational_spectra(jt_[..., 0], jt_[..., 1], JGrid.regular(8, 16))
+    for a, b in zip(got, want):
+        assert a.shape == (2, 1, 8)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-5 * float(np.abs(np.asarray(b)).max()))
 
 
 # --------------------------------------------------------------- steps
@@ -441,11 +446,11 @@ def test_unported_trainers_raise(name):
                                     "grad_accum", "ring_crps", "downscaling"])
 def test_trainer_refuses_unported_options(env, tmp_path, option):
     """Parallelism, the device-ring CRPS and downscaling raise, naming their
-    ROADMAP item; a `regrid` preblock raises naming the ROADMAP step that
-    brings ops/regrid.py (the ported preblocks: tests/test_torch_port_
-    preblock.py). Ensembles, sn_external and grad_accum_every, once
+    ROADMAP item. Ensembles, sn_external and grad_accum_every, once
     refused, now build the trainer (their parity with credit_tpu:
-    tests/test_torch_port_ensemble.py and ..._ensemble_fit.py)."""
+    tests/test_torch_port_ensemble.py and ..._ensemble_fit.py), and so does
+    a `regrid` preblock, refused until ops/regrid.py (its fit against
+    credit_tpu's: tests/test_torch_port_obs.py)."""
     conf = fit_conf(env["store"], env["stats"], tmp_path)
     t = conf["trainer"]
     if option == "parallelism":
@@ -456,7 +461,9 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
     elif option == "sn_external":
         t["sn_external"] = True
     elif option == "preblocks":
-        conf["preblocks"] = [{"type": "regrid"}]
+        grid = Grid.regular(H, W)
+        conf["preblocks"] = [{"type": "regrid", "src_lat": grid.lat[::-1].tolist(),
+                              "src_lon": grid.lon.tolist()}]
     elif option == "grad_accum":
         t["grad_accum_every"] = 2
     elif option == "ring_crps":
@@ -464,6 +471,9 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
         conf["loss"]["training_loss"] = "ring-crps"
     else:
         conf["data"]["datasets"] = {}
+    if option == "preblocks":
+        assert isinstance(port_trainer(conf), Trainer)
+        return
     if option in ("ensemble", "sn_external", "grad_accum"):
         trainer = port_trainer(conf)
         assert trainer.ensemble_size == (3 if option == "ensemble" else 1)
@@ -471,9 +481,7 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
         assert trainer.sn_external == (option == "sn_external")
         assert isinstance(trainer.optimizer, ttrainer.MultiSteps) == (option == "grad_accum")
         return
-    match = (r"ROADMAP queue 1, step 2 \(item 4\)" if option == "preblocks"
-             else "ROADMAP queue 1, item [578]")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item [578]"):
         port_trainer(conf)
 
 

@@ -240,7 +240,9 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.data.multi_source, credit_torch.data.prefetch, "
             "credit_torch.data.replay_buffer, credit_torch.data.sampler, "
             "credit_torch.trainers.preflight, credit_torch.utils.ncio, credit_torch.models.sdl, "
-            "credit_torch.native.fastload, credit_torch.data.zarrlite; "
+            "credit_torch.native.fastload, credit_torch.data.zarrlite, credit_torch.data.obs, "
+            "credit_torch.data.projection, credit_torch.data.tisr, credit_torch.physics.solar, "
+            "credit_torch.ops.regrid, credit_torch.ops.sht, credit_torch.preblock; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

@@ -19,6 +19,7 @@ from credit_tpu import losses as jlosses
 from credit_tpu import preblock as jpre
 from credit_tpu.data.channels import ChannelSchema as JSchema
 from credit_tpu.data.normalize import Normalizer as JNormalizer
+from credit_tpu.grid import Grid as JGrid
 from credit_tpu.trainers import trainer as jtrainer
 from credit_torch import metrics as tmetrics
 from credit_torch import preblock as tpre
@@ -196,7 +197,25 @@ def test_build_preblocks_phases_and_grid(monkeypatch):
                                       ("hybrid_level_interp", "step 4 (item 5)"),
                                       ("semilagrangian_advection", "step 4 (item 5)")])
 def test_unported_blocks_raise_with_their_step(key, step):
+    """hybrid_level_interp and semilagrangian_advection raise, naming their
+    ROADMAP step; regrid, ported with ops/regrid.py in step 2, builds onto
+    the model grid and matches credit_tpu's block within 1e-6 of max |x|
+    (its methods and orderings: tests/test_torch_port_grid_ops.py)."""
     schema = ChannelSchema.from_config(CONF)
+    if key == "regrid":
+        entry = {"type": key, "phase": "ic_only", "method": "bilinear",
+                 "src_lat": np.linspace(-80.0, 80.0, 6).tolist(),
+                 "src_lon": (np.arange(12) * 30.0 - 180.0).tolist()}
+        (ours,) = tpre.build_preblocks({"preblocks": [entry]}, schema, phase="ic_only",
+                                       grid=Grid.regular(8, 16))
+        (ref,) = jpre.build_preblocks({"preblocks": [entry]}, JSchema.from_config(CONF),
+                                      phase="ic_only", grid=JGrid.regular(8, 16))
+        x = np.random.default_rng(3).standard_normal((2, 1, 6, 12, schema.n_input))
+        x = x.astype(np.float32)
+        got, want = ours(torch.from_numpy(x)).numpy(), np.asarray(ref(jnp.asarray(x)))
+        assert got.shape == want.shape == (2, 1, 8, 16, schema.n_input)
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(x).max()
+        return
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue 1, {step}")):
         tpre.build_preblocks({"preblocks": [{"type": key, "phase": "ic_only"}]}, schema,
                              phase="ic_only", grid=Grid.regular(8, 16))
