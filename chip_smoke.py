@@ -75,7 +75,7 @@ Phases (any failure exits non-zero):
  11. main path 8, ensemble CRPS training at CONF_025 width: run_training on
      phase 10's store with CONF_025_TRAIN's model as crossformer-ensemble,
      2 members under the almost-fair CRPS, grad_accum_every 2 and
-     sn_external, one epoch of 4 micro-steps and 1 validation batch: the
+     sn_external, one epoch of 2 micro-steps and 1 validation batch: the
      log, the parameters unchanged after the first micro-step and changed
      after the second, the validation members apart and the launches
      checked; step and validation times and peak memory printed. Phase 3
@@ -83,7 +83,7 @@ Phases (any failure exits non-zero):
      against the CPU with the same noise;
  12. main path 9, `credit rollout` at CONF_025 width: run_rollout of phase
      10's config over its store's 8 times from its checkpoint's EMA
-     weights, two init times of 6 steps each written to netCDF by the
+     weights, one init time of 4 steps written to netCDF by the
      engine's writer threads: the files' names, every variable's shape, CF
      attributes and finite values, the launches per step, and the first
      file against RolloutEngine.step of the same folded weights; wall
@@ -105,8 +105,26 @@ Phases (any failure exits non-zero):
      copy included) and with the tables prebuilt, host and device memory, a round trip of a field band-limited to
      l < 360 on 721 Gauss latitudes and the spectra at 181x360 on the card
      against the CPU; GOES ABI CONUS, HRRR and MRMS granules at their real
-     sizes, two each, one sample read of each on the host. Removes phase
-     10's store.
+     sizes, two each, one sample read of each on the host;
+ 14. main path 11, the SKEBS ensemble at CONF_025 width
+     (config/examples/ensemble_skebs.yml's pipeline with a learned
+     backscatter rate): (a) run_training on phase 10's store of
+     CONF_025_ENS, 2 members under the almost-fair CRPS, post_conf's
+     tracer fixer on Q and SKEBS at credit_tpu's defaults (lmax 721) with
+     the `cnn` net (a 3x3 conv of the 60 inputs onto the 13 levels: kernel
+     2 forward, kernel 5 in training), one epoch of 2 steps and 1
+     validation batch: the log finite, SKEBS changing U and V only, the
+     net's weights moved by the first step and in the EMA and the
+     checkpoint under _postblocks.2, the launches; (b) run_rollout from
+     that checkpoint's EMA, 1 init time of 4 steps with the pattern carried
+     and debug files written, with semi-Lagrangian advection of Q, the
+     wind filter and the MSLP diagnostic: the files, the pattern's
+     step-to-step correlation, advected Q within its range, the largest
+     wind speed not raised, the launches; (c) at full size on that
+     rollout's last state, the pole filter (winds and a scalar), the
+     interp postblocks and preblock, the geopotential diagnostic and the
+     advection preblock, ms a call on the card and on the CPU, the card
+     against the CPU. Removes phase 10's store.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -241,17 +259,17 @@ ONE_THREAD_FIT = "assembly 7.4-9.7 s a batch, train step ~390-420 ms, idle 0.978
 # noise-injection CrossFormer (crossformer-ensemble), 2 members, the
 # almost-fair CRPS with latitude weights for training and validation,
 # gradients accumulated over 2 micro-steps, spectral norm iterated outside
-# the step; one epoch of 4 micro-steps (2 updates) and 1 validation batch
-# on phase 10's store, batch 1
-ENS_TRAINER = {"train_batch_size": 1, "num_epoch": 1, "batches_per_epoch": 4,
+# the step; one epoch of 2 micro-steps (1 update; cut from 4 for phase 14's
+# time) and 1 validation batch on phase 10's store, batch 1
+ENS_TRAINER = {"train_batch_size": 1, "num_epoch": 1, "batches_per_epoch": 2,
                "valid_batches_per_epoch": 1, "use_ema": True, "log_variable_metrics": True,
                "prefetch": 2, "learning_rate": 1e-4, "ensemble_size": 2,
                "grad_accum_every": 2, "sn_external": True}
 ENS_LOSS = {"training_loss": "almost-fair-crps", "validation_loss": "almost-fair-crps",
             "use_latitude_weights": True}
 # phase 10's clock windows: 3 training init times (00-12 h) and 1 validation
-# init time (30 h); phase 11's training window runs 6 hours longer, for 4
-# init times (00-18 h), one a micro-step
+# init time (30 h); phase 11's training window runs 6 hours longer, 4 init
+# times (00-18 h) for its sampler to draw its micro-steps from
 FIT_WINDOWS = (("1979-01-01T00", "1979-01-02T00"), ("1979-01-02T06", "1979-01-02T18"))
 ENS_WINDOWS = (("1979-01-01T00", "1979-01-02T06"), FIT_WINDOWS[1])
 # phase 3's tiny ensemble step: its members
@@ -272,13 +290,14 @@ POST_STEPS = 3
 # HBM3 at 700.00 W (PERF.md), printed beside its own
 POST_PAGEABLE = "149.0-175.8 ms/step"
 # main path 9, credit rollout at CONF_025 width: phase 10's run (config,
-# checkpoint, EMA) and store, its whole clock (8 six-hourly times), two init
-# times (00 and 06 h) of as many steps as the store's times allow; each file
+# checkpoint, EMA) and store, its whole clock (8 six-hourly times), one init
+# time (00 h) of 4 steps (cut from two init times of 6 steps for phase
+# 14's time); each file
 # against RolloutEngine.step straight from the folded model, relative to the
 # variable's maximum (bf16 compute on both sides)
 NC_WINDOW = ("1979-01-01T00", "1979-01-02T18")
-NC_INIT_HOURS = (0, 6)
-NC_STEPS = FIT_TIMES - 1 - NC_INIT_HOURS[-1] // 6
+NC_INIT_HOURS = (0,)
+NC_STEPS = 4
 NC_TOL = 1e-2
 # main path 10, credit train on computed solar forcing: CONF_025_TRAIN on
 # phase 10's store with tsi taken out of the store's dynamic forcing and
@@ -308,6 +327,53 @@ SHT_SPECTRA_TOL = 1e-5
 GOES_SHAPE, GOES_X0, GOES_Y0, GOES_STEP = (1500, 2500), -0.101332, 0.128212, 56e-6
 HRRR_SHAPE, HRRR_LEVELS = (1059, 1799), [250.0, 500.0, 700.0, 850.0, 925.0]
 MRMS_SHAPE = (3500, 7000)
+# main path 11, the SKEBS ensemble (config/examples/ensemble_skebs.yml at
+# CONF_025 width): CONF_025_ENS under the almost-fair CRPS with the tracer
+# fixer on Q and SKEBS at credit_tpu's defaults (lmax 721, pattern filter
+# to degree 60) with a learned backscatter rate (the cnn net: a 3x3 conv
+# of the 60 inputs onto the 13 levels); 2 members, one epoch of 2 steps
+# and 1 validation batch in phase 10's windows, batch 1, no gradient
+# accumulation (the net's weights move at the first step)
+SKEBS_TRAINER = {"train_batch_size": 1, "num_epoch": 1, "batches_per_epoch": 2,
+                 "valid_batches_per_epoch": 1, "use_ema": True, "log_variable_metrics": True,
+                 "prefetch": 2, "learning_rate": 1e-4, "ensemble_size": 2, "grad_max_norm": 1.0}
+SKEBS_POST = {"activate": True,
+              "tracer_fixer": {"activate": True, "tracer_vars": ["Q"], "tracer_thres": 0.0},
+              "skebs": {"activate": True, "backscatter_net": {"type": "cnn"}}}
+# then run_rollout from that checkpoint's EMA: 1 init time (00 h) of
+# SKEBS_STEPS steps, the pattern carried, with semi-Lagrangian advection of
+# Q, the wind filter and the MSLP diagnostic (into d0) after SKEBS; the
+# stream-function patterns of consecutive steps correlated at least
+# SKEBS_CORR (an AR(1) with alpha 0.05 after 5 spin-up cycles: ~0.89 at the
+# first pair, rising; a pattern drawn afresh each step reads ~0)
+SKEBS_STEPS = 4
+SKEBS_CORR = 0.8
+# the wind filter's speed threshold (m/s; credit_tpu's default 40): the
+# seeded model's winds at the mask level (the lowest) stay well below 40, so
+# it is lowered for the filter to blend a share of the grid on every step;
+# the rollout gates that share at WIND_SHARE or more on each step (it
+# prints the mask level's peak speed and the share beside it)
+WIND_THRESHOLD = 10.0
+WIND_SHARE = 0.01
+# beside it at full size, on that rollout's last state, the card against
+# the port on the CPU, for each variable a block writes and each of its
+# levels, relative to that level's largest |CPU value|: the geopotential
+# diagnostic (one f32 column each, the same operations) and the wind filter
+# within PHYS_TOL; the pole filter (~50 chained transforms, each a sum over
+# 721 latitudes in another order on each side) within POLE_TOL; the
+# interpolations in log pressure within the bound LOGP_ROUND gives (each
+# output is y0 + w (y1 - y0), w a difference of logs over a layer's log
+# thickness; the two sides' logs of the same f32 pressures differ by an ulp
+# or two each, at most 2^-20 for logs below 16: so an output moves by at
+# most its column's steepest jump per unit of log p times 8 such ulps),
+# plus PHYS_TOL; advection's departure points as far from the CPU's in f64
+# as the CPU's own in f32, within DEP_FACTOR and DEP_TOL cells (by the
+# poles they are ill-conditioned), and the advected Q within the bound the
+# card's and the CPU's points' distance gives
+PHYS_TOL = 1e-5
+POLE_TOL = 1e-4
+LOGP_ROUND = 8 * 2.0**-20
+DEP_FACTOR, DEP_TOL = 4.0, 1e-3
 # bench_conv_ffk's modes in phase 9: the plain FFs, the kernel's, and the
 # three identity copies
 FFK_MODES = ("xla", "pallas", "identity", "identity-input", "identity-end")
@@ -407,10 +473,13 @@ def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol,
 # UpBlocks' 3x3 residual convs. FuXi: the DownBlock's 3x3/s2 conv after its
 # zero-extension to 4x4 and space-to-depth (2x2 over 4096 channels, 7 of 16
 # taps zero), its 3x3 residual convs at 100x160 and the UpBlock's at
-# 200x320. The conv bench's 32x32/s2 embed is a 16x16 conv. Beyond the
-# paths: channels that are not multiples of 8 (the wrapper pads them) and
-# a kernel taller than wide
-BF16, BOTH = ("bfloat16",), ("bfloat16", "float32")
+# 200x320. The conv bench's 32x32/s2 embed is a 16x16 conv. SKEBS's learned
+# backscatter net (cnn, main path 11): one f32 3x3 conv of the 60 input
+# channels to the 13 levels' rates (odd: the wrapper pads it) on the
+# earth-padded 723x1442 grid, both members at once. Beyond the paths:
+# channels that are not multiples of 8 (the wrapper pads them) and a kernel
+# taller than wide
+BF16, F32, BOTH = ("bfloat16",), ("float32",), ("bfloat16", "float32")
 CONV_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
     ("head_phase_3x3", (1, 402, 722, 256, 3, 3, 224), BOTH, 10),
@@ -424,6 +493,7 @@ CONV_SHAPES = [
     ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 3, 1024), BOTH, 3),
     ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 3, 1024), BOTH, 3),
     ("bench_embed_16x16", (1, 415, 735, 240, 16, 16, 128), BOTH, 3),
+    ("skebs_cnn_3x3", (2, 723, 1442, 60, 3, 3, 13), F32, 5),
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 10),
     ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 10)]
 
@@ -691,7 +761,8 @@ def ff_bwd_cases(torch, g):
 # kernel 5's shapes: every weight gradient the training steps launch (the
 # stage-0 embed's 8x8 after space-to-depth, the stage 1-3 embeds' 2x2, the
 # UpBlocks' 3x3 residual convs, the training head's 3x3 phase conv; FuXi's
-# three conv shapes), and the ragged and tall cases of CONV_SHAPES
+# three conv shapes; SKEBS's backscatter net, 2 members), and the ragged and
+# tall cases of CONV_SHAPES
 WGRAD_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 5),
     ("stage1_embed_2x2", (1, 201, 361, 512, 2, 2, 256), BOTH, 5),
@@ -704,6 +775,7 @@ WGRAD_SHAPES = [
     ("fuxi_down_s2d_2x2", (1, 101, 161, 4096, 2, 2, 1024), BOTH, 3),
     ("fuxi_down_res_3x3", (1, 102, 162, 1024, 3, 3, 1024), BOTH, 3),
     ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 3, 1024), BOTH, 3),
+    ("skebs_cnn_3x3", (2, 723, 1442, 60, 3, 3, 13), F32, 5),
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 5),
     ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 5)]
 
@@ -1793,7 +1865,7 @@ def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> 
     epoch of ENS_TRAINER. Checks: the log finite in every cell, the
     parameters bitwise unchanged by the first micro-step and changed by the
     second (grad_accum_every 2), the two members of the validation batch
-    apart, the launches (4 micro-steps of 2 members and a 2-member
+    apart, the launches (2 micro-steps of 2 members and a 2-member
     validation forward); prints the step, validation and assembly times
     and the peak memory. Returns the launch counts."""
     from credit_torch.applications import prepare_training
@@ -1847,9 +1919,9 @@ def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> 
         f"{[(float(r[1]), float(r[2])) for r in rows[1:]]}")
     if (unchanged != [True, False] or not spread or not all(v > 0 for v in spread)
             or len(rows) != 2 or not all(math.isfinite(v) for v in cells)
-            or state.step != 4 or state.opt_state["count"] != 2):
+            or state.step != 2 or state.opt_state["count"] != 1):
         raise AssertionError("the CONF_025 ensemble fit failed its checks")
-    _check_counts(counts, {k: 4 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
+    _check_counts(counts, {k: 2 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
     del state, trainer, params, step
     shutil.rmtree(conf["save_loc"], ignore_errors=True)
     return counts
@@ -2338,6 +2410,522 @@ def granule_phase() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def skebs_net_launches(want: dict, backward: bool) -> dict:
+    """A path's launches per step with the learned backscatter rate: the
+    cnn's 3x3 conv adds a kernel 2 launch a forward and, in training, a
+    kernel 5 launch (its input is the batch: no input gradient)."""
+    out = dict(want)
+    out["conv2d_valid"] = out.get("conv2d_valid", 0) + 1
+    if backward:
+        out["conv2d_wgrad"] = out.get("conv2d_wgrad", 0) + 1
+    return out
+
+
+def hybrid_setup(shape, seed: int):
+    """14 seeded monotone hybrid interfaces for 13 levels (a rising from 0,
+    b from 0 to 1) and a seeded surface geopotential of `shape`, as the
+    forecast's fixers take them (forecast_setup)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ak = np.concatenate([[0.0], np.sort(rng.uniform(0.0, 2e4, 13))])
+    bk = np.concatenate([[0.0], np.sort(rng.uniform(0.0, 1.0, 12)), [1.0]])
+    return ak, bk, rng.uniform(0.0, 3e4, shape).astype(np.float32)
+
+
+def skebs_fit_path(torch, store_info, want_train: dict, want_valid: dict, model: dict = None,
+                   device: str = "cuda"):
+    """Main path 11 (a), the SKEBS ensemble trained: run_training
+    (prepare_training + fit) of CONF_025_ENS with SKEBS_POST on main path
+    7's store for one epoch of SKEBS_TRAINER. Checks: the log finite; the
+    SKEBS block's first call changing every U and V channel and leaving
+    every other channel bitwise equal; the net's weights moved by the
+    first step and held, as they end, by the state, the EMA and the
+    checkpoint under `_postblocks.2.` (Denorm 0, the tracer fixer 1, SKEBS
+    2); the launches (2 steps of 2 members and a 2-member validation
+    batch, the net's conv included). Prints the SHT's set-up, the step,
+    validation and assembly times and the peak memory. Returns the launch
+    counts and the config."""
+    from credit_torch.applications import prepare_training
+    from credit_torch.physics import skebs as skebs_mod
+    from credit_torch.postblock import stochastic
+    from credit_torch.trainers.trainer import Trainer
+
+    store, stats, data, _ = store_info
+    root = os.path.dirname(store)
+    conf = fit_conf({**(model or CONF_025_ENS), "post_conf": SKEBS_POST}, data, store, stats,
+                    os.path.join(root, "skebs"), SKEBS_TRAINER, *FIT_WINDOWS)
+    conf["loss"] = ENS_LOSS
+    sht_s, first = [], {}
+    init, call = skebs_mod.SKEBS.__init__, stochastic.SKEBSPostblock.__call__
+
+    def timed_init(self, *args, **kw):
+        t1 = time.time()
+        init(self, *args, **kw)
+        sht_s.append(time.time() - t1)
+
+    def watched_call(self, y, x, state, generator=None, net_params=None):
+        out = call(self, y, x, state, generator, net_params)
+        if not first:  # the first call: which channels it changed
+            with torch.no_grad():
+                moved = (out[0] != y).flatten(0, -2).any(0).cpu().tolist()
+            first["moved"] = {n for n, m in zip(schema.target_names, moved) if m}
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    skebs_mod.SKEBS.__init__, stochastic.SKEBSPostblock.__call__ = timed_init, watched_call
+    try:
+        t0 = time.time()
+        trainer, state, start, seed = prepare_training(conf, device=device)
+        schema = trainer.schema
+        log(f"  set-up (data, crossformer-ensemble model, trainer, postblocks {[type(b).__name__ for b in trainer.train_postblocks]}): "
+            f"{time.time() - t0:.1f} s, of which SKEBS's SHT (lmax "
+            f"{trainer.train_postblocks[2].skebs.sht.lmax}, mmax "
+            f"{trainer.train_postblocks[2].skebs.sht.mmax}; tables built on the host) "
+            f"{sum(sht_s):.1f} s")
+        step, moved_net = trainer._train_step_for(1), []
+
+        def watched(state, batch):
+            net = list(state.nets.parameters())
+            before = [p.detach().to("cpu", copy=True) for p in net] if not moved_net else None
+            out = step(state, batch)
+            if before is not None:
+                moved_net.append(not all(torch.equal(p.detach().cpu(), b)
+                                         for p, b in zip(net, before)))
+            return out
+
+        trainer._step_cache[1] = watched
+        t1 = time.time()
+        state = trainer.fit(state, seed=seed, start_epoch=start)
+        torch.cuda.synchronize()
+    finally:
+        skebs_mod.SKEBS.__init__, stochastic.SKEBSPostblock.__call__ = init, call
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  run_training 1 epoch: {time.time() - t0:.1f} s end to end ({time.time() - t1:.1f} s "
+        f"in fit), peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB), launches {counts}")
+    fit_times(trainer)
+    winds = {n for n in schema.target_names if n.rpartition("_L")[0] in ("U", "V")}
+    names = [f"_postblocks.2.conv.{k}" for k in ("kernel", "bias")]
+    saved = torch.load(os.path.join(conf["save_loc"], "checkpoint", Trainer.CHECKPOINT_FILE),
+                       map_location="cpu", weights_only=True)
+    live = state.named_parameters()
+    held = all(torch.equal(saved["model"][k], live[k].detach().cpu())
+               and torch.equal(saved["ema_params"][k], state.ema_params[k].cpu())
+               for k in names)
+    log(f"  SKEBS's first call changed {len(first['moved'])} channels, U and V's "
+        f"{len(winds)} exactly: {first['moved'] == winds}; the net's weights moved by the "
+        f"first step: {moved_net}; {names} in the optimizer "
+        f"({all(k in state.opt_state['mu'] for k in names)}), the EMA and the checkpoint "
+        f"(model and EMA, equal to the state's: {held})")
+    rows = read_log(conf["save_loc"])
+    cells = [float(c) for r in rows[1:] for c in r[1:]]
+    log(f"  training_log.csv: {len(rows) - 1} row, {len(rows[0])} columns, (train, valid) loss "
+        f"{[(float(r[1]), float(r[2])) for r in rows[1:]]}")
+    if (first["moved"] != winds or moved_net != [True] or not held or len(rows) != 2
+            or not all(math.isfinite(v) for v in cells) or state.step != 2):
+        raise AssertionError("the CONF_025 SKEBS ensemble fit failed its checks")
+    _check_counts(counts, {k: 2 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
+    del state, trainer, step, saved, live
+    return counts, conf
+
+
+def skebs_rollout_path(torch, store_info, fit: dict, want: dict, device: str = "cuda"):
+    """Main path 11 (b): run_rollout from (a)'s checkpoint (its EMA, the
+    net's included) over the store's clock, 1 init time of SKEBS_STEPS
+    steps, ensemble 1, with SKEBS writing its debug files and, after it,
+    semi-Lagrangian advection of Q (14 seeded hybrid interfaces), the wind
+    filter and the MSLP diagnostic into d0 (T from VAR_2T, a seeded surface
+    geopotential). Checks: SKEBS_STEPS forecast files and as many
+    debug_skebs/skebs_NNNN.nc, finite; consecutive steps' psi_pattern
+    correlated at least SKEBS_CORR (the state carried); advected Q within
+    [min, max] of Q before the block (trilinear weights are convex; f32
+    rounding allowed: 1e-6 of max |Q|); no level's largest wind speed raised
+    by the wind filter (a convex blend of the winds and their smoothing;
+    the same 1e-6), which blends at least WIND_SHARE of the points (its
+    blend weight > 0, from the mask level's speeds) on every step; the
+    launches. Prints the wall ms/step with the writes,
+    copy ms and peak memory. Returns the launch counts and the rollout's
+    last state: (config, the last prediction and the next input, physical,
+    on the card)."""
+    import numpy as np
+
+    from credit_torch import rollout
+    from credit_torch.applications import run_rollout
+    from credit_torch.postblock import stochastic, wind_filter
+    from credit_torch.utils.ncio import open_dataset
+
+    store, stats, data, _ = store_info
+    root = os.path.dirname(store)
+    out, debug = os.path.join(root, "skebs_forecasts"), os.path.join(root, "skebs_debug")
+    h, w = fit["model"]["image_height"], fit["model"]["image_width"]
+    ak, bk, gph = hybrid_setup((h, w), 14)
+    post = {**SKEBS_POST,
+            "skebs": {**SKEBS_POST["skebs"], "write_rollout_debug_files": True, "save_loc": debug},
+            "semilagrangian_advection": {"activate": True, "a_half": ak, "b_half": bk,
+                                         "tracer_vars": ["Q"]},
+            "wind_artifact_filter": {"activate": True, "speed_threshold": WIND_THRESHOLD},
+            "mslp_diagnostic": {"activate": True, "output_name": "d0",
+                                "temperature_var": "VAR_2T", "surface_geopotential": gph}}
+    conf = fit_conf({**fit["model"], "post_conf": post}, data, store, stats, fit["save_loc"],
+                    SKEBS_TRAINER, NC_WINDOW, FIT_WINDOWS[1])
+    conf["loss"] = ENS_LOSS
+    conf["predict"] = {"forecasts": {"start_year": 1979, "start_month": 1, "start_day": 1,
+                                     "start_hours": [0], "duration": 1},
+                       "forecast_steps": SKEBS_STEPS, "save_forecast": out}
+    checks = {"q": [], "speed": [], "blended": [], "peak": []}
+    adv_call = stochastic.AdvectionPostblock.__call__
+    wf_call = wind_filter.WindArtifactFilter.__call__
+    step, run = rollout.RolloutEngine.step, rollout.RolloutEngine.run
+    runs, last = [], {}
+
+    def watched_adv(self, y, x):
+        new = adv_call(self, y, x)
+        q0, q1 = self.tracers[0].get(y), self.tracers[0].get(new)
+        checks["q"].append(torch.stack([q0.min(), q0.max(), q1.min(), q1.max(),
+                                        q0.abs().max()]).cpu())
+        return new
+
+    def watched_wf(self, y, x):
+        new = wf_call(self, y, x)
+        speed = [torch.sqrt(self.U.get(a) ** 2 + self.V.get(a) ** 2) for a in (y, new)]
+        checks["speed"].append(torch.stack([s.flatten(0, -2).amax(0) for s in speed]).cpu())
+        um, vm = (view.get(y)[..., self.mask_level] for view in (self.U, self.V))
+        blend = wind_filter.compute_blend_mask(um, vm, self.speed_threshold, self.dz, self.dm,
+                                               self.falloff_sigma)
+        checks["peak"].append(float(speed[0][..., self.mask_level].max()))
+        checks["blended"].append(float((blend > 0).float().mean()))
+        return new
+
+    def watched_step(self, x, forcing_next=None):
+        y, x_next = step(self, x, forcing_next)
+        last.update(y=y, x=x_next, normalizer=self.normalizer)
+        return y, x_next
+
+    def timed_run(self, *args, **kw):
+        t1 = time.perf_counter()
+        res = run(self, *args, **kw)
+        runs.append(((time.perf_counter() - t1) * 1e3, list(self.copy_ms)))
+        return res
+
+    shutil.rmtree(debug, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    stochastic.AdvectionPostblock.__call__ = watched_adv
+    wind_filter.WindArtifactFilter.__call__ = watched_wf
+    rollout.RolloutEngine.step, rollout.RolloutEngine.run = watched_step, timed_run
+    try:
+        t0 = time.time()
+        paths = run_rollout(conf, use_ema=True, device=device)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    finally:
+        stochastic.AdvectionPostblock.__call__ = adv_call
+        wind_filter.WindArtifactFilter.__call__ = wf_call
+        rollout.RolloutEngine.step, rollout.RolloutEngine.run = step, run
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (ms, copies), = runs
+    log(f"  run_rollout (use_ema) 1 init x {SKEBS_STEPS} steps: {wall:.0f} ms end to end, of "
+        f"which set-up (data, trainer with its SKEBS, checkpoint, fold) {wall - ms:.0f} ms; "
+        f"{ms / SKEBS_STEPS:.1f} ms/step with the writes and the debug files; copy ms "
+        f"{[round(v, 2) for v in copies]}; peak memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"launches {counts}")
+    _check_counts(counts, want, SKEBS_STEPS)
+    files = sorted(os.listdir(os.path.join(debug, "debug_skebs")))
+    finite = all(np.isfinite(np.asarray(open_dataset(p)[k].values)).all()
+                 for p in paths for k in ("U", "V", "Q", "d0"))
+    fields = {k: [] for k in ("psi_pattern", "pert_u", "pert_v")}
+    for f in files:
+        ds = open_dataset(os.path.join(debug, "debug_skebs", f))
+        for k in fields:
+            fields[k].append(np.asarray(ds[k].values, np.float64).ravel())
+    finite = finite and all(np.isfinite(a).all() for v in fields.values() for a in v)
+    corr = {k: [float(np.corrcoef(a, b)[0, 1]) for a, b in zip(v, v[1:])]
+            for k, v in fields.items()}
+    q = torch.stack(checks["q"]).double()
+    q_ok = bool(((q[:, 2] >= q[:, 0] - 1e-6 * q[:, 4]) & (q[:, 3] <= q[:, 1] + 1e-6 * q[:, 4])).all())
+    sp = torch.stack(checks["speed"]).double()  # (steps, before/after, levels)
+    sp_ok = bool((sp[:, 1] <= sp[:, 0] * (1 + 1e-6)).all())
+    wf_ok = min(checks["blended"]) >= WIND_SHARE
+    log(f"  {len(paths)} forecast files and debug_skebs/ {files}, finite: {finite}; "
+        f"consecutive steps' correlation: psi_pattern {[round(c, 4) for c in corr['psi_pattern']]} "
+        f"(limit {SKEBS_CORR}), pert_u {[round(c, 4) for c in corr['pert_u']]}, pert_v "
+        f"{[round(c, 4) for c in corr['pert_v']]}")
+    log(f"  advected Q within the range of Q before the block at every step: {q_ok} "
+        f"(before/after min, max per step: {[[float(f'{v:.4e}') for v in row[:4]] for row in q]}); "
+        f"the wind filter (threshold {WIND_THRESHOLD:g} m/s; the mask level's peak speed "
+        f"{[round(v, 3) for v in checks['peak']]}) blended {[round(b, 4) for b in checks['blended']]} "
+        f"of the points (limit {WIND_SHARE:g} each step) and raised no level's largest speed: "
+        f"{sp_ok} (largest speed over the levels before, after: "
+        f"{[[round(float(a), 3), round(float(b), 3)] for a, b in zip(sp[:, 0].amax(1), sp[:, 1].amax(1))]})")
+    if (len(paths) != SKEBS_STEPS or files != [f"skebs_{s:04d}.nc" for s in range(SKEBS_STEPS)]
+            or not finite or min(corr["psi_pattern"]) < SKEBS_CORR or not q_ok or not sp_ok
+            or not wf_ok):
+        raise AssertionError("the SKEBS rollout failed its checks")
+    norm = last["normalizer"]
+    state = (conf, norm.denormalize_target(last["y"]).float(),
+             norm.denormalize_input(last["x"]).float())
+    return counts, state
+
+
+def physics_phase(torch, state) -> None:
+    """Main path 11 (c): the physics blocks at full size on the SKEBS
+    rollout's last state (the prediction and the input it makes), ms a
+    call on the card (CUDA events, after a warm-up call) and the same call
+    by the port on the CPU (host clock), the card's output against the
+    CPU's for each variable a block writes, level by level (relative to
+    that level's largest |CPU value|), and every other channel bitwise
+    equal to the block's input on the card: DiffusionPoleFilter.filter_winds
+    (U, V) and filter_scalar (T) on 13 levels (its SHT built on the host:
+    set-up s printed; POLE_TOL), the postblocks pressure_interp_diagnostic
+    (T onto the 13 store levels, written into U's block),
+    geopotential_diagnostic (into V's block), hybrid_level_interp (T and Q
+    onto other levels) and wind_artifact_filter (U, V), the preblocks
+    hybrid_level_interp and semilagrangian_advection (Q) (PHYS_TOL; the
+    interpolations in log p within LOGP_ROUND's bound; for advection its
+    departure points no farther from the CPU's f64 ones than the CPU's f32
+    ones, by DEP_FACTOR and DEP_TOL, and the advected Q within the bound
+    the card's and the CPU's points' distance gives)."""
+    import numpy as np
+
+    from credit_torch import registry
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.grid import grid_from_conf
+    from credit_torch.physics.pole_filter import DiffusionPoleFilter
+    from credit_torch.postblock import wind_filter
+    from credit_torch.tools import cuda_ms
+
+    conf, y, x = state
+    schema, grid = ChannelSchema.from_config(conf), grid_from_conf(conf)
+    full = lambda a: 0.5 * (a[:-1] + a[1:])  # noqa: E731
+    ak, bk, gph = hybrid_setup(grid.shape, 14)  # the rollout's
+    a2, b2, _ = hybrid_setup(grid.shape, 15)
+    plevs = [100.0 * p for p in FIT_LEVELS]
+
+    def chans(name, target=True):
+        names = schema.target_names if target else schema.input_names
+        return [i for i, n in enumerate(names) if n == name or n.rpartition("_L")[0] == name]
+
+    def lev(flat, name, target=True):
+        """(levels, H, W) of a variable of a (1, 1, H, W, C) tensor."""
+        return flat[0, 0][..., chans(name, target)].movedim(-1, 0).contiguous()
+
+    def level_errs(got, want):
+        """Each level's largest |card - CPU| over its largest |CPU|."""
+        o, r = got.double().cpu().flatten(1), want.double().cpu().flatten(1)
+        return (o - r).abs().amax(1) / r.abs().amax(1).clamp_min(1e-30)
+
+    def compare(name, fn, args, writes, tol, check=None):
+        """writes: (variable, target?) the block writes, or None for a
+        function returning (levels, H, W) tensors (one a variable)."""
+        # the CPU first: the pole filter's tables are built there, and each
+        # block moves its tables to its input's device at the call
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        t1 = time.perf_counter()
+        ref = fn(*cpu_args)
+        cpu_ms = (time.perf_counter() - t1) * 1e3
+        out = fn(*args)  # the warm-up moves the tables to the card
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: fn(*args), 3)
+        if writes is None:
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            pairs = {f"out{i}": (o, r) for i, (o, r) in enumerate(zip(outs, refs))}
+            rest = True
+        else:
+            pairs = {v: (lev(out, v, t), lev(ref, v, t)) for v, t in writes}
+            written = {c for v, t in writes for c in chans(v, t)}
+            others = [c for c in range(out.shape[-1]) if c not in written]
+            rest = torch.equal(out[..., others], args[0][..., others])
+        errs = {k: level_errs(o, r) for k, (o, r) in pairs.items()}
+        ok = rest and (all(float(e.max()) <= tol for e in errs.values()) if check is None
+                       else check(out, ref, args, cpu_args))
+        log(f"  {name}: {ms:.2f} ms a call on the card, {cpu_ms:.0f} ms on the CPU; card vs "
+            "CPU, the worst level's largest |difference| over its largest |CPU value|: "
+            + ", ".join(f"{k} {float(e.max()):.2e}" for k, e in errs.items())
+            + (f" (limit {tol:g})" if check is None else "")
+            + ("" if writes is None else f"; the other {len(others)} channels as they came in: "
+               f"{rest}"))
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+        return out
+
+    t0 = time.time()
+    with HostPeak() as host:
+        pf = DiffusionPoleFilter(grid)
+    log(f"  DiffusionPoleFilter {grid.nlat}x{grid.nlon}: its SHT set up in {time.time() - t0:.1f} s "
+        f"(host +{host.bytes / 2**30:.2f} GiB)")
+    u, v, t = lev(y, "U"), lev(y, "V"), lev(y, "T")
+    compare("filter_winds (U, V, 13 levels)", pf.filter_winds, (u, v), None, POLE_TOL)
+    compare("filter_scalar (T, 13 levels)", pf.filter_scalar, (t,), None, POLE_TOL)
+    del pf
+    torch.cuda.empty_cache()
+
+    def block(key, **kw):
+        return registry.get("postblock", key)(schema=schema, grid=grid, **kw)
+
+    def level_pressures(a_lev, b_lev, target=True, half=False):
+        """A tensor's source-level pressures (H, W, L) in f64, as a block
+        makes them: a + b SP on the levels, or on interfaces clamped at the
+        model top and then their means (half=True)."""
+        def pressures(a):
+            sp = lev(a, "SP", target)[0].double().cpu()[..., None]
+            p = torch.as_tensor(a_lev) + torch.as_tensor(b_lev) * sp
+            if not half:
+                return p
+            p = torch.where(p > 0, p, torch.full_like(p, 0.57))
+            return 0.5 * (p[..., :-1] + p[..., 1:])
+        return pressures
+
+    def interp_check(sources, pressures):
+        """sources: {written variable: (source variable, target?)}. Each
+        written level within its column's steepest |jump of the source| per
+        unit of log p (over its thinnest layer) times LOGP_ROUND, plus
+        PHYS_TOL of the level's largest |CPU value|."""
+        def check(out, ref, args, cpu_args):
+            logp = torch.log(pressures(cpu_args[0]))
+            ok, worst = True, []
+            for v, (src, target) in sources.items():
+                ys = lev(cpu_args[0], src, target).double().movedim(0, -1)
+                slope = ys.diff(dim=-1).abs().amax(-1) / logp.diff(dim=-1).abs().amin(-1)
+                got, want = lev(out, v, target).double().cpu(), lev(ref, v, target).double()
+                diff = (got - want).abs()
+                scale = want.flatten(1).abs().amax(1)[:, None, None]
+                bound = slope * LOGP_ROUND + PHYS_TOL * scale
+                ok = ok and bool((diff <= bound).all())
+                worst.append(f"{v} {float((diff / bound).max()):.3f}")
+            log(f"    largest |card - CPU| over its bound: {', '.join(worst)} (limit 1)")
+            return ok
+        return check
+
+    posts = [
+        ("pressure_interp_diagnostic (T onto 13 pressure levels)", [("U", True)], block(
+            "pressure_interp_diagnostic", input_var="T", output_var="U", pressure_levels=plevs,
+            a_half=ak, b_half=bk),
+         interp_check({"U": ("T", True)}, level_pressures(ak, bk, half=True))),
+        ("geopotential_diagnostic", [("V", True)], block(
+            "geopotential_diagnostic", a_half=ak, b_half=bk, surface_geopotential=gph,
+            output_name="V"), None),
+        ("hybrid_level_interp postblock (T, Q)", [("T", True), ("Q", True)], block(
+            "hybrid_level_interp", variables=["T", "Q"], a_in=full(ak), b_in=full(bk),
+            a_out=full(a2), b_out=full(b2)),
+         interp_check({"T": ("T", True), "Q": ("Q", True)}, level_pressures(full(ak), full(bk))))]
+    for name, writes, b, check in posts:
+        compare(name, b, (y, x), writes, PHYS_TOL, check)
+
+    # the state has passed the rollout's own filter: the threshold here is
+    # the mask level's 99th percentile of speed, so that the filter blends
+    # a share of the grid around the fastest 1%
+    probe = block("wind_artifact_filter")
+    mask_speed = torch.sqrt(probe.U.get(y)[..., probe.mask_level] ** 2
+                            + probe.V.get(y)[..., probe.mask_level] ** 2)
+    wf = block("wind_artifact_filter",
+               speed_threshold=float(torch.quantile(mask_speed.flatten().cpu(), 0.99)))
+
+    def blends(a):
+        um, vm = (view.get(a)[..., wf.mask_level] for view in (wf.U, wf.V))
+        return (torch.sqrt(um**2 + vm**2) > wf.speed_threshold,
+                wind_filter.compute_blend_mask(um, vm, wf.speed_threshold, wf.dz, wf.dm,
+                                               wf.falloff_sigma))
+
+    def wind_check(out, ref, args, cpu_args):
+        # a speed within rounding of the threshold may fall on either side
+        # of it on the two sides: those points' dilated neighbourhoods
+        # (where the two blend weights differ by more than rounding) are
+        # left out, and the points themselves must lie within 1e-5 of the
+        # threshold
+        (m_card, b_card), (m_cpu, b_cpu) = blends(args[0]), blends(cpu_args[0])
+        flip = (m_card.cpu() != m_cpu)
+        speed = torch.sqrt(wf.U.get(cpu_args[0])[..., wf.mask_level] ** 2
+                           + wf.V.get(cpu_args[0])[..., wf.mask_level] ** 2)
+        near = ((speed - wf.speed_threshold).abs() <= 1e-5 * wf.speed_threshold)
+        same = ((b_card.cpu() - b_cpu).abs() <= 1e-6)[0, 0]
+        worst = max(float(level_errs(lev(out, k).cpu()[:, same], lev(ref, k)[:, same]).max())
+                    for k in ("U", "V"))
+        share = float((b_cpu > 0).double().mean())
+        log(f"    mask-level peak speed {float(speed.max()):.3f} m/s, threshold (its 99th "
+            f"percentile) {wf.speed_threshold:.3f}: blended share {share:.4f}; mask points on "
+            f"either side of the threshold {int(flip.sum())} (all within 1e-5 of it: "
+            f"{bool((near | ~flip).all())}); points left out {int((~same).sum())}; worst level "
+            f"over the rest {worst:.2e} (limit {PHYS_TOL:g})")
+        return bool((near | ~flip).all()) and worst <= PHYS_TOL and share > 0
+
+    compare("wind_artifact_filter (U, V)", wf, (y, x), [("U", True), ("V", True)], PHYS_TOL,
+            wind_check)
+    pre = registry.get("preblock", "hybrid_level_interp")(
+        schema=schema, variables=["T", "Q"], ak_in=ak, bk_in=bk, ak_out=a2, bk_out=b2)
+    compare("hybrid_level_interp preblock (T, Q)", pre, (x,), [("T", False), ("Q", False)],
+            PHYS_TOL, interp_check({"T": ("T", False), "Q": ("Q", False)},
+                                   level_pressures(ak, bk, False, half=True)))
+    adv = registry.get("preblock", "semilagrangian_advection")(
+        schema=schema, grid=grid, a_half=ak, b_half=bk, tracer_vars=["Q"])
+
+    def departure_check(out, ref, args, cpu_args):
+        # the departure points themselves, as the sampler takes them (rows
+        # and levels clamped to the volume, columns floor-mod on the
+        # circle), the card's and the CPU's (f32) each against the CPU's in
+        # f64 from the same inputs: in every band of rows and on each axis
+        # the card's largest distance from f64 within DEP_FACTOR times the
+        # CPU's plus DEP_TOL cells. Near the poles they are ill-conditioned
+        # (a row by the pole moves by ~1e3-1e5 columns, whose f32 rounding
+        # the midpoint iterations amplify), and there both sides are far
+        # from f64. Then the advected Q: trilinear sampling moves by at
+        # most the largest neighbour difference along an axis per unit of
+        # that axis, so card and CPU lie within that times their points'
+        # distance plus PHYS_TOL of the level's largest |Q|
+        def deps(a):
+            h, w = a.shape[2:4]
+            flat = lambda view: view.get(a).reshape(-1, h, w, 13)  # noqa: E731
+            r, c, l = adv.engine.departure_indices(flat(adv.U), flat(adv.V),
+                                                   adv.sp.get(a).reshape(-1, h, w))
+            return (r.clamp(0, h - 1).double().cpu()[0], torch.remainder(c, w).double().cpu()[0],
+                    l.clamp(0, 12).double().cpu()[0])
+
+        def dist(p, q):
+            d = [(a - b).abs() for a, b in zip(p, q)]
+            w = p[1].shape[1]
+            d[1] = torch.minimum(d[1], w - d[1])
+            return d
+
+        card, cpu, exact = deps(args[0]), deps(cpu_args[0]), deps(cpu_args[0].double())
+        apart, card_err, cpu_err = dist(card, cpu), dist(card, exact), dist(cpu, exact)
+        rows = card[0].shape[0]
+        edges = sorted({min(max(e, 0), rows) for e in (0, 1, 5, 20, rows - 20, rows - 5,
+                                                         rows - 1, rows)})
+        ok, lines = True, []
+        for a, b in zip(edges, edges[1:]):
+            cells = []
+            for axis, ce, pe, d in zip("rcl", card_err, cpu_err, apart):
+                ce, pe = float(ce[a:b].max()), float(pe[a:b].max())
+                ok = ok and ce <= DEP_FACTOR * pe + DEP_TOL
+                cells.append(f"{axis} {ce:.1e}/{pe:.1e}/{float(d[a:b].max()):.1e}")
+            lines.append(f"{a}-{b - 1}: " + " ".join(cells))
+        lat = torch.from_numpy(np.deg2rad(grid.lat).astype(np.float32))
+        floored = (torch.cos(lat) < adv.engine.coslat_floor).nonzero().flatten().tolist()
+        log("    departure points (row r, column c, level l; cells), largest distance card-f64 / "
+            f"CPU-f64 / card-CPU by rows: {'; '.join(lines)}; the cos(lat) floor's rows "
+            f"{floored}; within {DEP_FACTOR:g} x CPU-f64 + {DEP_TOL:g}: {ok}")
+        q = lev(cpu_args[0], "Q", False).movedim(0, -1).double()
+        lips = [float(q.diff(dim=d).abs().max()) for d in (0, 1, 2)]
+        lips[1] = max(lips[1], float((q[:, 0] - q[:, -1]).abs().max()))
+        bound = sum(k * d for k, d in zip(lips, apart)).movedim(-1, 0)
+        got, want = lev(out, "Q", False).double().cpu(), lev(ref, "Q", False).double()
+        scale = want.flatten(1).abs().amax(1)[:, None, None]
+        diff = (got - want).abs()
+        within = bool((diff <= bound + PHYS_TOL * scale).all())
+        log(f"    advected Q within the bound of the points' distance: {within}; largest "
+            f"|card - CPU| {float(diff.max()):.3e} (largest |Q| {float(scale.max()):.3e}); "
+            "by rows "
+            + ", ".join(f"{a}-{b - 1} {float(diff[:, a:b].max()):.2e}"
+                        for a, b in zip(edges, edges[1:])))
+        return ok and within
+
+    compare("semilagrangian_advection preblock (Q)", adv, (x,), [("Q", False)], PHYS_TOL,
+            departure_check)
+
+
 def fit_times(trainer) -> None:
     """Each epoch's batch assembly (host, producer thread), copy, train
     step and validation times of the trainer's run, and the train steps'
@@ -2523,6 +3111,23 @@ def main() -> int:
     regrid_phase(torch)
     sht_phase(torch, forecast)
     granule_phase()
+    torch.cuda.empty_cache()
+    log("phase 14: main path 11, the SKEBS ensemble at CONF_025 width: run_training with SKEBS "
+        "and a learned backscatter net, run_rollout with the pattern carried, the physics blocks "
+        "at full size")
+    t14 = time.time()
+    step_025 = expected_per_step(CONF_025_TRAIN)
+    runs["skebs_ens_025"], skebs_conf = skebs_fit_path(
+        torch, store, skebs_net_launches(expected_train_per_step(fwd_025, False), True),
+        skebs_net_launches(step_025, False))
+    torch.cuda.empty_cache()
+    runs["skebs_rollout_025"], last = skebs_rollout_path(torch, store, skebs_conf,
+                                                         skebs_net_launches(step_025, False))
+    torch.cuda.empty_cache()
+    physics_phase(torch, last)
+    del last
+    torch.cuda.empty_cache()
+    log(f"  phase 14: {time.time() - t14:.1f} s")
     shutil.rmtree(os.path.dirname(store[0]), ignore_errors=True)
 
     kernels = []
@@ -2533,21 +3138,21 @@ def main() -> int:
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
-              "rollout_nc", "fit_tisr_025")),
+              "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025")),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc",
-              "fit_tisr_025")),
+              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025")),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
              attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
-                    "rollout_nc", "fit_tisr_025")),
+                    "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025")),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
-             ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025")),
+             ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025", "skebs_ens_025")),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),

@@ -125,6 +125,7 @@ def _inference_model(conf: dict, tensors: Dict[str, torch.Tensor], dev):
 
     model = load_model(conf, device=dev)
     keys = set(model.state_dict())
+    tensors = {k: v for k, v in tensors.items() if not k.startswith("_postblocks.")}
     variables = {"params": nest({k: v for k, v in tensors.items() if k in keys}),
                  "spectral": nest({k: v for k, v in tensors.items() if k not in keys})}
     folded = fold_spectral(converge_spectral(variables))
@@ -136,16 +137,18 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
                 use_ema: bool = False, device="cuda"):
     """credit rollout (reference: applications/rollout_to_netcdf.py:195
     predict) on one device, CUDA unless the caller asks for the CPU: the
-    weights of save_loc's checkpoint (the EMA with use_ema; a fresh seeded
-    init, with a warning, where there is no checkpoint), folded for
-    inference; then for each init time of `predict` an autoregressive
-    rollout through RolloutEngine with the config's postblocks, each step
-    written by the engine's writer threads to
-    <save_dir>/<init>/pred_<init>_<FHR>.nc. Returns the written paths.
-    Ensembles (predict.ensemble_size > 1) are not ported yet and raise."""
+    weights of save_loc's checkpoint (the EMA with use_ema, the trainable
+    postblocks' nets included; a fresh seeded init, with a warning, where
+    there is no checkpoint), folded for inference; then for each init time
+    of `predict` an autoregressive rollout through RolloutEngine with the
+    config's postblocks (the trainer's, built from the same config), the
+    stateful blocks' states carried from step to step and on across the
+    init times, as credit_tpu's engine carries them, each step written by
+    the engine's writer threads to <save_dir>/<init>/pred_<init>_<FHR>.nc.
+    Returns the written paths. Ensembles (predict.ensemble_size > 1) are
+    not ported yet and raise."""
     from credit_torch.forecast import strided_for_rank
     from credit_torch.output import save_netcdf_increment
-    from credit_torch.postblock import build_postblocks
     from credit_torch.rollout import RolloutEngine
     from credit_torch.trainers.trainer import TrainState, load_trainer
 
@@ -172,7 +175,8 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
         # rollout, and a checkpoint written on another kind of device holds
         # another kind of generator's state
         state = dataclasses.replace(TrainState.create(trainer.model, trainer.optimizer,
-                                                      ema=trainer.use_ema), noise=None)
+                                                      ema=trainer.use_ema, nets=trainer.nets),
+                                    noise=None)
         state = trainer.load_checkpoint(state, load_optimizer=False)
         logger.info("loaded weights from %s", ckpt)
     else:
@@ -181,15 +185,19 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
     if use_ema and state.ema_params is None:
         raise ValueError("use_ema: the trainer keeps no EMA (trainer.use_ema is off)")
     tensors = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+    if state.nets is not None:
+        tensors.update((f"_postblocks.{k}", v.detach())
+                       for k, v in state.nets.state_dict().items())
     if use_ema:
         tensors.update(state.ema_params)
     model = _inference_model(conf, tensors, dev)
+    postblocks = trainer.train_postblocks
+    nets = {k: v for k, v in tensors.items() if k.startswith("_postblocks.")}
     del state, trainer, tensors, exp["model"]
 
-    postblocks = build_postblocks(conf, schema, grid, exp["normalizer"])
     engine = RolloutEngine(model, schema, exp["normalizer"],
                            history_len=int(conf.get("data", {}).get("history_len", 1)) or 1,
-                           postblocks=postblocks, device=dev)
+                           postblocks=postblocks, postblock_params=nets, device=dev)
     dataset = exp["dataset"]
     # rank-strided multi-init loop (reference: rollout_to_netcdf.py:266);
     # the port runs one process until parallel/ is ported (item 8)

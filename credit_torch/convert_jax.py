@@ -6,7 +6,10 @@ The port's state_dict keys are the flax parameter paths joined with dots
 (`transformer0.short_attn0.to_qkv.kernel`), in the same layouts (HWIO conv
 kernels, (in, out) dense kernels), so the bridge is a rename: after the
 spectral fold, or with each u/v leaf of the `spectral` collection kept as
-the buffer of the same path (`transformer0.short_attn0.to_qkv.u`).
+the buffer of the same path (`transformer0.short_attn0.to_qkv.u`). The
+trainable postblocks' nets (credit_tpu's `params['_postblocks']`, flax
+Dense and Conv kernels in the same layouts) carry across the same way, as
+`_postblocks.<i>.<path>` (`postblocks_from_jax`).
 """
 
 from __future__ import annotations
@@ -56,9 +59,10 @@ def from_jax_variables(variables: Dict[str, Any], conf: dict, device="cuda", fol
     by sigma = u . (W v) in f32, as credit_tpu's fold_spectral does; with
     `fold=False` the kernels stay as they are and each u/v becomes a buffer
     for `load_model(conf, sn_state=True)`. Unknown, missing or misshapen
-    entries raise."""
+    entries raise; `params['_postblocks']` is left to `postblocks_from_jax`."""
     dev = resolve_device(device)
-    tree = {"params": _to_torch(unstack_block_params(variables["params"]))}
+    params = {k: v for k, v in variables["params"].items() if k != "_postblocks"}
+    tree = {"params": _to_torch(unstack_block_params(params))}
     if variables.get("spectral"):
         tree["spectral"] = _to_torch(unstack_block_params(variables["spectral"]))
     sn_state = not fold and "spectral" in tree
@@ -77,6 +81,15 @@ def from_jax_variables(variables: Dict[str, Any], conf: dict, device="cuda", fol
         if state[k].shape != shape:
             raise ValueError(f"{k}: shape {tuple(state[k].shape)} != {tuple(shape)}")
     return {k: v.to(dev) for k, v in state.items()}
+
+
+def postblocks_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, torch.Tensor]:
+    """credit_tpu's trainable-postblock parameters ({str(i): flax params of
+    block i's net}, `params['_postblocks']`, numpy leaves) as the port's
+    `_postblocks.<i>.<path>` tensors: the layouts are the same (Dense
+    kernels (in, out), Conv kernels HWIO), so it is a rename."""
+    dev = resolve_device(device)
+    return {f"_postblocks.{k}": v.to(dev) for k, v in _flatten(_to_torch(dict(tree))).items()}
 
 
 def _seeded_kernels(model: torch.nn.Module, conf: dict, generator: torch.Generator, dev,

@@ -24,15 +24,16 @@ def _wrap_lon(lon):
 
 
 class _Tables:
-    """Constant tensors that move to the field's device at the first call on
-    it (the preblocks' convention)."""
+    """Constant tensors (the attributes named in `_tables`; None is left
+    alone) that move to the field's device at the first call on it (the
+    pre- and postblocks' convention)."""
 
     _tables: tuple = ()
 
     def _on(self, device: torch.device) -> None:
         for name in self._tables:
             t = getattr(self, name)
-            if t.device != device:
+            if t is not None and t.device != device:
                 setattr(self, name, t.to(device))
 
 

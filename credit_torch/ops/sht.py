@@ -169,6 +169,17 @@ class SHT:
             (-ls * (ls + 1.0) / radius**2).astype(np.float32)).to(device)
         self.m = torch.arange(self.mmax, device=device)
 
+    def to(self, device) -> "SHT":
+        """Move the tables to `device` (where they are not already) and
+        return self: the blocks that hold an SHT move it to their field's
+        device at the first call."""
+        device = torch.device(device)
+        for name in ("pct", "pw", "dpct", "w", "coslat", "laplacian", "m"):
+            t = getattr(self, name)
+            if t.device != device:
+                setattr(self, name, t.to(device))
+        return self
+
     # ------------------------------------------------------------------
     def _fourier(self, f: torch.Tensor) -> torch.Tensor:
         return torch.fft.rfft(f, dim=-1)[..., :self.mmax] * (2.0 * math.pi / self.nlon)

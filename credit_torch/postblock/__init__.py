@@ -12,10 +12,11 @@ rescale order). `_VarView.set` returns a new tensor in the old one's dtype,
 as `.at[].set` does. Constant tensors are made on the CPU and follow the
 prediction's device at the first call.
 
-Ported: denorm, renorm, exp, square, wet_mask_samudra, tracer_fixer and the
-global mass, water and energy fixers. The other keys of the reference's
-registry are registered here too and raise `NotImplementedError` naming
-their ROADMAP item.
+Every key of the reference's registry is here: denorm, renorm, exp,
+square, wet_mask_samudra, tracer_fixer, the global mass, water and energy
+fixers, the vertical-interpolation blocks and diagnostics below, and in
+their modules `skebs` and `semilagrangian_advection` (`stochastic.py`) and
+`wind_artifact_filter` (`wind_filter.py`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from credit_torch import registry
 from credit_torch.data.channels import ChannelSchema
 from credit_torch.physics.constants import CP_DRY, CP_VAPOR, GRAVITY, LH_WATER, RHO_WATER
+from credit_torch.ops.regrid import _Tables
 from credit_torch.physics.core import HybridSigmaPhysics, PressureLevelPhysics
 
 
@@ -357,27 +359,123 @@ class GlobalEnergyFixer(_FixerBase):
         return self.Tt.set(y_pred, T_new)
 
 
-def _unported(key: str, item: str):
-    """A registry entry for a reference postblock the port does not have yet."""
-
-    class Unported(BasePostblock):
-        def __init__(self, *_, **__):
-            raise NotImplementedError(f"postblock '{key}' is not ported yet ({item})")
-
-    Unported.__name__ = Unported.__qualname__ = f"Unported_{key}"
-    registry.register("postblock", key)(Unported)
+def _f32(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32))
 
 
-for _key, _item in [
-        ("skebs", "ROADMAP queue 1, item 5: postblock/stochastic.py, physics/skebs"),
-        ("semilagrangian_advection",
-         "ROADMAP queue 1, item 5: postblock/stochastic.py, physics/advection"),
-        ("wind_artifact_filter", "ROADMAP queue 1, item 5: postblock/wind_filter.py"),
-        ("hybrid_level_interp", "ROADMAP queue 1, item 5: physics/interp.py"),
-        ("pressure_interp_diagnostic", "ROADMAP queue 1, item 5: physics/interp.py"),
-        ("mslp_diagnostic", "ROADMAP queue 1, item 5: physics/interp.py"),
-        ("geopotential_diagnostic", "ROADMAP queue 1, item 5: physics/interp.py")]:
-    _unported(_key, _item)
+@registry.register("postblock", "hybrid_level_interp")
+class HybridLevelInterp(BasePostblock, _Tables):
+    """Re-level 3-D variables from one hybrid coordinate to another
+    (reference: postblock hybrid_level_interp wrapping credit/interp.py
+    interp_hybrid_to_hybrid_levels:546)."""
+
+    _tables = ("a_in", "b_in", "a_out", "b_out")
+
+    def __init__(self, schema: ChannelSchema, variables, a_in, b_in, a_out, b_out,
+                 sp_var="SP", use_log: bool = True, **_):
+        self.views = [_VarView(schema, v) for v in variables]
+        self.sp = _VarView(schema, sp_var)
+        self.a_in, self.b_in = _f32(a_in), _f32(b_in)
+        self.a_out, self.b_out = _f32(a_out), _f32(b_out)
+        self.use_log = use_log
+
+    def __call__(self, y_pred, x):
+        from credit_torch.physics.interp import interp_hybrid_to_hybrid
+
+        self._on(y_pred.device)
+        sp = self.sp.get(y_pred)
+        p_in = self.a_in + self.b_in * sp[..., None]
+        p_out = self.a_out + self.b_out * sp[..., None]
+        for view in self.views:
+            y_pred = view.set(y_pred, interp_hybrid_to_hybrid(view.get(y_pred), p_in, p_out,
+                                                              self.use_log))
+        return y_pred
+
+
+@registry.register("postblock", "pressure_interp_diagnostic")
+class PressureInterpDiagnostic(BasePostblock, _Tables):
+    """Interpolate a model-level variable to fixed pressure levels and write
+    it into a same-width target channel block (reference: postblock
+    pressure_interp_diagnostic)."""
+
+    _tables = ("plevs", "a_half", "b_half")
+
+    def __init__(self, schema: ChannelSchema, input_var, output_var, pressure_levels,
+                 a_half, b_half, sp_var="SP", use_log: bool = True, **_):
+        self.src = _VarView(schema, input_var)
+        self.dst = _VarView(schema, output_var)
+        self.sp = _VarView(schema, sp_var)
+        self.plevs = _f32(pressure_levels)
+        self.a_half, self.b_half = _f32(a_half), _f32(b_half)
+        self.use_log = use_log
+
+    def __call__(self, y_pred, x):
+        from credit_torch.physics.interp import create_pressure_grid, interp_hybrid_to_pressure
+
+        self._on(y_pred.device)
+        _, p_full = create_pressure_grid(self.sp.get(y_pred), self.a_half, self.b_half)
+        out = interp_hybrid_to_pressure(self.src.get(y_pred), p_full, self.plevs, self.use_log)
+        return self.dst.set(y_pred, out)
+
+
+@registry.register("postblock", "mslp_diagnostic")
+class MSLPDiagnostic(BasePostblock, _Tables):
+    """Mean-sea-level-pressure diagnostic (Trenberth 1993) written into a
+    target channel (reference: credit/postblock/mslp.py MSLPDiagnostic).
+    The surface geopotential is an array, or the last input frame's
+    `surface_geopotential_var`."""
+
+    _tables = ("sgp",)
+
+    def __init__(self, schema: ChannelSchema, grid=None, surface_geopotential=None,
+                 output_name="mean_sea_level_pressure", surface_pressure_var="SP",
+                 temperature_var="VAR_2T", surface_geopotential_var=None, **_):
+        self.out = _VarView(schema, output_name)
+        self.sp = _VarView(schema, surface_pressure_var)
+        self.t2 = _VarView(schema, temperature_var)
+        self.sgp_from_input = None
+        if surface_geopotential is not None:
+            self.sgp = _f32(surface_geopotential)
+        elif surface_geopotential_var is not None:
+            self.sgp_from_input = _VarView(schema, surface_geopotential_var, target=False)
+            self.sgp = None
+        else:
+            raise ValueError("need surface_geopotential array or _var")
+
+    def __call__(self, y_pred, x):
+        from credit_torch.physics.interp import mslp_trenberth
+
+        self._on(y_pred.device)
+        sgp = self.sgp if self.sgp is not None else self.sgp_from_input.get(x)[:, -1:]
+        return self.out.set(y_pred, mslp_trenberth(self.sp.get(y_pred), self.t2.get(y_pred),
+                                                   sgp))
+
+
+@registry.register("postblock", "geopotential_diagnostic")
+class GeopotentialDiagnostic(BasePostblock, _Tables):
+    """Geopotential on model levels by hypsometric integration, written into
+    a target 3-D channel block (reference: credit/postblock/geopotential.py
+    GeopotentialDiagnostic)."""
+
+    _tables = ("a_half", "b_half", "sgp")
+
+    def __init__(self, schema: ChannelSchema, grid=None, a_half=None, b_half=None,
+                 surface_geopotential=None, output_name="Z", temperature_var="T", q_var="Q",
+                 sp_var="SP", **_):
+        self.out = _VarView(schema, output_name)
+        self.T = _VarView(schema, temperature_var)
+        self.q = _VarView(schema, q_var)
+        self.sp = _VarView(schema, sp_var)
+        self.a_half, self.b_half = _f32(a_half), _f32(b_half)
+        self.sgp = _f32(surface_geopotential)
+
+    def __call__(self, y_pred, x):
+        from credit_torch.physics.interp import geopotential_hybrid
+
+        self._on(y_pred.device)
+        z = geopotential_hybrid(self.sgp, self.sp.get(y_pred), self.T.get(y_pred),
+                                self.q.get(y_pred), self.a_half, self.b_half)
+        return self.out.set(y_pred, z)
 
 
 # ---------------------------------------------------------------------------
@@ -421,3 +519,8 @@ def apply_postblocks(blocks: Sequence[Callable], y_pred, x):
     for b in blocks:
         y_pred = b(y_pred, x)
     return y_pred
+
+
+# the stateful blocks and the wind filter register themselves on import
+from credit_torch.postblock import stochastic as _stochastic  # noqa: E402,F401
+from credit_torch.postblock import wind_filter as _wind_filter  # noqa: E402,F401

@@ -9,10 +9,9 @@ state, 'per_step' blocks on the input of every rollout step (the train
 and eval steps, `trainers/trainer.py`). Constant tensors are made on the
 CPU and follow the input's device at the first call.
 
-Ported: era5_normalizer, log_transform, sqrt_transform, fill_values, clamp,
-regrid and bridgescaler_transform. hybrid_level_interp and
-semilagrangian_advection are registered and raise `NotImplementedError`
-when built, naming the ROADMAP step that brings the module they need.
+Every key of the reference's registry is here: era5_normalizer,
+log_transform, sqrt_transform, fill_values, clamp, regrid,
+bridgescaler_transform, hybrid_level_interp and semilagrangian_advection.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ import torch
 
 from credit_torch import registry
 from credit_torch.data.channels import ChannelSchema
-from credit_torch.ops.regrid import make_regridder
+from credit_torch.ops.regrid import _Tables, make_regridder
 from credit_torch.postblock import _VarView
 
 
@@ -212,20 +211,60 @@ class BridgeScalerTransform(BasePreblock):
         return out.T.reshape(x.shape)
 
 
-def _unported(key: str, item: str):
-    """A registry entry for a reference preblock the port does not have yet:
-    it raises when built."""
+@registry.register("preblock", "hybrid_level_interp")
+class HybridLevelInterp(BasePreblock, _Tables):
+    """Interpolate 3-D input variables from source hybrid levels onto the
+    model's hybrid levels, at full levels (interface means) of each
+    (reference: credit/preblock/hybrid_interp.py HybridLevelInterpPre on the
+    interp engine)."""
 
-    class Unported(BasePreblock):
-        def __init__(self, *_, **__):
-            raise NotImplementedError(f"preblock '{key}' is not ported yet ({item})")
+    _tables = ("ak_in", "bk_in", "ak_out", "bk_out")
 
-    Unported.__name__ = Unported.__qualname__ = f"Unported_{key}"
-    registry.register("preblock", key)(Unported)
+    def __init__(self, schema: ChannelSchema, variables: Sequence[str], ak_in=None, bk_in=None,
+                 ak_out=None, bk_out=None, sp_var: str = "SP", **_):
+        self.views = [_VarView(schema, v, target=False) for v in variables]
+        self.sp = _VarView(schema, sp_var, target=False)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+        self.ak_in, self.bk_in = f32(ak_in), f32(bk_in)
+        self.ak_out, self.bk_out = f32(ak_out), f32(bk_out)
+
+    def __call__(self, x):
+        from credit_torch.physics.interp import create_pressure_grid, interp_hybrid_to_hybrid
+
+        self._on(x.device)
+        sp = self.sp.get(x)
+        _, p_in = create_pressure_grid(sp, self.ak_in, self.bk_in)
+        _, p_out = create_pressure_grid(sp, self.ak_out, self.bk_out)
+        for view in self.views:
+            x = view.set(x, interp_hybrid_to_hybrid(view.get(x), p_in, p_out))
+        return x
 
 
-for _key, _item in [
-        ("hybrid_level_interp", "needs physics/interp.py: ROADMAP queue 1, step 4 (item 5)"),
-        ("semilagrangian_advection",
-         "needs physics/advection.py: ROADMAP queue 1, step 4 (item 5)")]:
-    _unported(_key, _item)
+@registry.register("preblock", "semilagrangian_advection")
+class AdvectionPreblock(BasePreblock):
+    """Advect input tracers one step with the input winds BEFORE the model
+    (reference: credit/preblock/advect.py SemiLagrangianAdvectionPre)."""
+
+    def __init__(self, schema: ChannelSchema, grid=None, a_half=None, b_half=None,
+                 tracer_vars: Sequence[str] = ("Q",), U_var="U", V_var="V", sp_var="SP",
+                 timestep_seconds: float = 21600.0, n_iterations: int = 2, **_):
+        from credit_torch.physics.advection import SemiLagrangianAdvection
+
+        self.engine = SemiLagrangianAdvection(grid, a_half, b_half, timestep_seconds,
+                                              n_iterations)
+        self.tracers = [_VarView(schema, v, target=False) for v in tracer_vars]
+        self.U = _VarView(schema, U_var, target=False)
+        self.V = _VarView(schema, V_var, target=False)
+        self.sp = _VarView(schema, sp_var, target=False)
+
+    def __call__(self, x):
+        b, t = x.shape[:2]
+        hw = x.shape[2:4]
+        u = self.U.get(x).reshape(b * t, *hw, -1)
+        v = self.V.get(x).reshape(b * t, *hw, -1)
+        sp = self.sp.get(x).reshape(b * t, *hw)
+        for tv in self.tracers:
+            f = tv.get(x)
+            adv = self.engine.advect([f.reshape(b * t, *hw, -1)], u, v, sp)[0]
+            x = tv.set(x, adv.reshape(f.shape))
+        return x

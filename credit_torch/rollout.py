@@ -8,7 +8,8 @@ round trip. The position-bias tables are computed on the first step and
 reused by the rest (`layers.position_bias_cache`).
 
 `RolloutEngine` runs in normalized space with its `Normalizer` and applies
-its postblocks every step, as the reference's. `RolloutEngine.run` hands
+its postblocks every step, as the reference's, carrying the stateful
+blocks' states (the SKEBS pattern) from step to step. `RolloutEngine.run` hands
 each prediction to the host through pinned memory on a side CUDA stream
 and to a pool of writer threads, so that the next steps run on the card
 while earlier ones are copied and written.
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,7 +29,8 @@ from credit_torch.data.channels import ChannelSchema
 from credit_torch.data.normalize import Normalizer
 from credit_torch.models.layers import position_bias_cache
 from credit_torch.postblock import apply_postblocks
-from credit_torch.postblock.stochastic import check_stateless
+from credit_torch.postblock.stochastic import (apply_postblocks_stateful, init_postblock_states,
+                                               split_postblock_params)
 
 
 def _advance(schema: ChannelSchema, x, y_pred, forcing, history_len: int):
@@ -71,18 +73,30 @@ class RolloutEngine:
     forcing on entry and denormalizes only what it emits. Each step applies
     `postblocks` (e.g. `postblock.build_postblocks`) to the model's
     prediction, with the step's input, before the next input is spliced.
-    Stateful postblocks are not ported and raise."""
+    Stateful postblocks keep their states across steps (and `run` calls)
+    until `reset`, which the first step does for a batch of its size; a
+    noisy model and the stateful blocks draw from the engine's generator
+    (seeded by `reset`, 0 unless given). `postblock_params` are the
+    trainable blocks' nets' tensors as a checkpoint holds them
+    (`_postblocks.<i>.<name>`); the engine splits them off by block."""
 
     def __init__(self, model, schema: ChannelSchema, normalizer: Optional[Normalizer] = None,
                  history_len: int = 1, postblocks: Optional[Sequence[Callable]] = None,
-                 device="cuda"):
+                 postblock_params: Optional[Dict[str, torch.Tensor]] = None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model
         self.schema = schema
         self.normalizer = normalizer
         self.history_len = history_len
         self.postblocks = list(postblocks or [])
-        check_stateless(self.postblocks)
+        self.pb_params = None
+        if postblock_params:
+            self.pb_params = {i: {k: v.to(self.device) for k, v in t.items()}
+                              for i, t in split_postblock_params(postblock_params).items()}
+        self._has_stateful = any(getattr(b, "is_stateful", False) for b in self.postblocks)
+        self._stochastic = getattr(model, "stochastic", False)
+        self._states: dict = {}
+        self._gen: Optional[torch.Generator] = None
         self._ring: Optional[List[torch.Tensor]] = None  # run's pinned host buffers
         self.copy_ms: List[float] = []
         self._cache = contextlib.ExitStack()
@@ -92,13 +106,25 @@ class RolloutEngine:
         """Drop the cached position-bias tables."""
         self._cache.close()
 
+    def reset(self, batch_size: int = 1, seed: int = 0):
+        """(Re)initialise the stateful postblocks' states (the SKEBS pattern)
+        for `batch_size` and the engine's generator from `seed`."""
+        self._states = init_postblock_states(self.postblocks, batch_size, self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
     @torch.no_grad()
     def step(self, x: torch.Tensor, forcing_next: Optional[torch.Tensor] = None):
         """x: (B, T_hist, H, W, C_in) -> (y_pred, x_next), both in the
         model's (normalized) space; y_pred has passed the postblocks."""
         x = x.to(self.device)
-        y = self.model(x)
-        y = apply_postblocks(self.postblocks, y, x)
+        if self._gen is None or (self._has_stateful and not self._states):
+            self.reset(x.shape[0])
+        y = self.model(x, generator=self._gen) if self._stochastic else self.model(x)
+        if self._has_stateful:
+            y, self._states = apply_postblocks_stateful(self.postblocks, y, x, self._states,
+                                                        self._gen, self.pb_params)
+        else:
+            y = apply_postblocks(self.postblocks, y, x)
         f = None if forcing_next is None else forcing_next.to(self.device)
         return y, _advance(self.schema, x, y, f, self.history_len)
 
@@ -114,8 +140,10 @@ class RolloutEngine:
         is reused once on_step returns: copy what must outlive the call.
         forcing_provider(s) gives the (B, 1, H, W, n_dyn) forcing of the
         next input, or None. x0 and the forcing are in physical units when
-        a normalizer is set: they are normalized on entry. On CUDA,
-        `copy_ms` holds each step's device-to-host copy time afterwards."""
+        a normalizer is set: they are normalized on entry. After each step
+        the blocks with `write_rollout_debug_files` dump their state
+        (`dump_debug(s, state)`, a host read). On CUDA, `copy_ms` holds
+        each step's device-to-host copy time afterwards."""
         x = torch.as_tensor(x0).to(self.device)
         if self.normalizer is not None:
             x = self.normalizer.normalize_input(x)
@@ -135,6 +163,9 @@ class RolloutEngine:
                             f = self.normalizer.normalize_forcing(f, self.schema)
                         f = f.to(x.dtype)
                     y, x = self.step(x, f)
+                    for i, pb in enumerate(self.postblocks):
+                        if getattr(pb, "write_rollout_debug_files", False) and i in self._states:
+                            pb.dump_debug(s, self._states[i])
                     if denormalize and self.normalizer is not None:
                         y = self.normalizer.denormalize_target(y)
                     copies.submit(pool, s, y.float(), on_step or collect)

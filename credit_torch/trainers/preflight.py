@@ -58,8 +58,8 @@ def first_batch_watchdog(fn, timeout_s: float = 120.0, name: str = "first batch"
 def estimate_train_memory(train_step, state, batch) -> Optional[Dict[str, float]]:
     """Peak device memory of one train step, read from the CUDA allocator
     (the reference's synthetic VRAM probe, :223). The step really runs:
-    the model's parameters and buffers, the optimizer's tensors, the EMA
-    and the noise generator's state are copied to the host first and put
+    the model's parameters and buffers, the postblock nets', the
+    optimizer's tensors, the EMA and the noise generator's state are copied to the host first and put
     back after (the step returns a new state and leaves the given one's
     counts as they were), so training continues from the state it was
     given. None off CUDA."""
@@ -88,6 +88,8 @@ def estimate_train_memory(train_step, state, batch) -> Optional[Dict[str, float]
 
 def _state_tensors(state):
     tensors = list(state.model.state_dict().values())
+    if state.nets is not None:
+        tensors += list(state.nets.state_dict().values())
     for part in state.opt_state.values():  # the moments; MultiSteps' running mean
         if isinstance(part, dict):
             tensors += list(part.values())

@@ -38,9 +38,16 @@ reference runs them: the 'ic_only' phase once on the normalized initial
 state, the 'per_step' phase on x at the top of every rollout step, before
 the ensemble repeat.
 
+Stateful postblocks (SKEBS) get fresh states for the B x E members at
+every step and draw from the step's generator; a trainable block's net
+(the learned backscatter rate) is part of the state (`TrainState.nets`,
+its parameters named `_postblocks.<i>.<name>`), updated with the model by
+the optimizer, the clip, MultiSteps and the EMA, kept in the checkpoint;
+validation runs the EMA's copy of it.
+
 The TPU levers `flatten_optimizer`, `scan_blocks` and `remat` are accepted
-and ignored. Not ported yet, and raising: stateful postblocks (ROADMAP
-queue 1, item 5), the diffusion and IC-optimisation trainers (item 7) and
+and ignored. Not ported yet, and raising: the diffusion and
+IC-optimisation trainers (ROADMAP queue 1, item 7) and
 `trainer.parallelism` beyond one device (item 8).
 """
 
@@ -61,7 +68,9 @@ from credit_torch import registry, resolve_device
 from credit_torch.data.channels import ChannelSchema
 from credit_torch.models.layers import freeze_sn_updates
 from credit_torch.models.spectral_utils import power_iter_model_
-from credit_torch.postblock.stochastic import check_stateless
+from credit_torch.postblock.stochastic import (apply_postblocks_stateful,
+                                               init_postblock_params, init_postblock_states,
+                                               postblock_nets, split_postblock_params)
 from credit_torch.preblock import apply_preblocks, build_preblocks
 from credit_torch.trainers.scheduler import Schedule
 
@@ -73,24 +82,45 @@ class TrainState:
     """step: train steps taken (micro-steps under grad_accum_every); model:
     holds the parameters and the spectral u/v buffers; opt_state: the
     optimizer's (`AdamW.init` / `MultiSteps.init`); ema_params: name -> EMA
-    of each parameter, or None (EMA off); noise: the generator of a noisy
-    model's draws in the train step, on the model's device, or None
-    (torch's default generator)."""
+    of each parameter, or None (EMA off); noise: the generator of the train
+    step's draws (a noisy model's, then the stateful postblocks'), on the
+    model's device, or None (torch's default generator); nets: the
+    trainable postblocks' nets keyed by their index in the pipeline
+    (`postblock.stochastic.postblock_nets`), or None."""
 
     step: int
     model: torch.nn.Module
     opt_state: dict
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     noise: Optional[torch.Generator] = None
+    nets: Optional[torch.nn.ModuleDict] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: "AdamW", ema: bool = False,
-               noise_seed: int = 0) -> "TrainState":
-        params = dict(model.named_parameters())
+               noise_seed: int = 0, nets: Optional[torch.nn.ModuleDict] = None) -> "TrainState":
+        params = train_parameters(model, nets)
         ema_params = {k: p.detach().clone() for k, p in params.items()} if ema else None
         dev = next(model.parameters()).device
         noise = torch.Generator(device=dev).manual_seed(_derived_seed(noise_seed, 0x401E))
-        return cls(0, model, optimizer.init(params), ema_params, noise)
+        return cls(0, model, optimizer.init(params), ema_params, noise, nets)
+
+    def named_parameters(self) -> Dict[str, torch.nn.Parameter]:
+        return train_parameters(self.model, self.nets)
+
+
+def train_parameters(model: torch.nn.Module, nets: Optional[torch.nn.ModuleDict] = None
+                     ) -> Dict[str, torch.nn.Parameter]:
+    """The trained parameters by name: the model's, then each postblock
+    net's as `_postblocks.<i>.<name>` (credit_tpu's params['_postblocks'])."""
+    params = dict(model.named_parameters())
+    if nets is not None:
+        params.update((f"_postblocks.{k}", p) for k, p in nets.named_parameters())
+    return params
+
+
+def _net_tensors(nets: Optional[torch.nn.ModuleDict]):
+    """{str(i): {name: parameter}} of the state's postblock nets."""
+    return None if nets is None else {k: dict(m.named_parameters()) for k, m in nets.items()}
 
 
 def _derived_seed(*keys: int) -> int:
@@ -246,29 +276,42 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
     on every k-th call) and reads the device twice: the loss's finiteness
     and, with clipping, the gradient norm against the clip. `preblocks_ic`
     run once on the normalized initial state, `preblocks` on x at the top
-    of every rollout step."""
-    check_stateless(postblocks)
+    of every rollout step. Stateful postblocks start from fresh states for
+    the B x E members at every call, carry them across the rollout steps
+    and draw from state.noise after the model; a trainable block runs the
+    state's net (`state.nets`), whose parameters the step updates with the
+    model's."""
     dev = resolve_device(device)
     bp = set(backprop_on_timestep or range(forecast_len))
     n_bp = max(len(bp), 1)
     stochastic = getattr(model, "stochastic", False)
+    has_stateful = any(getattr(b, "is_stateful", False) for b in postblocks)
+    has_trainable = any(getattr(b, "is_trainable", False) for b in postblocks)
 
-    def forward(mdl, x, gen):
+    def forward(mdl, x, gen, pb_states, nets):
         with freeze_sn_updates(sn_external):
             y_pred = mdl(x, generator=gen) if stochastic else mdl(x)
+        if has_stateful:
+            return apply_postblocks_stateful(postblocks, y_pred, x, pb_states, gen, nets)
         for b in postblocks:
             y_pred = b(y_pred, x)
-        return y_pred
+        return y_pred, pb_states
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         mdl = state.model
         mdl.train()
-        params = dict(mdl.named_parameters())
+        if has_trainable and state.nets is None:
+            raise ValueError("trainable postblocks need the state's nets: TrainState.create(..., "
+                             "nets=postblock_nets(postblocks))")
+        params = state.named_parameters()
+        nets = _net_tensors(state.nets)
         for p in params.values():
             p.grad = None
         batch = _prepare(batch, dev, normalizer, schema)
         x = apply_preblocks(preblocks_ic, batch["x"])
         b = x.shape[0]
+        pb_states = (init_postblock_states(postblocks, b * ensemble_size, dev)
+                     if has_stateful else {})
         total = torch.zeros((), device=dev)
         mvals = None
         for s in range(forecast_len):
@@ -276,7 +319,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
             x = apply_preblocks(preblocks, x)
             x_in = torch.repeat_interleave(x, ensemble_size, dim=0) if ensemble_size > 1 else x
             if s in bp:
-                y_pred = forward(mdl, x_in, state.noise)
+                y_pred, pb_states = forward(mdl, x_in, state.noise, pb_states, nets)
                 if ensemble_size > 1:
                     y_e = _members(y_pred, b, ensemble_size)
                     loss = loss_fn(y_t, y_e)
@@ -287,7 +330,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
                 total = total + loss.detach()
             else:
                 with torch.no_grad():
-                    y_pred = forward(mdl, x_in, state.noise)
+                    y_pred, pb_states = forward(mdl, x_in, state.noise, pb_states, nets)
                     if ensemble_size > 1:
                         y_pred = _members(y_pred, b, ensemble_size).mean(dim=1)
             if metrics_fn is not None:
@@ -319,7 +362,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
             gnorm = global_norm(grads)
         for p in plist:
             p.grad = None
-        new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise)
+        new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise, state.nets)
         metrics = {"loss": mean_loss, "grad_norm": gnorm, "finite": float(finite)}
         if mvals is not None:
             metrics.update(metrics_fn.named(mvals))
@@ -347,43 +390,52 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
     (the model's own parameters are not touched). With ensemble_size E > 1
     the loss scores the (B, E, ...) members and the metrics and rollout
     their mean. `generator` is the noise source of a noisy model, on its
-    device. Preblocks run as in the train step."""
-    check_stateless(postblocks)
+    device, and of the stateful postblocks after it. Preblocks and stateful
+    postblocks run as in the train step; a trainable block runs the EMA's
+    copy of its net where the state keeps an EMA."""
     dev = resolve_device(device)
     stochastic = getattr(model, "stochastic", False)
+    has_stateful = any(getattr(b, "is_stateful", False) for b in postblocks)
 
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         mdl = state.model
         mdl.eval()
-        tensors = None
+        tensors, nets = None, _net_tensors(state.nets)
         if state.ema_params is not None:
-            tensors = {**state.ema_params, **dict(mdl.named_buffers())}
+            tensors = {**{k: v for k, v in state.ema_params.items()
+                          if not k.startswith("_postblocks.")}, **dict(mdl.named_buffers())}
+            nets = split_postblock_params(state.ema_params) or nets
 
         kw = {"generator": generator} if stochastic else {}
 
-        def forward(x):
+        def forward(x, pb_states):
             y_pred = (mdl(x, **kw) if tensors is None
                       else torch.func.functional_call(mdl, tensors, (x,), kw))
+            if has_stateful:
+                return apply_postblocks_stateful(postblocks, y_pred, x, pb_states, generator, nets)
             for b in postblocks:
                 y_pred = b(y_pred, x)
-            return y_pred
+            return y_pred, pb_states
 
         with torch.no_grad():
             batch = _prepare(batch, dev, normalizer, schema)
             x = apply_preblocks(preblocks_ic, batch["x"])
             b = x.shape[0]
+            pb_states = (init_postblock_states(postblocks, b * ensemble_size, dev)
+                         if has_stateful else {})
             total = torch.zeros((), device=dev)
             mvals = None
             for s in range(forecast_len):
                 y_t = batch["y"][:, s:s + 1]
                 x = apply_preblocks(preblocks, x)
                 if ensemble_size > 1:
-                    y_e = _members(forward(torch.repeat_interleave(x, ensemble_size, dim=0)),
-                                   b, ensemble_size)
+                    y_e, pb_states = forward(torch.repeat_interleave(x, ensemble_size, dim=0),
+                                             pb_states)
+                    y_e = _members(y_e, b, ensemble_size)
                     total = total + loss_fn(y_t, y_e)
                     y_pred = y_e.mean(dim=1)
                 else:
-                    y_pred = forward(x)
+                    y_pred, pb_states = forward(x, pb_states)
                     total = total + loss_fn(y_t, y_pred)
                 if metrics_fn is not None:
                     v = metrics_fn.values(y_t, y_pred) / forecast_len
@@ -510,6 +562,10 @@ class Trainer:
                for phase in ("ic_only", "per_step")}
         post = self._build_train_postblocks(grid)
         self.train_postblocks = post
+        # the trainable postblocks' nets (zero until init_state seeds them
+        # or a checkpoint fills them), on the trainer's device
+        nets = postblock_nets(post)
+        self.nets = nets.to(self.device) if len(nets) else None
         self.metrics_fn = None
         if t.get("log_variable_metrics", True):
             from credit_torch.metrics import LatWeightedMetrics
@@ -614,13 +670,18 @@ class Trainer:
         """Seeded weights for the model (convert_jax.seed_train_: kernels
         he_uniform from `generator`, a CPU generator seeded 0 by default, so
         every device draws the same weights; spectral-norm u/v converged),
-        fresh AdamW moments, with use_ema the EMA, and the train step's
-        noise generator seeded from `noise_seed`."""
+        then for the trainable postblocks' nets (flax's initialisers, drawn
+        from the same generator), fresh AdamW moments, with use_ema the
+        EMA, and the train step's noise generator seeded from
+        `noise_seed`."""
         from credit_torch.convert_jax import seed_train_
 
-        seed_train_(self.model, self.conf, generator or torch.Generator().manual_seed(0))
+        generator = generator or torch.Generator().manual_seed(0)
+        seed_train_(self.model, self.conf, generator)
+        if self.nets is not None:
+            init_postblock_params(self.train_postblocks, generator, self.device)
         state = TrainState.create(self.model, self.optimizer, ema=self.use_ema,
-                                  noise_seed=noise_seed)
+                                  noise_seed=noise_seed, nets=self.nets)
         n = sum(p.numel() for p in self.model.parameters())
         logger.info("model parameters: %.2fM", n / 1e6)
         return state
@@ -837,7 +898,8 @@ class Trainer:
 
     def save_checkpoint(self, state: TrainState, epoch: int, tag: str = "checkpoint"):
         """Full training state in `save_loc/tag/state.pt` (torch.save): the
-        model's parameters and spectral-norm u/v buffers, `step`, the
+        model's parameters and spectral-norm u/v buffers (and the postblock
+        nets' as `_postblocks.<i>.<name>`), `step`, the
         optimizer state (AdamW moments and count; MultiSteps' mean and
         mini-step), the EMA and the noise generator's state (reference: base_trainer.
         _save_checkpoint; the directory names are credit_tpu's, the format
@@ -853,7 +915,10 @@ class Trainer:
             shutil.rmtree(backup, ignore_errors=True)
             shutil.copytree(path, backup)
         os.makedirs(path, exist_ok=True)
-        payload = {"model": state.model.state_dict(), "step": state.step,
+        weights = state.model.state_dict()
+        if state.nets is not None:
+            weights.update((f"_postblocks.{k}", v) for k, v in state.nets.state_dict().items())
+        payload = {"model": weights, "step": state.step,
                    "opt_state": state.opt_state, "ema_params": state.ema_params,
                    "noise": None if state.noise is None else state.noise.get_state()}
         torch.save(payload, ckpt + ".tmp")
@@ -863,13 +928,18 @@ class Trainer:
 
     def load_checkpoint(self, state: TrainState, tag: str = "checkpoint",
                         load_optimizer: bool = True) -> TrainState:
-        """`state` with the checkpoint's parameters, u/v, step, EMA and noise
-        generator state (where it has them), and its optimizer state unless
-        load_optimizer is off. The tensors are copied into the state's own,
-        on its device."""
+        """`state` with the checkpoint's parameters, u/v, postblock nets,
+        step, EMA and noise generator state (where it has them), and its
+        optimizer state unless load_optimizer is off. The tensors are copied
+        into the state's own, on its device."""
         path = os.path.join(self.save_loc, tag, self.CHECKPOINT_FILE)
         saved = torch.load(path, map_location=self.device, weights_only=True)
-        state.model.load_state_dict(saved["model"])
+        pre = "_postblocks."
+        state.model.load_state_dict({k: v for k, v in saved["model"].items()
+                                     if not k.startswith(pre)})
+        if state.nets is not None:
+            state.nets.load_state_dict({k[len(pre):]: v for k, v in saved["model"].items()
+                                        if k.startswith(pre)})
         opt_state = state.opt_state
         if load_optimizer:
             with torch.no_grad():
@@ -886,7 +956,7 @@ class Trainer:
                     v.copy_(saved["ema_params"][k])
         if state.noise is not None and saved.get("noise") is not None:
             state.noise.set_state(saved["noise"].cpu())
-        return TrainState(saved["step"], state.model, opt_state, ema, state.noise)
+        return TrainState(saved["step"], state.model, opt_state, ema, state.noise, state.nets)
 
     def checkpoint_epoch(self) -> int:
         """The last epoch a checkpoint was written for (epoch.txt)."""

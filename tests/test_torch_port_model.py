@@ -242,7 +242,11 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.trainers.preflight, credit_torch.utils.ncio, credit_torch.models.sdl, "
             "credit_torch.native.fastload, credit_torch.data.zarrlite, credit_torch.data.obs, "
             "credit_torch.data.projection, credit_torch.data.tisr, credit_torch.physics.solar, "
-            "credit_torch.ops.regrid, credit_torch.ops.sht, credit_torch.preblock; "
+            "credit_torch.ops.regrid, credit_torch.ops.sht, credit_torch.preblock, "
+            "credit_torch.physics.interp, credit_torch.physics.pole_filter, "
+            "credit_torch.physics.advection, credit_torch.physics.skebs, "
+            "credit_torch.physics.skebs_nets, credit_torch.postblock.stochastic, "
+            "credit_torch.postblock.wind_filter; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
@@ -269,8 +273,10 @@ def test_entry_points_without_device_need_cuda():
 
 
 def test_rollout_engine_refuses_unported_options(tmp_path):
-    """The Normalizer (from netCDF statistics too) and stateless postblocks
-    are ported; a stateful postblock (SKEBS) is not, and raises."""
+    """The Normalizer (from netCDF statistics too), stateless postblocks and
+    stateful ones (SKEBS) are ported: the engine sets a stateful block's
+    state up for the first step's batch, hands it on from step to step with
+    the engine's generator, and `reset` starts it again."""
     conf = CONFS["padded"]
     schema = ChannelSchema.from_config({**conf, "data": DATA})
     model = load_model(conf, device="cpu")
@@ -278,11 +284,23 @@ def test_rollout_engine_refuses_unported_options(tmp_path):
     class Stateful:
         is_stateful = True
 
-        def __call__(self, y, x):
-            return y
+        def init_state(self, batch_size, device="cpu"):
+            return torch.zeros(batch_size, device=device)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        RolloutEngine(model, schema, postblocks=[Stateful()], device="cpu")
+        def __call__(self, y, x, state, generator):
+            assert isinstance(generator, torch.Generator)
+            return y + state[:, None, None, None, None], state + 1
+
+    block = Stateful()
+    engine = RolloutEngine(model, schema, postblocks=[block], device="cpu")
+    x = torch.zeros(2, 1, 32, 64, schema.n_input)
+    ys = [engine.step(x)[0] for _ in range(3)]
+    assert torch.equal(engine._states[0], torch.full((2,), 3.0))
+    for k, y in enumerate(ys[1:], 1):
+        assert torch.equal(y - ys[0], torch.full_like(y, float(k)))
+    engine.reset(2)
+    assert torch.equal(engine.step(x)[0], ys[0])
+    engine.close()
     paths = [str(tmp_path / "mean.nc"), str(tmp_path / "std.nc")]
     for path, (a, b) in zip(paths, [((0.0, 1.0), 5.0), ((2.0, 3.0), 7.0)]):
         Dataset({"U": (("level",), np.asarray(a, np.float32)),

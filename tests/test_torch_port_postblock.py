@@ -21,6 +21,8 @@ import torch
 from __graft_entry__ import TINY_MODEL_CONF
 from credit_tpu import grid as jgrid
 from credit_tpu import postblock as jpb
+from credit_tpu import registry as jregistry
+from credit_tpu.postblock import stochastic as _jst, wind_filter as _jwf  # noqa: F401 (registry)
 from credit_tpu.data.channels import ChannelSchema as JSchema
 from credit_tpu.data.normalize import Normalizer as JNormalizer
 from credit_tpu.models import load_model as jax_load_model
@@ -358,22 +360,99 @@ def test_build_postblocks_pipeline_and_dtypes_match_reference(env):
     assert states == {} and _rel_by_channel(tout.numpy(), jout) < TOL
 
 
+PHYS_CONF = {"data": {"source": {"ERA5": {
+    "levels": list(range(NLEV)),
+    "variables": {"prognostic": {"vars_3D": ["U", "V", "T", "Q", "Z"],
+                                 "vars_2D": ["SP", "VAR_2T", "mean_sea_level_pressure"]}}}}}}
+# physical ranges of PHYS_CONF's variables; the winds 0 on the pole rows
+PHYS_RANGES = {"U": (-20.0, 45.0), "V": (-20.0, 20.0), "T": (220.0, 300.0), "Q": (0.0, 0.01),
+               "Z": (0.0, 1e5), "SP": (6e4, 1.05e5), "VAR_2T": (240.0, 305.0),
+               "mean_sea_level_pressure": (9.5e4, 1.05e5)}
+PHYS_POST = {
+    "skebs": {"backscatter": 4e-5, "max_pattern_wavenum": 6, "pattern_filter_anneal_start": 3},
+    "semilagrangian_advection": {"a_half": np.concatenate([[0.0], AK]),
+                                 "b_half": np.concatenate([[0.0], BK]), "tracer_vars": ["Q"]},
+    "wind_artifact_filter": {"speed_threshold": 35.0},
+    "hybrid_level_interp": {"variables": ["T", "Q"], "a_in": AK, "b_in": BK,
+                            "a_out": AK * 0.5, "b_out": BK ** 1.5},
+    "pressure_interp_diagnostic": {"input_var": "T", "output_var": "Z",
+                                   "pressure_levels": [30000.0, 60000.0, 85000.0, 100000.0],
+                                   "a_half": np.concatenate([[0.0], AK]),
+                                   "b_half": np.concatenate([[0.0], BK])},
+    "mslp_diagnostic": {"surface_geopotential": np.linspace(0.0, 2e4, H * W).reshape(H, W)},
+    "geopotential_diagnostic": {"a_half": np.concatenate([[0.0], AK]),
+                                "b_half": np.concatenate([[0.0], BK]),
+                                "surface_geopotential": np.linspace(0.0, 2e4, H * W).reshape(H, W)},
+}
+
+
+def _skebs_draw(key, shape):
+    kr, ki = jax.random.split(key)
+    return np.array(jax.random.normal(kr, shape) + 1j * jax.random.normal(ki, shape),
+                    np.complex64)
+
+
 @pytest.mark.parametrize("key", ["skebs", "semilagrangian_advection", "wind_artifact_filter",
                                  "hybrid_level_interp", "pressure_interp_diagnostic",
                                  "mslp_diagnostic", "geopotential_diagnostic"])
-def test_unported_postblocks_raise(env, key):
-    _, schema, _, _ = env
-    conf = {"post_conf": {"activate": True, key: {"activate": True}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        registry.get("postblock", key)(schema=schema, grid=None)
-    if key not in ("hybrid_level_interp", "pressure_interp_diagnostic"):
-        # (the reference's build_postblocks never builds those two)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpb.build_postblocks(conf, schema, None)
+def test_unported_postblocks_raise(key):
+    """The seven postblocks of ROADMAP queue 1 step 4 (item 5), ported:
+    each built from the registry with the same arguments as credit_tpu's
+    (and by build_postblocks where credit_tpu's builds it: not
+    hybrid_level_interp or pressure_interp_diagnostic) on a 10x20 grid of
+    4 levels in physical units, against credit_tpu's block: within 1e-5 of
+    each channel's largest value, the channels it does not write bitwise
+    untouched. `skebs` (a prescribed rate) runs one step from its spun-up
+    state with credit_tpu's draws replayed. The winds are 0 on the pole
+    rows, where cos(lat) is floored and advection's departure points are
+    ill-conditioned (tests/test_torch_port_physics.py holds them there)."""
+    jschema, schema = JSchema.from_config(PHYS_CONF), ChannelSchema.from_config(PHYS_CONF)
+    rng = np.random.default_rng(11)
+    y = np.zeros((2, 1, H, W, schema.n_target), np.float32)
+    for e in schema.target_entries:
+        y[..., e.index] = rng.uniform(*PHYS_RANGES[e.name.rpartition("_L")[0] or e.name],
+                                      y.shape[:-1])
+        if e.name[0] in "UV":
+            y[:, :, [0, -1], :, e.index] = 0.0
+    x = y.copy()
+    conf = {"post_conf": {"activate": True, key: {"activate": True, **PHYS_POST[key]}}}
+    built = tpb.build_postblocks(conf, schema, tgrid.Grid.regular(H, W))
+    if key in ("hybrid_level_interp", "pressure_interp_diagnostic"):
+        assert built == []  # (the reference's build_postblocks never builds those two)
+    ours = registry.get("postblock", key)(schema=schema, grid=tgrid.Grid.regular(H, W),
+                                          **PHYS_POST[key])
+    ref = jregistry.get("postblock", key)(schema=jschema, grid=jgrid.Grid.regular(H, W),
+                                          **PHYS_POST[key])
+    if key == "skebs":
+        shape = (2, H, H)
+        k0, k1 = jax.random.PRNGKey(0), jax.random.PRNGKey(3)
+        draws = []
+        for _ in range(5):
+            k0, sub = jax.random.split(k0)
+            draws.append(torch.from_numpy(_skebs_draw(sub, shape)))
+        draws.append(torch.from_numpy(_skebs_draw(k1, shape)))
+        cycle = ours.skebs.cycle
+        ours.skebs.cycle = lambda c, g=None, noise=None: cycle(c, g, noise=draws.pop(0))
+        want = np.asarray(ref(jnp.asarray(y), jnp.asarray(x), ref.init_state(2), k1)[0])
+        got = ours(torch.from_numpy(y), torch.from_numpy(x), ours.init_state(2), None)[0]
+        assert not draws
+    else:
+        if built:
+            assert [type(b).__name__ for b in built] == [type(ours).__name__]
+        want = np.asarray(ref(jnp.asarray(y), jnp.asarray(x)))
+        got = ours(torch.from_numpy(y), torch.from_numpy(x))
+    got = got.numpy()
+    moved = np.abs(want - y).max(axis=(0, 1, 2, 3)) > 0
+    assert moved.any()
+    np.testing.assert_array_equal(got[..., ~moved], y[..., ~moved])
+    assert _rel_by_channel(got, want) < TOL, key
 
 
 def test_stateful_postblocks_and_netcdf_stats_raise(env, tmp_path):
-    """A stateful postblock (SKEBS) still raises. The statistics and the
+    """A stateful postblock runs in the stateful pipeline: its state comes
+    from init_postblock_states (keyed by its index) and is handed on by
+    apply_postblocks_stateful, which passes the generator to it and runs
+    the stateless blocks around it as they are. The statistics and the
     wet mask read from netCDF (written with the port's ncio) equal
     credit_tpu's from the same files."""
     jschema, schema, _, y = env
@@ -381,11 +460,20 @@ def test_stateful_postblocks_and_netcdf_stats_raise(env, tmp_path):
     class Stateful:
         is_stateful = True
 
-        def __call__(self, y, x):
-            return y
+        def init_state(self, batch_size, device="cpu"):
+            return torch.zeros(batch_size, device=device)
 
-    with pytest.raises(NotImplementedError, match="stateful"):
-        init_postblock_states([Stateful()], 1)
+        def __call__(self, y, x, state, generator):
+            return y + 1.0, state + torch.rand(state.shape, generator=generator)
+
+    blocks = [lambda y, x: 2 * y, Stateful()]
+    states = init_postblock_states(blocks, 2)
+    assert list(states) == [1] and torch.equal(states[1], torch.zeros(2))
+    out, new = apply_postblocks_stateful(blocks, torch.from_numpy(y), None, states,
+                                         torch.Generator().manual_seed(0))
+    assert torch.equal(out, 2 * torch.from_numpy(y) + 1.0) and torch.equal(states[1],
+                                                                          torch.zeros(2))
+    assert torch.equal(new[1], torch.rand(2, generator=torch.Generator().manual_seed(0)))
     mean, std = _stats(schema)
     paths = []
     for name, table in (("mean", mean), ("std", std)):

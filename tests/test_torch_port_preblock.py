@@ -1,13 +1,12 @@
 """Parity of the port's preblocks (credit_torch/preblock) with credit_tpu's:
 each ported block on seeded inputs, the bridgescaler transform in its three
 kinds both ways (quantile tables with ties, inputs past the table), phase
-filtering and grid wiring of build_preblocks, the unported blocks raising
-with their ROADMAP step, and one train step and one 2-step eval step with
+filtering and grid wiring of build_preblocks, the blocks of ROADMAP queue 1
+steps 2 and 4 (regrid, hybrid_level_interp, semilagrangian_advection), and
+one train step and one 2-step eval step with
 both preblock phases on the tiny CrossFormer, against credit_tpu's steps,
 f32 on the CPU.
 """
-
-import re
 
 import jax
 import jax.numpy as jnp
@@ -197,18 +196,26 @@ def test_build_preblocks_phases_and_grid(monkeypatch):
                                       ("hybrid_level_interp", "step 4 (item 5)"),
                                       ("semilagrangian_advection", "step 4 (item 5)")])
 def test_unported_blocks_raise_with_their_step(key, step):
-    """hybrid_level_interp and semilagrangian_advection raise, naming their
-    ROADMAP step; regrid, ported with ops/regrid.py in step 2, builds onto
-    the model grid and matches credit_tpu's block within 1e-6 of max |x|
-    (its methods and orderings: tests/test_torch_port_grid_ops.py)."""
+    """The three blocks ROADMAP queue 1 ported in its steps 2 and 4 build
+    through build_preblocks and match credit_tpu's: regrid (ops/regrid.py,
+    step 2) onto the model grid within 1e-6 of max |x| (its methods and
+    orderings: tests/test_torch_port_grid_ops.py); hybrid_level_interp and
+    semilagrangian_advection (physics/interp.py and physics/advection.py,
+    step 4) on a 9x16 grid with physical surface pressures, within 1e-5 of
+    each channel's largest value (the winds are U for both components and
+    0 on the pole rows, where cos(lat) is floored and the departure points
+    are ill-conditioned; tests/test_torch_port_physics.py holds them
+    there), the other channels bitwise untouched."""
+    assert step.startswith("step")
     schema = ChannelSchema.from_config(CONF)
+    jschema = JSchema.from_config(CONF)
     if key == "regrid":
         entry = {"type": key, "phase": "ic_only", "method": "bilinear",
                  "src_lat": np.linspace(-80.0, 80.0, 6).tolist(),
                  "src_lon": (np.arange(12) * 30.0 - 180.0).tolist()}
         (ours,) = tpre.build_preblocks({"preblocks": [entry]}, schema, phase="ic_only",
                                        grid=Grid.regular(8, 16))
-        (ref,) = jpre.build_preblocks({"preblocks": [entry]}, JSchema.from_config(CONF),
+        (ref,) = jpre.build_preblocks({"preblocks": [entry]}, jschema,
                                       phase="ic_only", grid=JGrid.regular(8, 16))
         x = np.random.default_rng(3).standard_normal((2, 1, 6, 12, schema.n_input))
         x = x.astype(np.float32)
@@ -216,9 +223,31 @@ def test_unported_blocks_raise_with_their_step(key, step):
         assert got.shape == want.shape == (2, 1, 8, 16, schema.n_input)
         assert np.abs(got - want).max() <= 1e-6 * np.abs(x).max()
         return
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue 1, {step}")):
-        tpre.build_preblocks({"preblocks": [{"type": key, "phase": "ic_only"}]}, schema,
-                             phase="ic_only", grid=Grid.regular(8, 16))
+    ak, bk = [0.0, 3000.0, 2000.0, 0.0], [0.0, 0.3, 0.7, 1.0]
+    args = ({"variables": ["U", "Q"], "ak_in": ak, "bk_in": bk,
+             "ak_out": [0.0, 1500.0, 1000.0, 0.0], "bk_out": [0.0, 0.2, 0.6, 1.0]}
+            if key == "hybrid_level_interp" else
+            {"a_half": ak, "b_half": bk, "tracer_vars": ["Q"], "V_var": "U"})
+    entry = {"type": key, "phase": "ic_only", **args}
+    (ours,) = tpre.build_preblocks({"preblocks": [entry]}, schema, phase="ic_only",
+                                   grid=Grid.regular(9, 16))
+    (ref,) = jpre.build_preblocks({"preblocks": [entry]}, jschema, phase="ic_only",
+                                  grid=JGrid.regular(9, 16))
+    rng = np.random.default_rng(5)
+    x = rng.normal(0.0, 8.0, (2, 1, 9, 16, schema.n_input)).astype(np.float32)
+    for i, n in enumerate(schema.input_names):
+        if n == "SP":
+            x[..., i] = rng.uniform(6.0e4, 1.05e5, x.shape[:-1])
+        elif n.startswith("Q"):
+            x[..., i] = rng.uniform(0.0, 0.02, x.shape[:-1])
+        elif n.startswith("U"):
+            x[:, :, [0, -1], :, i] = 0.0
+    got, want = ours(torch.from_numpy(x)).numpy(), np.asarray(ref(jnp.asarray(x)))
+    moved = np.abs(want - x).max(axis=(0, 1, 2, 3)) > 0
+    assert moved.any()
+    np.testing.assert_array_equal(got[..., ~moved], x[..., ~moved])
+    scale = np.abs(want).max(axis=(0, 1, 2, 3))
+    assert (np.abs(got - want).max(axis=(0, 1, 2, 3)) <= 1e-5 * scale).all()
 
 
 # --------------------------------------------------------------- steps

@@ -273,19 +273,22 @@ def test_nan_guard_keeps_params_and_advances_moments(setup):
 def test_train_step_refuses_unported_options(setup):
     """The normalizer, stateless postblocks, metrics and the final state
     (tests/test_torch_port_fit.py), ensembles and sn_external
-    (tests/test_torch_port_ensemble.py) and preblocks
-    (tests/test_torch_port_preblock.py) are ported; stateful postblocks
-    raise, naming their item."""
+    (tests/test_torch_port_ensemble.py), preblocks
+    (tests/test_torch_port_preblock.py) and stateful and trainable
+    postblocks (tests/test_torch_port_skebs.py) are ported; a trainable
+    postblock with a state that lacks its net is refused."""
     _, _, schema, _ = setup
     model = load_model(CONF, device="cpu")
     opt = make_optimizer(CONF, tsched.constant(LR))
     loss = tlosses.WeightedLoss()
 
-    class Stateful:
-        is_stateful = True
+    class Trainable:
+        is_stateful = is_trainable = True
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        make_train_step(model, loss, opt, schema, device="cpu", postblocks=[Stateful()])
+    step = make_train_step(model, loss, opt, schema, device="cpu", postblocks=[Trainable()])
+    state = TrainState.create(model, opt)
+    with pytest.raises(ValueError, match="nets"):
+        step(state, {})
     assert make_train_step(model, loss, opt, schema, device="cpu", preblocks=[lambda x: x],
                            preblocks_ic=[lambda x: x]) is not None
     assert make_train_step(model, loss, opt, schema, device="cpu", normalizer=object(),
