@@ -36,7 +36,11 @@ Phases (any failure exits non-zero):
      fill_values, log_transform), run_rollout from that fit's checkpoint
      (two init times of 2 steps, the files compared by diff_rollout), and
      a tiny crossformer-ensemble's members and CRPS train step with the
-     same noise on both;
+     same noise on both; and every other model type (the cube embed, the
+     sub-pixel decoder, camulator, the downscaling CrossFormer, both
+     U-Nets, the debugger, NextGen, wrf, dscale, graph, both diffusion
+     backbones), tiny: the f32 forward, bf16 against f32 and a train-mode
+     backward on the card against the CPU;
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -69,9 +73,7 @@ Phases (any failure exits non-zero):
      launches checked; the step, validation, batch assembly and copy times
      and the peak memory printed; the store read through the native chunk
      pool (every chunk it decodes counted against every chunk read), the
-     resumed epoch profiled for the device's idle share, and two more
-     one-epoch fits in turns, through the pool and through the Python path,
-     for the step time beside each;
+     resumed epoch profiled for the device's idle share;
  11. main path 8, ensemble CRPS training at CONF_025 width: run_training on
      phase 10's store with CONF_025_TRAIN's model as crossformer-ensemble,
      2 members under the almost-fair CRPS, grad_accum_every 2 and
@@ -93,7 +95,7 @@ Phases (any failure exits non-zero):
      run_training on phase 10's store with tsi taken out of the store's
      dynamic forcing and computed by a `tisr` source on the model grid over
      the store's clock (its mean and std from the computed fields), one
-     epoch of 2 steps and 1 validation batch, profiled for the idle share:
+     epoch of 2 steps and 1 validation batch:
      the batch's tsi channel on the card against tisr_accumulated
      recomputed on the host (bitwise), the log finite and the launches
      checked; step, validation, assembly (and the tisr fields' share of
@@ -124,7 +126,19 @@ Phases (any failure exits non-zero):
      rollout's last state, the pole filter (winds and a scalar), the
      interp postblocks and preblock, the geopotential diagnostic and the
      advection preblock, ms a call on the card and on the CPU, the card
-     against the CPU. Removes phase 10's store.
+     against the CPU;
+ 15. main path 12, NextGen WXFormer at CONF_025_TRAIN width (CONF_NEXTGEN):
+     run_training on phase 10's store, one epoch of 2 steps and 1
+     validation batch, its checkpoint read back bitwise, then a 4-step bf16
+     rollout; beside it camulator with the sub-pixel decoder at the same
+     widths, one training step and a 4-step bf16 rollout; launches per
+     step checked and printed;
+ 16. main path 13, `era5-diffusion` with crossformer-diffusion at
+     CONF_025_TRAIN width: one epoch of 2 denoising steps and 1 validation
+     batch sampled by DDIM in 20 steps (1000 timesteps, sigmoid schedule,
+     v-prediction) on phase 10's store: the log, the checkpoint, the
+     launches; ms a step, a validation batch and a DDIM step, peak memory.
+     Removes phase 10's store.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -274,9 +288,6 @@ FIT_WINDOWS = (("1979-01-01T00", "1979-01-02T00"), ("1979-01-02T06", "1979-01-02
 ENS_WINDOWS = (("1979-01-01T00", "1979-01-02T06"), FIT_WINDOWS[1])
 # phase 3's tiny ensemble step: its members
 TINY_MEMBERS = 3
-# the training step's ms/step of phase 5 (and 7) by model name, for
-# phase 10's turns with and without the chunk pool
-STEP_MS = {}
 
 ROLLOUT_STEPS = 3
 # rollouts timed again after the counted one, for the spread: the host sets
@@ -384,6 +395,77 @@ CONF_025_TRAIN = {**CONF_025, "output_only_channels": 8}
 CONF_025_ENS = {**CONF_025_TRAIN, "type": "crossformer-ensemble"}
 TRAINER = {"learning_rate": 1e-4}
 
+# main path 12: NextGen WXFormer at CONF_025_TRAIN's widths, depths,
+# windows, channels and bf16 compute on the 721x1440 grid, which it does
+# not pad: its stage 3 is 45x90, so its local window there is 5 (10 does
+# not divide 45); 64 virtual nodes over the 4,050 stage-3 nodes
+CONF_NEXTGEN = {**{k: v for k, v in CONF_025_TRAIN.items() if k not in ("padding_conf", "interp")},
+                "type": "nextgen_wxformer", "local_window_size": [10, 10, 10, 5]}
+# beside it, camulator with the sub-pixel decoder at CONF_025_TRAIN
+CONF_CAMULATOR_PS = {**CONF_025_TRAIN, "type": "camulator", "upsample_with_ps": True}
+# main path 13: the diffusion CrossFormer at CONF_025_TRAIN: the condition
+# (60 channels) and the noisy target (64) enter cel0 together, 124 channels
+CONF_DIFFUSION = {**CONF_025_TRAIN, "type": "crossformer-diffusion"}
+# main paths 12 and 13: one epoch of 2 steps and 1 validation batch on
+# phase 10's store, batch 1
+ZOO_TRAINER = {"train_batch_size": 1, "num_epoch": 1, "batches_per_epoch": 2,
+               "valid_batches_per_epoch": 1, "learning_rate": 1e-4, "use_ema": True,
+               "ema_decay": 0.999, "prefetch": 2}
+# the diffusion trainer's defaults: 1000 timesteps, DDIM in 20 steps,
+# sigmoid schedule, v-prediction
+DIFFUSION = {"timesteps": 1000, "sampling_timesteps": 20, "beta_schedule": "sigmoid",
+             "objective": "pred_v"}
+ZOO_ROLLOUT_STEPS = 4
+# phase 3's tiny model zoo: (model section, input (B, T, H, W, C), the
+# extra inputs' shapes), as tests/test_torch_port_models.py builds them
+_CF = dict(frames=1, output_frames=1, image_height=32, image_width=64, levels=2, channels=2,
+           surface_channels=1, input_only_channels=1, output_only_channels=1,
+           dim=[16, 32, 64, 128], depth=[1, 1, 1, 1], global_window_size=[2, 2, 2, 1],
+           local_window_size=2, cross_embed_kernel_sizes=[[2, 4], [2, 4], [2, 4], [2, 4]],
+           cross_embed_strides=[2, 2, 2, 2], use_spectral_norm=True, dim_head=8, interp=True)
+_PI = dict(image_height=32, image_width=32, patch_height=2, patch_width=2, levels=2, frames=1,
+           frame_patch_size=1, channels=2, surface_channels=1, input_only_channels=1,
+           output_only_channels=0, dim=32)
+_UN = dict(frames=1, image_height=30, image_width=60, levels=2, channels=2, surface_channels=1,
+           input_only_channels=1, output_only_channels=1, encoder_dims=[8, 16, 32])
+TINY_ZOO = {
+    "crossformer cube embed": ({"type": "crossformer", **_CF, "frames": 2, "patch_height": 2,
+                                "patch_width": 2, "local_window_size": [2, 2, 2, 1],
+                                "global_window_size": [2, 2, 1, 1]}, (1, 2, 32, 64, 6), ()),
+    "crossformer upsample_with_ps": ({"type": "crossformer", **_CF, "upsample_with_ps": True},
+                                     (1, 1, 32, 64, 6), ()),
+    "camulator": ({"type": "camulator", **_CF}, (1, 1, 32, 64, 6), ()),
+    "crossformer_downscaling": ({"type": "crossformer_downscaling", **_CF,
+                                 "out_image_height": 48, "out_image_width": 80},
+                                (1, 1, 32, 64, 6), ()),
+    "unet": ({"type": "unet", **_UN, "use_spectral_norm": True}, (1, 1, 30, 60, 6), ()),
+    "unet_downscaling": ({"type": "unet_downscaling", **_UN, "frames": 2},
+                         (1, 2, 15, 30, 6), ()),
+    "debugger": ({"type": "debugger", "frames": 2, "image_height": 8, "image_width": 16,
+                  "levels": 2, "channels": 2, "surface_channels": 1, "input_only_channels": 1},
+                 (2, 2, 8, 16, 6), ()),
+    "nextgen_wxformer": ({"type": "nextgen_wxformer",
+                          **{k: v for k, v in _CF.items() if k != "interp"}, "frames": 2,
+                          "channels": 4, "levels": 3, "col_attn_heads": 2,
+                          "num_spectral_nodes": 4}, (1, 2, 32, 64, 14), ()),
+    "wrf": ({"type": "wrf", "param_interior": _PI,
+             "param_outside": dict(_PI, channels=1, input_only_channels=0), "time_encode_dim": 4,
+             "depth": 2, "num_heads": 4, "window_size": 4, "num_groups": 8},
+            (2, 1, 32, 32, 6), ((2, 1, 32, 32, 3), (2, 4))),
+    "dscale": ({"type": "dscale", "image_height": 32, "image_width": 32, "out_image_height": 48,
+                "out_image_width": 64, "patch_height": 2, "patch_width": 2,
+                "total_input_channels": 7, "total_target_channels": 11, "time_encode_dim": 4,
+                "frames": 1, "frame_patch_size": 1, "dim": 32, "depth": 2, "num_heads": 4,
+                "window_size": 4, "num_groups": 8}, (1, 1, 32, 32, 7), ((1, 4),)),
+    "graph": ({"type": "graph", "image_height": 8, "image_width": 16, "levels": 2,
+               "channels": 2, "surface_channels": 1, "hidden_size": 16, "n_blocks": 3,
+               "heads": 2, "knn": 4, "output_frames": 2}, (2, 1, 8, 16, 5), ()),
+    "crossformer-diffusion": ({"type": "crossformer-diffusion", **_CF}, (2, 1, 32, 64, 6),
+                              ((2, 1, 32, 64, 6), (2,))),
+    "unet-diffusion": ({"type": "unet-diffusion", **_UN}, (2, 1, 30, 60, 6),
+                       ((2, 1, 30, 60, 6), (2,))),
+}
+
 # the forecast as users run it (CONF_025_POST): CONF_025_TRAIN's model, its 8
 # diagnostics named for the conservation fixers (the reference's ERA5
 # configs), a seeded Normalizer, the tracer (Q >= 0), mass, water and energy
@@ -480,6 +562,31 @@ def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol,
 # channels that are not multiples of 8 (the wrapper pads them) and a kernel
 # taller than wide
 BF16, F32, BOTH = ("bfloat16",), ("float32",), ("bfloat16", "float32")
+# main paths 12 and 13's conv shapes that the earlier paths do not launch
+# (bf16, forward and weight gradient). NextGen on the unpadded 721x1440
+# grid: its embeds, each UpBlockPS's sub-pixel conv (Cout 4x its output)
+# and its 3x3 sharp / residual convs, the head's sub-pixel conv; camulator
+# with the sub-pixel decoder on the padded grid: the sub-pixel convs and
+# the 3x3 refine and sharp convs at 802x1442; the diffusion CrossFormer's
+# stage-0 embed over 124 channels (496 after space-to-depth)
+NEW_CONV_SHAPES = [
+    ("nextgen_stage0_embed_8x8", (1, 376, 735, 240, 8, 8, 176)),
+    ("nextgen_stage1_embed_2x2", (1, 181, 361, 512, 2, 2, 256)),
+    ("nextgen_stage2_embed_2x2", (1, 91, 181, 1024, 2, 2, 512)),
+    ("nextgen_stage3_embed_2x2", (1, 46, 91, 2048, 2, 2, 1024)),
+    ("nextgen_ps1_3x3", (1, 47, 92, 1024, 3, 3, 2048)),
+    ("nextgen_ps1_res_3x3", (1, 92, 182, 512, 3, 3, 512)),
+    ("nextgen_ps2_3x3", (1, 92, 182, 1024, 3, 3, 1024)),
+    ("nextgen_ps2_res_3x3", (1, 182, 362, 256, 3, 3, 256)),
+    ("nextgen_ps3_3x3", (1, 182, 362, 512, 3, 3, 512)),
+    ("nextgen_ps3_res_3x3", (1, 362, 722, 128, 3, 3, 128)),
+    ("nextgen_head_ps_3x3", (1, 362, 722, 256, 3, 3, 256)),
+    ("camulator_ps1_3x3", (1, 52, 92, 1024, 3, 3, 2048)),
+    ("camulator_ps2_3x3", (1, 102, 182, 1024, 3, 3, 1024)),
+    ("camulator_ps3_3x3", (1, 202, 362, 512, 3, 3, 512)),
+    ("camulator_head_ps_3x3", (1, 402, 722, 256, 3, 3, 256)),
+    ("camulator_sharp_3x3", (1, 802, 1442, 64, 3, 3, 64)),
+    ("diffusion_stage0_embed_8x8", (1, 415, 735, 496, 8, 8, 176))]
 CONV_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
     ("head_phase_3x3", (1, 402, 722, 256, 3, 3, 224), BOTH, 10),
@@ -495,7 +602,8 @@ CONV_SHAPES = [
     ("bench_embed_16x16", (1, 415, 735, 240, 16, 16, 128), BOTH, 3),
     ("skebs_cnn_3x3", (2, 723, 1442, 60, 3, 3, 13), F32, 5),
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 10),
-    ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 10)]
+    ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 10),
+    *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES]]
 
 
 def conv_cases(torch, g):
@@ -777,7 +885,8 @@ WGRAD_SHAPES = [
     ("fuxi_up_res_3x3", (1, 202, 322, 1024, 3, 3, 1024), BOTH, 3),
     ("skebs_cnn_3x3", (2, 723, 1442, 60, 3, 3, 13), F32, 5),
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 5),
-    ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 5)]
+    ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 5),
+    *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES]]
 
 
 def wgrad_cases(torch, g):
@@ -1201,6 +1310,198 @@ def tiny_ensemble(torch) -> None:
         raise AssertionError("the tiny ensemble on the card disagrees with the CPU")
 
 
+def _zoo_inputs(torch, name: str, dtype=None):
+    """Phase 3's seeded inputs of a zoo model on the CPU: the state, then its
+    extra inputs (diffusion: the noisy target and t in [0, 1))."""
+    _, xshape, extra = TINY_ZOO[name]
+    g = torch.Generator().manual_seed(2)
+    arrs = [torch.randn(xshape, generator=g)]
+    arrs += [torch.rand(s, generator=g) if len(s) == 1 else torch.randn(s, generator=g)
+             for s in extra]
+    return arrs
+
+
+def _zoo_call(model, arrs):
+    if len(arrs) == 3 and arrs[2].dim() == 1:  # diffusion: (x, y_noisy, t_frac)
+        return model(arrs[0], y_noisy=arrs[1], t_frac=arrs[2])
+    return model(*arrs)
+
+
+def tiny_zoo(torch) -> None:
+    """Every model type this port adds beyond the CrossFormer, FuXi and the
+    ensemble (TINY_ZOO), tiny, on the card against the same model on the CPU
+    (plain versions, which the CPU tests hold against the JAX package): the
+    f32 forward on seeded folded weights within 1e-4 of max |CPU|, the bf16
+    forward on the card against the f32 CPU within 5e-2, and one train-mode
+    forward and backward (spectral-norm state, one power iteration) through
+    an MSE loss: the loss within 1e-4 relative and each parameter's gradient
+    within 1e-4 of its largest (at least 1e-2 of the model's), as phase 3's
+    CrossFormer. The forward's launches are printed."""
+    from credit_torch.convert_jax import init_folded, init_train
+
+    for name, (mconf, _, _) in TINY_ZOO.items():
+        conf = {"model": mconf}
+        arrs = _zoo_inputs(torch, name)
+        cuda = [a.cuda() for a in arrs]
+        cpu = init_folded(conf, torch.Generator().manual_seed(1), device="cpu")
+        gpu = init_folded(conf, torch.Generator().manual_seed(1), device="cuda")
+        # the same draws with bf16 compute, the weights cast once
+        gpub = init_folded({"model": {**mconf, "compute_dtype": "bfloat16"}},
+                           torch.Generator().manual_seed(1), device="cuda").to(torch.bfloat16)
+        _zero_counts()
+        with torch.no_grad():
+            ref = _zoo_call(cpu, arrs)
+            out = _zoo_call(gpu, cuda).cpu()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _read_counts().items() if v}
+            # the diffusion time stays f32: bf16 would move 1000 t by up to 2
+            outb = _zoo_call(gpub, [a.to(torch.bfloat16) if a.dim() > 1 else a
+                                    for a in cuda]).float().cpu()
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item() / scale
+        errb = (outb - ref).abs().max().item() / scale
+        target = torch.randn(ref.shape, generator=torch.Generator().manual_seed(3)) * 0.5
+        losses, grads = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = init_train(conf, torch.Generator().manual_seed(4), device=dev).train()
+            loss = torch.mean((_zoo_call(model, [a.to(dev) for a in arrs]) - target.to(dev)) ** 2)
+            loss.backward()
+            losses[dev] = loss.item()
+            grads[dev] = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                          for k, p in model.named_parameters()}
+        lerr = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        gmax = max(v.abs().max().item() for v in grads["cpu"].values())
+        gerr = max((grads["cuda"][k] - v).abs().max().item()
+                   / max(v.abs().max().item(), 1e-2 * gmax) for k, v in grads["cpu"].items())
+        log(f"  {name}: out {tuple(out.shape)}; f32 forward card vs CPU rel err {err:.3e} "
+            f"limit 1e-4; bf16 card vs f32 CPU {errb:.3e} limit 5e-2; train-mode loss "
+            f"{lerr:.3e}, gradients, worst parameter {gerr:.3e}, limit 1e-4; forward launches "
+            f"{counts}")
+        if not (err <= 1e-4 and errb <= 5e-2 and lerr <= 1e-4 and gerr <= 1e-4):
+            raise AssertionError(f"tiny {name} on the card disagrees with the CPU")
+
+
+def expected_nextgen_per_step(conf: dict):
+    """Kernel launches of one NextGen forward: the CrossFormer stages' FFs
+    and attention; one VALID conv per cross-embed, four 3x3 convs per
+    UpBlockPS (sub-pixel, sharp, two residual) and the head's sub-pixel
+    conv. Column attention (plain PyTorch) and the bottleneck (GEMMs) launch
+    none."""
+    fwd = expected_per_step(conf)
+    return {**fwd, "conv2d_valid": 4 + 3 * 4 + 1}
+
+
+def expected_ps_per_step(conf: dict):
+    """The sub-pixel CrossFormer's (camulator with upsample_with_ps): the
+    embeds, three UpBlockPS of four 3x3 convs, the head's sub-pixel and
+    refine convs and camulator's sharp conv."""
+    return {**expected_per_step(conf), "conv2d_valid": 4 + 3 * 4 + 3}
+
+
+def zoo_fit(torch, store_info, name: str, model: dict, extra: dict, want_train: dict,
+            want_valid: dict, valid_per_batch: int = 1) -> tuple:
+    """run_training of `model` on main path 7's store for one epoch of
+    ZOO_TRAINER (2 steps, 1 validation batch); the log finite, the launches
+    checked (valid_per_batch forwards a validation batch), the checkpoint
+    read back into a fresh state bitwise (trainer.load_weights). Returns
+    the counts and the run's step and validation ms."""
+    from credit_torch.applications import prepare_training
+    from credit_torch.trainers.trainer import Trainer
+
+    store, stats, data, _ = store_info
+    root = os.path.join(os.path.dirname(store), name)
+    conf = {**fit_conf(model, data, store, stats, root, ZOO_TRAINER, *FIT_WINDOWS), **extra}
+    conf["trainer"] = {**ZOO_TRAINER, **extra.get("trainer", {})}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    trainer, state, start, seed = prepare_training(conf)
+    nparam = sum(p.numel() for p in trainer.model.parameters())
+    log(f"  {name}: {type(trainer).__name__}, {nparam} parameters; set-up {time.time() - t0:.1f} s")
+    state = trainer.fit(state, seed=seed, start_epoch=start)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name} run_training 1 epoch: {time.time() - t0:.1f} s end to end, peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {counts}")
+    fit_times(trainer)
+    rows = read_log(root)
+    cells = [float(c) for r in rows[1:] for c in r[1:]]
+    log(f"  training_log.csv: {len(rows) - 1} row, columns {rows[0][:6]}..., (train, valid) "
+        f"loss {[(float(r[1]), float(r[2])) for r in rows[1:]]}")
+    if len(rows) != 2 or not all(math.isfinite(v) for v in cells) or state.step != 2:
+        raise AssertionError(f"the {name} fit failed its checks")
+    _check_counts(counts, {k: 2 * want_train.get(k, 0) + valid_per_batch * want_valid.get(k, 0)
+                           for k in counts}, 1)
+    e = trainer.epoch_timings[0]
+    saved = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    ema = {k: v.cpu().clone() for k, v in state.ema_params.items()}
+    del state, trainer
+    torch.cuda.empty_cache()
+    resume = {**conf, "trainer": {**conf["trainer"], "load_weights": True}}
+    trainer, state, start, _ = prepare_training(resume)
+    same = (all(torch.equal(v.cpu(), saved[k]) for k, v in state.model.state_dict().items())
+            and all(torch.equal(v.cpu(), ema[k]) for k, v in state.ema_params.items()))
+    log(f"  checkpoint read back: step {state.step}, epoch {start}; parameters, u/v and EMA "
+        f"bitwise equal to the trained state: {same}")
+    if not same or state.step != 2 or start != 1 or not os.path.exists(
+            os.path.join(root, "checkpoint", Trainer.CHECKPOINT_FILE)):
+        raise AssertionError(f"the {name} checkpoint did not read back")
+    del state, trainer
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, e["train_ms"], e["valid_ms"]
+
+
+def nextgen_path(torch, store_info, runs: dict) -> None:
+    """Main path 12: NextGen WXFormer at CONF_025_TRAIN width (CONF_NEXTGEN):
+    run_training of one epoch of 2 steps and 1 validation batch on main path
+    7's store with its checkpoint read back, then a ZOO_ROLLOUT_STEPS-step
+    bf16 forecast through make_scan_rollout; beside it camulator with the
+    sub-pixel decoder at the same widths, one training step and a
+    ZOO_ROLLOUT_STEPS-step bf16 rollout. Launches per step checked and
+    printed for both."""
+    data = store_info[2]
+    fwd_ng = expected_nextgen_per_step(CONF_NEXTGEN)
+    train_ng = expected_train_per_step(fwd_ng, True)
+    runs["fit_nextgen"], steps, valid = zoo_fit(torch, store_info, "nextgen", CONF_NEXTGEN, {},
+                                                train_ng, fwd_ng)
+    log(f"  NextGen launches a training step {train_ng}, a forward {fwd_ng}")
+    runs["rollout_nextgen"] = rollout_path(torch, "NextGen", CONF_NEXTGEN, data, fwd_ng,
+                                           steps=ZOO_ROLLOUT_STEPS, repeats=0)
+    torch.cuda.empty_cache()
+    fwd_ps = expected_ps_per_step(CONF_CAMULATOR_PS)
+    train_ps = expected_train_per_step(fwd_ps, False)
+    log(f"  camulator with upsample_with_ps: launches a training step {train_ps}, a forward "
+        f"{fwd_ps}")
+    runs["train_camulator_ps"] = train_path(torch, "camulator-PS", CONF_CAMULATOR_PS, data,
+                                            train_ps, steps=1)
+    torch.cuda.empty_cache()
+    runs["rollout_camulator_ps"] = rollout_path(torch, "camulator-PS", CONF_CAMULATOR_PS, data,
+                                                fwd_ps, steps=ZOO_ROLLOUT_STEPS, repeats=0)
+
+
+def diffusion_path(torch, store_info, runs: dict) -> None:
+    """Main path 13: the era5-diffusion trainer with crossformer-diffusion at
+    CONF_025_TRAIN width (CONF_DIFFUSION), one epoch of 2 steps and 1
+    validation batch sampled by DDIM in DIFFUSION's 20 steps from the EMA
+    weights, on main path 7's store; the checkpoint read back. A training
+    step is one denoising forward and backward (the time-FiLM makes the
+    stage-0 embed's input need its gradient); a validation batch 20
+    forwards."""
+    fwd = expected_per_step(CONF_DIFFUSION)
+    train = expected_train_per_step(fwd, True)
+    steps = DIFFUSION["sampling_timesteps"]
+    log(f"  launches a training step {train}, a DDIM step {fwd}")
+    runs["fit_diffusion"], train_ms, valid_ms = zoo_fit(
+        torch, store_info, "diffusion", CONF_DIFFUSION,
+        {"diffusion": DIFFUSION, "trainer": {"type": "era5-diffusion"}}, train, fwd,
+        valid_per_batch=steps)
+    log(f"  diffusion: ms per train step {[round(v, 1) for v in train_ms]}, ms per validation "
+        f"batch ({steps} DDIM steps) {[round(v, 1) for v in valid_ms]}, "
+        f"{valid_ms[0] / steps:.1f} ms a DDIM step")
+
+
 def tiny_post_rollout(torch) -> None:
     """A 2-step RolloutEngine.run of a tiny CrossFormer with the seeded
     Normalizer and the four fixers (one Normalizer and one pipeline for
@@ -1369,12 +1670,13 @@ def tools_path(torch) -> dict:
 
 
 def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
-                 profile: bool = False, times: dict = None) -> dict:
+                 profile: bool = False, times: dict = None, steps: int = ROLLOUT_STEPS,
+                 repeats: int = ROLLOUT_REPEATS) -> dict:
     """A bf16 forecast of `model_conf` on seeded folded weights at batch 1:
-    a warm-up step, then ROLLOUT_STEPS steps whose kernel launches are
-    counted and checked against `want` per step, then ROLLOUT_REPEATS more
-    such rollouts timed for the spread; returns the counts and puts the
-    first rollout's ms/step into `times[name]`."""
+    a warm-up step, then `steps` steps whose kernel launches are counted
+    and checked against `want` per step, then `repeats` more such rollouts
+    timed for the spread; returns the counts and puts the first rollout's
+    ms/step into `times[name]`."""
     from credit_torch.convert_jax import init_folded
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.rollout import make_scan_rollout
@@ -1401,7 +1703,7 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     torch.cuda.synchronize()
     log(f"  warm-up step: {(time.time() - t0) * 1e3:.1f} ms")
 
-    run = make_scan_rollout(model, schema, ROLLOUT_STEPS, history_len=frames, device="cuda")
+    run = make_scan_rollout(model, schema, steps, history_len=frames, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     _zero_counts()
@@ -1413,12 +1715,12 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     if times is not None:
-        times[name] = elapsed * 1e3 / ROLLOUT_STEPS
-    log(f"  {name} rollout {ROLLOUT_STEPS} steps: {elapsed * 1e3 / ROLLOUT_STEPS:.1f} ms/step, "
+        times[name] = elapsed * 1e3 / steps
+    log(f"  {name} rollout {steps} steps: {elapsed * 1e3 / steps:.1f} ms/step, "
         f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} allocated before it), "
         f"launches {counts}")
-    _check_counts(counts, want, ROLLOUT_STEPS)
-    if final_x.shape != x0.shape or stats.shape != (ROLLOUT_STEPS, model.base_output_channels):
+    _check_counts(counts, want, steps)
+    if final_x.shape != x0.shape or stats.shape != (steps, model.base_output_channels):
         raise AssertionError((tuple(final_x.shape), tuple(stats.shape)))
     fin = torch.isfinite(final_x).all().item() and torch.isfinite(stats).all().item()
     amax = final_x.float().abs().max().item()
@@ -1427,14 +1729,15 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     if not fin:
         raise AssertionError("rollout produced non-finite values")
     spread = []
-    for _ in range(ROLLOUT_REPEATS):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.time()
         run(x0)
         torch.cuda.synchronize()
-        spread.append((time.time() - t0) * 1e3 / ROLLOUT_STEPS)
-    log(f"  {ROLLOUT_REPEATS} more rollouts of {ROLLOUT_STEPS} steps: "
-        + ", ".join(f"{v:.1f}" for v in spread) + " ms/step")
+        spread.append((time.time() - t0) * 1e3 / steps)
+    if repeats:
+        log(f"  {repeats} more rollouts of {steps} steps: "
+            + ", ".join(f"{v:.1f}" for v in spread) + " ms/step")
     if profile:
         profile_steps(torch, f"{name} rollout step",
                       make_scan_rollout(model, schema, 2, history_len=frames, device="cuda"),
@@ -1443,8 +1746,8 @@ def rollout_path(torch, name: str, model_conf: dict, data: dict, want: dict,
 
 
 def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
-               profile: bool = False) -> dict:
-    """TRAIN_STEPS training steps of `model_conf` (seeded f32 weights with
+               profile: bool = False, steps: int = TRAIN_STEPS) -> dict:
+    """`steps` training steps of `model_conf` (seeded f32 weights with
     spectral-norm state, its bf16 compute, MSE, AdamW(0.9, 0.95) at lr 1e-4,
     forecast_len 1, batch 1, its frames as history) after a warm-up step;
     the launches are counted and checked against `want` per step; returns
@@ -1485,7 +1788,7 @@ def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     torch.cuda.synchronize()
     t0 = time.time()
     losses, norms = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, m = step(state, batch)
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
@@ -1494,13 +1797,12 @@ def train_path(torch, name: str, model_conf: dict, data: dict, want: dict,
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, norms = [float(v) for v in losses], [float(v) for v in norms]
-    STEP_MS[name] = elapsed * 1e3 / TRAIN_STEPS
-    log(f"  {name} training step: {elapsed * 1e3 / TRAIN_STEPS:.1f} ms/step over "
-        f"{TRAIN_STEPS} steps, peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} "
+    log(f"  {name} training step: {elapsed * 1e3 / steps:.1f} ms/step over "
+        f"{steps} steps, peak memory {peak} bytes ({peak / 2**30:.2f} GiB; {base} "
         f"allocated before it), launches {counts}")
     log(f"  losses {losses}, grad norms {norms}")
-    _check_counts(counts, want, TRAIN_STEPS)
-    if not all(math.isfinite(v) for v in losses + norms) or state.step != TRAIN_STEPS + 1:
+    _check_counts(counts, want, steps)
+    if not all(math.isfinite(v) for v in losses + norms) or state.step != steps + 1:
         raise AssertionError("training produced a non-finite loss or gradient norm")
     if profile:
         profile_steps(torch, f"{name} training step", lambda b: step(state, b), (batch,),
@@ -1773,47 +2075,7 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
         f"{ONE_THREAD_FIT}")
     assembly_breakdown(trainer)
     del state, trainer, saved, done
-    pool_step_turns(torch, conf)
     return counts, (store, stats, data, run)
-
-
-def pool_step_turns(torch, conf: dict) -> None:
-    """Whether the chunk pool's threads slow the thread that launches the
-    step: one-epoch fits from the seeded state in turns, the chunks read
-    through the native pool and through the Python path (codec_id patched
-    to None, as assembly_breakdown does), pool then Python (two turns, so
-    that phase 13 fits in the run's time); each turn's train step,
-    assembly and wall times, then each path's mean step (each run's first
-    step left out) beside phase 5's step alone (no data pipeline, no
-    metrics)."""
-    from credit_torch.applications import prepare_training
-    from credit_torch.native import fastload
-
-    codec_id = fastload.codec_id
-    steps = {"native pool": [], "Python path": []}
-    try:
-        for turn, path in enumerate(["native pool", "Python path"]):
-            fastload.codec_id = codec_id if path == "native pool" else (lambda compressor: None)
-            run = {**conf, "save_loc": f"{conf['save_loc']}_turn{turn}",
-                   "trainer": {**conf["trainer"], "num_epoch": 1}}
-            trainer, state, start, seed = prepare_training(run)
-            trainer.fit(state, seed=seed, start_epoch=start)
-            torch.cuda.synchronize()
-            e = trainer.epoch_timings[0]
-            wall = float(read_log(run["save_loc"])[1][3]) * 1e3
-            steps[path] += e["train_ms"][1:]
-            log(f"  turn {turn}, {path}: train step ms "
-                f"{[round(v, 1) for v in e['train_ms']]}, batch assembly host ms "
-                f"{[round(v) for v in e['assemble_ms']]}, epoch wall {wall:.0f} ms")
-            del trainer, state
-            shutil.rmtree(run["save_loc"], ignore_errors=True)
-    finally:
-        fastload.codec_id = codec_id
-    means = {k: sum(v) / len(v) for k, v in steps.items()}
-    log(f"  train step but each run's first, mean over the turns: native pool "
-        f"{means['native pool']:.1f} ms ({len(steps['native pool'])} steps), Python path "
-        f"{means['Python path']:.1f} ms ({len(steps['Python path'])} steps); phase 5's step "
-        f"alone {STEP_MS.get('CONF_025', float('nan')):.1f} ms")
 
 
 def assembly_breakdown(trainer) -> None:
@@ -2048,15 +2310,16 @@ def tisr_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> dict
     """Main path 10, `credit train` on computed solar forcing: run_training
     (prepare_training + fit) of CONF_025_TRAIN on main path 7's store with
     tsi from a `tisr` source (SUN_SOURCE) instead of the store, for one
-    epoch of TISR_TRAINER under the profiler. tsi's mean and std come from
+    epoch of TISR_TRAINER (no longer profiled: phase 10's resumed epoch
+    reads the idle share, and the run's time went to phases 15-16). tsi's mean and std come from
     the fields of the store's clock, computed on the host as the source
     computes them (tisr_accumulated at the day of year and hour of each
     time). Checks: the first training batch's tsi input and forcing on the
     card bitwise equal to those fields at its init time and the next, the
     log finite, the launches (2 steps and a validation batch). Prints the
     channel order, the host ms of one field, the step, validation,
-    assembly and copy times, the tisr fields' share of the assembly, the
-    idle share and the peak memory. Returns the launch counts."""
+    assembly and copy times, the tisr fields' share of the assembly and
+    the peak memory. Returns the launch counts."""
     import datetime as dt
     import threading
 
@@ -2134,20 +2397,20 @@ def tisr_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> dict
 
     tisr.TISRDataset._field = timed_field
     try:
-        idle = profile_steps(torch, "CONF_025 fit on computed tsi", run, (), steps=2)
+        run()
     finally:
         tisr.TISRDataset._field = field
     torch.cuda.synchronize()
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"  run_training 1 epoch: {time.time() - t0:.1f} s end to end (profiled), peak memory "
+    log(f"  run_training 1 epoch: {time.time() - t0:.1f} s end to end, peak memory "
         f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {counts}")
     fit_times(trainer)
     assembled = [v for e in trainer.epoch_timings for v in e["assemble_ms"]]
     log(f"  batch assembly host ms mean {sum(assembled) / len(assembled):.0f} over "
         f"{len(assembled)} batches, of which the tisr fields {sum(field_ms):.0f} ms of "
         f"{sum(assembled):.0f} ({sum(field_ms) / sum(assembled):.3f}; {len(field_ms)} fields, "
-        f"{sum(field_ms) / max(len(field_ms), 1):.0f} ms each); idle share {idle:.3f}")
+        f"{sum(field_ms) / max(len(field_ms), 1):.0f} ms each)")
     x_tsi, f_tsi = seen[0]
     match = [k for k, f in enumerate(fields) if np.array_equal(f, x_tsi)]
     same = (len(match) == 1 and match[0] + 1 < FIT_TIMES
@@ -3063,6 +3326,8 @@ def main() -> int:
     tiny_post_rollout(torch)
     tiny_fit(torch)
     tiny_ensemble(torch)
+    log("  the model zoo (every type beyond the CrossFormer, FuXi and the ensemble):")
+    tiny_zoo(torch)
     log(f"  allocated on the card: {before} bytes before phase 3, "
         f"{torch.cuda.memory_allocated()} after it")
     runs, times = {}, {}
@@ -3128,9 +3393,24 @@ def main() -> int:
     del last
     torch.cuda.empty_cache()
     log(f"  phase 14: {time.time() - t14:.1f} s")
+    log("phase 15: main path 12, NextGen WXFormer at CONF_025 width (run_training, checkpoint "
+        "read back, bf16 rollout); camulator with the sub-pixel decoder beside it")
+    t15 = time.time()
+    nextgen_path(torch, store, runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 15: {time.time() - t15:.1f} s")
+    log("phase 16: main path 13, era5-diffusion with crossformer-diffusion at CONF_025 width "
+        "(DDIM validation)")
+    t16 = time.time()
+    diffusion_path(torch, store, runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 16: {time.time() - t16:.1f} s")
     shutil.rmtree(os.path.dirname(store[0]), ignore_errors=True)
 
     kernels = []
+    # main paths 12 and 13 (phases 15 and 16)
+    ZOO_PATHS = ("fit_nextgen", "rollout_nextgen", "train_camulator_ps", "rollout_camulator_ps",
+                 "fit_diffusion")
     for name, counter, src, replaces, r, paths in [
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
@@ -3138,21 +3418,23 @@ def main() -> int:
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
-              "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025")),
+              "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS)),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc",
-              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025")),
+              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS)),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
              attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
-                    "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025")),
+                    "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025",
+                    *ZOO_PATHS)),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
-             ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025", "skebs_ens_025")),
+             ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025", "skebs_ens_025",
+              "fit_nextgen", "train_camulator_ps", "fit_diffusion")),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),

@@ -24,6 +24,7 @@ from credit_torch import resolve_device
 from credit_torch.models import load_model
 from credit_torch.models.scan_utils import unstack_block_params
 from credit_torch.models.spectral_utils import fold_spectral, power_iteration
+from credit_torch.ops.upsample import icnr_kernel, truncated_normal
 
 
 def _to_torch(tree):
@@ -92,29 +93,65 @@ def postblocks_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, torch.
     return {f"_postblocks.{k}": v.to(dev) for k, v in _flatten(_to_torch(dict(tree))).items()}
 
 
-def _seeded_kernels(model: torch.nn.Module, conf: dict, generator: torch.Generator, dev,
+def _init_spec(module: torch.nn.Module, name: str):
+    """The seeded initialisation of parameter `name` of `module`: its
+    `seed_init` entry, or for a `kernel` its layer's `kernel_init`
+    (he_uniform by default); None keeps the value the module starts with."""
+    spec = getattr(module, "seed_init", {}).get(name)
+    if spec is None and name == "kernel":
+        spec = getattr(module, "kernel_init", ("he_uniform",))
+    return spec
+
+
+def _draw(spec, shape, generator: torch.Generator) -> torch.Tensor:
+    """Seeded values of one parameter on the generator's device:
+    ("he_uniform"[, fan_in]) U(-sqrt(6/fan_in), +sqrt(6/fan_in)), fan_in
+    every axis but the last unless given; ("normal", std); ("xavier_normal",)
+    a truncated normal of variance 2 / (fan_in + fan_out); ("icnr", scale)
+    (ops.upsample.icnr_kernel); ("zeros",)."""
+    kind, gdev = spec[0], generator.device
+    if kind == "he_uniform":
+        fan_in = spec[1] if len(spec) > 1 else math.prod(shape[:-1])
+        limit = math.sqrt(6.0 / fan_in)
+        return (torch.rand(shape, generator=generator, device=gdev) * 2 - 1) * limit
+    if kind == "normal":
+        return torch.randn(shape, generator=generator, device=gdev) * spec[1]
+    if kind == "xavier_normal":
+        fan_in = math.prod(shape[:-1])
+        fan_out = math.prod(shape[:-2]) * shape[-1]
+        return truncated_normal(shape, math.sqrt(2.0 / (fan_in + fan_out)), generator)
+    if kind == "icnr":
+        return icnr_kernel(shape, spec[1], generator)
+    if kind == "zeros":
+        return torch.zeros(shape, device=gdev)
+    raise ValueError(f"unknown initialisation {spec!r}")
+
+
+def _seeded_params(model: torch.nn.Module, conf: dict, generator: torch.Generator, dev,
                     n_iter: int):
-    """For each kernel of `model`: (module path, parameter, seeded kernel,
-    u, v), the kernel he_uniform (U(-sqrt(6/fan_in), +sqrt(6/fan_in)),
-    fan_in = every axis but the last). Where the layer carries spectral norm
-    (its `spectral` flag, under the config's `use_spectral_norm`) u and v
-    are random unit vectors run n_iter power iterations against it in f64,
-    as credit_tpu's converge_spectral does; elsewhere they are None. Draws
-    come from `generator` on its own device. Every other parameter keeps
-    the value its module starts with (biases 0, norm scales 1, SwinV2
-    logit scales log 10)."""
-    use_sn = conf["model"].get("use_spectral_norm", True)
+    """For each parameter of `model` that credit_tpu initialises randomly
+    (`_init_spec`: every kernel, he_uniform unless its layer says
+    otherwise, and the parameters a module lists in `seed_init`): (module
+    path, parameter, seeded value, u, v). Where a kernel's layer carries
+    spectral norm (its `spectral` flag, under the model's
+    `use_spectral_norm`) and is not zero-initialised, u and v are random
+    unit vectors run n_iter power iterations against it in f64, as
+    credit_tpu's converge_spectral does; elsewhere they are None. Draws
+    come from `generator` on its own device, in parameter order. Every
+    other parameter keeps the value its module starts with (biases 0, norm
+    scales 1, SwinV2 logit scales log 10)."""
+    use_sn = getattr(model, "use_spectral_norm", conf["model"].get("use_spectral_norm", True))
     mods = dict(model.named_modules())
     gdev = generator.device
     for name, p in model.named_parameters():
-        if not name.endswith("kernel"):
+        path, _, pname = name.rpartition(".")
+        spec = _init_spec(mods[path], pname)
+        if spec is None:
             continue
-        path = name.rpartition(".")[0]
-        fan_in = math.prod(p.shape[:-1])
-        limit = math.sqrt(6.0 / fan_in)
-        k = ((torch.rand(p.shape, generator=generator, device=gdev) * 2 - 1) * limit).to(dev)
+        k = _draw(spec, p.shape, generator).to(dev)
         u = v = None
-        if use_sn and mods[path].spectral:
+        if (pname == "kernel" and spec[0] != "zeros" and use_sn
+                and getattr(mods[path], "spectral", False)):
             w = k.double().reshape(-1, p.shape[-1]).T  # (O, rest)
             u = torch.randn(w.shape[0], generator=generator, device=gdev).to(dev).double()
             v = torch.randn(w.shape[1], generator=generator, device=gdev).to(dev).double()
@@ -125,7 +162,7 @@ def _seeded_kernels(model: torch.nn.Module, conf: dict, generator: torch.Generat
 
 def init_folded(conf: dict, generator: torch.Generator, device="cuda",
                 n_iter: int = 30) -> torch.nn.Module:
-    """The inference model for `conf` with seeded weights (`_seeded_kernels`).
+    """The inference model for `conf` with seeded weights (`_seeded_params`).
     With `use_spectral_norm` (the default) each kernel of a spectrally
     normalised layer is divided by sigma = u . (W v) of its converged u, v,
     as credit_tpu's converge_spectral + fold_spectral do, so activations
@@ -133,7 +170,7 @@ def init_folded(conf: dict, generator: torch.Generator, device="cuda",
     dev = resolve_device(device)
     model = load_model(conf, device=dev)
     with torch.no_grad():
-        for _, p, k, u, v in _seeded_kernels(model, conf, generator, dev, n_iter):
+        for _, p, k, u, v in _seeded_params(model, conf, generator, dev, n_iter):
             if u is not None:
                 w = k.reshape(-1, p.shape[-1]).T.float()
                 k = k / torch.dot(u.float(), w @ v.float())
@@ -160,7 +197,7 @@ def seed_train_(model: torch.nn.Module, conf: dict, generator: torch.Generator,
     dev = next(model.parameters()).device
     mods = dict(model.named_modules())
     with torch.no_grad():
-        for path, p, k, u, v in _seeded_kernels(model, conf, generator, dev, n_iter):
+        for path, p, k, u, v in _seeded_params(model, conf, generator, dev, n_iter):
             p.copy_(k)
             if u is not None:
                 if mods[path].u is None:

@@ -5,9 +5,9 @@ variable-weighted `WeightedLoss` with its spectral and power terms.
 Layout is channels-last (B, T, lat, lon, C); ensemble losses take the
 prediction with an ensemble axis 1, (B, E, T, lat, lon, C). Elementwise and
 CRPS losses return unreduced fields; `WeightedLoss` applies the weights and
-takes the mean. `DownscalingLoss` (with the downscaling model, ROADMAP
-queue 1, item 7) and the device-ring `ring-crps` (with parallel/, item 8)
-are not ported yet and raise.
+takes the mean; `DownscalingLoss` is its form for regional downscaling
+configs. The device-ring `ring-crps` (with parallel/, ROADMAP queue 1,
+item 8) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -220,9 +220,8 @@ class WeightedLoss:
     def from_config(cls, conf: dict, grid=None, validation: bool = False) -> "WeightedLoss":
         """From the config's `loss` section. `grid` gives the latitude weights
         through its `coslat_weights()`, as credit_tpu's Grid does."""
-        if "datasets" in (conf.get("data") or {}):
-            raise NotImplementedError("DownscalingLoss is not ported yet (it comes with the "
-                                      "downscaling model, ROADMAP queue 1, item 7)")
+        if cls is WeightedLoss and "datasets" in (conf.get("data") or {}):
+            return DownscalingLoss.from_config(conf, grid, validation)
         lconf = conf.get("loss", {})
         key = "validation_loss" if (validation and "validation_loss" in lconf) else "training_loss"
         lat_w = None
@@ -258,3 +257,28 @@ class WeightedLoss:
             loss = loss + self.spectral_lambda * spectral_loss(target, p2, lat_w,
                                                                self.wavenum_init)
         return loss
+
+
+class DownscalingLoss(WeightedLoss):
+    """The loss of regional-downscaling configs (`data.datasets`): the base
+    loss on the target grid without latitude weights (a regional grid is
+    not a global graticule; asking for them warns), validation with
+    `validation_loss` (default L1) unless training takes a CRPS-family
+    loss, which then validates too."""
+
+    @classmethod
+    def from_config(cls, conf: dict, grid=None, validation: bool = False) -> "DownscalingLoss":
+        import warnings
+
+        lconf = dict(conf.get("loss", {}))
+        if lconf.get("use_latitude_weights"):
+            warnings.warn("latitude weights not applicable to downscaling")
+        train_base = lconf.get("training_loss", "mse")
+        if validation and not is_crps_loss(train_base):
+            base = lconf.get("validation_loss", "mae")
+        else:
+            base = train_base
+        lam = lconf.get("spectral_lambda_reg", 0.0)
+        return cls(base=base, spectral_lambda=lam if lconf.get("use_spectral_loss") else 0.0,
+                   power_lambda=lam if lconf.get("use_power_loss") else 0.0,
+                   wavenum_init=lconf.get("spectral_wavenum_init", 20), validation=validation)

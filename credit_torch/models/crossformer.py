@@ -1,11 +1,15 @@
 """WXFormer / CrossFormer forward: port of credit_tpu/models/crossformer.py,
 on folded kernels or with spectral-norm state (`sn_state=True`, training).
 
-Order: earth pad, frames to channels, four (cross-embed, transformer)
-stages, three UpBlocks with U-Net skip concats, the ConvTranspose k4/s2/p1
-head, unpad with the original pad sizes, bilinear recovery of the native
-grid, channels to frames. Input (B, T, H, W, C_in), output
-(B, T_out, H, W, C_out).
+Order: earth pad, frames to channels (or, with patches larger than 1x1,
+the Conv3d cube embed over all frames), four (cross-embed, transformer)
+stages, three UpBlocks with U-Net skip concats and the ConvTranspose
+k4/s2/p1 head (or, with `upsample_with_ps`, three UpBlockPS, a 3x3
+sub-pixel conv, pixel shuffle and a 3x3 refine conv), camulator's
+zero-initialised 3x3 `sharp` residual (`sharp_skip`, no spectral norm),
+unpad with the original pad sizes, bilinear recovery of the native grid
+(or of `out_image_height/width`), channels to frames. Input
+(B, T, H, W, C_in), output (B, T_out, H, W, C_out).
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ import torch
 
 from credit_torch import registry
 from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames, frames_to_channels
-from credit_torch.models.layers import ConvTranspose, CrossEmbedLayer, Transformer, UpBlock
+from credit_torch.models.layers import (Conv, ConvTranspose, CrossEmbedLayer, CubeEmbedding,
+                                        Transformer, UpBlock, UpBlockPS)
 from credit_torch.ops.padding import TensorPadding
-from credit_torch.ops.upsample import bilinear_resize
+from credit_torch.ops.upsample import bilinear_resize, pixel_shuffle
 
 
 def _tup(v, n=4):
@@ -52,13 +57,6 @@ class CrossFormer(BaseModel):
                  out_image_width: Any = None, sn_state: bool = False, **routing):
         super().__init__()
         self._check_routing(routing)
-        if patch_height > 1 and patch_width > 1:
-            raise NotImplementedError("the CrossFormer's cube-embed branch is not ported yet "
-                                      "(ROADMAP queue 1, item 6)")
-        if upsample_with_ps:
-            raise NotImplementedError("UpBlockPS is not ported yet (ROADMAP queue 1, item 6)")
-        if sharp_skip:
-            raise NotImplementedError("the sharp skip conv is not ported yet (ROADMAP queue 1, item 6)")
         if isinstance(compute_dtype, str):
             compute_dtype = DTYPES[compute_dtype]
         self.image_height, self.image_width = image_height, image_width
@@ -79,22 +77,44 @@ class CrossFormer(BaseModel):
         pconf = padding_conf or {"activate": False}
         self.padder = TensorPadding(**pconf) if pconf.get("activate") else None
 
-        c = self.base_input_channels * frames
+        c = self.stacked_input_channels() * frames
+        self.cube = patch_height > 1 and patch_width > 1
+        if self.cube:
+            self.cube_embedding = CubeEmbedding(self.stacked_input_channels(), dims[0],
+                                                (frames, patch_height, patch_width), dt)
+            c = dims[0]  # one embedded frame: dims[0] * (frames // frames)
         for i in range(4):
             self.add_module(f"cel{i}", CrossEmbedLayer(c, dims[i], ksizes[i], strides[i], dt, sn))
             self.add_module(f"transformer{i}",
                             Transformer(dims[i], depths[i], lws[i], gws[i], dim_head, dt, sn))
             c = dims[i]
         last, ng = dims[-1], dims[0]
-        self.up_block1 = UpBlock(last, last // 2, ng, dtype=dt, sn=sn)
-        self.up_block2 = UpBlock(last // 2 + dims[2], last // 4, ng, dtype=dt, sn=sn)
-        self.up_block3 = UpBlock(last // 4 + dims[1], last // 8, ng, dtype=dt, sn=sn)
+        self.upsample_with_ps = upsample_with_ps
+        up = UpBlockPS if upsample_with_ps else UpBlock
+        self.up_block1 = up(last, last // 2, ng, dtype=dt, sn=sn)
+        self.up_block2 = up(last // 2 + dims[2], last // 4, ng, dtype=dt, sn=sn)
+        self.up_block3 = up(last // 4 + dims[1], last // 8, ng, dtype=dt, sn=sn)
         out_ch = self.base_output_channels * output_frames
-        self.up_block4 = ConvTranspose(last // 8 + dims[0], out_ch, 4, 2, 1, dt, sn)
+        if upsample_with_ps:
+            self.up4_ps_conv = Conv(last // 8 + dims[0], out_ch * 4, 3, 1, 1, dt, sn,
+                                    kernel_init=("icnr", 2))
+            self.up4_refine = Conv(out_ch, out_ch, 3, 1, 1, dt, sn)
+        else:
+            self.up_block4 = ConvTranspose(last // 8 + dims[0], out_ch, 4, 2, 1, dt, sn)
+        # camulator: identity at init, a sharpening residual free of the
+        # spectral-norm Lipschitz cap
+        self.sharp = (Conv(out_ch, out_ch, 3, 1, 1, dt, spectral=False,
+                           kernel_init=("zeros",)) if sharp_skip else None)
+
+    def stacked_input_channels(self) -> int:
+        """Channels of one input frame as the encoder sees it."""
+        return self.base_input_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padder is not None:
             x = self.padder.pad(x)
+        if self.cube:
+            x = self.cube_embedding(x)  # (B, 1, H', W', dim0)
         x = frames_to_channels(x)
         encodings = []
         for i in range(4):
@@ -107,7 +127,12 @@ class CrossFormer(BaseModel):
         x = torch.cat([x, encodings[1]], dim=-1)
         x = self.up_block3(x)
         x = torch.cat([x, encodings[0]], dim=-1)
-        x = self.up_block4(x)
+        if self.upsample_with_ps:
+            x = self.up4_refine(pixel_shuffle(self.up4_ps_conv(x), 2))
+        else:
+            x = self.up_block4(x)
+        if self.sharp is not None:
+            x = x + self.sharp(x)
         if self.padder is not None:
             # unpad with the original pad sizes even when the encoder/decoder
             # round trip changed the grid; the resize recovers the native grid

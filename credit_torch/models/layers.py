@@ -19,8 +19,11 @@ credit_tpu's SNMixin), except inside `freeze_sn_updates()`. A layer's
 model's `use_spectral_norm` is on: every kernel of the CrossFormer, only the
 SN convs of FuXi.
 
-`UpBlockPS` and the camulator `sharp` skip are not ported yet (ROADMAP
-queue 1).
+Seeded initialisation (`convert_jax`) reads each layer's `kernel_init`:
+he_uniform unless the reference's layer says otherwise (the ICNR kernels
+of `UpBlockPS` and the sub-pixel heads, its xavier-normal `sharp` conv,
+camulator's zero `sharp` skip), and a module's `seed_init` for other
+randomly initialised parameters.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from credit_torch.ops import conv as conv_ops
 from credit_torch.ops import window_attention as wa
 from credit_torch.ops.cuda_attention import fused_window_attention_diff
 from credit_torch.ops.cuda_ff import fused_ff_diff
+from credit_torch.ops.upsample import pixel_shuffle
 
 
 _SN_FREEZE = contextvars.ContextVar("credit_torch_sn_freeze", default=False)
@@ -65,6 +69,9 @@ class _Kernel(nn.Module):
     """A layer with a `kernel` (..., O) and, with SN state, its u and v."""
 
     spectral = True  # the reference's SN layers (SNConv, SNDense, ...)
+    # the seeded initialisation of `kernel` (convert_jax): ("he_uniform",),
+    # ("icnr", scale), ("xavier_normal",) or ("zeros",)
+    kernel_init = ("he_uniform",)
 
     def _init_kernel(self, shape, sn: bool):
         self.kernel = _param(*shape)
@@ -101,12 +108,18 @@ class Dense(_Kernel):
 
 
 class Conv(_Kernel):
-    """2-D conv, torch-style symmetric padding, HWIO kernel."""
+    """2-D conv, torch-style symmetric padding, HWIO kernel. `spectral`
+    False is a plain conv of the reference (no SN whatever the model's
+    `use_spectral_norm`); `kernel_init` overrides the seeded initialisation."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dtype=torch.float32, sn: bool = False):
+                 padding: int = 0, dtype=torch.float32, sn: bool = False,
+                 spectral: bool = True, kernel_init=None):
         super().__init__()
         self.dtype, self.stride, self.padding = dtype, stride, padding
+        self.spectral = spectral
+        if kernel_init is not None:
+            self.kernel_init = kernel_init
         self._init_kernel((kernel_size, kernel_size, in_ch, features), sn)
         self.bias = _param(features)
 
@@ -412,6 +425,34 @@ class UpBlock(nn.Module):
 
     def forward(self, x):
         x = self.up(x)
+        shortcut = x
+        for i in range(self.num_residuals):
+            x = getattr(self, f"res_conv{i}")(x)
+            x = getattr(self, f"res_gn{i}")(x)
+            x = F.silu(x)
+        return x + shortcut
+
+
+class UpBlockPS(nn.Module):
+    """Sub-pixel upsample: a 3x3 conv to out * scale^2 channels (ICNR
+    kernel), pixel shuffle, a 3x3 `sharp` conv added as a residual, then
+    the residual stack of 3x3 conv, GroupNorm, SiLU."""
+
+    def __init__(self, in_ch: int, out_chans: int, num_groups: int, scale: int = 2,
+                 num_residuals: int = 2, dtype=torch.float32, sn: bool = False):
+        super().__init__()
+        self.scale, self.num_residuals = scale, num_residuals
+        self.ps_conv = Conv(in_ch, out_chans * scale * scale, 3, 1, 1, dtype, sn,
+                            kernel_init=("icnr", scale))
+        self.sharp = Conv(out_chans, out_chans, 3, 1, 1, dtype, sn,
+                          kernel_init=("xavier_normal",))
+        for i in range(num_residuals):
+            self.add_module(f"res_conv{i}", Conv(out_chans, out_chans, 3, 1, 1, dtype, sn))
+            self.add_module(f"res_gn{i}", GroupNorm(num_groups, out_chans, dtype=dtype))
+
+    def forward(self, x):
+        x = pixel_shuffle(self.ps_conv(x), self.scale)
+        x = x + self.sharp(x)
         shortcut = x
         for i in range(self.num_residuals):
             x = getattr(self, f"res_conv{i}")(x)

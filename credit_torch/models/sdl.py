@@ -75,7 +75,11 @@ class CrossFormerWithNoise(CrossFormer):
 
     def __init__(self, noise_latent_dim: int = 128, encoder_noise_factor: float = 0.05,
                  decoder_noise_factor: float = 0.275, encoder_noise: bool = True, **kw):
-        super().__init__(**kw)
+        # credit_tpu's ensemble has its own forward: frames to channels and
+        # the UpBlock decoder whatever the cube-embed, sub-pixel and sharp
+        # keys say
+        super().__init__(**{**kw, "patch_height": 1, "patch_width": 1,
+                            "upsample_with_ps": False, "sharp_skip": False})
         dims, dt = self.dims, self.compute_dtype
         last = dims[-1]
         self.noise_latent_dim = noise_latent_dim

@@ -1,7 +1,9 @@
-"""Upsampling ops (port of credit_tpu/ops/upsample.py): pixel shuffle and
-bilinear resize, channels-last."""
+"""Upsampling ops (port of credit_tpu/ops/upsample.py): pixel shuffle, the
+ICNR kernel of a sub-pixel conv, and bilinear resize, channels-last."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -14,6 +16,27 @@ def pixel_shuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
     c = crr // (r * r)
     x = x.reshape(n, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(n, h * r, w * r, c)
+
+
+def truncated_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+    """Normal draws of standard deviation `std` cut at two of it and
+    rescaled to keep the variance (flax's truncated-normal variance
+    scaling), on the generator's device."""
+    t = torch.empty(shape, device=generator.device)
+    s = std / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
+
+
+def icnr_kernel(shape, scale: int, generator: torch.Generator) -> torch.Tensor:
+    """ICNR initialisation of a sub-pixel conv feeding `pixel_shuffle`
+    (credit_tpu's icnr_kernel_init): a he_normal kernel (kh, kw, cin, cout)
+    with each output channel repeated scale^2 times in a row, so all the
+    sub-pixels of a channel start equal. `shape` is (kh, kw, cin,
+    cout * scale^2)."""
+    kh, kw, cin, cout_rr = shape
+    sub = truncated_normal((kh, kw, cin, cout_rr // (scale * scale)),
+                           math.sqrt(2.0 / (kh * kw * cin)), generator)
+    return sub.repeat_interleave(scale * scale, dim=-1)
 
 
 def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:

@@ -1,0 +1,107 @@
+"""The `era5-diffusion` trainer: port of credit_tpu/trainers/diffusion.py.
+
+`Trainer.fit` with its two steps swapped. Training: per step, the batch
+normalized, t and eps drawn from the state's generator, the noised first
+target frame regressed under the objective (pred_v by default) conditioned
+on the input state, with spectral norm's u/v left as they are (the
+reference applies the model outside train mode); a non-finite loss zeroes
+the gradients and keeps the parameters through `torch.where` (no host
+read), then the EMA. Validation: a DDIM sample of the first target frame
+from the EMA weights, scored by MSE. The config's `diffusion` section sets
+timesteps (1000), sampling_timesteps (20), beta_schedule (sigmoid),
+objective (pred_v) and ddim_eta (0).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from credit_torch import registry
+from credit_torch.diffusion import GaussianDiffusion
+from credit_torch.models.layers import freeze_sn_updates
+from credit_torch.trainers.trainer import (Trainer, TrainState, _ema_decay, _prepare,
+                                           global_norm)
+
+
+@registry.register("trainer", "era5-diffusion")
+class DiffusionTrainer(Trainer):
+    """Conditional denoising training with DDIM validation; the model is a
+    diffusion backbone (`crossformer-diffusion`, `unet-diffusion`)."""
+
+    def __init__(self, conf: dict, model, loss_fn, valid_loss_fn, schema, dataset,
+                 valid_dataset=None, save_loc: Optional[str] = None, normalizer=None,
+                 device="cuda"):
+        super().__init__(conf, model, loss_fn, valid_loss_fn, schema, dataset, valid_dataset,
+                         save_loc, normalizer, device)
+        d = conf.get("diffusion", {}) or {}
+        self.gd = GaussianDiffusion(
+            lambda cond, y_noisy, t_frac: model(cond, y_noisy=y_noisy, t_frac=t_frac),
+            timesteps=int(d.get("timesteps", 1000)),
+            sampling_timesteps=int(d.get("sampling_timesteps", 20)),
+            beta_schedule=d.get("beta_schedule", "sigmoid"),
+            objective=d.get("objective", "pred_v"), ddim_eta=float(d.get("ddim_eta", 0.0)))
+        self._eval_step = self.diffusion_eval_step
+
+    def _train_step_for(self, flen: int):
+        """Single-step denoising whatever the scheduled rollout length."""
+        return self.diffusion_train_step
+
+    def diffusion_train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """One optimizer step of the denoising loss; (state, metrics) with
+        'loss', 'grad_norm' and 'finite' as 0-d tensors on the device."""
+        mdl = state.model
+        mdl.train()
+        params = state.named_parameters()
+        for p in params.values():
+            p.grad = None
+        batch = _prepare(batch, self.device, self.normalizer, self.schema)
+        with freeze_sn_updates(True):
+            loss = self.gd.loss(batch["x"], batch["y"][:, :1], state.noise)
+        loss.backward()
+        names = list(state.opt_state["mu"])
+        plist = [params[k] for k in names]
+        finite = torch.isfinite(loss.detach())
+        with torch.no_grad():
+            grads = [torch.where(finite, p.grad, 0.0) if p.grad is not None
+                     else torch.zeros_like(p) for p in plist]
+            updates, opt_state = self.optimizer.update(grads, state.opt_state, plist)
+            if updates is not None:
+                new = torch._foreach_add(plist, updates)
+                for p, n in zip(plist, new):
+                    p.copy_(torch.where(finite, n, p))
+            ema = state.ema_params
+            if ema is not None:
+                d = _ema_decay(self.ema_decay if self.use_ema else 0.0, state.step)
+                evals = [ema[k] for k in names]
+                torch._foreach_mul_(evals, d)
+                torch._foreach_add_(evals, plist, alpha=1.0 - d)
+            gnorm = global_norm(grads)
+        for p in plist:
+            p.grad = None
+        new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise, state.nets)
+        return new_state, {"loss": loss.detach(), "grad_norm": gnorm,
+                           "finite": finite.float()}
+
+    def diffusion_eval_step(self, state: TrainState, batch,
+                            generator: Optional[torch.Generator] = None):
+        """{'loss': MSE of a DDIM sample of the first target frame}, drawn
+        from `generator` on the EMA weights where the state keeps them."""
+        mdl = state.model
+        mdl.eval()
+        tensors = None
+        if state.ema_params is not None:
+            tensors = {**state.ema_params, **dict(mdl.named_buffers())}
+
+        def backbone(cond, y_noisy, t_frac):
+            kw = {"y_noisy": y_noisy, "t_frac": t_frac}
+            if tensors is None:
+                return mdl(cond, **kw)
+            return torch.func.functional_call(mdl, tensors, (cond,), kw)
+
+        with torch.no_grad():
+            batch = _prepare(batch, self.device, self.normalizer, self.schema)
+            y0 = batch["y"][:, :1]
+            sample = self.gd.sample(batch["x"], y0.shape, generator, backbone)
+            return {"loss": torch.mean((sample - y0) ** 2)}

@@ -46,8 +46,9 @@ the optimizer, the clip, MultiSteps and the EMA, kept in the checkpoint;
 validation runs the EMA's copy of it.
 
 The TPU levers `flatten_optimizer`, `scan_blocks` and `remat` are accepted
-and ignored. Not ported yet, and raising: the diffusion and
-IC-optimisation trainers (ROADMAP queue 1, item 7) and
+and ignored. The `era5-diffusion` trainer swaps in its own steps
+(trainers/diffusion.py). Not ported yet, and raising: the
+IC-optimisation trainer (ROADMAP queue 1, item 7) and
 `trainer.parallelism` beyond one device (item 8).
 """
 
@@ -499,7 +500,6 @@ def _unported_trainer(key: str, item: str):
     registry.register("trainer", key)(Unported)
 
 
-_unported_trainer("era5-diffusion", "ROADMAP queue 1, item 7: trainers/diffusion.py")
 _unported_trainer("ic-opt", "ROADMAP queue 1, item 7: trainers/ic_optimization.py")
 
 
@@ -967,8 +967,10 @@ class Trainer:
 def load_trainer(conf: dict):
     """Registry dispatch (reference: credit/trainers/__init__.py:81): every
     reference trainer key resolves here; the per-domain classes' deltas are
-    config-driven in this design. The diffusion and IC-optimisation
-    trainers are registered but raise until they are ported."""
+    config-driven in this design. The IC-optimisation trainer is
+    registered but raises until it is ported."""
+    from credit_torch.trainers import diffusion  # noqa: F401  (registers era5-diffusion)
+
     ttype = conf.get("trainer", {}).get("type", "era5-v2")
     aliases = {"era5-gen1": "era5", "cam": "era5",
                "gen2": "era5-v2", "era5-gen2": "era5-v2",

@@ -438,8 +438,18 @@ def test_load_trainer_aliases(name, caplog):
 
 @pytest.mark.parametrize("name", ["era5-ic-opt", "ic-opt", "era5-diffusion"])
 def test_unported_trainers_raise(name):
+    """The IC-optimisation trainer still raises, naming its ROADMAP item;
+    era5-diffusion resolves to the port's diffusion trainer (its fit
+    against credit_tpu's: tests/test_torch_port_diffusion.py)."""
+    cls = load_trainer({"trainer": {"type": name}})
+    if name == "era5-diffusion":
+        from credit_torch.trainers.diffusion import DiffusionTrainer
+
+        assert cls is DiffusionTrainer and issubclass(cls, Trainer)
+        assert jtrainer.load_trainer({"trainer": {"type": name}}).__name__ == "DiffusionTrainer"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        load_trainer({"trainer": {"type": name}})()
+        cls()
 
 
 @pytest.mark.parametrize("option", ["parallelism", "ensemble", "sn_external", "preblocks",
@@ -473,6 +483,14 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
         conf["data"]["datasets"] = {}
     if option == "preblocks":
         assert isinstance(port_trainer(conf), Trainer)
+        return
+    if option == "downscaling":  # DownscalingLoss, refused until ported
+        trainer = port_trainer(conf)
+        from credit_torch.losses import DownscalingLoss
+
+        assert isinstance(trainer.loss_fn, DownscalingLoss)
+        assert trainer.loss_fn.lat_weights is None
+        assert trainer.valid_loss_fn.base_name == "mae"
         return
     if option in ("ensemble", "sn_external", "grad_accum"):
         trainer = port_trainer(conf)

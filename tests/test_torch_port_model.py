@@ -199,12 +199,18 @@ def test_init_folded_gives_unit_spectral_norms_and_bounded_output():
 
 
 def test_load_model_routing_keys_and_unported_types():
+    """The TPU routing keys are accepted and ignored; the U-Net, once
+    refused, builds (every model type is ported: its parity is in
+    tests/test_torch_port_models.py), and an unknown type raises."""
     conf = copy.deepcopy(CONFS["padded"])
     conf["model"].update(pallas_conv="force", ff_fusion="auto", use_pallas_attention=True,
                          scan_blocks=False, remat=False)
     assert load_model(conf, device="cpu") is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model({"model": {"type": "unet"}}, device="cpu")
+    unet = load_model({"model": {"type": "unet", "image_height": 8, "image_width": 16}},
+                      device="cpu")
+    assert type(unet).__name__ == "UNet" and unet.head.kernel.shape == (1, 1, 64, 64)
+    with pytest.raises(KeyError, match="no-such-model"):
+        load_model({"model": {"type": "no-such-model"}}, device="cpu")
 
 
 # ------------------------------------------------------------- hygiene
@@ -246,7 +252,11 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.physics.interp, credit_torch.physics.pole_filter, "
             "credit_torch.physics.advection, credit_torch.physics.skebs, "
             "credit_torch.physics.skebs_nets, credit_torch.postblock.stochastic, "
-            "credit_torch.postblock.wind_filter; "
+            "credit_torch.postblock.wind_filter, credit_torch.models.unet, credit_torch.models.graph, "
+            "credit_torch.models.regional, credit_torch.models.wxformer_next, "
+            "credit_torch.models.diffusion_heads, credit_torch.models.variants, "
+            "credit_torch.models.debugger, credit_torch.diffusion, "
+            "credit_torch.trainers.diffusion; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

@@ -392,7 +392,11 @@ def test_tisr_fit_with_regrid_matches_reference(env, tisr_stats, tmp_path):
     from the config) on the store plus the computed TISR source, with the
     regrid preblock in the steps, from the same weights: the schema's
     channel order the same, and every training_log.csv cell but `seconds`
-    within 1e-5 relative."""
+    within 1e-5 relative. An anomaly correlation (`acc`) is a ratio of
+    sums normalised to scale 1: the f32 rounding of those sums moves it by
+    about the same amount at any value, so it is held within 1e-5 of
+    max(|acc|, 1); near zero a relative bound would ask for more than f32
+    sums give."""
     conf = _tisr_fit_conf(env, tmp_path / "jax")
     conf["data"].update(mean_path=tisr_stats[0], std_path=tisr_stats[1])
     jschema, jgrid = JSchema.from_config(conf), JGrid.regular(H, W)
@@ -419,4 +423,5 @@ def test_tisr_fit_with_regrid_matches_reference(env, tisr_stats, tmp_path):
     for name, a, b in zip(tlog[0], tlog[1], jlog[1]):
         if name != "seconds":
             a, b = float(a), float(b)
-            assert np.isfinite(a) and abs(a - b) <= 1e-5 * max(abs(b), 1e-12), (name, a, b)
+            scale = max(abs(b), 1.0) if "_acc_" in name else max(abs(b), 1e-12)
+            assert np.isfinite(a) and abs(a - b) <= 1e-5 * scale, (name, a, b)

@@ -91,9 +91,10 @@ def test_weighted_loss_from_config_and_unported_terms():
     np.testing.assert_allclose(float(tl(torch.from_numpy(t), torch.from_numpy(p))),
                                float(jl(jnp.asarray(t), jnp.asarray(p))), rtol=1e-6)
     assert tlosses.WeightedLoss(base="KCRPS").is_ensemble
-    # still raising: DownscalingLoss (item 7) and the device-ring CRPS (item 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        tlosses.WeightedLoss.from_config({"data": {"datasets": {}}})
+    # DownscalingLoss is ported (tests/test_torch_port_models.py holds it
+    # against credit_tpu's); the device-ring CRPS (item 8) still raises
+    ds = tlosses.WeightedLoss.from_config({"data": {"datasets": {}}})
+    assert isinstance(ds, tlosses.DownscalingLoss) and ds.base_name == "mse"
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         tlosses.WeightedLoss(base="ring-crps")
 
@@ -208,15 +209,23 @@ def test_train_step_matches_reference(setup, bp):
       counts as at least 1e-2 of the largest gradient: the DPB output bias,
       which the softmax cannot see, has a true gradient of zero and only
       summation noise;
-    - spectral u/v after 3 steps: 1e-5;
+    - spectral u/v after 3 steps: 1e-5 plus what the two sides' kernel
+      difference propagates to. Each forward's power iteration maps a
+      kernel error dW to a u (or v) error of at most ||dW|| (1 + s2/s1) /
+      s1 <= 2 ||dW||_F / sigma (s1 = sigma and s2 the two largest
+      singular values; the earlier vectors' error contracts by s2/s1), so
+      after STEPS forwards the bound adds 2 STEPS ||dW||_F / sigma of the
+      final kernels, whose elements the parameter check below holds;
     - parameters and their EMA after 3 steps: within 0.05 lr. Adam divides
       each gradient by its own running RMS, so summation-order noise in
       gradients near zero becomes update noise of up to ~lr per step; the
       loose bound says the updates agree in sign and size, not to the bit.
       Where the true gradient is zero (below 1e-6 of the largest: the DPB
-      output bias; a conv bias that a one-channel GroupNorm group removes)
-      the update is that noise alone, and both sides only stay within the
-      Adam step bound, 2 lr per step.
+      output bias; a conv bias that a one-channel GroupNorm group removes;
+      single kernel elements, e.g. one of cel0.conv0's at 5e-7 of its
+      kernel's largest) the update is that noise alone, and both sides
+      only stay within the Adam step bound, 2 lr per step. The rule is
+      applied element by element.
     """
     jmodel, variables, schema, batches = setup
     jl, jmu, jstate = _run_jax(jmodel, variables, schema, batches, bp)
@@ -231,15 +240,20 @@ def test_train_step_matches_reference(setup, bp):
     state = tstate.model.state_dict()
     spec = _flat(jax.device_get(jstate.spectral))
     assert spec and all(k in state for k in spec)
-    for k, ref in spec.items():
-        np.testing.assert_allclose(state[k].numpy(), ref, atol=1e-5, err_msg=k)
     jp, je = _flat(jax.device_get(jstate.params)), _flat(jax.device_get(jstate.ema_params))
+    for k, ref in spec.items():
+        kern = k.rpartition(".")[0] + ".kernel"
+        w = jp[kern].reshape(-1, jp[kern].shape[-1]).T.astype(np.float64)
+        sigma = spec[kern[:-6] + "u"] @ (w @ spec[kern[:-6] + "v"])
+        dw = np.linalg.norm(state[kern].numpy().astype(np.float64) - jp[kern])
+        np.testing.assert_allclose(state[k].numpy(), ref, rtol=0,
+                                   atol=1e-5 + 2 * STEPS * dw / sigma, err_msg=k)
     assert set(jp) == set(tstate.ema_params)
     for k, ref in jp.items():
-        tol = 0.05 * LR if np.abs(jmu[k]).max() > 1e-6 * gmax else 2 * STEPS * LR
-        np.testing.assert_allclose(state[k].numpy(), ref, rtol=0, atol=tol, err_msg=k)
-        np.testing.assert_allclose(tstate.ema_params[k].numpy(), je[k], rtol=0, atol=tol,
-                                   err_msg=k)
+        tol = np.where(np.abs(jmu[k]) > 1e-6 * gmax, 0.05 * LR, 2 * STEPS * LR)
+        for got, want in ((state[k].numpy(), ref), (tstate.ema_params[k].numpy(), je[k])):
+            err = np.abs(got - want)
+            assert (err <= tol).all(), (k, float((err / tol).max()))
     assert tstate.step == STEPS and tstate.opt_state["count"] == STEPS
 
 
