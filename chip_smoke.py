@@ -20,7 +20,8 @@ Phases (any failure exits non-zero):
      8: the split route in bf16, the forward in passes in f32), window
      attention at the paths' windows, 12x12 and 24x24 windows (T = 144 and
      576: key blocks with an online softmax) and heads of 128, the conv and
-     its weight gradient at every shape the paths launch, up to 16x16 taps,
+     its weight gradient at every shape the paths launch (the conv also at
+     ic-opt's input gradient of the stage-0 embed), up to 16x16 taps,
      with channels the wrapper pads and a kernel taller than wide (the
      weight gradient also bit-identical on a second call, as is the FF
      backward in bf16, timed beside PyTorch's autograd of its composition),
@@ -40,7 +41,11 @@ Phases (any failure exits non-zero):
      sub-pixel decoder, camulator, the downscaling CrossFormer, both
      U-Nets, the debugger, NextGen, wrf, dscale, graph, both diffusion
      backbones), tiny: the f32 forward, bf16 against f32 and a train-mode
-     backward on the card against the CPU;
+     backward on the card against the CPU; and the ensemble slice with the
+     same draws on both: the four noise classes, one bred vector, an SDL
+     capture replayed, run_rollout with ensemble_size 3 (gaussian and bred)
+     from the tiny fit's checkpoint (files by diff_rollout), rollout_metrics'
+     and ensemble_eval's rows, 5 ic-opt iterations and ptype's fields;
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -103,10 +108,11 @@ Phases (any failure exits non-zero):
      the regrid preblock (bilinear and nearest 181x360 -> 721x1440,
      conservative 721x1440 -> 181x360, 60 channels) on the card against the
      CPU; divergent_rotational_spectra of phase 12's forecast's U and V (13
-     levels, 721x1440) timed as users call it (the SHT's table build and
-     copy included) and with the tables prebuilt, host and device memory, a round trip of a field band-limited to
-     l < 360 on 721 Gauss latitudes and the spectra at 181x360 on the card
-     against the CPU; GOES ABI CONUS, HRRR and MRMS granules at their real
+     levels, 721x1440) timed as users call it (the SHT's table build on the
+     card included) and with the tables prebuilt, host and device memory,
+     a round trip of a field band-limited to l < 360 on 721 Gauss
+     latitudes, and at 181x360 the tables built on the card bitwise equal
+     to the host's and the spectra on the card against the CPU; GOES ABI CONUS, HRRR and MRMS granules at their real
      sizes, two each, one sample read of each on the host;
  14. main path 11, the SKEBS ensemble at CONF_025 width
      (config/examples/ensemble_skebs.yml's pipeline with a learned
@@ -122,11 +128,12 @@ Phases (any failure exits non-zero):
      and debug files written, with semi-Lagrangian advection of Q, the
      wind filter and the MSLP diagnostic: the files, the pattern's
      step-to-step correlation, advected Q within its range, the largest
-     wind speed not raised, the launches; (c) at full size on that
-     rollout's last state, the pole filter (winds and a scalar), the
-     interp postblocks and preblock, the geopotential diagnostic and the
-     advection preblock, ms a call on the card and on the CPU, the card
-     against the CPU;
+     wind speed not raised, the launches; (c) on that rollout's last
+     state, the pole filter (winds and a scalar), the interp postblocks
+     and preblock, the geopotential diagnostic and the advection preblock,
+     ms a call on the card at full size, its output there finite where the
+     block writes and the rest as it came in, and at 181x360 (the state's
+     every 4th row and column) ms on the CPU and the card against the CPU;
  15. main path 12, NextGen WXFormer at CONF_025_TRAIN width (CONF_NEXTGEN):
      run_training on phase 10's store, one epoch of 2 steps and 1
      validation batch, its checkpoint read back bitwise, then a 4-step bf16
@@ -137,7 +144,26 @@ Phases (any failure exits non-zero):
      CONF_025_TRAIN width: one epoch of 2 denoising steps and 1 validation
      batch sampled by DDIM in 20 steps (1000 timesteps, sigmoid schedule,
      v-prediction) on phase 10's store: the log, the checkpoint, the
-     launches; ms a step, a validation batch and a DDIM step, peak memory.
+     launches; ms a step, a validation batch and a DDIM step, peak memory;
+ 17. main path 14, ensemble forecasts and their verification at CONF_025
+     width from phase 10's store and checkpoint: (a) run_rollout with
+     ensemble_size 4 (gaussian) then 3 (bred, 3 cycles), one init time of 2
+     steps: the <init>_eNN directories and files, the members apart from
+     the control, the bred pair mirrored at the IC with its amplitude, the
+     launches; ms/step with the writes by member, set-up and its draws,
+     peak; (b)
+     run_rollout_metrics with 4 members, gaussian and bred (credit_tpu's
+     bred harness raises at 3), 2 steps: rows finite, spread > 0, launches;
+     (c) run_ensemble_eval over (a)'s gaussian tree, one lead: rows finite,
+     spread > 0, the SHT built once for the 13 spectra calls, the seconds
+     and the build's share; (d) ic-opt on the folded weights in bf16, 2
+     steps and 3 iterations on targets from the store: the loss falls, x0
+     moves, kernels 1-4 launched and 5 not; ms an iteration, peak; then
+     the gradient at x0 through the kernels against the plain convs'; (e) ptype
+     on (a)'s control prediction at 721x1440, seeded weights, card against
+     CPU, probabilities summing to 1, one-hot winners; (f) the SDL wrapper
+     on CONF_025_ENS: capture replayed bitwise, every factor 0 making two
+     draws equal, interpolation at t = 0 equal to the first capture.
      Removes phase 10's store.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
@@ -288,6 +314,32 @@ FIT_WINDOWS = (("1979-01-01T00", "1979-01-02T00"), ("1979-01-02T06", "1979-01-02
 ENS_WINDOWS = (("1979-01-01T00", "1979-01-02T06"), FIT_WINDOWS[1])
 # phase 3's tiny ensemble step: its members
 TINY_MEMBERS = 3
+# main path 14, ensemble forecasts at CONF_025 width from phase 10's
+# checkpoint: one init time of ENS_STEPS; gaussian members perturbed by
+# credit_tpu's default perturbation_std (physical units), bred members of
+# amplitude 0.05 (normalized units) over 3 cycles; rollout_metrics at
+# ENS_MEMBERS members (bred at 4 is what credit_tpu cannot run); ic-opt of
+# ICOPT_ITERS iterations over ICOPT_STEPS steps; ptype's fields card against
+# CPU within PTYPE_TOL of each field's largest value
+ENS_STEPS = 2
+ENS_GAUSSIAN = {"ensemble_size": 4, "perturbation": "gaussian", "perturbation_std": 1e-3,
+                "seed": 0}
+ENS_BRED = {"ensemble_size": 3, "perturbation": "bred", "perturbation_std": 0.05,
+            "bred_cycles": 3, "seed": 0}
+ENS_MEMBERS = 4
+ICOPT_STEPS = 2
+ICOPT_ITERS = 3
+PTYPE_TOL = 1e-5
+# ic-opt's gradient at x0 through the kernels against the same gradient
+# with every conv on its plain version (bf16 compute both): their relative
+# L2 distance within ICOPT_GRAD_FACTOR times the distance that the plain
+# version summing its taps in the reverse order gives. The convs sum in f32
+# in other orders, so a bf16 output rounds the other way here and there,
+# and that spreads through the backward (on one H100, with phase 10's
+# weights, the kernels read 7.32e-3, the reversed sums 7.26e-3); a wrong
+# input gradient (kernel
+# unflipped, channels swapped) reads about 1
+ICOPT_GRAD_FACTOR = 3.0
 
 ROLLOUT_STEPS = 3
 # rollouts timed again after the counted one, for the spread: the host sets
@@ -366,12 +418,14 @@ SKEBS_CORR = 0.8
 # prints the mask level's peak speed and the share beside it)
 WIND_THRESHOLD = 10.0
 WIND_SHARE = 0.01
-# beside it at full size, on that rollout's last state, the card against
-# the port on the CPU, for each variable a block writes and each of its
-# levels, relative to that level's largest |CPU value|: the geopotential
+# beside it on that rollout's last state, timed on the card at full size,
+# and on that state subsampled to PHYS_CHECK_GRID (every 4th row and
+# column: the CPU legs at full size took ~95 s) the card against the port
+# on the CPU, for each variable a block writes and each of its levels,
+# relative to that level's largest |CPU value|: the geopotential
 # diagnostic (one f32 column each, the same operations) and the wind filter
 # within PHYS_TOL; the pole filter (~50 chained transforms, each a sum over
-# 721 latitudes in another order on each side) within POLE_TOL; the
+# the latitudes in another order on each side) within POLE_TOL; the
 # interpolations in log pressure within the bound LOGP_ROUND gives (each
 # output is y0 + w (y1 - y0), w a difference of logs over a layer's log
 # thickness; the two sides' logs of the same f32 pressures differ by an ulp
@@ -381,6 +435,7 @@ WIND_SHARE = 0.01
 # as the CPU's own in f32, within DEP_FACTOR and DEP_TOL cells (by the
 # poles they are ill-conditioned), and the advected Q within the bound the
 # card's and the CPU's points' distance gives
+PHYS_CHECK_GRID = (181, 360)
 PHYS_TOL = 1e-5
 POLE_TOL = 1e-4
 LOGP_ROUND = 8 * 2.0**-20
@@ -502,7 +557,12 @@ TINY_POST_DATA = {"source": {"ERA5": {
                   "diagnostic": {"vars_2D": FIXER_DIAGNOSTICS}}}}}
 
 
+T_START = time.time()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        msg += f" [{time.time() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -589,6 +649,9 @@ NEW_CONV_SHAPES = [
     ("diffusion_stage0_embed_8x8", (1, 415, 735, 496, 8, 8, 176))]
 CONV_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
+    # ic-opt's input gradient of the stage-0 embed (main path 14): gy
+    # padded by 7 on each side, the kernel flipped, 176 -> 240
+    ("stage0_embed_8x8_dx", (1, 422, 742, 176, 8, 8, 240), BF16, 3),
     ("head_phase_3x3", (1, 402, 722, 256, 3, 3, 224), BOTH, 10),
     ("stage1_embed_2x2", (1, 201, 361, 512, 2, 2, 256), BF16, 10),
     ("stage2_embed_2x2", (1, 101, 181, 1024, 2, 2, 512), BF16, 10),
@@ -1502,6 +1565,408 @@ def diffusion_path(torch, store_info, runs: dict) -> None:
         f"{valid_ms[0] / steps:.1f} ms a DDIM step")
 
 
+class TimedDraws:
+    """While open, every draw through the ensemble's seam
+    (`ensemble.noise.normal`: a randn on the generator's device, the host's
+    for the port's callers, then the copy to the state's device) timed on
+    the host clock to the card's synchronization: `ms` holds each draw's."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, []
+
+    def __enter__(self):
+        from credit_torch.ensemble import noise
+
+        self.normal = normal = noise.normal
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = normal(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        noise.normal = timed
+        return self
+
+    def __exit__(self, *exc):
+        from credit_torch.ensemble import noise
+
+        noise.normal = self.normal
+
+    def __str__(self):
+        return (f"{len(self.ms)} draws (host randn and copy) of "
+                f"{[round(m, 1) for m in self.ms]} ms")
+
+
+def ensemble_rollout_025(torch, conf: dict, pert: dict, want: dict, forwards: int) -> tuple:
+    """run_rollout of `conf` with the predict section's ensemble `pert`,
+    timed: each member's engine run with its writes (set-up the rest),
+    the peak memory, the launches (`forwards` forwards of `want`). Returns
+    (counts, written paths, the bred members' initial states or None)."""
+    from credit_torch import rollout
+    from credit_torch.applications import run_rollout
+    from credit_torch.ensemble import bred_vector
+
+    runs, bred = [], []
+    engine_run, generate = rollout.RolloutEngine.run, bred_vector.generate_bred_vectors
+
+    def timed_run(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = engine_run(self, *args, **kw)
+        runs.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def kept(*args, **kw):
+        members = generate(*args, **kw)
+        bred.append((args[1].clone(), [m.clone() for m in members]))
+        return members
+
+    run = {**conf, "predict": {**conf["predict"], **pert}}
+    rollout.RolloutEngine.run, bred_vector.generate_bred_vectors = timed_run, kept
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        with TimedDraws(torch) as draws:
+            t0 = time.time()
+            paths = run_rollout(run, use_ema=True)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+    finally:
+        rollout.RolloutEngine.run, bred_vector.generate_bred_vectors = engine_run, generate
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = run["predict"]["forecast_steps"]
+    log(f"  {pert['perturbation']} ensemble of {pert['ensemble_size']} (control + "
+        f"{pert['ensemble_size'] - 1}), {steps} steps: {wall:.0f} ms end to end, set-up "
+        f"(data, trainer, checkpoint, fold{', breeding' if bred else ''}) "
+        f"{wall - sum(runs):.0f} ms, of which {draws}; ms/step with the writes by member "
+        f"{[round(r / steps, 1) for r in runs]}; peak {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"launches {counts}")
+    _check_counts(counts, want, forwards)
+    return counts, paths, bred[0] if bred else None
+
+
+def icopt_grad_routes(torch, model, x0, target) -> tuple:
+    """ic-opt's gradient at x0 of one step's MSE against `target`, the
+    model frozen in eval mode, through the kernels, with every conv on its
+    plain version (`cuda_conv.conv2d_valid` pointed at `conv2d_valid_plain`:
+    the forward and, on the flipped kernel, the input gradient), and with
+    the plain version summing its taps in reverse (another rounding of the
+    same sums); returns for the kernels and for the reversed sums (relative
+    L2 distance from the plain gradient, largest |difference| over largest
+    |plain|)."""
+    from credit_torch.ops import cuda_conv
+
+    def reversed_taps(x, kernel):
+        kh, kw = kernel.shape[:2]
+        ho, wo = x.shape[1] - kh + 1, x.shape[2] - kw + 1
+        xf, kf = x.float(), kernel.float()
+        out = torch.zeros((x.shape[0], ho, wo, kernel.shape[3]), dtype=torch.float32,
+                          device=x.device)
+        for di in reversed(range(kh)):
+            for dj in reversed(range(kw)):
+                out += xf[:, di:di + ho, dj:dj + wo, :] @ kf[di, dj]
+        return out.to(x.dtype)
+
+    def grad():
+        x = x0.clone().requires_grad_(True)
+        torch.mean((model(x) - target) ** 2).backward()
+        return x.grad.double()
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    kernel_conv, training = cuda_conv.conv2d_valid, model.training
+    try:
+        model.eval()
+        for p in params:
+            p.requires_grad_(False)
+        g_kernel = grad()
+        cuda_conv.conv2d_valid = cuda_conv.conv2d_valid_plain
+        g_plain = grad()
+        cuda_conv.conv2d_valid = reversed_taps
+        g_reversed = grad()
+    finally:
+        cuda_conv.conv2d_valid = kernel_conv
+        for p in params:
+            p.requires_grad_(True)
+        model.train(training)
+    norm, top = torch.linalg.vector_norm(g_plain), g_plain.abs().max()
+    return tuple((float(torch.linalg.vector_norm(g - g_plain) / norm),
+                  float((g - g_plain).abs().max() / top)) for g in (g_kernel, g_reversed))
+
+
+def ensemble_path(torch, store_info, runs: dict) -> None:
+    """Main path 14, ensemble forecasts and their verification at CONF_025
+    width, from main path 7's store and checkpoint: (a) run_rollout with
+    ENS_GAUSSIAN then ENS_BRED (one init time of ENS_STEPS); (b)
+    run_rollout_metrics of ENS_MEMBERS members, gaussian and bred; (c)
+    run_ensemble_eval over (a)'s gaussian tree, one lead; (d) ic-opt on the
+    folded weights; (e) ptype on (a)'s control prediction, card against
+    CPU; (f) the SDL wrapper on CONF_025_ENS. Removes (a)'s trees."""
+    import numpy as np
+
+    from credit_torch import metrics
+    from credit_torch.applications import experiment
+    from credit_torch.applications.ensemble_eval import flat_from_netcdf, run_ensemble_eval
+    from credit_torch.applications.rollout_metrics import run_rollout_metrics
+    from credit_torch.convert_jax import init_folded
+    from credit_torch.ensemble.sdl_wrapper import SDLInferenceWrapper
+    from credit_torch.ops import sht as sht_mod
+    from credit_torch.ptype import PTYPES, PTypeClassifier
+    from credit_torch.trainers.ic_optimization import optimize_initial_condition
+    from credit_torch.trainers.trainer import Trainer
+    from credit_torch.utils.ncio import open_dataset
+
+    store, stats, data, run = store_info
+    root = os.path.dirname(store)
+    conf = fit_conf(CONF_025_TRAIN, data, store, stats, run, FIT_TRAINER, NC_WINDOW,
+                    FIT_WINDOWS[1])
+    conf["predict"] = {"forecasts": {"start_year": 1979, "start_month": 1, "start_day": 1,
+                                     "start_hours": [0], "duration": 1},
+                       "forecast_steps": ENS_STEPS}
+    fwd = expected_per_step(CONF_025_TRAIN)
+    label = "1979-01-01T00Z"
+
+    log("  (a) run_rollout with predict.ensemble_size > 1")
+    gauss = os.path.join(root, "ens_gaussian")
+    runs["ens_rollout"], paths, _ = ensemble_rollout_025(
+        torch, conf, {**ENS_GAUSSIAN, "save_forecast": gauss}, fwd,
+        ENS_GAUSSIAN["ensemble_size"] * ENS_STEPS)
+    bred_dir = os.path.join(root, "ens_bred")
+    n_bred = ENS_BRED["ensemble_size"] - 1
+    runs["ens_rollout_bred"], bred_paths, (x_ic, members) = ensemble_rollout_025(
+        torch, conf, {**ENS_BRED, "save_forecast": bred_dir}, fwd,
+        ENS_BRED["ensemble_size"] * ENS_STEPS + (n_bred + 1) // 2 * 2 * ENS_BRED["bred_cycles"])
+    mirror = ((members[0] - x_ic) + (members[1] - x_ic)).abs().max().item()
+    # e01 - IC and e02 - IC cancel but for their rounding at the IC's magnitude
+    mirror_limit = 4 * 2.0**-23 * x_ic.abs().max().item()
+    bv = (members[0] - x_ic).double()
+    rms = torch.sqrt((bv ** 2).mean()).item()
+    dirs = {tree: sorted(os.listdir(tree)) for tree in (gauss, bred_dir)}
+    want_dirs = {gauss: [label] + [f"{label}_e{m:02d}" for m in range(1, 4)],
+                 bred_dir: [label] + [f"{label}_e{m:02d}" for m in range(1, 3)]}
+    names_ok = all(dirs[t] == want_dirs[t] and sorted(
+        os.path.relpath(p, t) for p in ps) == sorted(
+        os.path.join(d, f"pred_{d}_{6 * (s + 1):03d}.nc") for d in want_dirs[t]
+        for s in range(ENS_STEPS)) for t, ps in ((gauss, paths), (bred_dir, bred_paths)))
+    apart = {}
+    for tree in (gauss, bred_dir):
+        first = open_dataset(os.path.join(tree, label, f"pred_{label}_006.nc"))
+        for d in want_dirs[tree][1:]:
+            other = open_dataset(os.path.join(tree, d, f"pred_{d}_006.nc"))
+            apart[f"{os.path.basename(tree)}/{d[len(label):]}"] = max(
+                float(np.abs(np.asarray(other[k].values, np.float64)
+                             - np.asarray(first[k].values)).max()) for k in first.keys())
+    log(f"  member directories {dirs[gauss]} and {dirs[bred_dir]}, file names as expected "
+        f"{names_ok}; first-step files apart from the control's by (largest |difference|) "
+        f"{ {k: f'{v:.3e}' for k, v in apart.items()} }; the bred pair at the IC: "
+        f"|(e01 - IC) + (e02 - IC)| <= {mirror:.3e} (limit {mirror_limit:.3e}), RMS of e01 - IC "
+        f"{rms:.6f} (amplitude "
+        f"{ENS_BRED['perturbation_std']})")
+    if not (names_ok and all(v > 0 for v in apart.values()) and mirror <= mirror_limit
+            and abs(rms - ENS_BRED["perturbation_std"]) <= 1e-3 * ENS_BRED["perturbation_std"]):
+        raise AssertionError("the CONF_025 ensemble rollout failed its checks")
+    shutil.rmtree(bred_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    log(f"  (b) run_rollout_metrics, {ENS_MEMBERS} members, {ENS_STEPS} steps")
+    from credit_torch import rollout
+    engine_run = rollout.RolloutEngine.run
+    for pert, key in (("gaussian", "ens_metrics"), ("bred", "ens_metrics_bred")):
+        member_ms = []
+
+        def timed_run(self, *args, **kw):
+            t0 = time.perf_counter()
+            res = engine_run(self, *args, **kw)
+            member_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        mconf = {**conf, "predict": {"forecast_steps": ENS_STEPS, "ensemble": {
+            "amplitude": ENS_BRED["perturbation_std"], "size": ENS_MEMBERS,
+            "perturbation": pert}}}
+        rollout.RolloutEngine.run = timed_run
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        try:
+            with TimedDraws(torch) as draws:
+                t0 = time.time()
+                rows = run_rollout_metrics(mconf)
+                wall = (time.time() - t0) * 1e3
+        finally:
+            rollout.RolloutEngine.run = engine_run
+        runs[key] = counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        shown = ("step", "crps", "rmse", "spread", "spread_skill_ratio")
+        log(f"  {pert}: {wall:.0f} ms end to end, {draws}; ms per member-step (run, host copies "
+            f"included) {[round(m / ENS_STEPS, 1) for m in member_ms]}; peak {peak / 2**30:.2f} "
+            f"GiB; rows {[{k: round(r[k], 5) for k in shown} for r in rows]}; "
+            f"launches {counts}")
+        cells = [v for r in rows for v in r.values()]
+        if not (len(rows) == ENS_STEPS and all(math.isfinite(v) for v in cells)
+                and all(r["spread"] > 0 for r in rows)):
+            raise AssertionError(f"the CONF_025 {pert} rollout_metrics failed its checks")
+        breeding = (ENS_MEMBERS + 1) // 2 * 2 * 3 if pert == "bred" else 0
+        _check_counts(counts, fwd, ENS_MEMBERS * ENS_STEPS + breeding)
+        torch.cuda.empty_cache()
+
+    log("  (c) run_ensemble_eval over (a)'s gaussian tree, one lead")
+    lead_root = os.path.join(root, "ens_eval")
+    for d in os.listdir(gauss):
+        os.makedirs(os.path.join(lead_root, d))
+        shutil.copy(os.path.join(gauss, d, f"pred_{d}_006.nc"), os.path.join(lead_root, d))
+    spectra, spectra_fn = [], metrics.divergent_rotational_spectra
+    builds, real_sht = [], sht_mod.SHT
+
+    def timed_spectra(*args, **kw):
+        t0 = time.perf_counter()
+        res = spectra_fn(*args, **kw)
+        torch.cuda.synchronize()
+        spectra.append(time.perf_counter() - t0)
+        return res
+
+    def timed_sht(*args, **kw):
+        t0 = time.perf_counter()
+        sht = real_sht(*args, **kw)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return sht
+
+    metrics.divergent_rotational_spectra, sht_mod.SHT = timed_spectra, timed_sht
+    try:
+        t0 = time.time()
+        rows = run_ensemble_eval(conf, lead_root, out_path=os.path.join(root, "ens_eval.json"))
+        wall = time.time() - t0
+    finally:
+        metrics.divergent_rotational_spectra, sht_mod.SHT = spectra_fn, real_sht
+    row = rows[0]
+    nums = [v for r in rows for x in r.values() if not isinstance(x, str)
+            for v in (x if isinstance(x, list) else [x])]
+    log(f"  {len(rows)} row(s), {len(row)} keys, {row['n_members']} members: spread "
+        f"{row.get('spread', math.nan):.5f}, rmse {row.get('rmse', math.nan):.5f}, "
+        f"spread/skill {row.get('spread_skill_ratio', math.nan):.5f}; {wall:.1f} s a lead, of "
+        f"which the SHT's table builds {sum(builds):.1f} s in {len(builds)} (share "
+        f"{sum(builds) / wall:.3f}) and divergent_rotational_spectra {sum(spectra):.2f} s in "
+        f"{len(spectra)} calls on the built tables")
+    if not (len(rows) == 1 and row["n_members"] == 4 and row.get("spread", 0) > 0
+            and "rmse" in row and all(math.isfinite(v) for v in nums) and len(spectra) == 13
+            and len(builds) == 1):
+        raise AssertionError("the CONF_025 ensemble_eval failed its checks")
+    shutil.rmtree(lead_root, ignore_errors=True)
+
+    log(f"  (d) ic-opt on the folded CONF_025 weights (bf16 compute), {ICOPT_STEPS} steps, "
+        f"{ICOPT_ITERS} iterations")
+    exp = experiment.build_data(conf)
+    norm, schema, ds = exp["normalizer"], exp["schema"], exp["dataset"]
+    saved = torch.load(os.path.join(run, "checkpoint", Trainer.CHECKPOINT_FILE),
+                       map_location="cuda", weights_only=True)
+    model = experiment._inference_model(conf, {**saved["model"], **saved["ema_params"]},
+                                        torch.device("cuda"))
+    del saved
+    t0i = ds.index_of("1979-01-01T00:00:00")
+    x0 = norm.normalize_input(torch.as_tensor(ds.input_at(t0i)[None]).cuda())
+    targets = norm.normalize_target(torch.as_tensor(np.stack(
+        [ds.target_at(t0i + 1 + s)[0] for s in range(ICOPT_STEPS)])[None]).cuda())
+    forcing = norm.normalize_forcing(torch.as_tensor(np.stack(
+        [ds.forcing_at(t0i + s)[0] for s in range(ICOPT_STEPS)])[None]).cuda(), schema)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    x_opt, losses = optimize_initial_condition(model, schema, x0, targets, forcing,
+                                               n_steps=ICOPT_STEPS, iterations=ICOPT_ITERS,
+                                               learning_rate=1e-2)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    runs["icopt"] = counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moved = (x_opt - x0).abs().max().item()
+    want_it = {**expected_train_per_step(fwd, True), "conv2d_wgrad": 0}
+    log(f"  losses {[round(v, 6) for v in losses]}; x0 moved by up to {moved:.4f}; "
+        f"{wall / ICOPT_ITERS:.0f} ms an iteration (the first's set-up included); peak "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB); launches {counts}, expected per step {want_it}")
+    if not (losses[-1] < losses[0] and all(math.isfinite(v) for v in losses) and moved > 0):
+        raise AssertionError("ic-opt at CONF_025 failed its checks")
+    _check_counts(counts, want_it, ICOPT_ITERS * ICOPT_STEPS)
+    (rel, top), (floor, _) = icopt_grad_routes(torch, model, x0, targets[:, :1])
+    log(f"  the gradient at x0 (one step) through the kernels against every conv on its plain "
+        f"version: relative L2 distance {rel:.3e}, largest |difference| over largest |plain| "
+        f"{top:.3e}; the plain version summing its taps in reverse: {floor:.3e} (limit "
+        f"{ICOPT_GRAD_FACTOR:g} x that)")
+    if not rel <= ICOPT_GRAD_FACTOR * floor:
+        raise AssertionError("ic-opt's gradient at x0 disagrees with the plain convs'")
+    del model, x_opt, x0, targets, forcing
+    torch.cuda.empty_cache()
+
+    log("  (e) ptype on (a)'s control prediction (T and Q at 13 levels, SP), 721x1440, seeded "
+        "weights, card against CPU")
+    ds0 = open_dataset(os.path.join(gauss, label, f"pred_{label}_006.nc"))
+    y = torch.as_tensor(flat_from_netcdf(ds0, schema))[None, None]
+    fields, ms = {}, {}
+    for dev in ("cpu", "cuda"):
+        clf = PTypeClassifier(device=dev)
+        clf.init(torch.Generator().manual_seed(3), 2 * len(FIT_LEVELS))
+        clf.classify_state(y, schema, exp["grid"])  # warm-up
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fields[dev] = clf.classify_state(y, schema, exp["grid"])
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+    card, cpu = fields["cuda"], fields["cpu"]
+    err = max(_rel(torch.from_numpy(card[k]), torch.from_numpy(v)) for k, v in cpu.items()
+              if not k.startswith("ML_c"))
+    probs = np.stack([card[f"ML_{p}"] for p in PTYPES], -1)
+    onehot = np.stack([card[f"ML_c{p}"] for p in PTYPES], -1)
+    top2 = np.sort(probs, -1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-5
+    winners_cpu = np.stack([cpu[f"ML_c{p}"] for p in PTYPES], -1)
+    agree = bool((onehot == winners_cpu).all(-1)[clear].all())
+    sums = float(np.abs(probs.sum(-1) - 1).max())
+    log(f"  {len(card)} fields of shape {card['ML_rain'].shape}: card {ms['cuda']:.1f} ms "
+        f"(host copies included), CPU {ms['cpu']:.0f} ms; card vs CPU rel err {err:.3e} limit "
+        f"{PTYPE_TOL:g}; probabilities sum to 1 within {sums:.2e}; winners one-hot "
+        f"{bool(((onehot == 0) | (onehot == 1)).all() and (onehot.sum(-1) == 1).all())}, equal "
+        f"to the CPU's where the top two differ by > 1e-5 ({int(clear.sum())} of "
+        f"{clear.size} points) {agree}")
+    if not (err <= PTYPE_TOL and sums <= 1e-5 and agree and (onehot.sum(-1) == 1).all()):
+        raise AssertionError("ptype at 721x1440 failed its checks")
+    shutil.rmtree(gauss, ignore_errors=True)
+
+    log("  (f) the SDL wrapper on CONF_025_ENS (phase 11's crossformer-ensemble), folded, bf16")
+    sconf = {"model": CONF_025_ENS, "data": data}
+    wrapper = SDLInferenceWrapper(init_folded(sconf, torch.Generator().manual_seed(5)))
+    xs = torch.randn((1, 1, CONF_025["image_height"], CONF_025["image_width"], schema.n_input),
+                     generator=torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    gen = torch.Generator(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y1, lat1 = wrapper.forward(xs, generator=gen.manual_seed(7), capture=True)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    replay = torch.equal(wrapper.forward(xs, latents=lat1), y1)
+    y2, lat2 = wrapper.forward(xs, generator=gen.manual_seed(8), capture=True)
+    apart = (y1 - y2).abs().max().item()
+    wrapper.store_latents("a", lat1)
+    wrapper.store_latents("b", lat2)
+    interp0 = torch.equal(wrapper.forward(xs, latents=wrapper.interpolate_latents("a", "b", 0.0)),
+                          y1)
+    wrapper.set_noise_factors(0.0)
+    zero = torch.equal(wrapper.forward(xs, latents=lat1), wrapper.forward(xs, latents=lat2))
+    wrapper.reset_to_original()
+    torch.cuda.synchronize()
+    runs["sdl_025"] = counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  a capture {fwd_ms:.1f} ms; replay bitwise {replay}; two draws apart by {apart:.3e}; "
+        f"with every factor 0 two draws give the same output {zero}; interpolation at t = 0 "
+        f"equals the first capture {interp0}; peak {peak / 2**30:.2f} GiB; launches {counts}")
+    if not (replay and zero and interp0 and apart > 0):
+        raise AssertionError("the SDL wrapper at CONF_025 failed its checks")
+    _check_counts(counts, fwd, 6)
+    del wrapper, xs, y1, y2, lat1, lat2
+    torch.cuda.empty_cache()
+
+
 def tiny_post_rollout(torch) -> None:
     """A 2-step RolloutEngine.run of a tiny CrossFormer with the seeded
     Normalizer and the four fixers (one Normalizer and one pipeline for
@@ -1941,6 +2406,7 @@ def tiny_fit(torch) -> None:
         if not (ok and (kind if extra else cell[0]) <= TINY_FIT_TOL):
             raise AssertionError(f"tiny fit{what} on the card disagrees with the CPU")
     tiny_rollout(conf)
+    tiny_ensemble_apps(torch, conf)
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1974,6 +2440,165 @@ def tiny_rollout(conf: dict) -> None:
     if (len(names) != 4 or names != sorted(os.path.relpath(p, out["cpu"]) for p in paths["cpu"])
             or not all(r["ok"] for r in report)):
         raise AssertionError("the tiny rollout on the card disagrees with the CPU")
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def _rows_err(got: list, want: list) -> float:
+    """The worst row value of `got` against `want`: relative, the anomaly
+    correlations (acc) absolute (they sit near 0); inf where the rows'
+    keys or counts differ or a value is not finite."""
+    if [sorted(r) for r in got] != [sorted(r) for r in want]:
+        return math.inf
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            if isinstance(v, str):
+                if g[k] != v:
+                    return math.inf
+                continue
+            for a, b in zip(g[k] if isinstance(v, list) else [g[k]],
+                            v if isinstance(v, list) else [v]):
+                if not (math.isfinite(a) and math.isfinite(b)):
+                    return math.inf
+                scale = 1.0 if "acc" in k else max(abs(b), 1e-12)
+                worst = max(worst, abs(a - b) / scale)
+    return worst
+
+
+def tiny_ensemble_apps(torch, conf: dict) -> None:
+    """Phase 3's ensemble slice, tiny and f32, on the card against the CPU
+    with the same draws (every ensemble draw comes from a CPU generator):
+    the four noise classes on a 32x64 state; one bred vector of the tiny
+    fit's engine step; an SDL capture replayed on the other device and a
+    capture on the card replayed bitwise; run_rollout from the tiny fit's
+    checkpoint with ensemble_size 3 (2 members + control, 2 steps, gaussian
+    and bred), the files by diff_rollout; rollout_metrics' rows (3 members,
+    2 steps, gaussian and bred); ensemble_eval's rows over the gaussian
+    tree; 5 ic-opt iterations of the tiny model (losses and x0); ptype's
+    fields from a seeded classifier on the control's first file. Each
+    within TINY_FIT_TOL."""
+    import numpy as np
+
+    from credit_torch.applications import diff_rollout, experiment, run_rollout
+    from credit_torch.applications.ensemble_eval import evaluate_tree, flat_from_netcdf
+    from credit_torch.applications.rollout_metrics import run_rollout_metrics
+    from credit_torch.convert_jax import init_folded
+    from credit_torch.ensemble import bred_vector
+    from credit_torch.ensemble.noise import ColorNoise, GaussianNoise, SphericalNoise, TemporalNoise
+    from credit_torch.ensemble.sdl_wrapper import SDLInferenceWrapper
+    from credit_torch.grid import Grid
+    from credit_torch.ptype import PTypeClassifier
+    from credit_torch.trainers.ic_optimization import optimize_initial_condition
+    from credit_torch.utils.ncio import open_dataset
+
+    errs = {}
+    x = torch.randn((2, 3, 32, 64, 4), generator=torch.Generator().manual_seed(8))
+    chol = torch.tril(torch.rand((4, 4), generator=torch.Generator().manual_seed(9))) + torch.eye(4)
+    for name, gen in (("gaussian", GaussianNoise(0.1)),
+                      ("spherical", SphericalNoise(Grid.regular(32, 64), 0.1)),
+                      ("color", ColorNoise(0.1, chol=chol.numpy())),
+                      ("temporal", TemporalNoise(0.1, rho=0.7))):
+        cpu = gen(torch.Generator().manual_seed(10), x)
+        errs[f"noise {name}"] = _rel(gen(torch.Generator().manual_seed(10), x.cuda()), cpu)
+
+    root = os.path.dirname(conf["save_loc"])
+    engines = {dev: experiment._load_engine(conf, torch.device(dev), use_ema=True)
+               for dev in ("cpu", "cuda")}
+    exp = engines["cpu"][0]
+    t0 = exp["dataset"].history_len
+    x0 = exp["normalizer"].normalize_input(torch.as_tensor(exp["dataset"].input_at(t0)[None]))
+    bvs = {dev: bred_vector.generate_bred_vectors(
+        lambda s, e=e: e.fresh_step(s)[1], x0.to(dev), torch.Generator().manual_seed(11), 1,
+        amplitude=0.05, n_cycles=2)[0] for dev, (_, e) in engines.items()}
+    errs["bred vector"] = _rel(bvs["cuda"] - x0.cuda(), bvs["cpu"] - x0)
+
+    for _, e in engines.values():
+        e.close()
+    # ic-opt on the tiny fit's folded weights: 2 steps, 5 iterations
+    ds = exp["dataset"]
+    norm, schema = exp["normalizer"], exp["schema"]
+    targets = norm.normalize_target(torch.as_tensor(
+        np.stack([ds.target_at(t0 + 1 + s)[0] for s in range(2)])[None]))
+    forcing = norm.normalize_forcing(torch.as_tensor(
+        np.stack([ds.forcing_at(t0 + s)[0] for s in range(2)])[None]), schema)
+    icopt = {dev: optimize_initial_condition(e.model, schema, x0, targets, forcing, n_steps=2,
+                                             iterations=5, learning_rate=1e-2, device=dev)
+             for dev, (_, e) in engines.items()}
+    errs["ic-opt losses"] = _rel(torch.tensor(icopt["cuda"][1]), torch.tensor(icopt["cpu"][1]))
+    errs["ic-opt x0"] = _rel(icopt["cuda"][0], icopt["cpu"][0])
+    falls = icopt["cuda"][1][-1] < icopt["cuda"][1][0]
+    del engines
+
+    # the SDL wrapper on the tiny crossformer-ensemble, folded
+    sconf = {"model": {**TINY, "type": "crossformer-ensemble"}, "data": TINY_DATA}
+    wrappers = {dev: SDLInferenceWrapper(init_folded(sconf, torch.Generator().manual_seed(7),
+                                                     device=dev)) for dev in ("cpu", "cuda")}
+    xs = torch.randn((2, 1, 32, 64, 7), generator=torch.Generator().manual_seed(12))
+    y_cpu, lat = wrappers["cpu"].forward(xs, generator=torch.Generator().manual_seed(13),
+                                         capture=True)
+    errs["SDL replay"] = _rel(wrappers["cuda"].forward(
+        xs.cuda(), latents={k: v.cuda() for k, v in lat.items()}), y_cpu)
+    y_card, lat_card = wrappers["cuda"].forward(
+        xs.cuda(), generator=torch.Generator(device="cuda").manual_seed(13), capture=True)
+    sdl_bitwise = torch.equal(wrappers["cuda"].forward(xs.cuda(), latents=lat_card), y_card)
+    del wrappers
+
+    trees, paths = {}, {}
+    for pert in ("gaussian", "bred"):
+        for dev in ("cpu", "cuda"):
+            trees[pert, dev] = os.path.join(root, f"ens_{pert}_{dev}")
+            run = {**conf, "predict": {
+                "forecasts": {"start_year": 1979, "start_month": 1, "start_day": 1,
+                              "start_hours": [6], "duration": 1},
+                "forecast_steps": 2, "save_forecast": trees[pert, dev], "ensemble_size": 3,
+                "perturbation": pert, "perturbation_std": 0.05, "bred_cycles": 2, "seed": 1}}
+            paths[pert, dev] = run_rollout(run, use_ema=True, device=dev)
+        report = diff_rollout(paths[pert, "cuda"], trees[pert, "cpu"], rtol=TINY_FIT_TOL,
+                              atol=TINY_FIT_TOL)
+        errs[f"run_rollout {pert}"] = max(
+            (v.get("rel", math.inf) for r in report for v in r.get("vars", {}).values()),
+            default=math.inf)
+        if not all(r["ok"] for r in report) or len(report) != 6:
+            errs[f"run_rollout {pert}"] = math.inf
+    dirs = sorted(os.listdir(trees["gaussian", "cuda"]))
+
+    for pert in ("gaussian", "bred"):
+        mconf = {**conf, "predict": {"forecast_steps": 2, "ensemble": {
+            "amplitude": 0.05, "size": 3, "perturbation": pert}}}
+        rows = {dev: run_rollout_metrics(mconf, device=dev) for dev in ("cpu", "cuda")}
+        errs[f"rollout_metrics {pert}"] = _rows_err(rows["cuda"], rows["cpu"])
+    rows = {dev: evaluate_tree(conf, trees["gaussian", "cuda"], device=dev)
+            for dev in ("cpu", "cuda")}
+    errs["ensemble_eval"] = _rows_err(rows["cuda"], rows["cpu"])
+
+    # ptype from the control's first file: T at the 2 levels, a dewpoint
+    # depression of |U| (the tiny data has no humidity)
+    control = sorted(p for p in paths["gaussian", "cuda"] if "_e0" not in p)[0]
+    flat = torch.as_tensor(flat_from_netcdf(open_dataset(control), schema))
+    t = flat[..., [schema.target_names.index(f"T_L{i}") for i in range(2)]]
+    td = t - flat[..., [schema.target_names.index(f"U_L{i}") for i in range(2)]].abs()
+    fields = {}
+    for dev in ("cpu", "cuda"):
+        clf = PTypeClassifier(hidden=(16, 16), device=dev)
+        clf.init(torch.Generator().manual_seed(14), 4)
+        fields[dev] = clf(t, td)
+    errs["ptype"] = max(_rel(torch.from_numpy(fields["cuda"][k]), torch.from_numpy(v))
+                        for k, v in fields["cpu"].items() if not k.startswith("ML_c"))
+    for pert in ("gaussian", "bred"):
+        for dev in ("cpu", "cuda"):
+            shutil.rmtree(trees[pert, dev], ignore_errors=True)
+    worst = max(errs.values())
+    readings = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    log(f"  tiny ensemble slice, f32 card vs CPU, same draws: {readings}; "
+        f"limit {TINY_FIT_TOL:g}; member directories {dirs}; ic-opt loss falls {falls}; "
+        f"the card's SDL capture replayed bitwise {sdl_bitwise}")
+    if not (worst <= TINY_FIT_TOL and falls and sdl_bitwise and len(dirs) == 3):
+        raise AssertionError("the tiny ensemble slice on the card disagrees with the CPU")
 
 
 def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
@@ -2489,13 +3114,14 @@ class HostPeak:
 def sht_phase(torch, forecast: str) -> None:
     """divergent_rotational_spectra at 0.25 degrees on the U and V (13
     levels) of phase 12's first forecast file, called as users call it (it
-    builds its SHT: the tables on the host, copied to the card): the whole
-    call in s with the set-up's share, the host memory it took, the
-    tables' device bytes and the device peak; then ms per call with the
-    tables prebuilt (ops.sht.SHT pointed at the built instance for the
-    timing); spectra finite. A round trip of a field band-limited to
-    l < SHT_BAND on 721 Gauss latitudes within SHT_ROUNDTRIP_TOL (the
-    equiangular grid's reading printed beside it), and the spectra of the
+    builds its SHT: the tables on the card): the whole call in s with the
+    set-up's share, the host memory it took, the tables' device bytes and
+    the device peak; then ms per call with the tables prebuilt
+    (ops.sht.SHT pointed at the built instance for the timing); spectra
+    finite. A round trip of a field band-limited to l < SHT_BAND on 721
+    Gauss latitudes within SHT_ROUNDTRIP_TOL (the equiangular grid's
+    reading printed beside it); at 181x360 the tables built on the card
+    bitwise equal to the host's on both grids, and the spectra of the
     winds sampled to 181x360 on the card against the CPU within
     SHT_SPECTRA_TOL of each spectrum's largest degree."""
     import numpy as np
@@ -2553,7 +3179,7 @@ def sht_phase(torch, forecast: str) -> None:
         (sht, setup), = built
         tables = sum(t.numel() * t.element_size() for t in (sht.pct, sht.pw, sht.dpct, sht.w))
         log(f"  SHT {name} {h}x{w} (lmax {sht.lmax}, mmax {sht.mmax}): set-up {setup:.1f} s "
-            f"(tables built on the host and copied), host memory +{host.bytes / 2**30:.2f} GiB "
+            f"(tables built on the card), host memory +{host.bytes / 2**30:.2f} GiB "
             f"at its peak, tables {tables} bytes ({tables / 2**30:.2f} GiB) on the card")
         if kind == "equiangular":
             sht_mod.SHT = lambda *args, **kwargs: sht
@@ -2582,6 +3208,17 @@ def sht_phase(torch, forecast: str) -> None:
         torch.cuda.empty_cache()
     us, vs = u[:, ::4, ::4].contiguous(), v[:, ::4, ::4].contiguous()
     small = Grid.regular(*us.shape[-2:])
+    same = {}
+    for kind, lat in (("equiangular", small.lat), ("legendre-gauss", np.rad2deg(np.arcsin(
+            np.polynomial.legendre.leggauss(small.nlat)[0])))):
+        card, host = (real_sht(np.asarray(lat), small.nlon, grid=kind, device=d)
+                      for d in ("cuda", "cpu"))
+        same[kind] = all(torch.equal(getattr(card, t).cpu(), getattr(host, t))
+                         for t in ("pct", "pw", "dpct"))
+    log(f"  tables at {small.nlat}x{small.nlon} built on the card equal the host's bitwise: "
+        f"{same}")
+    if not all(same.values()):
+        raise AssertionError("the SHT's tables built on the card differ from the host's")
     card = metrics.divergent_rotational_spectra(us, vs, small)
     cpu = metrics.divergent_rotational_spectra(us.cpu(), vs.cpu(), small)
     err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(card, cpu))
@@ -2935,23 +3572,85 @@ def skebs_rollout_path(torch, store_info, fit: dict, want: dict, device: str = "
 
 
 def physics_phase(torch, state) -> None:
-    """Main path 11 (c): the physics blocks at full size on the SKEBS
-    rollout's last state (the prediction and the input it makes), ms a
-    call on the card (CUDA events, after a warm-up call) and the same call
-    by the port on the CPU (host clock), the card's output against the
-    CPU's for each variable a block writes, level by level (relative to
-    that level's largest |CPU value|), and every other channel bitwise
-    equal to the block's input on the card: DiffusionPoleFilter.filter_winds
-    (U, V) and filter_scalar (T) on 13 levels (its SHT built on the host:
-    set-up s printed; POLE_TOL), the postblocks pressure_interp_diagnostic
-    (T onto the 13 store levels, written into U's block),
-    geopotential_diagnostic (into V's block), hybrid_level_interp (T and Q
-    onto other levels) and wind_artifact_filter (U, V), the preblocks
-    hybrid_level_interp and semilagrangian_advection (Q) (PHYS_TOL; the
-    interpolations in log p within LOGP_ROUND's bound; for advection its
-    departure points no farther from the CPU's f64 ones than the CPU's f32
-    ones, by DEP_FACTOR and DEP_TOL, and the advected Q within the bound
-    the card's and the CPU's points' distance gives)."""
+    """Main path 11 (c): the physics blocks on the SKEBS rollout's last state
+    (the prediction and the input it makes): ms a call on the card at full
+    size (CUDA events, after a warm-up call), and on the same state
+    subsampled to PHYS_CHECK_GRID (every 4th row and column) the port on
+    the CPU (host clock) against the card, for each variable a block writes,
+    level by level (relative to that level's largest |CPU value|), with
+    every other channel bitwise equal to the block's input on the card:
+    DiffusionPoleFilter.filter_winds (U, V) and filter_scalar (T) on 13
+    levels (its SHT built on the host: set-up s printed; POLE_TOL), the
+    postblocks pressure_interp_diagnostic (T onto the 13 store levels,
+    written into U's block), geopotential_diagnostic (into V's block),
+    hybrid_level_interp (T and Q onto other levels) and
+    wind_artifact_filter (U, V), the preblocks hybrid_level_interp and
+    semilagrangian_advection (Q) (PHYS_TOL; the interpolations in log p
+    within LOGP_ROUND's bound; for advection its departure points no
+    farther from the CPU's f64 ones than the CPU's f32 ones, by DEP_FACTOR
+    and DEP_TOL, and the advected Q within the bound the card's and the
+    CPU's points' distance gives)."""
+    from credit_torch.tools import cuda_ms
+
+    conf, y, x = state
+    h, w = PHYS_CHECK_GRID
+    step = (y.shape[2] - 1) // (h - 1)
+    small = ({**conf, "model": {**conf["model"], "image_height": h, "image_width": w}},
+             y[:, :, ::step, ::step].contiguous(), x[:, :, ::step, ::step].contiguous())
+    full_size = f"{y.shape[2]}x{y.shape[3]}"
+    for full, check in zip(physics_cases(torch, *state), physics_cases(torch, *small)):
+        name, fn, args, writes, tol, judge, (lev, chans, level_errs) = check
+        # the CPU first: the pole filter's tables are built there, and each
+        # block moves its tables to its input's device at the call
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        t1 = time.perf_counter()
+        ref = fn(*cpu_args)
+        cpu_ms = (time.perf_counter() - t1) * 1e3
+        out = fn(*args)
+        # the warm-up moves the full-size tables to the card; its output is
+        # held: finite where the block writes, the rest as it came in
+        big = full[1](*full[2])
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: full[1](*full[2]), 3)
+        if writes is None:
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            pairs = {f"out{i}": (o, r) for i, (o, r) in enumerate(zip(outs, refs))}
+            rest = big_rest = True
+            big_finite = all(bool(torch.isfinite(o).all())
+                             for o in (big if isinstance(big, tuple) else (big,)))
+        else:
+            pairs = {v: (lev(out, v, t), lev(ref, v, t)) for v, t in writes}
+            written = {c for v, t in writes for c in chans(v, t)}
+            others = [c for c in range(out.shape[-1]) if c not in written]
+            rest = torch.equal(out[..., others], args[0][..., others])
+            big_rest = torch.equal(big[..., others], full[2][0][..., others])
+            big_finite = all(bool(torch.isfinite(lev(big, v, t)).all()) for v, t in writes)
+        del big
+        errs = {k: level_errs(o, r) for k, (o, r) in pairs.items()}
+        ok = rest and big_rest and big_finite and (
+            all(float(e.max()) <= tol for e in errs.values()) if judge is None
+            else judge(out, ref, args, cpu_args))
+        log(f"  {name}: {ms:.2f} ms a call on the card at {full_size}; at {h}x{w} {cpu_ms:.0f} "
+            "ms on the CPU, card vs CPU, the worst level's largest |difference| over its "
+            "largest |CPU value|: "
+            + ", ".join(f"{k} {float(e.max()):.2e}" for k, e in errs.items())
+            + (f" (limit {tol:g})" if judge is None else "")
+            + ("" if writes is None else f"; the other {len(others)} channels as they came in: "
+               f"{rest}")
+            + f"; at {full_size} on the card: finite {big_finite}"
+            + ("" if writes is None else f", the other channels as they came in {big_rest}"))
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the CPU or is not finite "
+                                 f"at {full_size}")
+        del full, check, fn, args, cpu_args, out, ref
+        torch.cuda.empty_cache()
+
+
+def physics_cases(torch, conf, y, x):
+    """physics_phase's blocks on one state, one at a time (the pole filter's
+    tables live while its two cases run): (name, block, args, the variables
+    it writes (None: a function of tensors), tolerance, check or None,
+    (lev, chans, level_errs))."""
     import numpy as np
 
     from credit_torch import registry
@@ -2959,9 +3658,7 @@ def physics_phase(torch, state) -> None:
     from credit_torch.grid import grid_from_conf
     from credit_torch.physics.pole_filter import DiffusionPoleFilter
     from credit_torch.postblock import wind_filter
-    from credit_torch.tools import cuda_ms
 
-    conf, y, x = state
     schema, grid = ChannelSchema.from_config(conf), grid_from_conf(conf)
     full = lambda a: 0.5 * (a[:-1] + a[1:])  # noqa: E731
     ak, bk, gph = hybrid_setup(grid.shape, 14)  # the rollout's
@@ -2981,39 +3678,7 @@ def physics_phase(torch, state) -> None:
         o, r = got.double().cpu().flatten(1), want.double().cpu().flatten(1)
         return (o - r).abs().amax(1) / r.abs().amax(1).clamp_min(1e-30)
 
-    def compare(name, fn, args, writes, tol, check=None):
-        """writes: (variable, target?) the block writes, or None for a
-        function returning (levels, H, W) tensors (one a variable)."""
-        # the CPU first: the pole filter's tables are built there, and each
-        # block moves its tables to its input's device at the call
-        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
-        t1 = time.perf_counter()
-        ref = fn(*cpu_args)
-        cpu_ms = (time.perf_counter() - t1) * 1e3
-        out = fn(*args)  # the warm-up moves the tables to the card
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: fn(*args), 3)
-        if writes is None:
-            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
-            pairs = {f"out{i}": (o, r) for i, (o, r) in enumerate(zip(outs, refs))}
-            rest = True
-        else:
-            pairs = {v: (lev(out, v, t), lev(ref, v, t)) for v, t in writes}
-            written = {c for v, t in writes for c in chans(v, t)}
-            others = [c for c in range(out.shape[-1]) if c not in written]
-            rest = torch.equal(out[..., others], args[0][..., others])
-        errs = {k: level_errs(o, r) for k, (o, r) in pairs.items()}
-        ok = rest and (all(float(e.max()) <= tol for e in errs.values()) if check is None
-                       else check(out, ref, args, cpu_args))
-        log(f"  {name}: {ms:.2f} ms a call on the card, {cpu_ms:.0f} ms on the CPU; card vs "
-            "CPU, the worst level's largest |difference| over its largest |CPU value|: "
-            + ", ".join(f"{k} {float(e.max()):.2e}" for k, e in errs.items())
-            + (f" (limit {tol:g})" if check is None else "")
-            + ("" if writes is None else f"; the other {len(others)} channels as they came in: "
-               f"{rest}"))
-        if not ok:
-            raise AssertionError(f"{name} on the card disagrees with the CPU")
-        return out
+    views = (lev, chans, level_errs)
 
     t0 = time.time()
     with HostPeak() as host:
@@ -3021,10 +3686,10 @@ def physics_phase(torch, state) -> None:
     log(f"  DiffusionPoleFilter {grid.nlat}x{grid.nlon}: its SHT set up in {time.time() - t0:.1f} s "
         f"(host +{host.bytes / 2**30:.2f} GiB)")
     u, v, t = lev(y, "U"), lev(y, "V"), lev(y, "T")
-    compare("filter_winds (U, V, 13 levels)", pf.filter_winds, (u, v), None, POLE_TOL)
-    compare("filter_scalar (T, 13 levels)", pf.filter_scalar, (t,), None, POLE_TOL)
-    del pf
-    torch.cuda.empty_cache()
+    yield ("filter_winds (U, V, 13 levels)", pf.filter_winds, (u, v), None, POLE_TOL, None,
+           views)
+    yield ("filter_scalar (T, 13 levels)", pf.filter_scalar, (t,), None, POLE_TOL, None, views)
+    del pf, u, v, t
 
     def block(key, **kw):
         return registry.get("postblock", key)(schema=schema, grid=grid, **kw)
@@ -3076,7 +3741,8 @@ def physics_phase(torch, state) -> None:
             a_out=full(a2), b_out=full(b2)),
          interp_check({"T": ("T", True), "Q": ("Q", True)}, level_pressures(full(ak), full(bk))))]
     for name, writes, b, check in posts:
-        compare(name, b, (y, x), writes, PHYS_TOL, check)
+        yield name, b, (y, x), writes, PHYS_TOL, check, views
+    del posts
 
     # the state has passed the rollout's own filter: the threshold here is
     # the mask level's 99th percentile of speed, so that the filter blends
@@ -3115,13 +3781,13 @@ def physics_phase(torch, state) -> None:
             f"over the rest {worst:.2e} (limit {PHYS_TOL:g})")
         return bool((near | ~flip).all()) and worst <= PHYS_TOL and share > 0
 
-    compare("wind_artifact_filter (U, V)", wf, (y, x), [("U", True), ("V", True)], PHYS_TOL,
-            wind_check)
+    yield ("wind_artifact_filter (U, V)", wf, (y, x), [("U", True), ("V", True)], PHYS_TOL,
+           wind_check, views)
     pre = registry.get("preblock", "hybrid_level_interp")(
         schema=schema, variables=["T", "Q"], ak_in=ak, bk_in=bk, ak_out=a2, bk_out=b2)
-    compare("hybrid_level_interp preblock (T, Q)", pre, (x,), [("T", False), ("Q", False)],
-            PHYS_TOL, interp_check({"T": ("T", False), "Q": ("Q", False)},
-                                   level_pressures(ak, bk, False, half=True)))
+    yield ("hybrid_level_interp preblock (T, Q)", pre, (x,), [("T", False), ("Q", False)],
+           PHYS_TOL, interp_check({"T": ("T", False), "Q": ("Q", False)},
+                                  level_pressures(ak, bk, False, half=True)), views)
     adv = registry.get("preblock", "semilagrangian_advection")(
         schema=schema, grid=grid, a_half=ak, b_half=bk, tracer_vars=["Q"])
 
@@ -3185,8 +3851,8 @@ def physics_phase(torch, state) -> None:
                         for a, b in zip(edges, edges[1:])))
         return ok and within
 
-    compare("semilagrangian_advection preblock (Q)", adv, (x,), [("Q", False)], PHYS_TOL,
-            departure_check)
+    yield ("semilagrangian_advection preblock (Q)", adv, (x,), [("Q", False)], PHYS_TOL,
+           departure_check, views)
 
 
 def fit_times(trainer) -> None:
@@ -3280,7 +3946,6 @@ def main() -> int:
                     help="after main paths 1-5, profile a 2-step rollout / a training step "
                          "by kernel (main path 7's resumed epoch is profiled in every run)")
     args = ap.parse_args()
-    t_start = time.time()
 
     import torch
 
@@ -3405,12 +4070,22 @@ def main() -> int:
     diffusion_path(torch, store, runs)
     torch.cuda.empty_cache()
     log(f"  phase 16: {time.time() - t16:.1f} s")
+    log("phase 17: main path 14, ensemble forecasts and their verification at CONF_025 width "
+        "(run_rollout with ensemble_size > 1, rollout_metrics, ensemble_eval, ic-opt, ptype, the "
+        "SDL wrapper)")
+    t17 = time.time()
+    ensemble_path(torch, store, runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 17: {time.time() - t17:.1f} s")
     shutil.rmtree(os.path.dirname(store[0]), ignore_errors=True)
 
     kernels = []
     # main paths 12 and 13 (phases 15 and 16)
     ZOO_PATHS = ("fit_nextgen", "rollout_nextgen", "train_camulator_ps", "rollout_camulator_ps",
                  "fit_diffusion")
+    # main path 14 (phase 17)
+    ENS_PATHS = ("ens_rollout", "ens_rollout_bred", "ens_metrics", "ens_metrics_bred", "icopt",
+                 "sdl_025")
     for name, counter, src, replaces, r, paths in [
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
@@ -3418,11 +4093,12 @@ def main() -> int:
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
-              "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS)),
+              "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS,
+              *ENS_PATHS)),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc",
-              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS)),
+              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS, *ENS_PATHS)),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
@@ -3430,11 +4106,11 @@ def main() -> int:
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
              attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
                     "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025",
-                    *ZOO_PATHS)),
+                    *ZOO_PATHS, *ENS_PATHS)),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
              ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025", "skebs_ens_025",
-              "fit_nextgen", "train_camulator_ps", "fit_diffusion")),
+              "fit_nextgen", "train_camulator_ps", "fit_diffusion", "icopt")),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),
@@ -3461,7 +4137,7 @@ def main() -> int:
                 "chunk fc1's f32 accumulators take b1 and the exact GELU in registers and, "
                 "packed to bf16, are fc2's A operand (the hidden layer never leaves the "
                 "registers); LN, post-norm LN and the residual in the warpgroups, a TMA store")
-    log(f"chip_smoke: {time.time() - t_start:.1f} s end to end")
+    log(f"chip_smoke: {time.time() - T_START:.1f} s end to end")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,10 @@ This is the gen2 application layer (reference:
 credit/applications/train_gen2.py:57 main_cli wiring and
 credit/applications/rollout_to_netcdf.py:195 predict) on one CUDA device:
 `run_training(conf)` is `credit train`, `run_rollout(conf)` is `credit
-rollout` to per-step netCDF files, and `diff_rollout` compares two such
-trees of files.
+rollout` to per-step netCDF files (an ensemble's members beside the
+control with predict.ensemble_size > 1), and `diff_rollout` compares two
+such trees of files. `rollout_metrics.py` scores ensembles without files,
+`ensemble_eval.py` the trees run_rollout writes.
 """
 
 from __future__ import annotations
@@ -133,41 +135,19 @@ def _inference_model(conf: dict, tensors: Dict[str, torch.Tensor], dev):
     return model
 
 
-def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[str] = None,
-                use_ema: bool = False, device="cuda"):
-    """credit rollout (reference: applications/rollout_to_netcdf.py:195
-    predict) on one device, CUDA unless the caller asks for the CPU: the
-    weights of save_loc's checkpoint (the EMA with use_ema, the trainable
-    postblocks' nets included; a fresh seeded init, with a warning, where
-    there is no checkpoint), folded for inference; then for each init time
-    of `predict` an autoregressive rollout through RolloutEngine with the
-    config's postblocks (the trainer's, built from the same config), the
-    stateful blocks' states carried from step to step and on across the
-    init times, as credit_tpu's engine carries them, each step written by
-    the engine's writer threads to <save_dir>/<init>/pred_<init>_<FHR>.nc.
-    Returns the written paths. Ensembles (predict.ensemble_size > 1) are
-    not ported yet and raise."""
-    from credit_torch.forecast import strided_for_rank
-    from credit_torch.output import save_netcdf_increment
+def _load_engine(conf: dict, dev, use_ema: bool = False, postblocks: bool = True):
+    """(exp, engine): build_experiment on `dev`, the weights of save_loc's
+    checkpoint (the EMA with use_ema, the trainable postblocks' nets
+    included; a fresh seeded init, with a warning, where there is none)
+    folded for inference, and a RolloutEngine over them with the config's
+    postblocks (the trainer's, built from the same config) or none."""
     from credit_torch.rollout import RolloutEngine
     from credit_torch.trainers.trainer import TrainState, load_trainer
 
-    dev = resolve_device(device)
-    pconf = conf.get("predict", {}) or {}
-    if int(pconf.get("ensemble_size", 1) or 1) > 1:
-        raise NotImplementedError("predict.ensemble_size > 1 perturbs the initial state through "
-                                  "ensemble/noise.py and ensemble/bred_vector.py, which are not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
     exp = build_experiment(conf, dev)
-    n_steps = n_steps or int(pconf.get("forecast_steps", 4))
-    save_dir = save_dir or pconf.get("save_forecast") or os.path.join(
-        conf.get("save_loc", "."), "forecasts")
-    lead_hours = int(conf.get("data", {}).get("lead_time_periods", 6))
-    schema, grid = exp["schema"], exp["grid"]
-
     cls = load_trainer(conf)
-    trainer = cls(conf, exp["model"], exp["loss"], exp["valid_loss"], schema, exp["dataset"],
-                  exp["valid_dataset"], save_loc=conf.get("save_loc", "./ckpt"),
+    trainer = cls(conf, exp["model"], exp["loss"], exp["valid_loss"], exp["schema"],
+                  exp["dataset"], exp["valid_dataset"], save_loc=conf.get("save_loc", "./ckpt"),
                   normalizer=exp["normalizer"], device=dev)
     ckpt = os.path.join(trainer.save_loc, "checkpoint")
     if os.path.exists(os.path.join(ckpt, trainer.CHECKPOINT_FILE)):
@@ -191,13 +171,41 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
     if use_ema:
         tensors.update(state.ema_params)
     model = _inference_model(conf, tensors, dev)
-    postblocks = trainer.train_postblocks
-    nets = {k: v for k, v in tensors.items() if k.startswith("_postblocks.")}
+    blocks = nets = None
+    if postblocks:
+        blocks = trainer.train_postblocks
+        nets = {k: v for k, v in tensors.items() if k.startswith("_postblocks.")}
     del state, trainer, tensors, exp["model"]
-
-    engine = RolloutEngine(model, schema, exp["normalizer"],
+    engine = RolloutEngine(model, exp["schema"], exp["normalizer"],
                            history_len=int(conf.get("data", {}).get("history_len", 1)) or 1,
-                           postblocks=postblocks, postblock_params=nets, device=dev)
+                           postblocks=blocks, postblock_params=nets, device=dev)
+    return exp, engine
+
+
+def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[str] = None,
+                use_ema: bool = False, device="cuda"):
+    """credit rollout (reference: applications/rollout_to_netcdf.py:195
+    predict) on one device, CUDA unless the caller asks for the CPU: the
+    weights of save_loc's checkpoint folded for inference (`_load_engine`);
+    then for each init time of `predict` an autoregressive rollout through
+    RolloutEngine with the config's postblocks, the stateful blocks' states
+    carried from step to step and on across the init times and ensemble
+    members, as credit_tpu's engine carries them, each step written by the
+    engine's writer threads to <save_dir>/<init>/pred_<init>_<FHR>.nc.
+    With predict.ensemble_size > 1 each init time also rolls out
+    ensemble_size - 1 perturbed members into <save_dir>/<init>_eNN/
+    (`ensemble_members`). Returns the written paths."""
+    from credit_torch.forecast import strided_for_rank
+    from credit_torch.output import save_netcdf_increment
+
+    dev = resolve_device(device)
+    pconf = conf.get("predict", {}) or {}
+    exp, engine = _load_engine(conf, dev, use_ema)
+    n_steps = n_steps or int(pconf.get("forecast_steps", 4))
+    save_dir = save_dir or pconf.get("save_forecast") or os.path.join(
+        conf.get("save_loc", "."), "forecasts")
+    lead_hours = int(conf.get("data", {}).get("lead_time_periods", 6))
+    schema, grid = exp["schema"], exp["grid"]
     dataset = exp["dataset"]
     # rank-strided multi-init loop (reference: rollout_to_netcdf.py:266);
     # the port runs one process until parallel/ is ported (item 8)
@@ -210,14 +218,53 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
             f = dataset.forcing_at(t0 + s) if hasattr(dataset, "forcing_at") else None
             return None if f is None else f[None]
 
-        def writer(step, y, label=label):
-            written.append(save_netcdf_increment(y[0], schema, grid, save_dir, label,
-                                                 (step + 1) * lead_hours))
+        for suffix, xm, normalized in [("", x0, False)] + ensemble_members(engine, x0, pconf, t0):
+            def writer(step, y, label=label + suffix):
+                written.append(save_netcdf_increment(y[0], schema, grid, save_dir, label,
+                                                     (step + 1) * lead_hours))
 
-        engine.run(x0, n_steps, forcing_provider=forcing, on_step=writer)
+            engine.run(xm, n_steps, forcing_provider=forcing, on_step=writer,
+                       x0_normalized=normalized)
     engine.close()
-    logger.info("wrote %d forecast files (%d inits) to %s", len(written), len(inits), save_dir)
+    logger.info("wrote %d forecast files (%d inits x %d members) to %s", len(written),
+                len(inits), int(pconf.get("ensemble_size", 1) or 1), save_dir)
     return written
+
+
+def ensemble_members(engine, x0, pconf: dict, t0: int):
+    """The perturbed members of one init time for predict.ensemble_size E,
+    [(suffix, initial state, whether it is normalized)] for members 1..E-1,
+    named _e01.. as credit_tpu names them (none when E <= 1).
+
+    gaussian (the default): the physical IC plus perturbation_std (1e-3)
+    times a normal draw per member from the generator of (predict.seed,
+    t0, member). bred: E - 1 bred vectors of amplitude perturbation_std
+    grown by bred_cycles (3) engine steps from fresh states
+    (`RolloutEngine.fresh_step`, as credit_tpu's pure step), their seed
+    perturbations drawn from the generator of (predict.seed, t0), mirrored
+    in pairs. The port breeds in the model's normalized space, where the
+    engine runs; credit_tpu breeds its normalized-space model on the
+    physical IC and adds the bred difference to the physical IC (ROADMAP
+    queue 3). With the identity normalizer the two agree."""
+    from credit_torch.ensemble import bred_vector
+    from credit_torch.ensemble.noise import GaussianNoise
+    from credit_torch.utils.seed import fold_generator
+
+    ens = int(pconf.get("ensemble_size", 1) or 1)
+    std = float(pconf.get("perturbation_std", 1e-3))
+    seed = int(pconf.get("seed", 0))
+    if ens <= 1:
+        return []
+    x = torch.as_tensor(x0).to(engine.device)
+    if pconf.get("perturbation", "gaussian") == "bred":
+        if engine.normalizer is not None:
+            x = engine.normalizer.normalize_input(x)
+        ics = bred_vector.generate_bred_vectors(
+            lambda s: engine.fresh_step(s)[1], x, fold_generator(seed, t0), ens - 1,
+            amplitude=std, n_cycles=int(pconf.get("bred_cycles", 3)))
+        return [(f"_e{m + 1:02d}", ic, True) for m, ic in enumerate(ics)]
+    g = GaussianNoise(std)
+    return [(f"_e{m:02d}", g(fold_generator(seed, t0, m), x), False) for m in range(1, ens)]
 
 
 def diff_rollout(paths, ref, rtol: float = 2e-4, atol: float = 2e-4):

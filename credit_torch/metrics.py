@@ -156,6 +156,17 @@ def zonal_spectrum(f: torch.Tensor) -> torch.Tensor:
     return mag * scale
 
 
+def _quantiles(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Quantiles `q` of the flat `v`, linear between order statistics (as
+    jnp.quantile's default), through one sort: torch.quantile refuses
+    inputs past 2**24 elements, and a 0.25-degree field has more."""
+    s = torch.sort(v).values
+    pos = q.double() * (s.numel() - 1)  # f32 positions round past the last index
+    lo = torch.floor(pos).long()
+    hi = torch.clamp(lo + 1, max=s.numel() - 1)
+    return torch.lerp(s[lo], s[hi], (pos - lo).to(s.dtype))
+
+
 def binned_spread_skill(target: torch.Tensor, pred_ens: torch.Tensor, n_bins: int = 10):
     """Binned spread-skill relation (reference: credit/verification/
     ensemble.py:45): bin grid points by ensemble spread, return per-bin
@@ -164,8 +175,8 @@ def binned_spread_skill(target: torch.Tensor, pred_ens: torch.Tensor, n_bins: in
     mean = pred_ens.mean(dim=1)
     err2 = ((mean - target) ** 2).reshape(-1)
     spread = torch.sqrt(pred_ens.var(dim=1, correction=1)).reshape(-1)
-    edges = torch.quantile(spread, torch.linspace(0, 1, n_bins + 1, dtype=spread.dtype,
-                                                  device=spread.device))
+    edges = _quantiles(spread, torch.linspace(0, 1, n_bins + 1, dtype=spread.dtype,
+                                              device=spread.device))
     idx = torch.clamp(torch.searchsorted(edges[1:-1].contiguous(), spread), 0, n_bins - 1)
 
     def segment_sum(v):
@@ -177,14 +188,16 @@ def binned_spread_skill(target: torch.Tensor, pred_ens: torch.Tensor, n_bins: in
     return sp_bin, rmse_bin, cnt
 
 
-def divergent_rotational_spectra(u: torch.Tensor, v: torch.Tensor, grid):
+def divergent_rotational_spectra(u: torch.Tensor, v: torch.Tensor, grid, sht=None):
     """Per-degree divergent and rotational kinetic-energy spectra via the
     SHT (reference: credit/verification/standard.py:50): KE_l from the
-    vorticity/divergence coefficients. u, v: (..., lat, lon); the SHT's
-    tables are built on u's device."""
+    vorticity/divergence coefficients. u, v: (..., lat, lon); `sht`, an
+    equiangular `ops.sht.SHT` of `grid` on u's device, else its tables are
+    built here on u's device."""
     from credit_torch.ops.sht import SHT
 
-    sht = SHT(np.asarray(grid.lat), grid.nlon, grid="equiangular", device=u.device)
+    if sht is None:
+        sht = SHT(np.asarray(grid.lat), grid.nlon, grid="equiangular", device=u.device)
     vrt, div = sht.vrtdiv_spec(u, v)
     eig = -sht.laplacian
     inv = torch.where(eig > 0, 1.0 / torch.clamp(eig, min=1e-30), torch.zeros_like(eig))[:, None]

@@ -13,7 +13,9 @@ Noise comes from the `generator` passed to the forward (on the input's
 device; torch's default generator when None), so CUDA and CPU draws differ
 for one seed. The latent and each layer's pixel noise can also be passed
 in (`noise=`), to replay draws made elsewhere: credit_tpu draws from its
-flax 'noise' stream, and the tests feed those draws to the port.
+flax 'noise' stream, and the tests feed those draws to the port. A
+forward given a `capture` dict writes into it every draw it uses, which
+is the `noise=` that replays it (the SDL inference wrapper's latents).
 """
 
 from __future__ import annotations
@@ -51,6 +53,13 @@ class StochasticDecompositionLayer(nn.Module):
         self.modulation = nn.Parameter(torch.ones(channels))
         self.noise_factor = nn.Parameter(torch.tensor(float(noise_factor)))
 
+    def draw(self, feature: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The pixel noise of `feature`'s shape that forward draws when it
+        is given none."""
+        return torch.randn(feature.shape, generator=generator, device=feature.device,
+                           dtype=self.dtype)
+
     def forward(self, feature: torch.Tensor, latent: torch.Tensor,
                 pixel: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -58,8 +67,7 @@ class StochasticDecompositionLayer(nn.Module):
         style = self.noise_transform(latent)
         style = style.reshape(feature.shape[0], *([1] * (feature.dim() - 2)), c)
         if pixel is None:
-            pixel = torch.randn(feature.shape, generator=generator, device=feature.device,
-                                dtype=self.dtype)
+            pixel = self.draw(feature, generator)
         # credit_tpu promotes to f32 here (its factor and modulation are f32)
         return feature.float() + self.noise_factor * pixel.float() * style.float() * self.modulation
 
@@ -93,19 +101,26 @@ class CrossFormerWithNoise(CrossFormer):
                 ch, noise_latent_dim, decoder_noise_factor, dt))
 
     def forward(self, x: torch.Tensor, noise: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                capture: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """x: (B, T, H, W, C_in). noise: draws to replay, {"latent": (B,
         noise_latent_dim), <layer name>: that layer's pixel noise}; any draw
         it lacks comes from `generator`, the latent first, then the layers
-        in credit_tpu's order."""
+        in credit_tpu's order. capture: a dict that receives the latent and
+        every layer's pixels this forward uses."""
         noise = noise or {}
         latent = noise.get("latent")
         if latent is None:
             latent = torch.randn((x.shape[0], self.noise_latent_dim), generator=generator,
                                  device=x.device, dtype=self.compute_dtype)
+        if capture is not None:
+            capture["latent"] = latent
 
         def inject(name, feat):
-            return getattr(self, name)(feat, latent, noise.get(name), generator)
+            layer, pixel = getattr(self, name), noise.get(name)
+            if capture is not None:
+                pixel = capture[name] = layer.draw(feat, generator) if pixel is None else pixel
+            return layer(feat, latent, pixel, generator)
 
         if self.padder is not None:
             x = self.padder.pad(x)

@@ -11,15 +11,17 @@ no table is ever cast to complex.
 
 Conventions (matching torch-harmonics defaults): orthonormal spherical
 harmonics with Condon-Shortley phase; grids 'equiangular' (trapezoid/CC
-quadrature) or 'legendre-gauss'. Tables are built on the host in float64
-by credit_tpu's recurrences, in the same order of operations, one degree l
-at a time over every order m, and each row is stored float32 as it is
-made: the same float32 values, without credit_tpu's (mmax, lmax, nlat)
-float64 tables (3.0 GB each at 721 latitudes).
+quadrature) or 'legendre-gauss'. Tables are built in float64 by
+credit_tpu's recurrences, in the same order of operations, one degree l at
+a time over every order m, and each row is stored float32 as it is made:
+the same float32 values, without credit_tpu's (mmax, lmax, nlat) float64
+tables (3.0 GB each at 721 latitudes). An SHT on a CUDA device builds its
+tables there, op for op as numpy does on the host (each operation one
+IEEE-rounded elementwise kernel, no fused multiply-add), so the same
+values; on the CPU numpy builds them.
 
 Memory: three float32 tables of (mmax, lmax, nlat), 1.5 GB each at 0.25
-degrees (721 latitudes, 1440 longitudes), on the host while they are built
-and then on the device.
+degrees (721 latitudes, 1440 longitudes), on the SHT's device.
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ import torch
 from credit_torch.physics.constants import RAD_EARTH
 
 
-def _legendre_rows(lmax: int, mmax: int, x: np.ndarray):
+def _legendre_rows(lmax: int, mmax: int, x: np.ndarray, device=None):
     """(l, P̄_l^m(x), dP̄_l^m/dθ) for l = 0..lmax-1, each an (mmax, nlat)
-    float64 array over every order m, zero where m > l.
+    float64 array over every order m, zero where m > l: numpy arrays, or
+    torch tensors on `device` where one is given (the coefficients over m
+    are made by numpy either way).
 
     credit_tpu's `_legendre_table` recurrence (P̄ normalized so that
     ∫_{-1}^{1} P̄_l^m P̄_l'^m dx = δ_ll', Condon-Shortley phase) and its
@@ -43,6 +47,14 @@ def _legendre_rows(lmax: int, mmax: int, x: np.ndarray):
     c = sqrt((l^2-m^2)(2l+1)/(2l-1))), element by element the same
     operations in the same order, with the sequential loop over l instead
     of (m, l)."""
+    if device is None:
+        put, zeros = (lambda a: a), np.zeros
+    else:
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(device)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.float64, device=device)
     nlat = x.shape[0]
     # P̄_m^m via the stable product form
     pmm = np.empty((mmax, nlat))
@@ -52,26 +64,27 @@ def _legendre_rows(lmax: int, mmax: int, x: np.ndarray):
         if m > 0:
             p = -np.sqrt((2 * m + 1) / (2.0 * m)) * sx * p
         pmm[m] = p
-    sxd = np.sqrt(np.maximum(1e-12, 1.0 - x * x))
+    sxd = put(np.sqrt(np.maximum(1e-12, 1.0 - x * x)))
     ms = np.arange(mmax)
-    prev2 = prev1 = np.zeros((mmax, nlat))
+    x, pmm = put(x), put(pmm)
+    prev2 = prev1 = zeros((mmax, nlat))
     for l in range(lmax):
-        row = np.zeros((mmax, nlat))
+        row = zeros((mmax, nlat))
         k = max(0, min(l - 1, mmax))  # orders m <= l - 2: the upward recurrence
         if k:
             m = ms[:k]
-            a = np.sqrt((4.0 * l * l - 1.0) / (l * l - m * m))
-            b = np.sqrt(((2.0 * l + 1.0) * ((l - 1.0) ** 2 - m * m))
-                        / ((2.0 * l - 3.0) * (l * l - m * m)))
+            a = put(np.sqrt((4.0 * l * l - 1.0) / (l * l - m * m)))
+            b = put(np.sqrt(((2.0 * l + 1.0) * ((l - 1.0) ** 2 - m * m))
+                            / ((2.0 * l - 3.0) * (l * l - m * m))))
             row[:k] = a[:, None] * x * prev1[:k] - b[:, None] * prev2[:k]
         if 0 <= l - 1 < mmax:
-            row[l - 1] = np.sqrt(2 * (l - 1) + 3.0) * x * pmm[l - 1]
+            row[l - 1] = float(np.sqrt(2 * (l - 1) + 3.0)) * x * pmm[l - 1]
         if l < mmax:
             row[l] = pmm[l]
-        drow = np.zeros((mmax, nlat))
+        drow = zeros((mmax, nlat))
         k = min(l + 1, mmax)  # orders m <= l
         m = ms[:k]
-        c = np.sqrt((l * l - m * m) * (2.0 * l + 1.0) / max(2.0 * l - 1.0, 1.0))
+        c = put(np.sqrt((l * l - m * m) * (2.0 * l + 1.0) / max(2.0 * l - 1.0, 1.0)))
         drow[:k] = (-l * x * row[:k] + c[:, None] * prev1[:k]) / sxd
         yield l, row, drow
         prev2, prev1 = prev1, row
@@ -94,13 +107,19 @@ def _dlegendre_dtheta(lmax: int, mmax: int, x: np.ndarray) -> np.ndarray:
     return out
 
 
-def _tables(lmax: int, mmax: int, x: np.ndarray, w: np.ndarray):
+def _tables(lmax: int, mmax: int, x: np.ndarray, w: np.ndarray, device=None):
     """The three float32 (mmax, lmax, nlat) tables of an SHT, as credit_tpu
     stores them: P̄ (synthesis), P̄·w rounded once from float64 (analysis)
-    and dP̄/dθ."""
+    and dP̄/dθ; numpy arrays, or tensors built on `device` where one is
+    given."""
     shape = (mmax, lmax, x.shape[0])
-    pct, pw, dpct = (np.empty(shape, np.float32) for _ in range(3))
-    for l, row, drow in _legendre_rows(lmax, mmax, x):
+    if device is None:
+        pct, pw, dpct = (np.empty(shape, np.float32) for _ in range(3))
+    else:
+        pct, pw, dpct = (torch.empty(shape, dtype=torch.float32, device=device)
+                         for _ in range(3))
+        w = torch.from_numpy(np.asarray(w, np.float64)).to(device)
+    for l, row, drow in _legendre_rows(lmax, mmax, x, device):
         pct[:, l] = row
         pw[:, l] = row * w
         dpct[:, l] = drow
@@ -159,8 +178,11 @@ class SHT:
         # analysis folds in the quadrature weights; 2π from the lon integral
         # and 1/(2π) of the Y normalization cancel into 2π/nlon, handled by
         # the fft scaling below
-        self.pct, self.pw, self.dpct = (
-            torch.from_numpy(t).to(device) for t in _tables(self.lmax, self.mmax, x, w))
+        if device.type == "cuda":
+            self.pct, self.pw, self.dpct = _tables(self.lmax, self.mmax, x, w, device)
+        else:
+            self.pct, self.pw, self.dpct = (
+                torch.from_numpy(t).to(device) for t in _tables(self.lmax, self.mmax, x, w))
         self.w = torch.from_numpy(w.astype(np.float32)).to(device)
         self.coslat = torch.from_numpy(
             np.asarray(np.cos(np.deg2rad(lat_deg)), np.float32)).to(device)

@@ -128,10 +128,25 @@ class RolloutEngine:
         f = None if forcing_next is None else forcing_next.to(self.device)
         return y, _advance(self.schema, x, y, f, self.history_len)
 
+    @torch.no_grad()
+    def fresh_step(self, x: torch.Tensor, forcing_next: Optional[torch.Tensor] = None,
+                   seed: int = 0):
+        """`step` from fresh stateful-postblock states and a generator
+        seeded `seed`, leaving the engine's own states and generator as they
+        were: credit_tpu's pure jitted step with fixed states and key, which
+        its ensemble run_rollout breeds with."""
+        saved = self._states, self._gen
+        try:
+            self.reset(x.shape[0], seed)
+            return self.step(x, forcing_next)
+        finally:
+            self._states, self._gen = saved
+
     def run(self, x0, n_steps: int,
             forcing_provider: Optional[Callable[[int], np.ndarray]] = None,
             on_step: Optional[Callable[[int, np.ndarray], None]] = None,
-            denormalize: bool = True, async_writers: int = 2) -> List[np.ndarray]:
+            denormalize: bool = True, async_writers: int = 2,
+            x0_normalized: bool = False) -> List[np.ndarray]:
         """Run n_steps. Returns the (denormalized) f32 predictions as numpy
         arrays that own their memory, or streams them to on_step(step, y)
         on `async_writers` writer threads and returns []; every writer has
@@ -140,12 +155,13 @@ class RolloutEngine:
         is reused once on_step returns: copy what must outlive the call.
         forcing_provider(s) gives the (B, 1, H, W, n_dyn) forcing of the
         next input, or None. x0 and the forcing are in physical units when
-        a normalizer is set: they are normalized on entry. After each step
+        a normalizer is set: they are normalized on entry (x0 not with
+        x0_normalized, for a state already in the model's space). After each step
         the blocks with `write_rollout_debug_files` dump their state
         (`dump_debug(s, state)`, a host read). On CUDA, `copy_ms` holds
         each step's device-to-host copy time afterwards."""
         x = torch.as_tensor(x0).to(self.device)
-        if self.normalizer is not None:
+        if self.normalizer is not None and not x0_normalized:
             x = self.normalizer.normalize_input(x)
         outs: List[np.ndarray] = [None] * n_steps if on_step is None else []
 

@@ -491,18 +491,6 @@ def _fetch(acc: Optional[dict]) -> Dict[str, float]:
             **dict(zip(keys, vals))}
 
 
-def _unported_trainer(key: str, item: str):
-    class Unported:
-        def __init__(self, *_, **__):
-            raise NotImplementedError(f"trainer type '{key}' is not ported yet ({item})")
-
-    Unported.__name__ = Unported.__qualname__ = f"Unported_{key}"
-    registry.register("trainer", key)(Unported)
-
-
-_unported_trainer("ic-opt", "ROADMAP queue 1, item 7: trainers/ic_optimization.py")
-
-
 @registry.register("trainer", "era5-v2")
 @registry.register("trainer", "era5")
 class Trainer:
@@ -967,9 +955,10 @@ class Trainer:
 def load_trainer(conf: dict):
     """Registry dispatch (reference: credit/trainers/__init__.py:81): every
     reference trainer key resolves here; the per-domain classes' deltas are
-    config-driven in this design. The IC-optimisation trainer is
-    registered but raises until it is ported."""
+    config-driven in this design; `ic-opt` and `era5-ic-opt` resolve to
+    `optimize_initial_condition`, a function, as in credit_tpu."""
     from credit_torch.trainers import diffusion  # noqa: F401  (registers era5-diffusion)
+    from credit_torch.trainers import ic_optimization  # noqa: F401  (registers ic-opt)
 
     ttype = conf.get("trainer", {}).get("type", "era5-v2")
     aliases = {"era5-gen1": "era5", "cam": "era5",

@@ -1,1 +1,1 @@
-"""Host-side utilities of the port (netCDF IO)."""
+"""Host-side utilities of the port (netCDF IO, seeding)."""

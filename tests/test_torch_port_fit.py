@@ -438,9 +438,11 @@ def test_load_trainer_aliases(name, caplog):
 
 @pytest.mark.parametrize("name", ["era5-ic-opt", "ic-opt", "era5-diffusion"])
 def test_unported_trainers_raise(name):
-    """The IC-optimisation trainer still raises, naming its ROADMAP item;
-    era5-diffusion resolves to the port's diffusion trainer (its fit
-    against credit_tpu's: tests/test_torch_port_diffusion.py)."""
+    """The IC-optimisation keys resolve to the port's
+    optimize_initial_condition, as credit_tpu's resolve to its own (its
+    parity: tests/test_torch_port_icopt_ptype.py); era5-diffusion resolves
+    to the port's diffusion trainer (its fit against credit_tpu's:
+    tests/test_torch_port_diffusion.py)."""
     cls = load_trainer({"trainer": {"type": name}})
     if name == "era5-diffusion":
         from credit_torch.trainers.diffusion import DiffusionTrainer
@@ -448,8 +450,11 @@ def test_unported_trainers_raise(name):
         assert cls is DiffusionTrainer and issubclass(cls, Trainer)
         assert jtrainer.load_trainer({"trainer": {"type": name}}).__name__ == "DiffusionTrainer"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        cls()
+    from credit_torch.trainers.ic_optimization import optimize_initial_condition
+
+    assert cls is optimize_initial_condition
+    assert jtrainer.load_trainer({"trainer": {"type": name}}).__name__ == (
+        "optimize_initial_condition")
 
 
 @pytest.mark.parametrize("option", ["parallelism", "ensemble", "sn_external", "preblocks",

@@ -138,6 +138,25 @@ def test_sht_tables_bitwise(shts, grid):
     assert np.array_equal(tsht._legendre_table(NLAT, 20, x), jsht._legendre_table(NLAT, 20, x))
     assert np.array_equal(tsht._dlegendre_dtheta(NLAT, 20, x),
                           jsht._dlegendre_dtheta(NLAT, 20, x))
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("mmax", [20, None])
+def test_sht_tables_built_by_torch_bitwise(shts, grid, mmax):
+    """The tables as a CUDA SHT builds them (torch float64 ops on its
+    device; here on the CPU) equal numpy's, and so credit_tpu's, bit for
+    bit, with every order and with orders cut below the degrees."""
+    lat = _lat(grid)
+    x = np.sin(np.deg2rad(lat))
+    w = tsht._quadrature(lat, grid)
+    mm = mmax or shts[grid][0].mmax
+    for name, a, b in zip(("pct", "pw", "dpct"), tsht._tables(NLAT, mm, x, w),
+                          tsht._tables(NLAT, mm, x, w, torch.device("cpu"))):
+        assert b.dtype == torch.float32 and np.array_equal(a, b.numpy()), name
+    if mmax is None:
+        ref = shts[grid][1]
+        assert np.array_equal(tsht._tables(NLAT, mm, x, w, torch.device("cpu"))[0].numpy(),
+                              np.asarray(ref.pct))
     assert np.array_equal(tsht._quadrature(_lat(grid), grid), jsht._quadrature(_lat(grid), grid))
 
 

@@ -256,7 +256,11 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.models.regional, credit_torch.models.wxformer_next, "
             "credit_torch.models.diffusion_heads, credit_torch.models.variants, "
             "credit_torch.models.debugger, credit_torch.diffusion, "
-            "credit_torch.trainers.diffusion; "
+            "credit_torch.trainers.diffusion, credit_torch.ensemble.noise, "
+            "credit_torch.ensemble.bred_vector, credit_torch.ensemble.sdl_wrapper, "
+            "credit_torch.ptype, credit_torch.trainers.ic_optimization, "
+            "credit_torch.applications.rollout_metrics, "
+            "credit_torch.applications.ensemble_eval, credit_torch.utils.seed; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

@@ -402,8 +402,10 @@ def test_run_rollout_weights_and_refusals(env, tmp_path, caplog):
     """use_ema rolls out the checkpoint's EMA: the same files as a
     checkpoint whose parameters are that EMA (the checkpoint written on a
     card, its noise generator's state a CUDA one); without a checkpoint the port
-    warns and rolls out a seeded init; an ensemble raises naming ROADMAP
-    queue 1 item 7; the card is the default device."""
+    warns and rolls out a seeded init; an ensemble of 2 writes each init's
+    member directory <init>_e01 beside the control (its parity with
+    credit_tpu: tests/test_torch_port_ensemble_apps.py); the card is the
+    default device."""
     rng = np.random.default_rng(7)
     moved = jax.tree_util.tree_map(
         lambda a: (a * (1 + 0.1 * rng.standard_normal(a.shape))).astype(np.float32),
@@ -426,9 +428,13 @@ def test_run_rollout_weights_and_refusals(env, tmp_path, caplog):
     with caplog.at_level("WARNING"):
         assert len(run_rollout(fresh, device="cpu")) == 1
     assert "no checkpoint" in caplog.text
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        run_rollout(_rollout_conf(env, tmp_path, tmp_path / "e", ensemble_size=2), device="cpu")
-    assert not os.path.exists(tmp_path / "e")
+    ens = run_rollout(_rollout_conf(env, tmp_path, tmp_path / "e", ensemble_size=2),
+                      device="cpu")
+    assert sorted(os.listdir(tmp_path / "e")) == [
+        "1979-01-01T12Z", "1979-01-01T12Z_e01", "1979-01-01T18Z", "1979-01-01T18Z_e01"]
+    assert sorted(os.path.relpath(p, tmp_path / "e") for p in ens) == sorted(
+        os.path.join(d, f"pred_{d}_{f:03d}.nc") for d in os.listdir(tmp_path / "e")
+        for f in (6, 12))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_rollout(conf)
