@@ -163,7 +163,21 @@ Phases (any failure exits non-zero):
      on (a)'s control prediction at 721x1440, seeded weights, card against
      CPU, probabilities summing to 1, one-hot winners; (f) the SDL wrapper
      on CONF_025_ENS: capture replayed bitwise, every factor 0 making two
-     draws equal, interpolation at t = 0 equal to the first capture.
+     draws equal, interpolation at t = 0 equal to the first capture;
+ 18. main path 15, parallelism on the one card: (a) run_training at
+     CONF_025_TRAIN through maybe_initialize (the CREDIT_* variables, a
+     file:// rendezvous) over NCCL at world size 1 with data: none, one
+     step and one validation batch on phase 10's store: the gradient and
+     loss all-reduced over NCCL, the log, the launches; (b) two processes
+     of this script (--parallel-rank) sharing the card over gloo, domain 2
+     with the explicit halo: one CONF_025_TRAIN step of seeded weights on
+     a seeded batch against the unsharded step (loss, gradient), each
+     rank's launches equal to the unsharded step's, kernel 2 on slabs
+     (its largest input 215 rows against 415) and kernel 1 on half the
+     rows; (c) the same two ranks at data 2 against the unsharded step on
+     the batch of 2, ring-CRPS at 2 members against the dense CRPS, and
+     benchmark_halo at 800x1440x128 bf16; no time of two ranks on one
+     card is a throughput figure.
      Removes phase 10's store.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
@@ -647,6 +661,20 @@ NEW_CONV_SHAPES = [
     ("camulator_head_ps_3x3", (1, 402, 722, 256, 3, 3, 256)),
     ("camulator_sharp_3x3", (1, 802, 1442, 64, 3, 3, 64)),
     ("diffusion_stage0_embed_8x8", (1, 415, 735, 496, 8, 8, 176))]
+# main path 15 (phase 18b): CONF_025_TRAIN at domain 2, each rank's
+# latitude slab of the 800 padded rows (400 a rank) extended by its halo:
+# the stage-0 quadrant embed's 15 rows a side (430 rows, 215 after
+# space-to-depth), the stage 1-3 embeds' one row, the UpBlocks' 3x3
+# residual convs and the head's phase conv one row a side
+SLAB_CONV_SHAPES = [
+    ("slab_stage0_embed_8x8", (1, 215, 735, 240, 8, 8, 176)),
+    ("slab_stage1_embed_2x2", (1, 101, 361, 512, 2, 2, 256)),
+    ("slab_stage2_embed_2x2", (1, 51, 181, 1024, 2, 2, 512)),
+    ("slab_stage3_embed_2x2", (1, 26, 91, 2048, 2, 2, 1024)),
+    ("slab_up1_res_3x3", (1, 52, 182, 512, 3, 3, 512)),
+    ("slab_up2_res_3x3", (1, 102, 362, 256, 3, 3, 256)),
+    ("slab_up3_res_3x3", (1, 202, 722, 128, 3, 3, 128)),
+    ("slab_head_phase_3x3", (1, 202, 722, 256, 3, 3, 224))]
 CONV_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
     # ic-opt's input gradient of the stage-0 embed (main path 14): gy
@@ -666,7 +694,8 @@ CONV_SHAPES = [
     ("skebs_cnn_3x3", (2, 723, 1442, 60, 3, 3, 13), F32, 5),
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 10),
     ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 10),
-    *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES]]
+    *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES],
+    *[(label, shape, BF16, 5) for label, shape in SLAB_CONV_SHAPES]]
 
 
 def conv_cases(torch, g):
@@ -949,7 +978,9 @@ WGRAD_SHAPES = [
     ("skebs_cnn_3x3", (2, 723, 1442, 60, 3, 3, 13), F32, 5),
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 5),
     ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 5),
-    *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES]]
+    *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES],
+    *[(label, shape[:6] + (256 if "head" in label else shape[6],), BF16, 5)
+      for label, shape in SLAB_CONV_SHAPES]]
 
 
 def wgrad_cases(torch, g):
@@ -3855,6 +3886,357 @@ def physics_cases(torch, conf, y, x):
            departure_check, views)
 
 
+# main path 15 (phase 18): parallelism on the one card. (a) run_training
+# through maybe_initialize over NCCL at world size 1; (b) two ranks sharing
+# the card over gloo, domain 2 (lat slabs, explicit halo), one CONF_025_TRAIN
+# step and one of its crossformer-ensemble against the unsharded step; (c) the same two ranks at data 2 against
+# the unsharded step on the batch of 2, and ring-CRPS at 2 members against
+# the dense CRPS. Limits: bf16 compute on both sides, in other shapes (the
+# kernels' plans, hence their f32 sums' orders, follow the shapes), each a
+# few times what the card read (PERF.md, PR 16: the loss equal to 7 digits,
+# the gradient 9.19e-4 and 7.28e-4 (ensemble) at domain 2 and 6.27e-4 at
+# data 2, the halo benchmark's forward exact and its gradient 5.4e-3)
+# the prediction's largest difference over its largest value, its mean
+# difference over its mean value, and its worst latitude row's mean
+# difference over its mean value (PERF.md, PR 16: CrossFormer /
+# ensemble at domain 2 3.7e-3 / 6.9e-3, 2.3e-3 / 2.0e-3, 2.5e-3 / 2.2e-3;
+# data 2 3.7e-3, 2.7e-4, 4.3e-4: one bf16 rounding of the largest values,
+# and of most values at domain 2, whose group-norm moments sum in another
+# order, spread evenly over the rows)
+PAR_PRED_TOL = (2e-2, 7e-3, 7.5e-3)
+PAR_LOSS_TOL = 1e-6  # relative
+PAR_GRAD_TOL = 3e-3  # the gradient's difference over its norm
+PAR_RING_TOL = 1e-5  # ring against dense CRPS, relative, f32
+PAR_HALO_TOL = (1e-3, 1.5e-2)  # benchmark_halo's forward and gradient errors
+PAR_TIMEOUT = 600
+
+
+def _par_conf(dims, model=None) -> dict:
+    return {"model": model or CONF_025_TRAIN,
+            "data": {**DATA_025, "forecast_len": 1, "history_len": 1},
+            "trainer": {**TRAINER, "parallelism": dict(zip(("data", "tensor", "domain"), dims))}}
+
+
+def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
+              model_conf=None) -> dict:
+    """One CONF_025_TRAIN train step (MSE, AdamW) of seeded weights on the
+    mesh `dims` over the group, then, on rank 0, the unsharded step on the
+    whole batch from the same weights: the losses, the gradients' error,
+    each side's launches by kernel, the shapes kernels 1 and 2 were given
+    on the mesh and the ms of a second mesh step; and before the step, the
+    prediction of this rank's rows on the mesh (gathered whole at domain 2)
+    against the unsharded forward's rows (eval mode, no gradient, a noisy
+    model's draws from one seed on both sides): the largest difference
+    over the largest value, the mean difference over the mean value, and
+    the largest of the latitude rows' mean differences over the mean
+    value (bf16 roundings spread over every row; a seam fault gathers in
+    a few). `model_conf` replaces CONF_025_TRAIN."""
+    import torch.distributed as dist
+
+    from credit_torch.convert_jax import seed_train_
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.models import load_model
+    from credit_torch.ops import cuda_conv, cuda_ff
+    from credit_torch.parallel import context as par_ctx
+    from credit_torch.parallel import distributed as D
+    from credit_torch.parallel.mesh import build_mesh
+    from credit_torch.parallel.sharding import ShardedOptimizer, shard_batch
+    from credit_torch.tools import cuda_ms
+    from credit_torch.trainers.scheduler import load_scheduler
+    from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
+
+    conf = _par_conf(dims, model_conf)
+    schema = ChannelSchema.from_config(conf)
+    cuda = device == "cuda"
+    model = load_model(conf, device=device, sn_state=True)
+    seed_train_(model, conf, torch.Generator().manual_seed(0))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=device).manual_seed(5)
+    h, w = CONF_025_TRAIN["image_height"], CONF_025_TRAIN["image_width"]
+    batch = {"x": torch.randn((batch_rows, 1, h, w, schema.n_input), generator=g, device=device),
+             "y": torch.randn((batch_rows, 1, h, w, schema.n_target), generator=g,
+                              device=device)}
+    names = [k for k, _ in model.named_parameters()]
+
+    def mse(y, p):
+        return torch.mean((p.float() - y) ** 2)
+
+    def run(mesh, b):
+        opt = make_optimizer(conf, load_scheduler(conf))
+        if mesh is not None:
+            opt = ShardedOptimizer(opt, mesh, names, [tuple(p.shape) for p in model.parameters()])
+        seen, inner = {}, opt.update
+
+        def update(grads, st, params):  # the first step's gradient
+            seen.setdefault("g", [x.detach().clone() for x in grads])
+            return inner(grads, st, params)
+
+        opt.update = update
+        step = make_train_step(model, mse, opt, schema, device=device, mesh=mesh)
+        state = TrainState.create(model, opt)
+        shapes = {"conv": [], "ff": []}
+        conv0, ff0 = cuda_conv.conv2d_valid, cuda_ff.fused_ff
+
+        def conv_rec(x, k):
+            shapes["conv"].append(tuple(x.shape))
+            return conv0(x, k)
+
+        def ff_rec(x, *a, **kw):
+            shapes["ff"].append(tuple(x.shape[:-1]))
+            return ff0(x, *a, **kw)
+
+        # the wrappers count on their module's name, the recorders while they
+        # stand in; their counts go back to the wrappers after
+        _zero_counts()
+        conv_rec.launches, ff_rec.launches, ff_rec.split_launches = 0, 0, 0
+        D.COUNTS.clear()
+        cuda_conv.conv2d_valid, cuda_ff.fused_ff = conv_rec, ff_rec
+        try:
+            state, metrics = step(state, b)
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            cuda_conv.conv2d_valid, cuda_ff.fused_ff = conv0, ff0
+            conv0.launches += conv_rec.launches
+            ff0.launches += ff_rec.launches
+            ff0.split_launches += ff_rec.split_launches
+        counts, coll = _read_counts(), dict(D.COUNTS)
+        loss = float(metrics["loss"])
+        ms = None
+        if mesh is not None and cuda:
+            ms = cuda_ms(lambda: step(state, b), 1)
+        elif mesh is not None:
+            t0 = time.perf_counter()
+            step(state, b)
+            ms = (time.perf_counter() - t0) * 1e3
+        return {"loss": loss, "grads": seen["g"], "counts": counts, "collectives": coll,
+                "conv_rows": max(s[1] for s in shapes["conv"]),
+                "ff_rows": max(math.prod(s) for s in shapes["ff"]),
+                "ms": ms}
+
+    mesh = build_mesh(*dims)
+    mine = shard_batch(batch, mesh)
+    model.eval()
+
+    def draws():  # a noisy model's generator, the same on both sides
+        return ({"generator": torch.Generator(device=device).manual_seed(7)}
+                if getattr(model, "stochastic", False) else {})
+
+    with torch.no_grad():
+        with par_ctx.explicit_halo(mesh):
+            pred = model(mine["x"], **draws()).float()
+        want = model(batch["x"], **draws()).float().chunk(dims[0], dim=0)[mesh.coord("dp")]
+    diff, scale = (pred - want).abs(), want.abs().mean()
+    pred_err = (float(diff.max() / want.abs().max()), float(diff.mean() / scale),
+                float((diff.mean(dim=(0, 1, 3, 4)) / scale).max()))
+    del pred, want, diff
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    got = run(mesh, mine)
+    got["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    dist.barrier()
+    out = {**{k: v for k, v in got.items() if k != "grads"}, "pred_err": pred_err}
+    if rank == 0:  # the unsharded step, from the same weights, rank 1 waiting
+        model.load_state_dict(start)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ref = run(None, batch)
+        out["ref_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(got["grads"],
+                                                                             ref["grads"]))
+        den = sum(float(b.float().pow(2).sum()) for b in ref["grads"])
+        out.update(ref_loss=ref["loss"], ref_counts=ref["counts"], ref_conv_rows=ref["conv_rows"],
+                   ref_ff_rows=ref["ff_rows"], grad_rel=math.sqrt(num / den))
+    del model, start, batch, got
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _par_ring(torch, rank: int, device: str = "cuda", shape=(1, 721, 1440, 16)) -> dict:
+    """Ring-CRPS over the dp group of 2 ranks, each its member of a seeded
+    2-member 721x1440 ensemble of 16 fields, against the dense estimator
+    on the same members: the values and the largest error of this rank's
+    member's gradient, of its largest."""
+    from credit_torch.parallel.mesh import build_mesh
+    from credit_torch.parallel.ring_crps import dense_fair_crps, ring_crps
+
+    mesh = build_mesh(2, 1, 1)
+    g = torch.Generator(device=device).manual_seed(9)
+    members = torch.randn((2, *shape), generator=g, device=device)
+    target = torch.randn(shape, generator=g, device=device)
+    mem = members[rank].clone().requires_grad_(True)
+    loss = ring_crps(mem, target, mesh.group("dp"))
+    loss.backward()
+    m = members.clone().requires_grad_(True)
+    dense = dense_fair_crps(m, target)
+    dense.backward()
+    want = m.grad[rank]
+    return {"ring": loss.item(), "dense": dense.item(),
+            "grad_err": float((mem.grad - want).abs().max() / want.abs().max())}
+
+
+def parallel_rank(rank: int, world: int, root: str, device: str = "cuda",
+                  halo_shape=(800, 1440, 128)) -> int:
+    """One rank of phase 18(b, c): gloo over a FileStore in `root`, the
+    card shared; writes root/rank<r>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from credit_torch import _build
+    from credit_torch.applications.benchmark import benchmark_halo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        _build.library()
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    h, w, c = halo_shape
+    out = {"domain2": _par_step(torch, (1, 1, 2), 1, rank, device),
+           "ens_domain2": _par_step(torch, (1, 1, 2), 1, rank, device,
+                                    {**CONF_025_TRAIN, "type": "crossformer-ensemble"}),
+           "dp2": _par_step(torch, (2, 1, 1), 2, rank, device),
+           "ring": _par_ring(torch, rank, device, (1, 721, 1440, 16) if device == "cuda"
+                             else (1, 16, 32, 4)),
+           "halo": benchmark_halo(h=h, w=w, c=c, k=3, steps=5, dtype=torch.bfloat16,
+                                  device=device)}
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_path(torch, store_info, runs: dict, want_train: dict, want_valid: dict) -> None:
+    """Main path 15: (a) `credit train` through maybe_initialize (the
+    CREDIT_* variables, a file:// rendezvous) over NCCL at world size 1,
+    data: none, one step and one validation batch on main path 7's store,
+    the launches checked and the gradient all-reduced over NCCL; (b, c)
+    two ranks on the card over gloo (`parallel_rank`), each mesh step's
+    launches equal to the unsharded step's (kernel 2 on slabs: its largest
+    input has fewer rows than unsharded, as has kernel 1's), the loss and
+    prediction within PAR_PRED_TOL of the unsharded forward's, the loss
+    and gradient within PAR_LOSS_TOL / PAR_GRAD_TOL of the unsharded step,
+    ring-CRPS within PAR_RING_TOL of the dense CRPS, and benchmark_halo's
+    errors within PAR_HALO_TOL."""
+    import torch.distributed as dist
+
+    from credit_torch.applications import run_training
+    from credit_torch.parallel import distributed as D
+
+    store, stats, data, _ = store_info
+    root = os.path.join(os.path.dirname(store), "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    conf = fit_conf(CONF_025_TRAIN, data, store, stats, os.path.join(root, "run"),
+                    {**ZOO_TRAINER, "batches_per_epoch": 1, "parallelism": {"data": "none"}},
+                    *FIT_WINDOWS)
+    env = {"CREDIT_COORDINATOR": f"file://{os.path.join(root, 'nccl_store')}",
+           "CREDIT_NUM_PROCESSES": "1", "CREDIT_PROCESS_ID": "0"}
+    os.environ.update(env)
+    t0 = time.time()
+    _zero_counts()
+    D.COUNTS.clear()
+    try:
+        state = run_training(conf)
+        torch.cuda.synchronize()
+        counts, coll = _read_counts(), dict(D.COUNTS)
+        backend, world = dist.get_backend(), dist.get_world_size()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    rows = read_log(os.path.join(root, "run"))
+    log(f"  (a) run_training through maybe_initialize: backend {backend}, world size {world}, "
+        f"{time.time() - t0:.1f} s; collectives {coll}; log row {rows[1][:6]}; launches {counts}")
+    if (backend != "nccl" or world != 1 or state.step != 1 or coll.get("all_reduce", 0) < 2
+            or not all(math.isfinite(float(c)) for c in rows[1][1:])):
+        raise AssertionError("phase 18(a): the NCCL world-size-1 fit failed its checks")
+    _check_counts(counts, {k: want_train.get(k, 0) + want_valid.get(k, 0) for k in counts}, 1)
+    runs["par_fit_nccl"] = counts
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--parallel-rank", str(r), "--parallel-dir", root],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(PAR_TIMEOUT - (time.time() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                log(f"  rank {r} (rc {procs[r].returncode}):\n{f.read()[-4000:]}")
+        raise AssertionError("phase 18(b, c): a rank failed")
+    res = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    log(f"  (b, c) two ranks over gloo on one card: {time.time() - t0:.1f} s with start-up")
+    ok = True
+    for key, label in (("domain2", "(b) domain 2, halo explicit, batch 1"),
+                       ("ens_domain2", "(b) crossformer-ensemble, domain 2, batch 1"),
+                       ("dp2", "(c) data 2, batch 2 (1 a rank)")):
+        r0 = res[0][key]
+        loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        same = all(res[r][key]["counts"] == r0["ref_counts"] for r in range(2))
+        slabs = (r0["conv_rows"] < r0["ref_conv_rows"] and r0["ff_rows"] < r0["ref_ff_rows"]
+                 if key != "dp2" else r0["ff_rows"] < r0["ref_ff_rows"])
+        perr = [max(res[r][key]["pred_err"][i] for r in range(2)) for i in range(3)]
+        log(f"  {label}: prediction's difference from the unsharded forward's, largest over "
+            f"largest, mean over mean, worst row's mean over mean: rank 0 "
+            f"{', '.join(f'{e:.3e}' for e in res[0][key]['pred_err'])}, rank 1 "
+            f"{', '.join(f'{e:.3e}' for e in res[1][key]['pred_err'])} (limits "
+            f"{PAR_PRED_TOL}); loss "
+            f"{r0['loss']:.8f} vs unsharded {r0['ref_loss']:.8f} (rel "
+            f"{loss_rel:.3e}, limit {PAR_LOSS_TOL:g}); gradient rel {r0['grad_rel']:.3e} (limit "
+            f"{PAR_GRAD_TOL:g}); launches a rank {res[0][key]['counts']}, {res[1][key]['counts']}"
+            f" = unsharded {same}; kernel 2's largest input rows {r0['conv_rows']} (unsharded "
+            f"{r0['ref_conv_rows']}), kernel 1's rows {r0['ff_rows']} ({r0['ref_ff_rows']}); "
+            f"collectives {r0['collectives']}; second step {res[0][key]['ms']:.1f} / "
+            f"{res[1][key]['ms']:.1f} ms, peak a rank {r0['peak'] / 2**30:.2f}, "
+            f"{res[1][key]['peak'] / 2**30:.2f} GiB (the unsharded step's "
+            f"{r0['ref_peak'] / 2**30:.2f}; two ranks on one card: no throughput figure)")
+        ok = (ok and all(e <= t for e, t in zip(perr, PAR_PRED_TOL))
+              and loss_rel <= PAR_LOSS_TOL
+              and r0["grad_rel"] <= PAR_GRAD_TOL and same and slabs)
+        runs[f"par_{key}"] = {k: res[0][key]["counts"][k] + res[1][key]["counts"][k]
+                              for k in r0["counts"]}
+    ring = [x["ring"] for x in res]
+    dense = ring[0]["dense"]
+    gerr = max(x["grad_err"] for x in ring)
+    rerr = max(abs(x["ring"] - dense) for x in ring) / abs(dense)
+    log(f"  (c) ring-CRPS at 2 members: {[x['ring'] for x in ring]} vs dense {dense:.8f} (rel "
+        f"{rerr:.3e}), gradient rel {gerr:.3e} (limit {PAR_RING_TOL:g})")
+    halo = res[0]["halo"]
+    log(f"  benchmark_halo {halo['shape']} bf16 k3 x{halo['steps']}: fwd err "
+        f"{halo['fwd_err_explicit']:.3e}, grad err {halo['grad_err_explicit']:.3e}, collectives "
+        f"a step {halo['collectives_explicit']}, ms a step explicit "
+        f"{halo['ms_per_step_explicit']:.3f} (slowest rank "
+        f"{halo['ms_per_step_explicit_max_rank']:.3f}), unsharded "
+        f"{halo['ms_per_step_unsharded']:.3f} (limits {PAR_HALO_TOL})")
+    ok = (ok and rerr <= PAR_RING_TOL and gerr <= PAR_RING_TOL
+          and halo["fwd_err_explicit"] <= PAR_HALO_TOL[0]
+          and halo["grad_err_explicit"] <= PAR_HALO_TOL[1])
+    shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        raise AssertionError("phase 18(b, c) failed its checks")
+
+
 def fit_times(trainer) -> None:
     """Each epoch's batch assembly (host, producer thread), copy, train
     step and validation times of the trainer's run, and the train steps'
@@ -3945,7 +4327,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after main paths 1-5, profile a 2-step rollout / a training step "
                          "by kernel (main path 7's resumed epoch is profiled in every run)")
+    ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.parallel_rank is not None:  # one rank of phase 18, started by the phase
+        return parallel_rank(args.parallel_rank, 2, args.parallel_dir)
 
     import torch
 
@@ -4077,6 +4463,13 @@ def main() -> int:
     ensemble_path(torch, store, runs)
     torch.cuda.empty_cache()
     log(f"  phase 17: {time.time() - t17:.1f} s")
+    log("phase 18: main path 15, parallelism on the one card (run_training over NCCL at world "
+        "size 1; two ranks over gloo at domain 2 and at data 2; ring-CRPS)")
+    t18 = time.time()
+    parallel_path(torch, store, runs, expected_train_per_step(fwd_025, False),
+                  expected_per_step(CONF_025_TRAIN))
+    torch.cuda.empty_cache()
+    log(f"  phase 18: {time.time() - t18:.1f} s")
     shutil.rmtree(os.path.dirname(store[0]), ignore_errors=True)
 
     kernels = []
@@ -4086,6 +4479,8 @@ def main() -> int:
     # main path 14 (phase 17)
     ENS_PATHS = ("ens_rollout", "ens_rollout_bred", "ens_metrics", "ens_metrics_bred", "icopt",
                  "sdl_025")
+    # main path 15 (phase 18): all train steps
+    PAR_PATHS = ("par_fit_nccl", "par_domain2", "par_ens_domain2", "par_dp2")
     for name, counter, src, replaces, r, paths in [
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
@@ -4094,11 +4489,12 @@ def main() -> int:
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
               "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS,
-              *ENS_PATHS)),
+              *ENS_PATHS, *PAR_PATHS)),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc",
-              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS, *ENS_PATHS)),
+              "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS, *ENS_PATHS,
+              *PAR_PATHS)),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
              ("rollout_fuxi", "train_fuxi")),
@@ -4106,11 +4502,11 @@ def main() -> int:
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
              attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
                     "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025",
-                    *ZOO_PATHS, *ENS_PATHS)),
+                    *ZOO_PATHS, *ENS_PATHS, *PAR_PATHS)),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
              ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025", "skebs_ens_025",
-              "fit_nextgen", "train_camulator_ps", "fit_diffusion", "icopt")),
+              "fit_nextgen", "train_camulator_ps", "fit_diffusion", "icopt", *PAR_PATHS)),
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),

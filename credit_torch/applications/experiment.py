@@ -6,7 +6,10 @@ This is the gen2 application layer (reference:
 credit/applications/train_gen2.py:57 main_cli wiring and
 credit/applications/rollout_to_netcdf.py:195 predict) on one CUDA device:
 `run_training(conf)` is `credit train`, `run_rollout(conf)` is `credit
-rollout` to per-step netCDF files (an ensemble's members beside the
+rollout` to per-step netCDF files (both first join the process group the
+CREDIT_* or torchrun variables describe, parallel.distributed.
+maybe_initialize: training on the trainer.parallelism mesh, rollouts each
+rank its stride of the init times) (an ensemble's members beside the
 control with predict.ensemble_size > 1), and `diff_rollout` compares two
 such trees of files. `rollout_metrics.py` scores ensembles without files,
 `ensemble_eval.py` the trees run_rollout writes.
@@ -100,9 +103,14 @@ def prepare_training(conf: dict, seed: Optional[int] = None, device="cuda"):
 
 
 def run_training(conf: dict, seed: Optional[int] = None, device="cuda"):
-    """credit train (reference: applications/train_gen2.py) on one device:
-    CUDA unless the caller asks for the CPU. Returns the final TrainState."""
-    trainer, state, start_epoch, seed = prepare_training(conf, seed, device)
+    """credit train (reference: applications/train_gen2.py): CUDA unless
+    the caller asks for the CPU. The process group is joined first
+    (`maybe_initialize`: a no-op for one process); each rank runs on
+    cuda:<local rank>. Returns the final TrainState."""
+    from credit_torch.parallel.distributed import maybe_initialize, rank_device
+
+    maybe_initialize(conf, device)
+    trainer, state, start_epoch, seed = prepare_training(conf, seed, rank_device(device))
     return trainer.fit(state, seed=seed, start_epoch=start_epoch)
 
 
@@ -197,8 +205,11 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
     (`ensemble_members`). Returns the written paths."""
     from credit_torch.forecast import strided_for_rank
     from credit_torch.output import save_netcdf_increment
+    from credit_torch.parallel.distributed import (maybe_initialize, rank, rank_device,
+                                                   world_size)
 
-    dev = resolve_device(device)
+    maybe_initialize(conf, device)
+    dev = resolve_device(rank_device(device))
     pconf = conf.get("predict", {}) or {}
     exp, engine = _load_engine(conf, dev, use_ema)
     n_steps = n_steps or int(pconf.get("forecast_steps", 4))
@@ -207,9 +218,9 @@ def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[st
     lead_hours = int(conf.get("data", {}).get("lead_time_periods", 6))
     schema, grid = exp["schema"], exp["grid"]
     dataset = exp["dataset"]
-    # rank-strided multi-init loop (reference: rollout_to_netcdf.py:266);
-    # the port runs one process until parallel/ is ported (item 8)
-    inits = strided_for_rank(_resolve_init_indices(pconf, dataset), 0, 1)
+    # rank-strided multi-init loop (reference: rollout_to_netcdf.py:266):
+    # each rank rolls out its stride of the init list
+    inits = strided_for_rank(_resolve_init_indices(pconf, dataset), rank(), world_size())
     written = []
     for t0, label in inits:
         x0 = dataset.input_at(t0)[None]

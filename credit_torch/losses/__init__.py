@@ -6,8 +6,8 @@ Layout is channels-last (B, T, lat, lon, C); ensemble losses take the
 prediction with an ensemble axis 1, (B, E, T, lat, lon, C). Elementwise and
 CRPS losses return unreduced fields; `WeightedLoss` applies the weights and
 takes the mean; `DownscalingLoss` is its form for regional downscaling
-configs. The device-ring `ring-crps` (with parallel/, ROADMAP queue 1,
-item 8) is not ported yet and raises.
+configs. `ring-crps` runs the device ring (parallel/ring_crps.py) when
+given a process group, the dense fair estimator otherwise.
 """
 
 from __future__ import annotations
@@ -103,15 +103,20 @@ def crps_ensemble(target, pred):
     return kcrps(target, pred, biased=False)
 
 
-_RING_CRPS = ("loss 'ring-crps' is not ported yet (parallel/ring_crps.py: ROADMAP queue 1, "
-              "item 8)")
-
-
 @registry.register("loss", "ring-crps")
 def ring_crps_loss(target, pred, axis_name=None):
-    """The device-ring CRPS (one member per data-parallel device) waits for
-    parallel/ (ROADMAP queue 1, item 8)."""
-    raise NotImplementedError(_RING_CRPS)
+    """Ring CRPS (reference: credit/losses/crps.py RingCRPSLoss: one member
+    per dp rank, m - 1 shifts). With `axis_name` a process group (the dp
+    group of a mesh: `mesh.group("dp")`), `pred` is this rank's member and
+    the result the ring's scalar fair CRPS
+    (credit_torch.parallel.ring_crps.ring_crps); otherwise the numerically
+    identical dense fair estimator on the ensemble axis, as credit_tpu
+    falls back outside shard_map."""
+    if axis_name is not None:
+        from credit_torch.parallel.ring_crps import ring_crps
+
+        return ring_crps(pred, target, axis_name)
+    return kcrps(target, pred, biased=False)
 
 
 # --------------------------------------------------------------------------
@@ -177,8 +182,6 @@ def covariance_weighted_mse(target, pred):
 
 def load_loss(name: str, **kw) -> Callable:
     """Look up a loss by config key (reference: credit/losses/__init__.py:176)."""
-    if name == "ring-crps":
-        raise NotImplementedError(_RING_CRPS)
     fn = registry.get("loss", name)
     return functools.partial(fn, **kw) if kw else fn
 

@@ -10,6 +10,16 @@ zero-initialised 3x3 `sharp` residual (`sharp_skip`, no spectral norm),
 unpad with the original pad sizes, bilinear recovery of the native grid
 (or of `out_image_height/width`), channels to frames. Input
 (B, T, H, W, C_in), output (B, T_out, H, W, C_out).
+
+Under a mesh with domain > 1 (`parallel.context.explicit_halo`) the
+forward is lat-sharded (`_forward_slabs`, which crossformer-ensemble's
+forward shares): the earth padding (and the cube embed) run on the whole
+field, each domain rank then keeps its latitude slab of the padded grid.
+A stage runs on slabs while its output rows split evenly over the ranks,
+and on the whole field (gathered) from the first that does not, until an
+up-block's output splits again; the skips are cut or gathered to match. The last decoder output is gathered (each rank then computes the
+same unpad, bilinear recovery and loss), so every domain rank returns the
+whole prediction.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from credit_torch import registry
 from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames, frames_to_channels
 from credit_torch.models.layers import (Conv, ConvTranspose, CrossEmbedLayer, CubeEmbedding,
                                         Transformer, UpBlock, UpBlockPS)
+from credit_torch.parallel import context as par_ctx
 from credit_torch.ops.padding import TensorPadding
 from credit_torch.ops.upsample import bilinear_resize, pixel_shuffle
 
@@ -72,7 +83,7 @@ class CrossFormer(BaseModel):
         self.dims = dims = _tup(dim)
         depths = _tup(depth)
         gws, lws = _tup(global_window_size), _tup(local_window_size)
-        strides = _tup(cross_embed_strides)
+        self.strides = strides = _tup(cross_embed_strides)
         ksizes = tuple(tuple(k) for k in cross_embed_kernel_sizes)
         pconf = padding_conf or {"activate": False}
         self.padder = TensorPadding(**pconf) if pconf.get("activate") else None
@@ -110,7 +121,13 @@ class CrossFormer(BaseModel):
         """Channels of one input frame as the encoder sees it."""
         return self.base_input_channels
 
+    # the forward splits latitude over the domain ranks (_forward_slabs); a
+    # subclass with a forward of its own that does not sets this False
+    lat_sharded = True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if par_ctx.halo_mesh_active():
+            return self._forward_slabs(x)
         if self.padder is not None:
             x = self.padder.pad(x)
         if self.cube:
@@ -140,4 +157,77 @@ class CrossFormer(BaseModel):
         if self.interp:
             x = bilinear_resize(x, self.out_image_height or self.image_height,
                                 self.out_image_width or self.image_width)
+        return channels_to_frames(x, self.output_frames)
+
+    def _forward_slabs(self, x: torch.Tensor, inject=None, out_hw=None) -> torch.Tensor:
+        """forward with latitude split over the mesh's domain ranks (see
+        the module); the same function of x on every domain rank.
+        `inject(point, t, on_slabs) -> t` is called on the encoder skips
+        ("skip2", "skip1", "skip0") after the encoder, then on the
+        up-blocks' outputs ("up1" to "up3"), with whether t is a slab (the
+        ensemble's noise injection); `out_hw` is the bilinear recovery's
+        grid, (out_image_height or image_height, ...) by default."""
+        from credit_torch.parallel.halo import gather_lat, scale_grad, shard_lat
+
+        mesh = par_ctx.mesh()
+        group, n, r = mesh.group("domain"), mesh.shape["domain"], mesh.coord("domain")
+        if self.padder is not None:
+            x = self.padder.pad(x)
+        if self.cube:
+            x = self.cube_embedding(x)
+        x = frames_to_channels(x)
+        sh = x.shape[1] % n == 0
+        if sh:
+            x = shard_lat(x, n, r)
+
+        def run(fn, t, on_slabs):
+            with par_ctx.lat_slabs(on_slabs):
+                return fn(t)
+
+        encodings = []
+        for i in range(4):
+            rows = x.shape[1] * n if sh else x.shape[1]
+            if sh and (rows % self.strides[i] or (rows // self.strides[i]) % n):
+                x, sh = gather_lat(x, group), False  # this stage's rows do not split
+            x = run(getattr(self, f"cel{i}"), x, sh)
+            x = run(getattr(self, f"transformer{i}"), x, sh)
+            encodings.append((x, sh))
+        if inject is not None:
+            for i in (2, 1, 0):
+                e, e_sh = encodings[i]
+                encodings[i] = (inject(f"skip{i}", e, e_sh), e_sh)
+
+        def up(i, t, t_sh):
+            t = run(getattr(self, f"up_block{i}"), t, t_sh)
+            return t if inject is None else inject(f"up{i}", t, t_sh)
+
+        def join(t, t_sh, skip):
+            e, e_sh = skip
+            if t_sh and not e_sh:
+                t, t_sh = gather_lat(t, group), False
+            elif e_sh and not t_sh:
+                t, t_sh = shard_lat(t, n, r), True
+            return torch.cat([t, e], dim=-1), t_sh
+
+        x, sh = join(up(1, x, sh), sh, encodings[2])
+        x, sh = join(up(2, x, sh), sh, encodings[1])
+        x, sh = join(up(3, x, sh), sh, encodings[0])
+
+        def head(t):
+            if self.upsample_with_ps:
+                t = self.up4_refine(pixel_shuffle(self.up4_ps_conv(t), 2))
+            else:
+                t = self.up_block4(t)
+            return t + self.sharp(t) if self.sharp is not None else t
+
+        x = run(head, x, sh)
+        # every domain rank computes the same from here on: a gather whose
+        # backward keeps this rank's rows, or (a whole field already) each
+        # rank's gradient counted once in the sum over the ranks
+        x = gather_lat(x, group, same_downstream=True) if sh else scale_grad(x, 1.0 / n)
+        if self.padder is not None:
+            x = self.padder.unpad(x)
+        if self.interp:
+            x = bilinear_resize(x, *(out_hw or (self.out_image_height or self.image_height,
+                                                self.out_image_width or self.image_width)))
         return channels_to_frames(x, self.output_frames)

@@ -39,6 +39,7 @@ from torch import nn
 
 from credit_torch.models.spectral_utils import sn_kernel
 from credit_torch.ops import conv as conv_ops
+from credit_torch.parallel import context as par_ctx
 from credit_torch.ops import window_attention as wa
 from credit_torch.ops.cuda_attention import fused_window_attention_diff
 from credit_torch.ops.cuda_ff import fused_ff_diff
@@ -194,8 +195,15 @@ class GroupNorm(nn.Module):
         shape = x.shape
         c = shape[-1]
         xf = x.float().reshape(shape[0], -1, self.num_groups, c // self.num_groups)
-        mean = xf.mean(dim=(1, 3), keepdim=True)
-        var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+        dom = par_ctx.domain_group()
+        if dom is not None:  # a latitude slab: the moments over every domain rank's rows
+            from credit_torch.parallel.halo import distributed_group_norm_moments
+
+            mean, var = distributed_group_norm_moments(x, self.num_groups, dom[0])
+            mean, var = mean[:, None, :, None], var[:, None, :, None]
+        else:
+            mean = xf.mean(dim=(1, 3), keepdim=True)
+            var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
         y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(shape)
         return (y * self.scale.float() + self.bias.float()).to(self.dtype)
 
@@ -259,13 +267,56 @@ class WindowAttention(nn.Module):
         return bias
 
     def forward(self, x):
+        dom = par_ctx.domain_group()
+        if dom is not None and not (self.attn_type == "short"
+                                    and x.shape[1] % self.window_size == 0):
+            # a long window spans every slab (and a short one may straddle
+            # two): the gather path, attention on the whole field
+            return par_ctx.on_full(self._attend, x, dom)
+        return self._attend(x)
+
+    def _attend(self, x):
         b, h, w, _ = x.shape
+        mesh = par_ctx.mesh()
+        tp = mesh.shape["tp"] if mesh is not None else 1
+        if tp > 1:
+            from credit_torch.parallel.halo import copy_to_group
+
+            x = copy_to_group(x, mesh.group("tp"))
         x = self.norm(x)
         xw = wa.window_partition(x, self.window_size, self.attn_type)
-        q, k, v = self.to_qkv(xw).split(self.inner, dim=-1)
-        out = fused_window_attention_diff(q, k, v, self.position_bias(), self.heads)
-        out = self.to_out(out)
+        if tp == 1:
+            q, k, v = self.to_qkv(xw).split(self.inner, dim=-1)
+            out = fused_window_attention_diff(q, k, v, self.position_bias(), self.heads)
+            out = self.to_out(out)
+        else:
+            out = self._attend_tp(xw, mesh, tp)
         return wa.window_unpartition(out, self.window_size, h, w, self.attn_type)
+
+    def _attend_tp(self, xw, mesh, tp: int):
+        """Heads split over the tp ranks: this rank's heads' q, k and v
+        columns of to_qkv (head-major within each of q, k, v, not
+        contiguous columns of [q|k|v]), kernel 3 on heads / tp, this rank's
+        rows of to_out, the partial outputs all-reduced (the bias added
+        once, by tp rank 0)."""
+        from credit_torch.parallel.halo import all_reduce_sum
+
+        if self.heads % tp:
+            raise ValueError(f"{self.heads} heads do not split over tensor={tp}")
+        t = mesh.coord("tp")
+        width = self.inner // tp
+        cols = slice(t * width, (t + 1) * width)
+        wq, wk, wv = self.to_qkv.sn_kernel().to(self.dtype).split(self.inner, dim=-1)
+        kern = torch.cat([wq[:, cols], wk[:, cols], wv[:, cols]], dim=-1)
+        xw = xw.to(self.dtype)
+        qkv = (xw.reshape(-1, xw.shape[-1]) @ kern).reshape(*xw.shape[:-1], 3 * width)
+        q, k, v = qkv.split(width, dim=-1)
+        out = fused_window_attention_diff(q, k, v, self.position_bias(), self.heads // tp)
+        y = out.reshape(-1, width) @ self.to_out.sn_kernel().to(self.dtype)[cols]
+        y = y.reshape(*out.shape[:-1], y.shape[-1])
+        if t == 0:
+            y = y + self.to_out.bias.to(self.dtype)
+        return all_reduce_sum(y, mesh.group("tp"), reduce_grad=False)
 
 
 @contextlib.contextmanager
@@ -382,8 +433,17 @@ class CrossEmbedLayer(nn.Module):
                     kernels.append(kbig[a * kb:(a + 1) * kb, bq * kb:(bq + 1) * kb])
                     biases.append(torch.zeros_like(big.bias))
             kmerged = torch.cat(kernels, dim=-1).to(self.dtype)
-            out = conv_ops.conv2d(x, kmerged, torch.cat(biases), stride=2,
-                                  padding=(kmax - 2) // 2)
+            dom = par_ctx.domain_group()
+            if dom is None:
+                out = conv_ops.conv2d(x, kmerged, torch.cat(biases), stride=2,
+                                      padding=(kmax - 2) // 2)
+            elif x.shape[1] % 2 == 0 and x.shape[1] >= (kmax - 2) // 2:
+                # a slab: the local s2d gives this rank's rows and the
+                # quadrants' overlap, which the offsets below cut
+                out = conv_ops.s2d_halo(x, kmerged, torch.cat(biases),
+                                        ((kmax - 2) // 2,) * 2, dom)
+            else:
+                return par_ctx.on_full(self.forward, x, dom)
             e = (kmax - kb) // 4
             h2 = out.shape[1] - 2 * e
             w2 = out.shape[2] - 2 * e

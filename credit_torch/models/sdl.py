@@ -7,7 +7,10 @@ noise modulated by a style vector; crossformer_ensemble.py:9
 CrossFormerWithNoise, SDL injection on the encoder skips and after each
 decoder up-block). It is built from the CrossFormer's layers, so the
 port's kernels carry it; the injection itself is an elementwise
-multiply-add and one small linear layer in plain PyTorch.
+multiply-add and one small linear layer in plain PyTorch. Under a mesh
+with domain > 1 it runs the CrossFormer's lat-sharded forward: every
+domain rank draws the latent and each layer's pixel noise of the whole
+field, as one process does, and injects its slab's rows of it.
 
 Noise comes from the `generator` passed to the forward (on the input's
 device; torch's default generator when None), so CUDA and CPU draws differ
@@ -30,6 +33,7 @@ from credit_torch.models.base import channels_to_frames, frames_to_channels
 from credit_torch.models.crossformer import CrossFormer
 from credit_torch.models.layers import Dense
 from credit_torch.ops.upsample import bilinear_resize
+from credit_torch.parallel import context as par_ctx
 
 # the injection points in credit_tpu's order of draws: the encoder skips
 # (encodings 2, 1, 0), then after up-blocks 1-3
@@ -53,12 +57,13 @@ class StochasticDecompositionLayer(nn.Module):
         self.modulation = nn.Parameter(torch.ones(channels))
         self.noise_factor = nn.Parameter(torch.tensor(float(noise_factor)))
 
-    def draw(self, feature: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw(self, feature: torch.Tensor, generator: Optional[torch.Generator] = None,
+             rows: Optional[int] = None) -> torch.Tensor:
         """The pixel noise of `feature`'s shape that forward draws when it
-        is given none."""
-        return torch.randn(feature.shape, generator=generator, device=feature.device,
-                           dtype=self.dtype)
+        is given none; with `rows`, of that many latitude rows (the whole
+        field's, where feature is a slab of it)."""
+        shape = feature.shape if rows is None else (feature.shape[0], rows, *feature.shape[2:])
+        return torch.randn(shape, generator=generator, device=feature.device, dtype=self.dtype)
 
     def forward(self, feature: torch.Tensor, latent: torch.Tensor,
                 pixel: Optional[torch.Tensor] = None,
@@ -116,12 +121,27 @@ class CrossFormerWithNoise(CrossFormer):
         if capture is not None:
             capture["latent"] = latent
 
-        def inject(name, feat):
+        def inject(name, feat, n_slabs=1):
             layer, pixel = getattr(self, name), noise.get(name)
+            if pixel is None and (capture is not None or n_slabs > 1):
+                pixel = layer.draw(feat, generator, feat.shape[1] * n_slabs)
             if capture is not None:
-                pixel = capture[name] = layer.draw(feat, generator) if pixel is None else pixel
+                capture[name] = pixel
+            if n_slabs > 1:  # this rank's rows of the whole field's noise
+                from credit_torch.parallel.halo import shard_lat
+
+                pixel = shard_lat(pixel, n_slabs, par_ctx.mesh().coord("domain"))
             return layer(feat, latent, pixel, generator)
 
+        if par_ctx.halo_mesh_active():
+            names = {**({f"skip{i}": nm for nm, i in zip(ENCODER_NOISE, (2, 1, 0))}
+                        if self.encoder_noise else {}),
+                     **{f"up{i}": nm for i, nm in enumerate(DECODER_NOISE, 1)}}
+            n = par_ctx.mesh().shape["domain"]
+            return self._forward_slabs(
+                x, lambda point, t, sh: (inject(names[point], t, n if sh else 1)
+                                         if point in names else t),
+                (self.image_height, self.image_width))
         if self.padder is not None:
             x = self.padder.pad(x)
         x = frames_to_channels(x)

@@ -17,6 +17,22 @@ credit_tpu runs `lax.conv_general_dilated` (no Pallas kernel of the
 reference computes them). Padding takes credit_tpu's forms: an int, a
 (h, w) pair, or "VALID" / "SAME" / "SAME_LOWER" (lax's), and for conv3d an
 int, three (low, high) pairs or one of those strings.
+
+The explicit-halo seam (credit_tpu's `explicit_halo`, ops/conv.py:60-160,
+355-375): where parallel/context.py says the ops see latitude slabs
+(`explicit_halo(mesh)` and `lat_slabs()`), conv2d and conv_transpose2d take
+this rank's slab (B, L, W, C) of a global (B, L * n, W, C) field:
+size-preserving stride-1 convs run kernel 2 on the slab extended by the
+halo exchange (latitude VALID, longitude padded locally); even-kernel
+stride-2 convs whose output is half the input run a local space-to-depth
+with latitude padding 0 on the slab extended by their padding (the slabs
+start on even rows); the k = 2p + 2 transposes run the local phase conv
+with its tap halo; 1x1 convs are local. Any other form, and a slab shorter
+than its halo or of odd height for a stride-2 conv, takes the gather path
+(`context.on_full`): the slabs all-gathered (a reduce-scatter backward), the
+conv on the whole field, this rank's rows of the output. credit_tpu hands
+those to GSPMD. Kernel 5's weight gradient is then per slab, and the
+trainer sums it over the domain ranks with the other gradients.
 """
 
 from __future__ import annotations
@@ -27,6 +43,31 @@ import torch
 import torch.nn.functional as F
 
 from credit_torch.ops import cuda_conv
+from credit_torch.parallel import context as par_ctx
+from credit_torch.parallel.halo import halo_exchange
+
+def s2d_halo(x: torch.Tensor, kernel: torch.Tensor, bias, pad: Tuple[int, int], dom=None):
+    """Stride-2 even-kernel conv of a slab of even height: the local
+    space-to-depth conv on the slab extended by pad[0] halo rows, latitude
+    padding 0. Returns (L + 2 * pad[0] - kh) // 2 + 1 rows: the global
+    output's rows from L/2 * rank on (L/2 of them when pad[0] = (kh-2)/2,
+    more for the CrossEmbedLayer's quadrant form, which cuts them)."""
+    group = (dom or par_ctx.domain_group())[0]
+    return _conv2d_s2d(halo_exchange(x, pad[0], group), kernel, bias, (0, pad[1]))
+
+
+def _slab_conv2d(x, kernel, bias, stride, padding, dom):
+    s = _pair(stride)
+    kh, kw = kernel.shape[0], kernel.shape[1]
+    rows = x.shape[1]
+    if not isinstance(padding, str):
+        ph, pw = _pair(padding)
+        if s == (1, 1) and 2 * ph == kh - 1 and rows >= ph:
+            return valid_conv(_pad_hw(halo_exchange(x, ph, dom[0]), 0, 0, pw, pw), kernel, bias)
+        if (s == (2, 2) and kh % 2 == 0 and kw % 2 == 0 and ph == (kh - 2) // 2
+                and rows % 2 == 0 and rows >= ph):
+            return s2d_halo(x, kernel, bias, (ph, pw), dom)
+    return par_ctx.on_full(lambda t: conv2d(t, kernel, bias, stride, padding), x, dom)
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -101,6 +142,9 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=1,
     other padding forms (see the module). x: (N, H, W, Cin); kernel: (kh,
     kw, Cin, Cout). Strides 1 and 2 run kernel 2, any other stride
     PyTorch's conv."""
+    dom = par_ctx.domain_group()
+    if dom is not None:
+        return _slab_conv2d(x, kernel, bias, stride, padding, dom)
     s = _pair(stride)
     kh, kw = kernel.shape[0], kernel.shape[1]
     (top, bottom), (left, right) = _pads(padding, x.shape[1:3], (kh, kw), s)
@@ -154,8 +198,12 @@ def conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=2,
     s = _pair(stride)
     ph, pw = _pair(padding)
     kh, kw = kernel.shape[0], kernel.shape[1]
+    dom = par_ctx.domain_group()
     if s == (2, 2) and kh == 2 * ph + 2 and kw == 2 * pw + 2:
-        return _conv_transpose2d_d2s(x, kernel, bias, (ph, pw))
+        return _conv_transpose2d_d2s(x, kernel, bias, (ph, pw), dom)
+    if dom is not None:
+        return par_ctx.on_full(lambda t: conv_transpose2d(t, kernel, bias, stride, padding),
+                               x, dom)
     return _torch_conv(F.conv_transpose2d, x, kernel.permute(2, 3, 0, 1), bias, stride=s,
                        padding=(ph, pw))
 
@@ -200,11 +248,20 @@ def phase_kernel(kernel: torch.Tensor, pad: Tuple[int, int]):
     return torch.stack(rows, dim=0), (dh0, dh1, dw0, dw1)
 
 
-def _conv_transpose2d_d2s(x, kernel, bias, pad: Tuple[int, int]):
+def _conv_transpose2d_d2s(x, kernel, bias, pad: Tuple[int, int], dom=None):
+    """On a slab (dom given): the phase window's rows come from the halo
+    exchange, max(-dh0, dh1) rows a side, cut to the window."""
     n, h, w, _ = x.shape
     cout = kernel.shape[-1]
     k2, (dh0, dh1, dw0, dw1) = phase_kernel(kernel, pad)
-    xp = _pad_hw(x, -dh0, dh1, -dw0, dw1)
+    if dom is not None:
+        halo = max(-dh0, dh1)
+        if h < halo:
+            return par_ctx.on_full(lambda t: _conv_transpose2d_d2s(t, kernel, bias, pad), x, dom)
+        xe = halo_exchange(x, halo, dom[0])[:, halo + dh0:halo + h + dh1]
+        xp = _pad_hw(xe, 0, 0, -dw0, dw1)
+    else:
+        xp = _pad_hw(x, -dh0, dh1, -dw0, dw1)
     y = valid_conv(xp, k2)
     # depth-to-space: (N, H, W, 2, 2, C) -> (N, 2H, 2W, C)
     y = y.reshape(n, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)

@@ -28,6 +28,7 @@ from credit_torch import resolve_device
 from credit_torch.data.channels import ChannelSchema
 from credit_torch.data.normalize import Normalizer
 from credit_torch.models.layers import position_bias_cache
+from credit_torch.parallel import context as par_ctx
 from credit_torch.postblock import apply_postblocks
 from credit_torch.postblock.stochastic import (apply_postblocks_stateful, init_postblock_states,
                                                split_postblock_params)
@@ -43,24 +44,39 @@ def _advance(schema: ChannelSchema, x, y_pred, forcing, history_len: int):
 
 
 def make_scan_rollout(model, schema: ChannelSchema, n_steps: int, history_len: int = 1,
-                      with_forcing: bool = False, device="cuda"):
+                      with_forcing: bool = False, device="cuda", mesh=None):
     """N-step rollout. Returns run(x0[, forcings]) -> (final_x, stats) where
     stats is (n_steps, C): each step's per-channel mean of y_pred over
     (B, T, H, W). forcings: (S, B, 1, H, W, n_dyn) when with_forcing. No
-    postblocks, as in the reference's scan rollout."""
+    postblocks, as in the reference's scan rollout. With a `mesh`
+    (parallel.mesh.Mesh; credit_tpu/rollout.py:222-241) the steps run under
+    explicit_halo(mesh): each dp coordinate rolls out its rows of x0 (the
+    lat-sharded models split latitude over the domain ranks), and the final
+    state and the means are gathered whole over dp."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def run(x0: torch.Tensor, forcings: Optional[torch.Tensor] = None):
         x = x0.to(dev)
+        dp = 1 if mesh is None else mesh.shape["dp"]
+        if dp > 1:
+            x = x.chunk(dp)[mesh.coord("dp")]
+            if with_forcing:
+                forcings = forcings.chunk(dp, dim=1)[mesh.coord("dp")]
         stats = []
-        with position_bias_cache(model):
+        with position_bias_cache(model), par_ctx.explicit_halo(mesh):
             for s in range(n_steps):
                 y = model(x)
                 x = _advance(schema, x, y, forcings[s].to(dev) if with_forcing else None,
                              history_len)
-                stats.append(y.float().mean(dim=(0, 1, 2, 3)).to(y.dtype))
-        return x, torch.stack(stats)
+                stats.append(y.float().mean(dim=(0, 1, 2, 3)))
+        stats = torch.stack(stats)
+        if dp > 1:
+            from credit_torch.parallel import distributed as D
+
+            x = D.all_gather(x, 0, mesh.group("dp"))
+            stats = D.all_reduce(stats, mesh.group("dp")) / dp
+        return x, stats.to(y.dtype)
 
     return run
 
@@ -78,12 +94,17 @@ class RolloutEngine:
     noisy model and the stateful blocks draw from the engine's generator
     (seeded by `reset`, 0 unless given). `postblock_params` are the
     trainable blocks' nets' tensors as a checkpoint holds them
-    (`_postblocks.<i>.<name>`); the engine splits them off by block."""
+    (`_postblocks.<i>.<name>`); the engine splits them off by block. With a
+    `mesh` each step runs under explicit_halo(mesh) (a lat-sharded model
+    splits latitude over the domain ranks; every rank gets the whole
+    prediction)."""
 
     def __init__(self, model, schema: ChannelSchema, normalizer: Optional[Normalizer] = None,
                  history_len: int = 1, postblocks: Optional[Sequence[Callable]] = None,
-                 postblock_params: Optional[Dict[str, torch.Tensor]] = None, device="cuda"):
+                 postblock_params: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model
         self.schema = schema
         self.normalizer = normalizer
@@ -119,7 +140,8 @@ class RolloutEngine:
         x = x.to(self.device)
         if self._gen is None or (self._has_stateful and not self._states):
             self.reset(x.shape[0])
-        y = self.model(x, generator=self._gen) if self._stochastic else self.model(x)
+        with par_ctx.explicit_halo(self.mesh):
+            y = self.model(x, generator=self._gen) if self._stochastic else self.model(x)
         if self._has_stateful:
             y, self._states = apply_postblocks_stateful(self.postblocks, y, x, self._states,
                                                         self._gen, self.pb_params)

@@ -9,7 +9,11 @@ the gradients and keeps the parameters through `torch.where` (no host
 read), then the EMA. Validation: a DDIM sample of the first target frame
 from the EMA weights, scored by MSE. The config's `diffusion` section sets
 timesteps (1000), sampling_timesteps (20), beta_schedule (sigmoid),
-objective (pred_v) and ddim_eta (0).
+objective (pred_v) and ddim_eta (0). Under trainer.parallelism both steps
+run as the main trainer's do: under explicit_halo(mesh) (the CrossFormer
+denoiser lat-sharded), the gradients and the loss reduced over the group,
+the EMA in the sharded optimizer's chunks (made whole for validation),
+the validation loss averaged over the group.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import torch
 from credit_torch import registry
 from credit_torch.diffusion import GaussianDiffusion
 from credit_torch.models.layers import freeze_sn_updates
-from credit_torch.trainers.trainer import (Trainer, TrainState, _ema_decay, _prepare,
-                                           global_norm)
+from credit_torch.parallel import context as par_ctx
+from credit_torch.trainers.trainer import (Trainer, TrainState, _ema_decay, _global_loss,
+                                           _Parallel, _prepare, global_norm)
 
 
 @registry.register("trainer", "era5-diffusion")
@@ -43,6 +48,7 @@ class DiffusionTrainer(Trainer):
             beta_schedule=d.get("beta_schedule", "sigmoid"),
             objective=d.get("objective", "pred_v"), ddim_eta=float(d.get("ddim_eta", 0.0)))
         self._eval_step = self.diffusion_eval_step
+        self._par = None  # the mesh's gradient divisors, made at the first step
 
     def _train_step_for(self, flen: int):
         """Single-step denoising whatever the scheduled rollout length."""
@@ -57,15 +63,23 @@ class DiffusionTrainer(Trainer):
         for p in params.values():
             p.grad = None
         batch = _prepare(batch, self.device, self.normalizer, self.schema)
-        with freeze_sn_updates(True):
+        with freeze_sn_updates(True), par_ctx.explicit_halo(self.mesh):
             loss = self.gd.loss(batch["x"], batch["y"][:, :1], state.noise)
         loss.backward()
         names = list(state.opt_state["mu"])
         plist = [params[k] for k in names]
-        finite = torch.isfinite(loss.detach())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in plist]
+        loss = loss.detach()
+        if self.mesh is not None:
+            from credit_torch.parallel.sharding import reduce_gradients
+
+            if self._par is None:
+                self._par = _Parallel(self.mesh, mdl, names)
+            grads = reduce_gradients(grads, self._par.divisors)
+            loss = _global_loss(loss, self._par)
+        finite = torch.isfinite(loss)
         with torch.no_grad():
-            grads = [torch.where(finite, p.grad, 0.0) if p.grad is not None
-                     else torch.zeros_like(p) for p in plist]
+            grads = [torch.where(finite, g, 0.0) for g in grads]
             updates, opt_state = self.optimizer.update(grads, state.opt_state, plist)
             if updates is not None:
                 new = torch._foreach_add(plist, updates)
@@ -75,13 +89,15 @@ class DiffusionTrainer(Trainer):
             if ema is not None:
                 d = _ema_decay(self.ema_decay if self.use_ema else 0.0, state.step)
                 evals = [ema[k] for k in names]
+                view = getattr(self.optimizer, "view", None)
+                cur = plist if view is None else [view(k, p) for k, p in zip(names, plist)]
                 torch._foreach_mul_(evals, d)
-                torch._foreach_add_(evals, plist, alpha=1.0 - d)
+                torch._foreach_add_(evals, cur, alpha=1.0 - d)
             gnorm = global_norm(grads)
         for p in plist:
             p.grad = None
         new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise, state.nets)
-        return new_state, {"loss": loss.detach(), "grad_norm": gnorm,
+        return new_state, {"loss": loss, "grad_norm": gnorm,
                            "finite": finite.float()}
 
     def diffusion_eval_step(self, state: TrainState, batch,
@@ -92,7 +108,10 @@ class DiffusionTrainer(Trainer):
         mdl.eval()
         tensors = None
         if state.ema_params is not None:
-            tensors = {**state.ema_params, **dict(mdl.named_buffers())}
+            ema = state.ema_params
+            if self.mesh is not None:
+                ema = dict(zip(ema, self.optimizer.unshard(ema)))
+            tensors = {**ema, **dict(mdl.named_buffers())}
 
         def backbone(cond, y_noisy, t_frac):
             kw = {"y_noisy": y_noisy, "t_frac": t_frac}
@@ -100,8 +119,13 @@ class DiffusionTrainer(Trainer):
                 return mdl(cond, **kw)
             return torch.func.functional_call(mdl, tensors, (cond,), kw)
 
-        with torch.no_grad():
+        with torch.no_grad(), par_ctx.explicit_halo(self.mesh):
             batch = _prepare(batch, self.device, self.normalizer, self.schema)
             y0 = batch["y"][:, :1]
             sample = self.gd.sample(batch["x"], y0.shape, generator, backbone)
-            return {"loss": torch.mean((sample - y0) ** 2)}
+            out = {"loss": torch.mean((sample - y0) ** 2)}
+        if self.mesh is None:
+            return out
+        from credit_torch.parallel.sharding import all_reduce_mean
+
+        return all_reduce_mean(out)

@@ -45,11 +45,25 @@ its parameters named `_postblocks.<i>.<name>`), updated with the model by
 the optimizer, the clip, MultiSteps and the EMA, kept in the checkpoint;
 validation runs the EMA's copy of it.
 
+`trainer.parallelism: {data, tensor, domain, halo}` runs the step on a
+(dp, tp, domain) mesh of processes, one GPU each (parallel/): each dp
+coordinate samples its own rows of the batch, tp and domain peers the same
+rows; the forward runs under `parallel.context.explicit_halo(mesh)`, where
+the CrossFormer family splits latitude over the domain ranks and the
+attention blocks split heads over the tp ranks (other models compute the
+whole field on every domain rank, which the trainer logs once); the
+gradients are summed over the group in one all-reduce
+(`parallel.sharding.reduce_gradients`), the NaN guard reads the mean loss
+over the group, the AdamW moments and the EMA are sharded by
+`param_spec` (`ShardedOptimizer`), the metrics are averaged over the group,
+and only the primary process writes the schema, the log and checkpoints,
+which hold whole tensors (a run resumes at any world size). credit_tpu's
+`halo: gspmd` is accepted and runs the explicit exchange: the port has no
+GSPMD. `flatten_optimizer` with data > 1 is refused as in credit_tpu.
+
 The TPU levers `flatten_optimizer`, `scan_blocks` and `remat` are accepted
 and ignored. The `era5-diffusion` trainer swaps in its own steps
-(trainers/diffusion.py). Not ported yet, and raising: the
-IC-optimisation trainer (ROADMAP queue 1, item 7) and
-`trainer.parallelism` beyond one device (item 8).
+(trainers/diffusion.py).
 """
 
 from __future__ import annotations
@@ -69,6 +83,9 @@ from credit_torch import registry, resolve_device
 from credit_torch.data.channels import ChannelSchema
 from credit_torch.models.layers import freeze_sn_updates
 from credit_torch.models.spectral_utils import power_iter_model_
+from credit_torch.parallel import context as par_ctx
+from credit_torch.parallel import distributed as dist_ops
+from credit_torch.parallel.mesh import data_parallel_coords
 from credit_torch.postblock.stochastic import (apply_postblocks_stateful,
                                                init_postblock_params, init_postblock_states,
                                                postblock_nets, split_postblock_params)
@@ -98,11 +115,17 @@ class TrainState:
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: "AdamW", ema: bool = False,
-               noise_seed: int = 0, nets: Optional[torch.nn.ModuleDict] = None) -> "TrainState":
+               noise_seed: int = 0, nets: Optional[torch.nn.ModuleDict] = None,
+               noise_keys: Sequence[int] = ()) -> "TrainState":
+        """`noise_keys` are folded into the noise generator's seed (the dp
+        coordinate under a mesh: `Trainer.noise_keys`)."""
         params = train_parameters(model, nets)
-        ema_params = {k: p.detach().clone() for k, p in params.items()} if ema else None
+        # a sharded optimizer keeps this rank's chunk of each EMA tensor
+        chunk = getattr(optimizer, "chunk", lambda k, p: p.detach().clone())
+        ema_params = {k: chunk(k, p.detach()) for k, p in params.items()} if ema else None
         dev = next(model.parameters()).device
-        noise = torch.Generator(device=dev).manual_seed(_derived_seed(noise_seed, 0x401E))
+        noise = torch.Generator(device=dev).manual_seed(
+            _derived_seed(noise_seed, 0x401E, *noise_keys))
         return cls(0, model, optimizer.init(params), ema_params, noise, nets)
 
     def named_parameters(self) -> Dict[str, torch.nn.Parameter]:
@@ -139,12 +162,15 @@ class AdamW:
     """optax.chain([clip_by_global_norm(clip)], adamw(schedule, b1, b2,
     eps=1e-8, eps_root=0, weight_decay)) in PyTorch: moments with bias
     correction at the 1-based count, decoupled decay applied to every leaf,
-    the learning rate read from `schedule` at the 0-based count."""
+    the learning rate read from `schedule` at the 0-based count. `norm_fn`
+    takes the gradients' global norm for the clip (the sharded optimizer's
+    sums its chunks over the ranks)."""
 
     def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.0, clip: float = 0.0):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
         self.weight_decay, self.clip = weight_decay, clip
+        self.norm_fn = global_norm
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         zeros = lambda: {k: torch.zeros_like(p, memory_format=torch.preserve_format)  # noqa: E731
@@ -156,7 +182,7 @@ class AdamW:
         order of the state's keys. The moments are updated in place."""
         grads = list(grads)
         if self.clip > 0:
-            gnorm = global_norm(grads)
+            gnorm = self.norm_fn(grads)
             if not bool(gnorm < self.clip):
                 grads = [g / gnorm * self.clip for g in grads]
         mu, nu = list(state["mu"].values()), list(state["nu"].values())
@@ -253,12 +279,43 @@ def _next_input(schema, x, y_pred, forcing, s: int, history_len: int):
     return torch.cat([x[:, 1:], new], dim=1) if history_len > 1 else new
 
 
+def tp_partial_names(model: torch.nn.Module) -> List[str]:
+    """The parameters whose gradient each tp rank holds a share of: those
+    of the attention blocks (their heads split over the ranks)."""
+    from credit_torch.models.layers import WindowAttention
+
+    return [f"{m}.{p}" if m else p for m, mod in model.named_modules()
+            if isinstance(mod, WindowAttention) for p, _ in mod.named_parameters()]
+
+
+class _Parallel:
+    """What a step needs of the mesh: the mesh, each trained tensor's
+    gradient divisor (parallel.sharding.gradient_divisors) by name."""
+
+    def __init__(self, mesh, model, names: Sequence[str]):
+        from credit_torch.parallel.sharding import gradient_divisors
+
+        self.mesh = mesh
+        lat = bool(getattr(model, "lat_sharded", False)) and mesh.shape["domain"] > 1
+        # the postblock nets run on the whole prediction on every domain rank
+        whole = [k for k in names if k.startswith("_postblocks.")]
+        self.divisors = gradient_divisors(names, mesh, lat, tp_partial_names(model), whole)
+
+
+def _global_loss(loss: torch.Tensor, par: Optional[_Parallel]) -> torch.Tensor:
+    """The loss averaged over the process group (tp and domain peers hold
+    the same value, dp rows their own)."""
+    if par is None:
+        return loss
+    return dist_ops.all_reduce(loss.detach()) / dist_ops.world_size()
+
+
 def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelSchema,
                     forecast_len: int = 1, backprop_on_timestep: Optional[Sequence[int]] = None,
                     history_len: int = 1, ema_decay: float = 0.0, ensemble_size: int = 1,
                     normalizer=None, preblocks=(), preblocks_ic=(), postblocks=(),
                     metrics_fn=None, return_final_state: bool = False,
-                    sn_external: bool = False, device="cuda"):
+                    sn_external: bool = False, device="cuda", mesh=None):
     """The multi-step train step, `train_step(state, batch) -> (state,
     metrics)` with state.model being `model`. batch: {'x': (B, T_hist, H, W,
     C_in), 'y': (B, S, H, W, C_t), 'forcing': (B, S, H, W, n_dyn) or absent},
@@ -275,7 +332,12 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
     state one step past the batch, in physical units (replay training
     stores it). The step updates the model in place (under MultiSteps only
     on every k-th call) and reads the device twice: the loss's finiteness
-    and, with clipping, the gradient norm against the clip. `preblocks_ic`
+    and, with clipping, the gradient norm against the clip. With a `mesh`
+    (parallel.mesh.Mesh) the batch is this rank's dp rows, the forwards run
+    under explicit_halo(mesh), the gradients are reduced over the group,
+    the loss (for the NaN guard too) and the metrics are the group's means,
+    and `optimizer` is the ShardedOptimizer (its EMA chunks follow the
+    parameters' chunks). `preblocks_ic`
     run once on the normalized initial state, `preblocks` on x at the top
     of every rollout step. Stateful postblocks start from fresh states for
     the B x E members at every call, carry them across the rollout steps
@@ -298,7 +360,16 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
             y_pred = b(y_pred, x)
         return y_pred, pb_states
 
+    par = None
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        nonlocal par
+        if mesh is not None and par is None:
+            par = _Parallel(mesh, model, list(state.opt_state["mu"]))
+        with par_ctx.explicit_halo(mesh):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         mdl = state.model
         mdl.train()
         if has_trainable and state.nets is None:
@@ -344,8 +415,15 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
         names = list(state.opt_state["mu"])
         plist = [params[k] for k in names]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in plist]
+        if par is not None:
+            from credit_torch.parallel.sharding import reduce_gradients
+
+            grads = reduce_gradients(grads, par.divisors)
+            if mvals is not None:
+                mvals = _global_loss(mvals, par)
         torch._foreach_div_(grads, float(n_bp))
-        mean_loss = total / n_bp
+        # the NaN guard reads the group's loss: every rank skips the same steps
+        mean_loss = _global_loss(total / n_bp, par)
         finite = bool(torch.isfinite(mean_loss))
         with torch.no_grad():
             if not finite:  # NaN guard: zero grads, moments advance, params stay
@@ -358,8 +436,10 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
             if ema is not None:
                 d = _ema_decay(ema_decay, state.step)
                 evals = [ema[k] for k in names]
+                view = getattr(optimizer, "view", None)
+                cur = plist if view is None else [view(k, p) for k, p in zip(names, plist)]
                 torch._foreach_mul_(evals, d)
-                torch._foreach_add_(evals, plist, alpha=1.0 - d)
+                torch._foreach_add_(evals, cur, alpha=1.0 - d)
             gnorm = global_norm(grads)
         for p in plist:
             p.grad = None
@@ -381,7 +461,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
 def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len: int = 1,
                    history_len: int = 1, normalizer=None, ensemble_size: int = 1,
                    metrics_fn=None, preblocks=(), preblocks_ic=(), postblocks=(),
-                   device="cuda"):
+                   device="cuda", mesh=None, unshard=None):
     """Validation step scoring the same pipeline the train step runs
     (normalizer, per-step postblocks, the rollout), `eval_step(state,
     batch, generator=None) -> metrics` ('loss' and metrics_fn's, 0-d
@@ -393,19 +473,33 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
     their mean. `generator` is the noise source of a noisy model, on its
     device, and of the stateful postblocks after it. Preblocks and stateful
     postblocks run as in the train step; a trainable block runs the EMA's
-    copy of its net where the state keeps an EMA."""
+    copy of its net where the state keeps an EMA. With a `mesh` the
+    forwards run under explicit_halo(mesh) and the metrics are the group's
+    means; `unshard` (the ShardedOptimizer's) makes the EMA's chunks whole."""
     dev = resolve_device(device)
     stochastic = getattr(model, "stochastic", False)
     has_stateful = any(getattr(b, "is_stateful", False) for b in postblocks)
 
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
+        with par_ctx.explicit_halo(mesh):
+            out = _eval_step(state, batch, generator)
+        if mesh is not None:
+            from credit_torch.parallel.sharding import all_reduce_mean
+
+            out = all_reduce_mean(out)
+        return out
+
+    def _eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         mdl = state.model
         mdl.eval()
         tensors, nets = None, _net_tensors(state.nets)
         if state.ema_params is not None:
-            tensors = {**{k: v for k, v in state.ema_params.items()
+            ema = state.ema_params
+            if unshard is not None:
+                ema = dict(zip(ema, unshard(ema)))
+            tensors = {**{k: v for k, v in ema.items()
                           if not k.startswith("_postblocks.")}, **dict(mdl.named_buffers())}
-            nets = split_postblock_params(state.ema_params) or nets
+            nets = split_postblock_params(ema) or nets
 
         kw = {"generator": generator} if stochastic else {}
 
@@ -496,7 +590,7 @@ def _fetch(acc: Optional[dict]) -> Dict[str, float]:
 class Trainer:
     """fit() loop: epochs x batches, validation, CSV logging, checkpointing,
     early stopping (reference: BaseTrainer.fit, base_trainer.py:503), on
-    one device.
+    one device or, with trainer.parallelism, on a mesh of processes.
 
     `epoch_timings` holds, per epoch run, the host ms to assemble each
     batch (measured on the producer thread: read, decode, stack, pin), the
@@ -527,11 +621,7 @@ class Trainer:
         self.ensemble_size = int(t.get("ensemble_size", 1))
         bp = t.get("backprop_on_timestep")
         self.backprop_on = [b - 1 for b in bp] if bp else None  # config is 1-based
-        par = t.get("parallelism") or {}
-        if any(par.get(k) not in (None, "none") and int(par[k]) > 1
-               for k in ("data", "tensor", "domain")):
-            raise NotImplementedError("trainer.parallelism beyond one device is not ported yet "
-                                      "(parallel/: ROADMAP queue 1, item 8)")
+        self.mesh = self._build_mesh(conf, schema, model)
 
         from credit_torch.trainers.scheduler import load_scheduler
 
@@ -554,6 +644,12 @@ class Trainer:
         # or a checkpoint fills them), on the trainer's device
         nets = postblock_nets(post)
         self.nets = nets.to(self.device) if len(nets) else None
+        if self.mesh is not None:
+            from credit_torch.parallel.sharding import ShardedOptimizer
+
+            params = train_parameters(model, self.nets)
+            self.optimizer = ShardedOptimizer(self.optimizer, self.mesh, list(params),
+                                              [tuple(p.shape) for p in params.values()])
         self.metrics_fn = None
         if t.get("log_variable_metrics", True):
             from credit_torch.metrics import LatWeightedMetrics
@@ -582,7 +678,7 @@ class Trainer:
             ensemble_size=self.ensemble_size, normalizer=normalizer, preblocks=pre["per_step"],
             preblocks_ic=pre["ic_only"], postblocks=tuple(post),
             metrics_fn=self.metrics_fn, return_final_state=self.replay is not None,
-            sn_external=self.sn_external, device=self.device)
+            sn_external=self.sn_external, device=self.device, mesh=self.mesh)
         self._step_cache = {}
         # scheduled-rollout sampling: anneal the epoch's rollout length from
         # short to forecast_len (reference: scheduler.py:220
@@ -597,8 +693,66 @@ class Trainer:
             model, valid_loss_fn, schema, self.forecast_len, self.history_len,
             normalizer=normalizer, ensemble_size=self.valid_ensemble_size,
             metrics_fn=self.metrics_fn, preblocks=pre["per_step"], preblocks_ic=pre["ic_only"],
-            postblocks=tuple(post), device=self.device)
+            postblocks=tuple(post), device=self.device, mesh=self.mesh,
+            unshard=None if self.mesh is None else self.optimizer.unshard)
         self.epoch_timings: List[dict] = []
+
+    def _build_mesh(self, conf: dict, schema, model):
+        """The (dp, tp, domain) mesh of trainer.parallelism over the
+        process group (credit_tpu/trainers/trainer.py:383-431; at world
+        size 1 too, whose step then reduces over the group), or None
+        without a group; raises credit_tpu's ValueErrors for a mesh that
+        does not fit."""
+        from credit_torch.parallel.mesh import build_mesh, parse_parallelism_conf
+
+        t = conf.get("trainer", {}) or {}
+        par = t.get("parallelism") or {}
+        self.dp = self.tp = self.domain = 1
+        if not par:
+            return None
+        halo = str(par.get("halo", "gspmd"))
+        if halo not in ("gspmd", "explicit"):
+            raise ValueError("trainer.parallelism.halo must be 'gspmd' or 'explicit'")
+        data = par.get("data", "none")
+        if t.get("flatten_optimizer", False) and data not in (None, "none", 0, 1) and int(data) > 1:
+            raise ValueError("trainer.flatten_optimizer is incompatible with parallelism.data > 1: "
+                             "the flat moment vector cannot be ZeRO-sharded like the params")
+        try:
+            dp, tp, dom = parse_parallelism_conf(conf)
+        except ValueError as e:
+            raise ValueError(f"trainer.parallelism does not fit the visible devices: {e}. "
+                             f"Set data: none to infer dp, or fix the factors.") from e
+        bsz = int(t.get("train_batch_size", 1))
+        if dp > 1 and bsz % dp != 0:
+            raise ValueError(f"train_batch_size={bsz} not divisible by dp={dp}; "
+                             f"change the batch size or trainer.parallelism.data")
+        self.dp, self.tp, self.domain = dp, tp, dom
+        if not dist_ops.initialized():  # one process, no group: the plain step
+            return None
+        mesh = build_mesh(dp, tp, dom)
+        logger.info("mesh: dp=%d tensor=%d domain=%d (halo exchange explicit%s)", dp, tp, dom,
+                    "; gspmd requested, the port has no GSPMD" if halo == "gspmd" else "")
+        from credit_torch.parallel.validate import assert_valid_sharding
+
+        assert_valid_sharding(conf, schema, mesh, model)
+        mtype = conf.get("model", {}).get("type")
+        if dom > 1 and not getattr(model, "lat_sharded", False):
+            logger.warning("model type %s is not lat-sharded: every domain rank computes the "
+                           "whole field (the reference's numbers, without the memory saving)",
+                           mtype)
+        if tp > 1 and not tp_partial_names(model):
+            logger.warning("model type %s has no window attention to split over tensor=%d: "
+                           "every tp rank computes the whole model", mtype, tp)
+        return mesh
+
+    def noise_keys(self) -> tuple:
+        """Keys folded into the train and validation noise seeds: the dp
+        coordinate, so that each dp row draws its own noise for its own
+        rows of the batch, as one process draws distinct noise for each
+        row (tp and domain peers draw the same). Empty for dp row 0 and
+        without a mesh, which draw as one process does."""
+        c = 0 if self.mesh is None else self.mesh.coord("dp")
+        return (c,) if c else ()
 
     def _train_step_for(self, flen: int):
         """Train step for a scheduled rollout length (cached per length).
@@ -661,7 +815,7 @@ class Trainer:
         then for the trainable postblocks' nets (flax's initialisers, drawn
         from the same generator), fresh AdamW moments, with use_ema the
         EMA, and the train step's noise generator seeded from
-        `noise_seed`."""
+        `noise_seed` and `noise_keys()`."""
         from credit_torch.convert_jax import seed_train_
 
         generator = generator or torch.Generator().manual_seed(0)
@@ -669,7 +823,8 @@ class Trainer:
         if self.nets is not None:
             init_postblock_params(self.train_postblocks, generator, self.device)
         state = TrainState.create(self.model, self.optimizer, ema=self.use_ema,
-                                  noise_seed=noise_seed, nets=self.nets)
+                                  noise_seed=noise_seed, nets=self.nets,
+                                  noise_keys=self.noise_keys())
         n = sum(p.numel() for p in self.model.parameters())
         logger.info("model parameters: %.2fM", n / 1e6)
         return state
@@ -727,16 +882,26 @@ class Trainer:
                 if hasattr(self.dataset, "valid_init_indices") else None)
         vvidx = (self.valid_dataset.valid_init_indices(self.forecast_len)
                  if hasattr(self.valid_dataset, "valid_init_indices") else None)
+        # one sampler per dp coordinate: this rank's rows of each batch
+        # (credit_tpu/trainers/trainer.py:724-753); tp and domain peers
+        # draw the same rows
+        dp_rank, dp = (0, 1) if self.mesh is None else data_parallel_coords(self.mesh)
+        if self.valid_batch_size % dp:
+            raise ValueError(f"valid_batch_size={self.valid_batch_size} not divisible by dp={dp} "
+                             f"(required for dp-sharded feed)")
         sampler = MultiStepSampler(
-            len(self.dataset), self.batch_size, self.forecast_len, self.history_len, seed=seed,
+            len(self.dataset), self.batch_size // dp, self.forecast_len, self.history_len,
+            dp_rank=dp_rank, dp_size=dp, seed=seed,
             batches_per_epoch=self.batches_per_epoch, valid_indices=vidx)
         vsampler = MultiStepSampler(
-            len(self.valid_dataset), self.valid_batch_size, self.forecast_len,
-            self.history_len, seed=seed + 1, shuffle=False,
+            len(self.valid_dataset), self.valid_batch_size // dp, self.forecast_len,
+            self.history_len, dp_rank=dp_rank, dp_size=dp, seed=seed + 1, shuffle=False,
             batches_per_epoch=self.valid_batches, valid_indices=vvidx)
+        primary = dist_ops.is_primary()
 
         os.makedirs(self.save_loc, exist_ok=True)
-        self.schema.save(self.save_loc)
+        if primary:
+            self.schema.save(self.save_loc)
         log_path = os.path.join(self.save_loc, "training_log.csv")
         best_loss = np.inf
         patience = 0
@@ -825,7 +990,7 @@ class Trainer:
                 batch = self._to_device(host)
                 m1 = _mark(dev)
                 gen = torch.Generator(device=dev).manual_seed(
-                    _derived_seed(seed + 0x5EED, epoch, n_va))
+                    _derived_seed(seed + 0x5EED, epoch, n_va, *self.noise_keys()))
                 vm = self._eval_step(state, batch, gen)
                 spans["copy"].append((m0, m1))
                 spans["valid"].append((m1, _mark(dev)))
@@ -848,7 +1013,7 @@ class Trainer:
             vvar_cols = sorted(k for k in vacc_h if k != "loss")
             lr = float(self.schedule(state.step))
             write_header = not os.path.exists(log_path)
-            with open(log_path, "a", newline="") as f:
+            with open(log_path if primary else os.devnull, "a", newline="") as f:
                 wcsv = csv.writer(f)
                 if write_header:
                     wcsv.writerow(["epoch", "train_loss", "valid_loss", "seconds", "lr",
@@ -858,7 +1023,7 @@ class Trainer:
                     [epoch, tr, va, dt, lr, float(acc_h.get("grad_norm", np.nan)) / max(n_tr, 1)]
                     + [float(acc_h[k]) / max(n_tr, 1) for k in var_cols]
                     + [float(vacc_h[k]) / max(n_va, 1) for k in vvar_cols])
-            if tb is not None:
+            if tb is not None and primary:
                 tb.add_scalar("loss/train", tr, epoch)
                 tb.add_scalar("loss/valid", va, epoch)
                 tb.add_scalar("lr", lr, epoch)
@@ -876,9 +1041,10 @@ class Trainer:
                     self.save_checkpoint(state, epoch, tag="best")
             else:
                 patience += 1
-                if patience >= self.stopping_patience:
-                    logger.info("early stopping at epoch %d", epoch)
-                    break
+            dist_ops.barrier("epoch end")
+            if patience >= self.stopping_patience:
+                logger.info("early stopping at epoch %d", epoch)
+                break
         return state
 
     # ------------------------------------------------------------------
@@ -894,7 +1060,21 @@ class Trainer:
         is the port's own). The previous checkpoint is kept as
         backup_checkpoint (save_backup_weights). The file is written beside
         the old one and renamed into place; epoch.txt, the resume marker,
-        is written last."""
+        is written last. Under a mesh every rank takes part (the sharded
+        optimizer state and EMA are gathered whole, and with dp > 1 each dp
+        row's noise generator state, `noise_dp`) and the primary writes."""
+        opt_state, ema = state.opt_state, state.ema_params
+        noise = None if state.noise is None else state.noise.get_state()
+        noise_dp = None
+        if self.mesh is not None:
+            opt_state = self.optimizer.full_state(opt_state)
+            if ema is not None:
+                ema = dict(zip(ema, self.optimizer.unshard(ema)))
+            if noise is not None and self.dp > 1:  # ranks in (dp, tp, domain) order
+                rows = dist_ops.all_gather(noise.to(self.device)[None], 0).cpu()
+                noise_dp = [r.clone() for r in rows[::self.tp * self.domain]]
+            if not dist_ops.is_primary():
+                return
         path = os.path.join(self.save_loc, tag)
         ckpt = os.path.join(path, self.CHECKPOINT_FILE)
         if (tag == "checkpoint" and os.path.exists(path)
@@ -907,8 +1087,8 @@ class Trainer:
         if state.nets is not None:
             weights.update((f"_postblocks.{k}", v) for k, v in state.nets.state_dict().items())
         payload = {"model": weights, "step": state.step,
-                   "opt_state": state.opt_state, "ema_params": state.ema_params,
-                   "noise": None if state.noise is None else state.noise.get_state()}
+                   "opt_state": opt_state, "ema_params": ema,
+                   "noise": noise, "noise_dp": noise_dp}
         torch.save(payload, ckpt + ".tmp")
         os.replace(ckpt + ".tmp", ckpt)
         with open(os.path.join(self.save_loc, "epoch.txt"), "w") as f:
@@ -919,7 +1099,8 @@ class Trainer:
         """`state` with the checkpoint's parameters, u/v, postblock nets,
         step, EMA and noise generator state (where it has them), and its
         optimizer state unless load_optimizer is off. The tensors are copied
-        into the state's own, on its device."""
+        into the state's own, on its device (under a mesh, this rank's
+        chunks of the whole tensors the checkpoint holds)."""
         path = os.path.join(self.save_loc, tag, self.CHECKPOINT_FILE)
         saved = torch.load(path, map_location=self.device, weights_only=True)
         pre = "_postblocks."
@@ -929,7 +1110,10 @@ class Trainer:
             state.nets.load_state_dict({k[len(pre):]: v for k, v in saved["model"].items()
                                         if k.startswith(pre)})
         opt_state = state.opt_state
-        if load_optimizer:
+        sharded = self.mesh is not None and hasattr(self.optimizer, "load_full_state")
+        if load_optimizer and sharded:
+            opt_state = self.optimizer.load_full_state(opt_state, saved["opt_state"])
+        elif load_optimizer:
             with torch.no_grad():
                 for name, part in opt_state.items():
                     if isinstance(part, dict):
@@ -941,9 +1125,19 @@ class Trainer:
         if ema is not None and saved.get("ema_params") is not None:
             with torch.no_grad():
                 for k, v in ema.items():
-                    v.copy_(saved["ema_params"][k])
+                    w = saved["ema_params"][k]
+                    v.copy_(self.optimizer.view(k, w) if sharded else w)
         if state.noise is not None and saved.get("noise") is not None:
-            state.noise.set_state(saved["noise"].cpu())
+            # this dp row's generator where the checkpoint has one for each
+            # row, else row 0's, forked for another row
+            c = 0 if self.mesh is None else self.mesh.coord("dp")
+            rows = saved.get("noise_dp")
+            mine = rows is not None and len(rows) == self.dp
+            state.noise.set_state((rows[c] if mine else saved["noise"]).cpu())
+            if c and not mine:
+                draw = torch.randint(2**31 - 1, (1,), generator=state.noise,
+                                     device=state.noise.device)
+                state.noise.manual_seed(_derived_seed(int(draw), c))
         return TrainState(saved["step"], state.model, opt_state, ema, state.noise, state.nets)
 
     def checkpoint_epoch(self) -> int:

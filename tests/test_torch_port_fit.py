@@ -460,12 +460,16 @@ def test_unported_trainers_raise(name):
 @pytest.mark.parametrize("option", ["parallelism", "ensemble", "sn_external", "preblocks",
                                     "grad_accum", "ring_crps", "downscaling"])
 def test_trainer_refuses_unported_options(env, tmp_path, option):
-    """Parallelism, the device-ring CRPS and downscaling raise, naming their
-    ROADMAP item. Ensembles, sn_external and grad_accum_every, once
-    refused, now build the trainer (their parity with credit_tpu:
-    tests/test_torch_port_ensemble.py and ..._ensemble_fit.py), and so does
-    a `regrid` preblock, refused until ops/regrid.py (its fit against
-    credit_tpu's: tests/test_torch_port_obs.py)."""
+    """Ensembles, sn_external and grad_accum_every, once refused, now
+    build the trainer (their parity with credit_tpu:
+    tests/test_torch_port_ensemble.py and ..._ensemble_fit.py), and so do a
+    `regrid` preblock, refused until ops/regrid.py (its fit against
+    credit_tpu's: tests/test_torch_port_obs.py), and the `ring-crps` loss
+    (parallel/ring_crps.py; its dense form outside a process group,
+    tests/test_torch_port_parallel.py). Parallelism is ported: in one
+    process a mesh of 2 raises credit_tpu's ValueError (the mesh against
+    the device count; the multi-process runs:
+    tests/test_torch_port_parallel_fit.py)."""
     conf = fit_conf(env["store"], env["stats"], tmp_path)
     t = conf["trainer"]
     if option == "parallelism":
@@ -497,6 +501,14 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
         assert trainer.loss_fn.lat_weights is None
         assert trainer.valid_loss_fn.base_name == "mae"
         return
+    if option == "ring_crps":
+        trainer = port_trainer(conf)
+        assert trainer.loss_fn.base_name == "ring-crps" and trainer.loss_fn.is_ensemble
+        return
+    if option == "parallelism":
+        with pytest.raises(ValueError, match="does not fit the visible devices"):
+            port_trainer(conf)
+        return
     if option in ("ensemble", "sn_external", "grad_accum"):
         trainer = port_trainer(conf)
         assert trainer.ensemble_size == (3 if option == "ensemble" else 1)
@@ -504,8 +516,7 @@ def test_trainer_refuses_unported_options(env, tmp_path, option):
         assert trainer.sn_external == (option == "sn_external")
         assert isinstance(trainer.optimizer, ttrainer.MultiSteps) == (option == "grad_accum")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item [578]"):
-        port_trainer(conf)
+    raise AssertionError(option)
 
 
 def test_run_training_refuses_the_cpu_unless_asked(env, tmp_path, monkeypatch):

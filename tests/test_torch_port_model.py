@@ -260,7 +260,11 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.ensemble.bred_vector, credit_torch.ensemble.sdl_wrapper, "
             "credit_torch.ptype, credit_torch.trainers.ic_optimization, "
             "credit_torch.applications.rollout_metrics, "
-            "credit_torch.applications.ensemble_eval, credit_torch.utils.seed; "
+            "credit_torch.applications.ensemble_eval, credit_torch.utils.seed, "
+            "credit_torch.parallel.distributed, credit_torch.parallel.mesh, "
+            "credit_torch.parallel.validate, credit_torch.parallel.sharding, "
+            "credit_torch.parallel.halo, credit_torch.parallel.ring_crps, "
+            "credit_torch.applications.benchmark; "
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

@@ -1,0 +1,436 @@
+"""The port's training and rollouts on a mesh of processes, on the CPU.
+
+Spawned gloo ranks (`torch_port_parallel_worker.py`, a FileStore under
+tmp_path, a 60 s group timeout, 90-120 s a launch) run the tiny CrossFormer
+(TINY_MODEL_CONF with 8-wide heads and the quadrant stage-0 embed:
+2/4/8/16 heads, 32/16/8/4 rows a stage) on credit_tpu's numpy weights:
+
+- one train step (MSE, AdamW with clip and decay) at (dp, tp, domain) =
+  (2, 1, 1), (1, 1, 2), (1, 2, 1) and (2, 2, 2): the loss, the gradient
+  the optimizer is given and the updated parameters against the same
+  ranks' unsharded step and against credit_tpu's step on its (2, 1, 2)
+  mesh with the explicit halo (its optax AdamW on its gradient);
+- `run_training` of two processes through the CREDIT_* variables at
+  data 2 against one process at batch 2 (training_log.csv cell by cell),
+  its checkpoint (whole tensors) against the one process's and resumed at
+  world size 1, and `run_rollout` from it, each rank its stride of the
+  init times, file for file against one process;
+- crossformer-ensemble with a trainable SKEBS postblock, one step through
+  the Trainer at domain 2 against the Trainer without parallelism (the
+  slab forward's noise drawn for the whole field; the postblock net's
+  gradient, computed whole on each domain rank, counted once);
+- a 4-process crossformer-ensemble `run_training` at (data 2, domain 2):
+  each dp row draws its own train and validation noise, domain peers the
+  same, and the checkpoint keeps each dp row's generator;
+- make_scan_rollout on a (1, 1, 2) mesh against the unsharded one, and the
+  debugger model on a (2, 1, 2) mesh against credit_tpu's on its (2, 1, 4)
+  mesh (tests/test_round5_fixes.py's seam-parity setup).
+"""
+
+import copy
+import csv
+import os
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from __graft_entry__ import TINY_MODEL_CONF
+from credit_torch.applications import run_rollout, run_training
+from credit_torch.data import zarrlite as tzarr
+from credit_torch.utils import ncio as tncio
+from credit_tpu.models import load_model as jax_load_model
+from credit_tpu.ops import conv as jconv
+from credit_tpu.parallel.mesh import build_mesh as jax_mesh
+from credit_tpu.trainers import trainer as jtrainer
+from credit_tpu.trainers.scheduler import load_scheduler as jax_scheduler
+from tests.test_torch_port_model import _numpy_variables, _to_numpy
+from torch_port_fixtures import (fit_conf, run_ranks, two_torch_threads,  # noqa: F401
+                                 write_era5_store, write_stats)
+
+DATA = {"source": {"ERA5": {"levels": [0.0, 1.0], "variables": {
+    "prognostic": {"vars_3D": ["U", "T"], "vars_2D": ["SP", "T2M"]},
+    "dynamic_forcing": {"vars_2D": ["TISR"]}, "diagnostic": {"vars_2D": ["PRECIP"]}}}},
+    "forecast_len": 1, "history_len": 1}
+MESHES = [(2, 1, 1), (1, 1, 2), (1, 2, 1), (2, 2, 2)]
+LR = 1e-3
+
+
+def _conf():
+    conf = copy.deepcopy(TINY_MODEL_CONF)
+    conf["model"].update(dim_head=8, cross_embed_kernel_sizes=[[4, 8, 16, 32], [2, 4], [2, 4],
+                                                               [2, 4]])
+    return {**conf, "data": DATA, "trainer": {"learning_rate": LR, "weight_decay": 0.01,
+                                              "grad_max_norm": 1.0}}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """credit_tpu's weights, batch and step on its (2, 1, 2) mesh with the
+    explicit halo: loss, gradients, AdamW-updated parameters."""
+    root = tmp_path_factory.mktemp("train")
+    conf = _conf()
+    jm = jax_load_model(conf)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 1, 32, 64, 7)).astype(np.float32)
+    y = rng.standard_normal((2, 1, 32, 64, 7)).astype(np.float32)
+    variables = _to_numpy(_numpy_variables(jm, x, 3))
+    with open(root / "variables.pkl", "wb") as f:
+        pickle.dump(variables, f)
+    np.savez(root / "batch.npz", x=x, y=y)
+    mesh = jax_mesh(2, 1, 2, jax.devices()[:4])
+
+    def loss(params, xs):
+        with jconv.explicit_halo(mesh):
+            pred, _ = jm.apply({"params": params, "spectral": variables["spectral"]}, xs,
+                               train=True, mutable=["spectral"])
+        return jnp.mean((pred - y) ** 2)
+
+    xs = jax.device_put(x, NamedSharding(mesh, P("dp", None, "domain", None, None)))
+    val, grads = jax.jit(jax.value_and_grad(loss))(variables["params"], xs)
+    opt = jtrainer.make_optimizer(conf, jax_scheduler(conf))
+    new = jax.jit(lambda g, p: jax.tree_util.tree_map(
+        lambda a, u: a + u, p, opt.update(g, opt.init(p), p)[0]))(grads, variables["params"])
+    return {"root": root, "conf": conf, "loss": float(val), "grads": _flat(_to_numpy(grads)),
+            "params": _flat(_to_numpy(new)),
+            "args": {"conf": conf, "variables": str(root / "variables.pkl"),
+                     "batch": str(root / "batch.npz")}}
+
+
+@pytest.fixture(scope="module")
+def steps(ref, tmp_path_factory):
+    """The meshes of 2 ranks in one launch, (2, 2, 2) in another."""
+    out = {}
+    for meshes in ([d for d in MESHES if np.prod(d) == 2], [d for d in MESHES if np.prod(d) == 8]):
+        ranks = run_ranks("train", int(np.prod(meshes[0])), tmp_path_factory.mktemp("step"),
+                          {**ref["args"], "meshes": meshes}, timeout=120.0)
+        for d in meshes:
+            tag = "mesh" + "".join(map(str, d))
+            out[d] = [{k.replace(tag, "mesh", 1): v for k, v in r.items()
+                       if k.startswith(("one_", tag + "_", "mu_whole"))} for r in ranks]
+    return out
+
+
+def _grad_close(got: dict, want: dict, tol: float):
+    """Each gradient within tol of its largest, where a tensor's largest
+    counts as at least 1e-2 of the model's (some true gradients vanish: a
+    position-bias output bias, a conv bias before GroupNorm); and the
+    whole gradient's difference within tol of its norm."""
+    gmax = max(np.abs(v).max() for v in want.values())
+    for k, w in want.items():
+        scale = max(np.abs(w).max(), 1e-2 * gmax)
+        assert np.abs(got[k] - w).max() <= tol * scale, k
+    num = np.sqrt(sum(((got[k] - w) ** 2).sum() for k, w in want.items()))
+    den = np.sqrt(sum((w ** 2).sum() for w in want.values()))
+    assert num <= tol * den
+
+
+def _update_close(got: dict, want: dict, start: dict, grads: dict):
+    """The AdamW step (parameter after minus before) within 1e-3 of the
+    learning rate, outside the elements whose gradient is below 1e-4 of
+    its tensor's largest, counted as at least 1e-2 of the model's (Adam's
+    first step there is g / (|g| + eps), decided by rounding: a vanishing
+    position-bias output bias)."""
+    gmax = max(np.abs(v).max() for v in grads.values())
+    for k, w in want.items():
+        g = grads[k]
+        mask = np.abs(g) > 1e-4 * max(np.abs(g).max(), 1e-2 * gmax)
+        d = np.abs((got[k] - start[k]) - (w - start[k]))[mask]
+        assert d.size == 0 or d.max() <= 1e-3 * LR, k
+
+
+def _mine(rank: dict, tag: str, what: str) -> dict:
+    pre = f"{tag}_{what}."
+    return {k[len(pre):]: v for k, v in rank.items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("dims", MESHES)
+def test_mesh_step_matches_unsharded(steps, ref, dims):
+    """On every rank: the loss within 1e-6, the gradient within 1e-5, the
+    update as `_update_close`; the optimizer moments held in chunks (dp or
+    tp > 1: fewer elements than the parameters)."""
+    start = {k: v for k, v in _flat(pickle.load(open(ref["args"]["variables"], "rb"))[
+        "params"]).items()}
+    for rank in steps[dims]:
+        np.testing.assert_allclose(rank["mesh_loss"], rank["one_loss"], rtol=1e-6)
+        one_g = _mine(rank, "one", "grad")
+        _grad_close(_mine(rank, "mesh", "grad"), one_g, 1e-5)
+        _update_close(_mine(rank, "mesh", "param"), _mine(rank, "one", "param"), start, one_g)
+        assert int(rank["one_mu_chunks"]) == int(rank["mu_whole"])
+        if dims[0] * dims[1] > 1:
+            assert int(rank["mesh_mu_chunks"]) < int(rank["mu_whole"])
+        else:
+            assert int(rank["mesh_mu_chunks"]) == int(rank["mu_whole"])
+
+
+@pytest.mark.parametrize("dims", MESHES)
+def test_mesh_step_matches_reference_mesh_step(steps, ref, dims):
+    """Against credit_tpu's (2, 1, 2) mesh step: the loss within 1e-5, the
+    gradient within 1e-4 (XLA's and PyTorch's summation orders), the
+    update as `_update_close`."""
+    start = _flat(pickle.load(open(ref["args"]["variables"], "rb"))["params"])
+    for rank in steps[dims]:
+        np.testing.assert_allclose(rank["mesh_loss"], ref["loss"], rtol=1e-5)
+        _grad_close(_mine(rank, "mesh", "grad"), ref["grads"], 1e-4)
+        _update_close(_mine(rank, "mesh", "param"), ref["params"], start, ref["grads"])
+
+
+# --------------------------------------------------------------- run_training
+@pytest.fixture(scope="module")
+def fits(tmp_path_factory):
+    """The store; a 2-process run_training at data 2 and run_rollout from
+    it; the same in this process."""
+    root = tmp_path_factory.mktemp("pfit")
+    store = write_era5_store(root / "era5.zarr", tzarr.write_array)
+    stats = write_stats(root, tncio)
+
+    def conf(tag, **trainer):
+        c = fit_conf(store, stats, root / tag, **trainer)
+        c["predict"] = {"forecasts": {"start_year": 1979, "start_month": 1, "start_day": 1,
+                                      "start_hours": [6, 12, 18], "duration": 1},
+                        "forecast_steps": 2, "save_forecast": str(root / tag / "fc")}
+        return c
+
+    two = conf("two", parallelism={"data": 2}, dist_timeout=60)
+    run_ranks("fit", 2, root, {"conf": two, "rollout": True}, timeout=120.0)
+    one = conf("one")
+    run_training(one, device="cpu")
+    written = run_rollout(one, n_steps=2, device="cpu")
+    return {"root": root, "two": two, "one": one, "written": written, "conf": conf}
+
+
+def _log(save_loc):
+    with open(os.path.join(save_loc, "training_log.csv")) as f:
+        return list(csv.reader(f))
+
+
+def test_two_process_fit_matches_one_process(fits):
+    """The two dp rows' log (every column but the seconds) within 1e-5
+    relative of one process's batch of 2."""
+    two, one = _log(fits["two"]["save_loc"]), _log(fits["one"]["save_loc"])
+    assert two[0] == one[0] and len(two) == len(one) == 3
+    for a, b in zip(two[1:], one[1:]):
+        for name, u, v in zip(two[0], a, b):
+            if name != "seconds":
+                np.testing.assert_allclose(float(u), float(v), rtol=1e-5, atol=1e-7,
+                                           err_msg=name)
+
+
+def test_world_size_1_group_fit_matches_no_group(fits, monkeypatch):
+    """run_training joined to a group of one (the CREDIT_* variables, a
+    file:// rendezvous, gloo) at data: none runs the mesh step (the
+    gradient and loss all-reduced over the group): its log equals the fit
+    without a group, every column but the seconds within 1e-6."""
+    import torch.distributed as dist
+
+    from credit_torch.parallel import distributed as D
+
+    conf = fits["conf"]("ws1", parallelism={"data": "none"}, dist_timeout=60)
+    monkeypatch.setenv("CREDIT_COORDINATOR", f"file://{fits['root'] / 'ws1_store'}")
+    monkeypatch.setenv("CREDIT_NUM_PROCESSES", "1")
+    monkeypatch.setenv("CREDIT_PROCESS_ID", "0")
+    D.COUNTS.clear()
+    try:
+        run_training(conf, device="cpu")
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert D.COUNTS["all_reduce"] >= 8  # 4 steps: gradient and loss; the validation metrics
+    got, want = _log(conf["save_loc"]), _log(fits["one"]["save_loc"])
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        for name, u, v in zip(got[0], a, b):
+            if name != "seconds":
+                np.testing.assert_allclose(float(u), float(v), rtol=1e-6, atol=1e-8,
+                                           err_msg=name)
+
+
+def test_sharded_checkpoint_is_whole_and_resumes_at_world_size_1(fits):
+    """The 2-process checkpoint holds whole tensors (moments and EMA of the
+    parameters' shapes) close to one process's: the parameters together
+    within 1e-5 of their norm, each element within 2 lr a step (Adam moves
+    an element by at most lr a step, and the few whose gradient is
+    rounding noise, a conv bias before GroupNorm, may move either way),
+    the moments as `_grad_close` at 1e-4; and a run of one process resumes
+    from it for one more epoch."""
+    two = torch.load(os.path.join(fits["two"]["save_loc"], "checkpoint", "state.pt"),
+                     weights_only=True)
+    one = torch.load(os.path.join(fits["one"]["save_loc"], "checkpoint", "state.pt"),
+                     weights_only=True)
+    assert two["step"] == one["step"]
+    lr = fits["one"]["trainer"]["learning_rate"]
+    got = {k: v.numpy() for k, v in two["model"].items()}
+    want = {k: v.numpy() for k, v in one["model"].items()}
+    num = np.sqrt(sum(((got[k] - w) ** 2).sum() for k, w in want.items()))
+    assert num <= 1e-5 * np.sqrt(sum((w ** 2).sum() for w in want.values()))
+    for k, w in want.items():
+        assert np.abs(got[k] - w).max() <= 2 * lr * one["step"], k
+    for part in ("mu", "nu"):
+        w = {k: v.numpy() for k, v in one["opt_state"][part].items()}
+        g = {k: v.numpy() for k, v in two["opt_state"][part].items()}
+        assert all(g[k].shape == v.shape for k, v in w.items())
+        _grad_close(g, w, 1e-4)
+    for k, v in one["ema_params"].items():
+        assert two["ema_params"][k].shape == v.shape
+    resume = {**fits["two"], "trainer": {**fits["two"]["trainer"], "load_weights": True,
+                                         "num_epoch": 1}}
+    del resume["trainer"]["parallelism"]
+    state = run_training(resume, device="cpu")
+    assert state.step == two["step"] + 2
+    log = _log(resume["save_loc"])
+    assert len(log) == 4 and np.isfinite(float(log[-1][1]))
+
+
+def test_rank_strided_rollout_matches_one_process(fits):
+    """Two ranks each roll out their stride of the three init times; the
+    files together are one process's, each within 1e-5."""
+    from credit_torch.applications.experiment import diff_rollout
+
+    base_two = fits["two"]["predict"]["save_forecast"]
+    base_one = fits["one"]["predict"]["save_forecast"]
+    two = sorted(os.path.relpath(p, base_two) for p in _walk(base_two))
+    one = sorted(os.path.relpath(p, base_one) for p in fits["written"])
+    assert two == one and len(one) == 6
+    report = diff_rollout([os.path.join(base_two, p) for p in two], base_one, rtol=1e-5,
+                          atol=1e-5)
+    assert all(e["ok"] for e in report)
+
+
+def _walk(d):
+    return [os.path.join(a, f) for a, _, fs in os.walk(d) for f in fs if f.endswith(".nc")]
+
+
+# --------------------------------------------------------------- noise
+SKEBS_DATA = {"source": {"ERA5": {"levels": [0, 1], "variables": {
+    "prognostic": {"vars_3D": ["U", "V", "T"], "vars_2D": ["SP", "U10", "V10"]},
+    "dynamic_forcing": {"vars_2D": ["TISR"]}, "diagnostic": {"vars_2D": ["PRECIP"]}}}},
+    "forecast_len": 1, "history_len": 1}
+SKEBS = {"activate": True, "backscatter_net": {"type": "cnn"}, "max_pattern_wavenum": 8,
+         "pattern_filter_anneal_start": 4, "max_backscatter_wavenum": 12,
+         "backscatter_filter_anneal_start": 8}
+
+
+def _domain2_conf(case: str, tmp_path) -> dict:
+    conf = copy.deepcopy(TINY_MODEL_CONF)
+    trainer = {"learning_rate": 1e-3, "parallelism": {"domain": 2}}
+    if case == "ensemble_skebs":
+        conf["model"].update(type="crossformer-ensemble", image_height=32, image_width=64,
+                             levels=2, channels=3, surface_channels=3, input_only_channels=1,
+                             output_only_channels=1,
+                             post_conf={"activate": True, "skebs": SKEBS})
+        return {**conf, "data": SKEBS_DATA, "save_loc": str(tmp_path), "trainer": trainer}
+    conf["model"].update(type="crossformer-diffusion")
+    return {**conf, "data": DATA, "save_loc": str(tmp_path), "diffusion": {"timesteps": 10},
+            "trainer": {**trainer, "type": "era5-diffusion"}}
+
+
+@pytest.mark.parametrize("case", ["ensemble_skebs", "diffusion"])
+def test_trainer_step_domain2_matches_unsharded(tmp_path, case):
+    """One trainer step at domain 2 from the trainer's seeded state, on
+    both ranks, against the same trainer class without parallelism: the
+    loss within 1e-6 and the gradient within 1e-5 (`_grad_close`).
+    `ensemble_skebs`: crossformer-ensemble (its noise on the slabs, each
+    rank's rows of the whole field's draws) with SKEBS and its learned cnn
+    rate on the gathered prediction, the postblock net's gradient within
+    1e-5 of its largest (the domain ranks each compute it whole: summed
+    over them, it is counted once). `diffusion`: the era5-diffusion
+    trainer's step, its CrossFormer denoiser lat-sharded."""
+    from credit_torch.data.channels import ChannelSchema
+
+    conf = _domain2_conf(case, tmp_path)
+    schema = ChannelSchema.from_config(conf)
+    rng = np.random.default_rng(21)
+    np.savez(tmp_path / "batch.npz",
+             x=rng.standard_normal((1, 1, 32, 64, schema.n_input)).astype(np.float32),
+             y=rng.standard_normal((1, 1, 32, 64, schema.n_target)).astype(np.float32))
+    ranks = run_ranks("trainer_step", 2, tmp_path,
+                      {"conf": conf, "batch": str(tmp_path / "batch.npz")}, timeout=120.0)
+    for rank in ranks:
+        np.testing.assert_allclose(rank["mesh_loss"], rank["one_loss"], rtol=1e-6)
+        one, mesh = _mine(rank, "one", "grad"), _mine(rank, "mesh", "grad")
+        assert one.keys() == mesh.keys()
+        net = [k for k in one if k.startswith("_postblocks.")]
+        if case == "ensemble_skebs":
+            assert net and any(k.startswith("noise_inject") for k in one)
+        _grad_close(mesh, one, 1e-5)
+        for k in net:
+            assert np.abs(mesh[k] - one[k]).max() <= 1e-5 * np.abs(one[k]).max(), k
+
+
+def test_dp_rows_draw_their_own_noise(tmp_path):
+    """crossformer-ensemble run_training of 4 processes at data 2, domain 2
+    (ranks 0, 1 dp row 0; 2, 3 row 1): in the train step and in
+    validation, the latent and the pixel noise each rank drew are its
+    domain peer's exactly and differ from the other dp row's; the
+    checkpoint holds each row's generator state, the two different."""
+    store = write_era5_store(tmp_path / "era5.zarr", tzarr.write_array)
+    stats = write_stats(tmp_path, tncio)
+    conf = fit_conf(store, stats, tmp_path / "run", parallelism={"data": 2, "domain": 2},
+                    num_epoch=1, batches_per_epoch=1, dist_timeout=60)
+    conf["model"]["type"] = "crossformer-ensemble"
+    ranks = run_ranks("fit", 4, tmp_path, {"conf": conf, "draws": True}, timeout=150.0)
+    for key in ("train_latent", "train_pixel", "valid_latent", "valid_pixel"):
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key], err_msg=key)
+        np.testing.assert_array_equal(ranks[2][key], ranks[3][key], err_msg=key)
+        assert ranks[0][key].shape == ranks[2][key].shape
+        assert not np.allclose(ranks[0][key], ranks[2][key]), key
+    saved = torch.load(os.path.join(conf["save_loc"], "checkpoint", "state.pt"),
+                       weights_only=True)
+    assert len(saved["noise_dp"]) == 2
+    assert torch.equal(saved["noise_dp"][0], saved["noise"])
+    assert not torch.equal(saved["noise_dp"][0], saved["noise_dp"][1])
+
+
+# --------------------------------------------------------------- rollouts
+def test_mesh_scan_rollout_matches_unsharded(ref, tmp_path):
+    ranks = run_ranks("rollout", 2, tmp_path, {**ref["args"], "mesh": [1, 1, 2]})
+    for r in ranks:
+        np.testing.assert_allclose(r["mesh_x"], r["one_x"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(r["mesh_stats"], r["one_stats"], rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_scan_rollout_seam_parity_with_reference(tmp_path):
+    """tests/test_round5_fixes.py:254's setup: the debugger model, 3 steps;
+    the port on a (2, 1, 2) mesh (each dp row its half of the batch, the
+    model whole on each domain rank), credit_tpu on its (2, 1, 4) mesh;
+    within 1e-5."""
+    from credit_tpu.data.channels import ChannelSchema
+    from credit_tpu.rollout import make_scan_rollout
+
+    conf = {"model": {"type": "debugger", "image_height": 16, "image_width": 24,
+                      "channels": 0, "surface_channels": 2, "levels": 0,
+                      "input_only_channels": 0, "output_only_channels": 0},
+            "data": {"source": {"ERA5": {"variables": {"prognostic": {"vars_2D": ["T2M", "SP"]}}}}}}
+    schema = ChannelSchema.from_config(conf)
+    model = jax_load_model(conf)
+    x0 = np.random.default_rng(17).standard_normal((2, 1, 16, 24, schema.n_input)).astype(
+        np.float32)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x0))
+    mesh = jax_mesh(2, 1, 4)
+    roll = make_scan_rollout(model, schema, 3, history_len=1, with_forcing=False, mesh=mesh)
+    xs = jax.device_put(jnp.asarray(x0), NamedSharding(mesh, P("dp", None, "domain", None, None)))
+    want, _ = jax.jit(roll)(jax.device_put(variables, NamedSharding(mesh, P())), xs)
+    with open(tmp_path / "variables.pkl", "wb") as f:
+        pickle.dump(_to_numpy(variables), f)
+    np.savez(tmp_path / "batch.npz", x=x0)
+    ranks = run_ranks("rollout", 4, tmp_path, {"conf": conf, "mesh": [2, 1, 2],
+                                               "variables": str(tmp_path / "variables.pkl"),
+                                               "batch": str(tmp_path / "batch.npz")})
+    for r in ranks:
+        np.testing.assert_allclose(r["mesh_x"], np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(r["one_x"], np.asarray(want), rtol=1e-5, atol=1e-5)

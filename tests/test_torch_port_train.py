@@ -92,11 +92,11 @@ def test_weighted_loss_from_config_and_unported_terms():
                                float(jl(jnp.asarray(t), jnp.asarray(p))), rtol=1e-6)
     assert tlosses.WeightedLoss(base="KCRPS").is_ensemble
     # DownscalingLoss is ported (tests/test_torch_port_models.py holds it
-    # against credit_tpu's); the device-ring CRPS (item 8) still raises
+    # against credit_tpu's), and so is the device-ring CRPS, dense outside
+    # a process group (tests/test_torch_port_parallel.py)
     ds = tlosses.WeightedLoss.from_config({"data": {"datasets": {}}})
     assert isinstance(ds, tlosses.DownscalingLoss) and ds.base_name == "mse"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        tlosses.WeightedLoss(base="ring-crps")
+    assert tlosses.WeightedLoss(base="ring-crps").is_ensemble
 
 
 # --------------------------------------------------------------- schedules

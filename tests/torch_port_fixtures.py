@@ -6,6 +6,11 @@ them without credit_tpu.
 """
 
 import copy
+import json
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -115,3 +120,48 @@ def two_torch_threads():
     torch.set_num_threads(min(n, 2))
     yield
     torch.set_num_threads(n)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(REPO, "tests", "torch_port_parallel_worker.py")
+
+
+def run_ranks(scenario: str, world: int, tmp, args: dict, timeout: float = 90.0):
+    """Launch `world` worker processes for `scenario`, wait at most
+    `timeout` seconds for all (then kill them and fail), and return each
+    rank's .npz as a dict."""
+    tmp = str(tmp)
+    argf = os.path.join(tmp, f"{scenario}.json")
+    with open(argf, "w") as f:
+        json.dump(args, f)
+    store = os.path.join(tmp, f"store_{scenario}")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([REPO, os.path.join(REPO, "tests"),
+                                                         os.environ.get("PYTHONPATH", "")]),
+           "OMP_NUM_THREADS": "1"}
+    logs, procs = [], []
+    for r in range(world):
+        log = open(os.path.join(tmp, f"{scenario}_rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, WORKER, scenario, str(r), str(world),
+                                       store, tmp, argf], env=env, stdout=log,
+                                      stderr=subprocess.STDOUT, cwd=tmp))
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(os.path.join(tmp, f"{scenario}_rank{bad[0]}.log")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"ranks {bad} of {scenario} failed (rc "
+                             f"{[procs[r].returncode for r in bad]}):\n{tail}")
+    return [dict(np.load(os.path.join(tmp, f"{scenario}_rank{r}.npz"))) for r in range(world)]
