@@ -45,7 +45,11 @@ Phases (any failure exits non-zero):
      same draws on both: the four noise classes, one bred vector, an SDL
      capture replayed, run_rollout with ensemble_size 3 (gaussian and bred)
      from the tiny fit's checkpoint (files by diff_rollout), rollout_metrics'
-     and ensemble_eval's rows, 5 ic-opt iterations and ptype's fields;
+     and ensemble_eval's rows, 5 ic-opt iterations and ptype's fields; and
+     the credit-torch CLI in this process (init, summary, train, rollout,
+     metrics, preprocess, submit, solar; train and rollout on the card
+     against --device cpu), plot / tune / orbax reading where matplotlib,
+     optuna and tensorstore are installed (else a line says so);
   4. main path 1, the forecast: the 0.25-degree WXFormer (CONF_025 below)
      with seeded folded weights in bf16 at batch 1, a warm-up step, then a
      rollout whose kernel launches are counted and checked against the
@@ -72,7 +76,7 @@ Phases (any failure exits non-zero):
  10. main path 7, `credit train` at CONF_025: a seeded 721x1440 zarr ERA5
      store (DATA_025's variables, 13 levels, 8 six-hourly times, one zlib
      chunk per (time, level) slab) and its mean/std netCDF files, then
-     run_training for 2 epochs of 3 steps and 1 validation batch (EMA,
+     run_training for 2 epochs of 2 steps and 1 validation batch (EMA,
      best weights, per-variable metrics, prefetch 2), then a resume for one
      more epoch: the log, the checkpoints, the resumed state and the
      launches checked; the step, validation, batch assembly and copy times
@@ -179,6 +183,25 @@ Phases (any failure exits non-zero):
      benchmark_halo at 800x1440x128 bf16; no time of two ranks on one
      card is a throughput figure.
      Removes phase 10's store.
+ 19. main path 16, the applications and interfaces: (a) `python -m
+     credit_torch convert-checkpoint --dry-run-manifest` for the published
+     wxformer_6h and fuxi_6h layouts (two processes at once, each strict
+     into the port's model on the card at full width), while a seeded
+     640x1280 zarr store of their 74 inputs and three GFS-like 0.25-degree
+     cubes (721x1440, 13 pressure levels) are written; (b) `credit-torch
+     realtime` (in this process) of the converted wxformer_6h in bf16, 4
+     steps to netCDF, then GEFS with 3 members for 2 steps: the IC on the
+     card against nwp.build_gfs_init on the CPU at every 16th row, each
+     file against RolloutEngine.step of the folded weights, the GEFS
+     control against the single run, the launches a step; (c)
+     `credit-torch serve`'s server on 127.0.0.1: /health, three POST
+     /forecast of 4 steps against an engine run in this process, /field
+     against the file, the launches; (d) bf16 steps of the converted
+     fuxi_6h (its input on the card): ms, peak, launches, one step
+     profiled by kernel, the prediction against the same step on the
+     plain versions of kernels 1 and 2, both from an f32 forward on the
+     plain versions. Phase 2 checks the five convs and the FF shape of
+     this path that main path 1 does not launch. Removes its directory.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their numbers.
 """
@@ -186,6 +209,7 @@ the kernels with their numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -294,7 +318,8 @@ BF16_TRAIN_LIMITS = {"crossformer": (1e-3, 5e-2, 0.25), "fuxi": (3e-3, 0.1, 0.25
 FIT_LEVELS = [50.0, 100.0, 150.0, 200.0, 250.0, 300.0, 400.0, 500.0, 600.0, 700.0, 850.0,
               925.0, 1000.0]
 FIT_TIMES = 8
-FIT_TRAINER = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 3,
+# (2 batches an epoch: cut from 3 for the script's time)
+FIT_TRAINER = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 2,
                "valid_batches_per_epoch": 1, "use_ema": True, "save_best_weights": True,
                "log_variable_metrics": True, "prefetch": 2, "learning_rate": 1e-4}
 # the tiny fit of phase 3 on the card against the CPU, f32: every log cell
@@ -675,6 +700,19 @@ SLAB_CONV_SHAPES = [
     ("slab_up2_res_3x3", (1, 102, 362, 256, 3, 3, 256)),
     ("slab_up3_res_3x3", (1, 202, 722, 128, 3, 3, 128)),
     ("slab_head_phase_3x3", (1, 202, 722, 256, 3, 3, 224))]
+# main path 16 (phase 19): the published layouts at 640x1280 padded 80 a
+# side to 800x1440. wxformer_6h: the stage-0 embed over 74 inputs (296 after
+# space-to-depth: five 64-deep K steps a tap, the last part zero-filled by
+# TMA, against 240's four) and the head's phase conv to 71 outputs (284
+# phases); its other convs are main path 1's. fuxi_6h: the DownBlock's
+# conv, its residual convs and the UpBlock's at 1440 columns (CONF_FUXI's
+# 1280: 181 / 182 / 362 wide against 161 / 162 / 322)
+APP_CONV_SHAPES = [
+    ("wx6h_stage0_embed_8x8", (1, 415, 735, 296, 8, 8, 176)),
+    ("wx6h_head_phase_3x3", (1, 402, 722, 256, 3, 3, 284)),
+    ("fx6h_down_s2d_2x2", (1, 101, 181, 4096, 2, 2, 1024)),
+    ("fx6h_down_res_3x3", (1, 102, 182, 1024, 3, 3, 1024)),
+    ("fx6h_up_res_3x3", (1, 202, 362, 1024, 3, 3, 1024))]
 CONV_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
     # ic-opt's input gradient of the stage-0 embed (main path 14): gy
@@ -695,7 +733,8 @@ CONV_SHAPES = [
     ("ragged_channels_3x3", (1, 130, 250, 100, 3, 3, 60), BF16, 10),
     ("tall_3x2", (1, 130, 250, 128, 3, 2, 128), BF16, 10),
     *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES],
-    *[(label, shape, BF16, 5) for label, shape in SLAB_CONV_SHAPES]]
+    *[(label, shape, BF16, 5) for label, shape in SLAB_CONV_SHAPES],
+    *[(label, shape, BF16, 5) for label, shape in APP_CONV_SHAPES]]
 
 
 def conv_cases(torch, g):
@@ -759,6 +798,8 @@ FF_SHAPES = [("stage0_C128", (400, 720, 128), False, 512),
              ("stage2_C512", (100, 180, 512), False, 2048),
              ("stage3_C1024", (50, 90, 1024), False, 4096),
              ("fuxi_C1024_post", (105, 161, 1024), True, 4096),
+             # fuxi_6h's (main path 16): 100x180 tokens padded to 105x182
+             ("fx6h_C1024_post", (105, 182, 1024), True, 4096),
              ("padded_C192_post", (100, 180, 192), True, 768),
              ("wide_C1152", (50, 90, 1152), False, 4608),
              ("wide_C1152_post", (50, 90, 1152), True, 4608),
@@ -2674,7 +2715,9 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
         f"({peak / 2**30:.2f} GiB), launches {counts}; preflight and warm-up add none (the "
         f"preflight reads a host sample only, the weights are seeded without a forward)")
     fit_times(trainer)
-    _check_counts(counts, {k: 6 * want_train.get(k, 0) + 2 * want_valid.get(k, 0)
+    per_epoch = FIT_TRAINER["batches_per_epoch"]
+    n_steps = FIT_TRAINER["num_epoch"] * per_epoch
+    _check_counts(counts, {k: n_steps * want_train.get(k, 0) + 2 * want_valid.get(k, 0)
                            for k in counts}, 1)
     rows = read_log(conf["save_loc"])
     header, body = rows[0], rows[1:]
@@ -2709,7 +2752,7 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
                         for k, v in state.ema_params.items())
     log(f"  resume: state at step {state.step}, epoch {start}; parameters, u/v and EMA bitwise "
         f"equal to the checkpoint before the first step: {same}")
-    if not same or state.step != 6 or start != 2:
+    if not same or state.step != n_steps or start != 2:
         raise AssertionError("the resumed state is not the saved one")
     done = {}
 
@@ -2722,10 +2765,10 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     counts2 = _read_counts()
     log(f"  resumed run: launches {counts2}, step now {state_step}")
     fit_times(trainer)
-    _check_counts(counts2, {k: 3 * want_train.get(k, 0) + want_valid.get(k, 0) for k in counts2},
-                  1)
+    _check_counts(counts2, {k: per_epoch * want_train.get(k, 0) + want_valid.get(k, 0)
+                            for k in counts2}, 1)
     rows = read_log(run)
-    if [r[0] for r in rows[1:]] != ["0", "1", "2"] or state_step != 9:
+    if [r[0] for r in rows[1:]] != ["0", "1", "2"] or state_step != n_steps + per_epoch:
         raise AssertionError(f"the resumed run did not continue: epochs {[r[0] for r in rows[1:]]}")
     log(f"  resumed epoch (profiled) idle share {idle:.3f}; phase 10 before the chunk pool: "
         f"{ONE_THREAD_FIT}")
@@ -4237,6 +4280,613 @@ def parallel_path(torch, store_info, runs: dict, want_train: dict, want_valid: d
         raise AssertionError("phase 18(b, c) failed its checks")
 
 
+# main path 16, the applications and interfaces: the published wxformer_6h
+# and fuxi_6h layouts (credit_torch.manifests, 640x1280 padded 80 a side to
+# 800x1440; 16 levels, 74 inputs, 71 outputs) converted by `credit-torch
+# convert-checkpoint --dry-run-manifest`, a seeded GFS-like analysis at
+# 0.25 degrees (721x1440, 13 pressure levels) through `credit-torch
+# realtime`, `credit-torch serve` on localhost, one FuXi step
+WX_LEVELS = [5000.0, 10000.0, 15000.0, 20000.0, 25000.0, 30000.0, 40000.0, 50000.0, 60000.0,
+             70000.0, 77500.0, 85000.0, 90000.0, 92500.0, 95000.0, 100000.0]
+GFS_LEVELS = [5000.0, 10000.0, 15000.0, 20000.0, 25000.0, 30000.0, 40000.0, 50000.0, 60000.0,
+              70000.0, 85000.0, 92500.0, 100000.0]
+GFS_SHAPE = (721, 1440)
+WX_SHAPE = (640, 1280)
+WX_SURFACE = ["SP", "VAR_2T", "VAR_10U", "VAR_10V", "Z500", "T500", "U500"]
+DATA_WX = {"source": {"ERA5": {
+    "levels": WX_LEVELS,
+    "variables": {"prognostic": {"vars_3D": ["U", "V", "T", "Q"], "vars_2D": WX_SURFACE},
+                  "dynamic_forcing": {"vars_2D": ["tsi"]},
+                  "static": {"vars_2D": ["z_norm", "lsm"]}}}}}
+# the GFS short names of the 3-D and the mapped surface fields (nwp.GFS_MAP);
+# Z500, T500 and U500 go in under their ERA5 names
+GFS_3D = {"ugrd": "U", "vgrd": "V", "tmp": "T", "spfh": "Q"}
+GFS_2D = {"pressfc": "SP", "tmp2m": "VAR_2T", "ugrd10m": "VAR_10U", "vgrd10m": "VAR_10V",
+          "Z500": "Z500", "T500": "T500", "U500": "U500"}
+WX_TIMES = 6  # the store's six-hourly times: init 1 and the forcing of 4 steps
+RT_STEPS = 4
+GEFS_MEMBERS = 3
+GEFS_STEPS = 2
+SERVE_REQUESTS = 3
+SERVE_STEPS = 4
+IC_TOL = 1e-5  # of each channel's largest |value|
+IC_ROW_STRIDE = 16  # the CPU's IC on every 16th row of the 640
+SERVE_MEAN_TOL = 1e-4  # relative: the same bf16 forward, request against in-process run
+RT_LABEL = "2024-01-01T00Z"
+FX_STEPS = 3
+# the converted FuXi's bf16 step through kernels 1 and 2, from an f32
+# forward on the plain versions, against the bf16 step on the plain
+# versions' distance from it: both are bf16 rounding
+FX_PLAIN_FACTOR = 1.5
+
+
+def _wx_conf(model: dict, root: str, store: str, stats, history_len: int = 1, **extra) -> dict:
+    """A config of the published layout on the seeded 640x1280 store: the
+    zarr source, the Normalizer from its statistics, bf16 compute."""
+    src = {**DATA_WX["source"]["ERA5"], "dataset_type": "zarr", "store_path": store}
+    return {"model": {**model, "compute_dtype": "bfloat16"}, "save_loc": root, "seed": 0,
+            "data": {"source": {"ERA5": src}, "start_datetime": "1979-01-01T00",
+                     "end_datetime": "1979-01-02T06", "timestep": "6h",
+                     "history_len": history_len, "forecast_len": 1,
+                     "mean_path": stats[0], "std_path": stats[1]},
+            "loss": {"training_loss": "mse", "use_latitude_weights": True},
+            "trainer": {"train_batch_size": 1, "preflight": False}, **extra}
+
+
+def _write_json(path: str, conf: dict) -> str:
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    return path
+
+
+def gfs_cube(torch, path: str, seed: int) -> None:
+    """A seeded GFS-like analysis as the decoded-fields .npz realtime reads:
+    lat 90..-90 (721), lon 0..359.75 (1440), pressure GFS_LEVELS (Pa), the
+    3-D fields (13, 721, 1440) and the 2-D ones (721, 1440) in physical
+    units around STATS (N(0, 1) for the rest), drawn on the card."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fields = {}
+    for name, var in {**GFS_3D, **GFS_2D}.items():
+        m, s = STATS.get(var, (0.0, 1.0))
+        shape = ((len(GFS_LEVELS),) if name in GFS_3D else ()) + GFS_SHAPE
+        fields[name] = (torch.randn(shape, generator=g, device="cuda") * s + m).cpu().numpy()
+    np.savez(path, lat=np.linspace(90.0, -90.0, GFS_SHAPE[0]),
+             lon=np.arange(GFS_SHAPE[1]) * (360.0 / GFS_SHAPE[1]),
+             pressure=np.asarray(GFS_LEVELS), **fields)
+
+
+def convert_manifests(root: str):
+    """`python -m credit_torch convert-checkpoint cfg --dry-run-manifest
+    NAME` for wxformer_6h and fuxi_6h, both started at once; returns the
+    processes, their configs and start times."""
+    from credit_torch.manifests import MANIFEST_MODEL_CONF
+
+    procs = {}
+    for name, frames in (("wxformer_6h", 1), ("fuxi_6h", 2)):
+        save = os.path.join(root, name)
+        data = {"source": {"ERA5": DATA_WX["source"]["ERA5"]}, "history_len": frames}
+        cfg = _write_json(os.path.join(root, f"{name}.json"),
+                          {"model": MANIFEST_MODEL_CONF[name], "data": data, "save_loc": save})
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "credit_torch", "convert-checkpoint", cfg,
+             "--dry-run-manifest", name], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), save, time.time())
+    return procs
+
+
+def finish_conversions(procs) -> dict:
+    """Wait for the conversions; each must exit 0 and print its checkpoint
+    directory. Prints each one's seconds and its parameter counts (the
+    manifest's elements; the port model's parameters, from its log).
+    Returns {name: checkpoint directory}."""
+    import re
+
+    from credit_torch.manifests import load_manifest
+
+    out = {}
+    for name, (proc, save, t0) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        secs = time.time() - t0
+        if proc.returncode != 0 or stdout.strip().splitlines()[-1:] != [
+                os.path.join(save, "checkpoint")]:
+            raise AssertionError(f"convert-checkpoint {name}: rc {proc.returncode}\n"
+                                 f"{stdout[-2000:]}\n{stderr[-4000:]}")
+        m = re.search(r"(\d+) tensors, (\d+) parameters", stderr)
+        manifest = sum(math.prod(s) for s in load_manifest(name).values())
+        log(f"  credit-torch convert-checkpoint --dry-run-manifest {name}: {secs:.1f} s (the "
+            f"two at once, a process each: start, synthesis, conversion, strict load on the "
+            f"card, write); manifest {len(load_manifest(name))} keys, {manifest / 1e6:.2f} M "
+            f"elements; the port's model {m.group(1)} tensors, {int(m.group(2)) / 1e6:.2f} M "
+            f"parameters; {os.path.getsize(os.path.join(save, 'checkpoint', 'state.pt')) / 1e6:.0f}"
+            f" MB state.pt")
+        out[name] = save
+    return out
+
+
+def realtime_path(torch, conf: dict, cfg: str, want: dict, runs: dict):
+    """Phase 19(b): `credit-torch realtime` (cli.main in this process) of
+    the converted wxformer_6h in bf16 for RT_STEPS steps from the GFS cube,
+    then the GEFS form with GEFS_MEMBERS members for GEFS_STEPS steps.
+    Checks: the IC built on the card against nwp.build_gfs_init on the CPU
+    at every IC_ROW_STRIDE-th row within IC_TOL of each channel's largest
+    value; each file against RolloutEngine.step of the folded converted
+    weights (NC_TOL); the launches a step; the GEFS files, its control's
+    first step against the single run's and the members apart. Prints the
+    IC's ms, ms/step with the writes and peak memory."""
+    import io
+
+    import numpy as np
+
+    from credit_torch import nwp, output, rollout
+    from credit_torch.applications import experiment
+    from credit_torch.cli.main import main as cli
+    from credit_torch.grid import Grid
+    from credit_torch.trainers.trainer import Trainer
+    from credit_torch.utils.ncio import open_dataset
+
+    ics, runs_ms = [], []
+    build, engine_run = nwp.build_gfs_init, rollout.RolloutEngine.run
+
+    def timed_build(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ic = build(*args, **kw)
+        torch.cuda.synchronize()
+        ics.append(((time.perf_counter() - t0) * 1e3, args, kw, ic))
+        return ic
+
+    def timed_run(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = engine_run(self, *args, **kw)
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    out = conf["realtime"]["save_forecast"]
+    results = {}
+    for tag, steps, argv in (("rt_wx", RT_STEPS, ["realtime", cfg]),
+                             ("rt_gefs", GEFS_STEPS, ["realtime", cfg + ".gefs.json"])):
+        ics.clear()
+        runs_ms.clear()
+        nwp.build_gfs_init, rollout.RolloutEngine.run = timed_build, timed_run
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        printed = io.StringIO()
+        try:
+            t0 = time.time()
+            with contextlib.redirect_stdout(printed):
+                rc = cli(argv)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+        finally:
+            nwp.build_gfs_init, rollout.RolloutEngine.run = build, engine_run
+        n_files = len(printed.getvalue().split())
+        if rc != 0 or n_files != steps * (GEFS_MEMBERS if tag == "rt_gefs" else 1):
+            raise AssertionError(f"credit-torch {' '.join(argv)}: exit {rc}, {n_files} files")
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_ic = len(ics)
+        log(f"  credit-torch realtime ({tag}: {n_ic} IC{'s' if n_ic > 1 else ''} x {steps} "
+            f"steps): {wall:.0f} ms end to end; IC {[round(i[0], 1) for i in ics]} ms on the "
+            f"card (regrid {GFS_SHAPE[0]}x{GFS_SHAPE[1]} -> {WX_SHAPE[0]}x{WX_SHAPE[1]} and the "
+            f"column interpolation {len(GFS_LEVELS)} -> {len(WX_LEVELS)} levels); "
+            f"{runs_ms[0] / steps:.1f} ms/step with the writes; peak memory {peak} bytes "
+            f"({peak / 2**30:.2f} GiB); launches {counts}")
+        _check_counts(counts, want, steps)
+        runs[tag] = counts
+        results[tag] = [i[3] for i in ics]
+        if tag == "rt_wx":
+            _, args, kw, ic = ics[0]
+            schema, grid = args[0], args[1]
+            rows = slice(None, None, IC_ROW_STRIDE)
+            sub = Grid(lat=grid.lat[rows], lon=grid.lon, levels=grid.levels)
+            t0 = time.time()
+            cpu = build(schema, sub, *args[2:],
+                        **{**kw, "device": "cpu", "static_fields": {
+                            k: v[rows] for k, v in kw["static_fields"].items()}})
+            card = ic[:, :, rows].double().cpu()
+            scale = card.abs().amax(dim=(0, 1, 2, 3)).clamp_min(1e-30)
+            err = ((card - cpu.double()).abs().amax(dim=(0, 1, 2, 3)) / scale).max().item()
+            log(f"  the IC on the card against nwp.build_gfs_init on the CPU at every "
+                f"{IC_ROW_STRIDE}th row ({cpu.shape[2]} rows, {time.time() - t0:.1f} s): worst "
+                f"channel err over its largest value {err:.3e} limit {IC_TOL:g}")
+            if not err <= IC_TOL:
+                raise AssertionError("the realtime IC on the card disagrees with the CPU")
+
+    # every single-run file against RolloutEngine.step of the folded weights
+    exp = experiment.build_data(conf)
+    schema = exp["schema"]
+    saved = torch.load(os.path.join(conf["save_loc"], "checkpoint", Trainer.CHECKPOINT_FILE),
+                       map_location="cuda", weights_only=True)
+    model = experiment._inference_model(conf, saved["model"], torch.device("cuda"))
+    del saved
+    engine = rollout.RolloutEngine(model, schema, exp["normalizer"], device="cuda")
+    x = exp["normalizer"].normalize_input(results["rt_wx"][0])
+    worst, t0 = 0.0, time.time()
+    first, step_ms = {}, []
+    for s in range(RT_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y, x = engine.step(x)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        y = exp["normalizer"].denormalize_target(y).float()[0].cpu().numpy()
+        path = os.path.join(out, RT_LABEL, f"pred_{RT_LABEL}_{6 * (s + 1):03d}.nc")
+        ds = open_dataset(path)
+        for k, a in output.split_channels(y, schema).items():
+            w = np.asarray(ds[k].values)[0]
+            if not np.isfinite(w).all() or w.shape != a[0].shape:
+                raise AssertionError(f"{path}: {k} {w.shape} not finite or misshapen")
+            worst = max(worst, float(np.abs(a[0] - w).max() / np.abs(w).max()))
+            if s == 0:
+                first[k] = w
+    engine.close()
+    del model, engine
+    log(f"  the {RT_STEPS} files against RolloutEngine.step of the folded converted weights, "
+        f"denormalized: worst variable rel err {worst:.3e} limit {NC_TOL:g} (read back in "
+        f"{time.time() - t0:.1f} s); those steps alone {[round(v, 1) for v in step_ms]} ms "
+        f"(f32 weights as the engine holds them, bf16 compute)")
+    if not worst <= NC_TOL:
+        raise AssertionError("the realtime forecast disagrees with the engine's step")
+    members = sorted(os.listdir(out))
+    names = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out)
+                   for f in fs)
+    want_names = sorted([os.path.join(RT_LABEL, f"pred_{RT_LABEL}_{6 * (s + 1):03d}.nc")
+                         for s in range(RT_STEPS)]
+                        + [os.path.join(m, RT_LABEL, f"pred_{RT_LABEL}_{6 * (s + 1):03d}.nc")
+                           for m in ("c00", "p01", "p02") for s in range(GEFS_STEPS)])
+    if names != want_names:
+        raise AssertionError(f"realtime files {names}, expected {want_names}")
+    ctrl, pert = ({k: np.asarray(open_dataset(os.path.join(
+        out, m, RT_LABEL, f"pred_{RT_LABEL}_006.nc"))[k].values)[0] for k in first}
+        for m in ("c00", "p01"))
+    same = max(float(np.abs(ctrl[k] - first[k]).max() / np.abs(first[k]).max()) for k in first)
+    apart = max(float(np.abs(pert[k] - ctrl[k]).max() / np.abs(ctrl[k]).max()) for k in first)
+    log(f"  GEFS ({members}): the control's first step against the single run's (batch 3 "
+        f"against 1) worst rel err {same:.3e} limit {NC_TOL:g}; p01 apart from c00 by "
+        f"{apart:.3e} of the largest value")
+    if not (same <= NC_TOL and apart > 1e-3):
+        raise AssertionError("the GEFS realtime members are wrong")
+    return results["rt_wx"][0]
+
+
+def serve_path(torch, conf: dict, want: dict, runs: dict) -> None:
+    """Phase 19(c): ForecastService over the converted wxformer_6h and the
+    640x1280 store, `serve`'s server (make_server) on 127.0.0.1 in a
+    thread: GET /health, SERVE_REQUESTS POST /forecast of SERVE_STEPS
+    steps (their launches counted), each step's mean against the engine run
+    in this process within SERVE_MEAN_TOL, and GET /field's payload against
+    the realtime file bitwise. Prints the load seconds and each request's
+    ms (the client's wall time and the server's)."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from credit_torch.serve import ForecastService, make_server
+    from credit_torch.utils.ncio import open_dataset
+
+    svc = ForecastService(conf)
+    httpd = make_server(conf, "127.0.0.1", 0, service=svc)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def request(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=300) as r:
+            payload = json.loads(r.read())
+            if r.status != 200:
+                raise AssertionError(f"{path}: HTTP {r.status} {payload}")
+        return payload, (time.perf_counter() - t0) * 1e3
+
+    try:
+        health, _ = request("/health")
+        _zero_counts()
+        answers = [request("/forecast", {"steps": SERVE_STEPS}) for _ in range(SERVE_REQUESTS)]
+        counts = _read_counts()
+        field, field_ms = request(f"/field?run_date={RT_LABEL}&forecast_hour=6&variable=T"
+                                  f"&level=3")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    log(f"  credit-torch serve: model loaded in {health['load_seconds']:.1f} s; "
+        f"{SERVE_REQUESTS} POST /forecast of {SERVE_STEPS} steps: client ms "
+        f"{[round(ms, 1) for _, ms in answers]} (the zarr read of the IC and the forcing on "
+        f"the host included), server ms {[round(a['seconds'] * 1e3, 1) for a, _ in answers]} "
+        f"(the locked rollout: {SERVE_STEPS} bf16 steps, each prediction to the host); "
+        f"launches {counts}")
+    _check_counts(counts, want, SERVE_REQUESTS * SERVE_STEPS)
+    runs["serve_wx"] = counts
+    ds = svc.exp["dataset"]
+    i0 = svc.history_len
+    outs = svc.engine.run(ds.input_at(i0)[None], SERVE_STEPS,
+                          forcing_provider=lambda s: ds.forcing_at(i0 + s)[None])
+    ref = np.array([float(np.mean(o)) for o in outs])
+    err = max(float(np.abs(np.array(a["channel_mean_per_step"]) - ref).max()
+                    / np.abs(ref).max()) for a, _ in answers)
+    svc.engine.close()
+    log(f"  each step's mean of the {SERVE_REQUESTS} answers against the engine run in this "
+        f"process: worst rel err {err:.3e} limit {SERVE_MEAN_TOL:g}")
+    if not (err <= SERVE_MEAN_TOL and all(a["shapes"] == [list(outs[0].shape)]
+                                          for a, _ in answers)):
+        raise AssertionError("the server's forecasts disagree with the in-process run")
+    arr = np.frombuffer(base64.b64decode(field["data"]), np.float32).reshape(field["shape"])
+    want_t = np.asarray(open_dataset(os.path.join(
+        conf["predict"]["save_forecast"], RT_LABEL, f"pred_{RT_LABEL}_006.nc"))["T"].values)[0, 3]
+    log(f"  GET /field (T at level 3 of the realtime tree's first file): {field_ms:.1f} ms, "
+        f"shape {field['shape']}, bitwise the file's: {bool(np.array_equal(arr, want_t))}")
+    if not (field["status"] == "ok" and np.array_equal(arr, want_t)):
+        raise AssertionError("GET /field disagrees with the file")
+    del svc
+
+
+@contextlib.contextmanager
+def plain_routes(torch):
+    """Within this block kernels 1 and 2 run their plain versions (the
+    wrappers' module attributes pointed at them; the FF on the plain version
+    of the route its plan picks), launching nothing."""
+    from credit_torch.ops import cuda_conv, cuda_ff
+
+    def ff_plain(x, g, b, w1, b1, w2, b2, post_norm=False):
+        plan = cuda_ff.ff_plan(x.numel() // x.shape[-1], x.shape[-1], w1.shape[1], x.dtype,
+                               bool(post_norm))
+        fn = cuda_ff.fused_ff_split_plain if plan.route == "split" else cuda_ff.fused_ff_plain
+        return fn(x, g, b, w1, b1, w2, b2, post_norm=post_norm)
+
+    kernels = cuda_conv.conv2d_valid, cuda_ff.fused_ff
+    cuda_conv.conv2d_valid, cuda_ff.fused_ff = cuda_conv.conv2d_valid_plain, ff_plain
+    try:
+        yield
+    finally:
+        cuda_conv.conv2d_valid, cuda_ff.fused_ff = kernels
+
+
+def fuxi_step_path(torch, conf: dict, want: dict, runs: dict) -> None:
+    """Phase 19(d): the converted fuxi_6h folded for inference in bf16
+    (experiment._load_engine on the store, two input frames, f32 weights
+    as the engine holds them): a warm-up step, FX_STEPS timed steps, the
+    first one's launches counted, and one step profiled by kernel. Then
+    the step's prediction held against the same step on the plain versions
+    of kernels 1 and 2 (`plain_routes`), and both against an f32 forward on
+    the plain versions: the kernels' distance from it within FX_PLAIN_FACTOR
+    times the plain versions'. Prints ms a step and peak memory."""
+    from credit_torch.applications import experiment
+    from credit_torch.trainers.trainer import Trainer
+
+    exp, engine = experiment._load_engine(conf, torch.device("cuda"), postblocks=False)
+    ds = exp["dataset"]
+    # the two frames on the card once (485 MB in f32), so a step copies none
+    x_host = exp["normalizer"].normalize_input(torch.as_tensor(ds.input_at(ds.history_len)[None]))
+    x = x_host.to("cuda")
+    engine.step(x)
+    ms, counts = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FX_STEPS):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = engine.step(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = counts or _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.step(x_host)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  fuxi_6h, bf16 forecast steps (two input frames, {WX_SHAPE[0]}x{WX_SHAPE[1]} padded to "
+        f"800x1440): {[round(v, 1) for v in ms]} ms, peak {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"output {tuple(y.shape)}; launches {counts}; a step handed the input on the host (its "
+        f"{x_host.numel() * 4 / 1e6:.0f} MB copied in the step): {host_ms:.1f} ms")
+    _check_counts(counts, want, 1)
+    profile_steps(torch, "fuxi_6h engine step", lambda: engine.step(x), (), steps=1)
+    with plain_routes(torch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_plain, _ = engine.step(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    engine.close()
+    del engine
+    saved = torch.load(os.path.join(conf["save_loc"], "checkpoint", Trainer.CHECKPOINT_FILE),
+                       map_location="cuda", weights_only=True)
+    conf32 = {**conf, "model": {**conf["model"], "compute_dtype": "float32"}}
+    model32 = experiment._inference_model(conf32, saved["model"], torch.device("cuda"))
+    del saved
+    with plain_routes(torch), torch.no_grad():
+        y32 = model32(x).double()
+    del model32
+
+    def dist(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b))
+
+    k_plain, k32, p32 = dist(y, y_plain.double()), dist(y, y32), dist(y_plain, y32)
+    fin = bool(torch.isfinite(y).all())
+    log(f"  the step against the same step on the plain versions ({plain_ms:.1f} ms): relative "
+        f"L2 distance {k_plain:.3e}, largest |difference| over largest |plain| "
+        f"{_rel(y.float(), y_plain.float()):.3e}; from an f32 forward on the plain versions: "
+        f"the kernels' {k32:.3e}, the plain versions' {p32:.3e} (limit {FX_PLAIN_FACTOR:g} x "
+        f"theirs); finite {fin}")
+    if not (fin and k32 <= FX_PLAIN_FACTOR * p32):
+        raise AssertionError("the converted FuXi's step disagrees with its plain versions")
+    runs["fx_6h"] = counts
+
+
+def write_inputs(torch, root: str):
+    """The seeded WX_SHAPE zarr store of DATA_WX (WX_TIMES times) and
+    GEFS_MEMBERS GFS cubes, the first the single run's. Returns (store,
+    stats, {member: cube path})."""
+    store = os.path.join(root, "era5.zarr")
+    stats = write_store(torch, store, DATA_WX, WX_SHAPE, WX_TIMES, seed=19)
+    cubes = {}
+    for m in range(GEFS_MEMBERS):
+        cubes["c00" if m == 0 else f"p{m:02d}"] = os.path.join(root, f"gfs_{m}.npz")
+        gfs_cube(torch, cubes["c00" if m == 0 else f"p{m:02d}"], seed=190 + m)
+    return store, stats, cubes
+
+
+def applications_path(torch, runs: dict, root: str, saves: dict, store: str, stats, cubes: dict,
+                      models: dict) -> None:
+    """Phase 19(b-d) on the checkpoints in `saves` ({name: save_loc}) of
+    `models` ({name: model config}, the manifests' in the run)."""
+    wx = models["wxformer_6h"]
+    out = os.path.join(root, "realtime")
+    conf = _wx_conf(wx, saves["wxformer_6h"], store, stats, predict={"save_forecast": out},
+                    realtime={"fields_path": cubes["c00"], "forecast_steps": RT_STEPS,
+                              "init_label": RT_LABEL, "save_forecast": out})
+    cfg = _write_json(os.path.join(root, "realtime.json"), conf)
+    _write_json(cfg + ".gefs.json", {**conf, "realtime": {
+        "member_fields_paths": cubes, "forecast_steps": GEFS_STEPS, "init_label": RT_LABEL,
+        "save_forecast": out}})
+    want = expected_per_step(wx)
+    t0 = time.time()
+    realtime_path(torch, conf, cfg, want, runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 19(b): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    serve_path(torch, conf, want, runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 19(c): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    fx = models["fuxi_6h"]
+    fuxi_step_path(torch, _wx_conf(fx, saves["fuxi_6h"], store, stats, history_len=2),
+                   expected_fuxi_per_step(fx), runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 19(d): {time.time() - t0:.1f} s")
+
+
+def interfaces_path(torch, runs: dict) -> None:
+    """Main path 16 (phase 19): (a) the two published layouts converted by
+    subprocesses of `python -m credit_torch` while `write_inputs` writes
+    the store and the GFS cubes; (b) `realtime_path`; (c) `serve_path`;
+    (d) `fuxi_step_path`. Removes its directory."""
+    from credit_torch.manifests import MANIFEST_MODEL_CONF
+
+    root = os.path.join(HERE, "build", "interfaces")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    procs = convert_manifests(root)
+    try:
+        t0 = time.time()
+        store, stats, cubes = write_inputs(torch, root)
+        log(f"  the {WX_SHAPE[0]}x{WX_SHAPE[1]} zarr store ({WX_TIMES} times, 74 inputs) and "
+            f"{GEFS_MEMBERS} GFS cubes ({GFS_SHAPE[0]}x{GFS_SHAPE[1]}, {len(GFS_LEVELS)} "
+            f"levels) written in {time.time() - t0:.1f} s while the conversions ran")
+        saves = finish_conversions(procs)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    applications_path(torch, runs, root, saves, store, stats, cubes, MANIFEST_MODEL_CONF)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def tiny_cli(torch) -> None:
+    """Phase 3's CLI: `credit_torch.cli.main.main` in this process for init,
+    summary, train, rollout, metrics, preprocess, submit and solar on the
+    tiny CrossFormer (f32) over a synthetic 32x64 dataset; train and rollout
+    on the card and with --device cpu: every training_log.csv cell but
+    `seconds` within TINY_FIT_TOL relative, the rollout's files by
+    diff_rollout within TINY_FIT_TOL. Optional packages: plot needs
+    matplotlib, tune optuna (else it exits 2), reading a credit_tpu
+    checkpoint tensorstore; what is absent is said and not run."""
+    import io
+
+    from credit_torch.applications import diff_rollout
+    from credit_torch.cli.main import main as cli
+
+    root = os.path.join(HERE, "build", "cli_tiny")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(list(argv))
+        if rc != 0:
+            raise AssertionError(f"credit-torch {' '.join(argv)}: exit {rc}\n{buf.getvalue()}")
+        return buf.getvalue()
+
+    data = {**TINY_DATA, "history_len": 1, "forecast_len": 1, "n_times": 12}
+    trainer = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 2,
+               "learning_rate": 1e-3, "preflight": False}
+    cfgs = {}
+    for dev in ("cuda", "cpu"):
+        cfgs[dev] = _write_json(os.path.join(root, f"{dev}.json"), {
+            "model": TINY, "data": data, "trainer": trainer, "save_loc": os.path.join(root, dev),
+            "loss": {"training_loss": "mse"}, "predict": {"forecast_steps": 2}})
+    t0 = time.time()
+    run("init", os.path.join(root, "template.yml"))
+    summary = run("summary", cfgs["cuda"]).strip().splitlines()[-1]
+    logs, paths = {}, {}
+    for dev in ("cuda", "cpu"):
+        run("train", cfgs[dev], "--device", dev)
+        logs[dev] = read_log(os.path.join(root, dev))
+        paths[dev] = run("rollout", cfgs[dev], "--device", dev).split()
+    header = logs["cpu"][0]
+    worst = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
+                for grow, crow in zip(logs["cuda"][1:], logs["cpu"][1:])
+                for n, a, b in zip(header, grow, crow) if n != "seconds")
+    report = diff_rollout(paths["cuda"], os.path.join(root, "cpu", "forecasts"),
+                          rtol=TINY_FIT_TOL, atol=TINY_FIT_TOL)
+    rworst = max(v["rel"] for r in report for v in r["vars"].values())
+    rows = json.loads(run("metrics", cfgs["cuda"], *sorted(paths["cuda"])))
+    run("preprocess", cfgs["cuda"], "--samples", "4")
+    run("submit", cfgs["cuda"], "--scheduler", "slurm", "--gpus-per-node", "4", "--out",
+        os.path.join(root, "launch.sh"))
+    solar = json.loads(run("solar", "--nlat", "19", "--nlon", "36", "--out",
+                           os.path.join(root, "solar")))
+    log(f"  credit-torch CLI in process, tiny CrossFormer f32 ({time.time() - t0:.1f} s): "
+        f"init, summary ({summary}), train 2 epochs and rollout 2 steps on the card and with "
+        f"--device cpu: worst log cell rel err {worst:.3e}, worst file variable rel err "
+        f"{rworst:.3e}, limit {TINY_FIT_TOL:g}; metrics rows {len(rows)}, preprocess, submit, "
+        f"solar {solar['files']} files")
+    if not (logs["cuda"][0] == header and len(logs["cuda"]) == len(logs["cpu"]) == 3
+            and worst <= TINY_FIT_TOL and len(report) == 2 and all(r["ok"] for r in report)
+            and len(rows) == 2 and solar["files"] == 5):
+        raise AssertionError("the tiny CLI run on the card disagrees with the CPU")
+    try:
+        import matplotlib  # noqa: F401
+
+        run("plot", sorted(paths["cuda"])[0], "--out", os.path.join(root, "plot.png"))
+        log("  plot: written (matplotlib)")
+    except ImportError:
+        log("  matplotlib is not installed: `credit-torch plot` not run")
+    try:
+        import optuna  # noqa: F401
+
+        log("  optuna is installed: `credit-torch tune` not run here (a study is a long run)")
+    except ImportError:
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli(["tune", cfgs["cuda"]])
+        log(f"  optuna is not installed: `credit-torch tune` not run (exits {rc}, as credit-tpu's)")
+        if rc != 2:
+            raise AssertionError("tune without optuna must exit 2")
+    from credit_torch.convert_jax import read_orbax_checkpoint
+
+    try:
+        read_orbax_checkpoint(root)
+    except ImportError as e:
+        if "tensorstore" not in str(e):
+            raise
+        log("  tensorstore is not installed: credit_tpu (orbax) checkpoints are not read "
+            "here (read_orbax_checkpoint raises ImportError naming it)")
+    except FileNotFoundError:
+        log("  tensorstore is installed: read_orbax_checkpoint refuses a non-checkpoint "
+            "directory")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def fit_times(trainer) -> None:
     """Each epoch's batch assembly (host, producer thread), copy, train
     step and validation times of the trainer's run, and the train steps'
@@ -4379,6 +5029,7 @@ def main() -> int:
     tiny_ensemble(torch)
     log("  the model zoo (every type beyond the CrossFormer, FuXi and the ensemble):")
     tiny_zoo(torch)
+    tiny_cli(torch)
     log(f"  allocated on the card: {before} bytes before phase 3, "
         f"{torch.cuda.memory_allocated()} after it")
     runs, times = {}, {}
@@ -4471,6 +5122,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 18: {time.time() - t18:.1f} s")
     shutil.rmtree(os.path.dirname(store[0]), ignore_errors=True)
+    log("phase 19: main path 16, the applications and interfaces (the published wxformer_6h "
+        "and fuxi_6h layouts converted, credit-torch realtime from a GFS cube, credit-torch "
+        "serve, a FuXi step)")
+    t19 = time.time()
+    interfaces_path(torch, runs)
+    torch.cuda.empty_cache()
+    log(f"  phase 19: {time.time() - t19:.1f} s")
 
     kernels = []
     # main paths 12 and 13 (phases 15 and 16)
@@ -4481,6 +5139,8 @@ def main() -> int:
                  "sdl_025")
     # main path 15 (phase 18): all train steps
     PAR_PATHS = ("par_fit_nccl", "par_domain2", "par_ens_domain2", "par_dp2")
+    # main path 16 (phase 19): the converted wxformer_6h's forecasts
+    APP_PATHS = ("rt_wx", "rt_gefs", "serve_wx")
     for name, counter, src, replaces, r, paths in [
             ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
@@ -4489,20 +5149,20 @@ def main() -> int:
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage0_C128", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "tools", "fit_025", "fit_ens_025",
               "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS,
-              *ENS_PATHS, *PAR_PATHS)),
+              *ENS_PATHS, *PAR_PATHS, *APP_PATHS)),
             ("fused_ff split pre-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("stage2_C512", torch.bfloat16)],
              ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025", "rollout_nc",
               "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025", *ZOO_PATHS, *ENS_PATHS,
-              *PAR_PATHS)),
+              *PAR_PATHS, *APP_PATHS)),
             ("fused_ff split post-norm", "fused_ff_split", "credit_torch/csrc/fused_ff.cu",
              "credit_tpu/ops/pallas_ff.py:475", ff[("fuxi_C1024_post", torch.bfloat16)],
-             ("rollout_fuxi", "train_fuxi")),
+             ("rollout_fuxi", "train_fuxi", "fx_6h")),
             ("fused_window_attention", "fused_window_attention",
              "credit_torch/csrc/window_attention.cu", "credit_tpu/ops/pallas_attention.py:75",
              attn, ("rollout_025", "train_025", "post_025", "fit_025", "fit_ens_025",
                     "rollout_nc", "fit_tisr_025", "skebs_ens_025", "skebs_rollout_025",
-                    *ZOO_PATHS, *ENS_PATHS, *PAR_PATHS)),
+                    *ZOO_PATHS, *ENS_PATHS, *PAR_PATHS, *APP_PATHS)),
             ("fused_ff_bwd pre-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("stage0_C128", torch.bfloat16)],
              ("train_025", "fit_025", "fit_ens_025", "fit_tisr_025", "skebs_ens_025",

@@ -1,0 +1,5 @@
+import sys
+
+from credit_torch.cli.main import main
+
+sys.exit(main())

@@ -146,9 +146,12 @@ def _inference_model(conf: dict, tensors: Dict[str, torch.Tensor], dev):
 def _load_engine(conf: dict, dev, use_ema: bool = False, postblocks: bool = True):
     """(exp, engine): build_experiment on `dev`, the weights of save_loc's
     checkpoint (the EMA with use_ema, the trainable postblocks' nets
-    included; a fresh seeded init, with a warning, where there is none)
-    folded for inference, and a RolloutEngine over them with the config's
-    postblocks (the trainer's, built from the same config) or none."""
+    included) folded for inference, and a RolloutEngine over them with the
+    config's postblocks (the trainer's, built from the same config) or
+    none. The checkpoint is the port's `checkpoint/state.pt` (its optimizer
+    state is not read), else a credit_tpu (orbax) checkpoint directory
+    read through `convert_jax.read_orbax_checkpoint`; where there is
+    neither, a fresh seeded init, with a warning."""
     from credit_torch.rollout import RolloutEngine
     from credit_torch.trainers.trainer import TrainState, load_trainer
 
@@ -167,9 +170,29 @@ def _load_engine(conf: dict, dev, use_ema: bool = False, postblocks: bool = True
                                     noise=None)
         state = trainer.load_checkpoint(state, load_optimizer=False)
         logger.info("loaded weights from %s", ckpt)
+        tensors = _state_tensors(trainer, state, use_ema)
+    elif os.path.exists(os.path.join(ckpt, "_METADATA")):
+        tensors = _orbax_tensors(ckpt, conf, dev, use_ema)
+        logger.info("loaded credit_tpu weights from %s", ckpt)
     else:
         logger.warning("no checkpoint at %s — rolling out with fresh init", ckpt)
         state = trainer.init_state(torch.Generator().manual_seed(0))
+        tensors = _state_tensors(trainer, state, use_ema)
+    model = _inference_model(conf, tensors, dev)
+    blocks = nets = None
+    if postblocks:
+        blocks = trainer.train_postblocks
+        nets = {k: v for k, v in tensors.items() if k.startswith("_postblocks.")}
+    del trainer, tensors, exp["model"]
+    engine = RolloutEngine(model, exp["schema"], exp["normalizer"],
+                           history_len=int(conf.get("data", {}).get("history_len", 1)) or 1,
+                           postblocks=blocks, postblock_params=nets, device=dev)
+    return exp, engine
+
+
+def _state_tensors(trainer, state, use_ema: bool) -> Dict[str, torch.Tensor]:
+    """The training model's tensors of `state` (the EMA's parameters with
+    use_ema) and its postblock nets' as `_postblocks.<i>.<name>`."""
     if use_ema and state.ema_params is None:
         raise ValueError("use_ema: the trainer keeps no EMA (trainer.use_ema is off)")
     tensors = {k: v.detach() for k, v in trainer.model.state_dict().items()}
@@ -178,16 +201,26 @@ def _load_engine(conf: dict, dev, use_ema: bool = False, postblocks: bool = True
                        for k, v in state.nets.state_dict().items())
     if use_ema:
         tensors.update(state.ema_params)
-    model = _inference_model(conf, tensors, dev)
-    blocks = nets = None
-    if postblocks:
-        blocks = trainer.train_postblocks
-        nets = {k: v for k, v in tensors.items() if k.startswith("_postblocks.")}
-    del state, trainer, tensors, exp["model"]
-    engine = RolloutEngine(model, exp["schema"], exp["normalizer"],
-                           history_len=int(conf.get("data", {}).get("history_len", 1)) or 1,
-                           postblocks=blocks, postblock_params=nets, device=dev)
-    return exp, engine
+    return tensors
+
+
+def _orbax_tensors(ckpt: str, conf: dict, dev, use_ema: bool) -> Dict[str, torch.Tensor]:
+    """`_state_tensors` of a credit_tpu checkpoint directory: its `params`
+    (`ema_params` with use_ema) and `spectral` trees bridged by
+    from_jax_variables unfolded, its `params['_postblocks']` by
+    postblocks_from_jax."""
+    from credit_torch.convert_jax import (from_jax_variables, postblocks_from_jax,
+                                          read_orbax_checkpoint)
+
+    trees = read_orbax_checkpoint(ckpt, ("params", "spectral", "ema_params"))
+    if use_ema and "ema_params" not in trees:
+        raise ValueError(f"use_ema: the checkpoint at {ckpt} holds no ema_params")
+    params = trees["ema_params" if use_ema else "params"]
+    variables = {"params": params, "spectral": trees.get("spectral", {})}
+    tensors = from_jax_variables(variables, conf, device=dev, fold=False)
+    if "_postblocks" in params:
+        tensors.update(postblocks_from_jax(params["_postblocks"], device=dev))
+    return tensors
 
 
 def run_rollout(conf: dict, n_steps: Optional[int] = None, save_dir: Optional[str] = None,

@@ -206,3 +206,47 @@ def seed_train_(model: torch.nn.Module, conf: dict, generator: torch.Generator,
                 mods[path].u.copy_(u)
                 mods[path].v.copy_(v)
     return model
+
+
+def read_orbax_checkpoint(path: str, collections=("params", "spectral", "step")
+                          ) -> Dict[str, Any]:
+    """The `collections` of a credit_tpu checkpoint directory (orbax
+    `StandardCheckpointer`, `credit_tpu/trainers/trainer.py:962-985`; the
+    one credit_tpu's convert-checkpoint writes) as nested dicts of numpy
+    arrays, read with tensorstore from the tree `_METADATA` lists (a zarr
+    array a leaf in one OCDBT database), without importing jax or orbax. Feed
+    `params` and `spectral` to `from_jax_variables`. Raises ImportError
+    naming tensorstore where it is not installed, and FileNotFoundError
+    for a directory that is not such a checkpoint."""
+    import json
+    import os
+
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError("reading a credit_tpu (orbax) checkpoint needs the tensorstore "
+                          "package, which is not installed") from e
+    path = os.path.abspath(path)
+    meta_path = os.path.join(path, "_METADATA")
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(f"{path} is not an orbax checkpoint (no _METADATA)")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt", True) or meta.get("use_zarr3"):
+        raise ValueError(f"{path}: only orbax's OCDBT layout of zarr arrays, credit_tpu's, "
+                         "is read")
+    out: Dict[str, Any] = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        if keys[0] not in collections:
+            continue
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if entry["value_metadata"].get("skip_deserialize"):  # an empty subtree
+            node.setdefault(keys[-1], {})
+            continue
+        kv = {"driver": "ocdbt", "base": f"file://{path}/", "path": ".".join(keys) + "/"}
+        arr = ts.open({"driver": "zarr", "kvstore": kv}, open=True).result().read().result()
+        node[keys[-1]] = np.asarray(arr)
+    return out

@@ -1111,6 +1111,9 @@ class Trainer:
                                         if k.startswith(pre)})
         opt_state = state.opt_state
         sharded = self.mesh is not None and hasattr(self.optimizer, "load_full_state")
+        # a converted checkpoint (convert-checkpoint) holds no optimizer
+        # state: the state's own stays, as credit_tpu restores such a one
+        load_optimizer = load_optimizer and saved.get("opt_state") is not None
         if load_optimizer and sharded:
             opt_state = self.optimizer.load_full_state(opt_state, saved["opt_state"])
         elif load_optimizer:
@@ -1141,8 +1144,13 @@ class Trainer:
         return TrainState(saved["step"], state.model, opt_state, ema, state.noise, state.nets)
 
     def checkpoint_epoch(self) -> int:
-        """The last epoch a checkpoint was written for (epoch.txt)."""
-        with open(os.path.join(self.save_loc, "epoch.txt")) as f:
+        """The last epoch a checkpoint was written for (epoch.txt); -1 for
+        one no fit wrote (convert-checkpoint's), so a fit resumed from it
+        starts at epoch 0."""
+        path = os.path.join(self.save_loc, "epoch.txt")
+        if not os.path.exists(path):
+            return -1
+        with open(path) as f:
             return int(f.read())
 
 

@@ -264,7 +264,13 @@ def test_import_leaves_jax_unloaded():
             "credit_torch.parallel.distributed, credit_torch.parallel.mesh, "
             "credit_torch.parallel.validate, credit_torch.parallel.sharding, "
             "credit_torch.parallel.halo, credit_torch.parallel.ring_crps, "
-            "credit_torch.applications.benchmark; "
+            "credit_torch.applications.benchmark, credit_torch.manifests, "
+            "credit_torch.convert_torch, credit_torch.nwp, credit_torch.serve, "
+            "credit_torch.ocean, credit_torch.tuning, credit_torch.visualization, "
+            "credit_torch.applications.realtime, credit_torch.cli, credit_torch.cli.main\n"
+            # credit_torch.__main__ runs the CLI: with no subcommand it exits 2
+            "try:\n    import credit_torch.__main__\nexcept SystemExit as e:\n"
+            "    assert e.code == 2, e.code\n"
             "assert 'jax' not in sys.modules and 'credit_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'credit_tpu')))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
