@@ -127,8 +127,9 @@ def benchmark_parallelism(conf: dict, combos: Optional[Sequence[Tuple[int, int, 
     weights, under each mesh of `combos` (default: `default_combos`), at a
     global batch of dp samples: a row per mesh with the slowest rank's
     step_ms (CUDA events on a card), samples_per_s, gridpoints_per_s_per_chip,
-    the peak device memory in GiB (the largest rank's) and the last loss,
-    then each row's scaling_efficiency against the first."""
+    the peak device memory in GiB, the parameter and gradient GiB a rank
+    holds (ZeRO-3's chunks at dp > 1; each the largest rank's) and the last
+    loss, then each row's scaling_efficiency against the first."""
     from credit_torch.convert_jax import seed_train_
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.models import load_model
@@ -166,6 +167,13 @@ def benchmark_parallelism(conf: dict, combos: Optional[Sequence[Tuple[int, int, 
 
         step = make_train_step(model, mse, opt, schema, device=dev, mesh=mesh)
         state = TrainState.create(model, opt)
+        seen, inner = {}, opt.update
+
+        def update(grads, st, params, inner=inner, seen=seen):  # the gradients as held
+            seen["bytes"] = sum(g.numel() * g.element_size() for g in grads)
+            return inner(grads, st, params)
+
+        opt.update = update
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(warmup):
@@ -176,15 +184,18 @@ def benchmark_parallelism(conf: dict, combos: Optional[Sequence[Tuple[int, int, 
             state, m = step(state, batch)
         ms = span(a, mark()) / steps
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+        held = [sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30,
+                seen["bytes"] / 2**30]
         if D.world_size() > 1:
-            t = D.all_reduce(torch.tensor([ms, peak], device=dev),
+            t = D.all_reduce(torch.tensor([ms, peak, *held], device=dev),
                              op=torch.distributed.ReduceOp.MAX)
-            ms, peak = float(t[0]), float(t[1])
+            ms, peak, held = float(t[0]), float(t[1]), [float(t[2]), float(t[3])]
         b = dp * row_b
         rows.append({"dp": dp, "tensor": tp, "domain": dom, "step_ms": ms,
                      "samples_per_s": b / ms * 1e3,
                      "gridpoints_per_s_per_chip": b * h * w / (ms * 1e-3) / (dp * tp * dom),
-                     "peak_mem_gb": peak, "loss": float(m["loss"])})
+                     "peak_mem_gb": peak, "param_gb": held[0], "grad_gb": held[1],
+                     "loss": float(m["loss"])})
         logger.info("bench %s", rows[-1])
         del state, model, opt, step
         if dev.type == "cuda":

@@ -195,12 +195,12 @@ def _state_tensors(trainer, state, use_ema: bool) -> Dict[str, torch.Tensor]:
     use_ema) and its postblock nets' as `_postblocks.<i>.<name>`."""
     if use_ema and state.ema_params is None:
         raise ValueError("use_ema: the trainer keeps no EMA (trainer.use_ema is off)")
-    tensors = {k: v.detach() for k, v in trainer.model.state_dict().items()}
-    if state.nets is not None:
-        tensors.update((f"_postblocks.{k}", v.detach())
-                       for k, v in state.nets.state_dict().items())
+    tensors = {k: v.detach() for k, v in trainer.model_tensors(state).items()}
     if use_ema:
-        tensors.update(state.ema_params)
+        ema = state.ema_params
+        if trainer.mesh is not None:  # the sharded optimizer's chunks, whole
+            ema = dict(zip(ema, trainer.optimizer.whole(ema)))
+        tensors.update(ema)
     return tensors
 
 

@@ -13,6 +13,12 @@ called with their inputs. Here `wrf` builds `cube_embedding_outside` and
 `film` when the config has `param_outside`, and `dscale` builds `film`
 when `time_encode_dim` > 0; a forward without those inputs skips them, as
 the trainer's (`model(x)`) does.
+
+Under a mesh with domain > 1 both are lat-sharded after their embeds (the
+cube embeds, the outside branch with its resize and the FiLM run on the
+whole field: FiLM is per channel): each domain rank runs the UTransformer
+on its even slab of the embedded rows (models/fuxi.py) and the dense patch
+recovery on its slab, whose rows are then gathered before the resize.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ from torch import nn
 
 from credit_torch import registry
 from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames
-from credit_torch.models.fuxi import UTransformer
+from credit_torch.models.fuxi import UTransformer, split_problem
 from credit_torch.models.layers import CubeEmbedding, Dense
 from credit_torch.ops.upsample import bilinear_resize
+from credit_torch.parallel import context as par_ctx
+from credit_torch.parallel.halo import gather_lat, shard_lat
 
 
 class FiLM(nn.Module):
@@ -58,13 +66,43 @@ def _dtype(compute_dtype):
     return DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
 
 
+def _core(model, x: torch.Tensor) -> torch.Tensor:
+    """The UTransformer and the patch recovery of the embedded field x
+    (B, h, w, dim): on the whole field, or under a mesh with domain > 1 on
+    this rank's even slab, its rows gathered after (every rank computes the
+    same from there on)."""
+    rec = (model.fc, *model.patch, model.base_output_channels)
+    if not par_ctx.halo_mesh_active():
+        return _recover(model.u_transformer(x), *rec)
+    mesh = par_ctx.mesh()
+    group = mesh.group("domain")
+    x = shard_lat(x, mesh.shape["domain"], mesh.coord("domain"))
+    with par_ctx.lat_slabs():
+        x = _recover(model.u_transformer(x), *rec)
+    return gather_lat(x, group, same_downstream=True)
+
+
+class _Regional(BaseModel):
+    # the UTransformer runs on latitude slabs under a mesh with domain > 1
+    lat_sharded = True
+
+    def lat_split_problem(self, n: int):
+        """Why the embedded rows do not run on n latitude slabs, or None
+        (None too where the config gives no image height)."""
+        if not self.image_hw[0]:
+            return None
+        return split_problem(self.model_type, self.image_hw[0] // self.patch[0],
+                             self.u_transformer.window_size, n)
+
+
 @registry.register("model", "wrf")
-class WRFTransformer(BaseModel):
+class WRFTransformer(_Regional):
     """forward(x, x_outside=None, x_extra=None): x (B, frames, H, W,
     C_interior), x_outside (B, frames, H_o, W_o, C_outside), x_extra
     (B, time_encode_dim) -> (B, 1, H, W, C_target)."""
 
     ROUTING_KEYS = ("remat",)
+    model_type = "wrf"
 
     def __init__(self, param_interior: Any = None, param_outside: Any = None,
                  time_encode_dim: int = 12, num_groups: int = 32, num_heads: int = 8,
@@ -79,6 +117,7 @@ class WRFTransformer(BaseModel):
         sn = bool(use_spectral_norm and sn_state)
         self.dim = dim = int(pi["dim"])
         self.patch = int(pi["patch_height"]), int(pi["patch_width"])
+        self.image_hw = int(pi.get("image_height", 0)), int(pi.get("image_width", 0))
         self.base_input_channels = _channels(pi)
         self.base_output_channels = _channels(pi, output=True)
         frames = int(pi.get("frames", 1))
@@ -113,19 +152,20 @@ class WRFTransformer(BaseModel):
                 alpha, beta = self.film(x_extra)
                 zo = alpha * zo + beta
             x = x + zo
-        x = _recover(self.u_transformer(x), self.fc, *self.patch, self.base_output_channels)
+        x = _core(self, x)
         if self.interp:
             x = bilinear_resize(x, hh, ww)
         return channels_to_frames(x, 1)
 
 
 @registry.register("model", "dscale")
-class DscaleTransformer(BaseModel):
+class DscaleTransformer(_Regional):
     """forward(x, x_extra=None): x (B, frames, H_in, W_in,
     total_input_channels), x_extra (B, time_encode_dim) -> (B, 1,
     out_image_height, out_image_width, total_target_channels)."""
 
     ROUTING_KEYS = ("remat",)
+    model_type = "dscale"
 
     def __init__(self, image_height: int = 64, image_width: int = 128,
                  out_image_height: Any = None, out_image_width: Any = None,
@@ -138,6 +178,7 @@ class DscaleTransformer(BaseModel):
         super().__init__()
         self._check_routing(routing)
         self.out_hw = (out_image_height or image_height, out_image_width or image_width)
+        self.image_hw = (image_height, image_width)
         self.interp, self.use_spectral_norm = interp, use_spectral_norm
         self.compute_dtype = dt = _dtype(compute_dtype)
         sn = bool(use_spectral_norm and sn_state)
@@ -158,7 +199,7 @@ class DscaleTransformer(BaseModel):
         if x_extra is not None:
             alpha, beta = self.film(x_extra)
             x = alpha * x + beta
-        x = _recover(self.u_transformer(x), self.fc, *self.patch, self.base_output_channels)
+        x = _core(self, x)
         if self.interp:
             x = bilinear_resize(x, *self.out_hw)
         return channels_to_frames(x, 1)

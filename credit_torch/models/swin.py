@@ -14,6 +14,15 @@ The CPB table, the relative index and the shift masks are made with
 `arange` on the activation's device at call time, never stored; inside
 `layers.position_bias_cache(model)` each is computed once. Windows are the
 CrossFormer's "short" windows (`ops.window_attention`).
+
+On latitude slabs (`parallel.context.lat_slabs`, window-aligned, possibly
+uneven: `context.slab_rows`) a block takes its window size and shift from
+the global height, rolls latitude across the slabs
+(`parallel.halo.lat_roll`; longitude rolls locally) and masks with its
+windows' rows of the global shift mask. Windows and the post-norm FF are
+row-local, so kernels 1 and 4 run per slab. `SwinTransformerV2` (the
+`swin` model) runs its stage on window-row slabs of the padded patch grid
+under a mesh with domain > 1 and gathers the patch recovery's rows.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames, fram
 from credit_torch.models.layers import Dense, LayerNorm, _param
 from credit_torch.ops import window_attention as wa
 from credit_torch.ops.cuda_ff import fused_ff_diff
+from credit_torch.parallel import context as par_ctx
+from credit_torch.parallel.halo import gather_lat, lat_roll, window_rows
 
 
 def relative_coords_table(ws: int, device=None) -> torch.Tensor:
@@ -137,29 +148,48 @@ class SwinBlockV2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
-        ws = min(self.window_size, h, w)
-        shift = self.shift if ws < min(h, w) else 0
+        dom = par_ctx.domain_group()
+        # on slabs: the global height, and this rank's first row in it
+        rows = par_ctx.slab_rows(h) if dom is not None else (h,)
+        gh, r0 = sum(rows), sum(rows[:dom[2]]) if dom is not None else 0
+        ws = min(self.window_size, gh, w)
+        shift = self.shift if ws < min(gh, w) else 0
+        if dom is not None and (h % ws or r0 % ws):
+            raise ValueError(f"a SwinV2 slab of {h} rows from row {r0} is not window-aligned "
+                             f"(window {ws})")
         y, mask = x, None
         if shift > 0:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-            mask = self.attn.shift_mask(h, w, ws, shift, x.device)
+            y = self._roll(y, -shift, dom)
+            mask = self.attn.shift_mask(gh, w, ws, shift, x.device)
+            if dom is not None:  # this slab's windows of the global mask
+                mask = mask[r0 // ws * (w // ws):(r0 + h) // ws * (w // ws)]
         yw = wa.window_partition(y, ws, "short")
         b, nwin, t, c = yw.shape
         yw = self.attn(yw.reshape(b * nwin, t, c), ws, mask)
         y = wa.window_unpartition(yw.reshape(b, nwin, t, c), ws, h, w, "short")
         if shift > 0:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
+            y = self._roll(y, shift, dom)
         x = x + self.norm1(y)
         dt = self.dtype
         return fused_ff_diff(x.to(dt), self.norm2.scale, self.norm2.bias,
                              self.mlp_fc1.kernel.to(dt), self.mlp_fc1.bias,
                              self.mlp_fc2.kernel.to(dt), self.mlp_fc2.bias, post_norm=True)
 
+    @staticmethod
+    def _roll(y, shift, dom):
+        """torch.roll by `shift` along latitude and longitude; latitude
+        across the slabs where the block sees slabs."""
+        if dom is None:
+            return torch.roll(y, (shift, shift), dims=(1, 2))
+        return torch.roll(lat_roll(y, shift, dom[0]), shift, dims=2)
+
 
 class SwinStageV2(nn.Module):
     """depth SwinV2 blocks (`block{i}`), alternating plain and shifted
     windows, unrolled: credit_tpu's `scan_blocks` layout (`blocks/b0, b1`
     pairs) is unstacked by the bridge (models/scan_utils.py)."""
+
+    zero_container = True  # ZeRO-3 gathers each block on its own
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  dtype=torch.float32):
@@ -193,6 +223,7 @@ class SwinTransformerV2(BaseModel):
         if isinstance(compute_dtype, str):
             compute_dtype = DTYPES[compute_dtype]
         self.patch = (patch_height, patch_width)
+        self.image_height, self.image_width = image_height, image_width
         self.window_size, self.output_frames = window_size, output_frames
         self.base_input_channels = channels * levels + surface_channels + input_only_channels
         self.base_output_channels = channels * levels + surface_channels + output_only_channels
@@ -203,6 +234,17 @@ class SwinTransformerV2(BaseModel):
         self.stage = SwinStageV2(embed_dim, depth, num_heads, window_size, dt)
         self.head = Dense(embed_dim, cout, dtype=dt, spectral=False)
 
+    # the stage runs on window-row slabs under a mesh with domain > 1
+    lat_sharded = True
+
+    def lat_split_problem(self, n: int):
+        """Why the stage's rows do not split over n domain ranks, or None."""
+        rows = -(-self.image_height // self.patch[0])
+        if -(-rows // self.window_size) < n:
+            return (f"model swin: {-(-rows // self.window_size)} window rows of "
+                    f"{self.window_size} do not split over domain={n}")
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, hh, ww, _ = x.shape
         ph, pw = self.patch
@@ -210,12 +252,41 @@ class SwinTransformerV2(BaseModel):
         x = F.pad(x, (0, 0, 0, (-ww) % pw, 0, (-hh) % ph))
         h2, w2 = x.shape[1] // ph, x.shape[2] // pw
         x = x.reshape(b, h2, ph, w2, pw, -1).permute(0, 1, 3, 2, 4, 5).reshape(b, h2, w2, -1)
-        x = self.embed(x)
         ws = self.window_size
-        x = F.pad(x, (0, 0, 0, (-w2) % ws, 0, (-h2) % ws))
-        x = self.stage(x)[:, :h2, :w2]
-        x = self.head(x)
+        if par_ctx.halo_mesh_active():
+            x, counts = self._stage_slabs(x, h2, w2)
+        else:
+            x = self.embed(x)
+            x = F.pad(x, (0, 0, 0, (-w2) % ws, 0, (-h2) % ws))
+            x = self.stage(x)[:, :h2, :w2]
+            x = self.head(x)
         out_c = x.shape[-1] // (ph * pw)
-        x = x.reshape(b, h2, w2, ph, pw, out_c).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(b, h2 * ph, w2 * pw, out_c)[:, :hh, :ww]
+        x = x.reshape(b, x.shape[1], w2, ph, pw, out_c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, -1, w2 * pw, out_c)
+        if par_ctx.halo_mesh_active():
+            # every rank computes the same from here on (see crossformer.py)
+            mesh = par_ctx.mesh()
+            x = gather_lat(x, mesh.group("domain"), same_downstream=True,
+                           counts=[c * ph for c in counts])
+        x = x[:, :hh, :ww]
         return channels_to_frames(x, self.output_frames)
+
+    def _stage_slabs(self, x, h2: int, w2: int):
+        """This rank's window rows of the patch grid (B, h2, w2, patch
+        channels) through the embed, the stage on window-aligned slabs
+        (only the last one zero-padded) and the head; (rows, every rank's
+        real row count)."""
+        mesh = par_ctx.mesh()
+        n, r = mesh.shape["domain"], mesh.coord("domain")
+        ws = self.window_size
+        rows = window_rows(h2 + (-h2) % ws, ws, n)
+        if not all(rows):
+            raise ValueError(f"model swin: {sum(rows) // ws} window rows do not split over "
+                             f"domain={n}")
+        starts = [sum(rows[:i]) for i in range(n)]
+        real = [max(min(c, h2 - s0), 0) for c, s0 in zip(rows, starts)]
+        x = self.embed(x[:, starts[r]:starts[r] + real[r]])
+        x = F.pad(x, (0, 0, 0, (-w2) % ws, 0, rows[r] - real[r]))
+        with par_ctx.lat_slabs(True, rows=rows):
+            x = self.stage(x)
+        return self.head(x[:, :real[r], :w2]), real

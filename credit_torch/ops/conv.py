@@ -23,8 +23,10 @@ The explicit-halo seam (credit_tpu's `explicit_halo`, ops/conv.py:60-160,
 (`explicit_halo(mesh)` and `lat_slabs()`), conv2d and conv_transpose2d take
 this rank's slab (B, L, W, C) of a global (B, L * n, W, C) field:
 size-preserving stride-1 convs run kernel 2 on the slab extended by the
-halo exchange (latitude VALID, longitude padded locally); even-kernel
-stride-2 convs whose output is half the input run a local space-to-depth
+halo exchange (latitude VALID, longitude padded locally); stride-2 convs
+whose output is half the input (padding (k - 1) // 2: the CrossFormer's
+even embeds, and FuXi's 3x3/s2 DownBlock conv with its kernel
+zero-extended to 4x4 as on the whole field) run a local space-to-depth
 with latitude padding 0 on the slab extended by their padding (the slabs
 start on even rows); the k = 2p + 2 transposes run the local phase conv
 with its tap halo; 1x1 convs are local. Any other form, and a slab shorter
@@ -47,11 +49,12 @@ from credit_torch.parallel import context as par_ctx
 from credit_torch.parallel.halo import halo_exchange
 
 def s2d_halo(x: torch.Tensor, kernel: torch.Tensor, bias, pad: Tuple[int, int], dom=None):
-    """Stride-2 even-kernel conv of a slab of even height: the local
-    space-to-depth conv on the slab extended by pad[0] halo rows, latitude
-    padding 0. Returns (L + 2 * pad[0] - kh) // 2 + 1 rows: the global
-    output's rows from L/2 * rank on (L/2 of them when pad[0] = (kh-2)/2,
-    more for the CrossEmbedLayer's quadrant form, which cuts them)."""
+    """Stride-2 conv of a slab of even height: the local space-to-depth
+    conv on the slab extended by pad[0] halo rows, latitude padding 0 (an
+    odd kernel zero-extended first, as `_conv2d_s2d` does). Returns
+    (L + 2 * pad[0] - kh) // 2 + 1 rows: the global output's rows from
+    L/2 * rank on (L/2 of them when pad[0] = (kh - 1) // 2, more for the
+    CrossEmbedLayer's quadrant form, which cuts them)."""
     group = (dom or par_ctx.domain_group())[0]
     return _conv2d_s2d(halo_exchange(x, pad[0], group), kernel, bias, (0, pad[1]))
 
@@ -64,8 +67,7 @@ def _slab_conv2d(x, kernel, bias, stride, padding, dom):
         ph, pw = _pair(padding)
         if s == (1, 1) and 2 * ph == kh - 1 and rows >= ph:
             return valid_conv(_pad_hw(halo_exchange(x, ph, dom[0]), 0, 0, pw, pw), kernel, bias)
-        if (s == (2, 2) and kh % 2 == 0 and kw % 2 == 0 and ph == (kh - 2) // 2
-                and rows % 2 == 0 and rows >= ph):
+        if s == (2, 2) and ph == (kh - 1) // 2 and rows % 2 == 0 and rows >= ph:
             return s2d_halo(x, kernel, bias, (ph, pw), dom)
     return par_ctx.on_full(lambda t: conv2d(t, kernel, bias, stride, padding), x, dom)
 

@@ -7,7 +7,9 @@ that run on latitude slabs with `lat_slabs()`. The convs (ops/conv.py),
 GroupNorm, WindowAttention and the quadrant embed (models/layers.py) and
 the CrossFormer family's forward read it through `domain_group()` and
 `mesh()`. `on_full` is the gather path any of them takes where a slab does
-not do.
+not do. Slabs are even unless the model says otherwise: `lat_slabs(rows=)`
+gives each rank's row count (the SwinV2 stage's window-aligned slabs),
+which `slab_rows()` reads.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from credit_torch.parallel.halo import gather_lat, shard_lat
 # ops see are latitude slabs (set by a lat-sharded model's forward)
 _MESH = contextvars.ContextVar("credit_torch_mesh", default=None)
 _SLABS = contextvars.ContextVar("credit_torch_lat_slabs", default=False)
+_ROWS = contextvars.ContextVar("credit_torch_slab_rows", default=None)
 
 
 @contextlib.contextmanager
@@ -50,14 +53,27 @@ def halo_mesh_active() -> bool:
 
 
 @contextlib.contextmanager
-def lat_slabs(enable: bool = True):
+def lat_slabs(enable: bool = True, rows=None):
     """Inside explicit_halo with domain > 1: the tensors the ops see are
-    this rank's latitude slabs (enable), or whole fields (enable False)."""
-    tok = _SLABS.set(bool(enable) and halo_mesh_active())
+    this rank's latitude slabs (enable), or whole fields (enable False);
+    `rows`, where the slabs are uneven, holds every rank's row count."""
+    on = bool(enable) and halo_mesh_active()
+    tok = _SLABS.set(on)
+    tok_rows = _ROWS.set(tuple(rows) if on and rows is not None else None)
     try:
         yield
     finally:
+        _ROWS.reset(tok_rows)
         _SLABS.reset(tok)
+
+
+def slab_rows(local: int):
+    """Every domain rank's slab rows where the ops see slabs: those given
+    to `lat_slabs(rows=)`, else `local` on each rank (even slabs)."""
+    rows = _ROWS.get()
+    if rows is not None:
+        return rows
+    return (local,) * domain_group()[1]
 
 
 def domain_group():

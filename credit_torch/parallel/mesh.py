@@ -51,12 +51,19 @@ class Mesh:
     process group of this rank's peers along the axis), `coord(axis)`
     (this rank's index along it) and `device_mesh`."""
 
-    def __init__(self, device_mesh, dp: int, tp: int, domain: int):
+    def __init__(self, device_mesh, dp: int, tp: int, domain: int, peers=None):
         self.device_mesh = device_mesh
         self.shape = {"dp": dp, "tp": tp, "domain": domain}
+        self._peers = peers
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
+
+    def peers(self):
+        """The group of the ranks of this rank's dp row (its tp and domain
+        peers, which hold the same ZeRO-3 chunks), or None where dp or
+        tp * domain is 1."""
+        return self._peers
 
     def coord(self, axis: str) -> int:
         return self.device_mesh.get_local_rank(axis)
@@ -81,7 +88,12 @@ def build_mesh(dp: int = 1, tp: int = 1, domain: int = 1, device_type: Optional[
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dm = init_device_mesh(device_type, (dp, tp, domain), mesh_dim_names=AXES)
-    return Mesh(dm, dp, tp, domain)
+    peers = None
+    if dp > 1 and tp * domain > 1:  # every rank makes every row's group
+        row = tp * domain
+        groups = [dist.new_group(list(range(c * row, (c + 1) * row))) for c in range(dp)]
+        peers = groups[dist.get_rank() // row]
+    return Mesh(dm, dp, tp, domain, peers)
 
 
 def data_parallel_coords(mesh: Mesh) -> Tuple[int, int]:

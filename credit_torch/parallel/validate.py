@@ -2,7 +2,10 @@
 
 Checks every divisibility the layout relies on and raises one aggregated,
 actionable error before a step runs. `mesh` is anything with a `shape`
-mapping of axis -> size (parallel.mesh.Mesh).
+mapping of axis -> size (parallel.mesh.Mesh). Beyond credit_tpu's checks
+(whose GSPMD partitions any shape), a lat-sharded model with a
+`lat_split_problem(domain)` method says where its stages' rows do not split
+over the domain ranks the way its slab forward needs (the SwinV2 family).
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ def validate_sharding(conf: dict, schema=None, mesh=None,
             problems.append(
                 f"padded image_height={h} not divisible by domain={dom} "
                 f"(lat slabs must be equal; adjust padding_conf.pad_lat)")
+
+    split = getattr(model, "lat_split_problem", None)
+    if dom > 1 and split is not None:
+        why = split(dom)
+        if why:
+            problems.append(why)
 
     if tp > 1:
         heads = m.get("num_heads")

@@ -11,9 +11,10 @@ from the EMA weights, scored by MSE. The config's `diffusion` section sets
 timesteps (1000), sampling_timesteps (20), beta_schedule (sigmoid),
 objective (pred_v) and ddim_eta (0). Under trainer.parallelism both steps
 run as the main trainer's do: under explicit_halo(mesh) (the CrossFormer
-denoiser lat-sharded), the gradients and the loss reduced over the group,
-the EMA in the sharded optimizer's chunks (made whole for validation),
-the validation loss averaged over the group.
+denoiser lat-sharded), ZeRO-3 over dp (the parameters held as chunks and
+gathered block by block), the gradients and the loss reduced over the
+group, the EMA in the sharded optimizer's chunks (swapped in for the
+parameters' for validation), the validation loss averaged over the group.
 """
 
 from __future__ import annotations
@@ -71,11 +72,9 @@ class DiffusionTrainer(Trainer):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in plist]
         loss = loss.detach()
         if self.mesh is not None:
-            from credit_torch.parallel.sharding import reduce_gradients
-
             if self._par is None:
-                self._par = _Parallel(self.mesh, mdl, names)
-            grads = reduce_gradients(grads, self._par.divisors)
+                self._par = _Parallel(self.mesh, mdl, names, self.optimizer)
+            grads = self._par.reduce(grads)
             loss = _global_loss(loss, self._par)
         finite = torch.isfinite(loss)
         with torch.no_grad():
@@ -93,7 +92,7 @@ class DiffusionTrainer(Trainer):
                 cur = plist if view is None else [view(k, p) for k, p in zip(names, plist)]
                 torch._foreach_mul_(evals, d)
                 torch._foreach_add_(evals, cur, alpha=1.0 - d)
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if self._par is None else self._par.norm(grads)
         for p in plist:
             p.grad = None
         new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise, state.nets)

@@ -49,15 +49,19 @@ validation runs the EMA's copy of it.
 (dp, tp, domain) mesh of processes, one GPU each (parallel/): each dp
 coordinate samples its own rows of the batch, tp and domain peers the same
 rows; the forward runs under `parallel.context.explicit_halo(mesh)`, where
-the CrossFormer family splits latitude over the domain ranks and the
-attention blocks split heads over the tp ranks (other models compute the
-whole field on every domain rank, which the trainer logs once); the
-gradients are summed over the group in one all-reduce
+the CrossFormer family and the SwinV2 family (fuxi, swin, wrf, dscale)
+split latitude over the domain ranks and the attention blocks split heads
+over the tp ranks (other models compute the whole field on every domain
+rank, which the trainer logs once); with dp > 1 the model's large
+parameters are held as dp chunks and gathered block by block (ZeRO-3,
+`parallel.sharding.ParamShards`, applied by `TrainState.create`); the
+gradients are summed over the ranks that computed shares of them
 (`parallel.sharding.reduce_gradients`), the NaN guard reads the mean loss
 over the group, the AdamW moments and the EMA are sharded by
-`param_spec` (`ShardedOptimizer`), the metrics are averaged over the group,
-and only the primary process writes the schema, the log and checkpoints,
-which hold whole tensors (a run resumes at any world size). credit_tpu's
+`param_spec` (`ShardedOptimizer`) and updated chunk to chunk, the metrics
+are averaged over the group, and only the primary process writes the
+schema, the log and checkpoints, which hold whole tensors (a run resumes
+at any world size). credit_tpu's
 `halo: gspmd` is accepted and runs the explicit exchange: the port has no
 GSPMD. `flatten_optimizer` with data > 1 is refused as in credit_tpu.
 
@@ -68,6 +72,7 @@ and ignored. The `era5-diffusion` trainer swaps in its own steps
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import logging
@@ -86,6 +91,7 @@ from credit_torch.models.spectral_utils import power_iter_model_
 from credit_torch.parallel import context as par_ctx
 from credit_torch.parallel import distributed as dist_ops
 from credit_torch.parallel.mesh import data_parallel_coords
+from credit_torch.parallel.sharding import param_shards
 from credit_torch.postblock.stochastic import (apply_postblocks_stateful,
                                                init_postblock_params, init_postblock_states,
                                                postblock_nets, split_postblock_params)
@@ -118,7 +124,12 @@ class TrainState:
                noise_seed: int = 0, nets: Optional[torch.nn.ModuleDict] = None,
                noise_keys: Sequence[int] = ()) -> "TrainState":
         """`noise_keys` are folded into the noise generator's seed (the dp
-        coordinate under a mesh: `Trainer.noise_keys`)."""
+        coordinate under a mesh: `Trainer.noise_keys`). A sharded optimizer
+        first applies ZeRO-3 to the model (at dp > 1), so that the state
+        holds the parameters' chunks."""
+        shard = getattr(optimizer, "shard_parameters", None)
+        if shard is not None:
+            shard(model)
         params = train_parameters(model, nets)
         # a sharded optimizer keeps this rank's chunk of each EMA tensor
         chunk = getattr(optimizer, "chunk", lambda k, p: p.detach().clone())
@@ -290,16 +301,41 @@ def tp_partial_names(model: torch.nn.Module) -> List[str]:
 
 class _Parallel:
     """What a step needs of the mesh: the mesh, each trained tensor's
-    gradient divisor (parallel.sharding.gradient_divisors) by name."""
+    gradient divisor (parallel.sharding.gradient_divisors) and whether the
+    model holds it as a ZeRO-3 chunk, in the order of `names`; the
+    optimizer (a ShardedOptimizer)."""
 
-    def __init__(self, mesh, model, names: Sequence[str]):
+    def __init__(self, mesh, model, names: Sequence[str], optimizer):
         from credit_torch.parallel.sharding import gradient_divisors
 
-        self.mesh = mesh
+        self.mesh, self.optimizer = mesh, optimizer
         lat = bool(getattr(model, "lat_sharded", False)) and mesh.shape["domain"] > 1
         # the postblock nets run on the whole prediction on every domain rank
         whole = [k for k in names if k.startswith("_postblocks.")]
         self.divisors = gradient_divisors(names, mesh, lat, tp_partial_names(model), whole)
+        held = getattr(optimizer, "held", set())
+        self.held = [k in held for k in names]
+
+    def reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        from credit_torch.parallel.sharding import reduce_gradients
+
+        return reduce_gradients(grads, self.divisors, self.held, self.mesh.peers())
+
+    def norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The reduced gradients' global norm, each element counted once."""
+        if any(self.held):
+            return self.optimizer.norm(grads)
+        return global_norm(grads)
+
+
+def power_iterations(model: torch.nn.Module, n_iter: int) -> None:
+    """trainer.sn_external's u/v power iterations; under ZeRO-3 on each
+    block's gathered kernels, one block at a time."""
+    shards = param_shards(model)
+    if shards is None:
+        power_iter_model_(model, n_iter)
+    else:
+        shards.each_block(lambda m: power_iter_model_(m, n_iter))
 
 
 def _global_loss(loss: torch.Tensor, par: Optional[_Parallel]) -> torch.Tensor:
@@ -365,7 +401,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         nonlocal par
         if mesh is not None and par is None:
-            par = _Parallel(mesh, model, list(state.opt_state["mu"]))
+            par = _Parallel(mesh, model, list(state.opt_state["mu"]), optimizer)
         with par_ctx.explicit_halo(mesh):
             return _train_step(state, batch)
 
@@ -416,9 +452,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
         plist = [params[k] for k in names]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in plist]
         if par is not None:
-            from credit_torch.parallel.sharding import reduce_gradients
-
-            grads = reduce_gradients(grads, par.divisors)
+            grads = par.reduce(grads)
             if mvals is not None:
                 mvals = _global_loss(mvals, par)
         torch._foreach_div_(grads, float(n_bp))
@@ -440,7 +474,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: AdamW, schema: ChannelS
                 cur = plist if view is None else [view(k, p) for k, p in zip(names, plist)]
                 torch._foreach_mul_(evals, d)
                 torch._foreach_add_(evals, cur, alpha=1.0 - d)
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if par is None else par.norm(grads)
         for p in plist:
             p.grad = None
         new_state = TrainState(state.step + 1, mdl, opt_state, ema, state.noise, state.nets)
@@ -475,7 +509,9 @@ def make_eval_step(model, loss_fn: Callable, schema: ChannelSchema, forecast_len
     postblocks run as in the train step; a trainable block runs the EMA's
     copy of its net where the state keeps an EMA. With a `mesh` the
     forwards run under explicit_halo(mesh) and the metrics are the group's
-    means; `unshard` (the ShardedOptimizer's) makes the EMA's chunks whole."""
+    means; `unshard` (the ShardedOptimizer's) gathers the EMA's chunks into
+    the form the model holds its parameters in (ZeRO-3's dp chunks, swapped
+    in for them and gathered block by block like them)."""
     dev = resolve_device(device)
     stochastic = getattr(model, "stochastic", False)
     has_stateful = any(getattr(b, "is_stateful", False) for b in postblocks)
@@ -819,7 +855,9 @@ class Trainer:
         from credit_torch.convert_jax import seed_train_
 
         generator = generator or torch.Generator().manual_seed(0)
-        seed_train_(self.model, self.conf, generator)
+        shards = param_shards(self.model)  # a model ZeRO-3 holds already: seed it whole
+        with shards.unsharded() if shards is not None else contextlib.nullcontext():
+            seed_train_(self.model, self.conf, generator)
         if self.nets is not None:
             init_postblock_params(self.train_postblocks, generator, self.device)
         state = TrainState.create(self.model, self.optimizer, ema=self.use_ema,
@@ -955,7 +993,7 @@ class Trainer:
                 batch = self._to_device(host)
                 m1 = _mark(dev)
                 if self.sn_external:
-                    power_iter_model_(state.model, max(1, eff_len))
+                    power_iterations(state.model, max(1, eff_len))
                 if epoch == start_epoch and n_tr == 0 and pfmode:
                     # the first step may build the kernels (nvcc, a cold
                     # build directory): run it under the startup watchdog,
@@ -1060,16 +1098,18 @@ class Trainer:
         is the port's own). The previous checkpoint is kept as
         backup_checkpoint (save_backup_weights). The file is written beside
         the old one and renamed into place; epoch.txt, the resume marker,
-        is written last. Under a mesh every rank takes part (the sharded
-        optimizer state and EMA are gathered whole, and with dp > 1 each dp
-        row's noise generator state, `noise_dp`) and the primary writes."""
+        is written last. Under a mesh every rank takes part (ZeRO-3's
+        parameters, the sharded optimizer state and EMA are gathered whole,
+        and with dp > 1 each dp row's noise generator state, `noise_dp`) and
+        the primary writes."""
         opt_state, ema = state.opt_state, state.ema_params
         noise = None if state.noise is None else state.noise.get_state()
         noise_dp = None
+        weights = self.model_tensors(state)
         if self.mesh is not None:
             opt_state = self.optimizer.full_state(opt_state)
             if ema is not None:
-                ema = dict(zip(ema, self.optimizer.unshard(ema)))
+                ema = dict(zip(ema, self.optimizer.whole(ema)))
             if noise is not None and self.dp > 1:  # ranks in (dp, tp, domain) order
                 rows = dist_ops.all_gather(noise.to(self.device)[None], 0).cpu()
                 noise_dp = [r.clone() for r in rows[::self.tp * self.domain]]
@@ -1083,9 +1123,6 @@ class Trainer:
             shutil.rmtree(backup, ignore_errors=True)
             shutil.copytree(path, backup)
         os.makedirs(path, exist_ok=True)
-        weights = state.model.state_dict()
-        if state.nets is not None:
-            weights.update((f"_postblocks.{k}", v) for k, v in state.nets.state_dict().items())
         payload = {"model": weights, "step": state.step,
                    "opt_state": opt_state, "ema_params": ema,
                    "noise": noise, "noise_dp": noise_dp}
@@ -1093,6 +1130,17 @@ class Trainer:
         os.replace(ckpt + ".tmp", ckpt)
         with open(os.path.join(self.save_loc, "epoch.txt"), "w") as f:
             f.write(str(epoch))
+
+    def model_tensors(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The model's state_dict with whole tensors (ZeRO-3's chunks
+        gathered, a collective under a mesh), and the postblock nets' as
+        `_postblocks.<i>.<name>`."""
+        shards = param_shards(state.model)
+        weights = (state.model.state_dict() if shards is None
+                   else shards.state_dict(state.model))
+        if state.nets is not None:
+            weights.update((f"_postblocks.{k}", v) for k, v in state.nets.state_dict().items())
+        return weights
 
     def load_checkpoint(self, state: TrainState, tag: str = "checkpoint",
                         load_optimizer: bool = True) -> TrainState:
@@ -1104,8 +1152,12 @@ class Trainer:
         path = os.path.join(self.save_loc, tag, self.CHECKPOINT_FILE)
         saved = torch.load(path, map_location=self.device, weights_only=True)
         pre = "_postblocks."
-        state.model.load_state_dict({k: v for k, v in saved["model"].items()
-                                     if not k.startswith(pre)})
+        weights = {k: v for k, v in saved["model"].items() if not k.startswith(pre)}
+        shards = param_shards(state.model)
+        if shards is None:
+            state.model.load_state_dict(weights)
+        else:
+            shards.load_state_dict(state.model, weights)
         if state.nets is not None:
             state.nets.load_state_dict({k[len(pre):]: v for k, v in saved["model"].items()
                                         if k.startswith(pre)})
@@ -1129,7 +1181,7 @@ class Trainer:
             with torch.no_grad():
                 for k, v in ema.items():
                     w = saved["ema_params"][k]
-                    v.copy_(self.optimizer.view(k, w) if sharded else w)
+                    v.copy_(self.optimizer.view_whole(k, w) if sharded else w)
         if state.noise is not None and saved.get("noise") is not None:
             # this dp row's generator where the checkpoint has one for each
             # row, else row 0's, forked for another row

@@ -41,7 +41,7 @@ from tests.test_fuxi_swin import FUXI_CONF
 from tests.test_torch_port_fit import _jstate, env  # noqa: F401 (env is a fixture)
 from tests.test_torch_port_model import CONFS, _numpy_variables, _rel, _to_numpy
 from tests.test_torch_port_rollout_app import _rollout_conf
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 _TRANSPOSED = re.compile(r"^(up_block\d/up|up_block4)$")
 # a tiny CrossFormer whose last transposed conv takes as many channels as
@@ -275,7 +275,7 @@ def test_tiny_crossformer_state_dict_forward_matches_reference(which):
     want = _flat(jvars)
     assert sorted(port) == sorted(want)
     assert all(np.array_equal(port[k].numpy(), w) for k, w in want.items())
-    ref = jax.jit(jmodel.apply)(converge_spectral(jvars), jnp.asarray(x))
+    ref = jit_lowopt(jmodel.apply)(converge_spectral(jvars), jnp.asarray(x))
     model = _inference_model(conf, port, torch.device("cpu"))
     with torch.no_grad():
         out = model(torch.from_numpy(x))
@@ -294,7 +294,7 @@ def test_tiny_fuxi_state_dict_forward_matches_reference():
     assert sorted(port) == sorted(want)
     for k, w in want.items():
         np.testing.assert_allclose(port[k].numpy(), w, rtol=1e-6, atol=0, err_msg=k)
-    ref = jax.jit(jmodel.apply)(converge_spectral(jvars), jnp.asarray(x))
+    ref = jit_lowopt(jmodel.apply)(converge_spectral(jvars), jnp.asarray(x))
     model = _inference_model(conf, port, torch.device("cpu"))
     with torch.no_grad():
         out = model(torch.from_numpy(x))

@@ -37,7 +37,7 @@ from credit_torch.models import load_model
 from credit_torch.trainers.diffusion import DiffusionTrainer
 from credit_torch.trainers.trainer import TrainState, load_trainer
 from credit_torch.utils import ncio as tncio
-from torch_port_fixtures import fit_conf, write_era5_store, write_stats
+from torch_port_fixtures import fit_conf, jit_lowopt, write_era5_store, write_stats
 from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 from tests.test_torch_port_model import _numpy_variables, _to_numpy
 
@@ -130,7 +130,7 @@ def test_loss_at_replayed_draws_matches_reference(backbone, objective):
     1e-5 relative."""
     jmodel, variables, port, cond, y0 = backbone
     key = jax.random.PRNGKey(7)
-    ref = jax.jit(lambda v: _jax_gd(jmodel, objective=objective).loss(v, cond, y0, key))(
+    ref = jit_lowopt(lambda v: _jax_gd(jmodel, objective=objective).loss(v, cond, y0, key))(
         variables)
     t, noise = _train_draws(key, y0.shape)
     with torch.no_grad():
@@ -147,7 +147,7 @@ def test_ddim_sample_at_replayed_draws_matches_reference(backbone, eta):
     jmodel, variables, port, cond, _ = backbone
     shape = (2, 1, H, W, jmodel.base_output_channels)
     key = jax.random.PRNGKey(11)
-    ref = jax.jit(lambda v: _jax_gd(jmodel, sampling_timesteps=4, ddim_eta=eta).sample(
+    ref = jit_lowopt(lambda v: _jax_gd(jmodel, sampling_timesteps=4, ddim_eta=eta).sample(
         v, cond, key, shape))(variables)
     y, noises = _sample_draws(key, shape, 4)
     with torch.no_grad():

@@ -40,7 +40,7 @@ from tests.test_torch_port_ensemble import (E, H, LR, W, _close, _jstate, _metri
                                             _port_tree, _read_log, _step_key, ens_conf, env,
                                             port_state, port_trainer, python_reference_reader,
                                             replay)
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 # The gradients of the two steps part by f32 rounding, amplified where the
 # loss is ill-conditioned (test_micro_step_gradients_match_reference). A
@@ -186,7 +186,7 @@ def micro_steps(env, fits):
             return jmodel.apply({"params": params, "spectral": spectral}, x, train=True,
                                 rngs={"noise": key})
 
-    @jax.jit
+    @jit_lowopt
     def jbackward(params, spectral, x, key, target):
         y, vjp = jax.vjp(lambda p: jforward(p, spectral, x, key), params)
         cot = jax.grad(lambda y: jt.loss_fn(target, y.reshape(target.shape[0], E,

@@ -51,7 +51,7 @@ from credit_torch.trainers.scheduler import constant
 from credit_torch.trainers.trainer import (Trainer, TrainState, load_trainer, make_eval_step,
                                            make_optimizer, make_train_step)
 from credit_torch.utils import ncio as tncio
-from torch_port_fixtures import TRAINER, fit_conf, write_era5_store, write_stats
+from torch_port_fixtures import TRAINER, fit_conf, jit_lowopt, write_era5_store, write_stats
 from tests.test_torch_port_model import _numpy_variables, _to_numpy
 
 H, W = 32, 64
@@ -246,7 +246,7 @@ def test_eval_step_matches_reference_on_ema(env):
     variables = env["variables"]
     ema = jax.tree_util.tree_map(lambda a: a * 1.01, variables["params"])
     jstate = _jstate(variables, None, 1.01)
-    jeval = jax.jit(jtrainer.make_eval_step(
+    jeval = jit_lowopt(jtrainer.make_eval_step(
         env["jmodel"], jlosses.WeightedLoss(base="mse"), jschema, forecast_len=2,
         normalizer=jnorm, metrics_fn=jm, postblocks=tuple(jpost)))
     jmet = jeval(jstate, {k: jnp.asarray(v) for k, v in raw.items()}, jax.random.PRNGKey(1))

@@ -36,7 +36,7 @@ from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train
 from tests.test_fuxi_swin import FUXI_CONF
 from tests.test_torch_port_model import DATA, _numpy_variables, _to_numpy
 from tests.test_torch_port_train import _flat
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 LR = 1e-3
 CONF = {**copy.deepcopy(FUXI_CONF), "data": DATA,
@@ -76,9 +76,9 @@ def _run_jax(jmodel, variables, batches):
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
                         spectral=jax.tree_util.tree_map(jnp.asarray, variables["spectral"]),
                         opt_state=optimizer.init(params), ema_params=params)
-    step = jax.jit(j_make_train_step(jmodel, jlosses.WeightedLoss(base="mse"), optimizer,
-                                     JSchema.from_config(CONF), forecast_len=FORECAST,
-                                     history_len=HISTORY, ema_decay=EMA))
+    step = jit_lowopt(j_make_train_step(jmodel, jlosses.WeightedLoss(base="mse"), optimizer,
+                                        JSchema.from_config(CONF), forecast_len=FORECAST,
+                                        history_len=HISTORY, ema_decay=EMA))
     losses, first_mu = [], None
     for i, bt in enumerate(batches):
         state, m = step(state, {k: jnp.asarray(v) for k, v in bt.items()}, jax.random.PRNGKey(i))

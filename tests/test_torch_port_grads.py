@@ -24,7 +24,7 @@ from credit_torch.models import load_model
 from credit_torch.models import spectral_utils as tsu
 from credit_torch.ops import cuda_attention, cuda_conv, cuda_ff
 from tests.test_torch_port_model import CONFS, _numpy_variables, _to_numpy
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 
 def _np(a) -> np.ndarray:
@@ -172,7 +172,7 @@ def test_train_mode_spectral_norm_matches_reference(tiny):
     the f32 forward test) and every updated u, v (1e-5) against
     model.apply(..., train=True, mutable=["spectral"])."""
     conf, jmodel, variables, x = tiny
-    ref, mut = jax.jit(lambda v, a: jmodel.apply(v, a, train=True, mutable=["spectral"]))(
+    ref, mut = jit_lowopt(lambda v, a: jmodel.apply(v, a, train=True, mutable=["spectral"]))(
         variables, jnp.asarray(x))
     port = load_model(conf, device="cpu", sn_state=True)
     port.load_state_dict(from_jax_variables(_to_numpy(variables), conf, device="cpu",

@@ -35,7 +35,7 @@ from credit_torch.rollout import RolloutEngine, make_scan_rollout
 from credit_torch.trainers.scheduler import constant
 from credit_torch.trainers.trainer import make_optimizer, make_train_step
 from credit_torch.utils.ncio import Dataset
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -103,7 +103,7 @@ def _rel(a, b) -> float:
 def test_forward_matches_reference_f32(built):
     """f32: the same math in another summation order (1e-4 relative)."""
     conf, model, variables, x = built
-    ref = jax.jit(model.apply)(variables, jnp.asarray(x))
+    ref = jit_lowopt(model.apply)(variables, jnp.asarray(x))
     port = load_model(conf, device="cpu")
     port.load_state_dict(from_jax_variables(_to_numpy(variables), conf, device="cpu"))
     with torch.no_grad():
@@ -123,7 +123,7 @@ def test_forward_matches_reference_bf16(built):
     jconf["model"]["use_spectral_norm"] = False
     jmodel = jax_load_model(jconf)
     folded = _to_numpy(_bf16(fold_spectral(variables)["params"]))
-    ref = jax.jit(jmodel.apply)({"params": _bf16(folded)}, jnp.asarray(x, jnp.bfloat16))
+    ref = jit_lowopt(jmodel.apply)({"params": _bf16(folded)}, jnp.asarray(x, jnp.bfloat16))
     port = load_model(jconf, device="cpu")
     port.load_state_dict(from_jax_variables({"params": folded}, jconf, device="cpu"))
     port = port.to(torch.bfloat16)
@@ -140,7 +140,7 @@ def test_rollout_matches_reference(built):
     full = {**conf, "data": DATA}
     jschema, schema = JSchema.from_config(full), ChannelSchema.from_config(full)
     jrun = jax_scan_rollout(model, jschema, 3)
-    jx, jstats = jax.jit(jrun)(variables, jnp.asarray(x))
+    jx, jstats = jit_lowopt(jrun)(variables, jnp.asarray(x))
     port = load_model(conf, device="cpu")
     port.load_state_dict(from_jax_variables(_to_numpy(variables), conf, device="cpu"))
     tx, tstats = make_scan_rollout(port, schema, 3, device="cpu")(torch.from_numpy(x))

@@ -9,7 +9,8 @@ Each credit_tpu model gets seeded numpy variables of its own tree
 (`_numpy_variables`: kernels he_uniform, other parameters randomised,
 spectral u/v converged), bridged into the port with `from_jax_variables`;
 both run the same numpy input on the CPU in f32, credit_tpu's model under
-jax.jit (its XLA composition) and the port's kernels as their plain
+jax.jit (its XLA composition, compiled at XLA's lowest optimisation level:
+`torch_port_fixtures.jit_lowopt`) and the port's kernels as their plain
 PyTorch versions.
 """
 
@@ -33,7 +34,7 @@ from credit_torch.convert_jax import from_jax_variables, init_folded, init_train
 from credit_torch.models import PORTED, load_model
 from credit_torch.models.graph import knn_sphere_edges, segment_softmax, segment_sum
 from credit_torch.ops.upsample import icnr_kernel, pixel_shuffle
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 # the CrossFormer family at 32x64: four stages of stride 2 down to 2x4
 CF = dict(frames=1, output_frames=1, image_height=32, image_width=64, levels=2, channels=2,
@@ -168,7 +169,7 @@ def test_forward_matches_reference_f32(name):
     (the same math in another summation order, through up to ~20 layers;
     readings 1e-7 to 2e-6)."""
     conf, jmodel, variables, arrs = _built(name)
-    ref = jax.jit(lambda v, *a: _jax_call(jmodel, v, a))(variables, *arrs)
+    ref = jit_lowopt(lambda v, *a: _jax_call(jmodel, v, a))(variables, *arrs)
     port = load_model(conf, device="cpu")
     port.load_state_dict(from_jax_variables(variables, conf, device="cpu"))
     with torch.no_grad():
@@ -195,7 +196,7 @@ def test_train_gradients_match_reference(name):
                            arrs, train=True, mutable=["spectral"])
         return jnp.mean((y - target) ** 2), upd
 
-    (jl, jupd), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(variables["params"])
+    (jl, jupd), jg = jit_lowopt(jax.value_and_grad(jloss, has_aux=True))(variables["params"])
     port = load_model(conf, device="cpu", sn_state=True)
     port.load_state_dict(from_jax_variables(variables, conf, device="cpu", fold=False))
     port.train()
@@ -243,7 +244,7 @@ def test_bf16_forward_is_bounded(name):
     jm = jax_load_model(jconf)
     folded = {"params": _to_numpy(fold_spectral(variables)["params"])}
     bf = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), folded)
-    ref = jax.jit(lambda v, *a: _jax_call(jm, v, a))(bf, *[a for a in arrs])
+    ref = jit_lowopt(lambda v, *a: _jax_call(jm, v, a))(bf, *[a for a in arrs])
     port = load_model(jconf, device="cpu")
     port.load_state_dict(from_jax_variables(folded, jconf, device="cpu"))
     port = port.to(torch.bfloat16)

@@ -8,9 +8,11 @@ against credit_tpu on its 8 virtual CPU devices: the halo exchange's
 contents and gradient (credit_tpu's under shard_map), the group-norm
 moments, ring-CRPS's value and gradient (make_ring_crps_loss and the dense
 estimator), and the conv seams under parallel.context.explicit_halo
-(size-preserving stride 1, the stride-2 space-to-depth embed, both
-transposes, and the gather path) against the unsharded port conv and
-credit_tpu's convs under explicit_halo.
+(size-preserving stride 1, the stride-2 space-to-depth embeds with even
+and odd kernels, both transposes, and the gather path) against the
+unsharded port conv and credit_tpu's convs under explicit_halo; and the
+SwinV2 stage's slab moves on even and uneven slabs (the cyclic latitude
+roll, the re-split, the uneven gather) against torch.roll and slicing.
 """
 
 import jax
@@ -27,7 +29,7 @@ from credit_tpu.parallel import mesh as jmesh
 from credit_tpu.parallel import sharding as jshard
 from credit_tpu.parallel import validate as jvalidate
 from torch_port_fixtures import run_ranks, two_torch_threads  # noqa: F401
-from torch_port_parallel_worker import CONV_CASES
+from torch_port_parallel_worker import CONV_CASES, UNEVEN
 
 WORLD = 4
 
@@ -297,3 +299,39 @@ def test_benchmarks_run_on_every_mesh(ops):
     rows = ops[0]["bench_rows"]
     assert [tuple(int(v) for v in row[:3]) for row in rows] == default_combos(WORLD)
     assert np.all(np.isfinite(rows)) and np.all(rows[:, 3:6] > 0) and rows[0, 7] == 1.0
+
+
+def _rows(counts, r):
+    return slice(sum(counts[:r]), sum(counts[:r]) + counts[r])
+
+
+@pytest.mark.parametrize("tag, counts", [("even", (3,) * WORLD), ("uneven", UNEVEN)])
+@pytest.mark.parametrize("shift", [-2, 1])
+def test_lat_roll_matches_torch_roll(ops, tag, counts, shift):
+    """Each rank's slab of the rolled field is its rows of torch.roll of
+    the whole field (exact), and its gradient its rows of the cotangent
+    rolled back."""
+    h = sum(counts)
+    x = np.random.default_rng(30).standard_normal((2, h, 5, 3)).astype(np.float32)
+    ct = np.random.default_rng(31).standard_normal((2, h, 5, 3)).astype(np.float32)
+    want_y, want_g = np.roll(x, shift, axis=1), np.roll(ct, -shift, axis=1)
+    for r, rk in enumerate(ops):
+        np.testing.assert_array_equal(rk[f"roll_{tag}{shift}_y"], want_y[:, _rows(counts, r)])
+        np.testing.assert_array_equal(rk[f"roll_{tag}{shift}_g"], want_g[:, _rows(counts, r)])
+
+
+def test_reslab_and_uneven_gather(ops):
+    """reslab from 4 even slabs of 12 rows to (4, 4, 2, 2): each rank's
+    rows, and the cotangent's rows of its even slab back; gather_lat of
+    uneven slabs (3, 3, 3, 2) whole on every rank, its gradient the sum of
+    every rank's cotangent rows (reduce) or this rank's own
+    (same_downstream); all exact."""
+    x = np.random.default_rng(32).standard_normal((2, 12, 5, 3)).astype(np.float32)
+    ct = np.random.default_rng(33).standard_normal((2, 12, 5, 3)).astype(np.float32)
+    for r, rk in enumerate(ops):
+        np.testing.assert_array_equal(rk["reslab_y"], x[:, _rows((4, 4, 2, 2), r)])
+        np.testing.assert_array_equal(rk["reslab_g"], ct[:, 3 * r:3 * r + 3])
+        for same in (0, 1):
+            np.testing.assert_array_equal(rk[f"gather_uneven{same}_y"], x[:, :11])
+            want = ct[:, _rows(UNEVEN, r)] * (1 if same else WORLD)
+            np.testing.assert_allclose(rk[f"gather_uneven{same}_g"], want, rtol=1e-6)

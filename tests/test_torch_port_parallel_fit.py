@@ -1,7 +1,8 @@
 """The port's training and rollouts on a mesh of processes, on the CPU.
 
 Spawned gloo ranks (`torch_port_parallel_worker.py`, a FileStore under
-tmp_path, a 60 s group timeout, 90-120 s a launch) run the tiny CrossFormer
+tmp_path, a 60 s group timeout, 90-150 s a launch; every 2-rank case but
+the fit in one launch, `pair`) run the tiny CrossFormer
 (TINY_MODEL_CONF with 8-wide heads and the quadrant stage-0 embed:
 2/4/8/16 heads, 32/16/8/4 rows a stage) on credit_tpu's numpy weights:
 
@@ -42,6 +43,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from __graft_entry__ import TINY_MODEL_CONF
 from credit_torch.applications import run_rollout, run_training
 from credit_torch.data import zarrlite as tzarr
+from credit_torch.data.channels import ChannelSchema as TSchema
 from credit_torch.utils import ncio as tncio
 from credit_tpu.models import load_model as jax_load_model
 from credit_tpu.ops import conv as jconv
@@ -49,8 +51,8 @@ from credit_tpu.parallel.mesh import build_mesh as jax_mesh
 from credit_tpu.trainers import trainer as jtrainer
 from credit_tpu.trainers.scheduler import load_scheduler as jax_scheduler
 from tests.test_torch_port_model import _numpy_variables, _to_numpy
-from torch_port_fixtures import (fit_conf, run_ranks, two_torch_threads,  # noqa: F401
-                                 write_era5_store, write_stats)
+from torch_port_fixtures import (fit_conf, run_many, run_ranks,  # noqa: F401
+                                 two_torch_threads, write_era5_store, write_stats)
 
 DATA = {"source": {"ERA5": {"levels": [0.0, 1.0], "variables": {
     "prognostic": {"vars_3D": ["U", "T"], "vars_2D": ["SP", "T2M"]},
@@ -112,12 +114,35 @@ def ref(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def steps(ref, tmp_path_factory):
-    """The meshes of 2 ranks in one launch, (2, 2, 2) in another."""
+def pair(ref, tmp_path_factory):
+    """Every 2-rank case of the module but the fit in one launch: the
+    train steps at the meshes of 2 ranks, the trainer steps at domain 2
+    (`_domain2_conf`'s cases), the scan rollout at (1, 1, 2)."""
+    root = tmp_path_factory.mktemp("pair")
+    runs = [("train", {**ref["args"], "meshes": [d for d in MESHES if np.prod(d) == 2]})]
+    for case in DOMAIN2_CASES:
+        conf = _domain2_conf(case, root / case)
+        schema = TSchema.from_config(conf)
+        rng = np.random.default_rng(21)
+        np.savez(root / f"{case}.npz",
+                 x=rng.standard_normal((1, 1, 32, 64, schema.n_input)).astype(np.float32),
+                 y=rng.standard_normal((1, 1, 32, 64, schema.n_target)).astype(np.float32))
+        runs.append(("trainer_step", {"conf": conf, "batch": str(root / f"{case}.npz")}))
+    runs.append(("rollout", {**ref["args"], "mesh": [1, 1, 2]}))
+    out = run_many(2, root, runs)
+    return {"train": out[0], "rollout": out[-1],
+            **{case: out[1 + i] for i, case in enumerate(DOMAIN2_CASES)}}
+
+
+@pytest.fixture(scope="module")
+def steps(ref, pair, tmp_path_factory):
+    """The meshes of 2 ranks (`pair`'s launch), (2, 2, 2) in a launch of 8."""
     out = {}
-    for meshes in ([d for d in MESHES if np.prod(d) == 2], [d for d in MESHES if np.prod(d) == 8]):
-        ranks = run_ranks("train", int(np.prod(meshes[0])), tmp_path_factory.mktemp("step"),
-                          {**ref["args"], "meshes": meshes}, timeout=120.0)
+    eight = [d for d in MESHES if np.prod(d) == 8]
+    for meshes in ([d for d in MESHES if np.prod(d) == 2], eight):
+        ranks = (pair["train"] if meshes != eight else
+                 run_ranks("train", 8, tmp_path_factory.mktemp("step"),
+                           {**ref["args"], "meshes": meshes}, timeout=120.0))
         for d in meshes:
             tag = "mesh" + "".join(map(str, d))
             out[d] = [{k.replace(tag, "mesh", 1): v for k, v in r.items()
@@ -339,8 +364,11 @@ def _domain2_conf(case: str, tmp_path) -> dict:
             "trainer": {**trainer, "type": "era5-diffusion"}}
 
 
-@pytest.mark.parametrize("case", ["ensemble_skebs", "diffusion"])
-def test_trainer_step_domain2_matches_unsharded(tmp_path, case):
+DOMAIN2_CASES = ("ensemble_skebs", "diffusion")
+
+
+@pytest.mark.parametrize("case", DOMAIN2_CASES)
+def test_trainer_step_domain2_matches_unsharded(pair, case):
     """One trainer step at domain 2 from the trainer's seeded state, on
     both ranks, against the same trainer class without parallelism: the
     loss within 1e-6 and the gradient within 1e-5 (`_grad_close`).
@@ -350,17 +378,7 @@ def test_trainer_step_domain2_matches_unsharded(tmp_path, case):
     1e-5 of its largest (the domain ranks each compute it whole: summed
     over them, it is counted once). `diffusion`: the era5-diffusion
     trainer's step, its CrossFormer denoiser lat-sharded."""
-    from credit_torch.data.channels import ChannelSchema
-
-    conf = _domain2_conf(case, tmp_path)
-    schema = ChannelSchema.from_config(conf)
-    rng = np.random.default_rng(21)
-    np.savez(tmp_path / "batch.npz",
-             x=rng.standard_normal((1, 1, 32, 64, schema.n_input)).astype(np.float32),
-             y=rng.standard_normal((1, 1, 32, 64, schema.n_target)).astype(np.float32))
-    ranks = run_ranks("trainer_step", 2, tmp_path,
-                      {"conf": conf, "batch": str(tmp_path / "batch.npz")}, timeout=120.0)
-    for rank in ranks:
+    for rank in pair[case]:
         np.testing.assert_allclose(rank["mesh_loss"], rank["one_loss"], rtol=1e-6)
         one, mesh = _mine(rank, "one", "grad"), _mine(rank, "mesh", "grad")
         assert one.keys() == mesh.keys()
@@ -397,9 +415,8 @@ def test_dp_rows_draw_their_own_noise(tmp_path):
 
 
 # --------------------------------------------------------------- rollouts
-def test_mesh_scan_rollout_matches_unsharded(ref, tmp_path):
-    ranks = run_ranks("rollout", 2, tmp_path, {**ref["args"], "mesh": [1, 1, 2]})
-    for r in ranks:
+def test_mesh_scan_rollout_matches_unsharded(pair):
+    for r in pair["rollout"]:
         np.testing.assert_allclose(r["mesh_x"], r["one_x"], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(r["mesh_stats"], r["one_stats"], rtol=1e-5, atol=1e-6)
 

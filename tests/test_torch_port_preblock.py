@@ -33,7 +33,7 @@ from credit_torch.trainers import trainer as ttrainer
 from credit_torch.trainers.scheduler import constant
 # env is a fixture: imported, it applies here too
 from tests.test_torch_port_fit import _close, _jstate, _step_parts, env  # noqa: F401
-from torch_port_fixtures import TRAINER, fit_conf
+from torch_port_fixtures import TRAINER, fit_conf, jit_lowopt
 from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
 
 CONF = {"data": {"source": {"E": {
@@ -285,7 +285,7 @@ def test_train_step_with_preblocks_matches_reference(env):
     jschema, schema, jnorm, tnorm, jpost, tpost, jm, tm, raw = parts
     grid = Grid.regular(32, 64)
     jopt = jtrainer.make_optimizer(conf, lambda n: TRAINER["learning_rate"])
-    jstep = jax.jit(jtrainer.make_train_step(
+    jstep = jit_lowopt(jtrainer.make_train_step(
         env["jmodel"], jlosses.WeightedLoss.from_config(conf, grid), jopt, jschema,
         ema_decay=0.99, normalizer=jnorm, preblocks=jpre_["per_step"],
         preblocks_ic=jpre_["ic_only"], postblocks=tuple(jpost), metrics_fn=jm,
@@ -319,7 +319,7 @@ def test_eval_step_with_preblocks_matches_reference(env):
     credit_tpu's make_eval_step with the same preblocks."""
     conf, parts, pre, jpre_, model = _step_setup(env, 2)
     jschema, schema, jnorm, tnorm, jpost, tpost, jm, tm, raw = parts
-    jeval = jax.jit(jtrainer.make_eval_step(
+    jeval = jit_lowopt(jtrainer.make_eval_step(
         env["jmodel"], jlosses.WeightedLoss(base="mse"), jschema, forecast_len=2,
         normalizer=jnorm, metrics_fn=jm, preblocks=jpre_["per_step"],
         preblocks_ic=jpre_["ic_only"], postblocks=tuple(jpost)))

@@ -33,7 +33,7 @@ from credit_torch.models import load_model
 from credit_torch.trainers import scheduler as tsched
 from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
 from tests.test_torch_port_model import DATA, _numpy_variables, _to_numpy
-from torch_port_fixtures import two_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_port_fixtures import jit_lowopt, two_torch_threads  # noqa: F401
 
 
 def _np(a) -> np.ndarray:
@@ -166,9 +166,9 @@ def _run_jax(jmodel, variables, schema, batches, bp):
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
                         spectral=jax.tree_util.tree_map(jnp.asarray, variables["spectral"]),
                         opt_state=optimizer.init(params), ema_params=params)
-    step = jax.jit(j_make_train_step(jmodel, jlosses.WeightedLoss(base="mse"), optimizer,
-                                     JSchema.from_config(CONF), forecast_len=FORECAST,
-                                     backprop_on_timestep=bp, ema_decay=EMA))
+    step = jit_lowopt(j_make_train_step(jmodel, jlosses.WeightedLoss(base="mse"), optimizer,
+                                        JSchema.from_config(CONF), forecast_len=FORECAST,
+                                        backprop_on_timestep=bp, ema_decay=EMA))
     losses, first_mu = [], None
     for i, bt in enumerate(batches):
         state, m = step(state, {k: jnp.asarray(v) for k, v in bt.items()},

@@ -126,6 +126,35 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_port_parallel_worker.py")
 
 
+def jit_lowopt(fn):
+    """jax.jit of fn compiled at XLA's lowest optimisation level, one
+    program per argument structure and shapes: the reference programs of
+    the parity tests run once or twice, and compiling them at the default
+    level costs most of their time (the ops are the same)."""
+    import jax
+
+    opts = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+    cache = {}
+
+    def call(*args):
+        key = str(jax.tree_util.tree_structure(args)) + str(
+            [getattr(a, "shape", None) for a in jax.tree_util.tree_leaves(args)])
+        if key not in cache:
+            cache[key] = jax.jit(fn).lower(*args).compile(compiler_options=opts)
+        return cache[key](*args)
+
+    return call
+
+
+def run_many(world: int, tmp, runs, timeout: float = 150.0):
+    """`run_ranks` of the worker's `many` scenario: each (scenario, args) of
+    `runs` in one launch of `world` ranks; a list, per run, of each rank's
+    outputs."""
+    ranks = run_ranks("many", world, tmp, {"runs": [list(r) for r in runs]}, timeout=timeout)
+    return [[{k.split(":", 1)[1]: v for k, v in rk.items() if k.startswith(f"{i}:")}
+             for rk in ranks] for i in range(len(runs))]
+
+
 def run_ranks(scenario: str, world: int, tmp, args: dict, timeout: float = 90.0):
     """Launch `world` worker processes for `scenario`, wait at most
     `timeout` seconds for all (then kill them and fail), and return each

@@ -10,7 +10,10 @@ seams), `train` (one tiny CrossFormer train step on a mesh, and the
 unsharded step), `trainer_step` (one step through a Trainer on its
 trainer.parallelism mesh, and through one without), `fit` (run_training,
 then run_rollout, through the CREDIT_* variables, recording a noisy
-model's draws), `rollout` (make_scan_rollout on a mesh).
+model's draws), `rollout` (make_scan_rollout on a mesh), `swin_family`
+(the SwinV2 family's forward and train step on a mesh against unsharded),
+`zero3` (ZeRO-3 through the Trainer, its checkpoint resumed at world size
+1) and `many` (several of these in one launch).
 """
 
 from __future__ import annotations
@@ -102,6 +105,8 @@ def scenario_ops(rank: int, world: int, args: dict) -> dict:
         out[f"{name}_gb"] = D.all_reduce(bt.grad, group).numpy()
         out[f"{name}_gathers"] = np.asarray(D.COUNTS["all_gather"])
 
+    _uneven_slabs(out, rank, world, group)
+
     from credit_torch.applications.benchmark import benchmark_halo, benchmark_parallelism
 
     halo = benchmark_halo(h=16, w=12, c=4, k=3, steps=3, device="cpu")
@@ -114,11 +119,49 @@ def scenario_ops(rank: int, world: int, args: dict) -> dict:
     return out
 
 
+# uneven slabs of a 4-rank field of 11 rows (window-aligned for windows of
+# 1 row), and the even split of 12
+UNEVEN = (3, 3, 3, 2)
+
+
+def _uneven_slabs(out: dict, rank: int, world: int, group) -> None:
+    """lat_roll by -2 and +1 on even and uneven slabs, reslab from even to
+    uneven slabs, gather_lat of uneven slabs (with and without
+    same_downstream): each rank's output and its input's gradient of
+    <out, ct>, for the test to hold against torch.roll and slicing."""
+    from credit_torch.parallel.halo import gather_lat, lat_roll, reslab, shard_lat
+
+    for tag, counts in (("even", (3,) * world), ("uneven", UNEVEN)):
+        h = sum(counts)
+        x = np.random.default_rng(30).standard_normal((2, h, 5, 3)).astype(np.float32)
+        ct = np.random.default_rng(31).standard_normal((2, h, 5, 3)).astype(np.float32)
+        for shift in (-2, 1):
+            xs = shard_lat(_t(x), world, rank, counts).clone().requires_grad_(True)
+            y = lat_roll(xs, shift, group)
+            (y * shard_lat(_t(ct), world, rank, counts)).sum().backward()
+            out[f"roll_{tag}{shift}_y"], out[f"roll_{tag}{shift}_g"] = (y.detach().numpy(),
+                                                                       xs.grad.numpy())
+    x = np.random.default_rng(32).standard_normal((2, 12, 5, 3)).astype(np.float32)
+    ct = np.random.default_rng(33).standard_normal((2, 12, 5, 3)).astype(np.float32)
+    dst = (4, 4, 2, 2)
+    xs = shard_lat(_t(x), world, rank).clone().requires_grad_(True)
+    y = reslab(xs, (3,) * world, dst, group)
+    (y * shard_lat(_t(ct), world, rank, dst)).sum().backward()
+    out["reslab_y"], out["reslab_g"] = y.detach().numpy(), xs.grad.numpy()
+    for same in (False, True):
+        xs = shard_lat(_t(x[:, :11]), world, rank, UNEVEN).clone().requires_grad_(True)
+        y = gather_lat(xs, group, same_downstream=same, counts=UNEVEN)
+        (y * _t(ct[:, :11])).sum().backward()
+        out[f"gather_uneven{int(same)}_y"] = y.detach().numpy()
+        out[f"gather_uneven{int(same)}_g"] = xs.grad.numpy()
+
+
 # name -> (x shape, kernel shape (kh, kw, in, out), conv or transpose, stride,
 # padding); the slabs are x's rows over 4 ranks
 CONV_CASES = {
     "halo_3x3": ((2, 16, 12, 4), (3, 3, 4, 5), "conv", 1, 1),
     "s2d_4x4": ((2, 16, 12, 4), (4, 4, 4, 5), "conv", 2, 1),
+    "s2d_odd_3x3": ((2, 16, 12, 4), (3, 3, 4, 5), "conv", 2, 1),
     "transpose_k2": ((2, 8, 6, 4), (2, 2, 4, 5), "transpose", 2, 0),
     "transpose_k4": ((2, 8, 6, 4), (4, 4, 4, 5), "transpose", 2, 1),
     "gather_5x5": ((2, 4, 12, 4), (5, 5, 4, 5), "conv", 1, 2),
@@ -141,57 +184,107 @@ def _tiny(args: dict):
     return conf, model, {k: _t(batch[k]) for k in batch.files}
 
 
-def scenario_train(rank: int, world: int, args: dict) -> dict:
-    """The unsharded step, then the same step on each mesh of
-    args['meshes'] ((dp, tp, domain) lists), from the same weights: the
-    loss, the (reduced, whole) gradients the optimizer was given and the
-    updated parameters, each prefixed 'one_' or 'mesh<dp><tp><domain>_'."""
+def _step_on(conf, model, batch, mesh, steps: int = 1, out=None, tag="", ckpt=None):
+    """`steps` train steps (MSE, the config's AdamW) of `model` on `mesh`
+    (None: unsharded) through make_train_step, this rank's dp rows of
+    `batch`; into `out` under `tag`: the loss, the (reduced, whole)
+    gradients the optimizer was given at the last step and the updated
+    (whole) parameters, the collectives, the optimizer's moment elements,
+    and, between the steps, the parameter elements the model holds, the
+    gradient elements the optimizer was given and the gradients left on
+    the parameters. With `ckpt` (a directory) the state after the first
+    step is saved there through a Trainer's save_checkpoint."""
     import torch
 
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.parallel import distributed as D
-    from credit_torch.parallel.mesh import build_mesh
     from credit_torch.parallel.sharding import ShardedOptimizer, shard_batch
     from credit_torch.trainers.scheduler import load_scheduler
     from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
 
-    conf, model, batch = _tiny(args)
     schema = ChannelSchema.from_config(conf)
-    start = {k: v.clone() for k, v in model.state_dict().items()}
-    out = {}
 
     def mse(y, p):
         return torch.mean((p - y) ** 2)
 
+    opt = make_optimizer(conf, load_scheduler(conf))
+    names = [k for k, _ in model.named_parameters()]
+    if mesh is not None:
+        opt = ShardedOptimizer(opt, mesh, names, [tuple(p.shape) for p in model.parameters()])
+    seen = {}
+    inner_update = opt.update
+
+    def update(grads, st, params):
+        seen["g"] = [g.clone() for g in grads]
+        return inner_update(grads, st, params)
+
+    opt.update = update
+    step = make_train_step(model, mse, opt, schema, device="cpu", mesh=mesh)
+    state = TrainState.create(model, opt)
+    b = batch if mesh is None else shard_batch(batch, mesh)
+    D.COUNTS.clear()
+    for i in range(steps):
+        state, metrics = step(state, b)
+        if i == 0 and ckpt is not None:
+            _save(conf, model, opt, state, mesh, ckpt)
+    grads, params = seen["g"], [p.detach() for _, p in model.named_parameters()]
+    out[f"{tag}_resident"] = np.asarray([sum(p.numel() for p in params),
+                                         sum(g.numel() for g in grads),
+                                         sum(p.grad is not None for p in model.parameters())])
+    if mesh is not None:
+        grads = opt.held_whole(dict(zip(names, grads)))
+        params = opt.held_whole(dict(zip(names, params)))
+    out[f"{tag}_loss"] = metrics["loss"].numpy()
+    for k, g, p in zip(names, grads, params):
+        out[f"{tag}_grad.{k}"] = g.numpy()
+        out[f"{tag}_param.{k}"] = p.numpy()
+    out[f"{tag}_collectives"] = np.asarray(sum(D.COUNTS.values()))
+    out[f"{tag}_mu_chunks"] = np.asarray(sum(v.numel() for v in state.opt_state["mu"].values()))
+    return state
+
+
+def _save(conf, model, opt, state, mesh, root):
+    """state through Trainer.save_checkpoint (a trainer of `conf` made
+    around the given model, optimizer and mesh)."""
+    from credit_torch.trainers.trainer import Trainer
+
+    trainer = Trainer.__new__(Trainer)
+    trainer.conf, trainer.save_loc, trainer.mesh, trainer.optimizer = conf, root, mesh, opt
+    trainer.dp = mesh.shape["dp"] if mesh is not None else 1
+    trainer.tp = trainer.domain = 1
+    trainer.device = next(model.parameters()).device
+    trainer.save_checkpoint(state, 0)
+
+
+def _expected_resident(model, mesh) -> int:
+    """The elements a rank holds under ZeRO-3: each tensor of the (whole)
+    model's parameters as its dp chunk where param_spec shards it over dp,
+    else whole."""
+    from credit_torch.parallel.sharding import param_spec
+
+    total = 0
+    for k, p in model.named_parameters():
+        n = p.numel()
+        total += n // mesh.shape["dp"] if "dp" in param_spec(k, tuple(p.shape), mesh) else n
+    return total
+
+
+def scenario_train(rank: int, world: int, args: dict) -> dict:
+    """The unsharded step, then the same step on each mesh of
+    args['meshes'] ((dp, tp, domain) lists), each on a fresh model of the
+    same weights: `_step_on`'s outputs prefixed 'one_' or
+    'mesh<dp><tp><domain>_', and each mesh's expected resident elements."""
+    from credit_torch.parallel.mesh import build_mesh
+
+    conf, model, batch = _tiny(args)
+    out = {"mu_whole": np.asarray(sum(p.numel() for p in model.parameters()))}
     runs = [("one", None)] + [("mesh" + "".join(map(str, d)), build_mesh(*d))
                               for d in args["meshes"]]
     for tag, mesh in runs:
-        model.load_state_dict(start)
-        opt = make_optimizer(conf, load_scheduler(conf))
-        names = [k for k, _ in model.named_parameters()]
         if mesh is not None:
-            opt = ShardedOptimizer(opt, mesh, names, [tuple(p.shape) for p in model.parameters()])
-        seen = {}
-        inner_update = opt.update
-
-        def update(grads, st, params, inner_update=inner_update, seen=seen):
-            seen["g"] = [g.clone() for g in grads]
-            return inner_update(grads, st, params)
-
-        opt.update = update
-        step = make_train_step(model, mse, opt, schema, device="cpu", mesh=mesh)
-        state = TrainState.create(model, opt)
-        b = batch if mesh is None else shard_batch(batch, mesh)
-        D.COUNTS.clear()
-        state, metrics = step(state, b)
-        out[f"{tag}_loss"] = metrics["loss"].numpy()
-        for k, g in zip(names, seen["g"]):
-            out[f"{tag}_grad.{k}"] = g.numpy()
-        for k, p in model.named_parameters():
-            out[f"{tag}_param.{k}"] = p.detach().numpy()
-        out[f"{tag}_collectives"] = np.asarray(sum(D.COUNTS.values()))
-        out[f"{tag}_mu_chunks"] = np.asarray(sum(v.numel() for v in state.opt_state["mu"].values()))
-    out["mu_whole"] = np.asarray(sum(p.numel() for p in model.parameters()))
+            out[f"{tag}_expected_resident"] = np.asarray(_expected_resident(model, mesh))
+        _step_on(conf, model, batch, mesh, out=out, tag=tag)
+        conf, model, batch = _tiny(args)
     return out
 
 
@@ -234,6 +327,186 @@ def scenario_trainer_step(rank: int, world: int, args: dict) -> dict:
         out[f"{tag}_loss"] = metrics["loss"].numpy()
         for k, g in zip(state.opt_state["mu"], seen["g"]):
             out[f"{tag}_grad.{k}"] = g.numpy()
+    return out
+
+
+def _kernel_rows(fn):
+    """fn() with kernel 2's and kernel 1's wrappers recording their
+    inputs, and the gather path (`context.on_full`) counted: (fn's
+    result, the largest conv input's rows, the largest FF input's rows,
+    the gather paths taken)."""
+    from credit_torch.ops import cuda_conv, cuda_ff
+    from credit_torch.parallel import context as par_ctx
+
+    conv0, ff0, full0 = cuda_conv.conv2d_valid, cuda_ff.fused_ff, par_ctx.on_full
+    rows = {"conv": [0], "ff": [0], "full": 0}
+
+    def conv(x, k):
+        rows["conv"].append(x.shape[1])
+        return conv0(x, k)
+
+    def ff(x, *a, **kw):
+        rows["ff"].append(int(np.prod(x.shape[:-1])))
+        return ff0(x, *a, **kw)
+
+    def full(*a, **kw):
+        rows["full"] += 1
+        return full0(*a, **kw)
+
+    cuda_conv.conv2d_valid, cuda_ff.fused_ff, par_ctx.on_full = conv, ff, full
+    try:
+        out = fn()
+    finally:
+        cuda_conv.conv2d_valid, cuda_ff.fused_ff, par_ctx.on_full = conv0, ff0, full0
+    return out, max(rows["conv"]), max(rows["ff"]), rows["full"]
+
+
+def scenario_swin_family(rank: int, world: int, args: dict) -> dict:
+    """Per case of args['cases'] (a model of credit_tpu's numpy weights and
+    a seeded batch, a mesh): the eval-mode forward on the mesh and
+    unsharded ('<tag>_pred_mesh', '<tag>_pred_one') with each side's
+    largest kernel 2 and kernel 1 inputs and its gather paths
+    ('<tag>_rows_mesh' / '_one'), then `_step_on`'s outputs of the
+    unsharded step ('one_<tag>') and of the mesh step ('mesh_<tag>'), each
+    on a fresh model of the same weights."""
+    import torch
+
+    from credit_torch.parallel import context as par_ctx
+    from credit_torch.parallel.mesh import build_mesh
+    from credit_torch.parallel.sharding import shard_batch
+
+    meshes, out = {}, {}
+    for case in args["cases"]:
+        tag, dims = case["tag"], tuple(case["mesh"])
+        if dims not in meshes:
+            meshes[dims] = build_mesh(*dims)
+        mesh = meshes[dims]
+        conf, model, batch = _tiny(case)
+        model.eval()
+        mine = shard_batch(batch, mesh)
+        with torch.no_grad():
+            one = _kernel_rows(lambda: model(batch["x"]))
+            with par_ctx.explicit_halo(mesh):
+                got = _kernel_rows(lambda: model(mine["x"]))
+        out[f"{tag}_pred_one"], out[f"{tag}_pred_mesh"] = one[0].numpy(), got[0].numpy()
+        out[f"{tag}_rows_one"], out[f"{tag}_rows_mesh"] = np.asarray(one[1:]), np.asarray(got[1:])
+        _step_on(conf, model, batch, None, out=out, tag=f"one_{tag}")
+        _, model, _ = _tiny(case)
+        if dims[0] > 1:
+            out[f"mesh_{tag}_expected_resident"] = np.asarray(_expected_resident(model, mesh))
+        _step_on(conf, model, batch, mesh, out=out, tag=f"mesh_{tag}")
+    return out
+
+
+def scenario_zero3(rank: int, world: int, args: dict) -> dict:
+    """ZeRO-3 through the Trainer, per case of args['cases'] (a model
+    config at data 2 with a seeded batch of 2): from the trainer's seeded
+    state, a step on the mesh (this rank's row; with sn_external the power
+    iterations before it, as fit runs them), a checkpoint, a second step: each step's loss, the first step's (reduced, whole) gradient,
+    the resident elements between the steps (`_step_on`'s) against the
+    expected chunks, the whole parameters after. Rank 0 then resumes the
+    checkpoint in a trainer without parallelism for the second step on the
+    whole batch, and runs both steps uninterrupted in another: the
+    losses, the first step's gradient and the parameters after, prefixed
+    'resumed_' and 'one_'."""
+    import torch
+
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.data.synthetic import SyntheticDataset
+    from credit_torch.grid import Grid
+    from credit_torch.losses import WeightedLoss
+    from credit_torch.models import load_model
+    from credit_torch.parallel.sharding import shard_batch
+    from credit_torch.convert_jax import seed_train_
+    from credit_torch.trainers.trainer import load_trainer, power_iterations
+
+    out = {}
+    for case in args["cases"]:
+        tag, conf = case["tag"], case["conf"]
+        schema = ChannelSchema.from_config(conf)
+        h, w = conf["model"]["image_height"], conf["model"]["image_width"]
+        dataset = SyntheticDataset(schema, Grid.regular(h, w), n_times=4)
+        batch = {k: _t(v) for k, v in np.load(case["batch"]).items()}
+        single = {**conf, "trainer": {k: v for k, v in conf["trainer"].items()
+                                      if k != "parallelism"}}
+
+        def trainer_of(c, root):
+            model = load_model(c, device="cpu", sn_state=True)
+            tr = load_trainer(c)(c, model, WeightedLoss(), WeightedLoss(), schema, dataset,
+                                 save_loc=root, device="cpu")
+            state = tr.init_state(torch.Generator().manual_seed(3), noise_seed=4)
+            seen, inner = {}, tr.optimizer.update
+
+            def update(grads, st, params, inner=inner, seen=seen):
+                seen.setdefault("g", [g.clone() for g in grads])
+                return inner(grads, st, params)
+
+            tr.optimizer.update = update
+            return tr, state, seen
+
+        def step_of(tr):  # sn_external's power iterations first, as fit runs them
+            inner = tr._train_step_for(1)
+
+            def step(state, b):
+                if tr.sn_external:
+                    power_iterations(state.model, 1)
+                return inner(state, b)
+
+            return step
+
+        root = os.path.join(case["root"], tag)
+        tr, state, seen = trainer_of(conf, root)
+        step = step_of(tr)
+        mine = shard_batch(batch, tr.mesh)
+        state, m1 = step(state, mine)
+        names = list(state.opt_state["mu"])
+        params = [p.detach() for p in state.named_parameters().values()]
+        out[f"mesh_{tag}_resident"] = np.asarray([
+            sum(p.numel() for p in params), sum(g.numel() for g in seen["g"]),
+            sum(p.grad is not None for p in params)])
+        whole = load_model(conf, device="cpu", sn_state=True)
+        out[f"mesh_{tag}_expected_resident"] = np.asarray(_expected_resident(whole, tr.mesh))
+        out[f"{tag}_whole_elements"] = np.asarray(sum(p.numel() for p in whole.parameters()))
+        for k, g in zip(names, tr.optimizer.held_whole(dict(zip(names, seen["g"])))):
+            out[f"mesh_{tag}_grad.{k}"] = g.numpy()
+        tr.save_checkpoint(state, 0)
+        state, m2 = step(state, mine)
+        out[f"mesh_{tag}_loss"] = np.asarray([float(m1["loss"]), float(m2["loss"])])
+        for k, v in tr.model_tensors(state).items():  # copies: the init below writes in place
+            out[f"mesh_{tag}_param.{k}"] = v.numpy().copy()
+        # a second seeded init of the held model (its held kernels drawn
+        # whole, then chunked), against one of a whole model
+        again = tr.model_tensors(tr.init_state(torch.Generator().manual_seed(3), noise_seed=4))
+        seed_train_(whole, conf, torch.Generator().manual_seed(3))
+        ref = whole.state_dict()
+        out[f"mesh_{tag}_reseed_err"] = np.asarray(max(
+            float((again[k] - ref[k]).abs().max()) for k in tr.optimizer.held))
+        if rank == 0:
+            res, rstate, _ = trainer_of(single, root)
+            rstate = res.load_checkpoint(rstate)
+            rstate, r2 = step_of(res)(rstate, batch)
+            out[f"resumed_{tag}_loss"] = np.asarray(float(r2["loss"]))
+            for k, v in res.model_tensors(rstate).items():
+                out[f"resumed_{tag}_param.{k}"] = v.numpy()
+            one, ostate, oseen = trainer_of(single, os.path.join(case["root"], f"one_{tag}"))
+            ostep = step_of(one)
+            ostate, o1 = ostep(ostate, batch)
+            ostate, o2 = ostep(ostate, batch)
+            out[f"one_{tag}_loss"] = np.asarray([float(o1["loss"]), float(o2["loss"])])
+            for k, g in zip(names, oseen["g"]):
+                out[f"one_{tag}_grad.{k}"] = g.numpy()
+            for k, v in one.model_tensors(ostate).items():
+                out[f"one_{tag}_param.{k}"] = v.numpy()
+    return out
+
+
+def scenario_many(rank: int, world: int, args: dict) -> dict:
+    """Several scenarios in one launch (one start-up of the ranks):
+    args['runs'] lists [scenario, its args]; the i-th one's outputs are
+    prefixed '<i>:'."""
+    out = {}
+    for i, (name, a) in enumerate(args["runs"]):
+        out.update((f"{i}:{k}", v) for k, v in globals()[f"scenario_{name}"](rank, world, a).items())
     return out
 
 
