@@ -27,6 +27,11 @@ Phases (any failure exits non-zero):
      backward in bf16, timed beside PyTorch's autograd of its composition),
      the tools' row-band conv drafts and copy, with the error beside its
      limit and the kernel's, the plain version's and a library call's times;
+     the FF's tp entry points (ff_partial, ff_finish, ff_finish_bwd,
+     ff_partial_bwd) at a tp rank's shapes, CONF_025's four stages and
+     CONF_FUXI's MLP at hidden / 2, bf16 and f32, beside PyTorch's
+     composition of the same sliced products, and two ranks' partials
+     through ff_finish against fused_ff on the whole weights;
   3. a tiny CrossFormer and a tiny FuXi (two input frames), each with a
      2-step rollout and a training step, on the card against the same model
      on the CPU (plain versions), and each train-mode backward with bf16
@@ -186,8 +191,11 @@ Phases (any failure exits non-zero):
      unsharded step on the batch of 2, each rank's parameter and gradient
      bytes between the steps its chunks plus the whole small tensors,
      ring-CRPS at 2 members against the dense CRPS, and benchmark_halo at
-     800x1440x128 bf16; no time of two ranks on one card is a throughput
-     figure.
+     800x1440x128 bf16; (d) the same two ranks at tensor 2 (`tp2`,
+     CONF_025_TRAIN; `fuxi_tp2`, CONF_FUXI) against the unsharded step:
+     every FF on kernels 1 and 4's tp entries at half the hidden width,
+     each rank's launches and widths, the tp all-reduces and their bytes,
+     the peaks; no time of two ranks on one card is a throughput figure.
      Removes phase 10's store.
  19. main path 16, the applications and interfaces: (a) `python -m
      credit_torch convert-checkpoint --dry-run-manifest` for the published
@@ -928,6 +936,110 @@ def ff_cases(torch, g):
     return res
 
 
+# (label, (h, w, C), post-norm, this rank's hidden width) of the FF split
+# over 2 tp ranks (main path 15, phase 18(d)): CONF_025's four stages and
+# CONF_FUXI's SwinV2 MLP at hidden / 2
+FF_TP_SHAPES = [("tp2_stage0_C128", (400, 720, 128), False, 256),
+                ("tp2_stage1_C256", (200, 360, 256), False, 512),
+                ("tp2_stage2_C512", (100, 180, 512), False, 1024),
+                ("tp2_stage3_C1024", (50, 90, 1024), False, 2048),
+                ("tp2_fuxi_C1024_post", (105, 161, 1024), True, 2048)]
+
+
+def ff_partial_composition(torch, y, w1, b1, w2, post):
+    """One rank's partial as PyTorch's own calls compose it (layer norm
+    (pre-norm), linear, GELU, linear without bias): a yardstick for
+    ff_partial's time; the port never calls it. y is x and the LN's
+    parameters, (x, g, b)."""
+    import torch.nn.functional as F
+
+    x, g, b = y
+    a = x if post else F.layer_norm(x, (x.shape[-1],), g, b)
+    return F.linear(F.gelu(F.linear(a, w1.t(), b1)), w2.t())
+
+
+def ff_tp_cases(torch, g):
+    """The tp entry points at the per-rank shapes (FF_TP_SHAPES), bf16 and
+    f32, each against its plain version: ff_partial on rank 0's slice,
+    ff_finish on the two ranks' summed partials, ff_finish_bwd, and
+    ff_partial_bwd from its dz; the two ranks through ff_finish against
+    fused_ff on the whole weights; beside each, PyTorch's composition of
+    the same sliced products (forward, and autograd through it)."""
+    from credit_torch.ops import cuda_ff
+    from credit_torch.tools import cuda_ms
+
+    res = {}
+    for label, (h, w, c), post, hd in FF_TP_SHAPES:
+        for dt, tol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]:
+            name = str(dt).split(".")[1]
+            x = torch.randn((1, h, w, c), generator=g, device="cuda").to(dt)
+            ct = (0.1 * torch.randn((1, h, w, c), generator=g, device="cuda")).to(dt)
+            whole = [1 + 0.1 * torch.randn(c, generator=g, device="cuda"),
+                     0.1 * torch.randn(c, generator=g, device="cuda"),
+                     torch.randn((c, 2 * hd), generator=g, device="cuda") / math.sqrt(c),
+                     0.02 * torch.randn(2 * hd, generator=g, device="cuda"),
+                     torch.randn((2 * hd, c), generator=g, device="cuda") / math.sqrt(2 * hd),
+                     0.02 * torch.randn(c, generator=g, device="cuda")]
+            gm, bt, w1, b1, w2, b2 = [p.to(dt) for p in whole]
+            ranks = [(w1[:, r * hd:(r + 1) * hd].contiguous(), b1[r * hd:(r + 1) * hd],
+                      w2[r * hd:(r + 1) * hd].contiguous()) for r in range(2)]
+            mine = (gm, bt, *ranks[0])
+            m, isz = h * w, x.element_size()
+            pbytes = (2 * c * hd + 2 * c + hd) * isz
+            iters, comp, comp_bwd = 3, None, None
+            if dt == torch.bfloat16:  # the paths' dtype: timed beside PyTorch's composition
+                iters = 5
+                comp = cuda_ms(lambda: ff_partial_composition(torch, (x, gm, bt), *ranks[0],
+                                                              post), 5)
+                leaves = [t.detach().clone().requires_grad_() for t in (x, gm, bt, *ranks[0])]
+                with torch.enable_grad():
+                    zc = ff_partial_composition(torch, leaves[:3], *leaves[3:], post)
+                    comp_bwd = cuda_ms(lambda: torch.autograd.grad(
+                        zc, leaves, ct.to(zc.dtype), retain_graph=True, allow_unused=post), 5)
+                del zc, leaves
+                log(f"  ff tp {label} [{name}] rank hidden {hd}: composition_ms {comp:.4f}, "
+                    f"composition_backward_ms {comp_bwd:.4f} (the same sliced products)")
+            r = check_case(f"ff_partial {label}", name,
+                           lambda: cuda_ff.ff_partial(x, *mine, post_norm=post),
+                           lambda: cuda_ff.ff_partial_plain(x, *mine, post),
+                           None, m * c * (isz + 4) + pbytes, 4.0 * m * c * hd, tol, iters)
+            res[("ff_partial", label, dt)] = {**r, "composition_ms": comp}
+            z = sum(cuda_ff.ff_partial(x, gm, bt, *rk, post_norm=post) for rk in ranks)
+            r = check_case(f"ff_finish {label}", name,
+                           lambda: cuda_ff.ff_finish(x, z, gm, bt, b2, post_norm=post),
+                           lambda: cuda_ff.ff_finish_plain(x, z, gm, bt, b2, post),
+                           None, m * c * (2 * isz + 4) + 3 * c * isz, 10.0 * m * c, tol,
+                           iters)
+            res[("ff_finish", label, dt)] = r
+            r = check_case(f"ff_finish_bwd {label}", name,
+                           lambda: [t for t in cuda_ff.ff_finish_bwd(z, ct, gm, bt, b2,
+                                                                      post_norm=post)
+                                    if t is not None],
+                           lambda: [t for t in cuda_ff.ff_finish_bwd_plain(z, ct, gm, bt, b2,
+                                                                            post)
+                                    if t is not None],
+                           None, m * c * ((4 + 2 * isz) if post else isz) + 5 * c * 4,
+                           10.0 * m * c, tol, iters)
+            res[("ff_finish_bwd", label, dt)] = r
+            dz = cuda_ff.ff_finish_bwd(z, ct, gm, bt, b2, post_norm=post)[0]
+            r = check_case(f"ff_partial_bwd {label}", name,
+                           lambda: cuda_ff.ff_partial_bwd(x, dz, *mine, post_norm=post),
+                           lambda: cuda_ff.ff_partial_bwd_plain(x, dz, *mine, post),
+                           None, 3 * m * c * isz + pbytes + (2 * c * hd + 2 * c + hd) * 4,
+                           10.0 * m * c * hd, tol, iters)
+            res[("ff_partial_bwd", label, dt)] = {**r, "composition_ms": comp_bwd}
+            got = cuda_ff.ff_finish(x, z, gm, bt, b2, post_norm=post)
+            want = cuda_ff.fused_ff(x, gm, bt, w1, b1, w2, b2, post_norm=post)
+            err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            log(f"    two ranks' ff_partial summed through ff_finish against fused_ff on the "
+                f"whole weights: {err:.3e} of the largest value (limit {tol:g})")
+            if not err <= tol:
+                raise AssertionError(f"ff tp {label} [{name}]: the ranks' sum disagrees with "
+                                     "fused_ff")
+            del x, ct, z, dz, got, want
+    return res
+
+
 def attention_cases(torch, g):
     import torch.nn.functional as F
 
@@ -1275,6 +1387,11 @@ def _counters():
             ("fused_ff_split", cuda_ff.fused_ff, "split_launches"),
             ("fused_window_attention", cuda_attention.fused_window_attention, "launches"),
             ("fused_ff_bwd", cuda_ff.fused_ff_bwd, "launches"),
+            # the FF over tp ranks (kernels 1 and 4 on a rank's hidden slice)
+            ("ff_partial", cuda_ff.ff_partial, "launches"),
+            ("ff_finish", cuda_ff.ff_finish, "launches"),
+            ("ff_partial_bwd", cuda_ff.ff_partial_bwd, "launches"),
+            ("ff_finish_bwd", cuda_ff.ff_finish_bwd, "launches"),
             ("conv2d_wgrad", cuda_conv.conv2d_wgrad, "launches"),
             ("conv_band_dma", cuda_probes.conv_band_dma, "launches"),
             ("conv_band_halo", cuda_probes.conv_band_halo, "launches"),
@@ -2800,11 +2917,12 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
 
 def assembly_breakdown(trainer) -> None:
     """One training batch assembled on this thread while the card idles,
-    through the native pool and then through the Python path (chunk by
-    chunk, as the reader did before the pool): the whole (`dataset.batch`
-    and pinning), the time inside the zarr reads and, of it, inside the
-    pool's read and inflate; the rest is `_stack`'s copies and the
-    pinning."""
+    through the native pool: the whole (`dataset.batch` and pinning), the
+    time inside the zarr reads and, of it, inside the pool's read and
+    inflate; the rest is `_stack`'s copies and the pinning. (The Python
+    path, chunk by chunk as the reader did before the pool, read 8.2-10.2 s
+    a batch against the pool's 5.1-6.4 in PR 19's calls 4-5; cut for the
+    script's time.)"""
     from credit_torch.data import zarrlite
     from credit_torch.native import fastload
 
@@ -2819,26 +2937,22 @@ def assembly_breakdown(trainer) -> None:
                 spent[key] += time.perf_counter() - t0
         return run
 
-    read, pool, codec_id = zarrlite.ZarrArray.read, fastload.read_decode_batch, fastload.codec_id
+    read, pool = zarrlite.ZarrArray.read, fastload.read_decode_batch
     zarrlite.ZarrArray.read = timed("read", read)
     fastload.read_decode_batch = timed("pool", pool)
     try:
-        for path in ("native pool", "Python path"):
-            if path == "Python path":
-                fastload.codec_id = lambda compressor: None
-            spent.update(read=0.0, pool=0.0)
-            t0 = time.perf_counter()
-            raw = trainer.dataset.batch([0], 1)
-            batch = {k: trainer._host_tensor(k, v) for k, v in raw.items() if v is not None}
-            whole = (time.perf_counter() - t0) * 1e3
-            nbytes = sum(v.numel() * v.element_size() for v in batch.values())
-            log(f"  one batch ({nbytes} bytes) assembled alone, {path}: {whole:.0f} ms; zarr reads "
-                f"{spent['read'] * 1e3:.0f} ms (the pool's read and inflate "
-                f"{spent['pool'] * 1e3:.0f} ms); stacking and pinning "
-                f"{whole - spent['read'] * 1e3:.0f} ms")
+        spent.update(read=0.0, pool=0.0)
+        t0 = time.perf_counter()
+        raw = trainer.dataset.batch([0], 1)
+        batch = {k: trainer._host_tensor(k, v) for k, v in raw.items() if v is not None}
+        whole = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(v.numel() * v.element_size() for v in batch.values())
+        log(f"  one batch ({nbytes} bytes) assembled alone, native pool: {whole:.0f} ms; zarr "
+            f"reads {spent['read'] * 1e3:.0f} ms (the pool's read and inflate "
+            f"{spent['pool'] * 1e3:.0f} ms); stacking and pinning "
+            f"{whole - spent['read'] * 1e3:.0f} ms")
     finally:
         zarrlite.ZarrArray.read, fastload.read_decode_batch = read, pool
-        fastload.codec_id = codec_id
 
 
 def ensemble_fit_path(torch, store_info, want_train: dict, want_valid: dict) -> dict:
@@ -3977,6 +4091,14 @@ PAR_GRAD_TOL = 3e-3  # the gradient's difference over its norm
 # data 2 the prediction is held against the unsharded forward of the
 # rank's own rows, which ZeRO-3's gathered weights must give bitwise
 PAR_FUXI_TOL = {"pred": (4e-2, 1.5e-2, 1.7e-2), "loss": 5e-5, "grad": 2e-2}
+# CONF_025_TRAIN at tensor 2 (phase 18(d)): every FF and attention call at
+# other shapes than unsharded, and the attention's bf16 partial outputs
+# summed over the ranks, so more bf16 roundings differ than at domain 2
+# (PERF.md, PR 19, calls 3-4 on one H100: the prediction 9.26e-3 / 8.65e-3
+# - 9.14e-3 / 8.79e-3 - 9.30e-3, the loss 5.3e-7 and 9.5e-7, the gradient
+# 1.21e-3 - 1.24e-3); a few times those. CONF_FUXI at tensor 2 keeps
+# PAR_FUXI_TOL
+PAR_TP_TOL = {"pred": (3e-2, 3e-2, 3e-2), "loss": 3e-6, "grad": PAR_GRAD_TOL}
 PAR_RING_TOL = 1e-5  # ring against dense CRPS, relative, f32
 PAR_HALO_TOL = (1e-3, 1.5e-2)  # benchmark_halo's forward and gradient errors
 PAR_TIMEOUT = 600
@@ -4006,8 +4128,11 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
     the bytes of the gradients the optimizer was given, the gradients left
     on the parameters, against the bytes ZeRO-3 should hold (each tensor's
     dp chunk where param_spec shards it over dp, else whole) and the whole
-    model's. `model_conf` and `data` replace CONF_025_TRAIN and DATA_025
-    (the input takes the model's frames)."""
+    model's. At tensor > 1 also the hidden width of every FF call, forward
+    and backward (a rank's slice), and the all-reduces over the tp group
+    with their bytes; for every step the bytes allocated before it.
+    `model_conf` and `data` replace CONF_025_TRAIN and DATA_025 (the input
+    takes the model's frames)."""
     import torch.distributed as dist
 
     from credit_torch.convert_jax import seed_train_
@@ -4057,8 +4182,13 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
         opt.update = update
         step = make_train_step(model, mse, opt, schema, device=device, mesh=mesh)
         state = TrainState.create(model, opt)
-        shapes = {"conv": [], "ff": []}
-        conv0, ff0 = cuda_conv.conv2d_valid, cuda_ff.fused_ff
+        shapes = {"conv": [], "ff": [], "hidden": [], "hidden_bwd": []}
+        tp_ranks = (dist.get_process_group_ranks(mesh.group("tp"))
+                    if mesh is not None and dims[1] > 1 else None)
+        tp_reduce = [0, 0]  # the all-reduces over the tp group, and their bytes
+        conv0, ff0, part0, pbwd0 = (cuda_conv.conv2d_valid, cuda_ff.fused_ff,
+                                    cuda_ff.ff_partial, cuda_ff.ff_partial_bwd)
+        reduce0 = D.all_reduce
 
         def conv_rec(x, k):
             shapes["conv"].append(tuple(x.shape))
@@ -4066,27 +4196,55 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
 
         def ff_rec(x, *a, **kw):
             shapes["ff"].append(tuple(x.shape[:-1]))
+            shapes["hidden"].append(a[2].shape[1])
             return ff0(x, *a, **kw)
+
+        def part_rec(x, g, b, w1, *a, **kw):  # a tp rank's FF: its hidden slice
+            shapes["ff"].append(tuple(x.shape[:-1]))
+            shapes["hidden"].append(w1.shape[1])
+            return part0(x, g, b, w1, *a, **kw)
+
+        def pbwd_rec(x, dz, g, b, w1, *a, **kw):
+            shapes["hidden_bwd"].append(w1.shape[1])
+            return pbwd0(x, dz, g, b, w1, *a, **kw)
+
+        def reduce_rec(t, group=None, *a, **kw):
+            if tp_ranks is not None and group is not None and \
+                    dist.get_process_group_ranks(group) == tp_ranks:
+                tp_reduce[0] += 1
+                tp_reduce[1] += t.numel() * t.element_size()
+            return reduce0(t, group, *a, **kw)
 
         # the wrappers count on their module's name, the recorders while they
         # stand in; their counts go back to the wrappers after
+        recs = ((conv_rec, conv0, ("launches",)), (ff_rec, ff0, ("launches", "split_launches")),
+                (part_rec, part0, ("launches",)), (pbwd_rec, pbwd0, ("launches",)))
         _zero_counts()
-        conv_rec.launches, ff_rec.launches, ff_rec.split_launches = 0, 0, 0
+        for rec, _, attrs in recs:
+            for a in attrs:
+                setattr(rec, a, 0)
         D.COUNTS.clear()
-        cuda_conv.conv2d_valid, cuda_ff.fused_ff = conv_rec, ff_rec
+        (cuda_conv.conv2d_valid, cuda_ff.fused_ff, cuda_ff.ff_partial,
+         cuda_ff.ff_partial_bwd) = conv_rec, ff_rec, part_rec, pbwd_rec
+        D.all_reduce = reduce_rec
         try:
+            if cuda:
+                before = torch.cuda.memory_allocated()
             state, metrics = step(state, b)
             if cuda:
                 torch.cuda.synchronize()
-            # the step's peak, and what stays allocated after it (the held
-            # parameters, the optimizer state, the batch)
-            mem = ((torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
-                   if cuda else (0, 0))
+            # the step's peak, what stays allocated after it (the held
+            # parameters, the optimizer state, the batch) and what was
+            # allocated before it
+            mem = ((torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated(), before)
+                   if cuda else (0, 0, 0))
         finally:
-            cuda_conv.conv2d_valid, cuda_ff.fused_ff = conv0, ff0
-            conv0.launches += conv_rec.launches
-            ff0.launches += ff_rec.launches
-            ff0.split_launches += ff_rec.split_launches
+            (cuda_conv.conv2d_valid, cuda_ff.fused_ff, cuda_ff.ff_partial,
+             cuda_ff.ff_partial_bwd) = conv0, ff0, part0, pbwd0
+            D.all_reduce = reduce0
+            for rec, wrapper, attrs in recs:
+                for a in attrs:
+                    setattr(wrapper, a, getattr(wrapper, a) + getattr(rec, a))
         counts, coll = _read_counts(), dict(D.COUNTS)
         loss = float(metrics["loss"])
         held = (sum(p.numel() * p.element_size() for p in model.parameters()),
@@ -4095,17 +4253,24 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
         grads = seen["g"]
         if mesh is not None:  # the held chunks whole, to compare
             grads = opt.held_whole(dict(zip(names, grads)))
-        ms = None
-        if mesh is not None and cuda:
+        ms = None  # a timed second step: at tensor 2 only (cut elsewhere for the script's time)
+        if mesh is not None and dims[1] > 1 and cuda:
             ms = cuda_ms(lambda: step(state, b), 1)
-        elif mesh is not None:
+        elif mesh is not None and dims[1] > 1:
             t0 = time.perf_counter()
             step(state, b)
             ms = (time.perf_counter() - t0) * 1e3
+        # the recorder's closure holds `seen`: put the optimizer's own update
+        # back, so that no reference cycle keeps this step's gradients alive
+        # into the next measurement (PERF.md, PR 19: rank 0's extra peak)
+        opt.update = inner
         return {"loss": loss, "grads": grads, "counts": counts, "collectives": coll,
                 "conv_rows": max(s[1] for s in shapes["conv"]),
                 "ff_rows": max(math.prod(s) for s in shapes["ff"]),
-                "ms": ms, "held": held, "peak": mem[0], "allocated": mem[1]}
+                "hidden": shapes["hidden"], "hidden_bwd": shapes["hidden_bwd"],
+                "tp_reduce": tp_reduce,
+                "ms": ms, "held": held, "peak": mem[0], "allocated": mem[1],
+                "before": mem[2]}
 
     mesh = build_mesh(*dims)
     mine = shard_batch(batch, mesh)
@@ -4146,6 +4311,7 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
             torch.cuda.reset_peak_memory_stats()
         ref = run(model, None, batch)
         out["ref_peak"], out["ref_allocated"] = ref["peak"], ref["allocated"]
+        out["ref_before"], out["ref_hidden"] = ref["before"], ref["hidden"]
         num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(got["grads"],
                                                                              ref["grads"]))
         den = sum(float(b.float().pow(2).sum()) for b in ref["grads"])
@@ -4185,7 +4351,7 @@ def _par_ring(torch, rank: int, device: str = "cuda", shape=(1, 721, 1440, 16)) 
 
 def parallel_rank(rank: int, world: int, root: str, device: str = "cuda",
                   halo_shape=(800, 1440, 128)) -> int:
-    """One rank of phase 18(b, c): gloo over a FileStore in `root`, the
+    """One rank of phase 18(b, c, d): gloo over a FileStore in `root`, the
     card shared; writes root/rank<r>.pt."""
     import datetime
 
@@ -4210,6 +4376,8 @@ def parallel_rank(rank: int, world: int, root: str, device: str = "cuda",
            "fuxi_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_FUXI, DATA_FUXI),
            "dp2": _par_step(torch, (2, 1, 1), 2, rank, device),
            "fuxi_dp2": _par_step(torch, (2, 1, 1), 2, rank, device, CONF_FUXI, DATA_FUXI),
+           "tp2": _par_step(torch, (1, 2, 1), 1, rank, device),
+           "fuxi_tp2": _par_step(torch, (1, 2, 1), 1, rank, device, CONF_FUXI, DATA_FUXI),
            "ring": _par_ring(torch, rank, device, (1, 721, 1440, 16) if device == "cuda"
                              else (1, 16, 32, 4)),
            "halo": benchmark_halo(h=h, w=w, c=c, k=3, steps=5, dtype=torch.bfloat16,
@@ -4231,7 +4399,8 @@ def parallel_path(torch, store_info, runs: dict, want_train: dict, want_valid: d
     prediction within PAR_PRED_TOL of the unsharded forward's, the loss
     and gradient within PAR_LOSS_TOL / PAR_GRAD_TOL of the unsharded step,
     ring-CRPS within PAR_RING_TOL of the dense CRPS, and benchmark_halo's
-    errors within PAR_HALO_TOL."""
+    errors within PAR_HALO_TOL; (d) the same two ranks at tensor 2, each FF
+    on its half of the hidden layer (`_tp_launches`), held as (b)."""
     import torch.distributed as dist
 
     from credit_torch.applications import run_training
@@ -4273,10 +4442,21 @@ def parallel_path(torch, store_info, runs: dict, want_train: dict, want_valid: d
     parallel_ranks(torch, root, runs)
 
 
+def _tp_launches(counts: dict) -> dict:
+    """An unsharded step's launches as a tp rank makes them: each FF call
+    on the tp entries (kernel 1: ff_partial and ff_finish, kernel 4:
+    ff_partial_bwd and ff_finish_bwd) in place of fused_ff (either route)
+    and fused_ff_bwd; every other kernel as often."""
+    out = {**counts, "fused_ff": 0, "fused_ff_split": 0, "fused_ff_bwd": 0}
+    out.update(ff_partial=counts["fused_ff"], ff_finish=counts["fused_ff"],
+               ff_partial_bwd=counts["fused_ff_bwd"], ff_finish_bwd=counts["fused_ff_bwd"])
+    return out
+
+
 def parallel_ranks(torch, root: str, runs: dict) -> None:
-    """Phase 18(b, c): two processes of this script (`parallel_rank`)
+    """Phase 18(b, c, d): two processes of this script (`parallel_rank`)
     sharing the card over gloo in `root` (removed after), their results
-    checked (see `parallel_path`)."""
+    checked (`check_parallel`, see `parallel_path`)."""
     t0 = time.time()
     logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(2)]
     procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
@@ -4298,21 +4478,57 @@ def parallel_ranks(torch, root: str, runs: dict) -> None:
         for r in range(2):
             with open(os.path.join(root, f"rank{r}.log")) as f:
                 log(f"  rank {r} (rc {procs[r].returncode}):\n{f.read()[-4000:]}")
-        raise AssertionError("phase 18(b, c): a rank failed")
+        raise AssertionError("phase 18(b, c, d): a rank failed")
     res = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(2)]
-    log(f"  (b, c) two ranks over gloo on one card: {time.time() - t0:.1f} s with start-up")
+    log(f"  (b, c, d) two ranks over gloo on one card: {time.time() - t0:.1f} s with start-up")
+    ok = check_parallel(res, runs)
+    shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        raise AssertionError("phase 18(b, c, d) failed its checks")
+
+
+def check_parallel(res: list, runs: dict) -> bool:
+    """The checks of phase 18(b, c, d) on the two ranks' results (their
+    `parallel_rank` dicts); each mesh step's launches summed over the ranks
+    into runs['par_<key>']. True when every check holds."""
     ok = True
     for key, label in (("domain2", "(b) domain 2, halo explicit, batch 1"),
                        ("ens_domain2", "(b) crossformer-ensemble, domain 2, batch 1"),
                        ("fuxi_domain2", "(b) CONF_FUXI, domain 2, batch 1"),
                        ("dp2", "(c) data 2 under ZeRO-3, batch 2 (1 a rank)"),
-                       ("fuxi_dp2", "(c) CONF_FUXI, data 2 under ZeRO-3, batch 2 (1 a rank)")):
+                       ("fuxi_dp2", "(c) CONF_FUXI, data 2 under ZeRO-3, batch 2 (1 a rank)"),
+                       ("tp2", "(d) tensor 2, batch 1"),
+                       ("fuxi_tp2", "(d) CONF_FUXI, tensor 2, batch 1")):
         r0 = res[0][key]
         loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
-        same = all(res[r][key]["counts"] == r0["ref_counts"] for r in range(2))
+        tp = key.endswith("tp2")
+        want_counts = _tp_launches(r0["ref_counts"]) if tp else r0["ref_counts"]
+        same = all(res[r][key]["counts"] == want_counts for r in range(2))
         dp = key.endswith("dp2")
-        slabs = (r0["ff_rows"] < r0["ref_ff_rows"] if dp else
-                 r0["conv_rows"] < r0["ref_conv_rows"] and r0["ff_rows"] < r0["ref_ff_rows"])
+        if tp:
+            # every FF of the step on each rank at half the hidden width, in
+            # the forward and the backward; the tokens not split
+            half = sorted(hd // 2 for hd in r0["ref_hidden"])
+            slabs = all(sorted(res[r][key]["hidden"]) == half
+                        and sorted(res[r][key]["hidden_bwd"]) == half
+                        and res[r][key]["ff_rows"] == r0["ref_ff_rows"] for r in range(2))
+            log(f"  {label}: kernel 1's and 4's launches a rank "
+                + ", ".join(f"rank {r} ff_partial {res[r][key]['counts']['ff_partial']}, "
+                            f"ff_finish {res[r][key]['counts']['ff_finish']}, ff_partial_bwd "
+                            f"{res[r][key]['counts']['ff_partial_bwd']}, ff_finish_bwd "
+                            f"{res[r][key]['counts']['ff_finish_bwd']}" for r in range(2))
+                + f" (the unsharded step's fused_ff {r0['ref_counts']['fused_ff']}, fused_ff_bwd "
+                f"{r0['ref_counts']['fused_ff_bwd']}); hidden widths a rank ran at "
+                f"{sorted(set(res[0][key]['hidden']))} (unsharded {sorted(set(r0['ref_hidden']))})"
+                f"; tp all-reduces a step "
+                + ", ".join(f"rank {r} {res[r][key]['tp_reduce'][0]} of "
+                            f"{res[r][key]['tp_reduce'][1] / 2**20:.1f} MiB" for r in range(2))
+                + f"; allocated before the step rank 0 {r0['before'] / 2**30:.2f}, rank 1 "
+                f"{res[1][key]['before'] / 2**30:.2f} GiB (unsharded "
+                f"{r0['ref_before'] / 2**30:.2f}) {'ok' if slabs else 'FAIL'}")
+        else:
+            slabs = (r0["ff_rows"] < r0["ref_ff_rows"] if dp else
+                     r0["conv_rows"] < r0["ref_conv_rows"] and r0["ff_rows"] < r0["ref_ff_rows"])
         # between the steps a rank holds its ZeRO-3 chunks and the whole
         # small tensors, as parameters and as the gradients it reduces, and
         # leaves no gradient on the parameters
@@ -4329,7 +4545,7 @@ def parallel_ranks(torch, root: str, runs: dict) -> None:
             f"{r0['ref_held'][0] / 2**30:.4f} / {r0['ref_held'][1] / 2**30:.4f}) "
             f"{'ok' if held_ok else 'FAIL'}")
         perr = [max(res[r][key]["pred_err"][i] for r in range(2)) for i in range(3)]
-        lim = (PAR_FUXI_TOL if key.startswith("fuxi") else
+        lim = (PAR_FUXI_TOL if key.startswith("fuxi") else PAR_TP_TOL if tp else
                {"pred": PAR_PRED_TOL, "loss": PAR_LOSS_TOL, "grad": PAR_GRAD_TOL})
         log(f"  {label}: prediction's difference from the unsharded forward's, largest over "
             f"largest, mean over mean, worst row's mean over mean: rank 0 "
@@ -4341,10 +4557,14 @@ def parallel_ranks(torch, root: str, runs: dict) -> None:
             f"{lim['grad']:g}); launches a rank {res[0][key]['counts']}, {res[1][key]['counts']}"
             f" = unsharded {same}; kernel 2's largest input rows {r0['conv_rows']} (unsharded "
             f"{r0['ref_conv_rows']}), kernel 1's rows {r0['ff_rows']} ({r0['ref_ff_rows']}); "
-            f"collectives {r0['collectives']}; second step {res[0][key]['ms']:.1f} / "
-            f"{res[1][key]['ms']:.1f} ms, peak a rank {r0['peak'] / 2**30:.2f}, "
+            f"collectives {r0['collectives']}; "
+            + (f"second step {res[0][key]['ms']:.1f} / {res[1][key]['ms']:.1f} ms, "
+               if r0["ms"] is not None else "")
+            + f"peak a rank {r0['peak'] / 2**30:.2f}, "
             f"{res[1][key]['peak'] / 2**30:.2f} GiB (the unsharded step's "
-            f"{r0['ref_peak'] / 2**30:.2f}), allocated after the step "
+            f"{r0['ref_peak'] / 2**30:.2f}), allocated before the step "
+            f"{r0['before'] / 2**30:.2f}, {res[1][key]['before'] / 2**30:.2f} GiB "
+            f"({r0['ref_before'] / 2**30:.2f}), after it "
             f"{r0['allocated'] / 2**30:.2f}, {res[1][key]['allocated'] / 2**30:.2f} GiB "
             f"({r0['ref_allocated'] / 2**30:.2f}; two ranks on one card: no throughput figure)")
         ok = (ok and all(e <= t for e, t in zip(perr, lim["pred"]))
@@ -4368,9 +4588,7 @@ def parallel_ranks(torch, root: str, runs: dict) -> None:
     ok = (ok and rerr <= PAR_RING_TOL and gerr <= PAR_RING_TOL
           and halo["fwd_err_explicit"] <= PAR_HALO_TOL[0]
           and halo["grad_err_explicit"] <= PAR_HALO_TOL[1])
-    shutil.rmtree(root, ignore_errors=True)
-    if not ok:
-        raise AssertionError("phase 18(b, c) failed its checks")
+    return ok
 
 
 # main path 16, the applications and interfaces: the published wxformer_6h
@@ -5010,11 +5228,12 @@ def fit_times(trainer) -> None:
 def profile_steps(torch, what: str, run, args, steps: int) -> float:
     """torch.profiler over run(*args), which takes `steps` steps: device time
     by kernel and the card's idle share of the wall time (profiler overhead
-    included), which it returns."""
+    included), which it returns. The device's activity only: these figures
+    need no trace of every host op, which costs the script time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run(*args)
         torch.cuda.synchronize()
@@ -5108,6 +5327,7 @@ def main() -> int:
         ff = ff_cases(torch, g)
         attn = attention_cases(torch, g)
         ff_bwd = ff_bwd_cases(torch, g)
+        ff_tp = ff_tp_cases(torch, g)
         wgrad = wgrad_cases(torch, g)
         probe = probe_cases(torch, g)
     torch.cuda.empty_cache()
@@ -5208,7 +5428,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 17: {time.time() - t17:.1f} s")
     log("phase 18: main path 15, parallelism on the one card (run_training over NCCL at world "
-        "size 1; two ranks over gloo at domain 2 and at data 2; ring-CRPS)")
+        "size 1; two ranks over gloo at domain 2, at data 2 and at tensor 2; ring-CRPS)")
     t18 = time.time()
     parallel_path(torch, store, runs, expected_train_per_step(fwd_025, False),
                   expected_per_step(CONF_025_TRAIN))
@@ -5231,7 +5451,7 @@ def main() -> int:
     ENS_PATHS = ("ens_rollout", "ens_rollout_bred", "ens_metrics", "ens_metrics_bred", "icopt",
                  "sdl_025")
     # main path 15 (phase 18): all train steps
-    PAR_PATHS = ("par_fit_nccl", "par_domain2", "par_ens_domain2", "par_dp2")
+    PAR_PATHS = ("par_fit_nccl", "par_domain2", "par_ens_domain2", "par_dp2", "par_tp2")
     # main path 16 (phase 19): the converted wxformer_6h's forecasts
     APP_PATHS = ("rt_wx", "rt_gefs", "serve_wx")
     for name, counter, src, replaces, r, paths in [
@@ -5263,6 +5483,32 @@ def main() -> int:
             ("fused_ff_bwd post-norm", "fused_ff_bwd", "credit_torch/csrc/fused_ff_bwd.cu",
              "credit_tpu/ops/pallas_ff.py:346", ff_bwd[("fuxi_C1024_post", torch.bfloat16)],
              ("train_fuxi",)),
+            ("fused_ff tp ff_partial pre-norm", "ff_partial", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475",
+             ff_tp[("ff_partial", "tp2_stage0_C128", torch.bfloat16)], ("par_tp2",)),
+            ("fused_ff tp ff_partial post-norm", "ff_partial", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475",
+             ff_tp[("ff_partial", "tp2_fuxi_C1024_post", torch.bfloat16)], ("par_fuxi_tp2",)),
+            ("fused_ff tp ff_finish pre-norm", "ff_finish", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475",
+             ff_tp[("ff_finish", "tp2_stage0_C128", torch.bfloat16)], ("par_tp2",)),
+            ("fused_ff tp ff_finish post-norm", "ff_finish", "credit_torch/csrc/fused_ff.cu",
+             "credit_tpu/ops/pallas_ff.py:475",
+             ff_tp[("ff_finish", "tp2_fuxi_C1024_post", torch.bfloat16)], ("par_fuxi_tp2",)),
+            ("fused_ff_bwd tp ff_partial_bwd pre-norm", "ff_partial_bwd",
+             "credit_torch/csrc/fused_ff_bwd.cu", "credit_tpu/ops/pallas_ff.py:346",
+             ff_tp[("ff_partial_bwd", "tp2_stage0_C128", torch.bfloat16)], ("par_tp2",)),
+            ("fused_ff_bwd tp ff_partial_bwd post-norm", "ff_partial_bwd",
+             "credit_torch/csrc/fused_ff_bwd.cu", "credit_tpu/ops/pallas_ff.py:346",
+             ff_tp[("ff_partial_bwd", "tp2_fuxi_C1024_post", torch.bfloat16)],
+             ("par_fuxi_tp2",)),
+            ("fused_ff_bwd tp ff_finish_bwd pre-norm", "ff_finish_bwd",
+             "credit_torch/csrc/fused_ff_bwd.cu", "credit_tpu/ops/pallas_ff.py:346",
+             ff_tp[("ff_finish_bwd", "tp2_stage0_C128", torch.bfloat16)], ("par_tp2",)),
+            ("fused_ff_bwd tp ff_finish_bwd post-norm", "ff_finish_bwd",
+             "credit_torch/csrc/fused_ff_bwd.cu", "credit_tpu/ops/pallas_ff.py:346",
+             ff_tp[("ff_finish_bwd", "tp2_fuxi_C1024_post", torch.bfloat16)],
+             ("par_fuxi_tp2",)),
             ("conv2d_wgrad", "conv2d_wgrad", "credit_torch/csrc/conv_wgrad.cu",
              "credit_tpu/ops/pallas_conv.py:245", wgrad[("stage0_embed_8x8", torch.bfloat16)],
              runs),

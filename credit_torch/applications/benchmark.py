@@ -128,8 +128,11 @@ def benchmark_parallelism(conf: dict, combos: Optional[Sequence[Tuple[int, int, 
     global batch of dp samples: a row per mesh with the slowest rank's
     step_ms (CUDA events on a card), samples_per_s, gridpoints_per_s_per_chip,
     the peak device memory in GiB, the parameter and gradient GiB a rank
-    holds (ZeRO-3's chunks at dp > 1; each the largest rank's) and the last
-    loss, then each row's scaling_efficiency against the first."""
+    holds (ZeRO-3's chunks at dp > 1; each the largest rank's), the
+    parameters each tp rank computes a share of (`tp_split_params`: the
+    attention blocks' and, where the hidden width divides, the FF blocks'
+    slices; 0 at tp 1) and the last loss, then each row's
+    scaling_efficiency against the first."""
     from credit_torch.convert_jax import seed_train_
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.models import load_model
@@ -137,7 +140,8 @@ def benchmark_parallelism(conf: dict, combos: Optional[Sequence[Tuple[int, int, 
     from credit_torch.parallel.mesh import build_mesh
     from credit_torch.parallel.sharding import ShardedOptimizer
     from credit_torch.trainers.scheduler import load_scheduler
-    from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
+    from credit_torch.trainers.trainer import (TrainState, make_optimizer, make_train_step,
+                                               tp_partial_names)
 
     dev = resolve_device(device)
     world = D.world_size()
@@ -195,6 +199,7 @@ def benchmark_parallelism(conf: dict, combos: Optional[Sequence[Tuple[int, int, 
                      "samples_per_s": b / ms * 1e3,
                      "gridpoints_per_s_per_chip": b * h * w / (ms * 1e-3) / (dp * tp * dom),
                      "peak_mem_gb": peak, "param_gb": held[0], "grad_gb": held[1],
+                     "tp_split_params": len(tp_partial_names(model, tp)) if tp > 1 else 0,
                      "loss": float(m["loss"])})
         logger.info("bench %s", rows[-1])
         del state, model, opt, step

@@ -844,3 +844,76 @@ extern "C" int credit_fused_ff_split(const void* x, const void* gam, const void*
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- over tensor-parallel ranks
+// The feed-forward with its hidden layer split over tp ranks (cuda_ff.ff_partial
+// and ff_finish; credit_tpu's _TP_RULES place fc1's columns and fc2's rows over
+// tp). Each rank runs the split route's first passes on its slice of the hidden
+// layer and stops at fc2's f32 output:
+//   z_r = GELU(A . w1_r + b1_r) . w2_r,   A = LN(x) (pre-norm) or x (post-norm);
+// the ranks' z_r are summed in f32 (an all-reduce between the two entries), and
+// the row pass adds b2, takes the post-norm LN and adds the residual:
+//   out = x + bf16(z + b2)  or  x + bf16(LN(z + b2)).
+// The fused wgmma kernel keeps its hidden layer in registers and adds the residual
+// in its epilogue, so it has no point at which to sum over ranks: under tp every
+// width takes these passes. The f32 partial is credit_ff_partial_passes
+// (fused_ff_bwd.cu).
+
+// bf16: x (m, ld); gam, bet (ld,); w1 (ld, hidden), b1 (hidden,), w2 (hidden, ld):
+// this rank's slice, zero-padded past the true width c and to hidden a multiple
+// of 8; z (m, ld) f32. Workspace from the caller: y (m, ld) bf16 (pre-norm; else
+// unused), h (m, hidden) bf16. bn2: fc2's output columns a block (cuda_ff.ff_plan).
+extern "C" int credit_ff_partial_split(const void* x, const void* gam, const void* bet,
+                                       const void* w1, const void* b1, const void* w2, void* z,
+                                       void* y, void* h, int m, int c, int ld, int hidden,
+                                       int post_norm, int bn2, void* stream) {
+  using namespace credit::ff;
+  using B = __nv_bfloat16;
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const B* fc1_in = static_cast<const B*>(x);
+  if (!post_norm) {
+    (ld > c ? ln_rows<B, true> : ln_rows<B, false>)<<<(m + ROW_WARPS - 1) / ROW_WARPS,
+                                                     ROW_THREADS, 0, s>>>(
+        static_cast<const B*>(x), static_cast<const B*>(gam), static_cast<const B*>(bet),
+        static_cast<B*>(y), m, c, ld);
+    fc1_in = static_cast<const B*>(y);
+  }
+  cudaError_t err = split_fc1(fc1_in, static_cast<const B*>(w1), static_cast<const B*>(b1),
+                              static_cast<B*>(h), m, ld, hidden, s);
+  if (err != cudaSuccess) return (int)err;
+  err = split_fc2_f32(static_cast<const B*>(h), static_cast<const B*>(w2), static_cast<float*>(z),
+                      m, ld, hidden, bn2, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The row pass over the ranks' summed z (f32, (m, ld)): x, out (m, ld) and
+// gam, bet, b2 (ld,) in the dtype `dtype`, zero past the true width c;
+// post_norm as above. One warp a row (ff_rows.cuh out_rows).
+extern "C" int credit_ff_finish(const void* x, const void* z, const void* b2, const void* gam,
+                                const void* bet, void* out, int dtype, int m, int c, int ld,
+                                int post_norm, void* stream) {
+  using namespace credit::ff;
+  if (m < 1 || c < 1 || ld < c) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (m + ROW_WARPS - 1) / ROW_WARPS;
+  const float* zf = static_cast<const float*>(z);
+  if (dtype == kBF16) {
+    using B = __nv_bfloat16;
+    auto kern = post_norm ? out_rows<B, true> : out_rows<B, false>;
+    kern<<<blocks, ROW_THREADS, 0, s>>>(static_cast<const B*>(x), zf, static_cast<const B*>(b2),
+                                        static_cast<const B*>(gam), static_cast<const B*>(bet),
+                                        static_cast<B*>(out), m, c, ld);
+  } else if (dtype == kF32) {
+    auto kern = post_norm ? out_rows<float, true> : out_rows<float, false>;
+    kern<<<blocks, ROW_THREADS, 0, s>>>(
+        static_cast<const float*>(x), zf, static_cast<const float*>(b2),
+        static_cast<const float*>(gam), static_cast<const float*>(bet), static_cast<float*>(out),
+        m, c, ld);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -160,10 +160,11 @@ __device__ inline void store_col_sums(const float* cols, float* __restrict__ par
 }
 
 // LN backward, one warp a row: dx = ct + rstd (dxhat - mean(dxhat) - xhat
-// mean(dxhat xhat)), dxhat = dy g. Column sums of dy xhat, dy and ct over
-// the block's rows go to part[block][0..3 ld) (dg | db | db2), summed over
-// the warps in order.
-template <typename T, bool WIDE>
+// mean(dxhat xhat)), dxhat = dy g (RESID; else without ct: the gradient of
+// one tp rank's path, the residual's added once after the ranks' sum).
+// Column sums of dy xhat, dy and ct over the block's rows go to
+// part[block][0..3 ld) (dg | db | db2), summed over the warps in order.
+template <typename T, bool WIDE, bool RESID = true>
 __global__ void __launch_bounds__(THREADS)
 ln_bwd_rows(const T* __restrict__ x, const T* __restrict__ ct, const float* __restrict__ dy,
             const T* __restrict__ gam, T* __restrict__ dx, float* __restrict__ part, int m,
@@ -209,7 +210,7 @@ ln_bwd_rows(const T* __restrict__ x, const T* __restrict__ ct, const float* __re
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float xhat = (xs[u] - mean) * rstd;
-        o[u] = k + u < c ? cs[u] + rstd * (d[u] * g[u] - m1 - xhat * m2) : 0.f;
+        o[u] = k + u < c ? (RESID ? cs[u] : 0.f) + rstd * (d[u] * g[u] - m1 - xhat * m2) : 0.f;
       }
       store4(dx + (size_t)r * ld + k, make_float4(o[0], o[1], o[2], o[3]));
     }
@@ -454,7 +455,7 @@ struct ProdArgs {
   int m, n;                    // output rows and columns (n % 8 == 0)
   int steps, per;              // K steps in all and per split (blockIdx.z)
   float* out;                  // f32: split z's (m, n) at out + z m n
-  const __nv_bfloat16* res;    // RES: out16 = bf16(res + acc), both (m, n)
+  const __nv_bfloat16* res;    // RES: out16 = bf16(res + acc), both (m, n); null: bf16(acc)
   __nv_bfloat16* out16;
 };
 
@@ -503,9 +504,10 @@ prod_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensor
             const size_t at = (size_t)row * g.n + col;
             const float a0 = acc[4 * j + 2 * r], a1 = acc[4 * j + 2 * r + 1];
             if constexpr (RES) {
-              const __nv_bfloat162 c2 = *reinterpret_cast<const __nv_bfloat162*>(g.res + at);
-              *reinterpret_cast<uint32_t*>(g.out16 + at) =
-                  pack_bf16(__low2float(c2) + a0, __high2float(c2) + a1);
+              float2 r = make_float2(0.f, 0.f);
+              if (g.res != nullptr)
+                r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.res + at));
+              *reinterpret_cast<uint32_t*>(g.out16 + at) = pack_bf16(r.x + a0, r.y + a1);
             } else {
               *reinterpret_cast<float2*>(o + at) = make_float2(a0, a1);
             }
@@ -723,12 +725,15 @@ inline int kper_for(int k, int splits, int bk) {
 
 inline size_t ln_smem(int ld) { return (size_t)WARPS * 3 * ln_cols(ld) * 4; }
 
-// The LN backward's last row pass: pre-norm dx and the dg / db / db2
-// partials; post-norm (before the products) do2 and its partials
+// The LN backward's last row pass: pre-norm dx (with the residual's ct
+// unless `partial`) and the dg / db / db2 partials; post-norm (before the
+// products) do2 and its partials
 template <typename T>
 void ln_bwd(const T* x, const T* ct, const float* dy, const T* gam, T* dx, float* pln, int m,
-            int c, int ld, int rows, cudaStream_t s) {
-  auto kern = ld > c || ld > LN_CW ? ln_bwd_rows<T, true> : ln_bwd_rows<T, false>;
+            int c, int ld, int rows, bool partial, cudaStream_t s) {
+  const bool wide = ld > c || ld > LN_CW;
+  auto kern = partial ? (wide ? ln_bwd_rows<T, true, false> : ln_bwd_rows<T, false, false>)
+                      : (wide ? ln_bwd_rows<T, true> : ln_bwd_rows<T, false>);
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ln_smem(ld));
   kern<<<dim3((m + rows - 1) / rows, (ld + LN_CW - 1) / LN_CW), THREADS, ln_smem(ld), s>>>(
       x, ct, dy, gam, dx, pln, m, c, ld, rows);
@@ -743,15 +748,36 @@ void ln_post_bwd(const float* o2, const T* b2, const T* ct, const T* gam, T* do2
       o2, b2, ct, gam, do2, pln, m, c, ld, rows);
 }
 
+// part[block] (3, ld) = (0 | 0 | the column sums of ct over the block's
+// `rows` rows): the pre-norm row pass's backward (db2), in the LN
+// backward's partial layout. A thread a column, the rows in order.
+template <typename T>
+__global__ void col_sum_rows(const T* __restrict__ ct, float* __restrict__ part, int m, int ld,
+                             int rows) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= ld) return;
+  const int r0 = blockIdx.y * rows, r1 = min(m, r0 + rows);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) s += to_f32(ct[(size_t)r * ld + k]);
+  float* out = part + (size_t)blockIdx.y * 3 * ld;
+  out[k] = 0.f;
+  out[ld + k] = 0.f;
+  out[2 * ld + k] = s;
+}
+
 template <typename T>
 void add_into(const T* ct, const float* dy, T* dx, size_t n, cudaStream_t s) {
   add_rows<T><<<(int)std::min<size_t>((n + 255) / 256, 4096), 256, 0, s>>>(ct, dy, dx, n);
 }
 
+// partial: the backward of one tp rank's path (cuda_ff.ff_partial_bwd): ct
+// is the cotangent of fc2's output (the row pass's backward gave it), the
+// residual's ct is not added, and post-norm leaves dln zero (the output LN
+// and b2 are the row pass's).
 void run_f32(const float* x, const float* ct, const float* gam, const float* bet,
              const float* w1, const float* b1, const float* w2, const float* b2, float* dx,
              float* dln, float* dw1, float* db1, float* dw2, unsigned char* work, int m, int c,
-             int ld, int hidden, bool post, cudaStream_t s) {
+             int ld, int hidden, bool post, bool partial, cudaStream_t s) {
   const Plan p = plan(m, ld, hidden);
   // pre-norm: y = LN(x); post-norm: the slot holds do2 and fc1 reads x
   float* y = reinterpret_cast<float*>(work + p.y);
@@ -764,7 +790,7 @@ void run_f32(const float* x, const float* ct, const float* gam, const float* bet
   float* pdb = reinterpret_cast<float*>(work + p.pdb);
   float* pln = reinterpret_cast<float*>(work + p.pln);
   const float* fc1_in = post ? x : y;
-  const float* grad_out = post ? y : ct;  // the cotangent of fc2's output
+  const float* grad_out = post && !partial ? y : ct;  // the cotangent of fc2's output
   const dim3 g2((hidden + F_B - 1) / F_B, p.row_tiles);
   const dim3 g3((ld + F_B - 1) / F_B, (m + F_B - 1) / F_B, 1);
   const int kp1 = kper_for(m, p.s1, F_K), kp2 = kper_for(m, p.s2, F_K);
@@ -774,8 +800,10 @@ void run_f32(const float* x, const float* ct, const float* gam, const float* bet
     // 1. a = GELU(x.w1 + b1); 2. o2 = a.w2; 3. do2 and the dg / db / db2 partials
     gelu_bwd_f32<false><<<g2, THREADS, 0, s>>>(x, ct, w1, b1, w2, a, nullptr, nullptr, m, ld,
                                                hidden);
-    gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, dy, m, ld, hidden, hidden);
-    ln_post_bwd<float>(dy, b2, ct, gam, y, pln, m, c, ld, LN_ROWS, s);
+    if (!partial) {
+      gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, dy, m, ld, hidden, hidden);
+      ln_post_bwd<float>(dy, b2, ct, gam, y, pln, m, c, ld, LN_ROWS, s);
+    }
   } else {
     // 1. y = LN(x)
     (ld > c ? ff::ln_rows<float, true> : ff::ln_rows<float, false>)<<<(m + WARPS - 1) / WARPS,
@@ -786,19 +814,24 @@ void run_f32(const float* x, const float* ct, const float* gam, const float* bet
   // 5. dw1 = y^T . dh1 (C x H), dw2 = a^T . grad_out (H x C), split over rows
   gelu_bwd_f32<true><<<g2, THREADS, 0, s>>>(fc1_in, grad_out, w1, b1, w2, post ? nullptr : a, dh,
                                             pdb, m, ld, hidden);
-  gemm_f32<false, true><<<g3, THREADS, 0, s>>>(dh, hidden, w1, hidden, dy, m, ld, hidden, hidden);
+  // (post-norm partial: dx = dy, straight from the product)
+  gemm_f32<false, true><<<g3, THREADS, 0, s>>>(dh, hidden, w1, hidden, post && partial ? dx : dy,
+                                               m, ld, hidden, hidden);
   gemm_f32<true, false><<<g5a, THREADS, 0, s>>>(fc1_in, ld, dh, hidden, p1, ld, hidden, m, kp1);
   gemm_f32<true, false><<<g5b, THREADS, 0, s>>>(a, hidden, grad_out, ld, p2, hidden, ld, m, kp2);
   // 4. dx (post-norm: ct + dy), and pre-norm the dg / db / db2 partials
-  if (post)
+  if (!post)
+    ln_bwd<float>(x, ct, dy, gam, dx, pln, m, c, ld, LN_ROWS, partial, s);
+  else if (!partial)
     add_into<float>(ct, dy, dx, (size_t)m * ld, s);
-  else
-    ln_bwd<float>(x, ct, dy, gam, dx, pln, m, c, ld, LN_ROWS, s);
   // the partials, in a fixed order
   if (p.s1 > 1) sum_into(p1, dw1, (size_t)ld * hidden, p.s1, s);
   if (p.s2 > 1) sum_into(p2, dw2, (size_t)hidden * ld, p.s2, s);
   sum_into(pdb, db1, hidden, p.row_tiles, s);
-  sum_into(pln, dln, (size_t)3 * ld, p.ln_blocks, s);
+  if (post && partial)
+    cudaMemsetAsync(dln, 0, (size_t)3 * ld * sizeof(float), s);
+  else
+    sum_into(pln, dln, (size_t)3 * ld, p.ln_blocks, s);
 }
 
 // ---------------------------------------------------------------- bf16
@@ -823,19 +856,21 @@ cudaError_t run_bf16(const __nv_bfloat16* x, const __nv_bfloat16* ct, const __nv
                      const __nv_bfloat16* bet, const __nv_bfloat16* w1, const __nv_bfloat16* b1,
                      const __nv_bfloat16* w2, const __nv_bfloat16* b2, __nv_bfloat16* dx,
                      float* dln, float* dw1, float* db1, float* dw2, const Bf16Work& w,
-                     const Bf16Plan& p, int m, int c, int ld, int hidden, bool post,
+                     const Bf16Plan& p, int m, int c, int ld, int hidden, bool post, bool partial,
                      cudaStream_t s) {
   using B = __nv_bfloat16;
   using tma::operand_map;
   cudaError_t err;
   const B* fc1_in = post ? x : w.y;
-  const B* grad_out = post ? w.y : ct;  // the cotangent of fc2's output
+  const B* grad_out = post && !partial ? w.y : ct;  // the cotangent of fc2's output
   if (post) {
     // 1. a = GELU(x.w1 + b1), o2 = a.w2; 2. do2 and the dg / db / db2 partials
     if ((err = ff::split_fc1(x, w1, b1, w.a, m, ld, hidden, s)) != cudaSuccess) return err;
-    if ((err = ff::split_fc2_f32(w.a, w2, w.dy, m, ld, hidden, p.bn_o2, s)) != cudaSuccess)
-      return err;
-    ln_post_bwd<B>(w.dy, b2, ct, gam, w.y, w.pln, m, c, ld, p.ln_rows, s);
+    if (!partial) {
+      if ((err = ff::split_fc2_f32(w.a, w2, w.dy, m, ld, hidden, p.bn_o2, s)) != cudaSuccess)
+        return err;
+      ln_post_bwd<B>(w.dy, b2, ct, gam, w.y, w.pln, m, c, ld, p.ln_rows, s);
+    }
   } else {
     // 1. y = LN(x)
     (ld > c ? ff::ln_rows<B, true> : ff::ln_rows<B, false>)<<<(m + WARPS - 1) / WARPS, THREADS,
@@ -857,7 +892,7 @@ cudaError_t run_bf16(const __nv_bfloat16* x, const __nv_bfloat16* ct, const __nv
     return cudaErrorInvalidValue;
   // (post-norm: dx = ct + dy, step 5, in the product's epilogue)
   const int hsteps = (hidden + tma::KS - 1) / tma::KS, msteps = (m + tma::KS - 1) / tma::KS;
-  const ProdArgs pdy{m, ld, hsteps, hsteps, w.dy, ct, dx};
+  const ProdArgs pdy{m, ld, hsteps, hsteps, w.dy, partial ? nullptr : ct, dx};
   if ((err = post ? launch_dy<true>(p.bn_dy, ta, tb, pdy, s) : launch_dy<false>(p.bn_dy, ta, tb, pdy, s)) !=
       cudaSuccess)
     return err;
@@ -878,12 +913,15 @@ cudaError_t run_bf16(const __nv_bfloat16* x, const __nv_bfloat16* ct, const __nv
       cudaSuccess)
     return err;
   // 4. pre-norm: dx and the dg / db / db2 partials
-  if (!post) ln_bwd<B>(x, ct, w.dy, gam, dx, w.pln, m, c, ld, p.ln_rows, s);
+  if (!post) ln_bwd<B>(x, ct, w.dy, gam, dx, w.pln, m, c, ld, p.ln_rows, partial, s);
   // the partials, in a fixed order
   if (p.s1 > 1) sum_into(p1, dw1, (size_t)ld * hidden, p.s1, s);
   if (p.s2 > 1) sum_into(p2, dw2, (size_t)hidden * ld, p.s2, s);
   sum_into(w.pdb, db1, hidden, (m + ROW_TILE - 1) / ROW_TILE, s);
-  sum_into(w.pln, dln, (size_t)3 * ld, (m + p.ln_rows - 1) / p.ln_rows, s);
+  if (post && partial)
+    cudaMemsetAsync(dln, 0, (size_t)3 * ld * sizeof(float), s);
+  else
+    sum_into(w.pln, dln, (size_t)3 * ld, (m + p.ln_rows - 1) / p.ln_rows, s);
   return cudaGetLastError();
 }
 
@@ -907,13 +945,15 @@ inline FwdPlan fwd_plan(int m, int ld, int hidden) {
   return p;
 }
 
+// z: null for the whole forward; else one tp rank's fc2 output (m, ld), where
+// the passes stop (cuda_ff.ff_partial; the row pass is credit_ff_finish)
 void run_fwd(const float* x, const float* gam, const float* bet, const float* w1,
-             const float* b1, const float* w2, const float* b2, float* out,
+             const float* b1, const float* w2, const float* b2, float* out, float* z,
              unsigned char* work, int m, int c, int ld, int hidden, bool post, cudaStream_t s) {
   const FwdPlan p = fwd_plan(m, ld, hidden);
   float* y = reinterpret_cast<float*>(work + p.y);
   float* a = reinterpret_cast<float*>(work + p.a);
-  float* o2 = reinterpret_cast<float*>(work + p.o2);
+  float* o2 = z != nullptr ? z : reinterpret_cast<float*>(work + p.o2);
   const float* fc1_in = post ? x : y;
   const int blocks = (m + WARPS - 1) / WARPS;
   if (!post)
@@ -924,6 +964,7 @@ void run_fwd(const float* x, const float* gam, const float* bet, const float* w1
                                              nullptr, m, ld, hidden);
   const dim3 g3((ld + F_B - 1) / F_B, (m + F_B - 1) / F_B, 1);
   gemm_f32<false, false><<<g3, THREADS, 0, s>>>(a, hidden, w2, ld, o2, m, ld, hidden, hidden);
+  if (z != nullptr) return;
   if (post)
     ff::out_rows<float, true><<<blocks, THREADS, 0, s>>>(x, o2, b2, gam, bet, out, m, c, ld);
   else
@@ -961,7 +1002,7 @@ extern "C" int credit_fused_ff_bwd_f32(const void* x, const void* ct, const void
   auto o = [](void* p) { return static_cast<float*>(p); };
   ffb::run_f32(f(x), f(ct), f(gam), f(bet), f(w1), f(b1), f(w2), f(b2), o(dx), o(dln), o(dw1),
                o(db1), o(dw2), static_cast<unsigned char*>(work), m, c, ld, hidden,
-               post_norm != 0, static_cast<cudaStream_t>(stream));
+               post_norm != 0, false, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -989,7 +1030,7 @@ extern "C" int credit_fused_ff_bwd_bf16(
   const ffb::Bf16Plan p{ln_rows, bn_o2, bn_dy, bn_w1, s1, bn_w2, s2};
   const cudaError_t err = ffb::run_bf16(
       b(x), b(ct), b(gam), b(bet), b(w1), b(b1), b(w2), b(b2), static_cast<B*>(dx), o(dln),
-      o(dw1), o(db1), o(dw2), w, p, m, c, ld, hidden, post_norm != 0,
+      o(dw1), o(db1), o(dw2), w, p, m, c, ld, hidden, post_norm != 0, false,
       static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
@@ -1011,7 +1052,116 @@ extern "C" int credit_fused_ff_passes(const void* x, const void* gam, const void
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   ffb::run_fwd(f(x), f(gam), f(bet), f(w1), f(b1), f(w2), f(b2), static_cast<float*>(out),
-               static_cast<unsigned char*>(work), m, c, ld, hidden, post_norm != 0,
+               nullptr, static_cast<unsigned char*>(work), m, c, ld, hidden, post_norm != 0,
                static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- over tensor-parallel ranks
+// The backward of the feed-forward split over tp ranks (fused_ff.cu's
+// credit_ff_partial_split / credit_ff_finish; cuda_ff.ff_partial_bwd and
+// ff_finish_bwd). The row pass's backward runs whole on every rank, from the
+// summed z the forward saved (never from a rank's partial): post-norm the LN
+// backward of z + b2 (ln_post_bwd_rows: dz = do2 in x's dtype, dg, db, db2),
+// pre-norm dz = ct itself and db2 = the column sums of ct. Then each rank's
+// path from dz (the passes above with `partial`): its dw1, db1, dw2 and its
+// input gradient without the residual (pre-norm through the input LN's
+// backward, with its share of dg and db), summed over the ranks by the caller.
+
+// f32 forward of one rank's path, z = GELU(A . w1 + b1) . w2 (m, ld): operands
+// as credit_fused_ff_passes', work: credit_fused_ff_passes_workspace bytes.
+extern "C" int credit_ff_partial_passes(const void* x, const void* gam, const void* bet,
+                                        const void* w1, const void* b1, const void* w2, void* z,
+                                        void* work, int m, int c, int ld, int hidden,
+                                        int post_norm, void* stream) {
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  ffb::run_fwd(f(x), f(gam), f(bet), f(w1), f(b1), f(w2), nullptr, nullptr,
+               static_cast<float*>(z), static_cast<unsigned char*>(work), m, c, ld, hidden,
+               post_norm != 0, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The row pass's backward: z (m, ld) f32, the summed fc2 output; ct (m, ld),
+// b2, gam (ld,) in the dtype `dtype`. Post-norm writes dz (m, ld) in that
+// dtype; pre-norm writes none (dz is ct). dln (3, ld) f32: dg | db | db2
+// (pre-norm 0 | 0 | db2). pln: (ceil(m / rows), 3, ld) f32 partials.
+extern "C" int credit_ff_finish_bwd(const void* z, const void* ct, const void* b2,
+                                    const void* gam, void* dz, void* dln, void* pln, int dtype,
+                                    int m, int c, int ld, int post_norm, int rows, void* stream) {
+  using namespace credit::ffb;
+  if (m < 1 || c < 1 || ld < c || rows < 1 || (dtype == kBF16 && ld % 8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* zf = static_cast<const float*>(z);
+  const int blocks = (m + rows - 1) / rows;
+  float* part = static_cast<float*>(pln);
+  if (dtype == kBF16) {
+    using B = __nv_bfloat16;
+    if (post_norm)
+      ln_post_bwd<B>(zf, static_cast<const B*>(b2), static_cast<const B*>(ct),
+                     static_cast<const B*>(gam), static_cast<B*>(dz), part, m, c, ld, rows, s);
+    else
+      col_sum_rows<B><<<dim3((ld + 127) / 128, blocks), 128, 0, s>>>(static_cast<const B*>(ct),
+                                                                     part, m, ld, rows);
+  } else if (dtype == kF32) {
+    if (post_norm)
+      ln_post_bwd<float>(zf, static_cast<const float*>(b2), static_cast<const float*>(ct),
+                         static_cast<const float*>(gam), static_cast<float*>(dz), part, m, c, ld,
+                         rows, s);
+    else
+      col_sum_rows<float><<<dim3((ld + 127) / 128, blocks), 128, 0, s>>>(
+          static_cast<const float*>(ct), part, m, ld, rows);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  sum_into(part, static_cast<float*>(dln), (size_t)3 * ld, blocks, s);
+  return (int)cudaGetLastError();
+}
+
+// One rank's path backward in f32 (FMA products): x (m, ld); dz (m, ld) the
+// cotangent of fc2's output; gam, bet (ld,), w1 (ld, hidden), b1 (hidden,), w2
+// (hidden, ld) this rank's slice. Outputs as credit_fused_ff_bwd_f32's, dx
+// without the residual's ct, dln's dg | db this rank's share (pre-norm; 0
+// post-norm) and its db2 slot meaningless. work: credit_fused_ff_bwd_workspace
+// bytes.
+extern "C" int credit_ff_partial_bwd_f32(const void* x, const void* dz, const void* gam,
+                                         const void* bet, const void* w1, const void* b1,
+                                         const void* w2, void* dx, void* dln, void* dw1,
+                                         void* db1, void* dw2, void* work, int m, int c, int ld,
+                                         int hidden, int post_norm, void* stream) {
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8)
+    return (int)cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  ffb::run_f32(f(x), f(dz), f(gam), f(bet), f(w1), f(b1), f(w2), nullptr, o(dx), o(dln), o(dw1),
+               o(db1), o(dw2), static_cast<unsigned char*>(work), m, c, ld, hidden,
+               post_norm != 0, true, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The same in bf16 on the wgmma products, on cuda_ff.ffb_plan's plan (bn_o2
+// unused). Buffers from the caller as credit_fused_ff_bwd_bf16's, but post-norm
+// needs no y, dy or pln (pass null).
+extern "C" int credit_ff_partial_bwd_bf16(
+    const void* x, const void* dz, const void* gam, const void* bet, const void* w1,
+    const void* b1, const void* w2, void* dx, void* dln, void* dw1, void* db1, void* dw2, void* y,
+    void* a, void* dh, void* dy, void* p1, void* p2, void* pdb, void* pln, int m, int c, int ld,
+    int hidden, int post_norm, int ln_rows, int bn_dy, int bn_w1, int s1, int bn_w2, int s2,
+    void* stream) {
+  using B = __nv_bfloat16;
+  if (m < 1 || c < 1 || ld < c || ld % 8 || hidden < 8 || hidden % 8 || s1 < 1 || s2 < 1 ||
+      ln_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  auto b = [](const void* p) { return static_cast<const B*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  const ffb::Bf16Work w{static_cast<B*>(y), static_cast<B*>(a), static_cast<B*>(dh),
+                        o(dy), o(p1), o(p2), o(pdb), o(pln)};
+  const ffb::Bf16Plan p{ln_rows, 0, bn_dy, bn_w1, s1, bn_w2, s2};
+  const cudaError_t err = ffb::run_bf16(
+      b(x), b(dz), b(gam), b(bet), b(w1), b(b1), b(w2), nullptr, static_cast<B*>(dx), o(dln),
+      o(dw1), o(db1), o(dw2), w, p, m, c, ld, hidden, post_norm != 0, true,
+      static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -42,7 +42,7 @@ from credit_torch.ops import conv as conv_ops
 from credit_torch.parallel import context as par_ctx
 from credit_torch.ops import window_attention as wa
 from credit_torch.ops.cuda_attention import fused_window_attention_diff
-from credit_torch.ops.cuda_ff import fused_ff_diff
+from credit_torch.ops.cuda_ff import ff_over_tp, fused_ff_diff
 from credit_torch.ops.upsample import pixel_shuffle
 
 
@@ -337,10 +337,23 @@ def position_bias_cache(model: nn.Module):
             m.clear_cache()
 
 
+def ff_tp(hidden: int):
+    """(group, rank, size) of the tp axis where a FF of `hidden` columns
+    splits over it (credit_tpu's param_spec: fc1's columns and fc2's rows
+    over tp where the hidden width divides), else None."""
+    mesh = par_ctx.mesh()
+    tp = mesh.shape["tp"] if mesh is not None else 1
+    if tp == 1 or hidden % tp:
+        return None
+    return mesh.group("tp"), mesh.coord("tp"), tp
+
+
 class FeedForward(nn.Module):
     """x + fc2(GELU(fc1(LN(x)))), the FF block with its residual, as one
     call of the fused kernel (kernel 1; kernel 4 in the backward) on the
-    spectrally normalized kernels."""
+    spectrally normalized kernels. Under a mesh with tp > 1 (`ff_tp`) each
+    rank runs kernels 1 and 4 on its slice of the hidden layer
+    (`cuda_ff.ff_over_tp`); sigma is the whole kernel's, sliced after."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, sn: bool = False):
         super().__init__()
@@ -350,9 +363,12 @@ class FeedForward(nn.Module):
         self.fc2 = Dense(dim * mult, dim, dtype=dtype, sn=sn)
 
     def forward(self, x):
-        return fused_ff_diff(x.to(self.dtype), self.norm.scale, self.norm.bias,
-                             self.fc1.sn_kernel(), self.fc1.bias, self.fc2.sn_kernel(),
-                             self.fc2.bias)
+        args = (x.to(self.dtype), self.norm.scale, self.norm.bias, self.fc1.sn_kernel(),
+                self.fc1.bias, self.fc2.sn_kernel(), self.fc2.bias)
+        tp = ff_tp(self.fc1.kernel.shape[1])
+        if tp is not None:
+            return ff_over_tp(*args, False, *tp)
+        return fused_ff_diff(*args)
 
 
 class Transformer(nn.Module):

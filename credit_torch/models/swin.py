@@ -36,9 +36,9 @@ from torch import nn
 
 from credit_torch import registry
 from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames, frames_to_channels
-from credit_torch.models.layers import Dense, LayerNorm, _param
+from credit_torch.models.layers import Dense, LayerNorm, _param, ff_tp
 from credit_torch.ops import window_attention as wa
-from credit_torch.ops.cuda_ff import fused_ff_diff
+from credit_torch.ops.cuda_ff import ff_over_tp, fused_ff_diff
 from credit_torch.parallel import context as par_ctx
 from credit_torch.parallel.halo import gather_lat, lat_roll, window_rows
 
@@ -133,7 +133,8 @@ class WindowAttentionV2(nn.Module):
 class SwinBlockV2(nn.Module):
     """(shifted) window attention with the post-norm residual
     x + norm1(attn(x)), then the post-norm MLP x + norm2(fc2(GELU(fc1(x))))
-    as one fused FF call."""
+    as one fused FF call (under tp > 1 this rank's slice of the hidden
+    layer, `layers.ff_tp`)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int = 0,
                  mlp_ratio: float = 4.0, dtype=torch.float32):
@@ -171,6 +172,11 @@ class SwinBlockV2(nn.Module):
             y = self._roll(y, shift, dom)
         x = x + self.norm1(y)
         dt = self.dtype
+        tp = ff_tp(self.mlp_fc1.kernel.shape[1])
+        if tp is not None:  # this rank's slice of the hidden layer (cast once sliced)
+            return ff_over_tp(x.to(dt), self.norm2.scale, self.norm2.bias, self.mlp_fc1.kernel,
+                              self.mlp_fc1.bias, self.mlp_fc2.kernel, self.mlp_fc2.bias, True,
+                              *tp)
         return fused_ff_diff(x.to(dt), self.norm2.scale, self.norm2.bias,
                              self.mlp_fc1.kernel.to(dt), self.mlp_fc1.bias,
                              self.mlp_fc2.kernel.to(dt), self.mlp_fc2.bias, post_norm=True)

@@ -73,16 +73,11 @@ def _ln(v: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fused_ff_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
-    """The same function in plain PyTorch, for x (..., C)."""
-    dt = x.dtype
-    g, b, b1, b2 = (t.to(dt).float() for t in (g, b, b1, b2))
-    y = x if post_norm else _ln(x.float(), g, b).to(dt)
-    h = y.float() @ w1.to(dt).float() + b1
-    h = F.gelu(h).to(dt)
-    o = h.float() @ w2.to(dt).float() + b2
-    if post_norm:
-        o = _ln(o, g, b)
-    return x + o.to(dt)
+    """The same function in plain PyTorch, for x (..., C): the tp pieces'
+    plain versions on the whole hidden layer (`ff_partial_plain`, then
+    `ff_finish_plain`)."""
+    return ff_finish_plain(x, ff_partial_plain(x, g, b, w1, b1, w2, post_norm), g, b, b2,
+                           post_norm)
 
 
 def fused_ff_split_plain(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Tensor:
@@ -508,3 +503,320 @@ def fused_ff_diff(x, g, b, w1, b1, w2, b2, post_norm: bool = False) -> torch.Ten
     either form. The parameter gradients come back in each parameter's own
     dtype."""
     return _FusedFF.apply(x, g, b, w1, b1, w2, b2, bool(post_norm))
+
+
+# ------------------------------------------------------------ over tp ranks
+# The FF with its hidden layer split over tensor-parallel ranks, as
+# credit_tpu's _TP_RULES place fc1's columns and fc2's rows over tp: each
+# rank runs `ff_partial` on its slice (kernel 1's split route up to fc2's f32
+# output), the ranks' partials are all-reduced in f32, and `ff_finish` (the
+# row pass) adds b2, the post-norm LN and the residual. Backward:
+# `ff_finish_bwd` (the row pass's, whole on every rank, from the summed z),
+# then `ff_partial_bwd` on the rank's slice (kernel 4's passes without the
+# residual). The fused wgmma kernel cannot sum over ranks before its
+# epilogue, so under tp every width runs these passes.
+def ff_partial_plain(x, g, b, w1, b1, w2, post_norm: bool = False) -> torch.Tensor:
+    """One rank's z = GELU(A w1 + b1) w2 in f32, A = LN(x) in x's dtype
+    (pre-norm) or x (post-norm); GELU's output cast to x's dtype before
+    fc2, as `fused_ff_plain`."""
+    dt = x.dtype
+    g, b, b1 = (t.to(dt).float() for t in (g, b, b1))
+    y = x if post_norm else _ln(x.float(), g, b).to(dt)
+    h = F.gelu(y.float() @ w1.to(dt).float() + b1).to(dt)
+    return h.float() @ w2.to(dt).float()
+
+
+def ff_finish_plain(x, z, g, b, b2, post_norm: bool = False) -> torch.Tensor:
+    """The row pass over the ranks' summed z (f32): x + (z + b2), or x +
+    LN(z + b2), cast to x's dtype before the residual."""
+    dt = x.dtype
+    g, b, b2 = (t.to(dt).float() for t in (g, b, b2))
+    v = z.float() + b2
+    if post_norm:
+        v = _ln(v, g, b)
+    return x + v.to(dt)
+
+
+def ff_finish_bwd_plain(z, ct, g, b, b2, post_norm: bool = False):
+    """The row pass's backward: (dz, dg, db, db2). dz is the cotangent of
+    fc2's output in ct's dtype: ct itself (pre-norm) or the LN backward of
+    z + b2 (post-norm), as `fused_ff_bwd_plain` rounds it; dg and db are
+    None in pre-norm form (the input LN's are the ranks' share)."""
+    dt = ct.dtype
+    c = ct.shape[-1]
+    ctf = ct.reshape(-1, c).float()
+    if not post_norm:
+        return ct, None, None, ctf.sum(0)
+    g, b2 = g.to(dt).float(), b2.to(dt).float()
+    ohat, rstd = _stats(z.reshape(-1, c).float() + b2)
+    do2 = _ln_bwd(ctf * g, ohat, rstd)
+    return (do2.to(dt).reshape(ct.shape), (ctf * ohat).sum(0), ctf.sum(0), do2.sum(0))
+
+
+def ff_partial_bwd_plain(x, dz, g, b, w1, b1, w2, post_norm: bool = False):
+    """One rank's path backward from dz, the cotangent of its z: (dx, dg,
+    db, dw1, db1, dw2), dx without the residual's term in x's dtype,
+    pre-norm dg and db this rank's share (zeros post-norm), f32 sums."""
+    dt = x.dtype
+    c = x.shape[-1]
+    xf = x.reshape(-1, c).float()
+    dzf = dz.reshape(-1, c).to(dt).float()
+    g, b, b1 = (t.to(dt).float() for t in (g, b, b1))
+    w1, w2 = w1.to(dt).float(), w2.to(dt).float()
+    if post_norm:
+        y = xf
+    else:
+        xhat, rstd = _stats(xf)
+        y = (xhat * g + b).to(dt).float()
+    h1 = y @ w1 + b1
+    phi = 0.5 * (1.0 + torch.erf(h1 * SQRT1_2))
+    a = (h1 * phi).to(dt).float()
+    dw2 = a.T @ dzf
+    dh1 = (dzf @ w2.T) * (phi + h1 * torch.exp(-0.5 * h1 * h1) * INV_SQRT_2PI)
+    dh1r = dh1.to(dt).float()
+    dw1 = y.T @ dh1r
+    dy = dh1r @ w1.T
+    if post_norm:
+        dx, dg, db = dy, torch.zeros_like(g), torch.zeros_like(g)
+    else:
+        dg, db = (dy * xhat).sum(0), dy.sum(0)
+        dx = _ln_bwd(dy * g, xhat, rstd)
+    return dx.to(dt).reshape(x.shape), dg, db, dw1, dh1.sum(0), dw2
+
+
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def _ln_rows(m: int, sms: int) -> int:
+    """Rows a block of an LN backward row pass (as `ffb_plan`'s)."""
+    return LN_ROWS if -(-m // LN_ROWS) >= 2 * sms else 16
+
+
+def _rank_params(prm, ld: int, hpad: int):
+    """(g, b, w1, b1, w2) of one rank zero-padded to width ld and hidden
+    width hpad (`_padded_params` without b2)."""
+    g, b, w1, b1, w2 = prm
+    return [_pad_to(g, 0, ld), _pad_to(b, 0, ld), _pad_to(_pad_to(w1, 0, ld), 1, hpad),
+            _pad_to(b1, 0, hpad), _pad_to(_pad_to(w2, 0, hpad), 1, ld)]
+
+
+def ff_partial(x, g, b, w1, b1, w2, post_norm: bool = False) -> torch.Tensor:
+    """One tp rank's z (f32, x's shape) on its slice w1 (C, Hr), b1 (Hr,),
+    w2 (Hr, C): bf16 on the split route's passes (`credit_ff_partial_split`:
+    LN rows, fc1 + GELU and fc2 into f32 on wgmma), f32 on the FMA passes
+    (`credit_ff_partial_passes`). A launch adds one to `ff_partial.launches`."""
+    if x.device.type == "cpu":
+        return ff_partial_plain(x, g, b, w1, b1, w2, post_norm)
+    c, hidden = x.shape[-1], w1.shape[1]
+    x2 = x.contiguous().reshape(-1, c)
+    m = x2.shape[0]
+    ld, hpad = _up8(c), _up8(hidden)
+    prm = _rank_params([t.to(x.dtype) for t in (g, b, w1, b1, w2)], ld, hpad)
+    x2, *prm = _aligned([_pad_to(x2, 1, ld)] + prm)
+    z = torch.empty((m, ld), dtype=torch.float32, device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if x.dtype == torch.bfloat16:
+        plan = _split_plan(m, c, hidden, bool(post_norm), _sms(x))
+        y = None if plan.y is None else torch.empty(plan.y, dtype=x.dtype, device=x.device)
+        h = torch.empty(plan.h, dtype=x.dtype, device=x.device)
+        fn = _build.function("credit_ff_partial_split", [p] * 9 + [i] * 6 + [p])
+        err = fn(*(t.data_ptr() for t in [x2] + prm), z.data_ptr(),
+                 None if y is None else y.data_ptr(), h.data_ptr(), m, c, ld, hpad,
+                 int(post_norm), plan.bn2, _build.stream_ptr())
+        _build.check(err, "credit_ff_partial_split")
+    else:
+        _build.dtype_code(x.dtype)
+        nbytes = _build.function("credit_fused_ff_passes_workspace", [i] * 3,
+                                 ctypes.c_longlong)(m, ld, hpad)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        fn = _build.function("credit_ff_partial_passes", [p] * 8 + [i] * 5 + [p])
+        err = fn(*(t.data_ptr() for t in [x2] + prm), z.data_ptr(), work.data_ptr(), m, c, ld,
+                 hpad, int(post_norm), _build.stream_ptr())
+        _build.check(err, "credit_ff_partial_passes")
+    ff_partial.launches += 1
+    if ld != c:
+        z = z[:, :c].contiguous()
+    return z.reshape(x.shape)
+
+
+ff_partial.launches = 0
+
+
+def ff_finish(x, z, g, b, b2, post_norm: bool = False) -> torch.Tensor:
+    """x + (z + b2) or x + LN(z + b2) in x's dtype, z (x's shape, f32) the
+    ranks' summed partials: one row pass (`credit_ff_finish`). A launch adds
+    one to `ff_finish.launches`."""
+    if x.device.type == "cpu":
+        return ff_finish_plain(x, z, g, b, b2, post_norm)
+    c = x.shape[-1]
+    ld = _up8(c)
+    x2 = _pad_to(x.contiguous().reshape(-1, c), 1, ld)
+    z2 = _pad_to(z.float().contiguous().reshape(-1, c), 1, ld)
+    prm = [_pad_to(t.to(x.dtype), 0, ld) for t in (b2, g, b)]
+    x2, z2, *prm = _aligned([x2, z2] + prm)
+    out = torch.empty_like(x2)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("credit_ff_finish", [p] * 6 + [i] * 5 + [p])
+    err = fn(x2.data_ptr(), z2.data_ptr(), *(t.data_ptr() for t in prm), out.data_ptr(),
+             _build.dtype_code(x.dtype), x2.shape[0], c, ld, int(post_norm),
+             _build.stream_ptr())
+    _build.check(err, "credit_ff_finish")
+    ff_finish.launches += 1
+    return out[:, :c].reshape(x.shape)
+
+
+ff_finish.launches = 0
+
+
+def ff_finish_bwd(z, ct, g, b, b2, post_norm: bool = False):
+    """The row pass's backward (`ff_finish_bwd_plain`'s function) on the
+    card: post-norm the LN backward of z + b2 (`credit_ff_finish_bwd`: dz in
+    ct's dtype, dg, db, db2), pre-norm dz = ct and db2 its column sums. A
+    launch adds one to `ff_finish_bwd.launches`."""
+    if ct.device.type == "cpu":
+        return ff_finish_bwd_plain(z, ct, g, b, b2, post_norm)
+    c = ct.shape[-1]
+    ld = _up8(c)
+    ct2 = _pad_to(ct.contiguous().reshape(-1, c), 1, ld)
+    m = ct2.shape[0]
+    z2 = (_pad_to(z.float().contiguous().reshape(-1, c), 1, ld) if post_norm
+          else torch.empty(0, dtype=torch.float32, device=ct.device))
+    prm = [_pad_to(t.to(ct.dtype), 0, ld) for t in (b2, g)]
+    ct2, z2, *prm = _aligned([ct2, z2] + prm)
+    rows = _ln_rows(m, _sms(ct))
+    f32 = dict(dtype=torch.float32, device=ct.device)
+    dln, pln = torch.empty((3, ld), **f32), torch.empty((-(-m // rows), 3, ld), **f32)
+    dz = torch.empty_like(ct2) if post_norm else None
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("credit_ff_finish_bwd", [p] * 7 + [i] * 6 + [p])
+    err = fn(z2.data_ptr() if post_norm else None, ct2.data_ptr(), *(t.data_ptr() for t in prm),
+             None if dz is None else dz.data_ptr(), dln.data_ptr(), pln.data_ptr(),
+             _build.dtype_code(ct.dtype), m, c, ld, int(post_norm), rows, _build.stream_ptr())
+    _build.check(err, "credit_ff_finish_bwd")
+    ff_finish_bwd.launches += 1
+    if not post_norm:
+        return ct, None, None, dln[2, :c]
+    return dz[:, :c].reshape(ct.shape), dln[0, :c], dln[1, :c], dln[2, :c]
+
+
+ff_finish_bwd.launches = 0
+
+
+def ff_partial_bwd(x, dz, g, b, w1, b1, w2, post_norm: bool = False):
+    """One tp rank's path backward (`ff_partial_bwd_plain`'s function) on
+    the card: bf16 on kernel 4's wgmma passes with `ffb_plan`'s plan at the
+    rank's hidden width (`credit_ff_partial_bwd_bf16`), f32 on its FMA
+    passes (`credit_ff_partial_bwd_f32`). Returns (dx, dg, db, dw1, db1,
+    dw2): dx in x's dtype without the residual's term, the rest f32. A
+    launch adds one to `ff_partial_bwd.launches`."""
+    if x.device.type == "cpu":
+        return ff_partial_bwd_plain(x, dz, g, b, w1, b1, w2, post_norm)
+    c, hidden = x.shape[-1], w1.shape[1]
+    if dz.shape != x.shape:
+        raise ValueError(f"ff_partial_bwd: dz {tuple(dz.shape)} != x {tuple(x.shape)}")
+    ld, hpad = _up8(c), _up8(hidden)
+    x2 = _pad_to(x.contiguous().reshape(-1, c), 1, ld)
+    m = x2.shape[0]
+    dz2 = _pad_to(dz.to(x.dtype).reshape(-1, c), 1, ld)
+    prm = _rank_params([t.to(x.dtype) for t in (g, b, w1, b1, w2)], ld, hpad)
+    ins = _aligned([x2, dz2] + prm)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(ins[0])
+    dln = torch.empty((3, ld), **f32)
+    dw1, db1, dw2 = (torch.empty((ld, hpad), **f32), torch.empty(hpad, **f32),
+                     torch.empty((hpad, ld), **f32))
+    outs = [t.data_ptr() for t in (dx, dln, dw1, db1, dw2)]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if x.dtype == torch.bfloat16:
+        plan = ffb_plan(m, c, hidden, bool(post_norm), _sms(x))
+        unused = ("y", "dy", "pln") if post_norm else ()
+        work = [None if v is None or k in unused else torch.empty(v[0], dtype=v[1],
+                                                                  device=x.device)
+                for k, v in plan.workspace().items()]
+        fn = _build.function("credit_ff_partial_bwd_bf16", [p] * 20 + [i] * 11 + [p])
+        err = fn(*(t.data_ptr() for t in ins), *outs,
+                 *(None if t is None else t.data_ptr() for t in work), m, c, ld, hpad,
+                 int(post_norm), plan.ln_rows, plan.bn_dy, plan.bn_w1, plan.s1, plan.bn_w2,
+                 plan.s2, _build.stream_ptr())
+        _build.check(err, "credit_ff_partial_bwd_bf16")
+    else:
+        _build.dtype_code(x.dtype)
+        nbytes = _build.function("credit_fused_ff_bwd_workspace", [i] * 3,
+                                 ctypes.c_longlong)(m, ld, hpad)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        fn = _build.function("credit_ff_partial_bwd_f32", [p] * 13 + [i] * 5 + [p])
+        err = fn(*(t.data_ptr() for t in ins), *outs, work.data_ptr(), m, c, ld, hpad,
+                 int(post_norm), _build.stream_ptr())
+        _build.check(err, "credit_ff_partial_bwd_f32")
+    ff_partial_bwd.launches += 1
+    if (ld, hpad) != (c, hidden):
+        dx, dln = dx[:, :c], dln[:, :c]
+        dw1, db1, dw2 = dw1[:c, :hidden], db1[:hidden], dw2[:hidden, :c]
+    return dx.reshape(x.shape), dln[0], dln[1], dw1, db1, dw2
+
+
+ff_partial_bwd.launches = 0
+
+
+class _FFPartial(torch.autograd.Function):
+    """Forward: `ff_partial` (kernel 1's passes on this rank's slice).
+    Saves x and the rank's parameters; the backward (`ff_partial_bwd`)
+    recomputes the LN, fc1 and GELU."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, w1, b1, w2, post_norm):
+        ctx.save_for_backward(x, g, b, w1, b1, w2)
+        ctx.post_norm = post_norm
+        return ff_partial(x, g, b, w1, b1, w2, post_norm)
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, *prm = ctx.saved_tensors
+        dx, *grads = ff_partial_bwd(x, dz.to(x.dtype), *prm, post_norm=ctx.post_norm)
+        if ctx.post_norm:  # the output LN is the row pass's
+            grads[0] = grads[1] = None
+        return (dx, *(None if d is None else d.to(p.dtype) for d, p in zip(grads, prm)), None)
+
+
+class _FFFinish(torch.autograd.Function):
+    """Forward: `ff_finish` (the row pass). Saves the summed z (post-norm)
+    and the parameters; backward `ff_finish_bwd`: the residual's gradient
+    is ct, z's the cotangent of fc2's output (f32, as z)."""
+
+    @staticmethod
+    def forward(ctx, x, z, g, b, b2, post_norm):
+        ctx.save_for_backward(z if post_norm else None, g, b, b2)
+        ctx.post_norm = post_norm
+        return ff_finish(x, z, g, b, b2, post_norm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        z, g, b, b2 = ctx.saved_tensors
+        dz, dg, db, db2 = ff_finish_bwd(z, ct, g, b, b2, post_norm=ctx.post_norm)
+        grads = [None if d is None else d.to(p.dtype) for d, p in ((dg, g), (db, b), (db2, b2))]
+        return (ct, dz.float(), *grads, None)
+
+
+def ff_over_tp(x, g, b, w1, b1, w2, b2, post_norm: bool, group, rank: int, tp: int):
+    """x + FF(x) with the hidden layer split over the `tp` ranks of
+    `group`: this rank (`rank`) takes fc1's columns and fc2's rows
+    [rank Hd/tp, (rank + 1) Hd/tp) of the whole w1 (C, Hd), b1, w2 (Hd, C)
+    (sliced here, then cast to x's dtype: autograd keeps the slice, not the
+    whole weight), runs `ff_partial` on them, the partials are summed over
+    the group in f32 and `ff_finish` adds b2, the post-norm LN and the
+    residual once. Backward: the rank's input gradient summed over the
+    group (`copy_to_group`), the residual's ct added once; the gradients of
+    w1, b1, w2 (and the pre-norm LN's g, b) are this rank's share, b2's
+    (and the post-norm LN's) whole on every rank."""
+    from credit_torch.parallel.halo import all_reduce_sum, copy_to_group
+
+    hidden = w1.shape[1]
+    if hidden % tp:
+        raise ValueError(f"a hidden width of {hidden} does not split over tensor={tp}")
+    cols = slice(rank * hidden // tp, (rank + 1) * hidden // tp)
+    dt = x.dtype
+    z = _FFPartial.apply(copy_to_group(x, group), g, b, w1[:, cols].to(dt), b1[cols],
+                         w2[cols].to(dt), bool(post_norm))
+    z = all_reduce_sum(z, group, reduce_grad=False)
+    return _FFFinish.apply(x, z, g, b, b2, bool(post_norm))

@@ -41,9 +41,11 @@ the latitude slab is taken inside the model, after its earth padding
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import re
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -145,24 +147,34 @@ def zero_blocks(model: nn.Module) -> List[nn.Module]:
     CrossFormer's cel{i}, transformer{i} and up_block{i}; FuXi's cube
     embed, DownBlock, each SwinBlockV2, UpBlock and head)."""
     out: List[nn.Module] = []
-
-    def walk(mod):
-        for child in mod.children():
-            if getattr(child, "zero_container", False):
-                walk(child)
-            else:
-                out.append(child)
-
-    walk(model)
+    _walk_blocks(model, out)
     return out
+
+
+def _walk_blocks(mod: nn.Module, out: List[nn.Module]) -> None:
+    """zero_blocks' walk (at module level: a recursive closure would hold
+    `out`, and with it the model's blocks, in a reference cycle)."""
+    for child in mod.children():
+        if getattr(child, "zero_container", False):
+            _walk_blocks(child, out)
+        else:
+            out.append(child)
 
 
 class _Block:
     """A block's held parameters: `items` (owner module, attribute, dp
-    axis) in a fixed order, their state_dict names in `names`."""
+    axis) in a fixed order, their state_dict names in `names`. The block
+    of the model's own parameters holds the model by a weak reference: the
+    model holds its ParamShards, so a strong one would make a cycle that
+    keeps the model's memory until Python's cyclic collector runs."""
 
-    def __init__(self, module: nn.Module):
-        self.module, self.items, self.names = module, [], []
+    def __init__(self, module: nn.Module, weak: bool = False):
+        self._module = weakref.ref(module) if weak else module
+        self.items, self.names = [], []
+
+    @property
+    def module(self) -> nn.Module:
+        return self._module() if isinstance(self._module, weakref.ref) else self._module
 
 
 class _Gather:
@@ -216,7 +228,7 @@ class ParamShards:
         self.mesh = mesh
         self.n, self.group = mesh.shape["dp"], mesh.group("dp")
         self.all_blocks = [_Block(m) for m in zero_blocks(model)]
-        root = _Block(model)
+        root = _Block(model, weak=True)
         owner = {}
         for b in self.all_blocks:
             for m in b.module.modules():
@@ -240,15 +252,26 @@ class ParamShards:
         # the blocks with held parameters, the model's own last
         self.blocks = [b for b in self.all_blocks + [root] if b.items]
         self._live: Dict[int, tuple] = {}  # storage of a gathered parameter -> (gather, index)
+        # the views of gathered parameters autograd saved as handles (those
+        # smaller than their parameter: tp slices), and the backward's
+        # re-gathers, since the model was sharded
+        self.counts: collections.Counter = collections.Counter()
         self._stack: List[tuple] = []
+        # the hooks reach this object through a weak reference and find their
+        # block by their module (the model holds this object: see _Block; a
+        # hook holding it or its block would close a reference cycle), so
+        # deleting the model frees it at once
+        me = weakref.ref(self)
+        self._block_of = {id(b.module): b for b in self.blocks if b is not root}
         for b in self.blocks:
             if b is not root:
-                b.module.register_forward_pre_hook(lambda mod, args, b=b: self._enter(b))
-                b.module.register_forward_hook(lambda mod, args, out, b=b: self._exit(b),
-                                               always_call=True)
+                b.module.register_forward_pre_hook(
+                    lambda mod, args: me()._enter(me()._block_of[id(mod)]))
+                b.module.register_forward_hook(
+                    lambda mod, args, out: me()._exit(me()._block_of[id(mod)]), always_call=True)
         root = root if root.items else None
-        model.register_forward_pre_hook(lambda mod, args: self._enter_root(root))
-        model.register_forward_hook(lambda mod, args, out: self._exit_root(root),
+        model.register_forward_pre_hook(lambda mod, args: me()._enter_root(root))
+        model.register_forward_hook(lambda mod, args, out: me()._exit_root(root),
                                     always_call=True)
 
     # -- collectives
@@ -313,13 +336,21 @@ class ParamShards:
 
     def _pack(self, t: torch.Tensor):
         hit = self._live.get(t.untyped_storage().data_ptr()) if self._live else None
-        return t if hit is None else _Saved(hit[0], hit[1], t)
+        if hit is None:
+            return t
+        # a view of a gathered parameter (a tp rank's slice of it included)
+        # is kept as a handle: the gathered buffer is freed with the forward
+        self.counts["saved_views"] += 1
+        if t.numel() < hit[0].chunks[hit[1]].numel() * self.n:
+            self.counts["saved_slices"] += 1
+        return _Saved(hit[0], hit[1], t)
 
     def _unpack(self, h):
         if not isinstance(h, _Saved):
             return h
         rec = h.rec
         if rec.buf is None:  # once per block and backward
+            self.counts["regathers"] += 1
             with torch.no_grad():
                 rec.buf = self._gather(rec.block, rec.chunks)
         return rec.buf[h.index].as_strided(h.size, h.stride, h.offset)
@@ -571,7 +602,9 @@ def gradient_divisors(names: Sequence[str], mesh, lat_sharded: bool,
     lat-sharded model's last gather; a lat-sharded model's own ranks each
     hold their slab's share), times the tp size for a parameter that every
     tp rank uses whole (not one of `tp_partial`: the attention blocks,
-    whose ranks each hold their heads' share)."""
+    whose ranks each hold their heads' share, and the FF blocks' fc1, fc2
+    kernels, fc1's bias and the pre-norm LN, whose ranks each hold their
+    slice of the hidden layer's)."""
     dp, tp, dom = mesh.shape["dp"], mesh.shape["tp"], mesh.shape["domain"]
     part, full = set(tp_partial), set(whole)
     return [float(dp * (1 if lat_sharded and k not in full else dom)

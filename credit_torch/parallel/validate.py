@@ -6,6 +6,9 @@ mapping of axis -> size (parallel.mesh.Mesh). Beyond credit_tpu's checks
 (whose GSPMD partitions any shape), a lat-sharded model with a
 `lat_split_problem(domain)` method says where its stages' rows do not split
 over the domain ranks the way its slab forward needs (the SwinV2 family).
+The FF's hidden width needs no check: dims divisible by tensor make 4 dim
+so, and an FF whose hidden width does not divide runs whole on every tp
+rank, as credit_tpu's param_spec replicates its kernels then.
 """
 
 from __future__ import annotations

@@ -50,9 +50,11 @@ validation runs the EMA's copy of it.
 coordinate samples its own rows of the batch, tp and domain peers the same
 rows; the forward runs under `parallel.context.explicit_halo(mesh)`, where
 the CrossFormer family and the SwinV2 family (fuxi, swin, wrf, dscale)
-split latitude over the domain ranks and the attention blocks split heads
-over the tp ranks (other models compute the whole field on every domain
-rank, which the trainer logs once); with dp > 1 the model's large
+split latitude over the domain ranks, the attention blocks split heads
+over the tp ranks and the FF blocks their hidden layers (other models
+compute the whole field on every domain rank, and those with neither
+block the whole model on every tp rank, which the trainer logs once);
+with dp > 1 the model's large
 parameters are held as dp chunks and gathered block by block (ZeRO-3,
 `parallel.sharding.ParamShards`, applied by `TrainState.create`); the
 gradients are summed over the ranks that computed shares of them
@@ -290,13 +292,28 @@ def _next_input(schema, x, y_pred, forcing, s: int, history_len: int):
     return torch.cat([x[:, 1:], new], dim=1) if history_len > 1 else new
 
 
-def tp_partial_names(model: torch.nn.Module) -> List[str]:
-    """The parameters whose gradient each tp rank holds a share of: those
-    of the attention blocks (their heads split over the ranks)."""
-    from credit_torch.models.layers import WindowAttention
+def tp_partial_names(model: torch.nn.Module, tp: int) -> List[str]:
+    """The parameters whose gradient each of `tp` ranks holds a share of:
+    those of the attention blocks (their heads split over the ranks) and,
+    where the hidden width divides by tp, of the FF blocks' slices of the
+    hidden layer: fc1's kernel and bias, fc2's kernel and the pre-norm
+    FF's input LN (each rank's LN output feeds only its slice). fc2's bias
+    and the post-norm LN (SwinV2) are computed whole on every rank."""
+    from credit_torch.models.layers import FeedForward, WindowAttention
+    from credit_torch.models.swin import SwinBlockV2
 
-    return [f"{m}.{p}" if m else p for m, mod in model.named_modules()
-            if isinstance(mod, WindowAttention) for p, _ in mod.named_parameters()]
+    names = []
+    for m, mod in model.named_modules():
+        if isinstance(mod, WindowAttention):
+            own = [p for p, _ in mod.named_parameters()]
+        elif isinstance(mod, FeedForward) and mod.fc1.kernel.shape[1] % tp == 0:
+            own = ["norm.scale", "norm.bias", "fc1.kernel", "fc1.bias", "fc2.kernel"]
+        elif isinstance(mod, SwinBlockV2) and mod.mlp_fc1.kernel.shape[1] % tp == 0:
+            own = ["mlp_fc1.kernel", "mlp_fc1.bias", "mlp_fc2.kernel"]
+        else:
+            continue
+        names += [f"{m}.{p}" if m else p for p in own]
+    return names
 
 
 class _Parallel:
@@ -312,7 +329,9 @@ class _Parallel:
         lat = bool(getattr(model, "lat_sharded", False)) and mesh.shape["domain"] > 1
         # the postblock nets run on the whole prediction on every domain rank
         whole = [k for k in names if k.startswith("_postblocks.")]
-        self.divisors = gradient_divisors(names, mesh, lat, tp_partial_names(model), whole)
+        self.divisors = gradient_divisors(names, mesh, lat,
+                                          tp_partial_names(model, mesh.shape["tp"]),
+                                          whole)
         held = getattr(optimizer, "held", set())
         self.held = [k in held for k in names]
 
@@ -776,9 +795,9 @@ class Trainer:
             logger.warning("model type %s is not lat-sharded: every domain rank computes the "
                            "whole field (the reference's numbers, without the memory saving)",
                            mtype)
-        if tp > 1 and not tp_partial_names(model):
-            logger.warning("model type %s has no window attention to split over tensor=%d: "
-                           "every tp rank computes the whole model", mtype, tp)
+        if tp > 1 and not tp_partial_names(model, tp):
+            logger.warning("model type %s has no window attention or FF block to split over "
+                           "tensor=%d: every tp rank computes the whole model", mtype, tp)
         return mesh
 
     def noise_keys(self) -> tuple:

@@ -289,7 +289,10 @@ def test_benchmarks_run_on_every_mesh(ops):
     """applications/benchmark.py on 4 ranks: benchmark_halo's slabs equal
     the unsharded stencil (f32, 1e-5) with one P2P batch a conv forward and
     one backward; benchmark_parallelism's row for every (dp, tp, domain) of
-    4 ranks, the same on every rank, finite, scaling against the first."""
+    4 ranks, the same on every rank, finite, scaling against the first; at
+    tp > 1 the attention blocks' parameters and every FF block's five
+    (fc1's kernel and bias, fc2's kernel, the input LN's scale and bias)
+    computed a share of by each rank, none at tp 1."""
     from credit_torch.applications.benchmark import default_combos
 
     for r in ops:
@@ -299,6 +302,10 @@ def test_benchmarks_run_on_every_mesh(ops):
     rows = ops[0]["bench_rows"]
     assert [tuple(int(v) for v in row[:3]) for row in rows] == default_combos(WORLD)
     assert np.all(np.isfinite(rows)) and np.all(rows[:, 3:6] > 0) and rows[0, 7] == 1.0
+    want = int(ops[0]["bench_attn_params"]) + 5 * int(ops[0]["bench_ff_blocks"])
+    assert int(ops[0]["bench_ff_blocks"]) == 8  # TINY_MODEL_CONF: depth 1 a stage, 2 FFs a block
+    for row in rows:
+        assert int(row[8]) == (0 if row[1] == 1 else want), row
 
 
 def _rows(counts, r):

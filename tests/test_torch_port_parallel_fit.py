@@ -51,7 +51,7 @@ from credit_tpu.parallel.mesh import build_mesh as jax_mesh
 from credit_tpu.trainers import trainer as jtrainer
 from credit_tpu.trainers.scheduler import load_scheduler as jax_scheduler
 from tests.test_torch_port_model import _numpy_variables, _to_numpy
-from torch_port_fixtures import (fit_conf, run_many, run_ranks,  # noqa: F401
+from torch_port_fixtures import (fit_conf, jit_lowopt, run_many, run_ranks,  # noqa: F401
                                  two_torch_threads, write_era5_store, write_stats)
 
 DATA = {"source": {"ERA5": {"levels": [0.0, 1.0], "variables": {
@@ -59,6 +59,7 @@ DATA = {"source": {"ERA5": {"levels": [0.0, 1.0], "variables": {
     "dynamic_forcing": {"vars_2D": ["TISR"]}, "diagnostic": {"vars_2D": ["PRECIP"]}}}},
     "forecast_len": 1, "history_len": 1}
 MESHES = [(2, 1, 1), (1, 1, 2), (1, 2, 1), (2, 2, 2)]
+TP_MESHES = [d for d in MESHES if d[1] > 1]
 LR = 1e-3
 
 
@@ -80,10 +81,32 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _mesh_step(jm, conf, variables, x, y, dims):
+    """credit_tpu's step on its own (dp, tp, domain) mesh with the explicit
+    halo, x sharded as its batch_spec (compiled at XLA's lowest
+    optimisation level): loss, gradients, AdamW-updated parameters."""
+    jit = jit_lowopt
+    mesh = jax_mesh(*dims, jax.devices()[:int(np.prod(dims))])
+
+    def loss(params, xs):
+        with jconv.explicit_halo(mesh):
+            pred, _ = jm.apply({"params": params, "spectral": variables["spectral"]}, xs,
+                               train=True, mutable=["spectral"])
+        return jnp.mean((pred - y) ** 2)
+
+    xs = jax.device_put(x, NamedSharding(mesh, P("dp", None, "domain", None, None)))
+    val, grads = jit(jax.value_and_grad(loss))(variables["params"], xs)
+    opt = jtrainer.make_optimizer(conf, jax_scheduler(conf))
+    new = jit(lambda g, p: jax.tree_util.tree_map(
+        lambda a, u: a + u, p, opt.update(g, opt.init(p), p)[0]))(grads, variables["params"])
+    return {"loss": float(val), "grads": _flat(_to_numpy(grads)), "params": _flat(_to_numpy(new))}
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """credit_tpu's weights, batch and step on its (2, 1, 2) mesh with the
-    explicit halo: loss, gradients, AdamW-updated parameters."""
+    explicit halo: loss, gradients, AdamW-updated parameters; and under
+    'tp' its steps on the meshes with tensor 2, (1, 2, 1) and (2, 2, 2)."""
     root = tmp_path_factory.mktemp("train")
     conf = _conf()
     jm = jax_load_model(conf)
@@ -94,23 +117,10 @@ def ref(tmp_path_factory):
     with open(root / "variables.pkl", "wb") as f:
         pickle.dump(variables, f)
     np.savez(root / "batch.npz", x=x, y=y)
-    mesh = jax_mesh(2, 1, 2, jax.devices()[:4])
-
-    def loss(params, xs):
-        with jconv.explicit_halo(mesh):
-            pred, _ = jm.apply({"params": params, "spectral": variables["spectral"]}, xs,
-                               train=True, mutable=["spectral"])
-        return jnp.mean((pred - y) ** 2)
-
-    xs = jax.device_put(x, NamedSharding(mesh, P("dp", None, "domain", None, None)))
-    val, grads = jax.jit(jax.value_and_grad(loss))(variables["params"], xs)
-    opt = jtrainer.make_optimizer(conf, jax_scheduler(conf))
-    new = jax.jit(lambda g, p: jax.tree_util.tree_map(
-        lambda a, u: a + u, p, opt.update(g, opt.init(p), p)[0]))(grads, variables["params"])
-    return {"root": root, "conf": conf, "loss": float(val), "grads": _flat(_to_numpy(grads)),
-            "params": _flat(_to_numpy(new)),
-            "args": {"conf": conf, "variables": str(root / "variables.pkl"),
-                     "batch": str(root / "batch.npz")}}
+    tp = {d: _mesh_step(jm, conf, variables, x, y, d) for d in TP_MESHES}
+    return {"root": root, "conf": conf, **_mesh_step(jm, conf, variables, x, y, (2, 1, 2)),
+            "tp": tp, "args": {"conf": conf, "variables": str(root / "variables.pkl"),
+                               "batch": str(root / "batch.npz")}}
 
 
 @pytest.fixture(scope="module")
@@ -136,18 +146,47 @@ def pair(ref, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def steps(ref, pair, tmp_path_factory):
-    """The meshes of 2 ranks (`pair`'s launch), (2, 2, 2) in a launch of 8."""
+    """The meshes of 2 ranks (`pair`'s launch), (2, 2, 2) in a launch of 8,
+    beside a tiny FuXi's step at (2, 2, 2) (`fuxi_tp`'s case, under
+    'fuxi')."""
     out = {}
     eight = [d for d in MESHES if np.prod(d) == 8]
+    root = tmp_path_factory.mktemp("step")
+    case, fuxi_ref = fuxi_tp(root)
+    train8, family8 = run_many(8, root, [("train", {**ref["args"], "meshes": eight}),
+                                         ("swin_family", {"cases": [case]})], timeout=180.0)
     for meshes in ([d for d in MESHES if np.prod(d) == 2], eight):
-        ranks = (pair["train"] if meshes != eight else
-                 run_ranks("train", 8, tmp_path_factory.mktemp("step"),
-                           {**ref["args"], "meshes": meshes}, timeout=120.0))
+        ranks = pair["train"] if meshes != eight else train8
         for d in meshes:
             tag = "mesh" + "".join(map(str, d))
             out[d] = [{k.replace(tag, "mesh", 1): v for k, v in r.items()
                        if k.startswith(("one_", tag + "_", "mu_whole"))} for r in ranks]
+    out["fuxi"] = (family8, fuxi_ref)
     return out
+
+
+def fuxi_tp(root):
+    """test_torch_port_parallel_fuxi.py's tiny FuXi at dim 64 (its SwinV2
+    MLP kernels held as ZeRO-3 chunks at dp 2) at (2, 2, 2) on a batch of
+    2: the worker's `swin_family` case, credit_tpu's step on its own
+    (2, 2, 2) mesh and its unsharded step (under 'one')."""
+    from tests import test_torch_port_parallel_fuxi as pf
+
+    conf = pf._conf("fuxi_wide")
+    jm = jax_load_model(conf)
+    xshape, yshape = pf._shapes(conf["model"])
+    rng = np.random.default_rng(60)
+    x = rng.standard_normal((2, *xshape)).astype(np.float32)
+    y = rng.standard_normal((2, *yshape)).astype(np.float32)
+    variables = _to_numpy(_numpy_variables(jm, x, 3))
+    with open(root / "fuxi.pkl", "wb") as f:
+        pickle.dump(variables, f)
+    np.savez(root / "fuxi.npz", x=x, y=y)
+    case = {"tag": "fuxi222", "conf": conf, "variables": str(root / "fuxi.pkl"),
+            "batch": str(root / "fuxi.npz"), "mesh": [2, 2, 2]}
+    return case, {**pf._reference(conf, variables, x, y, (2, 2, 2)),
+                  "one": pf._reference(conf, variables, x, y, (1, 1, 1)),
+                  "start": _flat(variables["params"])}
 
 
 def _grad_close(got: dict, want: dict, tol: float):
@@ -212,6 +251,65 @@ def test_mesh_step_matches_reference_mesh_step(steps, ref, dims):
         np.testing.assert_allclose(rank["mesh_loss"], ref["loss"], rtol=1e-5)
         _grad_close(_mine(rank, "mesh", "grad"), ref["grads"], 1e-4)
         _update_close(_mine(rank, "mesh", "param"), ref["params"], start, ref["grads"])
+
+
+@pytest.mark.parametrize("dims", TP_MESHES)
+def test_tp_mesh_step_matches_reference_on_its_mesh(steps, ref, dims):
+    """At tensor 2, against credit_tpu's step on the same mesh (its FF and
+    attention partitioned by GSPMD from _TP_RULES): the loss within 1e-5,
+    the gradient within 1e-4, the update as `_update_close`."""
+    start = _flat(pickle.load(open(ref["args"]["variables"], "rb"))["params"])
+    want = ref["tp"][dims]
+    for rank in steps[dims]:
+        np.testing.assert_allclose(rank["mesh_loss"], want["loss"], rtol=1e-5)
+        _grad_close(_mine(rank, "mesh", "grad"), want["grads"], 1e-4)
+        _update_close(_mine(rank, "mesh", "param"), want["params"], start, want["grads"])
+
+
+@pytest.mark.parametrize("dims", TP_MESHES)
+def test_tp_ff_runs_on_the_rank_slice(steps, dims):
+    """At tensor 2 every FF call of the step, forward and backward, runs on
+    half the hidden width it runs at unsharded, on each rank (the widths
+    kernel 1's and kernel 4's wrappers were given)."""
+    for rank in steps[dims]:
+        one, mesh = rank["one_ff_hidden"], rank["mesh_ff_hidden"]
+        assert len(one) == 17 and len(mesh) == len(one)  # 8 FF calls, forward and backward
+        np.testing.assert_array_equal(mesh, np.where(one > 0, one // 2, one))
+
+
+def test_fuxi_at_2_2_2_matches_unsharded_and_reference(steps):
+    """The tiny FuXi at (dp, tp, domain) = (2, 2, 2), on each of the 8
+    ranks: the loss within 1e-6 and the gradient within 1e-5 of the
+    unsharded step, the update as `_update_close`; the loss within 1e-5 of
+    credit_tpu's step on its own (2, 2, 2) mesh, and the gradient within
+    1e-4 and the update of its unsharded step (as the CrossFormer's above:
+    credit_tpu's (2, 2, 2) step gives the cube embed's, the Down- and
+    UpBlock convs' gradients twice their value on every other mesh, its
+    own unsharded one included; ROADMAP queue 3); each FF call at half its
+    unsharded hidden width; ZeRO-3's chunks held between the steps, and
+    each rank's fc1 / fc2 slices of the gathered MLP kernels saved for the
+    backward as handles (not the gathered buffers), re-gathered once a
+    block."""
+    ranks, mesh_ref = steps["fuxi"]
+    start, want = mesh_ref["start"], mesh_ref["one"]
+    for rank in ranks:
+        mesh, one = "mesh_fuxi222", "one_fuxi222"
+        np.testing.assert_allclose(rank[f"{mesh}_loss"], rank[f"{one}_loss"], rtol=1e-6)
+        one_g = _mine(rank, one, "grad")
+        _grad_close(_mine(rank, mesh, "grad"), one_g, 1e-5)
+        _update_close(_mine(rank, mesh, "param"), _mine(rank, one, "param"), start, one_g)
+        np.testing.assert_allclose(rank[f"{mesh}_loss"], mesh_ref["loss"], rtol=1e-5)
+        np.testing.assert_allclose(rank[f"{mesh}_loss"], want["loss"], rtol=1e-5)
+        _grad_close(_mine(rank, mesh, "grad"), want["grads"], 1e-4)
+        _update_close(_mine(rank, mesh, "param"), want["params"], start, want["grads"])
+        hid, hid1 = rank[f"{mesh}_ff_hidden"], rank[f"{one}_ff_hidden"]
+        assert len(hid1) > 2 and len(hid) == len(hid1)
+        np.testing.assert_array_equal(hid, np.where(hid1 > 0, hid1 // 2, hid1))
+        params, grads, left = rank[f"{mesh}_resident"]
+        assert params == grads == int(rank[f"{mesh}_expected_resident"]) and left == 0
+        views, slices, regathers = rank[f"{mesh}_zero3_counts"]
+        assert slices >= 4 and views >= slices  # 2 blocks' w1 and w2 slices at least
+        assert 1 <= regathers <= 6  # at most once a block (the model has 6)
 
 
 # --------------------------------------------------------------- run_training

@@ -113,9 +113,16 @@ def scenario_ops(rank: int, world: int, args: dict) -> dict:
     out["bench_halo_err"] = np.asarray([halo["fwd_err_explicit"], halo["grad_err_explicit"]])
     out["bench_halo_p2p"] = np.asarray(halo["collectives_explicit"].get("p2p", 0))
     rows = benchmark_parallelism(args["bench_conf"], steps=1, warmup=0, device="cpu")
+    from credit_torch.models import load_model
+
+    mods = list(load_model(args["bench_conf"], device="cpu").modules())
+    out["bench_attn_params"] = np.asarray(sum(len(list(m.parameters())) for m in mods
+                                              if type(m).__name__ == "WindowAttention"))
+    out["bench_ff_blocks"] = np.asarray(sum(type(m).__name__ == "FeedForward" for m in mods))
     out["bench_rows"] = np.asarray([[r["dp"], r["tensor"], r["domain"], r["step_ms"],
                                      r["samples_per_s"], r["gridpoints_per_s_per_chip"],
-                                     r["loss"], r["scaling_efficiency"]] for r in rows])
+                                     r["loss"], r["scaling_efficiency"],
+                                     r["tp_split_params"]] for r in rows])
     return out
 
 
@@ -171,7 +178,9 @@ CONV_CASES = {
 
 def _tiny(args: dict):
     """The tiny CrossFormer config, its port model with the given numpy
-    variables (credit_tpu's tree), the seeded batch."""
+    variables (credit_tpu's tree), the seeded batch. With args['noise'] (a
+    noisy model's credit_tpu draws, .npz) every forward of the model takes
+    those draws (the generator it is given is not used)."""
     from credit_torch.convert_jax import from_jax_variables
     from credit_torch.models import load_model
 
@@ -180,8 +189,40 @@ def _tiny(args: dict):
         variables = pickle.load(f)
     model = load_model(conf, device="cpu", sn_state=True)
     model.load_state_dict(from_jax_variables(variables, conf, device="cpu", fold=False))
+    if args.get("noise"):
+        draws = {k: _t(v) for k, v in np.load(args["noise"]).items()}
+        forward = type(model).forward
+        model.forward = lambda x, noise=None, generator=None: forward(model, x, noise=draws)
     batch = np.load(args["batch"])
     return conf, model, {k: _t(batch[k]) for k in batch.files}
+
+
+def _ff_widths(fn):
+    """fn() with kernel 1's wrappers recording the hidden width of every FF
+    call (fused_ff: the whole hidden layer; ff_partial: a tp rank's slice)
+    and kernel 4's (fused_ff_bwd, ff_partial_bwd): (fn's result, the
+    forward's widths, the backward's)."""
+    from credit_torch.ops import cuda_ff
+
+    saved = {k: getattr(cuda_ff, k) for k in ("fused_ff", "ff_partial", "fused_ff_bwd",
+                                                "ff_partial_bwd")}
+    fwd, bwd = [], []
+
+    def rec(name, into, at):
+        def call(*a, **kw):
+            into.append(int(a[at].shape[1]))
+            return saved[name](*a, **kw)
+        return call
+
+    cuda_ff.fused_ff, cuda_ff.ff_partial = rec("fused_ff", fwd, 3), rec("ff_partial", fwd, 3)
+    cuda_ff.fused_ff_bwd = rec("fused_ff_bwd", bwd, 4)
+    cuda_ff.ff_partial_bwd = rec("ff_partial_bwd", bwd, 4)
+    try:
+        out = fn()
+    finally:
+        for k, v in saved.items():
+            setattr(cuda_ff, k, v)
+    return out, sorted(fwd), sorted(bwd)
 
 
 def _step_on(conf, model, batch, mesh, steps: int = 1, out=None, tag="", ckpt=None):
@@ -192,13 +233,15 @@ def _step_on(conf, model, batch, mesh, steps: int = 1, out=None, tag="", ckpt=No
     (whole) parameters, the collectives, the optimizer's moment elements,
     and, between the steps, the parameter elements the model holds, the
     gradient elements the optimizer was given and the gradients left on
-    the parameters. With `ckpt` (a directory) the state after the first
-    step is saved there through a Trainer's save_checkpoint."""
+    the parameters, and the hidden widths of the first step's FF calls
+    (`_ff_widths`: the forward's, -1, the backward's). With `ckpt` (a
+    directory) the state after the first step is saved there through a
+    Trainer's save_checkpoint."""
     import torch
 
     from credit_torch.data.channels import ChannelSchema
     from credit_torch.parallel import distributed as D
-    from credit_torch.parallel.sharding import ShardedOptimizer, shard_batch
+    from credit_torch.parallel.sharding import ShardedOptimizer, param_shards, shard_batch
     from credit_torch.trainers.scheduler import load_scheduler
     from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
 
@@ -224,9 +267,15 @@ def _step_on(conf, model, batch, mesh, steps: int = 1, out=None, tag="", ckpt=No
     b = batch if mesh is None else shard_batch(batch, mesh)
     D.COUNTS.clear()
     for i in range(steps):
-        state, metrics = step(state, b)
+        (state, metrics), fwd, bwd = _ff_widths(lambda: step(state, b))
+        if i == 0:  # the hidden widths of the FF calls, forward and backward
+            out[f"{tag}_ff_hidden"] = np.asarray(fwd + [-1] + bwd)
         if i == 0 and ckpt is not None:
             _save(conf, model, opt, state, mesh, ckpt)
+    shards = param_shards(model)
+    if shards is not None:  # ZeRO-3: the handles saved for the backward, its re-gathers
+        out[f"{tag}_zero3_counts"] = np.asarray([shards.counts[k] for k in (
+            "saved_views", "saved_slices", "regathers")])
     grads, params = seen["g"], [p.detach() for _, p in model.named_parameters()]
     out[f"{tag}_resident"] = np.asarray([sum(p.numel() for p in params),
                                          sum(g.numel() for g in grads),
@@ -498,6 +547,52 @@ def scenario_zero3(rank: int, world: int, args: dict) -> dict:
             for k, v in one.model_tensors(ostate).items():
                 out[f"one_{tag}_param.{k}"] = v.numpy()
     return out
+
+
+def scenario_zero3_frees(rank: int, world: int, args: dict) -> dict:
+    """A tiny CrossFormer under ZeRO-3 at data 2 (args['conf'], args['batch'],
+    this rank's row): one step, then the model, its optimizer, step and
+    state let go with Python's cyclic collector off. 'zero3_held_bytes':
+    the parameters' bytes the rank held; 'zero3_alive_bytes': the bytes of
+    those still alive after (0 when nothing holds them in a reference
+    cycle, which only the collector would free)."""
+    import gc
+    import weakref
+
+    import torch
+
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.models import load_model
+    from credit_torch.parallel.mesh import build_mesh
+    from credit_torch.parallel.sharding import ShardedOptimizer, shard_batch
+    from credit_torch.trainers.scheduler import load_scheduler
+    from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
+
+    conf = args["conf"]
+    schema = ChannelSchema.from_config(conf)
+    batch = {k: _t(v) for k, v in np.load(args["batch"]).items()}
+    mesh = build_mesh(2, 1, 1)
+
+    def step_once():
+        model = load_model(conf, device="cpu", sn_state=True)
+        opt = ShardedOptimizer(make_optimizer(conf, load_scheduler(conf)), mesh,
+                               [k for k, _ in model.named_parameters()],
+                               [tuple(p.shape) for p in model.parameters()])
+        step = make_train_step(model, lambda y, p: torch.mean((p - y) ** 2), opt, schema,
+                               device="cpu", mesh=mesh)
+        state = TrainState.create(model, opt)
+        step(state, shard_batch(batch, mesh))
+        held = sum(p.numel() * p.element_size() for p in model.parameters())
+        return [weakref.ref(p) for p in model.parameters()], held
+
+    gc.collect()
+    gc.disable()
+    try:
+        refs, held = step_once()
+        alive = sum(r().numel() * r().element_size() for r in refs if r() is not None)
+    finally:
+        gc.enable()
+    return {"zero3_held_bytes": np.asarray(held), "zero3_alive_bytes": np.asarray(alive)}
 
 
 def scenario_many(rank: int, world: int, args: dict) -> dict:
