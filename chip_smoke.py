@@ -81,7 +81,7 @@ Phases (any failure exits non-zero):
  10. main path 7, `credit train` at CONF_025: a seeded 721x1440 zarr ERA5
      store (DATA_025's variables, 13 levels, 8 six-hourly times, one zlib
      chunk per (time, level) slab) and its mean/std netCDF files, then
-     run_training for 2 epochs of 2 steps and 1 validation batch (EMA,
+     run_training for 1 epoch of 2 steps and 1 validation batch (EMA,
      best weights, per-variable metrics, prefetch 2), then a resume for one
      more epoch: the log, the checkpoints, the resumed state and the
      launches checked; the step, validation, batch assembly and copy times
@@ -195,8 +195,17 @@ Phases (any failure exits non-zero):
      CONF_025_TRAIN; `fuxi_tp2`, CONF_FUXI) against the unsharded step:
      every FF on kernels 1 and 4's tp entries at half the hidden width,
      each rank's launches and widths, the tp all-reduces and their bytes,
-     the peaks; no time of two ranks on one card is a throughput figure.
-     Removes phase 10's store.
+     the peaks; (e) the same two ranks at domain 2 for the models
+     lat-sharded last: NextGen at CONF_NEXTGEN's widths on 640x1280
+     (`ng_domain2`: kernels 1-5 on slabs, the bottleneck's pooled nodes
+     summed over the ranks), the U-Net at 721x1440 in f32
+     (`unet_domain2`: its deepest level gathered) and the graph at 180x360
+     (`graph_domain2`), each step against the unsharded one, with each
+     rank's launches, kernel 2's largest input rows, the gather paths, the
+     bottleneck's all-reduces and each rank's peak against the unsharded
+     step's; no time of two ranks on one card is a throughput figure.
+     Phase 2 checks kernels 2 and 5 at NextGen's and the U-Net's slab
+     shapes. Removes phase 10's store.
  19. main path 16, the applications and interfaces: (a) `python -m
      credit_torch convert-checkpoint --dry-run-manifest` for the published
      wxformer_6h and fuxi_6h layouts (two processes at once, each strict
@@ -336,6 +345,9 @@ FIT_TIMES = 8
 FIT_TRAINER = {"train_batch_size": 1, "num_epoch": 2, "batches_per_epoch": 2,
                "valid_batches_per_epoch": 1, "use_ema": True, "save_best_weights": True,
                "log_variable_metrics": True, "prefetch": 2, "learning_rate": 1e-4}
+# phase 10's first run_training: 1 epoch before the resumed one (cut from
+# FIT_TRAINER's 2 for phase 18(e)'s time)
+FIT_EPOCHS = 1
 # the tiny fit of phase 3 on the card against the CPU, f32: every log cell
 # but its seconds, relative; its rollouts' files by diff_rollout (each
 # variable against its maximum)
@@ -723,6 +735,16 @@ FUXI_SLAB_CONV_SHAPES = [
     ("slab_fuxi_down_s2d_2x2", (1, 51, 161, 4096, 2, 2, 1024)),
     ("slab_fuxi_down_res_3x3", (1, 52, 162, 1024, 3, 3, 1024)),
     ("slab_fuxi_up_res_3x3", (1, 102, 322, 1024, 3, 3, 1024))]
+# main path 15 (phase 18e): NextGen at CONF_NEXTGEN's widths on 640x1280
+# (`ng_domain2`), each rank's 320 rows: the stage-0 quadrant embed on the
+# slab extended by 15 rows a side (350x1310, 175x655 after space-to-depth)
+# and the head's sub-pixel conv on the stage-0 slab of 160 rows with a row
+# a side (162x642); the U-Net (`unet_domain2`, f32) at 721x1440 padded to
+# 728x1440: its level-0 3x3 convs on 364 rows with a row a side
+NG_SLAB_CONV_SHAPES = [
+    ("ng640_slab_stage0_embed_8x8", (1, 175, 655, 240, 8, 8, 176)),
+    ("ng640_slab_head_ps_3x3", (1, 162, 642, 256, 3, 3, 256))]
+UNET_SLAB_CONV_SHAPES = [("unet_slab_enc0_3x3", (1, 366, 1442, 64, 3, 3, 64))]
 # main path 16 (phase 19): the published layouts at 640x1280 padded 80 a
 # side to 800x1440. wxformer_6h: the stage-0 embed over 74 inputs (296 after
 # space-to-depth: five 64-deep K steps a tap, the last part zero-filled by
@@ -758,7 +780,9 @@ CONV_SHAPES = [
     *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES],
     *[(label, shape, BF16, 5) for label, shape in SLAB_CONV_SHAPES],
     *[(label, shape, BF16, 3) for label, shape in FUXI_SLAB_CONV_SHAPES],
-    *[(label, shape, BF16, 5) for label, shape in APP_CONV_SHAPES]]
+    *[(label, shape, BF16, 5) for label, shape in APP_CONV_SHAPES],
+    *[(label, shape, BF16, 5) for label, shape in NG_SLAB_CONV_SHAPES],
+    *[(label, shape, F32, 3) for label, shape in UNET_SLAB_CONV_SHAPES]]
 
 
 def conv_cases(torch, g):
@@ -1154,7 +1178,9 @@ WGRAD_SHAPES = [
     *[(label, shape, BF16, 3) for label, shape in NEW_CONV_SHAPES],
     *[(label, shape[:6] + (256 if "head" in label else shape[6],), BF16, 5)
       for label, shape in SLAB_CONV_SHAPES],
-    *[(label, shape, BF16, 3) for label, shape in FUXI_SLAB_CONV_SHAPES]]
+    *[(label, shape, BF16, 3) for label, shape in FUXI_SLAB_CONV_SHAPES],
+    *[(label, shape, BF16, 3) for label, shape in NG_SLAB_CONV_SHAPES],
+    *[(label, shape, F32, 3) for label, shape in UNET_SLAB_CONV_SHAPES]]
 
 
 def wgrad_cases(torch, g):
@@ -2813,7 +2839,7 @@ def tiny_ensemble_apps(torch, conf: dict) -> None:
 
 def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     """Main path 7, `credit train` at CONF_025: the store, run_training for
-    2 epochs, then a resumed run of 1 epoch under the profiler, each
+    FIT_EPOCHS epochs, then a resumed run of 1 epoch under the profiler, each
     checked, the store read through the native chunk pool. Returns the
     first run's launch counts and (store, statistics, data section, run
     directory) for main paths 8 to 10; main path 10 removes them."""
@@ -2832,8 +2858,8 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store) for f in fs)
     log(f"  store: {FIT_TIMES} times x {len(FIT_LEVELS)} levels at {h}x{w}, {size} bytes "
         f"written in {time.time() - t0:.1f} s (zlib level 1, 8 writer threads)")
-    conf = fit_conf(CONF_025_TRAIN, data, store, stats, os.path.join(root, "run"), FIT_TRAINER,
-                    *FIT_WINDOWS)
+    conf = fit_conf(CONF_025_TRAIN, data, store, stats, os.path.join(root, "run"),
+                    {**FIT_TRAINER, "num_epoch": FIT_EPOCHS}, *FIT_WINDOWS)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     read0, pool0 = zarrlite.chunks_read, fastload.decoded
@@ -2849,13 +2875,14 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
         f"(os.cpu_count() {os.cpu_count()}); chunks decoded by the pool {pool} of {read} read")
     if pool != read or read == 0:
         raise AssertionError(f"{read - pool} of {read} chunks bypassed the native pool")
-    log(f"  run_training 2 epochs: {time.time() - t0:.1f} s end to end, peak memory {peak} bytes "
+    log(f"  run_training {FIT_EPOCHS} epoch(s): {time.time() - t0:.1f} s end to end, peak memory "
+        f"{peak} bytes "
         f"({peak / 2**30:.2f} GiB), launches {counts}; preflight and warm-up add none (the "
         f"preflight reads a host sample only, the weights are seeded without a forward)")
     fit_times(trainer)
     per_epoch = FIT_TRAINER["batches_per_epoch"]
-    n_steps = FIT_TRAINER["num_epoch"] * per_epoch
-    _check_counts(counts, {k: n_steps * want_train.get(k, 0) + 2 * want_valid.get(k, 0)
+    n_steps = FIT_EPOCHS * per_epoch
+    _check_counts(counts, {k: n_steps * want_train.get(k, 0) + FIT_EPOCHS * want_valid.get(k, 0)
                            for k in counts}, 1)
     rows = read_log(conf["save_loc"])
     header, body = rows[0], rows[1:]
@@ -2867,11 +2894,12 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     log(f"  training_log.csv: {len(body)} rows, {len(header)} columns ({len(need)} per-variable "
         f"columns for {len(names)} targets, missing {missing[:4]}); (train, valid) loss by epoch "
         f"{losses}")
-    if (len(body) != 2 or len(names) != 64 or missing
+    if (len(body) != FIT_EPOCHS or len(names) != 64 or missing
             or not all(math.isfinite(v) for pair in losses for v in pair)):
         raise AssertionError("the CONF_025 fit's log is incomplete or not finite")
     run = conf["save_loc"]
-    for name in ("checkpoint", "backup_checkpoint", "best"):
+    # (backup_checkpoint/ comes with the second save: checked after the resume)
+    for name in ("checkpoint", "best"):
         if not os.path.exists(os.path.join(run, name, Trainer.CHECKPOINT_FILE)):
             raise AssertionError(f"no {name}/ after the fit")
     for name in ("epoch.txt", "channel_schema.json"):
@@ -2890,7 +2918,7 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
                         for k, v in state.ema_params.items())
     log(f"  resume: state at step {state.step}, epoch {start}; parameters, u/v and EMA bitwise "
         f"equal to the checkpoint before the first step: {same}")
-    if not same or state.step != n_steps or start != 2:
+    if not same or state.step != n_steps or start != FIT_EPOCHS:
         raise AssertionError("the resumed state is not the saved one")
     done = {}
 
@@ -2906,8 +2934,11 @@ def fit_path(torch, want_train: dict, want_valid: dict) -> tuple:
     _check_counts(counts2, {k: per_epoch * want_train.get(k, 0) + want_valid.get(k, 0)
                             for k in counts2}, 1)
     rows = read_log(run)
-    if [r[0] for r in rows[1:]] != ["0", "1", "2"] or state_step != n_steps + per_epoch:
+    if ([r[0] for r in rows[1:]] != [str(e) for e in range(FIT_EPOCHS + 1)]
+            or state_step != n_steps + per_epoch):
         raise AssertionError(f"the resumed run did not continue: epochs {[r[0] for r in rows[1:]]}")
+    if not os.path.exists(os.path.join(run, "backup_checkpoint", Trainer.CHECKPOINT_FILE)):
+        raise AssertionError("no backup_checkpoint/ after the resumed fit")
     log(f"  resumed epoch (profiled) idle share {idle:.3f}; phase 10 before the chunk pool: "
         f"{ONE_THREAD_FIT}")
     assembly_breakdown(trainer)
@@ -4099,6 +4130,32 @@ PAR_FUXI_TOL = {"pred": (4e-2, 1.5e-2, 1.7e-2), "loss": 5e-5, "grad": 2e-2}
 # 1.21e-3 - 1.24e-3); a few times those. CONF_FUXI at tensor 2 keeps
 # PAR_FUXI_TOL
 PAR_TP_TOL = {"pred": (3e-2, 3e-2, 3e-2), "loss": 3e-6, "grad": PAR_GRAD_TOL}
+# phase 18(e): the f32 models at domain 2 (the U-Net, graph): the
+# prediction (each of its three figures), the loss (relative) and the
+# gradient (its difference over its norm) within 1e-4; NextGen (bf16) is
+# held to phase 18(b)'s limits
+PAR_F32_TOL = {"pred": (1e-4, 1e-4, 1e-4), "loss": 1e-4, "grad": 1e-4}
+# the most rows a slab's conv input may hold past half the unsharded one's:
+# the stage-0 quadrant embed's halo of 15 rows a side (NextGen's largest
+# input is that conv's input gradient: its dy padded by 7 rows a side,
+# once on a slab as on the whole field, plus the 4 overlap rows the
+# quadrant offsets cut: 182 rows against 342 on one H100 80GB HBM3 at
+# 700 W, PERF.md); a 3x3 conv's one row a side
+SLAB_HALO_ROWS = 15
+# main path 15 (phase 18e): the models lat-sharded last. NextGen at
+# CONF_NEXTGEN's widths, depths, windows, 64 virtual nodes and bf16 on
+# 640x1280 (721 rows do not split over 2 and the validator refuses them):
+# stage rows 320/160/80/40, 3,200 stage-3 nodes, the windows [10, 10, 10,
+# 5] dividing every slab; the U-Net at credit_tpu's default encoder
+# (64/128/256/512, f32) on 721x1440 with CONF_025_TRAIN's channels, padded
+# to 728 rows (its deepest level, 91 rows, gathered); the graph at its
+# default widths (hidden 256, 4 blocks, 4 heads, 6 neighbours) on 180x360
+CONF_NG640 = {**CONF_NEXTGEN, "image_height": 640, "image_width": 1280}
+_CHANNELS_025 = {k: CONF_025_TRAIN[k] for k in ("frames", "levels", "channels",
+                                                 "surface_channels", "input_only_channels",
+                                                 "output_only_channels")}
+CONF_UNET_025 = {"type": "unet", "image_height": 721, "image_width": 1440, **_CHANNELS_025}
+CONF_GRAPH_1DEG = {"type": "graph", "image_height": 180, "image_width": 360, **_CHANNELS_025}
 PAR_RING_TOL = 1e-5  # ring against dense CRPS, relative, f32
 PAR_HALO_TOL = (1e-3, 1.5e-2)  # benchmark_halo's forward and gradient errors
 PAR_TIMEOUT = 600
@@ -4224,6 +4281,9 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
             for a in attrs:
                 setattr(rec, a, 0)
         D.COUNTS.clear()
+        par_ctx.GATHERS.clear()
+        bottleneck = getattr(model, "spectral_bottleneck", None)
+        sums = bottleneck.slab_sums if bottleneck is not None else 0
         (cuda_conv.conv2d_valid, cuda_ff.fused_ff, cuda_ff.ff_partial,
          cuda_ff.ff_partial_bwd) = conv_rec, ff_rec, part_rec, pbwd_rec
         D.all_reduce = reduce_rec
@@ -4246,6 +4306,8 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
                 for a in attrs:
                     setattr(wrapper, a, getattr(wrapper, a) + getattr(rec, a))
         counts, coll = _read_counts(), dict(D.COUNTS)
+        gathers = dict(par_ctx.GATHERS)
+        sums = bottleneck.slab_sums - sums if bottleneck is not None else 0
         loss = float(metrics["loss"])
         held = (sum(p.numel() * p.element_size() for p in model.parameters()),
                 sum(x.numel() * x.element_size() for x in seen["g"]),
@@ -4265,8 +4327,10 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
         # into the next measurement (PERF.md, PR 19: rank 0's extra peak)
         opt.update = inner
         return {"loss": loss, "grads": grads, "counts": counts, "collectives": coll,
-                "conv_rows": max(s[1] for s in shapes["conv"]),
-                "ff_rows": max(math.prod(s) for s in shapes["ff"]),
+                "gathers": gathers, "slab_sums": sums,
+                "conv_shapes": sorted(set(shapes["conv"])),
+                "conv_rows": max([s[1] for s in shapes["conv"]], default=0),
+                "ff_rows": max([math.prod(s) for s in shapes["ff"]], default=0),
                 "hidden": shapes["hidden"], "hidden_bwd": shapes["hidden_bwd"],
                 "tp_reduce": tp_reduce,
                 "ms": ms, "held": held, "peak": mem[0], "allocated": mem[1],
@@ -4298,12 +4362,17 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     got = run(model, mesh, mine)
+    # the graph: this rank's edges, all of them, the halo
+    edges = ((len(model.slab_edges(dims[2], mesh.coord("domain"))[0]), len(model.edge_src),
+              model.edge_halo) if hasattr(model, "slab_edges") else None)
     del model  # ZeRO-3 holds it in chunks: the unsharded step takes a fresh one
     if cuda:
         torch.cuda.empty_cache()
     dist.barrier()
     out = {**{k: v for k, v in got.items() if k != "grads"}, "pred_err": pred_err,
            "held_expected": expect, "whole_bytes": whole_bytes}
+    if edges is not None:
+        out["edges"] = edges
     if rank == 0:  # the unsharded step, from the same weights, rank 1 waiting
         model = load_model(conf, device=device, sn_state=True)
         model.load_state_dict(start)
@@ -4351,7 +4420,7 @@ def _par_ring(torch, rank: int, device: str = "cuda", shape=(1, 721, 1440, 16)) 
 
 def parallel_rank(rank: int, world: int, root: str, device: str = "cuda",
                   halo_shape=(800, 1440, 128)) -> int:
-    """One rank of phase 18(b, c, d): gloo over a FileStore in `root`, the
+    """One rank of phase 18(b-e): gloo over a FileStore in `root`, the
     card shared; writes root/rank<r>.pt."""
     import datetime
 
@@ -4378,6 +4447,9 @@ def parallel_rank(rank: int, world: int, root: str, device: str = "cuda",
            "fuxi_dp2": _par_step(torch, (2, 1, 1), 2, rank, device, CONF_FUXI, DATA_FUXI),
            "tp2": _par_step(torch, (1, 2, 1), 1, rank, device),
            "fuxi_tp2": _par_step(torch, (1, 2, 1), 1, rank, device, CONF_FUXI, DATA_FUXI),
+           "ng_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_NG640),
+           "unet_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_UNET_025),
+           "graph_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_GRAPH_1DEG),
            "ring": _par_ring(torch, rank, device, (1, 721, 1440, 16) if device == "cuda"
                              else (1, 16, 32, 4)),
            "halo": benchmark_halo(h=h, w=w, c=c, k=3, steps=5, dtype=torch.bfloat16,
@@ -4400,7 +4472,8 @@ def parallel_path(torch, store_info, runs: dict, want_train: dict, want_valid: d
     and gradient within PAR_LOSS_TOL / PAR_GRAD_TOL of the unsharded step,
     ring-CRPS within PAR_RING_TOL of the dense CRPS, and benchmark_halo's
     errors within PAR_HALO_TOL; (d) the same two ranks at tensor 2, each FF
-    on its half of the hidden layer (`_tp_launches`), held as (b)."""
+    on its half of the hidden layer (`_tp_launches`), held as (b); (e) the
+    models lat-sharded last (PAR_ZOO, `check_zoo_slabs`)."""
     import torch.distributed as dist
 
     from credit_torch.applications import run_training
@@ -4454,7 +4527,7 @@ def _tp_launches(counts: dict) -> dict:
 
 
 def parallel_ranks(torch, root: str, runs: dict) -> None:
-    """Phase 18(b, c, d): two processes of this script (`parallel_rank`)
+    """Phase 18(b-e): two processes of this script (`parallel_rank`)
     sharing the card over gloo in `root` (removed after), their results
     checked (`check_parallel`, see `parallel_path`)."""
     t0 = time.time()
@@ -4478,100 +4551,170 @@ def parallel_ranks(torch, root: str, runs: dict) -> None:
         for r in range(2):
             with open(os.path.join(root, f"rank{r}.log")) as f:
                 log(f"  rank {r} (rc {procs[r].returncode}):\n{f.read()[-4000:]}")
-        raise AssertionError("phase 18(b, c, d): a rank failed")
+        raise AssertionError("phase 18(b-e): a rank failed")
     res = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(2)]
-    log(f"  (b, c, d) two ranks over gloo on one card: {time.time() - t0:.1f} s with start-up")
+    log(f"  (b-e) two ranks over gloo on one card: {time.time() - t0:.1f} s with start-up")
     ok = check_parallel(res, runs)
     shutil.rmtree(root, ignore_errors=True)
     if not ok:
-        raise AssertionError("phase 18(b, c, d) failed its checks")
+        raise AssertionError("phase 18(b-e) failed its checks")
+
+
+# phase 18(e)'s cases: (the kernels its step launches on every rank, the
+# conv inputs phase 2 checks at its slab shapes, the gather paths a rank
+# takes in one step, by site)
+PAR_ZOO = {
+    "ng_domain2": (("conv2d_valid", "fused_ff", "fused_window_attention", "fused_ff_bwd",
+                    "conv2d_wgrad"), NG_SLAB_CONV_SHAPES,
+                   # every long attention's windows span the slabs
+                   {"long_attn": sum(CONF_NG640["depth"])}),
+    "unet_domain2": (("conv2d_valid", "conv2d_wgrad"), UNET_SLAB_CONV_SHAPES,
+                     # level 3's pools straddle the 91-row slabs of level 2
+                     {"level": 1}),
+    "graph_domain2": ((), (), {})}
+
+
+def check_zoo_slabs(res: list, key: str, label: str) -> bool:
+    """Phase 18(e)'s checks of a case beyond the prediction, loss and
+    gradient: the kernels of its path launched on every rank, kernel 2's
+    largest input at most half the unsharded one's rows plus
+    SLAB_HALO_ROWS and kernel 1's on fewer rows, phase 2's slab shapes
+    among kernel 2's inputs, the gather paths taken (and no other), the
+    bottleneck's all-reduces (one a step where it has one), the graph's
+    edges split, and each rank's peak below the unsharded step's (run on
+    rank 0; rank 1 runs the same program)."""
+    kernels, conv_shapes, gathers = PAR_ZOO[key]
+    r0 = res[0][key]
+    ok = True
+    for r in range(2):
+        rk = res[r][key]
+        launched = all(rk["counts"][k] > 0 for k in kernels)
+        rows_ok = rk["conv_rows"] <= r0["ref_conv_rows"] / 2 + SLAB_HALO_ROWS
+        ff_ok = rk["ff_rows"] < r0["ref_ff_rows"] or r0["ref_ff_rows"] == 0
+        seen = {s[1:] for s in rk["conv_shapes"]}
+        shapes_ok = all((hp, wp, cin) in seen for _, (_, hp, wp, cin, *_) in conv_shapes)
+        sums_ok = rk["slab_sums"] == (1 if key == "ng_domain2" else 0)
+        edges = rk.get("edges")
+        edges_ok = edges is None or edges[0] < edges[1]
+        peak_ok = rk["peak"] < r0["ref_peak"]
+        rank_ok = (launched and rows_ok and ff_ok and shapes_ok and sums_ok and edges_ok
+                   and peak_ok and rk["gathers"] == gathers)
+        launches = {k: rk["counts"][k] for k in kernels}
+        log(f"  {label}: rank {r}: launches {launches}; kernel 2's largest input rows "
+            f"{rk['conv_rows']} (unsharded {r0['ref_conv_rows']}, limit "
+            f"{r0['ref_conv_rows'] / 2 + SLAB_HALO_ROWS:g}), kernel 1's rows "
+            f"{rk['ff_rows']} ({r0['ref_ff_rows']}); phase 2's slab shapes among kernel 2's "
+            f"inputs {shapes_ok}; gather paths {rk['gathers']} (expected {gathers}); the "
+            f"bottleneck's all-reduces {rk['slab_sums']}"
+            + (f"; edges {edges[0]} of {edges[1]}, halo {edges[2]} rows" if edges else "")
+            + f"; peak {rk['peak'] / 2**30:.2f} GiB (the unsharded step's "
+            f"{r0['ref_peak'] / 2**30:.2f}) {'ok' if rank_ok else 'FAIL'}")
+        ok = ok and rank_ok
+    return ok
+
+
+def check_par_case(res: list, key: str, label: str, runs: dict) -> bool:
+    """One case of `check_parallel`: its lines printed, True when its
+    checks hold."""
+    r0 = res[0][key]
+    loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    tp = key.endswith("tp2")
+    want_counts = _tp_launches(r0["ref_counts"]) if tp else r0["ref_counts"]
+    same = all(res[r][key]["counts"] == want_counts for r in range(2))
+    dp = key.endswith("dp2")
+    if tp:
+        # every FF of the step on each rank at half the hidden width, in
+        # the forward and the backward; the tokens not split
+        half = sorted(hd // 2 for hd in r0["ref_hidden"])
+        slabs = all(sorted(res[r][key]["hidden"]) == half
+                    and sorted(res[r][key]["hidden_bwd"]) == half
+                    and res[r][key]["ff_rows"] == r0["ref_ff_rows"] for r in range(2))
+        log(f"  {label}: kernel 1's and 4's launches a rank "
+            + ", ".join(f"rank {r} ff_partial {res[r][key]['counts']['ff_partial']}, "
+                        f"ff_finish {res[r][key]['counts']['ff_finish']}, ff_partial_bwd "
+                        f"{res[r][key]['counts']['ff_partial_bwd']}, ff_finish_bwd "
+                        f"{res[r][key]['counts']['ff_finish_bwd']}" for r in range(2))
+            + f" (the unsharded step's fused_ff {r0['ref_counts']['fused_ff']}, fused_ff_bwd "
+            f"{r0['ref_counts']['fused_ff_bwd']}); hidden widths a rank ran at "
+            f"{sorted(set(res[0][key]['hidden']))} (unsharded {sorted(set(r0['ref_hidden']))})"
+            f"; tp all-reduces a step "
+            + ", ".join(f"rank {r} {res[r][key]['tp_reduce'][0]} of "
+                        f"{res[r][key]['tp_reduce'][1] / 2**20:.1f} MiB" for r in range(2))
+            + f"; allocated before the step rank 0 {r0['before'] / 2**30:.2f}, rank 1 "
+            f"{res[1][key]['before'] / 2**30:.2f} GiB (unsharded "
+            f"{r0['ref_before'] / 2**30:.2f}) {'ok' if slabs else 'FAIL'}")
+    elif key in PAR_ZOO:
+        slabs = check_zoo_slabs(res, key, label)
+    else:
+        slabs = (r0["ff_rows"] < r0["ref_ff_rows"] if dp else
+                 r0["conv_rows"] < r0["ref_conv_rows"] and r0["ff_rows"] < r0["ref_ff_rows"])
+    # between the steps a rank holds its ZeRO-3 chunks and the whole
+    # small tensors, as parameters and as the gradients it reduces, and
+    # leaves no gradient on the parameters
+    held = [res[r][key]["held"] for r in range(2)]
+    held_ok = all(hb[0] == hb[1] == res[r][key]["held_expected"] and hb[2] == 0
+                  for r, hb in enumerate(held))
+    if dp:
+        held_ok = held_ok and r0["held_expected"] < r0["whole_bytes"]
+    log(f"  {label}: held between the steps, parameters / gradients a rank: "
+        + ", ".join(f"rank {r} {hb[0] / 2**30:.4f} / {hb[1] / 2**30:.4f} GiB"
+                    for r, hb in enumerate(held))
+        + f" (expected {r0['held_expected'] / 2**30:.4f}; the whole model "
+        f"{r0['whole_bytes'] / 2**30:.4f}, the unsharded step's "
+        f"{r0['ref_held'][0] / 2**30:.4f} / {r0['ref_held'][1] / 2**30:.4f}) "
+        f"{'ok' if held_ok else 'FAIL'}")
+    perr = [max(res[r][key]["pred_err"][i] for r in range(2)) for i in range(3)]
+    lim = (PAR_FUXI_TOL if key.startswith("fuxi") else PAR_TP_TOL if tp else
+           PAR_F32_TOL if key in ("unet_domain2", "graph_domain2") else
+           {"pred": PAR_PRED_TOL, "loss": PAR_LOSS_TOL, "grad": PAR_GRAD_TOL})
+    log(f"  {label}: prediction's difference from the unsharded forward's, largest over "
+        f"largest, mean over mean, worst row's mean over mean: rank 0 "
+        f"{', '.join(f'{e:.3e}' for e in res[0][key]['pred_err'])}, rank 1 "
+        f"{', '.join(f'{e:.3e}' for e in res[1][key]['pred_err'])} (limits "
+        f"{lim['pred']}); loss "
+        f"{r0['loss']:.8f} vs unsharded {r0['ref_loss']:.8f} (rel "
+        f"{loss_rel:.3e}, limit {lim['loss']:g}); gradient rel {r0['grad_rel']:.3e} (limit "
+        f"{lim['grad']:g}); launches a rank {res[0][key]['counts']}, {res[1][key]['counts']}"
+        f" = unsharded {same}; kernel 2's largest input rows {r0['conv_rows']} (unsharded "
+        f"{r0['ref_conv_rows']}), kernel 1's rows {r0['ff_rows']} ({r0['ref_ff_rows']}); "
+        f"collectives {r0['collectives']}; "
+        + (f"second step {res[0][key]['ms']:.1f} / {res[1][key]['ms']:.1f} ms, "
+           if r0["ms"] is not None else "")
+        + f"peak a rank {r0['peak'] / 2**30:.2f}, "
+        f"{res[1][key]['peak'] / 2**30:.2f} GiB (the unsharded step's "
+        f"{r0['ref_peak'] / 2**30:.2f}), allocated before the step "
+        f"{r0['before'] / 2**30:.2f}, {res[1][key]['before'] / 2**30:.2f} GiB "
+        f"({r0['ref_before'] / 2**30:.2f}), after it "
+        f"{r0['allocated'] / 2**30:.2f}, {res[1][key]['allocated'] / 2**30:.2f} GiB "
+        f"({r0['ref_allocated'] / 2**30:.2f}; two ranks on one card: no throughput figure)")
+    ok = (all(e <= t for e, t in zip(perr, lim["pred"]))
+          and loss_rel <= lim["loss"]
+          and r0["grad_rel"] <= lim["grad"] and same and slabs and held_ok)
+    runs[f"par_{key}"] = {k: res[0][key]["counts"][k] + res[1][key]["counts"][k]
+                          for k in r0["counts"]}
+    return ok
+
+
+# phase 18's two-rank cases: (key in parallel_rank's results, label)
+PAR_CASES = (("domain2", "(b) domain 2, halo explicit, batch 1"),
+             ("ens_domain2", "(b) crossformer-ensemble, domain 2, batch 1"),
+             ("fuxi_domain2", "(b) CONF_FUXI, domain 2, batch 1"),
+             ("dp2", "(c) data 2 under ZeRO-3, batch 2 (1 a rank)"),
+             ("fuxi_dp2", "(c) CONF_FUXI, data 2 under ZeRO-3, batch 2 (1 a rank)"),
+             ("tp2", "(d) tensor 2, batch 1"),
+             ("fuxi_tp2", "(d) CONF_FUXI, tensor 2, batch 1"),
+             ("ng_domain2", "(e) NextGen at 640x1280 (CONF_NG640), domain 2, batch 1"),
+             ("unet_domain2", "(e) U-Net at 721x1440 (CONF_UNET_025, f32), domain 2, batch 1"),
+             ("graph_domain2", "(e) graph at 180x360 (CONF_GRAPH_1DEG, f32), domain 2, batch 1"))
 
 
 def check_parallel(res: list, runs: dict) -> bool:
-    """The checks of phase 18(b, c, d) on the two ranks' results (their
+    """The checks of phase 18(b-e) on the two ranks' results (their
     `parallel_rank` dicts); each mesh step's launches summed over the ranks
     into runs['par_<key>']. True when every check holds."""
     ok = True
-    for key, label in (("domain2", "(b) domain 2, halo explicit, batch 1"),
-                       ("ens_domain2", "(b) crossformer-ensemble, domain 2, batch 1"),
-                       ("fuxi_domain2", "(b) CONF_FUXI, domain 2, batch 1"),
-                       ("dp2", "(c) data 2 under ZeRO-3, batch 2 (1 a rank)"),
-                       ("fuxi_dp2", "(c) CONF_FUXI, data 2 under ZeRO-3, batch 2 (1 a rank)"),
-                       ("tp2", "(d) tensor 2, batch 1"),
-                       ("fuxi_tp2", "(d) CONF_FUXI, tensor 2, batch 1")):
-        r0 = res[0][key]
-        loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
-        tp = key.endswith("tp2")
-        want_counts = _tp_launches(r0["ref_counts"]) if tp else r0["ref_counts"]
-        same = all(res[r][key]["counts"] == want_counts for r in range(2))
-        dp = key.endswith("dp2")
-        if tp:
-            # every FF of the step on each rank at half the hidden width, in
-            # the forward and the backward; the tokens not split
-            half = sorted(hd // 2 for hd in r0["ref_hidden"])
-            slabs = all(sorted(res[r][key]["hidden"]) == half
-                        and sorted(res[r][key]["hidden_bwd"]) == half
-                        and res[r][key]["ff_rows"] == r0["ref_ff_rows"] for r in range(2))
-            log(f"  {label}: kernel 1's and 4's launches a rank "
-                + ", ".join(f"rank {r} ff_partial {res[r][key]['counts']['ff_partial']}, "
-                            f"ff_finish {res[r][key]['counts']['ff_finish']}, ff_partial_bwd "
-                            f"{res[r][key]['counts']['ff_partial_bwd']}, ff_finish_bwd "
-                            f"{res[r][key]['counts']['ff_finish_bwd']}" for r in range(2))
-                + f" (the unsharded step's fused_ff {r0['ref_counts']['fused_ff']}, fused_ff_bwd "
-                f"{r0['ref_counts']['fused_ff_bwd']}); hidden widths a rank ran at "
-                f"{sorted(set(res[0][key]['hidden']))} (unsharded {sorted(set(r0['ref_hidden']))})"
-                f"; tp all-reduces a step "
-                + ", ".join(f"rank {r} {res[r][key]['tp_reduce'][0]} of "
-                            f"{res[r][key]['tp_reduce'][1] / 2**20:.1f} MiB" for r in range(2))
-                + f"; allocated before the step rank 0 {r0['before'] / 2**30:.2f}, rank 1 "
-                f"{res[1][key]['before'] / 2**30:.2f} GiB (unsharded "
-                f"{r0['ref_before'] / 2**30:.2f}) {'ok' if slabs else 'FAIL'}")
-        else:
-            slabs = (r0["ff_rows"] < r0["ref_ff_rows"] if dp else
-                     r0["conv_rows"] < r0["ref_conv_rows"] and r0["ff_rows"] < r0["ref_ff_rows"])
-        # between the steps a rank holds its ZeRO-3 chunks and the whole
-        # small tensors, as parameters and as the gradients it reduces, and
-        # leaves no gradient on the parameters
-        held = [res[r][key]["held"] for r in range(2)]
-        held_ok = all(hb[0] == hb[1] == res[r][key]["held_expected"] and hb[2] == 0
-                      for r, hb in enumerate(held))
-        if dp:
-            held_ok = held_ok and r0["held_expected"] < r0["whole_bytes"]
-        log(f"  {label}: held between the steps, parameters / gradients a rank: "
-            + ", ".join(f"rank {r} {hb[0] / 2**30:.4f} / {hb[1] / 2**30:.4f} GiB"
-                        for r, hb in enumerate(held))
-            + f" (expected {r0['held_expected'] / 2**30:.4f}; the whole model "
-            f"{r0['whole_bytes'] / 2**30:.4f}, the unsharded step's "
-            f"{r0['ref_held'][0] / 2**30:.4f} / {r0['ref_held'][1] / 2**30:.4f}) "
-            f"{'ok' if held_ok else 'FAIL'}")
-        perr = [max(res[r][key]["pred_err"][i] for r in range(2)) for i in range(3)]
-        lim = (PAR_FUXI_TOL if key.startswith("fuxi") else PAR_TP_TOL if tp else
-               {"pred": PAR_PRED_TOL, "loss": PAR_LOSS_TOL, "grad": PAR_GRAD_TOL})
-        log(f"  {label}: prediction's difference from the unsharded forward's, largest over "
-            f"largest, mean over mean, worst row's mean over mean: rank 0 "
-            f"{', '.join(f'{e:.3e}' for e in res[0][key]['pred_err'])}, rank 1 "
-            f"{', '.join(f'{e:.3e}' for e in res[1][key]['pred_err'])} (limits "
-            f"{lim['pred']}); loss "
-            f"{r0['loss']:.8f} vs unsharded {r0['ref_loss']:.8f} (rel "
-            f"{loss_rel:.3e}, limit {lim['loss']:g}); gradient rel {r0['grad_rel']:.3e} (limit "
-            f"{lim['grad']:g}); launches a rank {res[0][key]['counts']}, {res[1][key]['counts']}"
-            f" = unsharded {same}; kernel 2's largest input rows {r0['conv_rows']} (unsharded "
-            f"{r0['ref_conv_rows']}), kernel 1's rows {r0['ff_rows']} ({r0['ref_ff_rows']}); "
-            f"collectives {r0['collectives']}; "
-            + (f"second step {res[0][key]['ms']:.1f} / {res[1][key]['ms']:.1f} ms, "
-               if r0["ms"] is not None else "")
-            + f"peak a rank {r0['peak'] / 2**30:.2f}, "
-            f"{res[1][key]['peak'] / 2**30:.2f} GiB (the unsharded step's "
-            f"{r0['ref_peak'] / 2**30:.2f}), allocated before the step "
-            f"{r0['before'] / 2**30:.2f}, {res[1][key]['before'] / 2**30:.2f} GiB "
-            f"({r0['ref_before'] / 2**30:.2f}), after it "
-            f"{r0['allocated'] / 2**30:.2f}, {res[1][key]['allocated'] / 2**30:.2f} GiB "
-            f"({r0['ref_allocated'] / 2**30:.2f}; two ranks on one card: no throughput figure)")
-        ok = (ok and all(e <= t for e, t in zip(perr, lim["pred"]))
-              and loss_rel <= lim["loss"]
-              and r0["grad_rel"] <= lim["grad"] and same and slabs and held_ok)
-        runs[f"par_{key}"] = {k: res[0][key]["counts"][k] + res[1][key]["counts"][k]
-                              for k in r0["counts"]}
+    for key, label in PAR_CASES:
+        ok = check_par_case(res, key, label, runs) and ok
     ring = [x["ring"] for x in res]
     dense = ring[0]["dense"]
     gerr = max(x["grad_err"] for x in ring)
@@ -5428,7 +5571,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 17: {time.time() - t17:.1f} s")
     log("phase 18: main path 15, parallelism on the one card (run_training over NCCL at world "
-        "size 1; two ranks over gloo at domain 2, at data 2 and at tensor 2; ring-CRPS)")
+        "size 1; two ranks over gloo at domain 2, at data 2 and at tensor 2; ring-CRPS; NextGen, "
+        "the U-Net and the graph at domain 2)")
     t18 = time.time()
     parallel_path(torch, store, runs, expected_train_per_step(fwd_025, False),
                   expected_per_step(CONF_025_TRAIN))
@@ -5451,7 +5595,8 @@ def main() -> int:
     ENS_PATHS = ("ens_rollout", "ens_rollout_bred", "ens_metrics", "ens_metrics_bred", "icopt",
                  "sdl_025")
     # main path 15 (phase 18): all train steps
-    PAR_PATHS = ("par_fit_nccl", "par_domain2", "par_ens_domain2", "par_dp2", "par_tp2")
+    PAR_PATHS = ("par_fit_nccl", "par_domain2", "par_ens_domain2", "par_dp2", "par_tp2",
+                 "par_ng_domain2")
     # main path 16 (phase 19): the converted wxformer_6h's forecasts
     APP_PATHS = ("rt_wx", "rt_gefs", "serve_wx")
     for name, counter, src, replaces, r, paths in [

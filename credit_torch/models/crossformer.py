@@ -169,8 +169,7 @@ class CrossFormer(BaseModel):
         grid, (out_image_height or image_height, ...) by default."""
         from credit_torch.parallel.halo import gather_lat, scale_grad, shard_lat
 
-        mesh = par_ctx.mesh()
-        group, n, r = mesh.group("domain"), mesh.shape["domain"], mesh.coord("domain")
+        group, n, r = par_ctx.mesh_domain()
         if self.padder is not None:
             x = self.padder.pad(x)
         if self.cube:
@@ -188,7 +187,7 @@ class CrossFormer(BaseModel):
         for i in range(4):
             rows = x.shape[1] * n if sh else x.shape[1]
             if sh and (rows % self.strides[i] or (rows // self.strides[i]) % n):
-                x, sh = gather_lat(x, group), False  # this stage's rows do not split
+                x, sh = par_ctx.gather_whole(x, group, "stage"), False  # rows do not split
             x = run(getattr(self, f"cel{i}"), x, sh)
             x = run(getattr(self, f"transformer{i}"), x, sh)
             encodings.append((x, sh))
@@ -204,7 +203,7 @@ class CrossFormer(BaseModel):
         def join(t, t_sh, skip):
             e, e_sh = skip
             if t_sh and not e_sh:
-                t, t_sh = gather_lat(t, group), False
+                t, t_sh = par_ctx.gather_whole(t, group, "join"), False
             elif e_sh and not t_sh:
                 t, t_sh = shard_lat(t, n, r), True
             return torch.cat([t, e], dim=-1), t_sh

@@ -272,7 +272,7 @@ class WindowAttention(nn.Module):
                                     and x.shape[1] % self.window_size == 0):
             # a long window spans every slab (and a short one may straddle
             # two): the gather path, attention on the whole field
-            return par_ctx.on_full(self._attend, x, dom)
+            return par_ctx.on_full(self._attend, x, dom, f"{self.attn_type}_attn")
         return self._attend(x)
 
     def _attend(self, x):
@@ -459,7 +459,7 @@ class CrossEmbedLayer(nn.Module):
                 out = conv_ops.s2d_halo(x, kmerged, torch.cat(biases),
                                         ((kmax - 2) // 2,) * 2, dom)
             else:
-                return par_ctx.on_full(self.forward, x, dom)
+                return par_ctx.on_full(self.forward, x, dom, "cross_embed")
             e = (kmax - kb) // 4
             h2 = out.shape[1] - 2 * e
             w2 = out.shape[2] - 2 * e

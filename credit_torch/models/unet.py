@@ -8,6 +8,15 @@ twice) with a 2x2 max pool before each but the first, then per level up a
 ConvBlock; a 1x1 head (a GEMM), the crop to the input grid, and a
 bilinear resize where `image_height/width` differ from it. The 3x3 convs
 run kernel 2.
+
+Under a mesh with domain > 1 the forward is lat-sharded (`_forward_slabs`):
+the zero pad runs on the whole field, each domain rank then keeps its
+latitude slab of the padded rows. The 3x3 convs run on the slab extended
+by the halo exchange, GroupNorm takes its moments over every rank's rows,
+the 2x2 pools and transposes are local. A level whose slab rows are odd
+before its pool is pooled and run on the whole field (gathered), and the
+up path cuts it back to slabs at the first skip that is one. The head's
+output is gathered; every rank crops and resizes the whole field.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from credit_torch import registry
 from credit_torch.models.base import DTYPES, BaseModel, channels_to_frames, frames_to_channels
 from credit_torch.models.layers import Conv, ConvTranspose, GroupNorm
 from credit_torch.ops.upsample import bilinear_resize
+from credit_torch.parallel import context as par_ctx
 
 
 class ConvBlock(nn.Module):
@@ -89,11 +99,28 @@ class UNet(BaseModel):
         """Channels of one input frame as the encoder sees it."""
         return self.base_input_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    # the forward splits latitude over the domain ranks (_forward_slabs)
+    lat_sharded = True
+
+    def _padded(self, x: torch.Tensor) -> torch.Tensor:
+        """Frames to channels, zero rows and columns at the bottom and
+        right up to a multiple of 2^(levels - 1)."""
         hh, ww = x.shape[2], x.shape[3]
-        x = frames_to_channels(x)
         mult = 2 ** (len(self.dims) - 1)
-        x = F.pad(x, (0, 0, 0, (-ww) % mult, 0, (-hh) % mult))
+        return F.pad(frames_to_channels(x), (0, 0, 0, (-ww) % mult, 0, (-hh) % mult))
+
+    def _out(self, x: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
+        """The crop to the input grid, the resize to the model's."""
+        x = x[:, :hh, :ww]
+        if (hh, ww) != (self.image_height, self.image_width):
+            x = bilinear_resize(x, self.image_height, self.image_width)
+        return channels_to_frames(x, self.output_frames)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if par_ctx.halo_mesh_active():
+            return self._forward_slabs(x)
+        hh, ww = x.shape[2], x.shape[3]
+        x = self._padded(x)
         skips = []
         for i in range(len(self.dims)):
             if i > 0:
@@ -103,7 +130,39 @@ class UNet(BaseModel):
         for i in reversed(range(len(self.dims) - 1)):
             x = getattr(self, f"up{i}")(x)
             x = getattr(self, f"dec{i}")(torch.cat([x, skips[i]], dim=-1))
-        x = self.head(x)[:, :hh, :ww]
-        if (hh, ww) != (self.image_height, self.image_width):
-            x = bilinear_resize(x, self.image_height, self.image_width)
-        return channels_to_frames(x, self.output_frames)
+        return self._out(self.head(x), hh, ww)
+
+    def _forward_slabs(self, x: torch.Tensor) -> torch.Tensor:
+        """forward with latitude split over the mesh's domain ranks (see
+        the module); the same function of x on every domain rank."""
+        from credit_torch.parallel.halo import gather_lat, scale_grad, shard_lat
+
+        group, n, r = par_ctx.mesh_domain()
+        hh, ww = x.shape[2], x.shape[3]
+        x = self._padded(x)
+        sh = x.shape[1] % n == 0
+        if sh:
+            x = shard_lat(x, n, r)
+
+        def run(fn, t, on_slabs):
+            with par_ctx.lat_slabs(on_slabs):
+                return fn(t)
+
+        skips = []
+        for i in range(len(self.dims)):
+            if i > 0:
+                if sh and x.shape[1] % 2:  # this level's pools straddle two slabs
+                    x, sh = par_ctx.gather_whole(x, group, "level"), False
+                x = max_pool2(x)
+            x = run(getattr(self, f"enc{i}"), x, sh)
+            skips.append((x, sh))
+        for i in reversed(range(len(self.dims) - 1)):
+            x = run(getattr(self, f"up{i}"), x, sh)
+            e, e_sh = skips[i]
+            if e_sh and not sh:
+                x, sh = shard_lat(x, n, r), True
+            x = run(getattr(self, f"dec{i}"), torch.cat([x, e], dim=-1), sh)
+        x = run(self.head, x, sh)
+        # every domain rank computes the same from here on (as the CrossFormer's)
+        x = gather_lat(x, group, same_downstream=True) if sh else scale_grad(x, 1.0 / n)
+        return self._out(x, hh, ww)

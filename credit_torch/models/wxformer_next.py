@@ -16,6 +16,20 @@ Column attention is flax's MultiHeadDotProductAttention (no bias): the
 itself is plain PyTorch (no TPU kernel computes it). The bottleneck's `agg_w` (K, N) and `scatter_w` (N, K) are sized by
 the stage-3 node count, which the reference reads at call time: here it
 comes from the cross-embed arithmetic at construction.
+
+Under a mesh with domain > 1 the forward is lat-sharded (`_forward_slabs`,
+after the CrossFormer's): each domain rank takes its latitude slab of the
+input; the level embedding and column attention (per location) run on
+it, then the four stages while their rows split (a stage whose rows do
+not is gathered, and the up path cuts the field back to slabs at the
+first skip that is one), the bottleneck, the UpBlockPS and the head. On
+a slab the bottleneck takes GroupNorm's moments over every rank's rows,
+pools this rank's nodes with its columns of `agg_w` and sums the pooled
+nodes over the ranks (an all-reduce, forward and backward: a rank's
+normalized nodes need the whole pooled gradient), runs the channel MLP
+on the sum on every rank and scatters onto its nodes with its rows of
+`scatter_w`. The head's output is gathered; every rank resizes it and
+adds the persistence residual.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from credit_torch.models.crossformer import _tup
 from credit_torch.models.layers import (Conv, CrossEmbedLayer, Dense, LayerNorm, Transformer,
                                         UpBlockPS, _param)
 from credit_torch.ops.upsample import bilinear_resize, pixel_shuffle
+from credit_torch.parallel import context as par_ctx
 
 
 class LevelEmbedding(nn.Module):
@@ -98,6 +113,9 @@ class ColumnAttention(nn.Module):
     def forward(self, x):
         b, h, w, cl = x.shape
         s = self.stride
+        dom = par_ctx.domain_group()
+        if dom is not None and h % s:  # a slab whose pools straddle two slabs
+            return par_ctx.on_full(self.forward, x, dom, "col_attn")
         xs = x
         if s > 1:  # flax avg_pool, VALID
             xs = F.avg_pool2d(x.permute(0, 3, 1, 2), s, s).permute(0, 2, 3, 1)
@@ -116,7 +134,9 @@ class SpectralGNNBottleneck(nn.Module):
     """GroupNorm(1) over (H, W, C), pooling of the N nodes onto K virtual
     nodes (`agg_w`), a channel MLP with exact GELU, the scatter back
     (`scatter_w`), plus the residual; in f32 (the reference's f32
-    parameters promote the einsums), the MLP in the compute dtype."""
+    parameters promote the einsums), the MLP in the compute dtype. On a
+    latitude slab see the module; `slab_sums` counts the pooled nodes'
+    all-reduces."""
 
     def __init__(self, dim: int, n_nodes: int, num_spectral_nodes: int = 64,
                  mlp_ratio: float = 2.0, dtype=torch.float32):
@@ -131,19 +151,42 @@ class SpectralGNNBottleneck(nn.Module):
         hdim = max(1, int(dim * mlp_ratio))
         self.mlp_fc1 = Dense(dim, hdim, dtype=dtype, spectral=False)
         self.mlp_fc2 = Dense(hdim, dim, dtype=dtype, spectral=False)
+        self.slab_sums = 0
 
     def forward(self, x):
         b, h, w, c = x.shape
-        if h * w != self.n_nodes:
-            raise ValueError(f"the bottleneck was built for {self.n_nodes} nodes, got {h}x{w}")
+        dom = par_ctx.domain_group()
+        rows = (h,) if dom is None else par_ctx.slab_rows(h)
+        if sum(rows) * w != self.n_nodes:
+            raise ValueError(f"the bottleneck was built for {self.n_nodes} nodes, got "
+                             f"{sum(rows)}x{w}")
         xf = x.float().reshape(b, -1)
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        if dom is None:
+            mean = xf.mean(-1, keepdim=True)
+            var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        else:  # GroupNorm(1)'s moments over every domain rank's rows
+            from credit_torch.parallel.halo import distributed_group_norm_moments
+
+            mean, var = distributed_group_norm_moments(x, 1, dom[0])
         xn = ((xf - mean) * torch.rsqrt(var + 1e-5)).reshape(b, h, w, c)
         xn = xn * self.norm_scale.float() + self.norm_bias.float()
-        s = torch.einsum("bnc,kn->bkc", xn.reshape(b, h * w, c), self.agg_w.float())
+        agg, scatter = self.agg_w, self.scatter_w
+        if dom is not None:  # this rank's nodes: rows of the row-major node index
+            first = sum(rows[:dom[2]]) * w
+            agg, scatter = agg[:, first:first + h * w], scatter[first:first + h * w]
+        s = torch.einsum("bnc,kn->bkc", xn.reshape(b, h * w, c), agg.float())
+        if dom is not None:
+            from credit_torch.parallel.halo import all_reduce_sum
+
+            # the pooled nodes summed over the ranks; the backward sums the
+            # ranks' shares of ds, which every rank's xn needs whole. The MLP
+            # then runs on the whole sum on every rank, but each rank's
+            # gradient of it comes from its own nodes' scatter only: a share,
+            # so gradient_divisors keeps divisor 1 for mlp_fc1 / mlp_fc2
+            s = all_reduce_sum(s, dom[0], reduce_grad=True)
+            self.slab_sums += 1
         s = self.mlp_fc2(F.gelu(self.mlp_fc1(s)))
-        delta = torch.einsum("bkc,nk->bnc", s.float(), self.scatter_w.float())
+        delta = torch.einsum("bkc,nk->bnc", s.float(), scatter.float())
         delta = delta.reshape(b, h, w, c)
         return delta + x
 
@@ -192,7 +235,7 @@ class NextGenWXFormer(BaseModel):
         dims = _tup(dim)
         depths = _tup(depth)
         gws, lws = _tup(global_window_size), _tup(local_window_size)
-        strides = _tup(cross_embed_strides)
+        self.strides = strides = _tup(cross_embed_strides)
         ksizes = tuple(tuple(k) for k in cross_embed_kernel_sizes)
         self.level_embedding = LevelEmbedding(self.atmos)
         self.col_attn = ColumnAttention(channels, levels, col_attn_heads, col_attn_stride, dt)
@@ -214,18 +257,30 @@ class NextGenWXFormer(BaseModel):
         self.up4_ps_conv = Conv(c, self.base_output_channels * 4, 3, 1, 1, dt, sn,
                                 kernel_init=("icnr", 2))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t, c_in = x.shape[1], x.shape[-1]
+    # the forward splits latitude over the domain ranks (_forward_slabs)
+    lat_sharded = True
+
+    def _residual(self, x: torch.Tensor) -> torch.Tensor:
+        """The persistence residual: the last frame's first out_c channels,
+        zero-padded for output-only diagnostics."""
         out_c = self.base_output_channels
-        # persistence residual: the last frame's first out_c channels,
-        # zero-padded for output-only diagnostics
-        n_avail = min(out_c, c_in)
-        x_res = F.pad(x[:, -1, ..., :n_avail], (0, out_c - n_avail))
+        n_avail = min(out_c, x.shape[-1])
+        return F.pad(x[:, -1, ..., :n_avail], (0, out_c - n_avail))
+
+    def _frames(self, x: torch.Tensor) -> torch.Tensor:
+        """Per frame the level embedding and column attention of the
+        atmospheric channels, the rest as they are, frames time-major."""
         frames = []
-        for ti in range(t):
+        for ti in range(x.shape[1]):
             frames.append(self.col_attn(self.level_embedding(x[:, ti, ..., :self.atmos])))
             frames.append(x[:, ti, ..., self.atmos:])
-        h = torch.cat(frames, dim=-1)
+        return torch.cat(frames, dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if par_ctx.halo_mesh_active():
+            return self._forward_slabs(x)
+        x_res = self._residual(x)
+        h = self._frames(x)
         encodings = []
         for i in range(4):
             h = getattr(self, f"transformer{i}")(getattr(self, f"cel{i}")(h))
@@ -236,5 +291,43 @@ class NextGenWXFormer(BaseModel):
             h = bilinear_resize(h, enc.shape[1], enc.shape[2])
             h = torch.cat([h, enc.to(h.dtype)], dim=-1)
         h = pixel_shuffle(self.up4_ps_conv(h), 2)
+        h = bilinear_resize(h, self.image_height, self.image_width)
+        return channels_to_frames(h + x_res, 1)
+
+    def _forward_slabs(self, x: torch.Tensor) -> torch.Tensor:
+        """forward with latitude split over the mesh's domain ranks (see
+        the module); the same function of x on every domain rank."""
+        from credit_torch.parallel.halo import gather_lat, scale_grad, shard_lat
+
+        group, n, r = par_ctx.mesh_domain()
+        x_res = self._residual(x)
+        sh = x.shape[2] % n == 0
+
+        def run(fn, t, on_slabs):
+            with par_ctx.lat_slabs(on_slabs):
+                return fn(t)
+
+        h = run(self._frames, shard_lat(x, n, r) if sh else x, sh)
+        encodings = []
+        for i in range(4):
+            rows = h.shape[1] * n if sh else h.shape[1]
+            if sh and (rows % self.strides[i] or (rows // self.strides[i]) % n):
+                h, sh = par_ctx.gather_whole(h, group, "stage"), False
+            h = run(getattr(self, f"cel{i}"), h, sh)
+            h = run(getattr(self, f"transformer{i}"), h, sh)
+            encodings.append((h, sh))
+        h = run(self.spectral_bottleneck, h, sh)
+        for k, enc in ((1, 2), (2, 1), (3, 0)):
+            h = run(getattr(self, f"up_block{k}"), h, sh)
+            e, e_sh = encodings[enc]
+            if e_sh and not sh:  # back to slabs at the first skip that is one
+                h = bilinear_resize(h, e.shape[1] * n, e.shape[2])
+                h, sh = shard_lat(h, n, r), True
+            else:  # the stages past a whole one are whole: both slabs or both whole
+                h = run(lambda t: bilinear_resize(t, e.shape[1], e.shape[2]), h, sh)
+            h = torch.cat([h, e.to(h.dtype)], dim=-1)
+        h = run(lambda t: pixel_shuffle(self.up4_ps_conv(t), 2), h, sh)
+        # every domain rank computes the same from here on (as the CrossFormer's)
+        h = gather_lat(h, group, same_downstream=True) if sh else scale_grad(h, 1.0 / n)
         h = bilinear_resize(h, self.image_height, self.image_width)
         return channels_to_frames(h + x_res, 1)

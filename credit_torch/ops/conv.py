@@ -69,7 +69,7 @@ def _slab_conv2d(x, kernel, bias, stride, padding, dom):
             return valid_conv(_pad_hw(halo_exchange(x, ph, dom[0]), 0, 0, pw, pw), kernel, bias)
         if s == (2, 2) and ph == (kh - 1) // 2 and rows % 2 == 0 and rows >= ph:
             return s2d_halo(x, kernel, bias, (ph, pw), dom)
-    return par_ctx.on_full(lambda t: conv2d(t, kernel, bias, stride, padding), x, dom)
+    return par_ctx.on_full(lambda t: conv2d(t, kernel, bias, stride, padding), x, dom, "conv")
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -205,7 +205,7 @@ def conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride=2,
         return _conv_transpose2d_d2s(x, kernel, bias, (ph, pw), dom)
     if dom is not None:
         return par_ctx.on_full(lambda t: conv_transpose2d(t, kernel, bias, stride, padding),
-                               x, dom)
+                               x, dom, "conv_transpose")
     return _torch_conv(F.conv_transpose2d, x, kernel.permute(2, 3, 0, 1), bias, stride=s,
                        padding=(ph, pw))
 
@@ -259,7 +259,8 @@ def _conv_transpose2d_d2s(x, kernel, bias, pad: Tuple[int, int], dom=None):
     if dom is not None:
         halo = max(-dh0, dh1)
         if h < halo:
-            return par_ctx.on_full(lambda t: _conv_transpose2d_d2s(t, kernel, bias, pad), x, dom)
+            return par_ctx.on_full(lambda t: _conv_transpose2d_d2s(t, kernel, bias, pad), x, dom,
+                                   "conv_transpose")
         xe = halo_exchange(x, halo, dom[0])[:, halo + dh0:halo + h + dh1]
         xp = _pad_hw(xe, 0, 0, -dw0, dw1)
     else:

@@ -7,13 +7,16 @@ that run on latitude slabs with `lat_slabs()`. The convs (ops/conv.py),
 GroupNorm, WindowAttention and the quadrant embed (models/layers.py) and
 the CrossFormer family's forward read it through `domain_group()` and
 `mesh()`. `on_full` is the gather path any of them takes where a slab does
-not do. Slabs are even unless the model says otherwise: `lat_slabs(rows=)`
-gives each rank's row count (the SwinV2 stage's window-aligned slabs),
-which `slab_rows()` reads.
+not do, and `gather_whole` the one a lat-sharded model takes where a
+stage's rows do not split; each counts its calls in `GATHERS` by the site
+that took it (the rank's own count). Slabs are even unless the model says
+otherwise: `lat_slabs(rows=)` gives each rank's row count (the SwinV2
+stage's window-aligned slabs), which `slab_rows()` reads.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 
@@ -26,6 +29,9 @@ from credit_torch.parallel.halo import gather_lat, shard_lat
 _MESH = contextvars.ContextVar("credit_torch_mesh", default=None)
 _SLABS = contextvars.ContextVar("credit_torch_lat_slabs", default=False)
 _ROWS = contextvars.ContextVar("credit_torch_slab_rows", default=None)
+# this rank's gather paths by site ("conv", "long_attn", "resize", a
+# model's "stage", ...) since the last clear()
+GATHERS: collections.Counter = collections.Counter()
 
 
 @contextlib.contextmanager
@@ -76,6 +82,13 @@ def slab_rows(local: int):
     return (local,) * domain_group()[1]
 
 
+def mesh_domain():
+    """(group, size, rank) of the enclosing mesh's domain axis, whether or
+    not the ops see slabs (a lat-sharded model's forward reads it)."""
+    m, axis = _MESH.get()
+    return m.group(axis), m.shape[axis], m.coord(axis)
+
+
 def domain_group():
     """(group, size, rank) of the domain axis where the ops see slabs,
     else None."""
@@ -85,13 +98,22 @@ def domain_group():
     return m.group(axis), m.shape[axis], m.coord(axis)
 
 
-def on_full(fn, x: torch.Tensor, dom=None) -> torch.Tensor:
+def on_full(fn, x: torch.Tensor, dom=None, site: str = "op") -> torch.Tensor:
     """The gather path: fn on the whole field gathered from the slabs
     (a reduce-scatter backward), then this rank's rows of its output
-    (which must split evenly)."""
+    (which must split evenly); counted in GATHERS[site]."""
     group, n, r = dom or domain_group()
+    GATHERS[site] += 1
     with lat_slabs(False):
         y = fn(gather_lat(x, group))
     if y.shape[-3] % n:
         raise ValueError(f"{y.shape[-3]} output rows do not split over {n} domain ranks")
     return shard_lat(y, n, r)
+
+
+def gather_whole(x: torch.Tensor, group, site: str) -> torch.Tensor:
+    """A lat-sharded model's own gather path (`gather_lat`, a
+    reduce-scatter backward) from its slabs to the whole field, where the
+    rows from here on do not split; counted in GATHERS[site]."""
+    GATHERS[site] += 1
+    return gather_lat(x, group)

@@ -35,8 +35,10 @@ them itself:
   of ranks that computed the same contribution (`reduce_gradients`).
 
 `batch_spec` / `shard_batch` take this rank's dp rows of a global batch;
-the latitude slab is taken inside the model, after its earth padding
-(models/crossformer.py, models/fuxi.py).
+the latitude slab is taken inside the model, after its earth or zero
+padding (every registered model type is lat-sharded: the `_forward_slabs`
+of models/crossformer.py, wxformer_next.py, unet.py, graph.py,
+debugger.py, and fuxi.py, swin.py, regional.py's slab forwards).
 """
 
 from __future__ import annotations
@@ -600,11 +602,14 @@ def gradient_divisors(names: Sequence[str], mesh, lat_sharded: bool,
     computes it on the whole field (all of a model that is not lat-sharded,
     and the parameters named in `whole`: the postblock nets after a
     lat-sharded model's last gather; a lat-sharded model's own ranks each
-    hold their slab's share), times the tp size for a parameter that every
-    tp rank uses whole (not one of `tp_partial`: the attention blocks,
-    whose ranks each hold their heads' share, and the FF blocks' fc1, fc2
-    kernels, fc1's bias and the pre-norm LN, whose ranks each hold their
-    slice of the hidden layer's)."""
+    hold their slab's share, also of a part every rank runs on a whole
+    field before the last gather, as NextGen's bottleneck MLP on the
+    pooled nodes: its gradient comes through this rank's rows), times the
+    tp size for a parameter that every tp rank uses whole (not one of
+    `tp_partial`: the attention blocks, whose ranks each hold their heads'
+    share, and the FF blocks' fc1, fc2 kernels, fc1's bias and the
+    pre-norm LN, whose ranks each hold their slice of the hidden
+    layer's)."""
     dp, tp, dom = mesh.shape["dp"], mesh.shape["tp"], mesh.shape["domain"]
     part, full = set(tp_partial), set(whole)
     return [float(dp * (1 if lat_sharded and k not in full else dom)

@@ -2,10 +2,13 @@
 
 Checks every divisibility the layout relies on and raises one aggregated,
 actionable error before a step runs. `mesh` is anything with a `shape`
-mapping of axis -> size (parallel.mesh.Mesh). Beyond credit_tpu's checks
-(whose GSPMD partitions any shape), a lat-sharded model with a
-`lat_split_problem(domain)` method says where its stages' rows do not split
-over the domain ranks the way its slab forward needs (the SwinV2 family).
+mapping of axis -> size (parallel.mesh.Mesh). Every registered model type
+is lat-sharded; where a stage's rows do not split over the domain ranks
+the models gather rather than raise, so the checks are credit_tpu's (the
+padded height divides by domain: NextGen's unpadded 721 rows are refused
+at domain 2, as credit_tpu refuses them), plus, for a lat-sharded model
+with a `lat_split_problem(domain)` method, where its stages' rows do not
+split the way its slab forward needs (the SwinV2 family's window rows).
 The FF's hidden width needs no check: dims divisible by tensor make 4 dim
 so, and an FF whose hidden width does not divide runs whole on every tp
 rank, as credit_tpu's param_spec replicates its kernels then.

@@ -791,6 +791,8 @@ class Trainer:
 
         assert_valid_sharding(conf, schema, mesh, model)
         mtype = conf.get("model", {}).get("type")
+        # every registered model type is lat-sharded; a type registered
+        # later without a slab forward runs whole on every domain rank
         if dom > 1 and not getattr(model, "lat_sharded", False):
             logger.warning("model type %s is not lat-sharded: every domain rank computes the "
                            "whole field (the reference's numbers, without the memory saving)",

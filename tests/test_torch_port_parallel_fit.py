@@ -51,8 +51,8 @@ from credit_tpu.parallel.mesh import build_mesh as jax_mesh
 from credit_tpu.trainers import trainer as jtrainer
 from credit_tpu.trainers.scheduler import load_scheduler as jax_scheduler
 from tests.test_torch_port_model import _numpy_variables, _to_numpy
-from torch_port_fixtures import (fit_conf, jit_lowopt, run_many, run_ranks,  # noqa: F401
-                                 two_torch_threads, write_era5_store, write_stats)
+from torch_port_fixtures import (fit_conf, jit_lowopt, run_ranks, start_many,  # noqa: F401
+                                 start_ranks, two_torch_threads, write_era5_store, write_stats)
 
 DATA = {"source": {"ERA5": {"levels": [0.0, 1.0], "variables": {
     "prognostic": {"vars_3D": ["U", "T"], "vars_2D": ["SP", "T2M"]},
@@ -106,7 +106,9 @@ def _mesh_step(jm, conf, variables, x, y, dims):
 def ref(tmp_path_factory):
     """credit_tpu's weights, batch and step on its (2, 1, 2) mesh with the
     explicit halo: loss, gradients, AdamW-updated parameters; and under
-    'tp' its steps on the meshes with tensor 2, (1, 2, 1) and (2, 2, 2)."""
+    'tp' its steps on the meshes with tensor 2, (1, 2, 1) and (2, 2, 2).
+    `pair`'s launch starts before those steps are computed and runs
+    meanwhile ('pair_wait')."""
     root = tmp_path_factory.mktemp("train")
     conf = _conf()
     jm = jax_load_model(conf)
@@ -117,19 +119,20 @@ def ref(tmp_path_factory):
     with open(root / "variables.pkl", "wb") as f:
         pickle.dump(variables, f)
     np.savez(root / "batch.npz", x=x, y=y)
+    args = {"conf": conf, "variables": str(root / "variables.pkl"),
+            "batch": str(root / "batch.npz")}
+    pair_wait = _start_pair(args, tmp_path_factory.mktemp("pair"))
     tp = {d: _mesh_step(jm, conf, variables, x, y, d) for d in TP_MESHES}
     return {"root": root, "conf": conf, **_mesh_step(jm, conf, variables, x, y, (2, 1, 2)),
-            "tp": tp, "args": {"conf": conf, "variables": str(root / "variables.pkl"),
-                               "batch": str(root / "batch.npz")}}
+            "tp": tp, "args": args, "pair_wait": pair_wait}
 
 
-@pytest.fixture(scope="module")
-def pair(ref, tmp_path_factory):
-    """Every 2-rank case of the module but the fit in one launch: the
-    train steps at the meshes of 2 ranks, the trainer steps at domain 2
-    (`_domain2_conf`'s cases), the scan rollout at (1, 1, 2)."""
-    root = tmp_path_factory.mktemp("pair")
-    runs = [("train", {**ref["args"], "meshes": [d for d in MESHES if np.prod(d) == 2]})]
+def _start_pair(args: dict, root):
+    """Launch every 2-rank case of the module but the fit in one launch:
+    the train steps at the meshes of 2 ranks, the trainer steps at domain
+    2 (`_domain2_conf`'s cases), the scan rollout at (1, 1, 2); returns
+    the call that waits for it."""
+    runs = [("train", {**args, "meshes": [d for d in MESHES if np.prod(d) == 2]})]
     for case in DOMAIN2_CASES:
         conf = _domain2_conf(case, root / case)
         schema = TSchema.from_config(conf)
@@ -138,8 +141,14 @@ def pair(ref, tmp_path_factory):
                  x=rng.standard_normal((1, 1, 32, 64, schema.n_input)).astype(np.float32),
                  y=rng.standard_normal((1, 1, 32, 64, schema.n_target)).astype(np.float32))
         runs.append(("trainer_step", {"conf": conf, "batch": str(root / f"{case}.npz")}))
-    runs.append(("rollout", {**ref["args"], "mesh": [1, 1, 2]}))
-    out = run_many(2, root, runs)
+    runs.append(("rollout", {**args, "mesh": [1, 1, 2]}))
+    return start_many(2, root, runs, timeout=240.0)
+
+
+@pytest.fixture(scope="module")
+def pair(ref):
+    """`_start_pair`'s launch, which `ref` started."""
+    out = ref["pair_wait"]()
     return {"train": out[0], "rollout": out[-1],
             **{case: out[1 + i] for i, case in enumerate(DOMAIN2_CASES)}}
 
@@ -148,13 +157,15 @@ def pair(ref, tmp_path_factory):
 def steps(ref, pair, tmp_path_factory):
     """The meshes of 2 ranks (`pair`'s launch), (2, 2, 2) in a launch of 8,
     beside a tiny FuXi's step at (2, 2, 2) (`fuxi_tp`'s case, under
-    'fuxi')."""
+    'fuxi', credit_tpu's steps computed while the 8 run)."""
     out = {}
     eight = [d for d in MESHES if np.prod(d) == 8]
     root = tmp_path_factory.mktemp("step")
-    case, fuxi_ref = fuxi_tp(root)
-    train8, family8 = run_many(8, root, [("train", {**ref["args"], "meshes": eight}),
-                                         ("swin_family", {"cases": [case]})], timeout=180.0)
+    case, fuxi_inputs = fuxi_tp(root)
+    wait = start_many(8, root, [("train", {**ref["args"], "meshes": eight}),
+                                ("swin_family", {"cases": [case]})], timeout=240.0)
+    fuxi_ref = fuxi_tp_reference(*fuxi_inputs)
+    train8, family8 = wait()
     for meshes in ([d for d in MESHES if np.prod(d) == 2], eight):
         ranks = pair["train"] if meshes != eight else train8
         for d in meshes:
@@ -168,8 +179,8 @@ def steps(ref, pair, tmp_path_factory):
 def fuxi_tp(root):
     """test_torch_port_parallel_fuxi.py's tiny FuXi at dim 64 (its SwinV2
     MLP kernels held as ZeRO-3 chunks at dp 2) at (2, 2, 2) on a batch of
-    2: the worker's `swin_family` case, credit_tpu's step on its own
-    (2, 2, 2) mesh and its unsharded step (under 'one')."""
+    2: the worker's `swin_family` case, and `fuxi_tp_reference`'s
+    arguments."""
     from tests import test_torch_port_parallel_fuxi as pf
 
     conf = pf._conf("fuxi_wide")
@@ -184,9 +195,17 @@ def fuxi_tp(root):
     np.savez(root / "fuxi.npz", x=x, y=y)
     case = {"tag": "fuxi222", "conf": conf, "variables": str(root / "fuxi.pkl"),
             "batch": str(root / "fuxi.npz"), "mesh": [2, 2, 2]}
-    return case, {**pf._reference(conf, variables, x, y, (2, 2, 2)),
-                  "one": pf._reference(conf, variables, x, y, (1, 1, 1)),
-                  "start": _flat(variables["params"])}
+    return case, (conf, variables, x, y)
+
+
+def fuxi_tp_reference(conf, variables, x, y):
+    """credit_tpu's step of `fuxi_tp`'s FuXi on its own (2, 2, 2) mesh and
+    its unsharded step (under 'one')."""
+    from tests import test_torch_port_parallel_fuxi as pf
+
+    return {**pf._reference(conf, variables, x, y, (2, 2, 2)),
+            "one": pf._reference(conf, variables, x, y, (1, 1, 1)),
+            "start": _flat(variables["params"])}
 
 
 def _grad_close(got: dict, want: dict, tol: float):
@@ -316,7 +335,7 @@ def test_fuxi_at_2_2_2_matches_unsharded_and_reference(steps):
 @pytest.fixture(scope="module")
 def fits(tmp_path_factory):
     """The store; a 2-process run_training at data 2 and run_rollout from
-    it; the same in this process."""
+    it; the same in this process while the two run."""
     root = tmp_path_factory.mktemp("pfit")
     store = write_era5_store(root / "era5.zarr", tzarr.write_array)
     stats = write_stats(root, tncio)
@@ -329,10 +348,11 @@ def fits(tmp_path_factory):
         return c
 
     two = conf("two", parallelism={"data": 2}, dist_timeout=60)
-    run_ranks("fit", 2, root, {"conf": two, "rollout": True}, timeout=120.0)
+    wait = start_ranks("fit", 2, root, {"conf": two, "rollout": True}, timeout=120.0)
     one = conf("one")
     run_training(one, device="cpu")
     written = run_rollout(one, n_steps=2, device="cpu")
+    wait()
     return {"root": root, "two": two, "one": one, "written": written, "conf": conf}
 
 
@@ -521,8 +541,8 @@ def test_mesh_scan_rollout_matches_unsharded(pair):
 
 def test_mesh_scan_rollout_seam_parity_with_reference(tmp_path):
     """tests/test_round5_fixes.py:254's setup: the debugger model, 3 steps;
-    the port on a (2, 1, 2) mesh (each dp row its half of the batch, the
-    model whole on each domain rank), credit_tpu on its (2, 1, 4) mesh;
+    the port on a (2, 1, 2) mesh (each dp row its half of the batch, each
+    domain rank its latitude slab), credit_tpu on its (2, 1, 4) mesh;
     within 1e-5."""
     from credit_tpu.data.channels import ChannelSchema
     from credit_tpu.rollout import make_scan_rollout
@@ -536,16 +556,16 @@ def test_mesh_scan_rollout_seam_parity_with_reference(tmp_path):
     x0 = np.random.default_rng(17).standard_normal((2, 1, 16, 24, schema.n_input)).astype(
         np.float32)
     variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x0))
+    with open(tmp_path / "variables.pkl", "wb") as f:
+        pickle.dump(_to_numpy(variables), f)
+    np.savez(tmp_path / "batch.npz", x=x0)
+    wait = start_ranks("rollout", 4, tmp_path, {"conf": conf, "mesh": [2, 1, 2],
+                                                "variables": str(tmp_path / "variables.pkl"),
+                                                "batch": str(tmp_path / "batch.npz")})
     mesh = jax_mesh(2, 1, 4)
     roll = make_scan_rollout(model, schema, 3, history_len=1, with_forcing=False, mesh=mesh)
     xs = jax.device_put(jnp.asarray(x0), NamedSharding(mesh, P("dp", None, "domain", None, None)))
     want, _ = jax.jit(roll)(jax.device_put(variables, NamedSharding(mesh, P())), xs)
-    with open(tmp_path / "variables.pkl", "wb") as f:
-        pickle.dump(_to_numpy(variables), f)
-    np.savez(tmp_path / "batch.npz", x=x0)
-    ranks = run_ranks("rollout", 4, tmp_path, {"conf": conf, "mesh": [2, 1, 2],
-                                               "variables": str(tmp_path / "variables.pkl"),
-                                               "batch": str(tmp_path / "batch.npz")})
-    for r in ranks:
+    for r in wait():
         np.testing.assert_allclose(r["mesh_x"], np.asarray(want), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(r["one_x"], np.asarray(want), rtol=1e-5, atol=1e-5)

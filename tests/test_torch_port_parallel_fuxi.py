@@ -51,7 +51,7 @@ from tests.test_torch_port_ensemble import _noise_drawer
 from tests.test_torch_port_ensemble import _numpy_variables as ens_variables
 from tests.test_torch_port_model import _numpy_variables, _to_numpy
 from tests.test_torch_port_parallel_fit import _flat, _grad_close, _mine, _update_close
-from torch_port_fixtures import jit_lowopt, run_many, two_torch_threads  # noqa: F401
+from torch_port_fixtures import jit_lowopt, start_many, two_torch_threads  # noqa: F401
 
 LR = 1e-3
 TRAINER = {"learning_rate": LR, "weight_decay": 0.01, "grad_max_norm": 1.0}
@@ -154,10 +154,10 @@ def _reference(conf, variables, x, y, dims, rngs=None):
 
 @pytest.fixture(scope="module")
 def launch(tmp_path_factory):
-    """Both scenarios in one launch of 2 ranks (`swin_family`'s cases with
-    credit_tpu's steps here, then `zero3`'s)."""
+    """Both scenarios in one launch of 2 ranks (`swin_family`'s cases, then
+    `zero3`'s), credit_tpu's steps computed here while it runs."""
     root = tmp_path_factory.mktemp("swin_family")
-    cases, refs = [], {}
+    cases, refs, inputs = [], {}, []
     for i, (tag, name, dims) in enumerate(CASES):
         conf = _conf(name)
         jm = jax_load_model(conf)
@@ -181,12 +181,15 @@ def launch(tmp_path_factory):
         cases.append({"tag": tag, "conf": conf, "variables": str(root / f"{tag}.pkl"),
                       "batch": str(root / f"{tag}.npz"), "mesh": list(dims), "noise": noise})
         if tag not in NO_REFERENCE:
-            refs[tag] = {**_reference(conf, variables, x, y, dims, rngs),
-                         "start": _flat(variables["params"])}
+            inputs.append((tag, conf, variables, x, y, dims, rngs))
     zcases = _zero3_cases(root)
-    family, zero3, frees = run_many(2, root, [
+    wait = start_many(2, root, [
         ("swin_family", {"cases": cases}), ("zero3", {"cases": zcases}),
-        ("zero3_frees", {"conf": zcases[0]["conf"], "batch": zcases[0]["batch"]})])
+        ("zero3_frees", {"conf": zcases[0]["conf"], "batch": zcases[0]["batch"]})],
+        timeout=240.0)
+    for tag, conf, variables, *args in inputs:
+        refs[tag] = {**_reference(conf, variables, *args), "start": _flat(variables["params"])}
+    family, zero3, frees = wait()
     return (family, refs), (zero3, frees)
 
 
@@ -361,8 +364,9 @@ def test_zero3_checkpoint_resumes_at_world_size_1(zero3, tag):
 
 # --------------------------------------------------------------- in-process
 def test_swin_family_is_lat_sharded_and_validated():
-    """fuxi, swin, wrf and dscale are lat-sharded (the trainer's "not
-    lat-sharded" warning is for the others); a mesh whose domain ranks
+    """fuxi, swin, wrf and dscale are lat-sharded, as are the debugger and
+    the U-Net since NextGen, the U-Net family, graph and debugger became
+    so (tests/test_torch_port_parallel_zoo.py); a mesh whose domain ranks
     the rows cannot split over raises one ValueError naming the model."""
     from credit_torch.models import load_model
     from credit_torch.parallel.validate import assert_valid_sharding, validate_sharding
@@ -381,7 +385,7 @@ def test_swin_family_is_lat_sharded_and_validated():
                        "levels": 2, "channels": 2, "surface_channels": 1,
                        "encoder_dims": [8, 16, 32]}}
     for name, m in others.items():
-        assert not getattr(load_model({"model": m}, device="cpu"), "lat_sharded", False), name
+        assert load_model({"model": m}, device="cpu").lat_sharded is True, name
     model = load_model(_conf("fuxi"), device="cpu")
     problems = validate_sharding(_conf("fuxi"), mesh=Mesh(4), model=model)
     assert len(problems) == 1 and "model fuxi" in problems[0]

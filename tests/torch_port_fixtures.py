@@ -146,19 +146,32 @@ def jit_lowopt(fn):
     return call
 
 
-def run_many(world: int, tmp, runs, timeout: float = 150.0):
-    """`run_ranks` of the worker's `many` scenario: each (scenario, args) of
-    `runs` in one launch of `world` ranks; a list, per run, of each rank's
-    outputs."""
-    ranks = run_ranks("many", world, tmp, {"runs": [list(r) for r in runs]}, timeout=timeout)
-    return [[{k.split(":", 1)[1]: v for k, v in rk.items() if k.startswith(f"{i}:")}
-             for rk in ranks] for i in range(len(runs))]
+def start_many(world: int, tmp, runs, timeout: float = 150.0):
+    """The worker's `many` scenario, each (scenario, args) of `runs` in one
+    launch of `world` ranks, launched now (`start_ranks`); returns the
+    call that waits and returns, per run, each rank's outputs."""
+    wait = start_ranks("many", world, tmp, {"runs": [list(r) for r in runs]}, timeout=timeout)
+
+    def outputs():
+        ranks = wait()
+        return [[{k.split(":", 1)[1]: v for k, v in rk.items() if k.startswith(f"{i}:")}
+                 for rk in ranks] for i in range(len(runs))]
+
+    return outputs
 
 
 def run_ranks(scenario: str, world: int, tmp, args: dict, timeout: float = 90.0):
     """Launch `world` worker processes for `scenario`, wait at most
     `timeout` seconds for all (then kill them and fail), and return each
     rank's .npz as a dict."""
+    return start_ranks(scenario, world, tmp, args, timeout)()
+
+
+def start_ranks(scenario: str, world: int, tmp, args: dict, timeout: float = 90.0):
+    """`run_ranks` in two halves: launch the workers now and return the
+    call that waits for them (the `timeout` counted from the launch) and
+    returns their outputs, so the caller can work meanwhile; a second call
+    returns (or raises) what the first did."""
     tmp = str(tmp)
     argf = os.path.join(tmp, f"{scenario}.json")
     with open(argf, "w") as f:
@@ -175,22 +188,38 @@ def run_ranks(scenario: str, world: int, tmp, args: dict, timeout: float = 90.0)
                                        store, tmp, argf], env=env, stdout=log,
                                       stderr=subprocess.STDOUT, cwd=tmp))
     deadline = time.time() + timeout
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.time(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        with open(os.path.join(tmp, f"{scenario}_rank{bad[0]}.log")) as f:
-            tail = f.read()[-3000:]
-        raise AssertionError(f"ranks {bad} of {scenario} failed (rc "
-                             f"{[procs[r].returncode for r in bad]}):\n{tail}")
-    return [dict(np.load(os.path.join(tmp, f"{scenario}_rank{r}.npz"))) for r in range(world)]
+    done = {}
+
+    def wait():
+        if "out" not in done:
+            try:
+                done["out"] = collect()
+            except AssertionError as e:
+                done["out"] = e
+        if isinstance(done["out"], AssertionError):
+            raise done["out"]
+        return done["out"]
+
+    def collect():
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.time(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            with open(os.path.join(tmp, f"{scenario}_rank{bad[0]}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"ranks {bad} of {scenario} failed (rc "
+                                 f"{[procs[r].returncode for r in bad]}):\n{tail}")
+        return [dict(np.load(os.path.join(tmp, f"{scenario}_rank{r}.npz")))
+                for r in range(world)]
+
+    return wait

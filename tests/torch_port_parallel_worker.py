@@ -13,7 +13,8 @@ then run_rollout, through the CREDIT_* variables, recording a noisy
 model's draws), `rollout` (make_scan_rollout on a mesh), `swin_family`
 (the SwinV2 family's forward and train step on a mesh against unsharded),
 `zero3` (ZeRO-3 through the Trainer, its checkpoint resumed at world size
-1) and `many` (several of these in one launch).
+1), `zoo` (the other lat-sharded models: NextGen, the U-Net family, graph,
+debugger) and `many` (several of these in one launch).
 """
 
 from __future__ import annotations
@@ -412,38 +413,127 @@ def _kernel_rows(fn):
 
 def scenario_swin_family(rank: int, world: int, args: dict) -> dict:
     """Per case of args['cases'] (a model of credit_tpu's numpy weights and
-    a seeded batch, a mesh): the eval-mode forward on the mesh and
-    unsharded ('<tag>_pred_mesh', '<tag>_pred_one') with each side's
-    largest kernel 2 and kernel 1 inputs and its gather paths
-    ('<tag>_rows_mesh' / '_one'), then `_step_on`'s outputs of the
-    unsharded step ('one_<tag>') and of the mesh step ('mesh_<tag>'), each
-    on a fresh model of the same weights."""
+    a seeded batch, a mesh): `_family_case`'s outputs."""
+    meshes, out = {}, {}
+    for case in args["cases"]:
+        _family_case(case, meshes, out)
+    return out
+
+
+def _family_case(case: dict, meshes: dict, out: dict):
+    """The eval-mode forward of the case's model on its mesh and unsharded
+    ('<tag>_pred_mesh', '<tag>_pred_one') with each side's largest kernel
+    2 and kernel 1 inputs and its gather paths ('<tag>_rows_mesh' /
+    '_one'), then `_step_on`'s outputs of the unsharded step
+    ('one_<tag>') and of the mesh step ('mesh_<tag>'), each on a fresh
+    model of the same weights. Returns (the mesh, this rank's batch)."""
     import torch
 
     from credit_torch.parallel import context as par_ctx
     from credit_torch.parallel.mesh import build_mesh
     from credit_torch.parallel.sharding import shard_batch
 
+    tag, dims = case["tag"], tuple(case["mesh"])
+    if dims not in meshes:
+        meshes[dims] = build_mesh(*dims)
+    mesh = meshes[dims]
+    conf, model, batch = _tiny(case)
+    model.eval()
+    mine = shard_batch(batch, mesh)
+    with torch.no_grad():
+        one = _kernel_rows(lambda: model(batch["x"]))
+        with par_ctx.explicit_halo(mesh):
+            got = _kernel_rows(lambda: model(mine["x"]))
+    out[f"{tag}_pred_one"], out[f"{tag}_pred_mesh"] = one[0].numpy(), got[0].numpy()
+    out[f"{tag}_rows_one"], out[f"{tag}_rows_mesh"] = np.asarray(one[1:]), np.asarray(got[1:])
+    _step_on(conf, model, batch, None, out=out, tag=f"one_{tag}")
+    _, model, _ = _tiny(case)
+    if dims[0] > 1:
+        out[f"mesh_{tag}_expected_resident"] = np.asarray(_expected_resident(model, mesh))
+    _step_on(conf, model, batch, mesh, out=out, tag=f"mesh_{tag}")
+    return mesh, mine
+
+
+def _sites(counter) -> np.ndarray:
+    """A Counter of gather paths by site as a (site, count) string array."""
+    return np.asarray(sorted(f"{k}:{v}" for k, v in counter.items() if v), dtype=str)
+
+
+def scenario_zoo(rank: int, world: int, args: dict) -> dict:
+    """The models lat-sharded in the zoo's last slice. Per case of
+    args['cases']: `_family_case`'s outputs, plus the gather paths taken
+    by site in the mesh forward and in the mesh step ('<tag>_gathers_fwd'
+    / '_step', from `context.GATHERS`), the bottleneck's all-reduces of
+    the mesh step ('<tag>_slab_sums'), for the graph this rank's edges,
+    all edges and the halo ('<tag>_edges'), and for NextGen this rank's
+    own (not yet reduced) agg_w / scatter_w gradients of an eval-mode
+    MSE backward on the mesh and the same unsharded ('<tag>_raw_<name>_
+    mesh' / '_one'). args['trainer_step']: `scenario_trainer_step`'s
+    outputs ('ts_' prefixed). args['rollout']: a RolloutEngine of a case's
+    folded model, 3 steps, on its mesh and unsharded ('rollout_mesh' /
+    '_one')."""
+    import torch
+
+    from credit_torch.parallel import context as par_ctx
+
     meshes, out = {}, {}
     for case in args["cases"]:
-        tag, dims = case["tag"], tuple(case["mesh"])
-        if dims not in meshes:
-            meshes[dims] = build_mesh(*dims)
-        mesh = meshes[dims]
-        conf, model, batch = _tiny(case)
+        tag = case["tag"]
+        par_ctx.GATHERS.clear()
+        mesh, mine = _family_case(case, meshes, out)
+        both = par_ctx.GATHERS.copy()  # the eval forward's and the mesh step's
+        _, model, batch = _tiny(case)
         model.eval()
-        mine = shard_batch(batch, mesh)
-        with torch.no_grad():
-            one = _kernel_rows(lambda: model(batch["x"]))
-            with par_ctx.explicit_halo(mesh):
-                got = _kernel_rows(lambda: model(mine["x"]))
-        out[f"{tag}_pred_one"], out[f"{tag}_pred_mesh"] = one[0].numpy(), got[0].numpy()
-        out[f"{tag}_rows_one"], out[f"{tag}_rows_mesh"] = np.asarray(one[1:]), np.asarray(got[1:])
-        _step_on(conf, model, batch, None, out=out, tag=f"one_{tag}")
-        _, model, _ = _tiny(case)
-        if dims[0] > 1:
-            out[f"mesh_{tag}_expected_resident"] = np.asarray(_expected_resident(model, mesh))
-        _step_on(conf, model, batch, mesh, out=out, tag=f"mesh_{tag}")
+        par_ctx.GATHERS.clear()
+        with torch.no_grad(), par_ctx.explicit_halo(mesh):
+            model(mine["x"])
+        out[f"{tag}_gathers_fwd"] = _sites(par_ctx.GATHERS)
+        out[f"{tag}_gathers_step"] = _sites(both - par_ctx.GATHERS)
+        bottleneck = getattr(model, "spectral_bottleneck", None)
+        if bottleneck is not None:
+            sums = bottleneck.slab_sums
+            for side, m_, b in (("one", None, batch), ("mesh", mesh, mine)):
+                model.zero_grad()
+                with par_ctx.explicit_halo(m_):
+                    torch.mean((model(b["x"]) - b["y"]) ** 2).backward()
+                for name in ("agg_w", "scatter_w"):
+                    out[f"{tag}_raw_{name}_{side}"] = getattr(bottleneck, name).grad.numpy()
+            out[f"{tag}_slab_sums"] = np.asarray(bottleneck.slab_sums - sums)
+        if hasattr(model, "slab_edges"):
+            n, r = mesh.shape["domain"], mesh.coord("domain")
+            out[f"{tag}_edges"] = np.asarray([len(model.slab_edges(n, r)[0]),
+                                              len(model.edge_src), model.edge_halo])
+    if args.get("trainer_step"):
+        out.update((f"ts_{k}", v) for k, v in scenario_trainer_step(
+            rank, world, args["trainer_step"]).items())
+    if args.get("rollout"):
+        out.update(_engine_rollout(args["rollout"]))
+    return out
+
+
+def _engine_rollout(case: dict) -> dict:
+    """RolloutEngine.run of the case's model (credit_tpu's numpy weights,
+    spectral norm folded), 3 steps from its batch's x, on its mesh and
+    unsharded."""
+    from credit_torch.convert_jax import from_jax_variables
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.models import load_model
+    from credit_torch.parallel.mesh import build_mesh
+    from credit_torch.rollout import RolloutEngine
+
+    conf = case["conf"]
+    with open(case["variables"], "rb") as f:
+        variables = pickle.load(f)
+    model = load_model(conf, device="cpu")
+    model.load_state_dict(from_jax_variables(variables, conf, device="cpu"))
+    schema = ChannelSchema.from_config(conf)
+    x0 = np.load(case["batch"])["x"]
+    out = {}
+    for tag, mesh in (("one", None), ("mesh", build_mesh(*case["mesh"]))):
+        engine = RolloutEngine(model, schema, history_len=conf["data"]["history_len"],
+                               device="cpu", mesh=mesh)
+        out[f"rollout_{tag}"] = np.stack(engine.run(x0, 3))
+        engine.close()
     return out
 
 
