@@ -5,6 +5,11 @@
     python3 chip_smoke.py --ptxas      # also print nvcc's register/smem report
     python3 chip_smoke.py --profile    # also by-kernel profiles of main paths 1-5
                                        # (every row in build/profile_*.txt)
+    python3 chip_smoke.py --compare-steps unet|graph ROOT [ROOT ...]
+        # only: phase 18(e)'s unsharded U-Net (721x1440) or graph (180x360)
+        # f32 training step of each checkout ROOT (a parent commit unpacked
+        # beside the tree, say), a process a root, in turns A B B A: ms a
+        # step after a warm-up one and the peak
 
 Phases (any failure exits non-zero):
   1. build the kernels from credit_torch/csrc with nvcc (printed seconds);
@@ -203,7 +208,9 @@ Phases (any failure exits non-zero):
      (`graph_domain2`), each step against the unsharded one, with each
      rank's launches, kernel 2's largest input rows, the gather paths, the
      bottleneck's all-reduces and each rank's peak against the unsharded
-     step's; no time of two ranks on one card is a throughput figure.
+     step's, the U-Net's and the graph's unsharded step ms and peak, and
+     the graph's steps run twice for the same bits; no time of two ranks
+     on one card is a throughput figure.
      Phase 2 checks kernels 2 and 5 at NextGen's and the U-Net's slab
      shapes. Removes phase 10's store.
  19. main path 16, the applications and interfaces: (a) `python -m
@@ -324,8 +331,9 @@ TINY_FUXI_DATA = {"source": {"ERA5": {
                   "dynamic_forcing": {"vars_2D": ["TISR"]},
                   "diagnostic": {"vars_2D": ["PRECIP"]}}}}}
 
-# published dense peaks of one H100 SXM at 700 W
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# published dense peaks of one H100 SXM at 700 W; "3xtf32": f32 products
+# as three products at TF32's 495 TFLOP/s (kernels 2 and 5 in f32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 # bf16 train-mode loss, gradients by norm and worst parameter of the tiny
@@ -637,10 +645,14 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol, iters):
+def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol, iters,
+               peak: str | None = None):
     """Compare a kernel with its plain version on the same inputs; time all
     three. tol is relative to max |plain|, for each output of a kernel that
-    returns several (the printed error and limit are the worst output's)."""
+    returns several (the printed error and limit are the worst output's).
+    `bound_ms` is at the peak of the units the kernel runs on, `peak` (a
+    key of PEAK_FLOPS, the dtype's by default); where that is not the
+    dtype's, `fma_bound_ms` is the bound at the dtype's FMA peak too."""
     import torch
 
     from credit_torch.tools import cuda_ms
@@ -662,15 +674,47 @@ def check_case(name, dtype, kernel_fn, plain_fn, library_fn, nbytes, flops, tol,
     ms = cuda_ms(kernel_fn, iters)
     plain_ms = cuda_ms(plain_fn, max(1, iters // 4))
     lib_ms = cuda_ms(library_fn, iters) if library_fn is not None else None
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    peak = peak or dtype
+    b_ms, b_by = bound(nbytes, flops, peak)
+    fma = bound(nbytes, flops, dtype) if peak != dtype else None
     log(f"  {name} [{dtype}] max_abs_err {err:.3e} limit {limit:.3e} (={tol:g} x max|ref| "
         f"{scale:.3e}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms {b_ms:.4f} ({b_by})"
-        f"{'' if ok else '  FAIL'}")
+        f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms {b_ms:.4f} ({b_by}, {peak})"
+        + (f" fma_bound_ms {fma[0]:.4f} ({fma[1]})" if fma else "")
+        + f"{'' if ok else '  FAIL'}")
     if not ok:
         raise AssertionError(f"{name} [{dtype}]: kernel disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms}
+    if fma:
+        out["fma_bound_ms"] = fma[0]
+    return out
+
+
+def f32_limit(products: int) -> float:
+    """Phase 2's f32 limit, of max |ref|, for outputs that each sum
+    `products` products in f32. The sum's rounding grows as the count's
+    square root (a random walk): kernel 2's FMA form read 5.2e-6 of max
+    |plain| at the 8x8 (15,360 products) and 1.03e-5 at the 16x16 (61,440),
+    twice as much, and the same against f64 sums, where the plain
+    version's GEMMs read <= 1.7e-6. So 1e-5 up to 15,360 products, growing
+    with that root beyond, keeps the 8x8's margin of about 2."""
+    return 1e-5 * math.sqrt(max(1.0, products / 15360))
+
+
+def check_f64(name: str, exact, forms: dict, limit: float) -> None:
+    """Each form's error against f64 sums `exact`, of max |exact|, printed;
+    the kernel's (forms["kernel"]) must be within `limit`. TF32 keeps 10
+    mantissa bits, so a product that lost its lo parts reads ~1e-4 here."""
+    sc = exact.abs().max().item()
+    errs = {k: (f().double() - exact).abs().max().item() / sc for k, f in forms.items()}
+    ok = errs["kernel"] <= limit
+    log(f"    against f64 sums, of max |ref|: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f"; limit {limit:.3e}{'' if ok else '  FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} [float32]: {errs['kernel']:.3e} from f64 sums, "
+                             f"limit {limit:.3e}")
 
 
 # kernel 2's shapes (n, hp, wp, cin, kh, kw, cout) with the dtypes checked.
@@ -745,6 +789,35 @@ NG_SLAB_CONV_SHAPES = [
     ("ng640_slab_stage0_embed_8x8", (1, 175, 655, 240, 8, 8, 176)),
     ("ng640_slab_head_ps_3x3", (1, 162, 642, 256, 3, 3, 256))]
 UNET_SLAB_CONV_SHAPES = [("unet_slab_enc0_3x3", (1, 366, 1442, 64, 3, 3, 64))]
+
+
+def unet_conv_shapes(conf: dict, dims=(64, 128, 256, 512)):
+    """The U-Net's (models/unet.py, f32) distinct 3x3 convs unsharded on
+    `conf`'s grid padded to a multiple of 8: the encoder's two a level
+    (inputs to dims[0], then dims[i - 1] to dims[i]; level i at the padded
+    grid >> i) and the decoder's two at levels 2-0 (the skip concat's 2 d
+    to d, d to d), each on its input padded a row and a column a side;
+    and their input gradients (`_dx`: gy padded by 2 a side, Cin and Cout
+    swapped), for every conv but the first, whose input is the batch.
+    (label, (n, hp, wp, cin, kh, kw, cout)) in two lists."""
+    mult = 2 ** (len(dims) - 1)
+    h, w = -(-conf["image_height"] // mult) * mult, -(-conf["image_width"] // mult) * mult
+    c = (conf["channels"] * conf["levels"] + conf["surface_channels"]
+         + conf["input_only_channels"]) * conf["frames"]
+    convs = []
+    for i, d in enumerate(dims):
+        convs += [(i, c, d), (i, d, d)]
+        c = d
+    for i in reversed(range(len(dims) - 1)):
+        convs += [(i, 2 * dims[i], dims[i]), (i, dims[i], dims[i])]
+    fwd, dx = {}, {}
+    for j, (i, ci, co) in enumerate(convs):
+        hp, wp = (h >> i) + 2, (w >> i) + 2
+        fwd.setdefault((i, ci, co), (f"unet_l{i}_{ci}to{co}_3x3", (1, hp, wp, ci, 3, 3, co)))
+        if j:
+            dx.setdefault((i, co, ci), (f"unet_l{i}_{ci}to{co}_3x3_dx",
+                                        (1, hp + 2, wp + 2, co, 3, 3, ci)))
+    return list(fwd.values()), list(dx.values())
 # main path 16 (phase 19): the published layouts at 640x1280 padded 80 a
 # side to 800x1440. wxformer_6h: the stage-0 embed over 74 inputs (296 after
 # space-to-depth: five 64-deep K steps a tap, the last part zero-filled by
@@ -758,6 +831,11 @@ APP_CONV_SHAPES = [
     ("fx6h_down_s2d_2x2", (1, 101, 181, 4096, 2, 2, 1024)),
     ("fx6h_down_res_3x3", (1, 102, 182, 1024, 3, 3, 1024)),
     ("fx6h_up_res_3x3", (1, 202, 362, 1024, 3, 3, 1024))]
+# main path 15 (phase 18e): the U-Net's reference step, unsharded at 721x1440
+UNET_CONV_SHAPES = unet_conv_shapes({"image_height": 721, "image_width": 1440,
+                                     **{k: CONF_025_TRAIN[k] for k in (
+                                         "frames", "levels", "channels", "surface_channels",
+                                         "input_only_channels")}})
 CONV_SHAPES = [
     ("stage0_embed_8x8", (1, 415, 735, 240, 8, 8, 176), BOTH, 10),
     # ic-opt's input gradient of the stage-0 embed (main path 14): gy
@@ -782,7 +860,8 @@ CONV_SHAPES = [
     *[(label, shape, BF16, 3) for label, shape in FUXI_SLAB_CONV_SHAPES],
     *[(label, shape, BF16, 5) for label, shape in APP_CONV_SHAPES],
     *[(label, shape, BF16, 5) for label, shape in NG_SLAB_CONV_SHAPES],
-    *[(label, shape, F32, 3) for label, shape in UNET_SLAB_CONV_SHAPES]]
+    *[(label, shape, F32, 3) for label, shape in UNET_SLAB_CONV_SHAPES],
+    *[(label, shape, F32, 3) for part in UNET_CONV_SHAPES for label, shape in part]]
 
 
 def conv_cases(torch, g):
@@ -792,14 +871,8 @@ def conv_cases(torch, g):
 
     res = {}
     for label, (n, hp, wp, cin, kh, kw, cout), dtypes, iters in CONV_SHAPES:
-        # f32: the kernel sums the kh*kw*cin products of an output one after
-        # another, and that sum's rounding grows as their count's square
-        # root (a random walk): the 8x8 (15,360 products) read 5.2e-6 of
-        # max |plain|, the 16x16 (61,440) 1.03e-5, twice as much, and the
-        # same against f64 sums, where the plain version's GEMMs read
-        # <= 1.7e-6. So the limit grows with that root beyond the 8x8's
-        # 15,360 products, keeping the 8x8's margin of about 2
-        f32_tol = 1e-5 * math.sqrt(max(1.0, kh * kw * cin / 15360))
+        # f32: an output sums kh*kw*cin products
+        f32_tol = f32_limit(kh * kw * cin)
         for name in dtypes:
             dt, tol = (torch.bfloat16, 1e-2) if name == "bfloat16" else (torch.float32, f32_tol)
             x = (torch.randn((n, hp, wp, cin), generator=g, device="cuda") * 0.5).to(dt)
@@ -814,16 +887,14 @@ def conv_cases(torch, g):
                            lambda: cuda_conv.conv2d_valid_plain(x, k),
                            lambda: F.conv2d(xn, kn),
                            (x.numel() + k.numel() + n * ho * wo * cout) * isz,
-                           2.0 * n * ho * wo * kh * kw * cin * cout, tol, iters)
+                           2.0 * n * ho * wo * kh * kw * cin * cout, tol, iters,
+                           "3xtf32" if dt == torch.float32 else None)
             res[(label, dt)] = r
-            if dt == torch.float32:
-                # whose rounding the difference is: both against f64 sums
-                exact = conv_valid_f64(torch, x, k)
-                sc = exact.abs().max().item()
-                e_k, e_p = ((f(x, k).double() - exact).abs().max().item() / sc
-                            for f in (cuda_conv.conv2d_valid, cuda_conv.conv2d_valid_plain))
-                log(f"    against f64 sums, of max |ref|: kernel {e_k:.3e}, plain {e_p:.3e}")
-                del exact
+            if dt == torch.float32:  # 3xTF32: the kernel and the others against f64 sums
+                check_f64(f"conv2d_valid {label}", conv_valid_f64(torch, x, k),
+                          {"kernel": lambda: cuda_conv.conv2d_valid(x, k),
+                           "plain": lambda: cuda_conv.conv2d_valid_plain(x, k),
+                           "cuDNN": lambda: F.conv2d(xn, kn).permute(0, 2, 3, 1)}, f32_tol)
     return res
 
 
@@ -838,6 +909,15 @@ def conv_valid_f64(torch, x, k):
         for dj in range(kw):
             out += xd[:, di:di + ho, dj:dj + wo, :] @ kd[di, dj]
     return out
+
+
+def conv_wgrad_f64(torch, x, gy, kh, kw):
+    """The weight gradient with f64 sums (one f64 GEMM per tap)."""
+    n, hp, wp, cin = x.shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    xd, gd = x.double(), gy.double().reshape(-1, gy.shape[-1])
+    return torch.stack([xd[:, di:di + ho, dj:dj + wo, :].reshape(-1, cin).T @ gd
+                        for di in range(kh) for dj in range(kw)]).reshape(kh, kw, cin, -1)
 
 
 # (label, (h, w, C), post-norm, hidden) of the FF and its backward
@@ -1180,7 +1260,8 @@ WGRAD_SHAPES = [
       for label, shape in SLAB_CONV_SHAPES],
     *[(label, shape, BF16, 3) for label, shape in FUXI_SLAB_CONV_SHAPES],
     *[(label, shape, BF16, 3) for label, shape in NG_SLAB_CONV_SHAPES],
-    *[(label, shape, F32, 3) for label, shape in UNET_SLAB_CONV_SHAPES]]
+    *[(label, shape, F32, 3) for label, shape in UNET_SLAB_CONV_SHAPES],
+    *[(label, shape, F32, 3) for label, shape in UNET_CONV_SHAPES[0]]]
 
 
 def wgrad_cases(torch, g):
@@ -1203,10 +1284,21 @@ def wgrad_cases(torch, g):
                            lambda: cuda_conv.conv2d_wgrad_plain(x, gy, kh, kw),
                            lambda: torch.nn.grad.conv2d_weight(xn, (cout, cin, kh, kw), gyn),
                            (x.numel() + gy.numel()) * isz + kh * kw * cin * cout * 4,
-                           2.0 * n * ho * wo * kh * kw * cin * cout, tol, iters)
+                           2.0 * n * ho * wo * kh * kw * cin * cout, tol, iters,
+                           "3xtf32" if dt == torch.float32 else None)
             if not torch.equal(cuda_conv.conv2d_wgrad(x, gy, kh, kw),
                                cuda_conv.conv2d_wgrad(x, gy, kh, kw)):
                 raise AssertionError(f"conv2d_wgrad {label} [{name}]: two calls differ")
+            if dt == torch.float32:
+                # 5e-4 against the plain version cannot tell 3xTF32 from
+                # TF32: against f64 sums an output sums its n*ho*wo pixels'
+                # products, held to phase 2's f32 limit for that count
+                check_f64(f"conv2d_wgrad {label}", conv_wgrad_f64(torch, x, gy, kh, kw),
+                          {"kernel": lambda: cuda_conv.conv2d_wgrad(x, gy, kh, kw),
+                           "plain": lambda: cuda_conv.conv2d_wgrad_plain(x, gy, kh, kw),
+                           "cuDNN": lambda: torch.nn.grad.conv2d_weight(
+                               xn, (cout, cin, kh, kw), gyn).permute(2, 3, 1, 0)},
+                          f32_limit(n * ho * wo))
             res[(label, dt)] = r
     return res
 
@@ -1419,6 +1511,9 @@ def _counters():
             ("ff_partial_bwd", cuda_ff.ff_partial_bwd, "launches"),
             ("ff_finish_bwd", cuda_ff.ff_finish_bwd, "launches"),
             ("conv2d_wgrad", cuda_conv.conv2d_wgrad, "launches"),
+            # of kernels 2 and 5's launches, the f32 form's (SUB_COUNTS)
+            ("conv2d_valid_f32", cuda_conv.conv2d_valid, "f32_launches"),
+            ("conv2d_wgrad_f32", cuda_conv.conv2d_wgrad, "f32_launches"),
             ("conv_band_dma", cuda_probes.conv_band_dma, "launches"),
             ("conv_band_halo", cuda_probes.conv_band_halo, "launches"),
             ("copy", cuda_probes.copy, "launches")]
@@ -1433,8 +1528,15 @@ def _read_counts() -> dict:
     return {name: getattr(wrapper, attr) for name, wrapper, attr in _counters()}
 
 
+# counts that split another count by dtype: the launches a path expects
+# are checked on the whole count; the kernels line reads these
+SUB_COUNTS = ("conv2d_valid_f32", "conv2d_wgrad_f32")
+
+
 def _check_counts(counts: dict, want: dict, steps: int) -> None:
     for k in counts:
+        if k in SUB_COUNTS:
+            continue
         n = want.get(k, 0)
         if counts[k] != n * steps:
             raise AssertionError(f"{k}: {counts[k]} launches, expected {n} x {steps}")
@@ -4169,7 +4271,7 @@ def _par_conf(dims, model=None, data=None) -> dict:
 
 
 def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
-              model_conf=None, data=None) -> dict:
+              model_conf=None, data=None, repeat: bool = False, time_ref: bool = False) -> dict:
     """One CONF_025_TRAIN train step (MSE, AdamW) of seeded weights on the
     mesh `dims` over the group, then, on rank 0, the unsharded step on the
     whole batch from the same weights: the losses, the gradients' error,
@@ -4189,7 +4291,10 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
     and backward (a rank's slice), and the all-reduces over the tp group
     with their bytes; for every step the bytes allocated before it.
     `model_conf` and `data` replace CONF_025_TRAIN and DATA_025 (the input
-    takes the model's frames)."""
+    takes the model's frames). `repeat`: the mesh step and the unsharded
+    step each run twice from the same weights, and whether the two
+    gradients are the same bits (else their difference over the norm) is
+    returned; `time_ref`: the ms of a second unsharded step."""
     import torch.distributed as dist
 
     from credit_torch.convert_jax import seed_train_
@@ -4226,7 +4331,7 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
     def mse(y, p):
         return torch.mean((p.float() - y) ** 2)
 
-    def run(model, mesh, b):
+    def run(model, mesh, b, timed=False):
         opt = make_optimizer(conf, load_scheduler(conf))
         if mesh is not None:
             opt = ShardedOptimizer(opt, mesh, names, pshapes)
@@ -4274,7 +4379,8 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
 
         # the wrappers count on their module's name, the recorders while they
         # stand in; their counts go back to the wrappers after
-        recs = ((conv_rec, conv0, ("launches",)), (ff_rec, ff0, ("launches", "split_launches")),
+        recs = ((conv_rec, conv0, ("launches", "f32_launches")),
+                (ff_rec, ff0, ("launches", "split_launches")),
                 (part_rec, part0, ("launches",)), (pbwd_rec, pbwd0, ("launches",)))
         _zero_counts()
         for rec, _, attrs in recs:
@@ -4315,8 +4421,10 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
         grads = seen["g"]
         if mesh is not None:  # the held chunks whole, to compare
             grads = opt.held_whole(dict(zip(names, grads)))
-        ms = None  # a timed second step: at tensor 2 only (cut elsewhere for the script's time)
-        if mesh is not None and dims[1] > 1 and cuda:
+        ms = None  # a timed second step: at tensor 2 and where asked (cut elsewhere for time)
+        if timed and cuda:
+            ms = cuda_ms(lambda: step(state, b), 1, warmup=0)
+        elif mesh is not None and dims[1] > 1 and cuda:
             ms = cuda_ms(lambda: step(state, b), 1)
         elif mesh is not None and dims[1] > 1:
             t0 = time.perf_counter()
@@ -4362,6 +4470,18 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     got = run(model, mesh, mine)
+
+    def spread(a: list, b: list):
+        """True where two gradients are the same bits, else the norm of
+        their difference over b's."""
+        if all(torch.equal(x, y) for x, y in zip(a, b)):
+            return True
+        return math.sqrt(sum(float((x.float() - y.float()).pow(2).sum()) for x, y in zip(a, b))
+                         / sum(float(y.float().pow(2).sum()) for y in b))
+
+    if repeat:  # the mesh step again, from the same weights
+        model.load_state_dict(start)
+        got["repeat"] = spread(run(model, mesh, mine)["grads"], got["grads"])
     # the graph: this rank's edges, all of them, the halo
     edges = ((len(model.slab_edges(dims[2], mesh.coord("domain"))[0]), len(model.edge_src),
               model.edge_halo) if hasattr(model, "slab_edges") else None)
@@ -4378,7 +4498,11 @@ def _par_step(torch, dims, batch_rows: int, rank: int, device: str = "cuda",
         model.load_state_dict(start)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        ref = run(model, None, batch)
+        ref = run(model, None, batch, timed=time_ref)
+        out["ref_ms"] = ref["ms"]
+        if repeat:
+            model.load_state_dict(start)
+            out["ref_repeat"] = spread(run(model, None, batch)["grads"], ref["grads"])
         out["ref_peak"], out["ref_allocated"] = ref["peak"], ref["allocated"]
         out["ref_before"], out["ref_hidden"] = ref["before"], ref["hidden"]
         num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(got["grads"],
@@ -4448,8 +4572,10 @@ def parallel_rank(rank: int, world: int, root: str, device: str = "cuda",
            "tp2": _par_step(torch, (1, 2, 1), 1, rank, device),
            "fuxi_tp2": _par_step(torch, (1, 2, 1), 1, rank, device, CONF_FUXI, DATA_FUXI),
            "ng_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_NG640),
-           "unet_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_UNET_025),
-           "graph_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_GRAPH_1DEG),
+           "unet_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_UNET_025,
+                                     time_ref=True),
+           "graph_domain2": _par_step(torch, (1, 1, 2), 1, rank, device, CONF_GRAPH_1DEG,
+                                      repeat=True, time_ref=True),
            "ring": _par_ring(torch, rank, device, (1, 721, 1440, 16) if device == "cuda"
                              else (1, 16, 32, 4)),
            "halo": benchmark_halo(h=h, w=w, c=c, k=3, steps=5, dtype=torch.bfloat16,
@@ -4687,8 +4813,19 @@ def check_par_case(res: list, key: str, label: str, runs: dict) -> bool:
         f"({r0['ref_before'] / 2**30:.2f}), after it "
         f"{r0['allocated'] / 2**30:.2f}, {res[1][key]['allocated'] / 2**30:.2f} GiB "
         f"({r0['ref_allocated'] / 2**30:.2f}; two ranks on one card: no throughput figure)")
+    if r0.get("ref_ms") is not None:
+        log(f"  {label}: the unsharded step on one card (rank 1 waiting): "
+            f"{r0['ref_ms']:.1f} ms/step (its second call), peak {r0['ref_peak'] / 2**30:.2f} GiB")
+    repeat_ok = True
+    if "repeat" in r0:
+        # the fixed-order segment sums: a step's gradient, twice, the same bits
+        spreads = [res[r][key]["repeat"] for r in range(2)] + [r0["ref_repeat"]]
+        repeat_ok = all(x is True for x in spreads)
+        log(f"  {label}: two calls of the same step, gradients the same bits (or their "
+            f"difference over the norm): mesh rank 0 {spreads[0]}, rank 1 {spreads[1]}, "
+            f"unsharded {spreads[2]} {'ok' if repeat_ok else 'FAIL'}")
     ok = (all(e <= t for e, t in zip(perr, lim["pred"]))
-          and loss_rel <= lim["loss"]
+          and loss_rel <= lim["loss"] and repeat_ok
           and r0["grad_rel"] <= lim["grad"] and same and slabs and held_ok)
     runs[f"par_{key}"] = {k: res[0][key]["counts"][k] + res[1][key]["counts"][k]
                           for k in r0["counts"]}
@@ -5426,6 +5563,63 @@ def kernel_group(name: str) -> str:
     return "glue: elementwise"
 
 
+def step_time(root: str, model: str, steps: int) -> dict:
+    """In this process: `root`'s package (its own `chip_smoke` configs),
+    phase 18(e)'s unsharded f32 step of `model` ("unet" or "graph"),
+    seeded as `_par_step` seeds it: ms of each step after a warm-up one
+    (CUDA events) and the peak."""
+    sys.path.insert(0, root)
+    import importlib
+
+    import torch
+
+    from credit_torch.convert_jax import seed_train_
+    from credit_torch.data.channels import ChannelSchema
+    from credit_torch.models import load_model
+    from credit_torch.tools import cuda_ms
+    from credit_torch.trainers.scheduler import load_scheduler
+    from credit_torch.trainers.trainer import TrainState, make_optimizer, make_train_step
+
+    cs = importlib.import_module("chip_smoke")  # the root's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    conf = cs._par_conf((1, 1, 1), {"unet": cs.CONF_UNET_025, "graph": cs.CONF_GRAPH_1DEG}[model])
+    mconf, schema = conf["model"], ChannelSchema.from_config(conf)
+    net = load_model(conf, device="cuda", sn_state=True)
+    seed_train_(net, conf, torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h, w = mconf["image_height"], mconf["image_width"]
+    batch = {"x": torch.randn((1, mconf.get("frames", 1), h, w, schema.n_input), generator=g,
+                              device="cuda"),
+             "y": torch.randn((1, 1, h, w, schema.n_target), generator=g, device="cuda")}
+    opt = make_optimizer(conf, load_scheduler(conf))
+    step = make_train_step(net, lambda y, p: torch.mean((p.float() - y) ** 2), opt, schema,
+                           device="cuda")
+    state = TrainState.create(net, opt)
+    torch.cuda.reset_peak_memory_stats()
+    ms = [cuda_ms(lambda: step(state, batch), 1, warmup=int(i == 0)) for i in range(steps)]
+    return {"root": root, "ms": ms, "peak": torch.cuda.max_memory_allocated()}
+
+
+def compare_steps(model: str, roots: list, steps: int) -> int:
+    """`step_time` of each root in a process of its own, A B B A, printed
+    after the card's name and power limit."""
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    roots = [os.path.abspath(r) for r in roots]
+    for root in roots + roots[::-1]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--step-time-root",
+                              root, "--compare-steps", model, "--steps", str(steps)],
+                             capture_output=True, text=True, cwd=root)
+        if out.returncode:
+            print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        r = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"{r['root']}: {model} f32 train step ms {[round(v, 3) for v in r['ms']]}, peak "
+              f"{r['peak']} bytes ({r['peak'] / 2**30:.3f} GiB)", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true", help="print nvcc's -Xptxas -v report")
@@ -5434,7 +5628,18 @@ def main() -> int:
                          "by kernel (main path 7's resumed epoch is profiled in every run)")
     ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--compare-steps", nargs="+", metavar=("MODEL", "ROOT"), default=None,
+                    help="only time the unsharded unet or graph step of each ROOT, A B B A")
+    ap.add_argument("--steps", type=int, default=5, help="steps a root for --compare-steps")
+    ap.add_argument("--step-time-root", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.step_time_root is not None:  # one root of --compare-steps
+        print(json.dumps(step_time(args.step_time_root, args.compare_steps[0], args.steps)))
+        return 0
+    if args.compare_steps is not None:
+        if len(args.compare_steps) < 2 or args.compare_steps[0] not in ("unet", "graph"):
+            ap.error("--compare-steps takes unet or graph, then one ROOT or more")
+        return compare_steps(args.compare_steps[0], args.compare_steps[1:], args.steps)
     if args.parallel_rank is not None:  # one rank of phase 18, started by the phase
         return parallel_rank(args.parallel_rank, 2, args.parallel_dir)
 
@@ -5600,7 +5805,7 @@ def main() -> int:
     # main path 16 (phase 19): the converted wxformer_6h's forecasts
     APP_PATHS = ("rt_wx", "rt_gefs", "serve_wx")
     for name, counter, src, replaces, r, paths in [
-            ("conv2d_valid", "conv2d_valid", "credit_torch/csrc/conv_valid.cu",
+            ("conv2d_valid", "conv2d_valid_bf16", "credit_torch/csrc/conv_valid.cu",
              "credit_tpu/ops/pallas_conv.py:110", conv[("stage0_embed_8x8", torch.bfloat16)],
              runs),
             ("fused_ff", "fused_ff_fused", "credit_torch/csrc/fused_ff.cu",
@@ -5654,9 +5859,16 @@ def main() -> int:
              "credit_torch/csrc/fused_ff_bwd.cu", "credit_tpu/ops/pallas_ff.py:346",
              ff_tp[("ff_finish_bwd", "tp2_fuxi_C1024_post", torch.bfloat16)],
              ("par_fuxi_tp2",)),
-            ("conv2d_wgrad", "conv2d_wgrad", "credit_torch/csrc/conv_wgrad.cu",
+            ("conv2d_wgrad", "conv2d_wgrad_bf16", "credit_torch/csrc/conv_wgrad.cu",
              "credit_tpu/ops/pallas_conv.py:245", wgrad[("stage0_embed_8x8", torch.bfloat16)],
              runs),
+            # the f32 forms (3xTF32): the U-Net family and SKEBS's cnn
+            ("conv2d_valid f32", "conv2d_valid_f32", "credit_torch/csrc/conv_valid.cu",
+             "credit_tpu/ops/pallas_conv.py:110",
+             conv[("unet_l0_64to64_3x3", torch.float32)], runs),
+            ("conv2d_wgrad f32", "conv2d_wgrad_f32", "credit_torch/csrc/conv_wgrad.cu",
+             "credit_tpu/ops/pallas_conv.py:245",
+             wgrad[("unet_l0_64to64_3x3", torch.float32)], runs),
             ("conv_band dma", "conv_band_dma", "credit_torch/csrc/conv_band.cu",
              "tools/bench_pallas_conv.py:60", probe[("dma", torch.bfloat16)], ("tools",)),
             ("conv_band halo", "conv_band_halo", "credit_torch/csrc/conv_band.cu",
@@ -5665,9 +5877,13 @@ def main() -> int:
              probe["copy"], ("tools",))]:
         # launches: the main-path runs of this kernel (mode); each path runs
         # one FF form only, so a path's count is the mode's; the fused FF
-        # kernel's are the FF calls the split route did not take
-        by_path = {p: runs[p]["fused_ff"] - runs[p]["fused_ff_split"] if counter == "fused_ff_fused"
-                   else runs[p][counter] for p in paths}
+        # kernel's are the FF calls the split route did not take, and
+        # kernels 2 and 5's bf16 form's the launches that were not f32
+        by_path = {p: (runs[p]["fused_ff"] - runs[p]["fused_ff_split"]
+                       if counter == "fused_ff_fused" else
+                       runs[p][counter[:-5]] - runs[p].get(counter[:-5] + "_f32", 0)
+                       if counter.endswith("_bf16") else runs[p].get(counter, 0))
+                   for p in paths}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path, **r})
         if name == "fused_ff":

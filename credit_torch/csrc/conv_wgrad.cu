@@ -11,7 +11,8 @@
 // Bound on the H100: operations. The stage-0 embed's gradient is an 8x8 x
 // 240 x 176 product over 408x728 pixels, 1.61 TFLOP against ~0.25 GB of
 // traffic, far above the card's ~295 FLOP/byte ridge. bf16 runs the products
-// on wgmma fed by TMA, as kernel 2 does; f32 is FMA.
+// on wgmma fed by TMA, as kernel 2 does; f32 runs them on the tensor cores
+// as 3xTF32 (common.cuh) with mma.sync.
 //
 // bf16 design: a GEMM per tap, gk[tap] = x_tap^T . gy, with the pixels as
 // the contraction. A block owns (tap, a tile of 128 input channels, a tile
@@ -28,13 +29,32 @@
 // The tap is the fastest grid index and every block walks its split's
 // pixels in the same order, so the kh*kw blocks that read one chunk of x and
 // gy run together and find it in L2 (the 8x8 embed's gy is 104 MB and x 146
-// MB, both beyond the 50 MB L2). The TPU kernel summed its tiles in order
-// into one VMEM block; here blocks run in parallel, so each split writes its
-// own partial gk to a scratch buffer (the caller's) and a second pass adds
-// the splits in a fixed order: the result does not change from run to run.
-// TMA needs 16-byte strides: the wrapper zero-pads Cin and Cout to
-// multiples of 8. The TPU kernel's lane tricks (the f32 roll, gy padded to
-// the lane tile, the Cin sublane pad) have no counterpart.
+// MB, both beyond the 50 MB L2).
+//
+// f32 design: wgmma takes tf32 operands K-major only, and here neither is
+// (x and gy keep their channels contiguous, the contraction runs over the
+// pixels), so the products run on mma.sync.m16n8k8.tf32, whose fragments
+// come from registers loaded in any layout: no transpose pass through shared
+// memory, and each value is split hi / lo in the registers it is loaded to.
+// Each k8 step's three products go into a fresh accumulator that is added
+// to the sum in registers (the tensor cores' f32 accumulation truncates:
+// common.cuh).
+// A block owns (a row of TC taps (di, dj0 .. dj0 + TC - 1), a tile of 64
+// input channels, a tile of BN = 16, 32 or 64 output channels, a split of
+// the pixels); a K step is one row segment of 32 output pixels. Its stage
+// holds gy's 32 pixels x BN and x's 32 + TC - 1 pixels x 64 channels of row
+// y + di, which every tap of the row reads shifted by dj: x is staged once
+// for TC taps. 16-byte cp.async with zero fill past the tensors, a ring of
+// 4 stages, rows padded by 8 floats so that the fragment loads meet no bank
+// conflict. 8 warps: 4 x 16 input channels by 2 x BN / 2 outputs.
+//
+// The TPU kernel summed its tiles in order into one VMEM block; here blocks
+// run in parallel, so each split writes its own partial gk to a scratch
+// buffer (the caller's) and a second pass adds the splits in a fixed order:
+// the result does not change from run to run. TMA and the 16-byte copies
+// need 16-byte strides: the wrapper zero-pads Cin and Cout to multiples of
+// 8 (bf16) or 4 (f32). The TPU kernel's lane tricks (the f32 roll, gy padded
+// to the lane tile, the Cin sublane pad) have no counterpart.
 #include <algorithm>
 
 #include "common.cuh"
@@ -172,102 +192,154 @@ cudaError_t launch_bf16(const CUtensorMap& tx, const CUtensorMap& tg, float* par
 }
 
 // ---------------------------------------------------------------- f32
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BM = 64;        // input channels per block
-constexpr int BN = 64;        // output channels per block
+constexpr int F_THREADS = 256;  // 8 warps: 4 over the channels, 2 over the outputs
+constexpr int F_BM = 64;        // input channels a block
+constexpr int F_P = 32;         // output pixels a K step: one row segment
+constexpr int F_STAGES = 4;
+constexpr int F_LDX = F_BM + 8;  // staged x row: 72 floats, so 8t + g spreads the banks
 
-struct Geom {
-  int n, hp, wp, cin, kh, kw, cout, ho, wo;
-  int nxc;      // chunks per output row
-  int nchunks;  // chunks in all
+struct F32Geom {
+  int hp, wp, cin, kh, kw, cout, ho, wo;
+  int nxc;              // row segments per output row
+  int nchunks, per;     // K steps in all and per split
   int n_ct, n_ot, ngc;  // channel tiles, output tiles, tap groups per kernel row
-  int splits;
 };
 
-// chunk ci -> (image, output row, first output column)
-__device__ __forceinline__ void chunk_at(const Geom& g, int ci, int p, int& b, int& y, int& x0) {
-  x0 = (ci % g.nxc) * p;
-  y = (ci / g.nxc) % g.ho;
-  b = ci / (g.nxc * g.ho);
-}
+template <int BN, int TC>
+struct F32Tile {
+  static constexpr int XW = F_P + TC - 1;  // x pixels a stage
+  static constexpr int LDG = BN + 8;       // staged gy row (24, 40 or 72: conflict-free)
+  static constexpr int XS = XW * F_LDX, GS = F_P * LDG;  // floats a stage
+  static constexpr int NT = BN / 16;      // n8 tiles a warp
+  static constexpr size_t SMEM = (size_t)F_STAGES * (XS + GS) * 4;
+};
 
-constexpr int P32 = 32;  // pixels per chunk
-
-// thread (tm, tn) of 16 x 16 owns channels 4 tm.. and outputs 4 tn.., per tap
-template <int TR, int TC>
-__global__ void __launch_bounds__(THREADS)
-wgrad_f32(const float* __restrict__ x, const float* __restrict__ gy, float* __restrict__ part,
-          Geom g) {
-  constexpr int TG = TR * TC, SW = P32 + TC - 1;
-  __shared__ __align__(16) float sg[P32][BN];
-  __shared__ __align__(16) float sx[TR][SW][BM];
+template <int BN, int TC>
+__global__ void __launch_bounds__(F_THREADS, 2)
+wgrad_tf32(const float* __restrict__ x, const float* __restrict__ gy, float* __restrict__ part,
+           F32Geom g) {
+  using T = F32Tile<BN, TC>;
+  extern __shared__ __align__(16) float fsm[];
+  float* xs = fsm;                     // [F_STAGES][XW][F_LDX]
+  float* gs = fsm + F_STAGES * T::XS;  // [F_STAGES][F_P][LDG]
   int t = blockIdx.x;
   const int o0 = (t % g.n_ot) * BN;
   t /= g.n_ot;
-  const int c0 = (t % g.n_ct) * BM;
+  const int c0 = (t % g.n_ct) * F_BM;
   t /= g.n_ct;
-  const int di0 = (t / g.ngc) * TR, dj0 = (t % g.ngc) * TC;
-  const int split = blockIdx.y;
-  const int per = (g.nchunks + g.splits - 1) / g.splits;
-  const int ch0 = split * per, ch1 = min(g.nchunks, ch0 + per);
-  const int tn = threadIdx.x % 16, tm = threadIdx.x / 16;
+  const int dj0 = (t % g.ngc) * TC, di = t / g.ngc;
+  const int ch0 = blockIdx.y * g.per, nch = max(0, min(g.nchunks, ch0 + g.per) - ch0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int m0 = 16 * (warp % 4), nw = (BN / 2) * (warp / 4);
 
-  float acc[TG][4][4];
-#pragma unroll
-  for (int q = 0; q < TG; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[q][i][j] = 0.f;
+  // K step ci (image, output row y, columns x0..) into stage st
+  auto load = [&](int ci, int st) {
+    const int x0 = (ci % g.nxc) * F_P, y = (ci / g.nxc) % g.ho, b = ci / (g.nxc * g.ho);
+    float* xd = xs + st * T::XS;
+    float* gd = gs + st * T::GS;
+    const float* xrow = x + (size_t)(b * g.hp + y + di) * g.wp * g.cin;
+    for (int e = threadIdx.x; e < T::XW * (F_BM / 4); e += F_THREADS) {
+      const int p = e / (F_BM / 4), q = 4 * (e % (F_BM / 4));
+      const int xx = x0 + dj0 + p, c = c0 + q;
+      const bool in = xx < g.wp && c < g.cin;
+      cp_async16_zfill(xd + p * F_LDX + q, in ? xrow + (size_t)xx * g.cin + c : x, in);
+    }
+    const float* grow = gy + (size_t)(b * g.ho + y) * g.wo * g.cout;
+    for (int e = threadIdx.x; e < F_P * (BN / 4); e += F_THREADS) {
+      const int p = e / (BN / 4), q = 4 * (e % (BN / 4));
+      const int xx = x0 + p, o = o0 + q;
+      const bool in = xx < g.wo && o < g.cout;
+      cp_async16_zfill(gd + p * T::LDG + q, in ? grow + (size_t)xx * g.cout + o : gy, in);
+    }
+  };
 
-  for (int ci = ch0; ci < ch1; ++ci) {
-    int b, y, x0;
-    chunk_at(g, ci, P32, b, y, x0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < P32 * BN; i += THREADS) {
-      const int r = i / BN, o = i % BN, xx = x0 + r;
-      sg[r][o] = (xx < g.wo && o0 + o < g.cout)
-                     ? gy[((size_t)(b * g.ho + y) * g.wo + xx) * g.cout + o0 + o]
-                     : 0.f;
-    }
-    for (int i = threadIdx.x; i < TR * SW * BM; i += THREADS) {
-      const int c = i % BM, j = (i / BM) % SW, tr = i / (BM * SW);
-      const int yy = y + di0 + tr, xx = x0 + dj0 + j;
-      sx[tr][j][c] = (yy < g.hp && xx < g.wp && c0 + c < g.cin)
-                         ? x[((size_t)(b * g.hp + yy) * g.wp + xx) * g.cin + c0 + c]
-                         : 0.f;
-    }
-    __syncthreads();
-    for (int p = 0; p < P32; ++p) {
-      const float4 bv = *reinterpret_cast<const float4*>(&sg[p][tn * 4]);
+  float acc[TC][T::NT][4];
 #pragma unroll
-      for (int tr = 0; tr < TR; ++tr)
+  for (int tc = 0; tc < TC; ++tc)
 #pragma unroll
-        for (int tc = 0; tc < TC; ++tc) {
-          const float4 av = *reinterpret_cast<const float4*>(&sx[tr][p + tc][tm * 4]);
-          const float a[4] = {av.x, av.y, av.z, av.w}, bb[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int j = 0; j < T::NT; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) acc[tc][j][e] = 0.f;
+
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[tr * TC + tc][i][j] = fmaf(a[i], bb[j], acc[tr * TC + tc][i][j]);
+  for (int st = 0; st < F_STAGES - 1; ++st) {
+    if (st < nch) load(ch0 + st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nch; ++it) {
+    cp_async_wait<F_STAGES - 2>();  // step it has landed
+    __syncthreads();                // ... for every thread, and step it - 1 is read
+    if (it + F_STAGES - 1 < nch) load(ch0 + it + F_STAGES - 1, (it + F_STAGES - 1) % F_STAGES);
+    cp_async_commit();
+    const float* xd = xs + (it % F_STAGES) * T::XS;
+    const float* gd = gs + (it % F_STAGES) * T::GS;
+#pragma unroll
+    for (int k0 = 0; k0 < F_P; k0 += 8) {
+      // B = gy (k = pixel, n = output): b0 = B[tq][gq], b1 = B[tq + 4][gq]
+      uint32_t bh[T::NT][2], bl[T::NT][2];
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          split_tf32(gd[(k0 + tq + 4 * r) * T::LDG + nw + 8 * j + gq], bh[j][r], bl[j][r]);
+#pragma unroll
+      for (int tc = 0; tc < TC; ++tc) {
+        // A = x^T (m = channel, k = pixel), the tap's pixels shifted by tc
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(xd[(k0 + tq + 4 * (i >> 1) + tc) * F_LDX + m0 + gq + 8 * (i & 1)], ah[i],
+                     al[i]);
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) {  // the k8 step's products, then into the sum
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, al, bh[j]);
+          mma_tf32(part, ah, bl[j]);
+          mma_tf32(part, ah, bh[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[tc][j][e] += part[e];
         }
+      }
     }
   }
-  const size_t total = (size_t)g.kh * g.kw * g.cin * g.cout;
-  float* dst = part + (size_t)split * total;
+  cp_async_wait<0>();
+  float* dst = part + (size_t)blockIdx.y * g.kh * g.kw * g.cin * g.cout;
 #pragma unroll
-  for (int q = 0; q < TG; ++q) {
-    const int di = di0 + q / TC, dj = dj0 + q % TC;
-    if (di >= g.kh || dj >= g.kw) continue;
+  for (int tc = 0; tc < TC; ++tc) {
+    const int dj = dj0 + tc;
+    if (dj >= g.kw) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < T::NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tm * 4 + i, o = o0 + tn * 4 + j;
-        if (c < g.cin && o < g.cout)
-          dst[((size_t)(di * g.kw + dj) * g.cin + c) * g.cout + o] = acc[q][i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + m0 + gq + 8 * h, o = o0 + nw + 8 * j + 2 * tq;
+        if (c < g.cin && o < g.cout)  // cout % 4 == 0: o + 1 is in range too
+          *reinterpret_cast<float2*>(dst + ((size_t)(di * g.kw + dj) * g.cin + c) * g.cout + o) =
+              make_float2(acc[tc][j][2 * h], acc[tc][j][2 * h + 1]);
       }
+  }
+}
+
+template <int BN, int TC>
+cudaError_t launch_f32(const float* x, const float* gy, float* part, const F32Geom& g, int splits,
+                       cudaStream_t s) {
+  using T = F32Tile<BN, TC>;
+  const dim3 grid(g.n_ot * g.n_ct * g.ngc * g.kh, splits);
+  cudaFuncSetAttribute(wgrad_tf32<BN, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)T::SMEM);
+  wgrad_tf32<BN, TC><<<grid, F_THREADS, T::SMEM, s>>>(x, gy, part, g);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_f32_tc(int tc, const float* x, const float* gy, float* part, const F32Geom& g,
+                          int splits, cudaStream_t s) {
+  switch (tc) {
+    case 1: return launch_f32<BN, 1>(x, gy, part, g, splits, s);
+    case 2: return launch_f32<BN, 2>(x, gy, part, g, splits, s);
+    case 3: return launch_f32<BN, 3>(x, gy, part, g, splits, s);
+    case 4: return launch_f32<BN, 4>(x, gy, part, g, splits, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -282,12 +354,6 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   }
 }
 
-template <int TR, int TC>
-void launch_f32(const float* x, const float* gy, float* part, const Geom& g, cudaStream_t s) {
-  const dim3 grid(g.n_ot * g.n_ct * g.ngc * ((g.kh + TR - 1) / TR), g.splits);
-  wgrad_f32<TR, TC><<<grid, THREADS, 0, s>>>(x, gy, part, g);
-}
-
 }  // namespace wgrad
 }  // namespace credit
 
@@ -297,10 +363,11 @@ using namespace credit;
 // kBF16), contiguous and 16-byte aligned; gk (kh, kw, cin, cout) f32. The
 // wrapper's plan: bf16 takes cin and cout multiples of 8, bn (64, 128, 192
 // or 256) output channels a block and K steps of 64 pixels sw (16, 32 or
-// 64) wide, one tap a block (tr = tc = 1); f32 bn 64, sw 32 (one row
-// segment) and a tap group of tr x tc (2x2, 1x3 or 1x4). `splits` blocks share
-// each tile's pixels; with more than one, `work` holds splits x kh x kw x
-// cin x cout f32 partials, added in order into gk.
+// 64) wide, one tap a block (tr = tc = 1); f32 cin and cout multiples of 4,
+// bn 16, 32 or 64, sw 32 (one row segment) and a row of tc (1 to 4) taps a
+// block (tr = 1). `splits` blocks share each tile's pixels; with more than
+// one, `work` holds splits x kh x kw x cin x cout f32 partials, added in
+// order into gk.
 extern "C" int credit_conv_wgrad(const void* x, const void* gy, void* gk, void* work, int dtype,
                                  int n, int hp, int wp, int cin, int kh, int kw, int cout, int bn,
                                  int sw, int tr, int tc, int splits, void* stream) {
@@ -338,24 +405,26 @@ extern "C" int credit_conv_wgrad(const void* x, const void* gy, void* gk, void* 
     }
     if (err != cudaSuccess) return (int)err;
   } else if (dtype == kF32) {
-    const bool group = (tr == 2 && tc == 2) || (tr == 1 && (tc == 3 || tc == 4));
-    if (bn != BN || sw != P32 || !group) return (int)cudaErrorInvalidValue;
-    Geom g{};
-    g.n = n, g.hp = hp, g.wp = wp, g.cin = cin, g.kh = kh, g.kw = kw, g.cout = cout;
+    if (cin % 4 || cout % 4 || sw != F_P || tr != 1 || tc < 1 || tc > 4)
+      return (int)cudaErrorInvalidValue;
+    F32Geom g{};
+    g.hp = hp, g.wp = wp, g.cin = cin, g.kh = kh, g.kw = kw, g.cout = cout;
     g.ho = ho, g.wo = wo;
-    g.nxc = (wo + P32 - 1) / P32;
+    g.nxc = (wo + F_P - 1) / F_P;
     g.nchunks = n * ho * g.nxc;
+    g.per = (g.nchunks + splits - 1) / splits;
     g.ngc = (kw + tc - 1) / tc;
-    g.n_ct = (cin + BM - 1) / BM, g.n_ot = (cout + BN - 1) / BN;
-    g.splits = splits;
+    g.n_ct = (cin + F_BM - 1) / F_BM, g.n_ot = (cout + bn - 1) / bn;
     const float* xf = static_cast<const float*>(x);
     const float* gf = static_cast<const float*>(gy);
-    if (tr == 2)
-      launch_f32<2, 2>(xf, gf, part, g, s);
-    else if (tc == 3)
-      launch_f32<1, 3>(xf, gf, part, g, s);
-    else
-      launch_f32<1, 4>(xf, gf, part, g, s);
+    cudaError_t err;
+    switch (bn) {
+      case 16: err = launch_f32_tc<16>(tc, xf, gf, part, g, splits, s); break;
+      case 32: err = launch_f32_tc<32>(tc, xf, gf, part, g, splits, s); break;
+      case 64: err = launch_f32_tc<64>(tc, xf, gf, part, g, splits, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -4,11 +4,16 @@ The nodes are the flattened lat-lon grid, the edges its k nearest
 neighbours on the unit sphere (`knn_sphere_edges`, numpy, built at
 construction, the same edges in the same order as credit_tpu's). Each
 block is a TransformerConv by segment softmax and segment sum over the
-static edge list (`scatter_reduce` amax and `index_add_`), ReLU, Dense,
-LayerNorm (eps 1e-6), ReLU, Dense, plus the residual; a GRU-style gate
-follows each block (the first from the block's output alone). Batch
-samples share the graph. Parameter names follow flax's `setup`:
-`encoder`, `blocks_<i>`, `gates_<i>`, `decoder`.
+static edge list, ReLU, Dense, LayerNorm (eps 1e-6), ReLU, Dense, plus
+the residual; a GRU-style gate follows each block (the first from the
+block's output alone). Batch samples share the graph. Parameter names
+follow flax's `setup`: `encoder`, `blocks_<i>`, `gates_<i>`, `decoder`.
+
+The segment sums, and the backward of every gather by an edge's node, add
+each node's edges in edge order (`Segments`: the edge list grouped by
+destination and by source once, the nodes of each degree together, a
+gather and a dense sum), so a step's gradient is the same bits on every
+call, on the card as on the CPU.
 
 Under a mesh with domain > 1 the forward is lat-sharded (`_forward_slabs`):
 a domain rank owns the nodes of its latitude slab and the edges into them
@@ -79,24 +84,101 @@ def grid_edges(image_height: int, image_width: int, knn: int) -> Tuple[np.ndarra
     return edges
 
 
-def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
-                ) -> torch.Tensor:
-    """Sum of values (B, E, ...) over edges into (B, num_segments, ...)."""
-    out = values.new_zeros((values.shape[0], num_segments, *values.shape[2:]))
-    return out.index_add_(1, segment_ids, values)
+class Segments:
+    """The edges of a static edge list grouped by the node they point at
+    (`ids`, E int64 in [0, num)), for segment ops whose sums run in a fixed
+    order on every device and every call. The nodes are grouped by degree:
+    `groups[i]` (n_i, d_i) holds the edge positions of the n_i nodes of
+    degree d_i, each row in edge order, and `where` (num,) the row of each
+    node in the groups' results laid end to end (one past them, a zero
+    row, for a node without edges). A sum over the edges is then a gather
+    and a dense sum over d_i a group, and its adjoint a gather by `ids`: no
+    atomics, forward or backward, where `index_add_` and the backward of
+    indexing sum in the order their atomics land. No group is padded, so a
+    node of high degree (a pole's source nodes on a lat-lon grid reach a
+    whole row) costs only its own edges."""
+
+    def __init__(self, ids: torch.Tensor, num: int):
+        ids = ids.long()
+        order = torch.argsort(ids, stable=True)
+        counts = torch.bincount(ids, minlength=num)
+        starts = torch.cumsum(counts, 0) - counts
+        self.groups, nodes = [], []
+        for d in torch.unique(counts).tolist():
+            if d:
+                nd = torch.nonzero(counts == d).flatten()
+                self.groups.append(order[starts[nd, None]
+                                         + torch.arange(d, device=ids.device)])
+                nodes.append(nd)
+        placed = torch.cat(nodes) if nodes else ids.new_zeros(0)
+        self.where = torch.full((num,), placed.numel(), dtype=torch.long, device=ids.device)
+        self.where[placed] = torch.arange(placed.numel(), device=ids.device)
+        self.ids, self.num = ids, num
+
+    def reduce(self, values: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """values (B, E, ...) -> (B, num, ...): each node's edges reduced
+        (`sum` or `amax`) in edge order; 0 where a node has none."""
+        b, rest = values.shape[0], values.shape[2:]
+        parts = [getattr(values.index_select(1, g.flatten()).view(b, *g.shape, *rest), op)(2)
+                 for g in self.groups]
+        parts.append(values.new_zeros((b, 1, *rest)))
+        return torch.cat(parts, 1).index_select(1, self.where)
 
 
-def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
-                    ) -> torch.Tensor:
+def _segments(segment_ids, num_segments: int) -> Segments:
+    return (segment_ids if isinstance(segment_ids, Segments)
+            else Segments(segment_ids, num_segments))
+
+
+class _SegmentSum(torch.autograd.Function):
+    """`Segments.reduce`'s sum; backward the gather of the cotangent by
+    each edge's node."""
+
+    @staticmethod
+    def forward(ctx, values, seg):
+        ctx.seg = seg
+        return seg.reduce(values)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.index_select(1, ctx.seg.ids), None
+
+
+class _Gather(torch.autograd.Function):
+    """x (B, num, ...) -> x[:, ids] (B, E, ...); backward the fixed-order
+    segment sum of the cotangent over each node's edges."""
+
+    @staticmethod
+    def forward(ctx, x, seg):
+        ctx.seg = seg
+        return x.index_select(1, seg.ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.seg.reduce(g), None
+
+
+def gather(x: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
+    """x (B, num_segments, ...) at each edge's node, (B, E, ...)."""
+    return _Gather.apply(x, _segments(segment_ids, num_segments))
+
+
+def segment_sum(values: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
+    """Sum of values (B, E, ...) over edges into (B, num_segments, ...), each
+    node's edges added in edge order (`segment_ids` a tensor or `Segments`)."""
+    return _SegmentSum.apply(values, _segments(segment_ids, num_segments))
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
     """Softmax of logits (B, E, H) over the edges of each destination node,
-    exp / (sum + 1e-9) as credit_tpu's."""
-    b, e, h = logits.shape
-    idx = segment_ids[None, :, None].expand(b, e, h)
-    maxes = logits.new_full((b, num_segments, h), -math.inf).scatter_reduce(
-        1, idx, logits, "amax", include_self=False)
-    ex = torch.exp(logits - maxes.gather(1, idx))
-    denom = segment_sum(ex, segment_ids, num_segments)
-    return ex / (denom.gather(1, idx) + 1e-9)
+    exp / (sum + 1e-9) as credit_tpu's. The segment's max only shifts the
+    exponents, so no gradient is taken through it."""
+    seg = _segments(segment_ids, num_segments)
+    with torch.no_grad():
+        maxes = seg.reduce(logits, "amax").index_select(1, seg.ids)
+    ex = torch.exp(logits - maxes)
+    denom = segment_sum(ex, seg, num_segments)
+    return ex / (gather(denom, seg, num_segments) + 1e-9)
 
 
 def _dense(i: int, o: int, dtype, use_bias: bool = True) -> Dense:
@@ -119,18 +201,20 @@ class GraphTransformerConv(nn.Module):
 
     def forward(self, x, edge_src, edge_dst, x_src=None):
         """x (B, N, C) the destination nodes; `x_src` the nodes edge_src
-        indexes where they differ (a slab extended by its halo rows)."""
+        indexes where they differ (a slab extended by its halo rows). The
+        edges are index tensors or `Segments` (the model passes those)."""
         b, n, _ = x.shape
         h, c = self.heads, self.out_channels
         xs = x if x_src is None else x_src
+        src, dst = _segments(edge_src, xs.shape[1]), _segments(edge_dst, n)
         q, k, v = self.lin_query(x), self.lin_key(xs), self.lin_value(xs)
-        qe = q[:, edge_dst].reshape(b, -1, h, c)
-        ke = k[:, edge_src].reshape(b, -1, h, c)
-        ve = v[:, edge_src].reshape(b, -1, h, c)
+        qe = gather(q, dst, n).reshape(b, -1, h, c)
+        ke = gather(k, src, xs.shape[1]).reshape(b, -1, h, c)
+        ve = gather(v, src, xs.shape[1]).reshape(b, -1, h, c)
         logits = (qe * ke).sum(-1) / math.sqrt(float(c))
-        alpha = segment_softmax(logits, edge_dst, n)
+        alpha = segment_softmax(logits, dst, n)
         msg = (ve * alpha[..., None]).reshape(b, -1, h * c)
-        return segment_sum(msg, edge_dst, n) + self.lin_skip(x)
+        return segment_sum(msg, dst, n) + self.lin_skip(x)
 
 
 class GateCell(nn.Module):
@@ -200,7 +284,7 @@ class GraphResTransfGRU(BaseModel):
         # its destination: the halo a latitude slab needs
         self.edge_halo = (int(np.abs(src // image_width - dst // image_width).max())
                           if len(src) else 0)
-        self._slab_edges = {}
+        self._slab_edges, self._segments = {}, {}
         self.register_buffer("edge_src", torch.from_numpy(src.astype(np.int64)),
                              persistent=False)
         self.register_buffer("edge_dst", torch.from_numpy(dst.astype(np.int64)),
@@ -253,9 +337,18 @@ class GraphResTransfGRU(BaseModel):
             return self._forward_slabs(x)
         return self._whole(x)
 
+    def segments(self, src: torch.Tensor, dst: torch.Tensor, n_src: int, n_dst: int, key):
+        """The edges (src, dst) grouped by source over n_src nodes and by
+        destination over n_dst (`Segments`), built once a key and device."""
+        key = (key, dst.device)
+        if key not in self._segments:
+            self._segments[key] = (Segments(src, n_src), Segments(dst, n_dst))
+        return self._segments[key]
+
     def _whole(self, x: torch.Tensor) -> torch.Tensor:
         hh, ww = x.shape[2], x.shape[3]
-        return self._decode(self._blocks(self._encode(x), self.edge_src, self.edge_dst), hh, ww)
+        src, dst = self.segments(self.edge_src, self.edge_dst, hh * ww, hh * ww, "whole")
+        return self._decode(self._blocks(self._encode(x), src, dst), hh, ww)
 
     def _forward_slabs(self, x: torch.Tensor) -> torch.Tensor:
         """forward with latitude split over the mesh's domain ranks (see
@@ -270,7 +363,8 @@ class GraphResTransfGRU(BaseModel):
         if hh % n or rows < self.edge_halo:
             par_ctx.GATHERS["graph"] += 1
             return scale_grad(self._whole(x), 1.0 / n)
-        src, dst = self.slab_edges(n, r)
+        src, dst = self.segments(*self.slab_edges(n, r), (rows + 2 * self.edge_halo) * ww,
+                                 rows * ww, (n, r))
 
         def extend(h):  # (B, rows * W, C) -> (B, (rows + 2 halo) * W, C)
             b, _, c = h.shape

@@ -6,14 +6,17 @@ and their VJP `_bwd`. `conv2d_valid` and `conv2d_wgrad` launch the
 hand-written CUDA kernels (`csrc/conv_valid.cu`, `csrc/conv_wgrad.cu`) for
 CUDA tensors and run `conv2d_valid_plain` / `conv2d_wgrad_plain` for CPU
 tensors. All accumulate in f32; the conv returns the input dtype, the weight
-gradient f32.
+gradient f32. Both dtypes run on the tensor cores; f32 as 3xTF32 (each
+operand split into two tf32 parts, three products: f32 accuracy, not
+TF32's), the conv's kernel split once a call by `tf32_split` and laid out
+K-major (`tf32_weights`), the activations split on chip.
 
-The bf16 kernels load their tiles by TMA, whose tensor maps take 16-byte
-strides: where Cin or Cout is not a multiple of 8 the wrappers zero-pad the
-channels (a copy of the inputs, and of the output cut back) before the
-launch. `conv_plan` and `wgrad_plan` pick each launch's tiles and split
-from the shapes alone, once per shape (cached: the split search
-costs host time a training step cannot spare).
+The kernels load their tiles by TMA or 16-byte copies, which take 16-byte
+strides: where Cin or Cout is not a multiple of 8 (bf16) or 4 (f32) the
+wrappers zero-pad the channels (a copy of the inputs, and of the output cut
+back) before the launch. `conv_plan` and `wgrad_plan` pick each launch's
+tiles and split from the shapes alone, once per shape (cached: the split
+search costs host time a training step cannot spare).
 """
 
 from __future__ import annotations
@@ -28,9 +31,13 @@ import torch.nn.functional as F
 from credit_torch import _build
 
 BN_CHOICES = (64, 128, 192, 256)  # bf16: output channels a block (wgmma N)
-TILE_WIDTHS = (16, 32, 64)  # bf16 conv: output columns a block (128 pixels)
+F32_BN_CHOICES = (16, 32, 64, 128)  # f32 conv: wgmma N (its sums in registers)
+F32_WGRAD_BN = (16, 32, 64)  # f32 weight gradient: output channels a block
+TILE_WIDTHS = (16, 32, 64)  # conv: output columns a block (128 pixels)
 SEG_WIDTHS = (64, 32, 16)  # bf16 weight gradient: pixel columns a K step (64 pixels)
 CHANNEL_ALIGN = 8  # bf16: TMA strides are multiples of 16 bytes
+F32_CHANNEL_ALIGN = 4  # f32: the same 16 bytes
+TF32_DROPPED_BITS = 13  # f32 mantissa bits a tf32 value leaves zero
 SMS = 132  # an H100's multiprocessors, for plans made without a card
 # weight-gradient split model: a block's rate on one SM, and the rate the
 # split partials are written and summed at
@@ -68,10 +75,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class ConvPlan:
-    """What one launch of kernel 2 is told: the channels it sees (bf16:
-    padded to multiples of 8), BN output channels and TW output columns a
-    block (bf16: 128 // TW rows of them). The kernel's entry derives its
-    grid from these."""
+    """What one launch of kernel 2 is told: the channels it sees (padded to
+    multiples of 8 in bf16, Cin to a multiple of 4 in f32), BN output
+    channels and TW output columns a block (128 // TW rows of them). The
+    kernel's entry derives its grid from these."""
 
     cin: int
     cout: int
@@ -82,24 +89,51 @@ class ConvPlan:
 @functools.lru_cache(maxsize=1024)
 def conv_plan(dtype: torch.dtype, n: int, hp: int, wp: int, cin: int, kh: int, kw: int,
               cout: int, sms: int = SMS) -> ConvPlan:
-    """bf16: the tile width that wastes the fewest output pixels (16 on a
-    tie), then `wgmma_bn`'s BN. f32: the FMA kernel's fixed 8 x 16 pixels
-    x 64 channels."""
+    """The tile width that wastes the fewest output pixels (16 on a tie),
+    then `wgmma_bn`'s BN: in bf16 of 64-256 over Cout padded to 8, in f32
+    of 16-128 over Cout as it is (the N tile that pads it least where a
+    wider one costs no fewer waves: 16 for 13 outputs, 64 for 60 or 64)."""
     ho, wo = hp - kh + 1, wp - kw + 1
-    if dtype == torch.float32:
-        return ConvPlan(cin, cout, 64, 16)
-    cin, cout = _up(cin, CHANNEL_ALIGN), _up(cout, CHANNEL_ALIGN)
     tw = min(TILE_WIDTHS, key=lambda t: _up(wo, t) * _up(ho, 128 // t))
     tiles = n * _cdiv(wo, tw) * _cdiv(ho, 128 // tw)
+    if dtype == torch.float32:
+        return ConvPlan(_up(cin, F32_CHANNEL_ALIGN), cout,
+                        wgmma_bn(tiles, cout, sms, F32_BN_CHOICES), tw)
+    cin, cout = _up(cin, CHANNEL_ALIGN), _up(cout, CHANNEL_ALIGN)
     return ConvPlan(cin, cout, wgmma_bn(tiles, cout, sms), tw)
 
 
-def wgmma_bn(tiles: int, n: int, sms: int = SMS) -> int:
+def wgmma_bn(tiles: int, n: int, sms: int = SMS, choices=BN_CHOICES) -> int:
     """The BN of 128-row x BN wgmma tiles (`csrc/tma_gemm.cuh`) over `tiles`
     row tiles and n output columns whose waves x block cost is least: a
     block's time grows as BN + 64 (the A tile's loads stay whatever BN is),
     and padded columns count as work (the larger BN on a tie)."""
-    return min(BN_CHOICES[::-1], key=lambda b: _cdiv(tiles * _cdiv(n, b), sms) * (b + 64))
+    return min(choices[::-1], key=lambda b: _cdiv(tiles * _cdiv(n, b), sms) * (b + 64))
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 t rounded to tf32 (to nearest, ties away from zero: PTX's
+    cvt.rna.tf32.f32), as f32 with the low 13 mantissa bits zero."""
+    bits = t.contiguous().view(torch.int32)
+    half = 1 << (TF32_DROPPED_BITS - 1)
+    return ((bits + half) & -(1 << TF32_DROPPED_BITS)).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple:
+    """(hi, lo), both tf32: hi = tf32(t), lo = tf32(t - hi); hi + lo is t
+    within 2^-21 of |t| (3xTF32's split, csrc/common.cuh)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def tf32_weights(kernel: torch.Tensor, cin: int) -> tuple:
+    """The f32 conv's B operands: the HWIO kernel (kh, kw, Cin, Cout) split
+    by `tf32_split`, each part laid out K-major as (kh * kw, Cout, cin),
+    Cin zero-padded to `cin` (wgmma reads tf32 K-major only)."""
+    kh, kw, kcin, cout = kernel.shape
+    k = kernel.reshape(kh * kw, kcin, cout).transpose(1, 2)
+    k = _pad_last(k, cin).contiguous()
+    return tuple(_aligned(part) for part in tf32_split(k))
 
 
 def conv2d_valid_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -120,7 +154,8 @@ def conv2d_valid_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 def conv2d_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """x (N, Hp, Wp, Cin), kernel (kh, kw, Cin, Cout) -> (N, Hp-kh+1, Wp-kw+1, Cout),
-    any kh and kw. A launch adds one to `conv2d_valid.launches`."""
+    any kh and kw. A launch adds one to `conv2d_valid.launches`, and an f32
+    one to `conv2d_valid.f32_launches` too."""
     if x.device.type == "cpu":
         return conv2d_valid_plain(x, kernel)
     n, hp, wp, cin = x.shape
@@ -131,31 +166,36 @@ def conv2d_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         raise TypeError("conv2d_valid: kernel must match x's dtype and device")
     plan = conv_plan(x.dtype, n, hp, wp, cin, kh, kw, cout, _sms(x.device))
     x = _aligned(_pad_last(x, plan.cin))
-    kernel = _aligned(_pad_last2(kernel, plan.cin, plan.cout))
+    if x.dtype == torch.float32:  # the kernel's tf32 parts, K-major
+        kernel, k_lo = tf32_weights(kernel, plan.cin)
+    else:
+        kernel, k_lo = _aligned(_pad_last2(kernel, plan.cin, plan.cout)), None
     out = torch.empty((n, hp - kh + 1, wp - kw + 1, plan.cout), dtype=x.dtype, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("credit_conv_valid", [p, p, p] + [i] * 10 + [p])
-    err = fn(x.data_ptr(), kernel.data_ptr(), out.data_ptr(), _build.dtype_code(x.dtype),
-             n, hp, wp, plan.cin, kh, kw, plan.cout, plan.bn, plan.tw, _build.stream_ptr())
+    fn = _build.function("credit_conv_valid", [p] * 4 + [i] * 10 + [p])
+    err = fn(x.data_ptr(), kernel.data_ptr(), None if k_lo is None else k_lo.data_ptr(),
+             out.data_ptr(), _build.dtype_code(x.dtype), n, hp, wp, plan.cin, kh, kw, plan.cout,
+             plan.bn, plan.tw, _build.stream_ptr())
     _build.check(err, "credit_conv_valid")
     conv2d_valid.launches += 1
+    conv2d_valid.f32_launches += int(x.dtype == torch.float32)
     return out if plan.cout == cout else out[..., :cout].contiguous()
 
 
 conv2d_valid.launches = 0
+conv2d_valid.f32_launches = 0  # of those, the f32 form's
 
 
 # ------------------------------------------------------------ weight gradient
 @dataclass(frozen=True)
 class WgradPlan:
-    """What one launch of kernel 5 is told: the channels it sees (bf16:
-    padded to multiples of 8), BN output channels a block, K steps `sw`
-    pixels wide (bf16: 64 // sw rows of them; f32: one row segment of 32),
-    the taps a block owns (`group`, rows x columns: one in bf16; in f32 a
-    2x2 group for kernels up to 2x2, a row of 3 for 3-wide kernels, else
-    rows of 4), `splits` blocks sharing each tile's pixels, and the bytes of
-    split partials the caller provides. The kernel's entry derives its grid
-    and each split's share from these."""
+    """What one launch of kernel 5 is told: the channels it sees (padded to
+    multiples of 8 in bf16, 4 in f32), BN output channels a block, K steps
+    `sw` pixels wide (bf16: 64 // sw rows of them; f32: one row segment of
+    32), the taps a block owns (`group`, rows x columns: one in bf16, a row
+    of up to 4 in f32), `splits` blocks sharing each tile's pixels, and the
+    bytes of split partials the caller provides. The kernel's entry derives
+    its grid and each split's share from these."""
 
     cin: int
     cout: int
@@ -174,16 +214,22 @@ def wgrad_plan(dtype: torch.dtype, n: int, hp: int, wp: int, cin: int, kh: int, 
     larger on a tie), and the split count whose waves x K steps per block,
     at SM_FLOPS a block, plus the partials' traffic (each written, read,
     and the sum written) take least time (the fewest splits on a tie), with
-    at least 8 K steps a split. f32: 64 x 64 tiles of a tap group, one row
-    segment of 32 pixels a K step, splits for about 4 waves of two blocks
-    per SM, at least 8 K steps a split."""
+    at least 8 K steps a split. f32: 64 input channels by the BN of 16, 32
+    or 64 whose tiles cost least as (BN + 16) each (x's loads and splits
+    stay whatever BN is: 16 for 13 outputs, 64 for 60 or 64), a row of the
+    fewest even groups of at most 4 taps, one row segment of 32 pixels a K
+    step, splits for about 4 waves of two blocks per SM, at least 8 K steps
+    a split."""
     ho, wo = hp - kh + 1, wp - kw + 1
     if dtype == torch.float32:
-        tr, tc = (2, 2) if kh <= 2 and kw <= 2 else (1, 3) if kw == 3 else (1, 4)
+        cin, cout = _up(cin, F32_CHANNEL_ALIGN), _up(cout, F32_CHANNEL_ALIGN)
+        bn = min(F32_WGRAD_BN[::-1], key=lambda b: _cdiv(cout, b) * (b + 16))
+        tc = _cdiv(kw, _cdiv(kw, 4))
         chunks = n * ho * _cdiv(wo, 32)
-        tiles = _cdiv(cin, 64) * _cdiv(cout, 64) * _cdiv(kw, tc) * _cdiv(kh, tr)
+        tiles = _cdiv(cin, 64) * _cdiv(cout, bn) * _cdiv(kw, tc) * kh
         splits = max(1, min(_cdiv(4 * 2 * sms, tiles), chunks // 8))
-        return WgradPlan(cin, cout, 64, 32, (tr, tc), splits,
+        splits = _cdiv(chunks, _cdiv(chunks, splits))  # no split left empty
+        return WgradPlan(cin, cout, bn, 32, (1, tc), splits,
                          splits * kh * kw * cin * cout * 4 if splits > 1 else 0)
     cin, cout = _up(cin, CHANNEL_ALIGN), _up(cout, CHANNEL_ALIGN)
     sw = min(SEG_WIDTHS, key=lambda s: _up(wo, s) * _up(ho, 64 // s))
@@ -218,7 +264,8 @@ def conv2d_wgrad_plain(x: torch.Tensor, gy: torch.Tensor, kh: int, kw: int) -> t
 def conv2d_wgrad(x: torch.Tensor, gy: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     """Weight gradient of the VALID conv: x (N, Hp, Wp, Cin), gy (N, Hp-kh+1,
     Wp-kw+1, Cout) -> f32 (kh, kw, Cin, Cout); gy is rounded to x's dtype.
-    A launch adds one to `conv2d_wgrad.launches`."""
+    A launch adds one to `conv2d_wgrad.launches`, and an f32 one to
+    `conv2d_wgrad.f32_launches` too."""
     if x.device.type == "cpu":
         return conv2d_wgrad_plain(x, gy, kh, kw)
     n, hp, wp, cin = x.shape
@@ -240,12 +287,14 @@ def conv2d_wgrad(x: torch.Tensor, gy: torch.Tensor, kh: int, kw: int) -> torch.T
              _build.stream_ptr())
     _build.check(err, "credit_conv_wgrad")
     conv2d_wgrad.launches += 1
+    conv2d_wgrad.f32_launches += int(x.dtype == torch.float32)
     if (plan.cin, plan.cout) != (cin, cout):
         gk = gk[:, :, :cin, :cout].contiguous()
     return gk
 
 
 conv2d_wgrad.launches = 0
+conv2d_wgrad.f32_launches = 0  # of those, the f32 form's
 
 
 class _ConvValid(torch.autograd.Function):

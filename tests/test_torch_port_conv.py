@@ -4,9 +4,11 @@ card.
 
 `conv_plan` and `wgrad_plan` pick what each launch is told (tile widths,
 BN, splits, the f32 tap group) and the workspace, and the wrappers zero-pad
-channels that are not multiples of 8. On the CPU: the plans at the main
-paths' shapes, and the plain versions on the padded channels, cut back,
-against the unpadded ones and credit_tpu's Pallas kernels run interpreted.
+channels that are not multiples of 8 (bf16) or 4 (f32). On the CPU: the
+plans at the main paths' shapes, the plain versions on the padded channels,
+cut back, against the unpadded ones and credit_tpu's Pallas kernels run
+interpreted, and the f32 kernels' 3xTF32 arithmetic (the weight split, and
+an emulation of the three products against f64 sums).
 The kernels themselves run only on a card (the `cuda` tests here, which
 import no flax model, and chip_smoke.py).
 """
@@ -139,23 +141,136 @@ def test_plans_pad_channels_to_multiples_of_8(cin, cout):
         assert plan.cin % 8 == 0 and plan.cout % 8 == 0
         assert plan.cin - cin < 8 and plan.cout - cout < 8
         assert plan.bn in cuda_conv.BN_CHOICES
-    # f32 keeps its FMA kernel's fixed tiles and needs no padding
+    # f32 pads Cin to a multiple of 4 (TMA's 16 bytes); the conv's Cout
+    # stays as it is (TMA zero-fills B's rows past it), the weight
+    # gradient's goes to a multiple of 4 (its 16-byte copies of gy)
     f32 = conv_plan(torch.float32, 1, 9, 9, cin, 3, 3, cout)
-    assert (f32.cin, f32.cout, f32.bn, f32.tw) == (cin, cout, 64, 16)
+    assert (f32.cin, f32.cout) == (cuda_conv._up(cin, 4), cout)
+    assert f32.bn in cuda_conv.F32_BN_CHOICES
+    f32w = wgrad_plan(torch.float32, 1, 9, 9, cin, 3, 3, cout)
+    assert (f32w.cin, f32w.cout) == (cuda_conv._up(cin, 4), cuda_conv._up(cout, 4))
 
 
 def test_f32_wgrad_plan_keeps_its_split_rule():
-    """f32: 64 x 64 tiles of a tap group, about 4 waves of two blocks per
-    SM, at least 8 row segments of 32 pixels a split."""
+    """f32: 64 input channels by the cheapest BN of 16-64, a row of the
+    fewest even groups of at most 4 taps, about 4 waves of two blocks per
+    SM, at least 8 row segments of 32 pixels a split, none left empty."""
     p = wgrad_plan(torch.float32, 1, 415, 735, 240, 8, 8, 176)
-    tiles = 4 * 3 * 2 * 8  # Cin tiles x Cout tiles x column groups of 4 x rows
-    assert p.group == (1, 4) and p.splits == _cdiv(8 * cuda_conv.SMS, tiles)
-    assert [wgrad_plan(torch.float32, 1, 9, 9, 8, kh, kw, 8).group
-            for kh, kw in [(2, 2), (1, 2), (3, 3), (3, 2), (16, 16)]] == [
-        (2, 2), (2, 2), (1, 3), (1, 4), (1, 4)]
+    tiles = 4 * 3 * 2 * 8  # Cin tiles x Cout tiles of 64 x column groups of 4 x rows
+    assert p.bn == 64 and p.group == (1, 4) and p.splits == _cdiv(8 * cuda_conv.SMS, tiles)
+    assert [wgrad_plan(torch.float32, 1, 20, 20, 8, kh, kw, 8).group
+            for kh, kw in [(2, 2), (2, 1), (3, 3), (3, 2), (1, 5), (8, 8), (16, 16)]] == [
+        (1, 2), (1, 1), (1, 3), (1, 2), (1, 3), (1, 4), (1, 4)]
     assert p.workspace == p.splits * 8 * 8 * 240 * 176 * 4
     tiny = wgrad_plan(torch.float32, 1, 5, 5, 8, 3, 3, 8)
     assert tiny.splits == 1 and tiny.workspace == 0
+
+
+# (cin, cout) -> the f32 N tile of the conv and of the weight gradient:
+# SKEBS's cnn 60 -> 13, its input gradient 13 -> 60, the U-Net's 64 -> 64
+# and 128 -> 64, the stage-0 embed's 240 -> 176, a U-Net level 3's 512
+F32_TILES = [((60, 13), 16, 16), ((13, 60), 64, 64), ((64, 64), 64, 64), ((128, 64), 64, 64),
+             ((240, 176), 128, 64), ((512, 512), 128, 64)]
+
+
+@pytest.mark.parametrize("channels,conv_bn,wgrad_bn", F32_TILES)
+def test_f32_plans_pick_the_n_tile_that_fits_cout(channels, conv_bn, wgrad_bn):
+    """The f32 N tile pads Cout least where a wider one costs no fewer
+    waves (13 -> 16, 60 -> 64, 64 -> 64); Cin padded to a multiple of 4."""
+    cin, cout = channels
+    shape = (2, 723, 1442, cin, 3, 3, cout)
+    cp, wp_ = conv_plan(torch.float32, *shape), wgrad_plan(torch.float32, *shape)
+    assert (cp.bn, wp_.bn) == (conv_bn, wgrad_bn)
+    assert cp.cin == wp_.cin == cuda_conv._up(cin, 4) and cp.cin - cin < 4
+    assert cp.tw == conv_plan(BF16, *shape).tw  # the same pixel tile as bf16
+
+
+def _tf32_bits_zero(t: torch.Tensor) -> bool:
+    return not (t.view(torch.int32) & ((1 << 13) - 1)).any()
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 60, 13), (2, 2, 17, 8), (1, 5, 4, 3)])
+def test_tf32_split_and_k_major_weights(shape):
+    """hi + lo gives back w within 2^-21 of |w|, each part tf32 (the low 13
+    mantissa bits zero), hi rounded to nearest; laid out (taps, Cout, Cin),
+    Cin zero-padded to a multiple of 4."""
+    kh, kw, cin, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    w = torch.from_numpy((rng.standard_normal(shape) * 10.0 ** rng.integers(-3, 3, shape))
+                         .astype(np.float32))
+    hi, lo = cuda_conv.tf32_split(w)
+    assert _tf32_bits_zero(hi) and _tf32_bits_zero(lo)
+    wd = w.double()
+    assert ((hi.double() - wd).abs() <= wd.abs() * 2.0 ** -11).all()
+    assert ((hi.double() + lo.double() - wd).abs() <= wd.abs() * 2.0 ** -21).all()
+    cp = cuda_conv._up(cin, 4)
+    khi, klo = cuda_conv.tf32_weights(w, cp)
+    assert khi.shape == klo.shape == (kh * kw, cout, cp) and khi.is_contiguous()
+    assert torch.equal(khi[:, :, :cin], hi.reshape(kh * kw, cin, cout).transpose(1, 2))
+    assert torch.equal(klo[:, :, :cin], lo.reshape(kh * kw, cin, cout).transpose(1, 2))
+    assert not khi[:, :, cin:].any() and not klo[:, :, cin:].any()
+
+
+def _emulated_tf32_conv(x: torch.Tensor, k: torch.Tensor, products: int) -> torch.Tensor:
+    """The f32 conv as the tensor cores compute it: tf32 operands (rounded
+    by bit masking), exact products summed in f32; 3xTF32's three products,
+    or 1xTF32's one (plain TF32)."""
+    (xh, xl), (kh_, kl) = cuda_conv.tf32_split(x), cuda_conv.tf32_split(k)
+    terms = [(xl, kh_), (xh, kl), (xh, kh_)] if products == 3 else [(xh, kh_)]
+    out = torch.zeros(1)
+    for a, b in terms:
+        out = out + cuda_conv.conv2d_valid_plain(a, b)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 22, 60, 3, 3, 13), (1, 18, 18, 64, 3, 3, 64)])
+def test_3xtf32_keeps_f32_accuracy_and_1xtf32_does_not(shape):
+    """Against f64 sums, the 3xTF32 emulation stays within phase 2's f32
+    limit (1e-5 of max |f64|, up to 15,360 products a sum); plain TF32's
+    one product misses it by more than an order of magnitude: why the f32
+    kernels split both operands."""
+    n, hp, wp, cin, kh, kw, cout = shape
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((rng.standard_normal((n, hp, wp, cin)) * 0.5).astype(np.float32))
+    k = torch.from_numpy((rng.standard_normal((kh, kw, cin, cout)) / np.sqrt(kh * kw * cin))
+                         .astype(np.float32))
+    exact = cuda_conv.conv2d_valid_plain(x.double(), k.double())
+    scale = float(exact.abs().max())
+    tol = 1e-5 * max(1.0, kh * kw * cin / 15360) ** 0.5
+
+    def err(out):
+        return float((out.double() - exact).abs().max()) / scale
+
+    assert err(_emulated_tf32_conv(x, k, 3)) < tol
+    assert err(_emulated_tf32_conv(x, k, 1)) > 10 * tol
+
+
+@pytest.mark.parametrize("shape", [(1, 66, 66, 60, 3, 3, 13), (2, 34, 34, 64, 3, 3, 64)])
+def test_weight_gradient_f64_check_tells_3xtf32_from_tf32(shape):
+    """The weight gradient emulated as the tensor cores compute it: 3xTF32
+    stays within chip_smoke's f64 check (phase 2's f32 limit at n*ho*wo
+    products a sum); plain TF32 misses it by more than an order of
+    magnitude, yet stays within the 5e-4 of max |plain| that phase 2 holds
+    #5 to against its plain version, so only the f64 check sees it."""
+    import chip_smoke
+
+    n, hp, wp, cin, kh, kw, cout = shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((rng.standard_normal((n, hp, wp, cin)) * 0.5).astype(np.float32))
+    gy = torch.from_numpy((rng.standard_normal((n, ho, wo, cout)) * 0.1).astype(np.float32))
+    (xh, xl), (gh, gl) = cuda_conv.tf32_split(x), cuda_conv.tf32_split(gy)
+
+    def emulated(terms):
+        return sum(cuda_conv.conv2d_wgrad_plain(a, b, kh, kw) for a, b in terms)
+
+    exact = cuda_conv.conv2d_wgrad_plain(x.double(), gy.double(), kh, kw)
+    plain = cuda_conv.conv2d_wgrad_plain(x, gy, kh, kw)
+    limit = chip_smoke.f32_limit(n * ho * wo)
+    three, one = emulated([(xl, gh), (xh, gl), (xh, gh)]), emulated([(xh, gh)])
+    assert _rel(three.double(), exact) < limit
+    assert _rel(one.double(), exact) > 10 * limit
+    assert _rel(one, plain) < 5e-4
 
 
 def test_wrapper_pads_channels_and_cuts_them_back():
@@ -207,10 +322,27 @@ def test_bf16_kernels_at_every_tile_width_match_plain_on_card(cuda, bn, monkeypa
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bn", cuda_conv.F32_BN_CHOICES)
+def test_f32_conv_at_every_n_tile_matches_plain_on_card(cuda, bn, monkeypatch):
+    """Each BN of the 3xTF32 conv, forced into the plans of CASES (any Cin:
+    the wrapper pads it to 4; any Cout), against the plain version at f32
+    accuracy (1e-5 of max |out|)."""
+    import dataclasses
+
+    plan = cuda_conv.conv_plan
+    monkeypatch.setattr(cuda_conv, "conv_plan",
+                        lambda *a, **k: dataclasses.replace(plan(*a, **k), bn=bn))
+    for shape in CASES + [(2, 15, 19, 60, 3, 3, 13), (1, 9, 40, 13, 3, 3, 60)]:
+        x, k = (torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=sum(shape)))
+        out = cuda_conv.conv2d_valid(x, k)
+        assert _rel(out.cpu(), cuda_conv.conv2d_valid_plain(x, k).cpu()) < 1e-5, shape
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wgrad_kernel_cases_match_plain_on_card(cuda, dtype):
-    """2x2, 3x3 and 8x8 (the f32 kernel's tap groups); channels not
-    multiples of 8 (bf16: padded by the wrapper); a kernel taller than wide;
+    """2x2, 3x3 and 8x8 (the f32 kernel's tap rows of 2, 3 and 4); channels
+    not multiples of 8 (padded by the wrapper); a kernel taller than wide;
     a 2x2 the plan splits, to a Cout of 200. The fixed-order split sum gives
     the same bits on a second call."""
     g = torch.Generator(device=cuda).manual_seed(0)
